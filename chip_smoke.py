@@ -10,8 +10,13 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
   1. checks each kernel against its plain PyTorch version on the card,
      bit for bit, on edge-case inputs (short rows, lowercase, an N run
      across a chunk boundary, N runs of 150 kb and 1 Mbase, dense
-     overflow, equal-hash ties), and times the exact walk with and
-     without the long N runs;
+     overflow, equal-hash ties; K2 at blocks 1024, 1025, 1152 and 3072;
+     probe hits, misses and pad slots in both table layouts; long query
+     rows; postings with every flag; chain groups with same-left runs,
+     duplicates, coordinates above 2^24 and all four filter settings;
+     K2, K3, K4 and K6 on 70,000 rows, past gridDim.y's 65,535; the
+     inputs are pgrtk_tpu_torch/utils/cases.py's), and times the exact
+     walk with and without the long N runs;
   2. runs the index stage of bench.py's corpus (seed 2, 8 x 1 Mbase) as
      bench.py composes it, asserts no overflow and a table equal to the
      all-plain path on the same card;
@@ -26,7 +31,19 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      torch.profiler run of 5 steps for the device busy time, idle share
      and largest kernels (trace in build/main_path_trace.json);
      then each kernel against its plain version at the shapes that run
-     gave it, with both times (CUDA events).
+     gave it, with both times (CUDA events);
+  6. runs the query stage of bench.py (bench.py:239-356) on the card:
+     the index of phase 2's targets from the port's index step plus
+     4,194,304 decoy keys (build_index, P=32), 128 query rows of 65,536
+     bases, query_e2e_step at bench.py's knobs; certifies the flags and
+     the corpus counts BENCH_r05.json recorded, exactly; launch counts of
+     K1-K8 reset before the step and read after; median of 5 steps as
+     query Mbase/s, peak memory, a torch.profiler pass (trace in
+     build/query_path_trace.json); K1-K8 against their plain versions
+     on the step's own inputs (K2 on the level-2 stream, the whole-row
+     pair stream and the slots3 lane planes); and the step again with
+     pair_block=512 and a slots3 lane compaction, which must give the
+     same anchors and scores.
 
 Every comparison is exact (integers, tolerance 0).  Any failed phase
 exits non-zero.  The second-to-last line is the per-kernel JSON, the last
@@ -54,7 +71,12 @@ REPLACES = {
     "rank_extract": "pgrtk_tpu/ops/pairs.py:23",
     "min_span_filter_gapped": "pgrtk_tpu/ops/pairs.py:134",
     "pair_mers_gapped": "pgrtk_tpu/ops/pairs.py:290",
+    "probe_fetch": "pgrtk_tpu/ops/probe.py:228",
+    "dup_pair_counts": "pgrtk_tpu/ops/query_e2e.py:365",
+    "expand_postings": "pgrtk_tpu/ops/query_e2e.py:430",
+    "chain_scores_fast": "pgrtk_tpu/ops/chain.py:252",
 }
+INDEX_KERNELS = tuple(REPLACES)[:4]
 
 
 class SmokeFailure(Exception):
@@ -93,6 +115,19 @@ def max_abs_err(got, want):
             d = (g.double() - w.double()).abs().max().item()
             err = max(err, d, 1.0)
     return err
+
+
+def measure(name, kernel_fn, plain_fn, reps=5, plain_reps=2):
+    """Kernel against plain version (tolerance 0), then both timed with
+    CUDA events.  Returns (max_abs_err, kernel ms, plain ms)."""
+    got, want = kernel_fn(), plain_fn()
+    err = check(name, got, want)
+    del got, want
+    torch.cuda.empty_cache()
+    ms = cuda_ms(kernel_fn, reps)
+    plain_ms = cuda_ms(plain_fn, plain_reps)
+    print(f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
+    return err, ms, plain_ms
 
 
 def flat(out):
@@ -149,24 +184,9 @@ def long_n_batch(dev, with_n=True):
     return torch.from_numpy(arr).to(dev), torch.from_numpy(lens).to(dev)
 
 
-def tie_stream(dev):
-    """A gapped (4, 3000) mer stream with equal neighbouring hashes (row 1
-    draws from 6 hashes, row 2 repeats each twice) so filters and the
-    pair tie rules all bite."""
-    rng = np.random.default_rng(4)
-    B, C = 4, 3000
-    valid = rng.random((B, C)) < 0.55
-    pos = np.cumsum(rng.integers(1, 150, size=(B, C)), axis=1)
-    h = rng.integers(0, 1 << 56, size=(B, C), dtype=np.uint64)
-    h[1] = h[1, rng.integers(0, 6, size=C)]
-    h[2, 1::2] = h[2, 0::2]
-    x = ((h << np.uint64(8)) | np.uint64(K)).view(np.int64)
-    y = (pos << 1) | rng.integers(0, 2, size=(B, C))
-    return (torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev),
-            torch.from_numpy(valid).to(dev))
-
-
 def phase_kernels(dev, tsk, tp):
+    from pgrtk_tpu_torch.utils import cases
+
     print("phase 1: kernels vs plain on edge cases")
     for name, batch in (("long N runs", long_n_batch),
                         ("short rows", edge_batch)):
@@ -196,7 +216,7 @@ def phase_kernels(dev, tsk, tp):
         require(bool(got[2]) == (slots == 2), "K2 overflow flag")
     (x2, y2), v2, _ = tp.rank_extract_planes((x1, y1), v1, 512, 144)
     for name, (x, y, v) in (("sketch", (x2, y2, v2)),
-                            ("ties", tie_stream(dev))):
+                            ("ties", cases.tie_stream(dev))):
         keep = tp.min_span_filter_gapped(x, y, v, MIN_SPAN)
         check(f"K3 min_span_filter_gapped {name}", [keep],
               [tp.min_span_filter_gapped_plain(x, y, v, MIN_SPAN)])
@@ -205,6 +225,15 @@ def phase_kernels(dev, tsk, tp):
                 check(f"K4 pair_mers_gapped {name} {mask_name} tie_one={tie}",
                       tp.pair_mers_gapped(x, y, mask, tie),
                       tp.pair_mers_gapped_plain(x, y, mask, tie))
+    n_ovf = 0
+    for name, kernel, plain in cases.query_kernel_cases(dev):
+        got = kernel()
+        check(name, got, plain())
+        if name.startswith("K2"):
+            n_ovf += bool(got[2])
+    require(n_ovf == 3, f"K2 overflow flag set in {n_ovf} of 4 cases")
+    for name, kernel, plain in cases.many_row_cases(dev):
+        check(name, kernel(), plain())
 
 
 Q = 65_536  # bench.py's 64 kb query chunk: repeat blocks sit inside one
@@ -248,8 +277,11 @@ def add_shared_repeats(base, rng, dev):
 
 
 def bench_corpus(dev):
-    """bench.py:136-198 with seed 2: 8 x 1,048,576 target rows carrying a
-    16-copy CNV tandem (row 0 only), a 3-copy tandem and a segdup."""
+    """bench.py:136-198 and :253-256 with seed 2: 8 x 1,048,576 target
+    rows carrying a 16-copy CNV tandem (row 0 only), a 3-copy tandem and
+    a segdup; then, from the same generator, 8 query haplotypes (all with
+    the CNV block) cut into 128 rows of 65,536 bases.  Returns (targets,
+    queries) uint8."""
     B, L = 8, 1_048_576
     S16, U16, N16 = 3 * Q + 8_192, 3_072, 16
     E16 = S16 + U16 * N16
@@ -268,7 +300,9 @@ def bench_corpus(dev):
         out[pos] = (out[pos] + rng.integers(1, 4, size=len(pos))) % 4
         return out
 
-    return np.stack([mutate(prng, sid != 0) for sid in range(B)])
+    targets = np.stack([mutate(prng, sid != 0) for sid in range(B)])
+    queries = np.stack([mutate(prng, False) for _ in range(B)])
+    return targets, queries.reshape(B * L // Q, Q)
 
 
 def index_stage(tsk, tp, seqs, lens, rids, plain):
@@ -292,12 +326,8 @@ def index_stage(tsk, tp, seqs, lens, rids, plain):
                 overflow=ovf)
 
 
-def phase_bench(dev, tsk, tp):
+def phase_bench(dev, tsk, tp, arr):
     print("phase 2: bench.py corpus (seed 2), index stage")
-    t0 = time.perf_counter()
-    arr = bench_corpus(dev)
-    print(f"  corpus {arr.shape[0]} x {arr.shape[1]} built in "
-          f"{time.perf_counter() - t0:.1f} s (host)")
     seqs = torch.from_numpy(arr).to(dev)
     lens = torch.full((arr.shape[0],), arr.shape[1], device=dev)
     rids = torch.arange(arr.shape[0], device=dev)
@@ -384,11 +414,11 @@ def scaffold_gaps(seqs):
     return gapped
 
 
-def profile_steps(step, n=5):
+def profile_steps(step, n=5, trace="main_path_trace.json"):
     """torch.profiler over n steps: device busy time per step (the union
     of kernel, memset and memcpy intervals), the device idle share of the
     steps' host-clock span, and the largest kernels.  Writes the trace to
-    build/main_path_trace.json beside this script."""
+    build/<trace> beside this script."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -401,7 +431,7 @@ def profile_steps(step, n=5):
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build")
     os.makedirs(out_dir, exist_ok=True)
-    out = os.path.join(out_dir, "main_path_trace.json")
+    out = os.path.join(out_dir, trace)
     prof.export_chrome_trace(out)
     with open(out) as f:
         events = json.load(f)["traceEvents"]
@@ -418,7 +448,7 @@ def profile_steps(step, n=5):
     print(f"  profiler: {n} steps in {span_us / n / 1e3:.3f} ms each "
           f"(host clock), device busy {busy / n / 1e3:.3f} ms each, "
           f"device idle {100 * (1 - busy / span_us):.1f}%; trace {out}")
-    for name, us in per_name.most_common(8):
+    for name, us in per_name.most_common(12):
         print(f"    {us / n / 1e3:.4f} ms/step  {100 * us / busy:.1f}%  {name}")
 
 
@@ -445,7 +475,8 @@ def phase_main_path(dev, tsk, tp, mesh, kb, B=16, L=16_777_216):
     kb.reset_launches()
     outs = {name: step(batch) for name, batch in batches.items()}
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in kb.KERNELS}
+    launches = {k.name: k.launches for k in kb.KERNELS
+                if k.name in INDEX_KERNELS}
     print(f"  launches {launches}")
     for name, count in launches.items():
         require(count > 0, f"kernel {name} never launched on the main path")
@@ -477,16 +508,6 @@ def phase_main_path(dev, tsk, tp, mesh, kb, B=16, L=16_777_216):
 
     print("phase 5: kernels vs plain at the main path's shapes")
     results = {}
-
-    def measure(name, kernel_fn, plain_fn, reps=5, plain_reps=2):
-        got, want = kernel_fn(), plain_fn()
-        err = check(name, got, want)
-        del got, want
-        torch.cuda.empty_cache()
-        ms = cuda_ms(kernel_fn, reps)
-        plain_ms = cuda_ms(plain_fn, plain_reps)
-        print(f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
-        return err, ms, plain_ms
 
     slots, b2, s2 = (DEFAULT_KW[k] for k in ("slots", "block2", "slots2"))
     results["sketch_walk_compact"] = measure(
@@ -523,13 +544,198 @@ def phase_main_path(dev, tsk, tp, mesh, kb, B=16, L=16_777_216):
     print(f"  sort_pairs (torch.sort, not a hand-written kernel): "
           f"{sort_ms:.4f} ms on {pr['k0'].numel()} entries")
 
-    return [
-        dict(name=k.name, route="cuda", source=k.source,
-             replaces=REPLACES[k.name], launches=launches[k.name],
-             max_abs_err=results[k.name][0], ms=results[k.name][1],
-             plain_ms=results[k.name][2])
-        for k in kb.KERNELS
-    ]
+    return {name: (launches[name], *results[name]) for name in INDEX_KERNELS}
+
+
+# bench.py:302-306 (E2E_KW; `unroll` is a knob of the JAX scan only)
+E2E_KW = dict(slots2=192, lookback=24, M=3, P=32,
+              sketch_compact=(12, 512, 192), pair_block=None,
+              probe_aligned=True)
+N_INDEX_KEYS = 4_194_304  # bench.py:63
+# the seeded corpus's counts as BENCH_r05.json recorded them
+BENCH_R05_COUNTS = dict(n_multi=82, n_truncated=0, max_postings=24,
+                        n_anchors=157_640, n_q_filtered=0,
+                        n_t_filtered=12_040)
+CERTIFY_FLAGS = ("overflow", "dup", "inexact", "row_ovf", "mult_ovf",
+                 "lane_ovf")
+
+
+def phase_query(dev, kb, tsk, tp, targets, queries):
+    from pgrtk_tpu_torch.ops import chain as tc
+    from pgrtk_tpu_torch.ops import probe as tpr
+    from pgrtk_tpu_torch.ops import query_e2e as tq
+
+    B, L = queries.shape
+    C = targets.shape[0]
+    print(f"phase 6: query stage, {B} x {L} query rows against the "
+          f"{C}-target index + {N_INDEX_KEYS} decoy keys")
+    seqs = torch.from_numpy(targets).to(dev)
+    out = index_stage(tsk, tp, seqs, torch.full((C,), targets.shape[1],
+                                                device=dev),
+                      torch.arange(C, device=dev), plain=False)
+    require(not bool(out["overflow"]), "index stage overflowed")
+    t0 = time.perf_counter()
+    idx = tq.build_index(
+        pair_arrays=tq.pair_arrays_from_table(out["table"], out["n_pairs"]),
+        n_decoys=N_INDEX_KEYS, build_lookup=False, P=E2E_KW["P"])
+    del out, seqs
+    tens = tq.index_tensors(idx, dev)
+    torch.cuda.synchronize()
+    print(f"  build_index (host) + copy to the card: "
+          f"{time.perf_counter() - t0:.1f} s; {len(idx['keys'])} keys, "
+          f"bits {tens['probe_bits']}, p_rows {tuple(idx['p_rows'].shape)} "
+          f"({idx['p_rows'].nbytes / 2**30:.2f} GiB)")
+    counts = {k: idx[k] for k in ("n_multi", "n_truncated", "max_postings")}
+    del idx
+    q = torch.from_numpy(queries).to(dev)
+    qlens = torch.full((B,), L, device=dev)
+
+    def step(**kw):
+        return tq.query_e2e_step(q, qlens, C=C, **tens, **dict(E2E_KW, **kw))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kb.reset_launches()
+    res = step()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kb.KERNELS}
+    print(f"  launches {launches}")
+    for name, count in launches.items():
+        require(count > 0, f"kernel {name} never launched on the query path")
+    flags = {name: int(res[name].sum()) for name in CERTIFY_FLAGS}
+    counts.update(n_anchors=int(res["gvalid"].sum()),
+                  n_q_filtered=int(res["n_q_filtered"]),
+                  n_t_filtered=int(res["n_t_filtered"]))
+    print(f"  certify: flags {flags}; counts {counts}")
+    require(not any(flags.values()), f"query flags set: {flags}")
+    require(counts == BENCH_R05_COUNTS,
+            f"corpus counts {counts} differ from BENCH_r05 "
+            f"{BENCH_R05_COUNTS}")
+    require(bool(torch.isfinite(res["scores"][res["gvalid"]]).all()),
+            "non-finite chain scores")
+    G, N = res["gvalid"].shape
+    times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    med = statistics.median(times)
+    print(f"  query step times s {[round(t, 6) for t in times]}; median "
+          f"{med:.6f} s = {B * L / med / 1e6:.1f} Mbase/s (host clock "
+          f"around the step, synchronized); G={G} lanes, N={N}")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB")
+    profile_steps(step, trace="query_path_trace.json")
+
+    print("phase 6b: K1-K8 vs plain at the query step's own inputs")
+    slots, b2, s2 = E2E_KW["sketch_compact"]
+    x1, y1, v1, _, _ = tsk.sketch_walk_compact(q, qlens, K, R, CHUNK, slots)
+    (x2, y2), v2, _ = tp.rank_extract_planes((x1, y1), v1, b2, s2)
+    keep = tp.min_span_filter_gapped(x2, y2, v2, MIN_SPAN)
+    pr = tp.pair_mers_gapped(x2, y2, keep, True)
+    pair_args = ([pr[f] for f in ("k0", "k1", "bgn", "end", "orientation")],
+                 pr["pair_valid"], pr["k0"].shape[1], E2E_KW["slots2"])
+    planes, cvalid, _ = tq.query_pairs(
+        q, qlens, slots2=E2E_KW["slots2"],
+        sketch_compact=E2E_KW["sketch_compact"], pair_block=None)
+    check("the step's front end, kernel by kernel vs query_pairs",
+          tp.rank_extract_planes(*pair_args)[:2], (planes, cvalid))
+    q_k0, q_k1 = planes[:2]
+    Pc, P, M = q_k0.shape[1], E2E_KW["P"], E2E_KW["M"]
+    errs = {
+        "sketch_walk_compact": measure(
+            f"K1 fast, query rows {tuple(q.shape)}, slots={slots}",
+            lambda: tsk.sketch_walk_compact(q, qlens, K, R, CHUNK, slots),
+            lambda: tsk.sketch_walk_compact_plain(q, qlens, K, R, CHUNK,
+                                                  slots, False))[0],
+        "rank_extract": max(
+            measure(f"K2 level 2, stream {tuple(x1.shape)}, block {b2}",
+                    lambda: tp.rank_extract_planes((x1, y1), v1, b2, s2),
+                    lambda: tp.rank_extract_planes_plain((x1, y1), v1, b2,
+                                                         s2))[0],
+            measure(f"K2 pair stream, 5 planes {tuple(pr['k0'].shape)}, "
+                    f"block {pair_args[2]}",
+                    lambda: tp.rank_extract_planes(*pair_args),
+                    lambda: tp.rank_extract_planes_plain(*pair_args))[0]),
+        "min_span_filter_gapped": measure(
+            f"K3, stream {tuple(x2.shape)}",
+            lambda: tp.min_span_filter_gapped(x2, y2, v2, MIN_SPAN),
+            lambda: tp.min_span_filter_gapped_plain(x2, y2, v2,
+                                                    MIN_SPAN))[0],
+        "pair_mers_gapped": measure(
+            f"K4 query ties, stream {tuple(x2.shape)}",
+            lambda: tp.pair_mers_gapped(x2, y2, keep, True),
+            lambda: tp.pair_mers_gapped_plain(x2, y2, keep, True))[0],
+    }
+    del x1, y1, v1, x2, y2, v2, keep, pr, pair_args
+    probe_args = (q_k0.reshape(-1), q_k1.reshape(-1), tens["probe_bits"],
+                  *tens["probe_planes"], tens["probe_fence"], tens["p_rows"],
+                  tpr.WINDOW_ALIGNED)
+    found, _, rows = tpr.probe_fetch(*probe_args)
+    run_len = tq.dup_pair_counts(q_k0, q_k1, cvalid)
+    base_hit = cvalid & found.reshape(B, Pc) & (run_len <= 128)
+    ex_args = (rows.reshape(B, Pc, 3 * P), base_hit, run_len, C, M, 128)
+    chain_args = (res["anchors"], res["gvalid"], 0.025, -1, False,
+                  E2E_KW["lookback"], 8)
+    results = {
+        "probe_fetch": measure(
+            f"K5 probe_fetch, {q_k0.numel()} keys",
+            lambda: tpr.probe_fetch(*probe_args),
+            lambda: tpr.probe_fetch_plain(*probe_args)),
+        "dup_pair_counts": measure(
+            f"K6 dup_pair_counts, ({B}, {Pc})",
+            lambda: tq.dup_pair_counts(q_k0, q_k1, cvalid),
+            lambda: tq.dup_pair_counts_plain(q_k0, q_k1, cvalid)),
+        "expand_postings": measure(
+            f"K7 expand_postings, ({B}, {Pc}, {P}) -> ({G}, {N})",
+            lambda: tq.expand_postings(*ex_args),
+            lambda: tq.expand_postings_plain(*ex_args)),
+        "chain_scores_fast": measure(
+            f"K8 chain_scores_fast, ({G}, {N}), W={E2E_KW['lookback']}",
+            lambda: tc.chain_scores_fast(*chain_args),
+            lambda: tc.chain_scores_fast_plain(*chain_args), plain_reps=1),
+    }
+    del probe_args, found, rows, run_len, base_hit, ex_args, chain_args
+
+    per_lane = int(res["gvalid"].sum(dim=1).max())
+    slots3 = -(-per_lane // 64) * 64
+    print(f"phase 6c: pair_block=512, slots3={slots3} (largest lane "
+          f"{per_lane} anchors)")
+    res3 = step(pair_block=512, slots3=slots3)
+    torch.cuda.synchronize()
+    require(not any(int(res3[n].sum()) for n in CERTIFY_FLAGS),
+            "slots3 run raised a flag")
+    require(res3["gvalid"].shape == (G, slots3), "slots3 lane width")
+    for g in range(G):
+        v, v3 = res["gvalid"][g], res3["gvalid"][g]
+        require(torch.equal(res["anchors"][g][v], res3["anchors"][g][v3]),
+                f"lane {g}: anchors differ under slots3")
+        require(torch.equal(res["scores"][g][v], res3["scores"][g][v3]),
+                f"lane {g}: scores differ under slots3")
+    print(f"  {G} lanes: the same anchors and scores as with "
+          f"pair_block=None")
+    # the lane planes the slots3 compaction takes, rebuilt bit for bit
+    # from the uncompacted step's anchors (q_ori and t_ori ride in bit 31)
+    res512 = step(pair_block=512)
+    a = res512["anchors"]
+    lane_args = ([a[..., 0] | (a[..., 2] << 31), a[..., 1],
+                  a[..., 3] | (a[..., 5] << 31), a[..., 4]],
+                 res512["gvalid"], a.shape[1], slots3)
+    del a, res512
+    errs["rank_extract"] = max(errs["rank_extract"], measure(
+        f"K2 slots3 lanes, 4 planes {tuple(lane_args[1].shape)}, block "
+        f"{lane_args[2]}",
+        lambda: tp.rank_extract_planes(*lane_args),
+        lambda: tp.rank_extract_planes_plain(*lane_args))[0])
+    (qbo, qe, tbo, te), gv3, _ = tp.rank_extract_planes(*lane_args)
+    mask31 = (1 << 31) - 1
+    require(torch.equal(gv3, res3["gvalid"]) and torch.equal(
+        torch.stack([qbo & mask31, qe, qbo >> 31, tbo & mask31, te,
+                     tbo >> 31], dim=-1), res3["anchors"]),
+            "K2 on the lane planes differs from the slots3 step")
+    measured = {name: (launches[name], *results[name]) for name in results}
+    return measured, errs
 
 
 def main():
@@ -559,12 +765,30 @@ def main():
             print("  ptxas", line.strip())
     try:
         phase_kernels(dev, tsk, tp)
-        phase_bench(dev, tsk, tp)
+        t0 = time.perf_counter()
+        targets, queries = bench_corpus(dev)
+        print(f"bench corpus: targets {targets.shape}, queries "
+              f"{queries.shape}, built in {time.perf_counter() - t0:.1f} s "
+              f"(host)")
+        phase_bench(dev, tsk, tp, targets)
         phase_host_api(dev, tsk)
-        kernels = phase_main_path(dev, tsk, tp, mesh, kb)
+        measured = phase_main_path(dev, tsk, tp, mesh, kb)
+        query_measured, query_errs = phase_query(dev, kb, tsk, tp, targets,
+                                                 queries)
+        measured.update(query_measured)
+        for name, err in query_errs.items():  # K1-K4 on the query path too
+            launches, err5, ms, plain_ms = measured[name]
+            measured[name] = (launches, max(err5, err), ms, plain_ms)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    kernels = [
+        dict(name=k.name, route="cuda", source=k.source,
+             replaces=REPLACES[k.name], launches=measured[k.name][0],
+             max_abs_err=measured[k.name][1], ms=measured[k.name][2],
+             plain_ms=measured[k.name][3])
+        for k in kb.KERNELS
+    ]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -108,3 +108,36 @@ def table_from_jax(t: Dict) -> Dict[str, torch.Tensor]:
     for name in ("sid", "bgn", "end", "orientation"):
         out[name] = _i64(t[name])
     return out
+
+
+def probe_from_jax(probe: Dict) -> Dict:
+    """JAX fence probe table (bits, planes 4 x (rows, 128) uint32, flat
+    fence) -> the port's: bits, flat int64 key planes k0 and k1 (pad
+    slots all ones, -1), flat int32 fence."""
+    planes = np.asarray(probe["planes"])
+    return dict(
+        bits=int(probe["bits"]),
+        k0=int64_from_planes(planes[0], planes[1]).reshape(-1),
+        k1=int64_from_planes(planes[2], planes[3]).reshape(-1),
+        fence=torch.from_numpy(np.asarray(probe["fence"], dtype=np.int32)),
+    )
+
+
+def p_rows_from_jax(p_rows, P: int) -> torch.Tensor:
+    """JAX (n + 1, 128*ceil(3P/128)) uint32 postings rows -> the port's
+    (n + 1, 3P) int32 bit patterns (the TPU row padding dropped)."""
+    rows = np.ascontiguousarray(np.asarray(p_rows, dtype=np.uint32)[:, :3 * P])
+    return torch.from_numpy(rows.view(np.int32))
+
+
+def query_to_jax(res: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """A port query_e2e_step result -> the JAX result's dtypes: anchors
+    uint32, scores float32, prev int32, masks and flags bool, filter
+    counts uint32."""
+    out = {}
+    for name, t in res.items():
+        a = t.detach().cpu().numpy()
+        if name == "anchors" or name.startswith("n_"):
+            a = a.astype(np.uint32)
+        out[name] = a
+    return out

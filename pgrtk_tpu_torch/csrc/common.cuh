@@ -10,6 +10,10 @@
 
 namespace pgrtk {
 
+// gridDim.y limit.  Kernels that put rows on the y axis take a first-row
+// argument, and their entry points launch once per tile of this many rows.
+constexpr int kMaxGridY = 65535;
+
 // Exclusive prefix sum of one int per thread over the whole block.
 // blockDim.x must be a multiple of 32 and at most 1024; every thread of
 // the block must call it.  `warp_sums` is 32 ints of shared memory.

@@ -47,9 +47,9 @@ inline RankScratch carve_rank(int* p, int B, long long C) {
 }
 
 __global__ void tile_count_kernel(const bool* __restrict__ mask, long long C,
-                                  int* __restrict__ tile_counts) {
+                                  int row0, int* __restrict__ tile_counts) {
   __shared__ int warp_sums[32];
-  const long long b = blockIdx.y;
+  const long long b = (long long)row0 + blockIdx.y;
   const long long i = (long long)blockIdx.x * kTile + threadIdx.x;
   const int v = (i < C && mask[b * C + i]) ? 1 : 0;
   int total;
@@ -75,11 +75,11 @@ __global__ void tile_offset_kernel(const int* __restrict__ tile_counts,
 }
 
 __global__ void tile_rank_kernel(const bool* __restrict__ mask, long long C,
-                                 const int* __restrict__ tile_off,
+                                 int row0, const int* __restrict__ tile_off,
                                  int* __restrict__ rank_excl,
                                  int* __restrict__ vidx) {
   __shared__ int warp_sums[32];
-  const long long b = blockIdx.y;
+  const long long b = (long long)row0 + blockIdx.y;
   const long long i = (long long)blockIdx.x * kTile + threadIdx.x;
   const bool in = i < C;
   const int v = (in && mask[b * C + i]) ? 1 : 0;
@@ -96,12 +96,20 @@ __global__ void tile_rank_kernel(const bool* __restrict__ mask, long long C,
 inline void row_rank(const bool* mask, int B, long long C,
                      const RankScratch& s, cudaStream_t stream) {
   const long long nt = n_tiles(C);
-  const dim3 grid((unsigned)nt, (unsigned)B);
-  tile_count_kernel<<<grid, kTile, 0, stream>>>(mask, C, s.tile_counts);
+  for (int r0 = 0; r0 < B; r0 += kMaxGridY) {
+    const int rows = B - r0 < kMaxGridY ? B - r0 : kMaxGridY;
+    const dim3 grid((unsigned)nt, (unsigned)rows);
+    tile_count_kernel<<<grid, kTile, 0, stream>>>(mask, C, r0,
+                                                  s.tile_counts);
+  }
   tile_offset_kernel<<<B, kTile, 0, stream>>>(s.tile_counts, (int)nt,
                                               s.tile_off, s.totals);
-  tile_rank_kernel<<<grid, kTile, 0, stream>>>(mask, C, s.tile_off,
-                                               s.rank_excl, s.vidx);
+  for (int r0 = 0; r0 < B; r0 += kMaxGridY) {
+    const int rows = B - r0 < kMaxGridY ? B - r0 : kMaxGridY;
+    const dim3 grid((unsigned)nt, (unsigned)rows);
+    tile_rank_kernel<<<grid, kTile, 0, stream>>>(mask, C, r0, s.tile_off,
+                                                 s.rank_excl, s.vidx);
+  }
 }
 
 }  // namespace

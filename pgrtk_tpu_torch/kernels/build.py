@@ -34,6 +34,8 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_U = ctypes.c_uint
+_F = ctypes.c_float
 
 _lock = threading.Lock()
 _lib = None
@@ -142,8 +144,26 @@ pair_mers_gapped = Kernel(
     "pair_mers_gapped", "pgrtk_tpu_torch/csrc/pairs.cu",
     [_P, _P, _P, _I, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P],
 )
+probe_fetch = Kernel(
+    "probe_fetch", "pgrtk_tpu_torch/csrc/probe.cu",
+    [_P, _P, _LL, _I, _P, _P, _LL, _P, _LL, _I, _P, _LL, _I, _P, _P, _P, _P],
+)
+dup_pair_counts = Kernel(
+    "dup_pair_counts", "pgrtk_tpu_torch/csrc/query.cu",
+    [_P, _P, _P, _I, _I, _P, _P],
+)
+expand_postings = Kernel(
+    "expand_postings", "pgrtk_tpu_torch/csrc/query.cu",
+    [_P, _P, _P, _I, _I, _I, _I, _I, _U, _P, _P, _P, _P, _P, _P, _P],
+)
+chain_scores_fast = Kernel(
+    "chain_scores_fast", "pgrtk_tpu_torch/csrc/chain.cu",
+    [_P, _P, _I, _I, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+)
+# index stage K1-K4, query stage K5-K8
 KERNELS = (sketch_walk_compact, rank_extract, min_span_filter_gapped,
-           pair_mers_gapped)
+           pair_mers_gapped, probe_fetch, dup_pair_counts, expand_postings,
+           chain_scores_fast)
 
 
 def reset_launches() -> None:

@@ -30,6 +30,13 @@ def ult(a: torch.Tensor, b) -> torch.Tensor:
     return (a ^ INT64_MIN) < (b ^ INT64_MIN)
 
 
+def as_i32(t: torch.Tensor) -> torch.Tensor:
+    """int64 values taken mod 2^32 -> int32 tensor of the u32 bit
+    patterns (what a u32 -> int32 cast gives)."""
+    t = t & 0xFFFFFFFF
+    return torch.where(t >= 1 << 31, t - (1 << 32), t).to(torch.int32)
+
+
 def wang_hash(key: torch.Tensor) -> torch.Tensor:
     """Thomas Wang 64-bit hash, bit-exact vs core/sketch_ref.u64hash
     (reference: shmmrutils.rs:271-280)."""

@@ -91,8 +91,8 @@ def rank_extract_planes(planes: Sequence[torch.Tensor], valid: torch.Tensor,
         raise TypeError("planes must be int64 and valid bool")
     if not on_cuda(valid, *planes):
         return rank_extract_planes_plain(planes, valid, block, slots)
-    if not (1 <= block <= 1024) or not (1 <= len(planes) <= 8):
-        raise ValueError("rank_extract kernel takes block <= 1024, 1-8 planes")
+    if block < 1 or not (1 <= len(planes) <= 8):
+        raise ValueError("rank_extract kernel takes block >= 1, 1-8 planes")
     return _rank_extract_cuda(planes, valid, block, slots)
 
 

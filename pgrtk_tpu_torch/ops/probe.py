@@ -1,0 +1,187 @@
+"""Bucketed fence probe of the pair-key table — the PyTorch counterpart
+of pgrtk_tpu/ops/probe.py, plus the postings-row fetch of
+pgrtk_tpu/ops/query_e2e.py:612-620.
+
+Host part (NumPy only): the fence builders.  Keys are a key-sorted
+(n, 2) uint64 array (k0, k1); a bucket is the top `bits` bits of the
+56-bit k0, and `fence[bucket]` is the slot where its keys start.  The
+key planes are two flat int64 arrays `k0`, `k1` (u64 bit patterns; pad
+slots hold all ones, -1) instead of the JAX package's four (rows, 128)
+uint32 planes; the 128-slot rows and the bucket padding of the aligned
+layout stay, because the postings rows live at those padded positions.
+`fence` is the flat (2^bits + 1,) int32 array (the 128-wide
+`fence_to_rows` copy is a TPU gather workaround and is not built).
+
+Device part: K5 `probe_fetch`, which probes each query key against its
+bucket's 128-slot (aligned) or 256-slot (dense) window and copies the
+matched key's postings row.  CPU tensors run the plain PyTorch version
+beside it, CUDA tensors launch csrc/probe.cu or raise.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..kernels import build as kb
+from ..utils.device import on_cuda
+from .int64 import srl
+
+HASH_BITS = 56  # shimmer hashes are 56-bit (x >> 8)
+WINDOW_ALIGNED = 128  # one bucket row (build_probe_table_aligned)
+WINDOW_DENSE = 256  # two rows (build_probe_table_dense)
+
+
+def _bucket_counts(keys: np.ndarray, avg_per_bucket: int):
+    n = len(keys)
+    bits = max(1, int(np.ceil(np.log2(max(2, n / avg_per_bucket)))))
+    bucket = (keys[:, 0] >> np.uint64(HASH_BITS - bits)).astype(np.int64)
+    counts = np.bincount(bucket, minlength=1 << bits).astype(np.int64)
+    return bits, bucket, counts
+
+
+def _key_planes(keys: np.ndarray, pos: np.ndarray, n_slots: int):
+    """Flat int64 k0/k1 planes of n_slots slots, keys at `pos`, -1 pad."""
+    k0 = np.full(n_slots, -1, dtype=np.int64)
+    k1 = np.full(n_slots, -1, dtype=np.int64)
+    k0[pos] = keys[:, 0].view(np.int64)
+    k1[pos] = keys[:, 1].view(np.int64)
+    return k0, k1
+
+
+def build_probe_table_dense(keys: np.ndarray, avg_per_bucket: int = 32):
+    """Dense fence layout (pgrtk_tpu/ops/probe.py:108): keys in
+    key-sorted order, a probe reads the two 128-slot rows from its
+    bucket's row.  Returns dict(bits, k0, k1 (n_rows*128,) int64, fence
+    (2^bits + 1,) int32, n), with n_rows = ceil(n/128) + 1 as in the JAX
+    planes.  Raises ValueError if a bucket holds more than 128 keys."""
+    keys = np.ascontiguousarray(keys, dtype=np.uint64)
+    n = len(keys)
+    bits, _, counts = _bucket_counts(keys, avg_per_bucket)
+    if counts.max() > 128:
+        raise ValueError(
+            f"dense probe bucket overflow (max {int(counts.max())} > 128);"
+            " use build_probe_table"
+        )
+    fence = np.zeros((1 << bits) + 1, dtype=np.int32)
+    np.cumsum(counts, out=fence[1:])
+    n_rows = -(-n // 128) + 1
+    k0, k1 = _key_planes(keys, np.arange(n), n_rows * 128)
+    return dict(bits=bits, k0=k0, k1=k1, fence=fence, n=n)
+
+
+def _aligned_starts(counts: np.ndarray):
+    """Padded bucket starts: a bucket that would straddle a 128-slot row
+    boundary starts at the next boundary (pgrtk_tpu/ops/probe.py:199-206).
+    Returns (starts (nb,) int64, n_padded)."""
+    starts = np.empty(len(counts), dtype=np.int64)
+    off = 0
+    for b, c in enumerate(counts.tolist()):
+        if (off & 127) + c > 128:
+            off = (off + 127) & ~127
+        starts[b] = off
+        off += c
+    return starts, off
+
+
+def build_probe_table_aligned(keys: np.ndarray, avg_per_bucket: int = 32):
+    """Aligned fence layout (pgrtk_tpu/ops/probe.py:156): buckets padded
+    so none straddles a 128-slot row, so a probe reads one row.  Returns
+    dict(bits, k0, k1 (n_rows*128,) int64, fence (2^bits + 1,) int32 of
+    PADDED starts, pos (n,) int64 padded position of each key-sorted key,
+    n, n_padded, aligned=True), n_rows = ceil(max(n_padded, 1)/128).
+    Raises ValueError if a bucket holds more than 128 keys."""
+    keys = np.ascontiguousarray(keys, dtype=np.uint64)
+    n = len(keys)
+    bits, bucket, counts = _bucket_counts(keys, avg_per_bucket)
+    if counts.max() > 128:
+        raise ValueError(
+            f"aligned probe bucket overflow (max {int(counts.max())} >"
+            " 128); use build_probe_table"
+        )
+    starts, n_padded = _aligned_starts(counts)
+    fence = np.zeros(len(counts) + 1, dtype=np.int32)
+    fence[:-1] = starts
+    fence[-1] = n_padded
+    pos = starts[bucket] + (
+        np.arange(n, dtype=np.int64)
+        - np.concatenate(([0], np.cumsum(counts)))[bucket]
+    )
+    n_rows = -(-max(n_padded, 1) // 128)
+    k0, k1 = _key_planes(keys, pos, n_rows * 128)
+    return dict(bits=bits, k0=k0, k1=k1, fence=fence, pos=pos, n=n,
+                n_padded=n_padded, aligned=True)
+
+
+# --------------------------------------------------------------- K5
+
+def probe_fetch_plain(k0, k1, bits: int, tk0, tk1, fence, p_rows,
+                      window: int):
+    """The plain PyTorch version of K5 (`probe_fetch`), on any device:
+    gathers of each key's window and a compare."""
+    nb1, n_slots, n_rows = fence.numel(), tk0.numel(), p_rows.shape[0]
+    bucket = srl(k0, HASH_BITS - bits)
+    in_fence = bucket < nb1
+    start = fence[bucket.clamp(max=nb1 - 1)].long()
+    base = (start >> 7) << 7
+    slot = base[:, None] + torch.arange(window, device=k0.device)
+    inside = slot < n_slots
+    slot = slot.clamp(max=n_slots - 1)
+    # slots past the planes read as all-ones pad (jnp.take's fill value)
+    t0 = torch.where(inside, tk0[slot], -1)
+    t1 = torch.where(inside, tk1[slot], -1)
+    hit = (t0 == k0[:, None]) & (t1 == k1[:, None]) & in_fence[:, None]
+    found = hit.any(dim=1)
+    row = torch.where(found, base + hit.int().argmax(dim=1), -1)
+    fetch = torch.where(found, row, n_rows - 1)  # last row: not found
+    rows = torch.where((fetch < n_rows)[:, None],
+                       p_rows[fetch.clamp(max=n_rows - 1)], -1)
+    return found, row.int(), rows
+
+
+def probe_fetch(k0: torch.Tensor, k1: torch.Tensor, bits: int,
+                tk0: torch.Tensor, tk1: torch.Tensor, fence: torch.Tensor,
+                p_rows: torch.Tensor, window: int = WINDOW_ALIGNED):
+    """K5: probe (Q,) int64 query keys (k0 < 2^56) against a fence table
+    and fetch each key's postings row
+    (pgrtk_tpu/ops/probe.py:228 probe_keys_aligned with window=128,
+    :282 probe_keys_dense with window=256, then the row fetch of
+    pgrtk_tpu/ops/query_e2e.py:612-620).
+
+    The window is the `window` slots from the 128-slot row holding
+    fence[k0 >> (56 - bits)]; the lowest matching slot wins.  Returns
+    found (Q,) bool, row (Q,) int32 (the matched slot, -1 if absent) and
+    rows (Q, width) int32: p_rows[row], or its last (not-found sentinel)
+    row when absent.  p_rows is (n_keys + 1, width) int32."""
+    if window not in (WINDOW_ALIGNED, WINDOW_DENSE):
+        raise ValueError("window must be 128 (aligned) or 256 (dense)")
+    if not (0 < bits <= HASH_BITS):
+        raise ValueError(f"bits must be in 1..{HASH_BITS}")
+    k0, k1 = k0.contiguous(), k1.contiguous()
+    tk0, tk1 = tk0.contiguous(), tk1.contiguous()
+    fence, p_rows = fence.contiguous(), p_rows.contiguous()
+    if k0.dim() != 1 or k1.shape != k0.shape:
+        raise ValueError("k0 and k1 must share one (Q,) shape")
+    if tk0.dim() != 1 or tk1.shape != tk0.shape or not tk0.numel():
+        raise ValueError("tk0 and tk1 must share one non-empty (S,) shape")
+    if any(t.dtype != torch.int64 for t in (k0, k1, tk0, tk1)):
+        raise TypeError("query and table keys must be int64")
+    if fence.dtype != torch.int32 or fence.dim() != 1:
+        raise TypeError("fence must be a flat int32 tensor")
+    if p_rows.dtype != torch.int32 or p_rows.dim() != 2:
+        raise TypeError("p_rows must be a (n_keys + 1, width) int32 tensor")
+    if not on_cuda(k0, k1, tk0, tk1, fence, p_rows):
+        return probe_fetch_plain(k0, k1, bits, tk0, tk1, fence, p_rows,
+                                 window)
+    Q, dev = k0.numel(), k0.device
+    found = torch.empty(Q, dtype=torch.bool, device=dev)
+    row = torch.empty(Q, dtype=torch.int32, device=dev)
+    rows = torch.empty((Q, p_rows.shape[1]), dtype=torch.int32, device=dev)
+    if Q:
+        kb.probe_fetch(
+            k0.data_ptr(), k1.data_ptr(), Q, bits, tk0.data_ptr(),
+            tk1.data_ptr(), tk0.numel(), fence.data_ptr(), fence.numel(),
+            window, p_rows.data_ptr(), p_rows.shape[0], p_rows.shape[1],
+            found.data_ptr(), row.data_ptr(), rows.data_ptr(),
+            kb.stream_handle(k0),
+        )
+    return found, row, rows

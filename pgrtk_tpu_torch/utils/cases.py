@@ -1,0 +1,230 @@
+"""Seeded edge-case inputs of the kernels, made with NumPy.
+
+chip_smoke.py holds each kernel against its plain version on these
+inputs on the card; the CPU tests hold the plain versions to the JAX
+functions on the same inputs.  Each `*_cases(dev)` function returns
+(name, kernel call, plain call) triples with the tensors on `dev`.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+K = 56
+
+
+def sorted_keys(n, seed, dup=False):
+    """n key-sorted (k0, k1) uint64 pair keys (56-bit); `dup` repeats
+    one key three times."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 1 << 56, size=(n, 2), dtype=np.uint64)
+    if dup:
+        keys[501] = keys[502] = keys[500]
+    return keys[np.lexsort((keys[:, 1], keys[:, 0]))]
+
+
+def probe_queries(keys, rng, n_hit=1500, n_miss=1500):
+    """Hits, misses, the all-zero key of empty pair slots and keys of the
+    last bucket (k0 = 2^56 - 1)."""
+    hits = keys[rng.integers(0, len(keys), n_hit)]
+    miss = rng.integers(0, 1 << 56, size=(n_miss, 2), dtype=np.uint64)
+    edge = np.array([[0, 0], [0, 0], [(1 << 56) - 1, 5],
+                     [(1 << 56) - 1, (1 << 56) - 1]], dtype=np.uint64)
+    q = np.concatenate([hits, miss, edge])
+    return q[rng.permutation(len(q))]
+
+
+def dup_key_rows(seed, B, Pc):
+    """(B, Pc) int64 key planes drawn from small pools (many duplicates
+    per row) and a mask with an all-invalid and an all-valid row."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 1 << 56, size=(40, 2), dtype=np.uint64)
+    sizes = np.array([3, 40, 12, 40, 1] * B)[:B, None]
+    keys = pool[rng.integers(0, sizes, size=(B, Pc))]
+    valid = rng.random((B, Pc)) < 0.7
+    valid[min(2, B - 1)] = False
+    valid[min(3, B - 1) if B > 3 else 0] = True
+    return keys[..., 0].view(np.int64), keys[..., 1].view(np.int64), valid
+
+
+def postings_rows(seed, B, Pc, P, C):
+    """Fetched postings rows (meta, bgnori, end) uint32 (B, Pc, P): empty
+    slots, keyovf on slot 0, sid at and past C, m up to 15, mult up to
+    127; plus base_hit and run_len (B, Pc)."""
+    from ..ops.query_e2e import META_EMPTY, pack_meta
+
+    rng = np.random.default_rng(seed)
+    sid = rng.integers(0, C + 2, size=(B, Pc, P))
+    m = rng.integers(0, 6, size=(B, Pc, P))
+    m[rng.random((B, Pc, P)) < 0.05] = 15
+    mult = rng.integers(1, 5, size=(B, Pc, P))
+    mult[rng.random((B, Pc, P)) < 0.1] = 127
+    keyovf = np.zeros((B, Pc, P), bool)
+    keyovf[..., 0] = rng.random((B, Pc)) < 0.05
+    meta = pack_meta(sid, m, mult, keyovf)
+    meta[rng.random((B, Pc, P)) < 0.3] = META_EMPTY
+    bgnori = rng.integers(0, 1 << 32, size=(B, Pc, P), dtype=np.uint64)
+    end = rng.integers(0, 1 << 32, size=(B, Pc, P), dtype=np.uint64)
+    base_hit = rng.random((B, Pc)) < 0.8
+    run_len = rng.integers(1, 4, size=(B, Pc)).astype(np.int32)
+    return (meta, bgnori.astype(np.uint32), end.astype(np.uint32),
+            base_hit, run_len)
+
+
+def chain_groups(seed, G=16, N=96, big=False):
+    """G q_bgn-sorted (G, N, 6) uint32 anchor groups with same-left runs
+    (a query pair hitting several target positions), exact duplicates,
+    orientation flips, ~20% invalid slots holding garbage, one group of
+    one long same-left run and one all-invalid group.  big=True puts the
+    coordinates above 2^24, where u32 -> f32 rounds and an FMA would
+    change scores."""
+    rng = np.random.default_rng(seed)
+    lo = (1 << 24) + 12_345 if big else 0
+    step = 4_000 if big else 40
+    anchors = np.zeros((G, N, 6), np.uint32)
+    for g in range(G):
+        rows, qb = [], lo + int(rng.integers(0, 100))
+        while len(rows) < N:
+            qe = qb + int(rng.integers(8, 200))
+            qo = int(rng.integers(0, 2))
+            run = int(rng.integers(1, 4)) if g != 3 else N
+            tb = lo + int(rng.integers(0, 50 * step))
+            for _ in range(run):
+                t = (tb, tb + int(rng.integers(8, 200)),
+                     int(rng.integers(0, 2)))
+                rows.append((qb, qe, qo, *t))
+                if rng.random() < 0.1:
+                    rows.append((qb, qe, qo, *t))  # exact duplicate
+            qb += int(rng.integers(0, step))
+        anchors[g] = np.asarray(rows[:N], dtype=np.uint32)
+    valid = rng.random((G, N)) < 0.8
+    garbage = rng.integers(0, 1 << 32, size=(G, N, 6), dtype=np.uint64)
+    anchors = np.where(valid[..., None], anchors, garbage.astype(np.uint32))
+    valid[G - 1] = False
+    return anchors, valid
+
+
+CHAIN_SETTINGS = [(big, oriented, max_gap, lookback)
+                  for big in (False, True)
+                  for oriented, max_gap in ((False, -1), (True, -1),
+                                            (False, 3000), (True, 3000))
+                  for lookback in (24, 32)]
+
+
+def _to(dev):
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return t
+
+
+def tie_stream(dev, B=4, C=3000):
+    """A gapped (B, C) mer stream, x = hash << 8 | K and y = position << 1
+    | orientation, ~55% valid, with equal neighbouring hashes (row 1
+    draws from 6 hashes, row 2 repeats each twice) so filters and the
+    pair tie rules all bite."""
+    rng = np.random.default_rng(4)
+    valid = rng.random((B, C)) < 0.55
+    pos = np.cumsum(rng.integers(1, 150, size=(B, C)), axis=1)
+    h = rng.integers(0, 1 << 56, size=(B, C), dtype=np.uint64)
+    h[1] = h[1, rng.integers(0, 6, size=C)]
+    h[2, 1::2] = h[2, 0::2]
+    x = ((h << np.uint64(8)) | np.uint64(K)).view(np.int64)
+    y = (pos << 1) | rng.integers(0, 2, size=(B, C))
+    t = _to(dev)
+    return t(x), t(y), t(valid)
+
+
+def query_kernel_cases(dev):
+    """K2 past the old 1024-entry block cap and K5-K8 on the edge-case
+    inputs above."""
+    from ..ops import chain as tc
+    from ..ops import pairs as tp
+    from ..ops import probe as tpr
+    from ..ops import query_e2e as tq
+
+    t = _to(dev)
+    cases = []
+    rng = np.random.default_rng(6)
+    for block, W, slots in ((1024, 5000, 600), (1025, 5000, 600),
+                            (1152, 2304, 64), (3072, 7000, 2500)):
+        valid = t(rng.random((3, W)) < np.array([[0.3], [0.7], [0.02]]))
+        planes = [t(rng.integers(-(1 << 62), 1 << 62, size=(3, W)))
+                  for _ in range(4)]
+        args = (planes, valid, block, slots)
+        cases.append((f"K2 rank_extract block={block} W={W} slots={slots}",
+                      lambda a=args: tp.rank_extract_planes(*a),
+                      lambda a=args: tp.rank_extract_planes_plain(*a)))
+    for layout, build, window, dup in (
+            ("aligned", tpr.build_probe_table_aligned, 128, False),
+            ("dense", tpr.build_probe_table_dense, 256, True)):
+        keys = sorted_keys(20_000, seed=5, dup=dup)
+        tab = build(keys)
+        n_rows = tab.get("n_padded", len(keys)) + 1
+        q = probe_queries(keys, rng)
+        args = (t(q[:, 0].view(np.int64)), t(q[:, 1].view(np.int64)),
+                tab["bits"], t(tab["k0"]), t(tab["k1"]), t(tab["fence"]),
+                t(rng.integers(-(1 << 31), 1 << 31, size=(n_rows, 96),
+                               dtype=np.int64).astype(np.int32)), window)
+        cases.append((f"K5 probe_fetch {layout}",
+                      lambda a=args: tpr.probe_fetch(*a),
+                      lambda a=args: tpr.probe_fetch_plain(*a)))
+    for B, Pc in ((5, 300), (2, 3000), (3, 1)):
+        args = tuple(t(a) for a in dup_key_rows(B * Pc, B, Pc))
+        cases.append((f"K6 dup_pair_counts ({B}, {Pc})",
+                      lambda a=args: tq.dup_pair_counts(*a),
+                      lambda a=args: tq.dup_pair_counts_plain(*a)))
+    for C, M, mct in ((4, 3, 128), (3, 1, 6), (8, 16, 40)):
+        meta, bgnori, end, hit, run = postings_rows(C * 100 + M, 3, 40, 8, C)
+        rows = np.concatenate([meta, bgnori, end], axis=2).view(np.int32)
+        args = (t(rows), t(hit), t(run), C, M, mct)
+        cases.append((f"K7 expand_postings C={C} M={M} max={mct}",
+                      lambda a=args: tq.expand_postings(*a),
+                      lambda a=args: tq.expand_postings_plain(*a)))
+    for big, oriented, max_gap, lookback in CHAIN_SETTINGS:
+        anchors, valid = chain_groups(lookback + 7 * big, big=big)
+        args = (t(anchors.astype(np.int64)), t(valid), 0.025, max_gap,
+                oriented, lookback, 8)
+        cases.append((f"K8 chain_scores_fast big={big} oriented={oriented} "
+                      f"max_gap={max_gap} W={lookback}",
+                      lambda a=args: tc.chain_scores_fast(*a),
+                      lambda a=args: tc.chain_scores_fast_plain(*a)))
+    anchors, valid = chain_groups(3, G=8, N=64)
+    args = (t(anchors.astype(np.int64)), t(valid), 0.5, -1, False, 6, 2)
+    cases.append(("K8 chain_scores_fast span 2, W=6",
+                  lambda a=args: tc.chain_scores_fast(*a),
+                  lambda a=args: tc.chain_scores_fast_plain(*a)))
+    return cases
+
+
+MANY_ROWS = 70_000  # past the 65,535 limit of gridDim.y
+
+
+def many_row_cases(dev):
+    """The kernels that put rows on gridDim.y (K2, K6, and K3/K4 through
+    their row ranks) on 70,000 short rows."""
+    from ..ops import pairs as tp
+    from ..ops import query_e2e as tq
+
+    t = _to(dev)
+    B = MANY_ROWS
+    rng = np.random.default_rng(9)
+    valid = t(rng.random((B, 40)) < 0.5)
+    planes = [t(rng.integers(-(1 << 62), 1 << 62, size=(B, 40)))
+              for _ in range(2)]
+    args = (planes, valid, 16, 6)
+    x, y, v = tie_stream(dev, B, 24)
+    keys = tuple(t(a) for a in dup_key_rows(11, B, 5))
+    return [
+        (f"K2 rank_extract ({B}, 40) block=16",
+         lambda: tp.rank_extract_planes(*args),
+         lambda: tp.rank_extract_planes_plain(*args)),
+        (f"K3 min_span_filter_gapped ({B}, 24)",
+         lambda: [tp.min_span_filter_gapped(x, y, v, 64)],
+         lambda: [tp.min_span_filter_gapped_plain(x, y, v, 64)]),
+        (f"K4 pair_mers_gapped ({B}, 24)",
+         lambda: tp.pair_mers_gapped(x, y, v, True),
+         lambda: tp.pair_mers_gapped_plain(x, y, v, True)),
+        (f"K6 dup_pair_counts ({B}, 5)",
+         lambda: tq.dup_pair_counts(*keys),
+         lambda: tq.dup_pair_counts_plain(*keys)),
+    ]

@@ -1,7 +1,9 @@
 """Card-only tests of pgrtk_tpu_torch: the overflow rerun of the index
-step on the card against the same step on the CPU, and the sketch
-kernel's input checks.  (Each kernel against its plain version, bit for
-bit, is chip_smoke.py's phase 1.)
+step and the query step on the card against the same steps on the CPU,
+K2 past its old block cap and K5-K8 against their plain versions on
+the edge cases of pgrtk_tpu_torch/utils/cases.py, the kernels that put
+rows on gridDim.y on more rows than it takes, and the kernels' input
+checks.
 
 Marked `cuda`; each test skips when torch.cuda.is_available() is false.
 Imports no JAX, so it runs on a machine without it:
@@ -14,8 +16,11 @@ import pytest
 import torch
 
 from pgrtk_tpu_torch.kernels import build as kb
+from pgrtk_tpu_torch.ops import chain as tchain
+from pgrtk_tpu_torch.ops import query_e2e as tq
 from pgrtk_tpu_torch.ops import sketch as tsk
 from pgrtk_tpu_torch.parallel import mesh
+from pgrtk_tpu_torch.utils import cases
 
 pytestmark = pytest.mark.cuda
 
@@ -32,6 +37,8 @@ def dev():
 def _equal(a, b):
     if isinstance(a, dict):
         return a.keys() == b.keys() and all(_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_equal(x, y) for x, y in zip(a, b))
     return a.dtype == b.dtype and torch.equal(a, b)
 
 
@@ -59,3 +66,71 @@ def test_sketch_kernel_rejects_misaligned_bytes(dev):
     with pytest.raises(ValueError):
         tsk.sketch_walk_compact(seqs, torch.full((2,), 1024, device=dev),
                                 K, R, CHUNK, 12)
+
+
+@pytest.mark.parametrize("family", ["K2", "K5", "K6", "K7", "K8"])
+def test_query_kernels_match_plain_on_edge_cases(dev, family):
+    """K2 at blocks 1024, 1025, 1152 and 3072; K5-K8 on the inputs the
+    CPU tests hold the plain versions to the JAX functions with (K8
+    with coordinates above 2^24, where an FMA would change scores)."""
+    picked = [c for c in cases.query_kernel_cases(dev)
+              if c[0].startswith(family)]
+    assert picked
+    for name, kernel, plain in picked:
+        assert _equal(kernel(), plain()), name
+    torch.cuda.synchronize()
+
+
+def test_kernels_take_more_rows_than_grid_y(dev):
+    """K2, K3, K4 and K6 put rows on gridDim.y, which takes at most
+    65,535: their entry points launch in row tiles, so 70,000 rows give
+    what the plain versions give."""
+    for name, kernel, plain in cases.many_row_cases(dev):
+        assert _equal(kernel(), plain()), name
+    torch.cuda.synchronize()
+
+
+def _synth_query_corpus():
+    """tests/test_query_e2e.py:102-121 in numpy: a 1.5 kb block tripled
+    in 4 targets and doubled in 2 queries."""
+    rng = np.random.default_rng(3)
+    L = 16384
+    base = rng.integers(0, 4, size=L, dtype=np.uint8)
+
+    def hap(copies):
+        out = base.copy()
+        pos = rng.choice(L, size=rng.binomial(L, 2e-4), replace=False)
+        out[pos] = (out[pos] + rng.integers(1, 4, size=len(pos))) % 4
+        return np.concatenate([out[:7500]] + [out[6000:7500]] * (copies - 1)
+                              + [out[7500:]])
+
+    targets = np.stack([hap(3) for _ in range(4)])
+    queries = np.stack([hap(2) for _ in range(2)])
+    return targets, queries
+
+
+def test_query_step_on_card_matches_cpu(dev):
+    targets, queries = _synth_query_corpus()
+    idx = tq.build_index(targets, n_decoys=2000, seed=11)
+    L = queries.shape[1]
+    seqs = torch.from_numpy(np.pad(queries, ((0, 0), (0, (-L) % 512))))
+    lens = torch.full((2,), L)
+    kw = dict(C=idx["C"], P=idx["P"], M=4, slots3=256)
+    cpu = tq.query_e2e_step(seqs, lens, **tq.index_tensors(idx, "cpu"), **kw)
+    kb.reset_launches()
+    gpu = tq.query_e2e_step(seqs.to(dev), lens.to(dev),
+                            **tq.index_tensors(idx, dev), **kw)
+    torch.cuda.synchronize()
+    assert all(k.launches > 0 for k in kb.KERNELS)
+    assert cpu.keys() == gpu.keys()
+    for name in cpu:
+        assert gpu[name].dtype == cpu[name].dtype, name
+        assert torch.equal(gpu[name].cpu(), cpu[name]), name
+    assert int(cpu["gvalid"].sum()) > 0
+
+
+def test_chain_kernel_rejects_a_wide_window(dev):
+    anchors = torch.zeros((1, 4, 6), dtype=torch.int64, device=dev)
+    valid = torch.ones((1, 4), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="32"):
+        tchain.chain_scores_fast(anchors, valid, 0.025, lookback=33)

@@ -159,6 +159,19 @@ assert int(out["n_pairs"]) > 0
 import chip_smoke
 assert len(chip_smoke.pick_tandem_unit(np.random.default_rng(5), 2048, 3,
                                        "cpu")) == 2048
+# the query stage: a tiny index and query step on the CPU, and the
+# kernels' edge-case inputs
+from pgrtk_tpu_torch.ops import query_e2e
+rng = np.random.default_rng(1)
+base = rng.integers(0, 4, size=4096, dtype=np.uint8)
+targets = np.stack([base, base, rng.integers(0, 4, 4096, dtype=np.uint8)])
+idx = query_e2e.build_index(targets, n_decoys=100, P=8)
+res = query_e2e.query_e2e_step(
+    torch.from_numpy(base[None]), torch.tensor([4096]), C=idx["C"], P=8,
+    M=2, **query_e2e.index_tensors(idx, "cpu"))
+assert int(res["gvalid"].sum()) > 0 and not bool(res["overflow"])
+from pgrtk_tpu_torch.utils import cases
+assert len(cases.query_kernel_cases("cpu")) > 20
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("ok")
 """
@@ -181,7 +194,7 @@ def test_chip_smoke_tandem_picker_matches_synth():
 
 def test_port_imports_and_runs_without_jax():
     """The port and chip_smoke.py import neither JAX nor the JAX
-    package."""
+    package, and the query stage builds and runs without them."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c", _JAX_BLOCKED], cwd=REPO, env=env,

@@ -1,0 +1,123 @@
+"""Port parity of the fence probe: pgrtk_tpu_torch.ops.probe (NumPy
+builders, plain PyTorch K5 on the CPU) against pgrtk_tpu.ops.probe and
+the postings fetch of pgrtk_tpu.ops.query_e2e (JAX on the CPU).  Every
+comparison is exact."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pgrtk_tpu.ops import probe as jprobe
+from pgrtk_tpu.ops import query_e2e as jq
+from pgrtk_tpu_torch import convert
+from pgrtk_tpu_torch.ops import probe as tprobe
+from pgrtk_tpu_torch.ops import query_e2e as tq
+from pgrtk_tpu_torch.utils import cases
+
+
+BUILDERS = {
+    "aligned": (jprobe.build_probe_table_aligned,
+                tprobe.build_probe_table_aligned),
+    "dense": (jprobe.build_probe_table_dense, tprobe.build_probe_table_dense),
+}
+
+
+@pytest.mark.parametrize("layout", list(BUILDERS))
+@pytest.mark.parametrize("lam", [32, 8])
+def test_builders_match_jax(layout, lam):
+    keys = cases.sorted_keys(40_077, seed=lam, dup=layout == "dense")
+    jbuild, tbuild = BUILDERS[layout]
+    want = jbuild(keys, avg_per_bucket=lam)
+    got = tbuild(keys, avg_per_bucket=lam)
+    assert got["bits"] == want["bits"] and got["n"] == want["n"]
+    assert got["fence"].dtype == np.int32
+    assert np.array_equal(got["fence"], want["fence"])
+    planes = convert.probe_from_jax(want)
+    assert np.array_equal(got["k0"], planes["k0"].numpy())
+    assert np.array_equal(got["k1"], planes["k1"].numpy())
+    if layout == "aligned":
+        assert got["aligned"] is True
+        assert got["n_padded"] == want["n_padded"] > got["n"]
+        assert np.array_equal(got["pos"], want["pos"])
+
+
+def _arrays_for(k0, k1):
+    n = len(k0)
+    order = np.lexsort((k1, k0))
+    return dict(k0=k0[order], k1=k1[order], sid=np.zeros(n, np.uint32),
+                bgn=np.arange(n, dtype=np.uint32) * 100 + 1,
+                end=np.arange(n, dtype=np.uint32) * 100 + 80,
+                ori=np.zeros(n, np.uint32))
+
+
+def test_aligned_bucket_skew_retries_and_adversarial_raises():
+    """tests/test_query_e2e.py:612-659 on the port's build_index: a hot
+    bucket that splits at a smaller lambda builds through the retry, to
+    the same table as JAX; keys sharing their whole top-24-bit prefix
+    beyond 128 deep raise in both."""
+    rng = np.random.default_rng(4)
+    bg0 = rng.integers(1 << 40, 1 << 56, size=2000, dtype=np.uint64)
+    hot0 = (np.uint64(0x3A) << np.uint64(48)) + rng.integers(
+        0, 1 << 48, size=300, dtype=np.uint64)
+    k0 = np.concatenate([bg0, hot0])
+    k1 = rng.integers(0, 1 << 56, size=len(k0), dtype=np.uint64)
+    arrays = _arrays_for(k0, k1)
+    want = jq.build_index(pair_arrays=arrays, n_decoys=0, P=16)
+    got = tq.build_index(pair_arrays=arrays, n_decoys=0, P=16)
+    assert got["probe"]["aligned"] is True
+    assert got["probe"]["bits"] == want["probe"]["bits"]
+    with pytest.raises(ValueError):  # so the build took the retry
+        tprobe.build_probe_table_aligned(want["keys"], avg_per_bucket=32)
+    assert np.array_equal(got["keys"], want["keys"])
+    assert np.array_equal(got["p_rows"].view(np.uint32),
+                          want["p_rows"][:, :48])
+
+    a0 = np.full(700, 0x00123456789A, np.uint64) + (
+        np.arange(700, dtype=np.uint64) % np.uint64(4))
+    a1 = rng.integers(0, 1 << 56, size=700, dtype=np.uint64)
+    for build in (jq.build_index, tq.build_index):
+        with pytest.raises(ValueError, match="adversarial"):
+            build(pair_arrays=_arrays_for(a0, a1), n_decoys=0, P=16)
+
+
+@pytest.mark.parametrize("layout", list(BUILDERS))
+def test_probe_fetch_matches_jax(layout):
+    """K5's plain version against probe_keys_aligned / probe_keys_dense
+    (found, row) and the row fetch of query_e2e.py:612-620."""
+    rng = np.random.default_rng(11)
+    keys = cases.sorted_keys(20_000, seed=5, dup=layout == "dense")
+    jbuild, tbuild = BUILDERS[layout]
+    jt = jbuild(keys)
+    tt = tbuild(keys)
+    n_rows = (jt["n_padded"] if layout == "aligned" else len(keys)) + 1
+    P = 32
+    p_rows = rng.integers(0, 1 << 32, size=(n_rows, 128),
+                          dtype=np.uint64).astype(np.uint32)
+    q = cases.probe_queries(keys, rng)
+    qp = [jnp.asarray(v.astype(np.uint32)) for v in (
+        q[:, 0] >> np.uint64(32), q[:, 0] & np.uint64(0xFFFFFFFF),
+        q[:, 1] >> np.uint64(32), q[:, 1] & np.uint64(0xFFFFFFFF))]
+    table = dict(bits=jt["bits"],
+                 planes=[jnp.asarray(jt["planes"][i]) for i in range(4)],
+                 fence=jnp.asarray(jt["fence"]))
+    fn = (jprobe.probe_keys_aligned if layout == "aligned"
+          else jprobe.probe_keys_dense)
+    jfound, jrow = (np.asarray(a) for a in jax.jit(
+        lambda *k: fn(table, *k))(*qp))
+    jrows = np.asarray(jnp.take(jnp.asarray(p_rows),
+                                jnp.where(jfound, jrow, n_rows - 1), axis=0))
+
+    window = tprobe.WINDOW_ALIGNED if layout == "aligned" else (
+        tprobe.WINDOW_DENSE)
+    found, row, rows = tprobe.probe_fetch(
+        torch.from_numpy(q[:, 0].view(np.int64).copy()),
+        torch.from_numpy(q[:, 1].view(np.int64).copy()), tt["bits"],
+        torch.from_numpy(tt["k0"]), torch.from_numpy(tt["k1"]),
+        torch.from_numpy(tt["fence"]),
+        convert.p_rows_from_jax(p_rows, P), window)
+    assert np.array_equal(found.numpy(), jfound)
+    assert row.dtype == torch.int32 and np.array_equal(row.numpy(), jrow)
+    assert np.array_equal(rows.numpy().view(np.uint32), jrows[:, :3 * P])
+    assert 1000 < int(jfound.sum()) < len(q) - 1000

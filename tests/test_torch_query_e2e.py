@@ -1,0 +1,372 @@
+"""Port parity of the query stage: pgrtk_tpu_torch.ops.query_e2e (plain
+PyTorch versions, CPU) against pgrtk_tpu.ops.query_e2e (JAX on the CPU,
+jitted as tests/test_query_e2e.py runs it).  Every comparison is exact:
+integers and flags equal, f32 scores equal as bit patterns."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pgrtk_tpu.ops import query_e2e as jq
+from pgrtk_tpu.utils import synth as jsynth
+from pgrtk_tpu_torch import convert
+from pgrtk_tpu_torch.ops import query_e2e as tq
+from pgrtk_tpu_torch.parallel import mesh as tmesh
+from pgrtk_tpu_torch.utils import cases
+
+
+_jax_step = jax.jit(
+    jq.query_e2e_step,
+    static_argnames=(
+        "probe_bits", "C", "P", "M", "slots2", "max_count",
+        "max_count_query", "max_count_target", "lookback", "unroll",
+        "max_span", "slots3", "sketch_compact", "probe_aligned",
+    ),
+)
+
+
+def _mutate(base, rate, rng):
+    out = base.copy()
+    n = rng.binomial(len(base), rate)
+    pos = rng.choice(len(base), size=n, replace=False)
+    out[pos] = (out[pos] + rng.integers(1, 4, size=n)) % 4
+    return out
+
+
+def _tandem(base, bgn, end, copies):
+    return np.concatenate(
+        [base[:end]] + [base[bgn:end]] * (copies - 1) + [base[end:]])
+
+
+def _padded(queries):
+    B, L = queries.shape
+    return np.pad(queries, ((0, 0), (0, (-L) % 512))), np.full(B, L)
+
+
+def _run_jax(idx, queries, **kw):
+    seqs, lens = _padded(queries)
+    probe = idx["probe"]
+    res = _jax_step(
+        jnp.asarray(seqs), jnp.asarray(lens, jnp.int32), probe["bits"],
+        [jnp.asarray(probe["planes"][i]) for i in range(4)],
+        jnp.asarray(probe["fence"]), jnp.asarray(idx["p_rows"]), idx["C"],
+        P=idx["P"], probe_aligned=True, **kw)
+    return {k: np.asarray(v) for k, v in res.items()}
+
+
+def _run_port(idx, queries, **kw):
+    """The port's step on the JAX-built index, carried over by convert."""
+    seqs, lens = _padded(queries)
+    probe = convert.probe_from_jax(idx["probe"])
+    res = tq.query_e2e_step(
+        torch.from_numpy(seqs), torch.from_numpy(lens), probe["bits"],
+        (probe["k0"], probe["k1"]), probe["fence"],
+        convert.p_rows_from_jax(idx["p_rows"], idx["P"]), idx["C"],
+        P=idx["P"], **kw)
+    return res
+
+
+def _assert_results_equal(jres, pres):
+    got = convert.query_to_jax(pres)
+    assert got.keys() == jres.keys()
+    for name, want in jres.items():
+        g = got[name]
+        assert g.shape == want.shape and g.dtype == want.dtype, name
+        if name == "scores":  # f32 bit for bit
+            g, want = g.view(np.int32), want.view(np.int32)
+        assert np.array_equal(g, want), name
+
+
+# ------------------------------------------------------------ corpora
+
+@pytest.fixture(scope="module")
+def synth_corpus():
+    """tests/test_query_e2e.py:102-121: a 1.5 kb block tripled in every
+    target, doubled in the queries (run_len 2, multiplicity 3)."""
+    rng = np.random.default_rng(3)
+    L, T, B = 16384, 4, 2
+    base = rng.integers(0, 4, size=L, dtype=np.uint8)
+    targets = np.stack(
+        [_tandem(_mutate(base, 2e-4, rng), 6000, 7500, 3) for _ in range(T)])
+    queries = np.stack(
+        [_tandem(_mutate(base, 2e-4, rng), 6000, 7500, 2) for _ in range(B)])
+    return dict(idx=jq.build_index(targets, n_decoys=2000, seed=11),
+                queries=queries)
+
+
+@pytest.fixture(scope="module")
+def cnv_corpus():
+    """tests/test_query_e2e.py:344-394: a 16-copy CNV tandem in the
+    queries and target 0 fires the default target-count filter; a shared
+    3-copy block passes it."""
+    rng = np.random.default_rng(21)
+    L, T, B = 49152, 4, 2
+    S16, U16, N16 = 8192, 1024, 16
+    E16 = S16 + U16 * N16
+    S3, U3, N3 = 28672, 2048, 3
+    base = rng.integers(0, 4, size=L, dtype=np.uint8)
+    base[S16:E16] = np.tile(jsynth.pick_tandem_unit(rng, U16, N16), N16)
+    base[S3:S3 + U3 * N3] = np.tile(rng.integers(0, 4, U3, dtype=np.uint8),
+                                    N3)
+
+    def hap(drop16):
+        out = base.copy()
+        if drop16:
+            out[S16:E16] = rng.integers(0, 4, E16 - S16, dtype=np.uint8)
+        n = rng.binomial(L, 2e-4)
+        pos = rng.choice(L, size=n, replace=False)
+        pos = pos[(pos < S16) | (pos >= E16)]
+        out[pos] = (out[pos] + rng.integers(1, 4, size=len(pos))) % 4
+        return out
+
+    targets = np.stack([hap(drop16=(sid != 0)) for sid in range(T)])
+    queries = np.stack([hap(drop16=False) for _ in range(B)])
+    return dict(idx=jq.build_index(targets, n_decoys=500, seed=17, P=16),
+                queries=queries)
+
+
+def _truncated_corpus():
+    """tests/test_query_e2e.py:236-247: 6 targets, P=4 < the 6 postings of
+    every shared key, so every query touching one raises row_ovf."""
+    rng = np.random.default_rng(5)
+    L, T = 8192, 6
+    base = rng.integers(0, 4, size=L, dtype=np.uint8)
+    targets = np.stack([_mutate(base, 1e-4, rng) for _ in range(T)])
+    queries = np.stack([_mutate(base, 1e-4, rng) for _ in range(2)])
+    return dict(idx=jq.build_index(targets, n_decoys=200, seed=6, P=4),
+                queries=queries)
+
+
+def _t64_corpus():
+    """tests/test_query_e2e.py:258-272: 64 targets with a doubled block."""
+    rng = np.random.default_rng(12)
+    L, T, B = 4096, 64, 2
+    base = rng.integers(0, 4, size=L, dtype=np.uint8)
+    targets = np.stack(
+        [_tandem(_mutate(base, 3e-4, rng), 1500, 2300, 2) for _ in range(T)])
+    queries = np.stack([_mutate(base, 3e-4, rng) for _ in range(B)])
+    return dict(idx=jq.build_index(targets, n_decoys=500, seed=13, P=160),
+                queries=queries)
+
+
+def _bench_rows_corpus():
+    """Query rows of 65,536 bases, bench.py's query chunk: at
+    sketch_compact (12, 512, 192) a row's pair stream is 576 wide, more
+    than one 512-entry pair block, so pair_block=None compacts the whole
+    row in one block, as bench.py's query step does.  A 1.5 kb block is
+    tripled in 4 targets and doubled in 2 queries."""
+    rng = np.random.default_rng(8)
+    L, T, B = 65536, 4, 2
+    base = rng.integers(0, 4, size=L, dtype=np.uint8)
+    targets = np.stack([_tandem(_mutate(base, 2e-4, rng), 30000, 31500, 3)[:L]
+                        for _ in range(T)])
+    queries = np.stack([_tandem(_mutate(base, 2e-4, rng), 30000, 31500, 2)[:L]
+                        for _ in range(B)])
+    return dict(idx=jq.build_index(targets, n_decoys=2000, seed=19, P=32),
+                queries=queries)
+
+
+# (corpus, step kwargs, the flag the variant must raise or None)
+# bench.py:302-306 (E2E_KW), P=32 from the index
+_BENCH = dict(slots2=192, lookback=24, M=3, sketch_compact=(12, 512, 192),
+              pair_block=None)
+_SYNTH = dict(M=4)
+_CNV = dict(M=4, lookback=32, sketch_compact=(12, 512, 192))
+VARIANTS = {
+    "synth-defaults": ("synth", _SYNTH, None),
+    "synth-slots3-128": ("synth", dict(_SYNTH, slots3=128), None),
+    "synth-M1": ("synth", dict(M=1), "mult_ovf"),
+    "synth-max-count-target-4": ("synth", dict(_SYNTH, max_count_target=4),
+                                 None),
+    "cnv-defaults": ("cnv", _CNV, None),
+    "cnv-slots3-128": ("cnv", dict(_CNV, slots3=128), None),
+    "cnv-slots3-16": ("cnv", dict(_CNV, slots3=16), "lane_ovf"),
+    "synth-slots3-16": ("synth", dict(_SYNTH, slots3=16), "lane_ovf"),
+    "cnv-M1": ("cnv", dict(_CNV, M=1), "mult_ovf"),
+    "cnv-max-count-target-4": ("cnv", dict(_CNV, max_count_target=4),
+                               None),
+    "P4-truncated": ("truncated", dict(M=2), "row_ovf"),
+    "64-targets": ("t64", dict(M=2, slots2=128), None),
+    "bench-knobs": ("bench", _BENCH, None),
+}
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_query_step_matches_jax(variant, synth_corpus, cnv_corpus):
+    name, kw, flag = VARIANTS[variant]
+    corpus = {"synth": lambda: synth_corpus, "cnv": lambda: cnv_corpus,
+              "truncated": _truncated_corpus, "t64": _t64_corpus,
+              "bench": _bench_rows_corpus}[name]()
+    idx, queries = corpus["idx"], corpus["queries"]
+    jres = _run_jax(idx, queries, **kw)
+    pres = _run_port(idx, queries, **kw)
+    _assert_results_equal(jres, pres)
+    assert int(jres["gvalid"].sum()) > 0
+    if flag is not None:
+        assert jres[flag].any(), f"{variant} does not raise {flag}"
+    if variant == "bench-knobs":  # one whole-row block: Pc = slots2
+        assert jres["gvalid"].shape == (2 * 4, 192 * 3)
+    if variant in ("cnv-defaults", "synth-max-count-target-4",
+                   "cnv-max-count-target-4"):  # the target-count filter
+        assert int(jres["n_t_filtered"]) > 0
+
+
+def test_fold_e2e_scalar_integer_terms(synth_corpus):
+    """The fold's integer terms are exact; the low 2 bits of the f32
+    score sum may differ, because torch and XLA sum in another order, so
+    that term is taken out of both folds before comparing."""
+    idx, queries = synth_corpus["idx"], synth_corpus["queries"]
+    jres = _run_jax(idx, queries, M=4)
+    pres = _run_port(idx, queries, M=4)
+    jfold = int(jq.fold_e2e_scalar({k: jnp.asarray(v)
+                                    for k, v in jres.items()}))
+    pfold = int(tq.fold_e2e_scalar(pres))
+
+    jsum = jnp.where(jres["gvalid"], jres["scores"], 0.0).sum()
+    jbits = int(jax.lax.bitcast_convert_type(jsum, jnp.uint32)) & 3
+    psum = torch.where(pres["gvalid"], pres["scores"], 0.0).sum()
+    pbits = int(psum.reshape(1).view(torch.int32)) & 3
+    assert jfold - jbits == pfold - pbits > 0
+
+
+# ------------------------------------------------------- index build
+
+def _pair_arrays(targets):
+    """The index-side pair arrays of test_query_e2e.py:447-478, built
+    from the JAX package's host sketch."""
+    from pgrtk_tpu.core import sketch as sketch_mod
+    from pgrtk_tpu.core.spec import ShmmrSpec
+
+    spec = ShmmrSpec(80, 56, 4, 64, True)
+    cols = {kk: [] for kk in ("k0", "k1", "sid", "bgn", "end", "ori")}
+    for sid in range(len(targets)):
+        seq = bytes(bytearray(b"ACGT"[b] for b in targets[sid]))
+        mx, my = sketch_mod.sequence_to_shmmrs_arrays(sid, seq, spec, False)
+        h = mx >> np.uint64(8)
+        p = ((my & np.uint64(0xFFFFFFFF)) >> np.uint64(1)).astype(
+            np.uint32) + np.uint32(1)
+        s0, s1 = h[:-1], h[1:]
+        swap = s0 > s1
+        cols["k0"].append(np.where(swap, s1, s0))
+        cols["k1"].append(np.where(swap, s0, s1))
+        cols["sid"].append(np.full(len(s0), sid, np.uint32))
+        cols["bgn"].append(p[:-1])
+        cols["end"].append(p[1:])
+        cols["ori"].append(swap.astype(np.uint32))
+    return {kk: np.concatenate(v) for kk, v in cols.items()}
+
+
+@pytest.fixture(scope="module")
+def index_targets():
+    """3 ragged targets (doubled 1 kb block) padded to a multiple of 512,
+    so the port's index step can take them too."""
+    rng = np.random.default_rng(2)
+    base = rng.integers(0, 4, size=8192, dtype=np.uint8)
+    rows = [_tandem(_mutate(base, 2e-4, rng), 3000, 4000, 2)
+            for _ in range(3)]
+    rows[1] = rows[1][:7000]
+    lens = np.array([len(r) for r in rows])
+    L = -(-int(lens.max()) // 512) * 512
+    targets = np.zeros((3, L), np.uint8)
+    for i, r in enumerate(rows):
+        targets[i, :len(r)] = r
+    return targets, lens
+
+
+@pytest.mark.parametrize("form", ["target_seqs", "pair_arrays",
+                                  "index_step_table"])
+def test_build_index_matches_jax(form, index_targets):
+    targets, lens = index_targets
+    kw = dict(n_decoys=300, seed=3, P=16)
+    want = jq.build_index(targets, target_lens=lens, **kw)
+    if form == "target_seqs":
+        got = tq.build_index(targets, target_lens=lens, **kw)
+    elif form == "pair_arrays":
+        arrays = _pair_arrays([t[:n] for t, n in zip(targets, lens)])
+        got = tq.build_index(pair_arrays=arrays, **kw)
+        assert jq.build_index(pair_arrays=arrays, **kw)["lookup"] == (
+            got["lookup"])
+    else:
+        out = tmesh.sketch_index_step(
+            torch.from_numpy(targets), torch.from_numpy(lens),
+            torch.arange(len(targets)))
+        assert not bool(out["overflow"])
+        got = tq.build_index(
+            pair_arrays=tq.pair_arrays_from_table(out["table"],
+                                                  out["n_pairs"]), **kw)
+    P = kw["P"]
+    assert np.array_equal(got["keys"], want["keys"])
+    assert got["p_rows"].dtype == np.int32 and got["p_rows"].shape == (
+        want["p_rows"].shape[0], 3 * P)
+    assert np.array_equal(got["p_rows"].view(np.uint32),
+                          want["p_rows"][:, :3 * P])
+    assert not want["p_rows"][:, 3 * P:].any()  # JAX row padding
+    for key in ("C", "P", "n_multi", "n_truncated", "max_postings",
+                "max_mult"):
+        assert got[key] == want[key], key
+    assert got["n_multi"] > 0 and got["max_mult"] >= 2
+    assert got["lookup"] == want["lookup"]
+    assert got["probe"]["bits"] == want["probe"]["bits"]
+    assert np.array_equal(got["probe"]["fence"], want["probe"]["fence"])
+
+
+# ------------------------------------------------- K6 and K7 (plain)
+
+def _u32_planes(k):
+    k = k.view(np.uint64)
+    return ((k >> np.uint64(32)).astype(np.uint32),
+            (k & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+
+
+@pytest.mark.parametrize("B,Pc", [(5, 300), (2, 3000), (3, 1)])
+def test_dup_pair_counts_matches_jax(B, Pc):
+    """Rows drawing keys from small pools (many duplicates), random
+    invalid slots, an all-invalid and an all-valid row; long rows."""
+    k0, k1, valid = cases.dup_key_rows(B * Pc, B, Pc)
+    want = np.asarray(jq.dup_pair_counts(
+        [jnp.asarray(p) for p in (*_u32_planes(k0), *_u32_planes(k1))],
+        jnp.asarray(valid)))
+    got = tq.dup_pair_counts(*(torch.from_numpy(np.ascontiguousarray(a))
+                               for a in (k0, k1, valid)))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    assert Pc == 1 or want.max() > 20
+
+
+@pytest.mark.parametrize("C,M,mct", [(4, 3, 128), (3, 1, 6), (8, 16, 40)])
+def test_expand_postings_matches_jax(C, M, mct):
+    """Empty slots, keyovf, sid >= C, m >= M, counts above
+    max_count_target; M=16 lets random (sid, m) repeats in a row add up,
+    as the JAX one-hot sum does."""
+    meta, bgnori, end, base_hit, run_len = cases.postings_rows(
+        C * 100 + M, 3, 40, 8, C)
+    want = jq.expand_postings(
+        jnp.asarray(meta), jnp.asarray(bgnori), jnp.asarray(end),
+        jnp.asarray(base_hit), jnp.asarray(run_len), C, M, mct)
+    rows = np.concatenate([meta, bgnori, end], axis=2).view(np.int32)
+    got = tq.expand_postings(torch.from_numpy(rows),
+                             torch.from_numpy(base_hit),
+                             torch.from_numpy(run_len), C, M, mct)
+    assert got.keys() == want.keys()
+    for name in ("t_bgnori", "t_end"):
+        assert np.array_equal(got[name].numpy().view(np.uint32),
+                              np.asarray(want[name])), name
+    for name in ("hv", "row_ovf", "grp_ovf", "n_t_filtered"):
+        assert np.array_equal(got[name].numpy(),
+                              np.asarray(want[name])), name
+    assert np.asarray(want["hv"]).any() and int(want["n_t_filtered"]) > 0
+    assert np.asarray(want["row_ovf"]).any()
+    assert np.asarray(want["grp_ovf"]).any() == (M < 16)
+
+
+def test_step_rejects_a_wrong_p():
+    """p_rows must be exactly 3P wide: P=16 against P=32 rows raises
+    instead of reading bgnori as meta."""
+    p_rows = torch.zeros((5, 96), dtype=torch.int32)
+    with pytest.raises(ValueError, match="P=16"):
+        tq.query_e2e_step(
+            torch.zeros((1, 512), dtype=torch.uint8), torch.tensor([512]),
+            4, (torch.zeros(128, dtype=torch.int64),) * 2,
+            torch.zeros(17, dtype=torch.int32), p_rows, 1, P=16)
