@@ -15,8 +15,10 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      rows; postings with every flag; chain groups with same-left runs,
      duplicates, coordinates above 2^24 and all four filter settings;
      K2, K3, K4 and K6 on 70,000 rows, past gridDim.y's 65,535; the
-     inputs are pgrtk_tpu_torch/utils/cases.py's), and times the exact
-     walk with and without the long N runs;
+     inputs are pgrtk_tpu_torch/utils/cases.py's; K9 on mode-1 rows with
+     N runs, a palindromic 56-mer and an (AC)n run at two specs, K10 on
+     the chain groups, K11 on a widened padded table), and times the
+     exact walk with and without the long N runs;
   2. runs the index stage of bench.py's corpus (seed 2, 8 x 1 Mbase) as
      bench.py composes it, asserts no overflow and a table equal to the
      all-plain path on the same card;
@@ -43,11 +45,30 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      on the step's own inputs (K2 on the level-2 stream, the whole-row
      pair stream and the slots3 lane planes); and the step again with
      pair_block=512 and a slots3 lane compaction, which must give the
-     same anchors and scores.
+     same anchors and scores;
+  7. runs the pgr-query --batch-device path, parallel/device_query.py's
+     batch_query_to_hps, on bench.py's corpus: the 8 targets as
+     in-memory FRG stores (core/seqdb.build_columnar_store) at the CLI
+     default mode-1 spec (w 80, k 56, r 4, min_span 64) with 4,194,304
+     decoy keys (aligned probe table), the same without decoys (its
+     window-minimum keys overflow the aligned window: the padded table
+     and K11), and a mode-2 store with the decoys; the 8 query
+     haplotypes as 8 whole 1,048,576-base sequences.  Launch counts reset
+     before the four runs (mode 1 with K8, again with K10 for every
+     group, mode 1 without decoys, mode 2) and read after; per-stage host
+     times and the path's counts; a torch.profiler pass of two runs
+     (build/batch_device_trace.json); the runs must agree, every query must
+     chain to every target, the run with every kernel replaced by its
+     plain version on the card and a CPU run on 2 x 200 kb must give the
+     same chains, and K11 on a padded table of the keys must find what K5
+     finds; then K9, K10 and K11 against their plain versions at the
+     path's shapes.
 
 Every comparison is exact (integers, tolerance 0).  Any failed phase
-exits non-zero.  The second-to-last line is the per-kernel JSON, the last
-line {"ok": true, "device": {...}}.
+exits non-zero.  The second-to-last line is the per-kernel JSON (with
+each kernel's bound: the larger of its bytes over the memory rate and
+its operations over the ALU rate, see HBM_BYTES_PER_S), the last line
+{"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -75,8 +96,33 @@ REPLACES = {
     "dup_pair_counts": "pgrtk_tpu/ops/query_e2e.py:365",
     "expand_postings": "pgrtk_tpu/ops/query_e2e.py:430",
     "chain_scores_fast": "pgrtk_tpu/ops/chain.py:252",
+    "sketch_mode1": "pgrtk_tpu/ops/sketch1.py:124",
+    "chain_scores_dense": "pgrtk_tpu/ops/chain.py:63",
+    "probe_keys": "pgrtk_tpu/ops/probe.py:88",
 }
 INDEX_KERNELS = tuple(REPLACES)[:4]
+QUERY_KERNELS = tuple(REPLACES)[:8]
+BATCH_KERNELS = ("sketch_walk_compact", "rank_extract", "probe_fetch",
+                 "chain_scores_fast", "sketch_mode1", "chain_scores_dense",
+                 "probe_keys")
+
+# The least time the card could take for a kernel's work (bound_ms): the
+# larger of the bytes it must move over the memory rate and its
+# operations over the ALU rate, both NVIDIA's H100 SXM figures as the
+# on-chip-measurement guide tables them.  Bytes: each input read once
+# (for a probe, only the table slots of each key's bucket), each output
+# written once.  Operations: 32-bit ALU operations of the work, a 64-bit
+# integer operation counting two, at the float32 rate outside the tensor
+# cores (the table has no integer row).  The per-element counts are the
+# model below, at the least work the function needs.
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
+OPS_WALK = 128       # K1/K9 per base: two 64-bit Wang hashes, registers
+OPS_WINDOWS = 16     # K9 per base: sliding min and max by van Herk
+OPS_ENTRY = 16       # K2/K3/K4/K6 per stream entry: scan, compares
+OPS_POSTING = 16     # K7 per postings slot
+OPS_SLOT = 32        # K8/K10 per anchor and window slot: filters, score
+OPS_COMPARE = 4      # K5/K11 per table slot compared: two 64-bit equals
 
 
 class SmokeFailure(Exception):
@@ -108,6 +154,9 @@ def max_abs_err(got, want):
     difference (at least 1: int64 values lose low bits in float64)."""
     err = 0.0
     for g, w in zip(got, want):
+        if g is None or w is None:
+            require(g is None and w is None, "one result is None")
+            continue
         require(g.shape == w.shape and g.dtype == w.dtype,
                 f"shape/dtype {tuple(g.shape)} {g.dtype} vs "
                 f"{tuple(w.shape)} {w.dtype}")
@@ -117,21 +166,39 @@ def max_abs_err(got, want):
     return err
 
 
-def measure(name, kernel_fn, plain_fn, reps=5, plain_reps=2):
-    """Kernel against plain version (tolerance 0), then both timed with
-    CUDA events.  Returns (max_abs_err, kernel ms, plain ms)."""
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def measure(name, kernel_fn, plain_fn, in_bytes, ops, reps=5,
+            plain_reps=2):
+    """Kernel against plain version (tolerance 0), both timed with CUDA
+    events, and the bound of the work: `in_bytes` the input bytes it must
+    read (a number, or the input tensors), `ops` its operations; the
+    output bytes are the result's.  Returns dict(max_abs_err, ms,
+    plain_ms, bound_ms, bound_by, library_ms)."""
     got, want = kernel_fn(), plain_fn()
     err = check(name, got, want)
+    if not isinstance(in_bytes, (int, float)):
+        in_bytes = nbytes(*in_bytes)
+    n_bytes = in_bytes + nbytes(*flat(got))
     del got, want
     torch.cuda.empty_cache()
     ms = cuda_ms(kernel_fn, reps)
     plain_ms = cuda_ms(plain_fn, plain_reps)
-    print(f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain")
-    return err, ms, plain_ms
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ALU_OPS_PER_S * 1e3
+    bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+    print(f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain; bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({n_bytes} bytes, {ops} ops)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def flat(out):
-    """Tensors of a kernel's result in a fixed order (dicts by key)."""
+    """Tensors of a kernel's result in a fixed order (dicts by key); a
+    None (K5's rows when it only probes) is kept as is."""
     if isinstance(out, dict):
         return [out[k] for k in sorted(out)]
     res = []
@@ -233,6 +300,8 @@ def phase_kernels(dev, tsk, tp):
             n_ovf += bool(got[2])
     require(n_ovf == 3, f"K2 overflow flag set in {n_ovf} of 4 cases")
     for name, kernel, plain in cases.many_row_cases(dev):
+        check(name, kernel(), plain())
+    for name, kernel, plain in cases.batch_device_cases(dev):
         check(name, kernel(), plain())
 
 
@@ -510,17 +579,19 @@ def phase_main_path(dev, tsk, tp, mesh, kb, B=16, L=16_777_216):
     results = {}
 
     slots, b2, s2 = (DEFAULT_KW[k] for k in ("slots", "block2", "slots2"))
+    walk_ops = OPS_WALK * B * L
     results["sketch_walk_compact"] = measure(
         f"K1 fast, seqs {tuple(seqs.shape)}",
         lambda: tsk.sketch_walk_compact(seqs, lens, K, R, CHUNK, slots),
         lambda: tsk.sketch_walk_compact_plain(seqs, lens, K, R, CHUNK, slots,
-                                              False))
+                                              False), [seqs, lens], walk_ops)
     measure(f"K1 exact (SAFE rerun sizing), scaffold gaps "
             f"{tuple(gapped.shape)}",
             lambda: tsk.sketch_walk_compact(gapped, lens, K, R, CHUNK, 16,
                                             True),
             lambda: tsk.sketch_walk_compact_plain(gapped, lens, K, R, CHUNK,
-                                                  16, True))
+                                                  16, True),
+            [gapped, lens], walk_ops)
     del gapped
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"    peak device memory so far {peak:.2f} GiB")
@@ -528,23 +599,31 @@ def phase_main_path(dev, tsk, tp, mesh, kb, B=16, L=16_777_216):
     results["rank_extract"] = measure(
         f"K2 level 2, stream {tuple(x1.shape)}",
         lambda: tp.rank_extract_planes((x1, y1), v1, b2, s2),
-        lambda: tp.rank_extract_planes_plain((x1, y1), v1, b2, s2))
+        lambda: tp.rank_extract_planes_plain((x1, y1), v1, b2, s2),
+        [x1, y1, v1], OPS_ENTRY * v1.numel())
     (x2, y2), v2, _ = tp.rank_extract_planes((x1, y1), v1, b2, s2)
     results["min_span_filter_gapped"] = measure(
         f"K3, stream {tuple(x2.shape)}",
         lambda: tp.min_span_filter_gapped(x2, y2, v2, MIN_SPAN),
-        lambda: tp.min_span_filter_gapped_plain(x2, y2, v2, MIN_SPAN))
+        lambda: tp.min_span_filter_gapped_plain(x2, y2, v2, MIN_SPAN),
+        [x2, y2, v2], OPS_ENTRY * v2.numel())
     keep = tp.min_span_filter_gapped(x2, y2, v2, MIN_SPAN)
     results["pair_mers_gapped"] = measure(
         f"K4 index ties, stream {tuple(x2.shape)}",
         lambda: tp.pair_mers_gapped(x2, y2, keep),
-        lambda: tp.pair_mers_gapped_plain(x2, y2, keep, False))
+        lambda: tp.pair_mers_gapped_plain(x2, y2, keep, False),
+        [x2, y2, keep], OPS_ENTRY * keep.numel())
     pr = tp.pair_mers_gapped(x2, y2, keep)
     sort_ms = cuda_ms(lambda: tp.sort_pairs(pr, rids), 5)
-    print(f"  sort_pairs (torch.sort, not a hand-written kernel): "
-          f"{sort_ms:.4f} ms on {pr['k0'].numel()} entries")
+    sort_bytes = nbytes(*pr.values(), rids) + nbytes(
+        *tp.sort_pairs(pr, rids).values())
+    print(f"  sort_pairs (torch.sort, the library call; no hand-written "
+          f"kernel yet): {sort_ms:.4f} ms on {pr['k0'].numel()} entries; "
+          f"bound {sort_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms by bytes")
 
-    return {name: (launches[name], *results[name]) for name in INDEX_KERNELS}
+    for name in INDEX_KERNELS:
+        results[name]["launches"] = launches[name]
+    return results
 
 
 # bench.py:302-306 (E2E_KW; `unroll` is a knob of the JAX scan only)
@@ -558,6 +637,19 @@ BENCH_R05_COUNTS = dict(n_multi=82, n_truncated=0, max_postings=24,
                         n_t_filtered=12_040)
 CERTIFY_FLAGS = ("overflow", "dup", "inexact", "row_ovf", "mult_ovf",
                  "lane_ovf")
+
+
+def probe_work(k0, bits, fence, tk0, row_bytes):
+    """Input bytes and operations of a fence probe (K5): per key its two
+    words, its fence entry and `row_bytes` of postings, and the keys of
+    its bucket, each 16 bytes and one compare."""
+    from pgrtk_tpu_torch.ops.int64 import srl
+
+    occ = torch.nn.functional.pad((tk0 != -1).cumsum(0), (1, 0))
+    b = srl(k0, 56 - bits).clamp(max=fence.numel() - 2)
+    n_cmp = int((occ[fence[b + 1].long()] - occ[fence[b].long()]).sum())
+    return (k0.numel() * (20 + row_bytes) + 16 * n_cmp,
+            OPS_COMPARE * n_cmp)
 
 
 def phase_query(dev, kb, tsk, tp, targets, queries):
@@ -586,6 +678,9 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
           f"bits {tens['probe_bits']}, p_rows {tuple(idx['p_rows'].shape)} "
           f"({idx['p_rows'].nbytes / 2**30:.2f} GiB)")
     counts = {k: idx[k] for k in ("n_multi", "n_truncated", "max_postings")}
+    dense = tpr.build_probe_table_dense(idx["keys"])
+    dense = dict(bits=dense["bits"], **{f: torch.from_numpy(dense[f]).to(dev)
+                                        for f in ("k0", "k1", "fence")})
     del idx
     q = torch.from_numpy(queries).to(dev)
     qlens = torch.full((B,), L, device=dev)
@@ -598,7 +693,8 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
     kb.reset_launches()
     res = step()
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in kb.KERNELS}
+    launches = {k.name: k.launches for k in kb.KERNELS
+                if k.name in QUERY_KERNELS}
     print(f"  launches {launches}")
     for name, count in launches.items():
         require(count > 0, f"kernel {name} never launched on the query path")
@@ -648,25 +744,30 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
             f"K1 fast, query rows {tuple(q.shape)}, slots={slots}",
             lambda: tsk.sketch_walk_compact(q, qlens, K, R, CHUNK, slots),
             lambda: tsk.sketch_walk_compact_plain(q, qlens, K, R, CHUNK,
-                                                  slots, False))[0],
+                                                  slots, False),
+            [q, qlens], OPS_WALK * q.numel())["max_abs_err"],
         "rank_extract": max(
             measure(f"K2 level 2, stream {tuple(x1.shape)}, block {b2}",
                     lambda: tp.rank_extract_planes((x1, y1), v1, b2, s2),
                     lambda: tp.rank_extract_planes_plain((x1, y1), v1, b2,
-                                                         s2))[0],
+                                                         s2),
+                    [x1, y1, v1], OPS_ENTRY * v1.numel())["max_abs_err"],
             measure(f"K2 pair stream, 5 planes {tuple(pr['k0'].shape)}, "
                     f"block {pair_args[2]}",
                     lambda: tp.rank_extract_planes(*pair_args),
-                    lambda: tp.rank_extract_planes_plain(*pair_args))[0]),
+                    lambda: tp.rank_extract_planes_plain(*pair_args),
+                    [*pair_args[0], pair_args[1]],
+                    OPS_ENTRY * pair_args[1].numel())["max_abs_err"]),
         "min_span_filter_gapped": measure(
             f"K3, stream {tuple(x2.shape)}",
             lambda: tp.min_span_filter_gapped(x2, y2, v2, MIN_SPAN),
-            lambda: tp.min_span_filter_gapped_plain(x2, y2, v2,
-                                                    MIN_SPAN))[0],
+            lambda: tp.min_span_filter_gapped_plain(x2, y2, v2, MIN_SPAN),
+            [x2, y2, v2], OPS_ENTRY * v2.numel())["max_abs_err"],
         "pair_mers_gapped": measure(
             f"K4 query ties, stream {tuple(x2.shape)}",
             lambda: tp.pair_mers_gapped(x2, y2, keep, True),
-            lambda: tp.pair_mers_gapped_plain(x2, y2, keep, True))[0],
+            lambda: tp.pair_mers_gapped_plain(x2, y2, keep, True),
+            [x2, y2, keep], OPS_ENTRY * keep.numel())["max_abs_err"],
     }
     del x1, y1, v1, x2, y2, v2, keep, pr, pair_args
     probe_args = (q_k0.reshape(-1), q_k1.reshape(-1), tens["probe_bits"],
@@ -678,25 +779,43 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
     ex_args = (rows.reshape(B, Pc, 3 * P), base_hit, run_len, C, M, 128)
     chain_args = (res["anchors"], res["gvalid"], 0.025, -1, False,
                   E2E_KW["lookback"], 8)
+    n_valid = int(res["gvalid"].sum())
     results = {
         "probe_fetch": measure(
             f"K5 probe_fetch, {q_k0.numel()} keys",
             lambda: tpr.probe_fetch(*probe_args),
-            lambda: tpr.probe_fetch_plain(*probe_args)),
+            lambda: tpr.probe_fetch_plain(*probe_args),
+            *probe_work(q_k0.reshape(-1), tens["probe_bits"],
+                        tens["probe_fence"], tens["probe_planes"][0],
+                        12 * P)),
         "dup_pair_counts": measure(
             f"K6 dup_pair_counts, ({B}, {Pc})",
             lambda: tq.dup_pair_counts(q_k0, q_k1, cvalid),
-            lambda: tq.dup_pair_counts_plain(q_k0, q_k1, cvalid)),
+            lambda: tq.dup_pair_counts_plain(q_k0, q_k1, cvalid),
+            [q_k0, q_k1, cvalid], OPS_ENTRY * cvalid.numel()),
         "expand_postings": measure(
             f"K7 expand_postings, ({B}, {Pc}, {P}) -> ({G}, {N})",
             lambda: tq.expand_postings(*ex_args),
-            lambda: tq.expand_postings_plain(*ex_args)),
+            lambda: tq.expand_postings_plain(*ex_args),
+            list(ex_args[:3]), OPS_POSTING * B * Pc * P),
         "chain_scores_fast": measure(
             f"K8 chain_scores_fast, ({G}, {N}), W={E2E_KW['lookback']}",
             lambda: tc.chain_scores_fast(*chain_args),
-            lambda: tc.chain_scores_fast_plain(*chain_args), plain_reps=1),
+            lambda: tc.chain_scores_fast_plain(*chain_args),
+            list(chain_args[:2]), OPS_SLOT * E2E_KW["lookback"] * n_valid,
+            plain_reps=1),
     }
+    dense_args = (q_k0.reshape(-1), q_k1.reshape(-1), dense["bits"],
+                  dense["k0"], dense["k1"], dense["fence"], None,
+                  tpr.WINDOW_DENSE)
+    measure(f"K5 probe_fetch window 256 (dense table of the same keys), "
+            f"found only, {q_k0.numel()} keys",
+            lambda: tpr.probe_fetch(*dense_args),
+            lambda: tpr.probe_fetch_plain(*dense_args),
+            *probe_work(q_k0.reshape(-1), dense["bits"], dense["fence"],
+                        dense["k0"], 0))
     del probe_args, found, rows, run_len, base_hit, ex_args, chain_args
+    del dense_args, dense
 
     per_lane = int(res["gvalid"].sum(dim=1).max())
     slots3 = -(-per_lane // 64) * 64
@@ -727,15 +846,245 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
         f"K2 slots3 lanes, 4 planes {tuple(lane_args[1].shape)}, block "
         f"{lane_args[2]}",
         lambda: tp.rank_extract_planes(*lane_args),
-        lambda: tp.rank_extract_planes_plain(*lane_args))[0])
+        lambda: tp.rank_extract_planes_plain(*lane_args),
+        [*lane_args[0], lane_args[1]],
+        OPS_ENTRY * lane_args[1].numel())["max_abs_err"])
     (qbo, qe, tbo, te), gv3, _ = tp.rank_extract_planes(*lane_args)
     mask31 = (1 << 31) - 1
     require(torch.equal(gv3, res3["gvalid"]) and torch.equal(
         torch.stack([qbo & mask31, qe, qbo >> 31, tbo & mask31, te,
                      tbo >> 31], dim=-1), res3["anchors"]),
             "K2 on the lane planes differs from the slots3 step")
-    measured = {name: (launches[name], *results[name]) for name in results}
-    return measured, errs
+    for name in results:
+        results[name]["launches"] = launches[name]
+    return results, errs
+
+
+# the CLI default mode-1 spec (pgr-query on a pgr-make-frgdb database)
+MODE1_SPEC = dict(w=80, k=K, r=R, min_span=MIN_SPAN, sketch=False)
+
+
+class plain_kernels:
+    """Within the block every kernel wrapper of the port's modules is
+    replaced by its plain PyTorch version, so the main path runs the
+    plain versions on the card's tensors."""
+
+    def __init__(self):
+        from pgrtk_tpu_torch.ops import chain, pairs, probe, sketch, sketch1
+
+        def walk(seqs, lens, k, r, chunk=512, slots=12, exact=False):
+            return sketch.sketch_walk_compact_plain(seqs, lens, k, r, chunk,
+                                                    slots, exact)
+
+        def fetch(k0, k1, bits, tk0, tk1, fence, p_rows, window=128):
+            return probe.probe_fetch_plain(k0, k1, bits, tk0, tk1, fence,
+                                           p_rows, window)
+
+        def mode1(seqs, lens, k, w, chunk=512):
+            return sketch1.sketch_mode1_dense_plain(seqs, lens, k, w)
+
+        self.patches = [
+            (sketch, "sketch_walk_compact", walk),
+            (pairs, "rank_extract_planes", pairs.rank_extract_planes_plain),
+            (probe, "probe_fetch", fetch),
+            (probe, "probe_keys", probe.probe_keys_plain),
+            (chain, "chain_scores_fast", chain.chain_scores_fast_plain),
+            (chain, "chain_scores_dense", chain.chain_scores_dense_plain),
+            (sketch1, "sketch_mode1_dense", mode1),
+        ]
+
+    def __enter__(self):
+        self.saved = [(m, n, getattr(m, n)) for m, n, _ in self.patches]
+        for m, n, f in self.patches:
+            setattr(m, n, f)
+
+    def __exit__(self, *exc):
+        for m, n, f in self.saved:
+            setattr(m, n, f)
+
+
+def same_hps(got, want):
+    """Two batch_query_to_hps results (as_arrays=True) are equal: sids,
+    chain scores and tracks."""
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if [sid for sid, _ in g] != [sid for sid, _ in w]:
+            return False
+        for (_, gc), (_, wc) in zip(g, w):
+            if len(gc) != len(wc) or any(
+                    gs != ws or not np.array_equal(gt, wt)
+                    for (gs, gt), (ws, wt) in zip(gc, wc)):
+                return False
+    return True
+
+
+def phase_batch_device(dev, kb, targets, queries):
+    """The pgr-query --batch-device path at bench.py's size: the 8 target
+    rows as a mode-1 FRG-style store (+ 4,194,304 decoy keys), the 8
+    query haplotypes as 8 whole sequences."""
+    from pgrtk_tpu_torch.core import seqdb
+    from pgrtk_tpu_torch.core.spec import ShmmrSpec
+    from pgrtk_tpu_torch.ops import chain as tc
+    from pgrtk_tpu_torch.ops import probe as tpr
+    from pgrtk_tpu_torch.ops import sketch1 as ts1
+    from pgrtk_tpu_torch.ops.int64 import srl
+    from pgrtk_tpu_torch.ops.sketch import pad_batch
+    from pgrtk_tpu_torch.parallel import device_query as dq
+
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    t_seqs = [acgt[row].tobytes() for row in targets]
+    q_seqs = [acgt[row].tobytes()
+              for row in queries.reshape(len(targets), -1)]
+    L = len(q_seqs[0])
+    print(f"phase 7: --batch-device path, {len(q_seqs)} x {L} query bases "
+          f"against {len(t_seqs)} x {len(t_seqs[0])} targets")
+    spec1, spec2 = ShmmrSpec(**MODE1_SPEC), ShmmrSpec(sketch=True)
+    t0 = time.perf_counter()
+    stores = {
+        "mode 1 + decoys": seqdb.build_columnar_store(
+            t_seqs, spec1, device=dev, n_decoys=N_INDEX_KEYS, seed=7),
+        "mode 1": seqdb.build_columnar_store(t_seqs, spec1, device=dev),
+        "mode 2 + decoys": seqdb.build_columnar_store(
+            t_seqs, spec2, device=dev, n_decoys=N_INDEX_KEYS, seed=7),
+    }
+    tables = {n: dq._device_tables(st, dev) for n, st in stores.items()}
+    torch.cuda.synchronize()
+    print(f"  stores and probe tables (sketch on the card, host index): "
+          f"{time.perf_counter() - t0:.1f} s; " + "; ".join(
+              f"{n}: {len(st.index_keys)} keys, {tables[n]['layout']} "
+              f"layout, bits {tables[n]['bits']}"
+              for n, st in stores.items()))
+    require(tables["mode 1 + decoys"]["layout"] == "aligned"
+            and tables["mode 1"]["layout"] == "padded",
+            "probe layouts: aligned with decoys, padded without")
+    runs = (("mode 1 + decoys", "fast"), ("mode 1 + decoys", "dense"),
+            ("mode 1", "fast"), ("mode 2 + decoys", "fast"))
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    outs, stats = {}, {}
+    for name, kernel in runs:
+        st = {}
+        t = time.perf_counter()
+        outs[name, kernel] = dq.batch_query_to_hps(
+            stores[name], q_seqs, as_arrays=True, kernel=kernel, device=dev,
+            stats=st)
+        st["total"] = time.perf_counter() - t
+        stats[name, kernel] = st
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kb.KERNELS}
+    print(f"  launches {launches}")
+    for name in BATCH_KERNELS:
+        require(launches[name] > 0,
+                f"kernel {name} never launched on the --batch-device path")
+    for (name, kernel), st in stats.items():
+        sec = st.pop("seconds")
+        total = st.pop("total")
+        print(f"  {name}, kernel={kernel}: {total:.3f} s; stages (host "
+              f"clock) " + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                     sec.items()))
+        print(f"    counts {st}")
+    base = outs["mode 1 + decoys", "fast"]
+    require(same_hps(outs["mode 1 + decoys", "dense"], base),
+            "kernel='dense' gives other chains")
+    require(same_hps(outs["mode 1", "fast"], base),
+            "the store without decoys gives other chains")
+    for mode, out in (("mode 1", base),
+                      ("mode 2", outs["mode 2 + decoys", "fast"])):
+        best = []
+        for q, hits in enumerate(out):
+            require(sorted(sid for sid, _ in hits) == list(range(8)),
+                    f"{mode}, query {q}: not every target hit")
+            best += [max(s for s, _ in chains) for _, chains in hits]
+        require(bool(np.isfinite(best).all()) and min(best) > 0.5 * L,
+                f"{mode}: a best chain scores {min(best)}")
+        print(f"  {mode}: every query chains to all 8 targets, best chain "
+              f"per pair {min(best):.1f} to {max(best):.1f} for {L} bases")
+    print("  kernel='dense' and the store without decoys give the same "
+          "chains as the first run")
+    profile_steps(lambda: dq.batch_query_to_hps(
+        stores["mode 1 + decoys"], q_seqs, as_arrays=True, device=dev),
+        n=2, trace="batch_device_trace.json")
+
+    t = time.perf_counter()
+    with plain_kernels():
+        kb.reset_launches()
+        plain = dq.batch_query_to_hps(stores["mode 1 + decoys"], q_seqs,
+                                      as_arrays=True, device=dev)
+        torch.cuda.synchronize()
+        require(not any(k.launches for k in kb.KERNELS),
+                "a kernel launched in the plain run")
+    require(same_hps(plain, base), "the plain versions give other chains")
+    print(f"  every kernel replaced by its plain version on the card: the "
+          f"same chains ({time.perf_counter() - t:.1f} s)")
+    small = [s[:200_000] for s in q_seqs[:2]]
+    require(same_hps(dq.batch_query_to_hps(stores["mode 1"], small,
+                                           as_arrays=True, device="cpu"),
+                     dq.batch_query_to_hps(stores["mode 1"], small,
+                                           as_arrays=True, device=dev)),
+            "card and CPU differ on 2 x 200 kb")
+    print("  card equal to the CPU on 2 x 200 kb query prefixes")
+
+    print("phase 7b: K9-K11 vs plain at the path's shapes")
+    store = stores["mode 1 + decoys"]
+    pairs = dq._query_pairs(ts1.sketch_mode1_arrays(q_seqs, spec=spec1,
+                                                    device=dev))
+    k0 = torch.from_numpy(pairs["k0"].view(np.int64)).to(dev)
+    k1 = torch.from_numpy(pairs["k1"].view(np.int64)).to(dev)
+    al = tables["mode 1 + decoys"]
+    pad = tpr.build_probe_table(store.index_keys)
+    pad_t = {f: torch.from_numpy(pad[f]).to(dev) for f in ("k0", "k1", "row")}
+    found5 = tpr.probe_fetch(k0, k1, al["bits"], al["k0"], al["k1"],
+                             al["fence"], None)[0]
+    pargs = (k0, k1, pad["bits"], pad_t["k0"], pad_t["k1"], pad_t["row"],
+             pad["W"])
+    found11 = tpr.probe_keys(*pargs)[0]
+    require(torch.equal(found5, found11) and bool(found5.any()),
+            "K11 on the padded table and K5 on the aligned one disagree")
+    print(f"  {k0.numel()} query keys, {int(found5.sum())} found: K11 "
+          f"(padded, W={pad['W']}, bits {pad['bits']}) == K5 (aligned)")
+    occ = (pad_t["row"] >= 0).reshape(-1, pad["W"]).sum(dim=1)
+    n_cmp = int(occ[srl(k0, 56 - pad["bits"])].sum())
+    arr, lens = pad_batch(q_seqs)
+    seqs = torch.from_numpy(arr).to(dev)
+    lens = torch.from_numpy(lens).to(torch.int64).to(dev)
+    w = MODE1_SPEC["w"]
+    results = {
+        "sketch_mode1": measure(
+            f"K9 sketch_mode1, seqs {tuple(seqs.shape)}, w={w}",
+            lambda: ts1.sketch_mode1_dense(seqs, lens, K, w),
+            lambda: ts1.sketch_mode1_dense_plain(seqs, lens, K, w),
+            [seqs, lens], (OPS_WALK + OPS_WINDOWS) * seqs.numel(),
+            plain_reps=1),
+        "probe_keys": measure(
+            f"K11 probe_keys, {k0.numel()} keys, W={pad['W']}",
+            lambda: tpr.probe_keys(*pargs),
+            lambda: tpr.probe_keys_plain(*pargs),
+            16 * k0.numel() + 20 * n_cmp, OPS_COMPARE * n_cmp),
+    }
+    measure(f"K5 probe_fetch found-only, {k0.numel()} keys",
+            lambda: tpr.probe_fetch(k0, k1, al["bits"], al["k0"], al["k1"],
+                                    al["fence"], None),
+            lambda: tpr.probe_fetch_plain(k0, k1, al["bits"], al["k0"],
+                                          al["k1"], al["fence"], None, 128),
+            *probe_work(k0, al["bits"], al["fence"], al["k0"], 0))
+    keys, groups = dq._count_filtered_groups(store, dict(
+        pairs, j=np.where(found5.cpu().numpy(), np.searchsorted(
+            dq._store_ckeys(store),
+            dq.cols_ckeys(pairs["k0"], pairs["k1"])), -1)), 128, 128, 128)
+    anchors, valid = tc._sorted_batch(groups)
+    a_t = torch.from_numpy(anchors.astype(np.int64)).to(dev)
+    v_t = torch.from_numpy(valid).to(dev)
+    G, N = valid.shape
+    results["chain_scores_dense"] = measure(
+        f"K10 chain_scores_dense, ({G}, {N}), W=32",
+        lambda: tc.chain_scores_dense(a_t, v_t, 0.025),
+        lambda: tc.chain_scores_dense_plain(a_t, v_t, 0.025),
+        [a_t, v_t], 32 * (3 * 32 + OPS_SLOT) * int(valid.sum()), reps=2,
+        plain_reps=1)
+    for name in results:
+        results[name]["launches"] = launches[name]
+    return results
 
 
 def main():
@@ -777,16 +1126,18 @@ def main():
                                                  queries)
         measured.update(query_measured)
         for name, err in query_errs.items():  # K1-K4 on the query path too
-            launches, err5, ms, plain_ms = measured[name]
-            measured[name] = (launches, max(err5, err), ms, plain_ms)
+            measured[name]["max_abs_err"] = max(
+                measured[name]["max_abs_err"], err)
+        measured.update(phase_batch_device(dev, kb, targets, queries))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     kernels = [
         dict(name=k.name, route="cuda", source=k.source,
-             replaces=REPLACES[k.name], launches=measured[k.name][0],
-             max_abs_err=measured[k.name][1], ms=measured[k.name][2],
-             plain_ms=measured[k.name][3])
+             replaces=REPLACES[k.name],
+             **{f: measured[k.name][f] for f in (
+                 "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms")})
         for k in kb.KERNELS
     ]
     print(card)

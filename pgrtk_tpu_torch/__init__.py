@@ -13,10 +13,18 @@ tensors, and the device comes from them.
 
 Covered so far: the mode-2 SHIMMER index build (sketch with fused
 compaction, level-2 compaction, min_span filter, canonical pairs, pair-key
-sort) and its single-device step.  The device path imports neither JAX
-nor `pgrtk_tpu`; a host helper that needs the JAX-free host layer of
-`pgrtk_tpu` imports it inside the call (today only the default spec of
-`ops.sketch.sketch_mode2`), rather than copying it.
+sort) and its single-device step; bench.py's end-to-end query step; and
+the `pgr-query --batch-device` path (mode-1 and mode-2 sketch of a query
+batch, probe of an FRG database's columnar index, count filters, batched
+chain DP with its fallbacks; `parallel/device_query.py`).
+
+The port imports neither JAX nor anything of `pgrtk_tpu`, not even its
+JAX-free host modules: it keeps its own copies of the host layer it needs
+(`core/`: the spec, the scalar mode-1 sketcher and reduction, query pairs
+and count filters, the scalar chain DP, the in-memory columnar index;
+`utils/u64pair.py`), each held equal to the original by the tests.  Host
+entry points run on the card (`device="cuda"`) unless the caller asks
+for the CPU.
 
 Importing this package touches no device and builds nothing.
 """

@@ -27,104 +27,13 @@
 // only on the last k ACGT bases before it, and an N run can push those
 // arbitrarily far back.  A lane that walked back base by base would pay
 // for the whole run before it, so the work would grow with the square of
-// the run.  Instead, before the walk, chunk_tail_kernel stores each
-// chunk's last min(k, n) ACGT codes as forward registers (walking back
-// from the chunk's end: about k bases outside N runs), and the row ranks
-// of the chunks holding any ACGT base are taken (rank.cuh).  Each lane
-// then folds in the tails of the nearest such chunks before it, newest
-// first, until it holds k codes or runs out: at most k lookups, however
-// long the N run.  The reverse registers follow from the forward ones
-// (bit i of f is bit k-1-i of r, complemented).  Exact for any input;
-// no flag.
-#include "rank.cuh"
+// the run.  Instead the lane folds in per-chunk tails found through the
+// row ranks of the chunks holding ACGT (walk.cuh, shared with K9): at
+// most k lookups, however long the N run.  Exact for any input; no flag.
+#include "walk.cuh"
 
+namespace pgrtk {
 namespace {
-
-// Scratch of the exact walk, carved from one byte buffer; (B, nc) each.
-struct ExactScratch {
-  uint64_t* tail0;  // last min(k, n) ACGT codes of the chunk, bit 0 of
-  uint64_t* tail1;  //   the code in tail0, bit 1 in tail1, newest lowest
-  int* tail_n;      // min(k, n), n = ACGT bases in the chunk
-  bool* has;        // n > 0
-  pgrtk::RankScratch rank;  // of `has`
-};
-
-ExactScratch carve_exact(void* scratch, int B, int nc) {
-  const long long n = (long long)B * nc;
-  char* p = (char*)scratch;
-  ExactScratch e;
-  e.tail0 = (uint64_t*)p;
-  e.tail1 = e.tail0 + n;
-  e.tail_n = (int*)(e.tail1 + n);
-  e.rank = pgrtk::carve_rank(e.tail_n + n, B, nc);
-  e.has = (bool*)(e.tail_n + n + pgrtk::rank_scratch_ints(B, nc));
-  return e;
-}
-
-long long exact_scratch_bytes(int B, int nc) {
-  const long long n = (long long)B * nc;
-  return 20 * n + 4 * pgrtk::rank_scratch_ints(B, nc) + n;
-}
-
-struct Regs {
-  uint64_t f0, f1, r0, r1;
-};
-
-// 2-bit base code, 4 for anything but ACGT/acgt or a raw code 0-3
-// (reference table: shmmrutils.rs:426-436).
-__device__ __forceinline__ int base_code(unsigned b) {
-  if (b < 4) return (int)b;
-  const unsigned u = b & 0xDFu;
-  return u == 'A' ? 0 : u == 'C' ? 1 : u == 'G' ? 2 : u == 'T' ? 3 : 4;
-}
-
-// One base step of the rolling registers; a code >= 4 leaves them as
-// they are (reference: shmmrutils.rs:459-476).
-__device__ __forceinline__ void push(Regs& s, int c, uint64_t mask,
-                                     int top) {
-  if (c < 4) {
-    const int rc = 3 ^ c;
-    s.f0 = ((s.f0 << 1) | (uint64_t)(c & 1)) & mask;
-    s.f1 = ((s.f1 << 1) | (uint64_t)((c >> 1) & 1)) & mask;
-    s.r0 = (s.r0 >> 1) | ((uint64_t)(rc & 1) << top);
-    s.r1 = (s.r1 >> 1) | ((uint64_t)((rc >> 1) & 1) << top);
-  }
-}
-
-// Thomas Wang 64-bit hash (reference: shmmrutils.rs:271-280).
-__device__ __forceinline__ uint64_t wang(uint64_t key) {
-  key = (~key) + (key << 21);
-  key = key ^ (key >> 24);
-  key = (key + (key << 3)) + (key << 8);
-  key = key ^ (key >> 14);
-  key = (key + (key << 2)) + (key << 4);
-  key = key ^ (key >> 28);
-  key = key + (key << 31);
-  return key;
-}
-
-__global__ void chunk_tail_kernel(const uint8_t* __restrict__ seqs,
-                                  long long n_lanes, long long L, int nc,
-                                  int k, int chunk, ExactScratch ex) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n_lanes) return;
-  const long long start = (lane % nc) * (long long)chunk;
-  const uint8_t* row = seqs + (lane / nc) * L;
-  uint64_t f0 = 0, f1 = 0;
-  int n = 0;
-  for (long long p = start + chunk - 1; p >= start && n < k; --p) {
-    const int c = base_code(row[p]);
-    if (c < 4) {
-      f0 |= (uint64_t)(c & 1) << n;
-      f1 |= (uint64_t)(c >> 1) << n;
-      ++n;
-    }
-  }
-  ex.tail0[lane] = f0;
-  ex.tail1[lane] = f1;
-  ex.tail_n[lane] = n;
-  ex.has[lane] = n > 0;
-}
 
 __global__ void sketch_walk_compact_kernel(
     const uint8_t* __restrict__ seqs, const int64_t* __restrict__ lengths,
@@ -150,21 +59,7 @@ __global__ void sketch_walk_compact_kernel(
     Regs s = {0, 0, 0, 0};
 
     if (exact) {
-      const long long row0 = b * nc;
-      int q = ex.rank.rank_excl[lane];  // chunks before this one with ACGT
-      int n = 0;
-      uint64_t f0 = 0, f1 = 0;
-      while (n < k && q > 0) {
-        const long long j = row0 + ex.rank.vidx[row0 + --q];
-        f0 |= ex.tail0[j] << n;
-        f1 |= ex.tail1[j] << n;
-        n += ex.tail_n[j];
-      }
-      const uint64_t nmask = (1ull << min(n, k)) - 1;
-      s.f0 = f0 & mask;
-      s.f1 = f1 & mask;
-      s.r0 = __brevll(~s.f0 & nmask) >> (64 - k);
-      s.r1 = __brevll(~s.f1 & nmask) >> (64 - k);
+      s = exact_start(ex, lane, b * nc, k);
     } else {
       int seen = 0;
       for (long long p = start > overlap ? start - overlap : 0; p < start;
@@ -211,11 +106,12 @@ __global__ void sketch_walk_compact_kernel(
 }
 
 }  // namespace
+}  // namespace pgrtk
 
 // Bytes of scratch pgrtk_sketch_walk_compact needs: 0 for the fast walk.
 extern "C" long long pgrtk_sketch_scratch_bytes(int B, long long L,
                                                 int chunk, int exact) {
-  return exact ? exact_scratch_bytes(B, (int)(L / chunk)) : 0;
+  return exact ? pgrtk::exact_scratch_bytes(B, (int)(L / chunk)) : 0;
 }
 
 // seqs (B, L) uint8 16-byte aligned, L % chunk == 0, chunk % 16 == 0;
@@ -232,15 +128,12 @@ extern "C" int pgrtk_sketch_walk_compact(
   const cudaStream_t st = (cudaStream_t)stream;
   const int threads = 64;
   const unsigned blocks = (unsigned)((n_lanes + threads - 1) / threads);
-  ExactScratch ex = {};
+  pgrtk::ExactScratch ex = {};
   if (exact) {
-    ex = carve_exact(scratch, B, nc);
-    chunk_tail_kernel<<<blocks, threads, 0, st>>>((const uint8_t*)seqs,
-                                                  n_lanes, L, nc, k, chunk,
-                                                  ex);
-    pgrtk::row_rank(ex.has, B, nc, ex.rank, st);
+    ex = pgrtk::carve_exact(scratch, B, nc);
+    pgrtk::exact_warmup((const uint8_t*)seqs, B, L, nc, k, chunk, ex, st);
   }
-  sketch_walk_compact_kernel<<<blocks, threads, 0, st>>>(
+  pgrtk::sketch_walk_compact_kernel<<<blocks, threads, 0, st>>>(
       (const uint8_t*)seqs, (const int64_t*)lengths, n_lanes, L, nc, k, r,
       chunk, slots, overlap, exact, ex, (int64_t*)out_x, (int64_t*)out_y,
       (bool*)out_valid, (int*)flags);

@@ -160,10 +160,22 @@ chain_scores_fast = Kernel(
     "chain_scores_fast", "pgrtk_tpu_torch/csrc/chain.cu",
     [_P, _P, _I, _I, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P, _P],
 )
-# index stage K1-K4, query stage K5-K8
+sketch_mode1 = Kernel(
+    "sketch_mode1", "pgrtk_tpu_torch/csrc/sketch1.cu",
+    [_P, _P, _I, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+)
+chain_scores_dense = Kernel(
+    "chain_scores_dense", "pgrtk_tpu_torch/csrc/chain.cu",
+    [_P, _P, _I, _I, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P],
+)
+probe_keys = Kernel(
+    "probe_keys", "pgrtk_tpu_torch/csrc/probe.cu",
+    [_P, _P, _LL, _I, _P, _P, _P, _I, _P, _P, _P],
+)
+# index stage K1-K4, query stage K5-K8, the --batch-device path K9-K11
 KERNELS = (sketch_walk_compact, rank_extract, min_span_filter_gapped,
            pair_mers_gapped, probe_fetch, dup_pair_counts, expand_postings,
-           chain_scores_fast)
+           chain_scores_fast, sketch_mode1, chain_scores_dense, probe_keys)
 
 
 def reset_launches() -> None:
@@ -174,6 +186,12 @@ def reset_launches() -> None:
 def sketch_scratch(B: int, L: int, chunk: int, exact: bool, device):
     """uint8 scratch for the sketch walk (empty for the fast walk)."""
     n = library().pgrtk_sketch_scratch_bytes(B, L, chunk, int(exact))
+    return torch.empty(n, dtype=torch.uint8, device=device)
+
+
+def sketch1_scratch(B: int, L: int, chunk: int, device) -> torch.Tensor:
+    """uint8 scratch for K9: the exact walk's plus one byte per base."""
+    n = library().pgrtk_sketch_scratch_bytes(B, L, chunk, 1) + B * L
     return torch.empty(n, dtype=torch.uint8, device=device)
 
 

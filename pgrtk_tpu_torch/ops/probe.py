@@ -12,12 +12,20 @@ layout stay, because the postings rows live at those padded positions.
 `fence` is the flat (2^bits + 1,) int32 array (the 128-wide
 `fence_to_rows` copy is a TPU gather workaround and is not built).
 
+The padded-bucket layout (`build_probe_table`, the fallback when a
+bucket overflows the 128-slot window) pads every bucket to W slots, W a
+multiple of 128 widened until the fullest bucket fits, with a row plane
+mapping each slot back to the key-sorted index.
+
 Device part: K5 `probe_fetch`, which probes each query key against its
 bucket's 128-slot (aligned) or 256-slot (dense) window and copies the
-matched key's postings row.  CPU tensors run the plain PyTorch version
-beside it, CUDA tensors launch csrc/probe.cu or raise.
+matched key's postings row (or, with p_rows None, only probes); K11
+`probe_keys`, the probe of the padded layout.  CPU tensors run the plain
+PyTorch version beside each, CUDA tensors launch csrc/probe.cu or raise.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -118,7 +126,7 @@ def probe_fetch_plain(k0, k1, bits: int, tk0, tk1, fence, p_rows,
                       window: int):
     """The plain PyTorch version of K5 (`probe_fetch`), on any device:
     gathers of each key's window and a compare."""
-    nb1, n_slots, n_rows = fence.numel(), tk0.numel(), p_rows.shape[0]
+    nb1, n_slots = fence.numel(), tk0.numel()
     bucket = srl(k0, HASH_BITS - bits)
     in_fence = bucket < nb1
     start = fence[bucket.clamp(max=nb1 - 1)].long()
@@ -132,6 +140,9 @@ def probe_fetch_plain(k0, k1, bits: int, tk0, tk1, fence, p_rows,
     hit = (t0 == k0[:, None]) & (t1 == k1[:, None]) & in_fence[:, None]
     found = hit.any(dim=1)
     row = torch.where(found, base + hit.int().argmax(dim=1), -1)
+    if p_rows is None:
+        return found, row.int(), None
+    n_rows = p_rows.shape[0]
     fetch = torch.where(found, row, n_rows - 1)  # last row: not found
     rows = torch.where((fetch < n_rows)[:, None],
                        p_rows[fetch.clamp(max=n_rows - 1)], -1)
@@ -140,7 +151,8 @@ def probe_fetch_plain(k0, k1, bits: int, tk0, tk1, fence, p_rows,
 
 def probe_fetch(k0: torch.Tensor, k1: torch.Tensor, bits: int,
                 tk0: torch.Tensor, tk1: torch.Tensor, fence: torch.Tensor,
-                p_rows: torch.Tensor, window: int = WINDOW_ALIGNED):
+                p_rows: Optional[torch.Tensor],
+                window: int = WINDOW_ALIGNED):
     """K5: probe (Q,) int64 query keys (k0 < 2^56) against a fence table
     and fetch each key's postings row
     (pgrtk_tpu/ops/probe.py:228 probe_keys_aligned with window=128,
@@ -151,14 +163,18 @@ def probe_fetch(k0: torch.Tensor, k1: torch.Tensor, bits: int,
     fence[k0 >> (56 - bits)]; the lowest matching slot wins.  Returns
     found (Q,) bool, row (Q,) int32 (the matched slot, -1 if absent) and
     rows (Q, width) int32: p_rows[row], or its last (not-found sentinel)
-    row when absent.  p_rows is (n_keys + 1, width) int32."""
+    row when absent.  p_rows is (n_keys + 1, width) int32, or None to
+    probe only (the found-only use of parallel/device_query.py; rows is
+    then None)."""
     if window not in (WINDOW_ALIGNED, WINDOW_DENSE):
         raise ValueError("window must be 128 (aligned) or 256 (dense)")
     if not (0 < bits <= HASH_BITS):
         raise ValueError(f"bits must be in 1..{HASH_BITS}")
     k0, k1 = k0.contiguous(), k1.contiguous()
     tk0, tk1 = tk0.contiguous(), tk1.contiguous()
-    fence, p_rows = fence.contiguous(), p_rows.contiguous()
+    fence = fence.contiguous()
+    if p_rows is not None:
+        p_rows = p_rows.contiguous()
     if k0.dim() != 1 or k1.shape != k0.shape:
         raise ValueError("k0 and k1 must share one (Q,) shape")
     if tk0.dim() != 1 or tk1.shape != tk0.shape or not tk0.numel():
@@ -167,21 +183,102 @@ def probe_fetch(k0: torch.Tensor, k1: torch.Tensor, bits: int,
         raise TypeError("query and table keys must be int64")
     if fence.dtype != torch.int32 or fence.dim() != 1:
         raise TypeError("fence must be a flat int32 tensor")
-    if p_rows.dtype != torch.int32 or p_rows.dim() != 2:
-        raise TypeError("p_rows must be a (n_keys + 1, width) int32 tensor")
-    if not on_cuda(k0, k1, tk0, tk1, fence, p_rows):
+    tensors = [k0, k1, tk0, tk1, fence]
+    if p_rows is not None:
+        if p_rows.dtype != torch.int32 or p_rows.dim() != 2:
+            raise TypeError("p_rows must be a (n_keys + 1, width) int32 "
+                            "tensor")
+        tensors.append(p_rows)
+    if not on_cuda(*tensors):
         return probe_fetch_plain(k0, k1, bits, tk0, tk1, fence, p_rows,
                                  window)
     Q, dev = k0.numel(), k0.device
     found = torch.empty(Q, dtype=torch.bool, device=dev)
     row = torch.empty(Q, dtype=torch.int32, device=dev)
-    rows = torch.empty((Q, p_rows.shape[1]), dtype=torch.int32, device=dev)
+    rows, rows_ptr, n_rows, width, p_ptr = None, None, 0, 0, None
+    if p_rows is not None:
+        n_rows, width = p_rows.shape
+        rows = torch.empty((Q, width), dtype=torch.int32, device=dev)
+        rows_ptr, p_ptr = rows.data_ptr(), p_rows.data_ptr()
     if Q:
         kb.probe_fetch(
             k0.data_ptr(), k1.data_ptr(), Q, bits, tk0.data_ptr(),
             tk1.data_ptr(), tk0.numel(), fence.data_ptr(), fence.numel(),
-            window, p_rows.data_ptr(), p_rows.shape[0], p_rows.shape[1],
-            found.data_ptr(), row.data_ptr(), rows.data_ptr(),
-            kb.stream_handle(k0),
+            window, p_ptr, n_rows, width, found.data_ptr(), row.data_ptr(),
+            rows_ptr, kb.stream_handle(k0),
         )
     return found, row, rows
+
+
+# ---------------------------------------------------- padded layout, K11
+
+def build_probe_table(keys: np.ndarray, avg_per_bucket: int = 64):
+    """Padded-bucket layout (pgrtk_tpu/ops/probe.py:25): bucket b's keys
+    at slots [b*W, b*W + count), W = 128 doubled until every bucket fits,
+    all-ones (-1) pad.  Returns dict(bits, W, k0, k1 (2^bits * W,) int64,
+    row (2^bits * W,) int32 — the key-sorted index of each slot, -1 at
+    pad)."""
+    keys = np.ascontiguousarray(keys, dtype=np.uint64)
+    n = len(keys)
+    bits, bucket, counts = _bucket_counts(keys, avg_per_bucket)
+    W = 128
+    while counts.max() > W:
+        W *= 2
+    nb = 1 << bits
+    offsets = np.zeros(nb + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    slot = bucket * W + (np.arange(n, dtype=np.int64) - offsets[bucket])
+    k0, k1 = _key_planes(keys, slot, nb * W)
+    row = np.full(nb * W, -1, dtype=np.int32)
+    row[slot] = np.arange(n, dtype=np.int32)
+    return dict(bits=bits, W=W, k0=k0, k1=k1, row=row)
+
+
+def probe_keys_plain(k0, k1, bits: int, tk0, tk1, trow, W: int):
+    """The plain PyTorch version of K11 (`probe_keys`), on any device:
+    a gather of each key's bucket and a compare."""
+    nb = tk0.numel() // W
+    bucket = srl(k0, HASH_BITS - bits)
+    in_range = bucket < nb
+    slot = bucket.clamp(max=nb - 1)[:, None] * W + torch.arange(
+        W, device=k0.device)
+    hit = ((tk0[slot] == k0[:, None]) & (tk1[slot] == k1[:, None])
+           & in_range[:, None])
+    found = hit.any(dim=1)
+    row = torch.where(hit, trow[slot], torch.iinfo(torch.int32).max)
+    return found, torch.where(found, row.min(dim=1).values, -1).int()
+
+
+def probe_keys(k0: torch.Tensor, k1: torch.Tensor, bits: int,
+               tk0: torch.Tensor, tk1: torch.Tensor, trow: torch.Tensor,
+               W: int):
+    """K11: probe (Q,) int64 query keys against the padded-bucket planes
+    of build_probe_table (pgrtk_tpu/ops/probe.py:88 probe_keys).  The
+    bucket is k0 >> (56 - bits), its W slots are compared.  Returns found
+    (Q,) bool and row (Q,) int32, the lowest `trow` among the hits (-1
+    when absent)."""
+    if W < 128 or W % 128:
+        raise ValueError("W must be a positive multiple of 128")
+    if not (0 < bits <= HASH_BITS):
+        raise ValueError(f"bits must be in 1..{HASH_BITS}")
+    k0, k1 = k0.contiguous(), k1.contiguous()
+    tk0, tk1, trow = tk0.contiguous(), tk1.contiguous(), trow.contiguous()
+    if k0.dim() != 1 or k1.shape != k0.shape:
+        raise ValueError("k0 and k1 must share one (Q,) shape")
+    if (tk0.shape != (((1 << bits) * W),) or tk1.shape != tk0.shape
+            or trow.shape != tk0.shape):
+        raise ValueError("tk0, tk1 and trow must be (2^bits * W,)")
+    if any(t.dtype != torch.int64 for t in (k0, k1, tk0, tk1)):
+        raise TypeError("query and table keys must be int64")
+    if trow.dtype != torch.int32:
+        raise TypeError("trow must be int32")
+    if not on_cuda(k0, k1, tk0, tk1, trow):
+        return probe_keys_plain(k0, k1, bits, tk0, tk1, trow, W)
+    Q, dev = k0.numel(), k0.device
+    found = torch.empty(Q, dtype=torch.bool, device=dev)
+    row = torch.empty(Q, dtype=torch.int32, device=dev)
+    if Q:
+        kb.probe_keys(k0.data_ptr(), k1.data_ptr(), Q, bits, tk0.data_ptr(),
+                      tk1.data_ptr(), trow.data_ptr(), W, found.data_ptr(),
+                      row.data_ptr(), kb.stream_handle(k0))
+    return found, row

@@ -265,7 +265,7 @@ def build_index(target_seqs=None, pair_arrays=None, k: int = 56, r: int = 4,
     )
 
 
-def index_tensors(idx: dict, device) -> dict:
+def index_tensors(idx: dict, device="cuda") -> dict:
     """The device side of a build_index result: probe bits, key planes
     (k0, k1), fence and p_rows as tensors on `device`."""
     probe = idx["probe"]

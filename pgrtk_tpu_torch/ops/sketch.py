@@ -29,6 +29,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core import sketch_ref
+from ..core.spec import DEFAULT_SPEC
 from ..kernels import build as kb
 from ..utils.device import on_cuda
 from . import pairs as pairs_ops
@@ -248,40 +250,19 @@ def pad_batch(seqs, pad_to=None, multiple: int = 512
     return arr, lens
 
 
-def min_span_filter_np(x, pos, min_span: int):
-    """Vectorized min_span/distinctness filter on one compacted mer
-    stream (reference: shmmrutils.rs:536-555; copied from
-    pgrtk_tpu/ops/sketch.py:428).  Returns a boolean keep mask."""
-    n = x.shape[0]
-    if n == 0:
-        return np.zeros(0, dtype=bool)
-    keep = np.zeros(n, dtype=bool)
-    keep[0] = True
-    keep[-1] = True
-    if n > 2:
-        pd = pos[1:-1] - pos[:-2] > min_span
-        nd = pos[2:] - pos[1:-1] > min_span
-        dx = (x[1:-1] != x[:-2]) & (x[1:-1] != x[2:])
-        keep[1:-1] = pd & nd & dx
-    return keep
-
-
 def sketch_mode2(seqs: Sequence[bytes], rids: Optional[Sequence[int]] = None,
                  spec=None, chunk: int = 512, *,
-                 device) -> List[Tuple[np.ndarray, np.ndarray]]:
+                 device="cuda") -> List[Tuple[np.ndarray, np.ndarray]]:
     """Host API (pgrtk_tpu/ops/sketch.py:446): sketch byte sequences on
     `device` and return per-sequence (x, y) uint64 numpy arrays matching
     the scalar reference.  Runs the fused path; when its overflow flag
     fires, reruns through the exact walk with one slot per base, which
     cannot overflow.
 
-    spec: a pgrtk_tpu.core.spec.ShmmrSpec, or anything with its k, r,
-    min_span and sketch fields; the default ShmmrSpec(sketch=True) is
-    imported only when none is given."""
+    spec: a core.spec.ShmmrSpec, or anything with its k, r, min_span and
+    sketch fields; by default core.spec.DEFAULT_SPEC (mode 2)."""
     if spec is None:
-        from pgrtk_tpu.core.spec import ShmmrSpec
-
-        spec = ShmmrSpec(sketch=True)
+        spec = DEFAULT_SPEC
     if not spec.sketch:
         raise ValueError("sketch_mode2 requires spec.sketch=True")
     if rids is None:
@@ -302,9 +283,8 @@ def sketch_mode2(seqs: Sequence[bytes], rids: Optional[Sequence[int]] = None,
     res = []
     for i in range(len(seqs)):
         idx = np.flatnonzero(sel[i])
-        xs = x[i, idx]
-        pos = y[i, idx].astype(np.int64) >> 1
-        keep = min_span_filter_np(xs, pos, spec.min_span)
-        ys = (np.uint64(int(rids[i])) << np.uint64(32)) | y[i, idx][keep]
-        res.append((xs[keep], ys))
+        xs, ys = x[i, idx], y[i, idx]
+        keep = sketch_ref.min_span_keep(xs, ys, spec.min_span)
+        res.append((xs[keep], (np.uint64(int(rids[i])) << np.uint64(32))
+                    | ys[keep]))
     return res

@@ -228,3 +228,89 @@ def many_row_cases(dev):
          lambda: tq.dup_pair_counts(*keys),
          lambda: tq.dup_pair_counts_plain(*keys)),
     ]
+
+
+# CLI default mode-1 spec (w, k) and a small window
+MODE1_SPECS = ((80, 56), (24, 15))
+
+
+def mode1_rows(seed=12):
+    """Byte rows for the mode-1 sketch, padded to 16,384 (a multiple of
+    the 512-base chunk): random ACGT, lowercase, an N run mid-row, a
+    leading N run longer than k (zero registers: a palindrome), a row
+    with a palindromic 56-mer, a low-complexity (AC)n run that emits more
+    than 64 mers in one 512 block, rows too short for the parallel path
+    (t0 < k + w - 1) and an empty row.  Returns (arr (B, L) uint8, lens
+    (B,) int64)."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    L = 16_384
+    lens = [L, 15_000, 12_001, 9_000, 10_000, 8_000, 180, 130, 0]
+    arr = np.full((len(lens), L), ord("N"), dtype=np.uint8)
+    for b, n in enumerate(lens):
+        arr[b, :n] = acgt[rng.integers(0, 4, n)]
+    arr[0, 2_000:6_000] = arr[0, 2_000:6_000] | 0x20  # lowercase
+    arr[1, 5_000:5_040] = ord("N")
+    arr[1, 9_000:9_030] = ord("n")
+    arr[2, :300] = ord("N")
+    half = acgt[rng.integers(0, 4, 28)]
+    rc = {ord("A"): ord("T"), ord("C"): ord("G"), ord("G"): ord("C"),
+          ord("T"): ord("A")}
+    arr[3, 4_000:4_028] = half
+    arr[3, 4_028:4_056] = [rc[int(c)] for c in half[::-1]]
+    arr[4, 3_000:3_600] = np.tile(np.frombuffer(b"AC", np.uint8), 300)
+    return arr, np.asarray(lens, dtype=np.int64)
+
+
+def padded_probe_keys(seed=13):
+    """Key-sorted keys whose fullest bucket holds 300 keys (one hot top-20-
+    bit prefix among 6,000 uniform keys), so the aligned layout overflows
+    and the padded layout widens W to 512; and query keys of hits, misses
+    and the edge keys of probe_queries."""
+    rng = np.random.default_rng(seed)
+    uni = rng.integers(0, 1 << 56, size=(6_000, 2), dtype=np.uint64)
+    hot = rng.integers(0, 1 << 36, size=(300, 2), dtype=np.uint64)
+    hot[:, 0] |= np.uint64(0x5A5A5) << np.uint64(36)
+    keys = np.concatenate([uni, hot])
+    keys = keys[np.lexsort((keys[:, 1], keys[:, 0]))]
+    return keys, probe_queries(keys, rng, n_hit=2_000, n_miss=1_000)
+
+
+def batch_device_cases(dev):
+    """K9-K11 on their edge cases: the mode-1 rows at both specs, the
+    chain groups of CHAIN_SETTINGS and a span-2 window of 6 through the
+    dense DP, the padded probe with a widened bucket."""
+    from ..ops import chain as tc
+    from ..ops import probe as tpr
+    from ..ops import sketch1 as ts1
+
+    t = _to(dev)
+    cases = []
+    arr, lens = mode1_rows()
+    seqs, ln = t(arr), t(lens)
+    for w, k in MODE1_SPECS:
+        cases.append((f"K9 sketch_mode1 w={w} k={k}",
+                      lambda w=w, k=k: ts1.sketch_mode1_dense(seqs, ln, k, w),
+                      lambda w=w, k=k: ts1.sketch_mode1_dense_plain(
+                          seqs, ln, k, w)))
+    for big, oriented, max_gap, lookback in CHAIN_SETTINGS:
+        anchors, valid = chain_groups(lookback + 7 * big, big=big)
+        args = (t(anchors.astype(np.int64)), t(valid), 0.025, max_gap,
+                oriented, lookback, 8)
+        cases.append((f"K10 chain_scores_dense big={big} oriented={oriented}"
+                      f" max_gap={max_gap} W={lookback}",
+                      lambda a=args: tc.chain_scores_dense(*a),
+                      lambda a=args: tc.chain_scores_dense_plain(*a)))
+    anchors, valid = chain_groups(3, G=8, N=64)
+    args = (t(anchors.astype(np.int64)), t(valid), 0.5, -1, False, 6, 2)
+    cases.append(("K10 chain_scores_dense span 2, W=6",
+                  lambda a=args: tc.chain_scores_dense(*a),
+                  lambda a=args: tc.chain_scores_dense_plain(*a)))
+    keys, q = padded_probe_keys()
+    tab = tpr.build_probe_table(keys)
+    args = (t(q[:, 0].view(np.int64)), t(q[:, 1].view(np.int64)),
+            tab["bits"], t(tab["k0"]), t(tab["k1"]), t(tab["row"]), tab["W"])
+    cases.append((f"K11 probe_keys W={tab['W']}",
+                  lambda a=args: tpr.probe_keys(*a),
+                  lambda a=args: tpr.probe_keys_plain(*a)))
+    return cases

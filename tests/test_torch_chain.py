@@ -75,3 +75,107 @@ def test_span_break_and_window_eviction_match_jax():
     anchors, valid = cases.chain_groups(3, G=8, N=64)
     want = _run_both(anchors, valid, 0.5, -1, False, 6, 2)
     assert want[3].any()
+
+
+def _run_dense(anchors, valid, penalty, max_gap, oriented, lookback,
+               max_span):
+    want = [np.asarray(a) for a in jchain.chain_scores_dense(
+        anchors, valid, penalty, max_gap, oriented, lookback=lookback,
+        max_span=max_span)]
+    got = tchain.chain_scores_dense(
+        torch.from_numpy(anchors.astype(np.int64)), torch.from_numpy(valid),
+        penalty, max_gap, oriented, lookback=lookback, max_span=max_span)
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
+    assert np.array_equal(got[0].numpy().view(np.int32),
+                          want[0].view(np.int32)), "scores"
+    for name, g, w in zip(("prev", "inexact"), got[1:], want[1:]):
+        assert np.array_equal(g.numpy(), w), name
+    return want
+
+
+@pytest.mark.parametrize("case", range(len(ADVERSARIAL)))
+def test_dense_adversarial_vectors_match_jax(case):
+    hits, span = ADVERSARIAL[case]
+    arr = np.asarray([[*a, *b] for a, b in hits], dtype=np.uint32)
+    arr = arr[np.argsort(arr[:, 0], kind="stable")]
+    anchors, valid = jchain.pad_groups([arr, arr[:2]])
+    anchors = np.pad(anchors, ((0, 0), (0, 3), (0, 0)))
+    valid = np.pad(valid, ((0, 0), (0, 3)))
+    _run_dense(anchors, valid, 0.01, -1, False, 32, span)
+
+
+@pytest.mark.parametrize("big,oriented,max_gap,lookback",
+                         cases.CHAIN_SETTINGS)
+def test_dense_random_groups_match_jax(big, oriented, max_gap, lookback):
+    """K10's plain version on the K8 edge cases: duplicates (the ring's
+    score overwrite), invalid slots in the ring, coordinates above 2^24,
+    lookback 24 and 32, all four filter settings."""
+    anchors, valid = cases.chain_groups(lookback + 7 * big, big=big)
+    want = _run_dense(anchors, valid, 0.025, max_gap, oriented, lookback, 8)
+    assert (want[0][valid] > 0).any()
+
+
+@pytest.mark.parametrize("lookback", [8, 6])
+def test_dense_span_break_and_window_eviction_match_jax(lookback):
+    anchors, valid = cases.chain_groups(3, G=8, N=64)
+    want = _run_dense(anchors, valid, 0.5, -1, False, lookback, 2)
+    assert want[2].any()
+
+
+def _groups(seed=3):
+    """Unsorted anchor groups: the edge-case groups with their valid
+    anchors, every other one shuffled, so chain_groups' stable q_bgn sort
+    has work to do."""
+    rng = np.random.default_rng(seed)
+    anchors, valid = cases.chain_groups(seed, G=12, N=80)
+    out = []
+    for g in range(len(anchors)):
+        arr = anchors[g][valid[g]]
+        if g % 2:
+            arr = arr[rng.permutation(len(arr))]
+        if len(arr) > 1:
+            out.append(arr)
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["fast", "dense"])
+@pytest.mark.parametrize("as_arrays", [False, True])
+def test_chain_groups_match_jax(as_arrays, kernel):
+    """The port's chain_groups against the JAX one (fast kernel, native
+    traceback, native sparse_aln for the inexact group): dup rows rerun
+    on K10, the traceback and the scalar fallback."""
+    groups = _groups()
+    want = jchain.chain_groups(groups, 0.025, max_span=8, as_arrays=as_arrays)
+    stats = {}
+    got = tchain.chain_groups(groups, 0.025, max_span=8, as_arrays=as_arrays,
+                              kernel=kernel, device="cpu", stats=stats)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        for (gs, gt), (ws, wt) in zip(g, w):
+            assert gs == ws
+            if as_arrays:
+                assert gt.dtype == np.uint32 and np.array_equal(gt, wt)
+            else:
+                assert gt == wt
+    assert stats["inexact_rows"] >= 1
+    assert (stats["dup_rows"] > 0) == (kernel == "fast")
+
+
+def test_traceback_matches_jax_and_native():
+    """The port's one-pass traceback against the JAX host traceback and
+    the native chain_traceback on the dense DP's planes of groups with
+    duplicate anchors."""
+    from pgrtk_tpu.native import api as native
+
+    anchors, valid = cases.chain_groups(9, G=10, N=96)
+    scores, prev, _ = (np.asarray(a) for a in jchain.chain_scores_dense(
+        anchors, valid, 0.025))
+    got = tchain.traceback(scores, prev, valid, anchors)
+    assert got == jchain.traceback(scores, prev, valid, anchors)
+    assert got == native.chain_traceback(anchors, valid, scores, prev)
+    arrays = tchain.traceback(scores, prev, valid, anchors, as_arrays=True)
+    nat = native.chain_traceback(anchors, valid, scores, prev,
+                                 as_arrays=True)
+    assert [[(s, t.tolist()) for s, t in g] for g in arrays] == [
+        [(s, t.tolist()) for s, t in g] for g in nat]

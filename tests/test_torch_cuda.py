@@ -1,9 +1,9 @@
 """Card-only tests of pgrtk_tpu_torch: the overflow rerun of the index
-step and the query step on the card against the same steps on the CPU,
-K2 past its old block cap and K5-K8 against their plain versions on
-the edge cases of pgrtk_tpu_torch/utils/cases.py, the kernels that put
-rows on gridDim.y on more rows than it takes, and the kernels' input
-checks.
+step, the query step and the --batch-device query on the card against
+the same on the CPU, K2 past its old block cap and K5-K11 against their
+plain versions on the edge cases of pgrtk_tpu_torch/utils/cases.py, the
+kernels that put rows on gridDim.y on more rows than it takes, and the
+kernels' input checks.
 
 Marked `cuda`; each test skips when torch.cuda.is_available() is false.
 Imports no JAX, so it runs on a machine without it:
@@ -121,7 +121,7 @@ def test_query_step_on_card_matches_cpu(dev):
     gpu = tq.query_e2e_step(seqs.to(dev), lens.to(dev),
                             **tq.index_tensors(idx, dev), **kw)
     torch.cuda.synchronize()
-    assert all(k.launches > 0 for k in kb.KERNELS)
+    assert all(k.launches > 0 for k in kb.KERNELS[:8])  # K1-K8
     assert cpu.keys() == gpu.keys()
     for name in cpu:
         assert gpu[name].dtype == cpu[name].dtype, name
@@ -134,3 +134,44 @@ def test_chain_kernel_rejects_a_wide_window(dev):
     valid = torch.ones((1, 4), dtype=torch.bool, device=dev)
     with pytest.raises(ValueError, match="32"):
         tchain.chain_scores_fast(anchors, valid, 0.025, lookback=33)
+
+
+@pytest.mark.parametrize("family", ["K9", "K10", "K11"])
+def test_batch_device_kernels_match_plain_on_edge_cases(dev, family):
+    """K9 on the mode-1 rows at both specs, K10 on the chain groups, K11
+    on a widened padded table."""
+    picked = [c for c in cases.batch_device_cases(dev)
+              if c[0].split()[0] == family]
+    assert picked
+    for name, kernel, plain in picked:
+        assert _equal(kernel(), plain()), name
+    torch.cuda.synchronize()
+
+
+def test_batch_query_on_card_matches_cpu(dev):
+    """batch_query_to_hps on a mode-1 store of four unrelated 40 kb
+    targets, whose window-minimum keys overflow the aligned probe table
+    (K9, K2, K11, K8), and on the same store padded with decoys (aligned:
+    K5), with both chain kernels: the chains of the CPU run."""
+    from pgrtk_tpu_torch.core import seqdb
+    from pgrtk_tpu_torch.core.spec import FASTX_SPEC
+    from pgrtk_tpu_torch.parallel import device_query
+
+    rng = np.random.default_rng(8)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    targets = rng.integers(0, 4, size=(4, 40_000), dtype=np.uint8)
+    queries = targets[[1, 3], 5_000:35_000].copy()
+    queries[:, ::997] = (queries[:, ::997] + 1) % 4
+    t_seqs = [acgt[t].tobytes() for t in targets]
+    q_seqs = [acgt[q].tobytes() for q in queries]
+    for n_decoys, used in ((0, kb.probe_keys), (100_000, kb.probe_fetch)):
+        store = seqdb.build_columnar_store(t_seqs, FASTX_SPEC, device=dev,
+                                           n_decoys=n_decoys)
+        cpu = device_query.batch_query_to_hps(store, q_seqs, device="cpu")
+        assert all(cpu)
+        for kernel in ("fast", "dense"):
+            kb.reset_launches()
+            gpu = device_query.batch_query_to_hps(store, q_seqs,
+                                                  kernel=kernel, device=dev)
+            assert gpu == cpu
+            assert kb.sketch_mode1.launches > 0 and used.launches > 0

@@ -2,6 +2,7 @@
 sketch_index_step(_auto) (plain PyTorch versions, CPU) against the JAX
 sharded_sketch_index_step on a one-device mesh and against the scalar
 arbiter.  Every comparison is exact."""
+import ast
 import os
 import subprocess
 import sys
@@ -172,6 +173,19 @@ res = query_e2e.query_e2e_step(
 assert int(res["gvalid"].sum()) > 0 and not bool(res["overflow"])
 from pgrtk_tpu_torch.utils import cases
 assert len(cases.query_kernel_cases("cpu")) > 20
+assert len(cases.batch_device_cases("cpu")) > 10
+# the --batch-device path: a mode-1 store and a batch query on the CPU
+from pgrtk_tpu_torch.core import seqdb
+from pgrtk_tpu_torch.core.spec import FASTX_SPEC
+from pgrtk_tpu_torch.ops import sketch1
+from pgrtk_tpu_torch.parallel import device_query
+acgt = np.frombuffer(b"ACGT", np.uint8)
+seqs = [acgt[base].tobytes() * 2, acgt[targets[2]].tobytes() * 2]
+store = seqdb.build_columnar_store(seqs, FASTX_SPEC, device="cpu")
+assert len(sketch1.sketch_mode1_arrays(seqs, spec=FASTX_SPEC,
+                                       device="cpu")[0][0]) > 10
+hps = device_query.batch_query_to_hps(store, [seqs[0][:6000]], device="cpu")
+assert hps[0] and hps[0][0][0] == 0 and hps[0][0][1][0][0] > 0
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("ok")
 """
@@ -194,7 +208,8 @@ def test_chip_smoke_tandem_picker_matches_synth():
 
 def test_port_imports_and_runs_without_jax():
     """The port and chip_smoke.py import neither JAX nor the JAX
-    package, and the query stage builds and runs without them."""
+    package, and the query stage and the --batch-device path build and
+    run without them."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c", _JAX_BLOCKED], cwd=REPO, env=env,
@@ -202,3 +217,32 @@ def test_port_imports_and_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def _imported_modules(path):
+    """Every module name an `import` or `from ... import` statement of
+    the file at `path` names (relative imports excluded)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.extend(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            names.append(node.module or "")
+    return names
+
+
+def test_port_sources_name_no_jax_or_jax_package():
+    """No module of pgrtk_tpu_torch and not chip_smoke.py imports jax or
+    pgrtk_tpu, at top level or inside a function: the port keeps its own
+    copies of the host layer."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "pgrtk_tpu_torch")):
+        files.extend(os.path.join(root, n) for n in names
+                     if n.endswith(".py"))
+    assert len(files) > 15
+    bad = [(os.path.relpath(f, REPO), m) for f in files
+           for m in _imported_modules(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "pgrtk_tpu")]
+    assert not bad, bad

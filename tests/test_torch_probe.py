@@ -121,3 +121,67 @@ def test_probe_fetch_matches_jax(layout):
     assert row.dtype == torch.int32 and np.array_equal(row.numpy(), jrow)
     assert np.array_equal(rows.numpy().view(np.uint32), jrows[:, :3 * P])
     assert 1000 < int(jfound.sum()) < len(q) - 1000
+
+
+def test_padded_builder_matches_jax():
+    """build_probe_table on keys whose fullest bucket holds 300 keys: W
+    widens to 512 in both packages, the planes and the row plane agree
+    slot for slot."""
+    keys, _ = cases.padded_probe_keys()
+    want = jprobe.build_probe_table(keys)
+    got = tprobe.build_probe_table(keys)
+    assert got["bits"] == want["bits"]
+    nb, W = want["row"].shape
+    assert got["W"] == W == 512
+    planes = want["planes"].astype(np.uint64).reshape(4, -1)
+    k0 = (planes[0] << np.uint64(32)) | planes[1]
+    k1 = (planes[2] << np.uint64(32)) | planes[3]
+    assert np.array_equal(got["k0"].view(np.uint64), k0)
+    assert np.array_equal(got["k1"].view(np.uint64), k1)
+    assert np.array_equal(got["row"], want["row"].reshape(-1))
+    for build in (jprobe.build_probe_table_aligned,
+                  tprobe.build_probe_table_aligned):
+        with pytest.raises(ValueError):
+            build(keys)
+
+
+def test_probe_keys_matches_jax():
+    """K11's plain version against probe_keys of the padded layout: found
+    and the lowest row among the hits (-1 when absent), on hits, misses,
+    the all-zero key and keys of the last bucket."""
+    keys, q = cases.padded_probe_keys()
+    jt = jprobe.build_probe_table(keys)
+    tt = tprobe.build_probe_table(keys)
+    table = dict(bits=jt["bits"],
+                 planes=[jnp.asarray(jt["planes"][i]) for i in range(4)],
+                 row=jnp.asarray(jt["row"]))
+    qp = [jnp.asarray(v.astype(np.uint32)) for v in (
+        q[:, 0] >> np.uint64(32), q[:, 0] & np.uint64(0xFFFFFFFF),
+        q[:, 1] >> np.uint64(32), q[:, 1] & np.uint64(0xFFFFFFFF))]
+    jfound, jrow = (np.asarray(a) for a in jprobe.probe_keys(table, *qp))
+    found, row = tprobe.probe_keys(
+        torch.from_numpy(q[:, 0].view(np.int64).copy()),
+        torch.from_numpy(q[:, 1].view(np.int64).copy()), tt["bits"],
+        torch.from_numpy(tt["k0"]), torch.from_numpy(tt["k1"]),
+        torch.from_numpy(tt["row"]), tt["W"])
+    assert np.array_equal(found.numpy(), jfound)
+    assert row.dtype == torch.int32 and np.array_equal(row.numpy(), jrow)
+    assert 1000 < int(jfound.sum()) < len(q) - 500
+
+
+def test_found_only_probe_matches_the_fetching_probe():
+    """K5 with p_rows None (the found-only use of device_query) gives the
+    found and row of the fetching call, and no rows."""
+    rng = np.random.default_rng(2)
+    keys = cases.sorted_keys(20_000, seed=5)
+    tt = tprobe.build_probe_table_aligned(keys)
+    q = cases.probe_queries(keys, rng)
+    args = (torch.from_numpy(q[:, 0].view(np.int64).copy()),
+            torch.from_numpy(q[:, 1].view(np.int64).copy()), tt["bits"],
+            torch.from_numpy(tt["k0"]), torch.from_numpy(tt["k1"]),
+            torch.from_numpy(tt["fence"]))
+    p_rows = torch.zeros((tt["n_padded"] + 1, 12), dtype=torch.int32)
+    found, row, rows = tprobe.probe_fetch(*args, None)
+    want = tprobe.probe_fetch(*args, p_rows)
+    assert rows is None
+    assert torch.equal(found, want[0]) and torch.equal(row, want[1])
