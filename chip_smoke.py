@@ -108,8 +108,8 @@ BATCH_KERNELS = ("sketch_walk_compact", "rank_extract", "probe_fetch",
 
 # The least time the card could take for a kernel's work (bound_ms): the
 # larger of the bytes it must move over the memory rate and its
-# operations over the ALU rate, both NVIDIA's H100 SXM figures as the
-# on-chip-measurement guide tables them.  Bytes: each input read once
+# operations over the ALU rate, both from NVIDIA's H100 SXM data
+# sheet.  Bytes: each input read once
 # (for a probe, only the table slots of each key's bucket), each output
 # written once.  Operations: 32-bit ALU operations of the work, a 64-bit
 # integer operation counting two, at the float32 rate outside the tensor
