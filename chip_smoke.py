@@ -60,10 +60,15 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      (build/batch_device_trace.json); the runs must agree, every query must
      chain to every target, the run with every kernel replaced by its
      plain version on the card and a CPU run on 2 x 200 kb must give the
-     same chains, and K11 on a padded table of the keys must find what K5
-     finds; then K9, K10 and K11 against their plain versions at the
-     path's shapes.
+     same chains, and K11 on a padded table of the decoy store's keys
+     must give every query key the key index K5 gives it on the aligned
+     table; then K9, K10 and K11 against their plain versions at the
+     path's shapes (K11 on the padded table of the store without
+     decoys, the one the path probes).
 
+Between phases 6 and 7 it prints the bounds of the index and query
+steps (sums of their kernels' bounds in this run) and of the JAX
+package's device functions not ported yet, at their callers' shapes.
 Every comparison is exact (integers, tolerance 0).  Any failed phase
 exits non-zero.  The second-to-last line is the per-kernel JSON (with
 each kernel's bound: the larger of its bytes over the memory rate and
@@ -109,14 +114,23 @@ BATCH_KERNELS = ("sketch_walk_compact", "rank_extract", "probe_fetch",
 # The least time the card could take for a kernel's work (bound_ms): the
 # larger of the bytes it must move over the memory rate and its
 # operations over the ALU rate, both from NVIDIA's H100 SXM data
-# sheet.  Bytes: each input read once
-# (for a probe, only the table slots of each key's bucket), each output
-# written once.  Operations: 32-bit ALU operations of the work, a 64-bit
-# integer operation counting two, at the float32 rate outside the tensor
-# cores (the table has no integer row).  The per-element counts are the
-# model below, at the least work the function needs.
+# sheet.  Bytes: each input read once as it is given (for a probe, only
+# the table slots of the buckets probed, each once however many keys
+# probe it), each output written once at the width its values need, not
+# the wrapper's (the per-entry widths below).
+# Operations: 32-bit ALU operations of the work, a 64-bit integer
+# operation counting two, at the float32 rate outside the tensor cores
+# (the table has no integer row).  The per-element counts are the model
+# below, at the least work the function needs.
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+NVLINK_BYTES_PER_S = 450e9  # each way, per card
+BIT = 1 / 8          # a flag or a mask entry
+SLOT = (8, 4, BIT)   # a compacted mer: x, y (position and strand in 32
+                     # bits), valid
+PAIR = (8, 8, 4, 4, BIT, BIT)  # a pair: k0, k1, bgn, end, orientation, valid
+HIT = (BIT, 4)       # a probed key: found, its slot or key index
+SCORE = (4, 4)       # a chained anchor: score, best predecessor
 OPS_WALK = 128       # K1/K9 per base: two 64-bit Wang hashes, registers
 OPS_WINDOWS = 16     # K9 per base: sliding min and max by van Herk
 OPS_ENTRY = 16       # K2/K3/K4/K6 per stream entry: scan, compares
@@ -171,27 +185,38 @@ def nbytes(*tensors):
                if t is not None)
 
 
-def measure(name, kernel_fn, plain_fn, in_bytes, ops, reps=5,
+def need(n, *widths):
+    """Bytes of `n` entries whose fields need `widths` bytes each."""
+    return n * sum(widths)
+
+
+def bound(n_bytes, ops=0):
+    """(ms, "bytes" or "operations"): the larger of the two times."""
+    return max((n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+               (ops / ALU_OPS_PER_S * 1e3, "operations"))
+
+
+def measure(name, kernel_fn, plain_fn, in_bytes, out_bytes, ops, reps=5,
             plain_reps=2):
     """Kernel against plain version (tolerance 0), both timed with CUDA
     events, and the bound of the work: `in_bytes` the input bytes it must
-    read (a number, or the input tensors), `ops` its operations; the
-    output bytes are the result's.  Returns dict(max_abs_err, ms,
-    plain_ms, bound_ms, bound_by, library_ms)."""
+    read (a number, or the input tensors), `out_bytes(result)` the bytes
+    its outputs need (the model's widths at the result's shapes), `ops`
+    its operations.  Returns dict(max_abs_err, ms, plain_ms, bound_ms,
+    bound_by, library_ms)."""
     got, want = kernel_fn(), plain_fn()
     err = check(name, got, want)
     if not isinstance(in_bytes, (int, float)):
         in_bytes = nbytes(*in_bytes)
-    n_bytes = in_bytes + nbytes(*flat(got))
+    n_bytes = in_bytes + out_bytes(got)
     del got, want
     torch.cuda.empty_cache()
     ms = cuda_ms(kernel_fn, reps)
     plain_ms = cuda_ms(plain_fn, plain_reps)
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ALU_OPS_PER_S * 1e3
-    bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+    bound_ms, bound_by = bound(n_bytes, ops)
     print(f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain; bound "
-          f"{bound_ms:.4f} ms by {bound_by} ({n_bytes} bytes, {ops} ops)")
+          f"{bound_ms:.4f} ms by {bound_by} ({n_bytes:.0f} bytes, {ops} "
+          f"ops)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
@@ -584,14 +609,16 @@ def phase_main_path(dev, tsk, tp, mesh, kb, B=16, L=16_777_216):
         f"K1 fast, seqs {tuple(seqs.shape)}",
         lambda: tsk.sketch_walk_compact(seqs, lens, K, R, CHUNK, slots),
         lambda: tsk.sketch_walk_compact_plain(seqs, lens, K, R, CHUNK, slots,
-                                              False), [seqs, lens], walk_ops)
+                                              False), [seqs, lens],
+        lambda got: need(got[0].numel(), *SLOT), walk_ops)
     measure(f"K1 exact (SAFE rerun sizing), scaffold gaps "
             f"{tuple(gapped.shape)}",
             lambda: tsk.sketch_walk_compact(gapped, lens, K, R, CHUNK, 16,
                                             True),
             lambda: tsk.sketch_walk_compact_plain(gapped, lens, K, R, CHUNK,
                                                   16, True),
-            [gapped, lens], walk_ops)
+            [gapped, lens], lambda got: need(got[0].numel(), *SLOT),
+            walk_ops)
     del gapped
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"    peak device memory so far {peak:.2f} GiB")
@@ -600,30 +627,37 @@ def phase_main_path(dev, tsk, tp, mesh, kb, B=16, L=16_777_216):
         f"K2 level 2, stream {tuple(x1.shape)}",
         lambda: tp.rank_extract_planes((x1, y1), v1, b2, s2),
         lambda: tp.rank_extract_planes_plain((x1, y1), v1, b2, s2),
-        [x1, y1, v1], OPS_ENTRY * v1.numel())
+        [x1, y1, v1], lambda got: need(got[1].numel(), *SLOT),
+        OPS_ENTRY * v1.numel())
     (x2, y2), v2, _ = tp.rank_extract_planes((x1, y1), v1, b2, s2)
     results["min_span_filter_gapped"] = measure(
         f"K3, stream {tuple(x2.shape)}",
         lambda: tp.min_span_filter_gapped(x2, y2, v2, MIN_SPAN),
         lambda: tp.min_span_filter_gapped_plain(x2, y2, v2, MIN_SPAN),
-        [x2, y2, v2], OPS_ENTRY * v2.numel())
+        [x2, y2, v2], lambda got: need(got.numel(), BIT),
+        OPS_ENTRY * v2.numel())
     keep = tp.min_span_filter_gapped(x2, y2, v2, MIN_SPAN)
     results["pair_mers_gapped"] = measure(
         f"K4 index ties, stream {tuple(x2.shape)}",
         lambda: tp.pair_mers_gapped(x2, y2, keep),
         lambda: tp.pair_mers_gapped_plain(x2, y2, keep, False),
-        [x2, y2, keep], OPS_ENTRY * keep.numel())
+        [x2, y2, keep], lambda got: need(got["k0"].numel(), *PAIR),
+        OPS_ENTRY * keep.numel())
     pr = tp.pair_mers_gapped(x2, y2, keep)
     sort_ms = cuda_ms(lambda: tp.sort_pairs(pr, rids), 5)
-    sort_bytes = nbytes(*pr.values(), rids) + nbytes(
-        *tp.sort_pairs(pr, rids).values())
+    # out: valid, k0, k1, sid, bgn, end, orientation per entry
+    sort_bound = bound(nbytes(*pr.values(), rids) + need(
+        pr["k0"].numel(), BIT, 8, 8, 4, 4, 4, BIT))
     print(f"  sort_pairs (torch.sort, the library call; no hand-written "
           f"kernel yet): {sort_ms:.4f} ms on {pr['k0'].numel()} entries; "
-          f"bound {sort_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms by bytes")
+          f"bound {sort_bound[0]:.4f} ms by {sort_bound[1]}")
 
     for name in INDEX_KERNELS:
         results[name]["launches"] = launches[name]
-    return results
+    step = dict(B=B, L=L, pairs=pr["k0"].numel(), bound=step_bound(
+        [(r["bound_ms"], r["bound_by"]) for r in results.values()]
+        + [sort_bound]))
+    return results, step
 
 
 # bench.py:302-306 (E2E_KW; `unroll` is a knob of the JAX scan only)
@@ -639,17 +673,71 @@ CERTIFY_FLAGS = ("overflow", "dup", "inexact", "row_ovf", "mult_ovf",
                  "lane_ovf")
 
 
-def probe_work(k0, bits, fence, tk0, row_bytes):
-    """Input bytes and operations of a fence probe (K5): per key its two
-    words, its fence entry and `row_bytes` of postings, and the keys of
-    its bucket, each 16 bytes and one compare."""
+def step_bound(parts):
+    """The bound of a step made of kernels with bounds `parts` [(ms,
+    by)]: their sum, by what bounds the largest."""
+    return sum(ms for ms, _ in parts), max(parts)[1]
+
+
+def unported_bounds(index_step, query_step):
+    """Bounds (ms, by) of the JAX package's device functions not ported
+    yet (rows 14-19 of PERF.md's kernel table), at the shapes their
+    callers give them at this run's sizes.  A sharded step per card is
+    its single-card step (this run's kernel bounds) plus the bytes it
+    sends over NVLink."""
+    B, L, pairs = index_step["B"], index_step["L"], index_step["pairs"]
+
+    def linked(step, link_bytes):
+        ms, by = step
+        return ms + link_bytes / NVLINK_BYTES_PER_S * 1e3, by
+
+    return [
+        ("14 ops/pairs.py dense variants: compact_mers on the dense "
+         f"({B}, {L}) x, y planes and mask", bound(B * L * 17)),
+        ("15 parallel/mesh.py:372 sharded_index_v2_step, per card: the "
+         f"index step + all_to_all of 7 u32 planes of {pairs} pairs",
+         linked(index_step["bound"], 7 * 4 * pairs)),
+        ("16 parallel/mesh.py:603 sharded_query_v2_e2e_step, per card: the "
+         f"query step + two all_to_alls of {query_step['keys']} keys and "
+         "their hit rows",
+         linked(query_step["bound"],
+                query_step["keys"] * (16 + query_step["row_bytes"]))),
+        ("17 parallel/mesh.py:55/210/533 v1 steps, per card: the index "
+         "step + all_gather of the packed table",
+         linked(index_step["bound"], 7 * 4 * pairs)),
+        (f"18 ops/adj.py:20 _device_sort_and_link, {pairs} rows of 8 int32 "
+         "keys in and out, a link flag", bound(pairs * (32 + 32 + BIT))),
+        ("19 ops/wfa.py:103 wfa_forward_batch, 1,024 segments, 384 steps "
+         "of a 384-cell wavefront, M history kept (int32)",
+         bound(1024 * 384 * 384 * 4, 1024 * 384 * 384 * 12)),
+    ]
+
+
+def distinct_keys(k0, k1):
+    return torch.unique(torch.stack([k0, k1]), dim=1).shape[1]
+
+
+def probe_work(k0, k1, bits, fence, tk0, row_bytes):
+    """Input bytes, output bytes (a function of the result) and
+    operations of a fence probe (K5).  Read once: each query key's two
+    words, the two fence entries and the keys (16 bytes each) of each
+    bucket probed, however many query keys probe it, and `row_bytes` of
+    postings per distinct query key; written: each key's result and
+    postings.  One compare per query key and key of its bucket."""
     from pgrtk_tpu_torch.ops.int64 import srl
 
     occ = torch.nn.functional.pad((tk0 != -1).cumsum(0), (1, 0))
     b = srl(k0, 56 - bits).clamp(max=fence.numel() - 2)
-    n_cmp = int((occ[fence[b + 1].long()] - occ[fence[b].long()]).sum())
-    return (k0.numel() * (20 + row_bytes) + 16 * n_cmp,
-            OPS_COMPARE * n_cmp)
+
+    def n_slots(b):
+        return int((occ[fence[b + 1].long()] - occ[fence[b].long()]).sum())
+
+    ub = torch.unique(b)
+    Q = k0.numel()
+    return (16 * Q + 8 * ub.numel() + 16 * n_slots(ub)
+            + row_bytes * distinct_keys(k0, k1),
+            lambda got: need(Q, *HIT) + Q * row_bytes,
+            OPS_COMPARE * n_slots(b))
 
 
 def phase_query(dev, kb, tsk, tp, targets, queries):
@@ -745,29 +833,34 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
             lambda: tsk.sketch_walk_compact(q, qlens, K, R, CHUNK, slots),
             lambda: tsk.sketch_walk_compact_plain(q, qlens, K, R, CHUNK,
                                                   slots, False),
-            [q, qlens], OPS_WALK * q.numel())["max_abs_err"],
-        "rank_extract": max(
-            measure(f"K2 level 2, stream {tuple(x1.shape)}, block {b2}",
-                    lambda: tp.rank_extract_planes((x1, y1), v1, b2, s2),
-                    lambda: tp.rank_extract_planes_plain((x1, y1), v1, b2,
-                                                         s2),
-                    [x1, y1, v1], OPS_ENTRY * v1.numel())["max_abs_err"],
-            measure(f"K2 pair stream, 5 planes {tuple(pr['k0'].shape)}, "
-                    f"block {pair_args[2]}",
-                    lambda: tp.rank_extract_planes(*pair_args),
-                    lambda: tp.rank_extract_planes_plain(*pair_args),
-                    [*pair_args[0], pair_args[1]],
-                    OPS_ENTRY * pair_args[1].numel())["max_abs_err"]),
+            [q, qlens], lambda got: need(got[0].numel(), *SLOT),
+            OPS_WALK * q.numel()),
+        "rank_extract": measure(
+            f"K2 level 2, stream {tuple(x1.shape)}, block {b2}",
+            lambda: tp.rank_extract_planes((x1, y1), v1, b2, s2),
+            lambda: tp.rank_extract_planes_plain((x1, y1), v1, b2, s2),
+            [x1, y1, v1], lambda got: need(got[1].numel(), *SLOT),
+            OPS_ENTRY * v1.numel()),
+        "rank_extract pairs": measure(
+            f"K2 pair stream, 5 planes {tuple(pr['k0'].shape)}, "
+            f"block {pair_args[2]}",
+            lambda: tp.rank_extract_planes(*pair_args),
+            lambda: tp.rank_extract_planes_plain(*pair_args),
+            [*pair_args[0], pair_args[1]],
+            lambda got: need(got[1].numel(), *PAIR),
+            OPS_ENTRY * pair_args[1].numel()),
         "min_span_filter_gapped": measure(
             f"K3, stream {tuple(x2.shape)}",
             lambda: tp.min_span_filter_gapped(x2, y2, v2, MIN_SPAN),
             lambda: tp.min_span_filter_gapped_plain(x2, y2, v2, MIN_SPAN),
-            [x2, y2, v2], OPS_ENTRY * v2.numel())["max_abs_err"],
+            [x2, y2, v2], lambda got: need(got.numel(), BIT),
+            OPS_ENTRY * v2.numel()),
         "pair_mers_gapped": measure(
             f"K4 query ties, stream {tuple(x2.shape)}",
             lambda: tp.pair_mers_gapped(x2, y2, keep, True),
             lambda: tp.pair_mers_gapped_plain(x2, y2, keep, True),
-            [x2, y2, keep], OPS_ENTRY * keep.numel())["max_abs_err"],
+            [x2, y2, keep], lambda got: need(got["k0"].numel(), *PAIR),
+            OPS_ENTRY * keep.numel()),
     }
     del x1, y1, v1, x2, y2, v2, keep, pr, pair_args
     probe_args = (q_k0.reshape(-1), q_k1.reshape(-1), tens["probe_bits"],
@@ -785,26 +878,37 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
             f"K5 probe_fetch, {q_k0.numel()} keys",
             lambda: tpr.probe_fetch(*probe_args),
             lambda: tpr.probe_fetch_plain(*probe_args),
-            *probe_work(q_k0.reshape(-1), tens["probe_bits"],
-                        tens["probe_fence"], tens["probe_planes"][0],
-                        12 * P)),
+            *probe_work(q_k0.reshape(-1), q_k1.reshape(-1),
+                        tens["probe_bits"], tens["probe_fence"],
+                        tens["probe_planes"][0], 12 * P)),
         "dup_pair_counts": measure(
             f"K6 dup_pair_counts, ({B}, {Pc})",
             lambda: tq.dup_pair_counts(q_k0, q_k1, cvalid),
             lambda: tq.dup_pair_counts_plain(q_k0, q_k1, cvalid),
-            [q_k0, q_k1, cvalid], OPS_ENTRY * cvalid.numel()),
+            [q_k0, q_k1, cvalid], lambda got: need(got.numel(), 4),
+            OPS_ENTRY * cvalid.numel()),
         "expand_postings": measure(
             f"K7 expand_postings, ({B}, {Pc}, {P}) -> ({G}, {N})",
             lambda: tq.expand_postings(*ex_args),
             lambda: tq.expand_postings_plain(*ex_args),
-            list(ex_args[:3]), OPS_POSTING * B * Pc * P),
+            # t_bgnori, t_end, hv per lane; row_ovf, grp_ovf
+            list(ex_args[:3]), lambda got: need(got["hv"].numel(), 4, 4, BIT)
+            + need(got["row_ovf"].numel() + got["grp_ovf"].numel(), BIT),
+            OPS_POSTING * B * Pc * P),
         "chain_scores_fast": measure(
             f"K8 chain_scores_fast, ({G}, {N}), W={E2E_KW['lookback']}",
             lambda: tc.chain_scores_fast(*chain_args),
             lambda: tc.chain_scores_fast_plain(*chain_args),
-            list(chain_args[:2]), OPS_SLOT * E2E_KW["lookback"] * n_valid,
-            plain_reps=1),
+            list(chain_args[:2]), lambda got: need(got[0].numel(), *SCORE)
+            + need(got[2].numel(), BIT, BIT),  # dup, inexact per group
+            OPS_SLOT * E2E_KW["lookback"] * n_valid, plain_reps=1),
     }
+    step_info = dict(keys=q_k0.numel(), row_bytes=12 * P, bound=step_bound(
+        [(r["bound_ms"], r["bound_by"])
+         for r in (*errs.values(), *results.values())]))
+    errs = {name: r["max_abs_err"] for name, r in errs.items()}
+    errs["rank_extract"] = max(errs["rank_extract"],
+                               errs.pop("rank_extract pairs"))
     dense_args = (q_k0.reshape(-1), q_k1.reshape(-1), dense["bits"],
                   dense["k0"], dense["k1"], dense["fence"], None,
                   tpr.WINDOW_DENSE)
@@ -812,8 +916,8 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
             f"found only, {q_k0.numel()} keys",
             lambda: tpr.probe_fetch(*dense_args),
             lambda: tpr.probe_fetch_plain(*dense_args),
-            *probe_work(q_k0.reshape(-1), dense["bits"], dense["fence"],
-                        dense["k0"], 0))
+            *probe_work(q_k0.reshape(-1), q_k1.reshape(-1), dense["bits"],
+                        dense["fence"], dense["k0"], 0))
     del probe_args, found, rows, run_len, base_hit, ex_args, chain_args
     del dense_args, dense
 
@@ -848,6 +952,7 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
         lambda: tp.rank_extract_planes(*lane_args),
         lambda: tp.rank_extract_planes_plain(*lane_args),
         [*lane_args[0], lane_args[1]],
+        lambda got: need(got[1].numel(), 4, 4, 4, 4, BIT),
         OPS_ENTRY * lane_args[1].numel())["max_abs_err"])
     (qbo, qe, tbo, te), gv3, _ = tp.rank_extract_planes(*lane_args)
     mask31 = (1 << 31) - 1
@@ -857,7 +962,7 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
             "K2 on the lane planes differs from the slots3 step")
     for name in results:
         results[name]["launches"] = launches[name]
-    return results, errs
+    return results, errs, step_info
 
 
 # the CLI default mode-1 spec (pgr-query on a pgr-make-frgdb database)
@@ -924,6 +1029,8 @@ def phase_batch_device(dev, kb, targets, queries):
     rows as a mode-1 FRG-style store (+ 4,194,304 decoy keys), the 8
     query haplotypes as 8 whole sequences."""
     from pgrtk_tpu_torch.core import seqdb
+    from pgrtk_tpu_torch.core.query import (collect_target_hits_batch,
+                                            pair_shmmrs_canonical_batch)
     from pgrtk_tpu_torch.core.spec import ShmmrSpec
     from pgrtk_tpu_torch.ops import chain as tc
     from pgrtk_tpu_torch.ops import probe as tpr
@@ -1027,24 +1134,40 @@ def phase_batch_device(dev, kb, targets, queries):
 
     print("phase 7b: K9-K11 vs plain at the path's shapes")
     store = stores["mode 1 + decoys"]
-    pairs = dq._query_pairs(ts1.sketch_mode1_arrays(q_seqs, spec=spec1,
-                                                    device=dev))
+    pairs = pair_shmmrs_canonical_batch(ts1.sketch_mode1_arrays(
+        q_seqs, spec=spec1, device=dev))
     k0 = torch.from_numpy(pairs["k0"].view(np.int64)).to(dev)
     k1 = torch.from_numpy(pairs["k1"].view(np.int64)).to(dev)
-    al = tables["mode 1 + decoys"]
-    pad = tpr.build_probe_table(store.index_keys)
-    pad_t = {f: torch.from_numpy(pad[f]).to(dev) for f in ("k0", "k1", "row")}
-    found5 = tpr.probe_fetch(k0, k1, al["bits"], al["k0"], al["k1"],
-                             al["fence"], None)[0]
-    pargs = (k0, k1, pad["bits"], pad_t["k0"], pad_t["k1"], pad_t["row"],
-             pad["W"])
-    found11 = tpr.probe_keys(*pargs)[0]
-    require(torch.equal(found5, found11) and bool(found5.any()),
+    al, pad = tables["mode 1 + decoys"], tables["mode 1"]
+    # cross-check: K11 on a padded table of the decoy store's keys finds
+    # each key at the index K5 finds it on the aligned table
+    pad2 = tpr.build_probe_table(store.index_keys)
+    pad2 = dict(layout="padded", bits=pad2["bits"], W=pad2["W"],
+                **{f: torch.from_numpy(pad2[f]).to(dev)
+                   for f in ("k0", "k1", "row")})
+    j5 = dq.probe_key_index(al, k0, k1)
+    require(torch.equal(j5, dq.probe_key_index(pad2, k0, k1).long())
+            and bool((j5 >= 0).any()),
             "K11 on the padded table and K5 on the aligned one disagree")
-    print(f"  {k0.numel()} query keys, {int(found5.sum())} found: K11 "
-          f"(padded, W={pad['W']}, bits {pad['bits']}) == K5 (aligned)")
-    occ = (pad_t["row"] >= 0).reshape(-1, pad["W"]).sum(dim=1)
-    n_cmp = int(occ[srl(k0, 56 - pad["bits"])].sum())
+    print(f"  {k0.numel()} query keys, {int((j5 >= 0).sum())} found in "
+          f"{len(store.index_keys)} keys: the same key index from K11 "
+          f"(padded, W={pad2['W']}, bits {pad2['bits']}) and K5 (aligned)")
+    del pad2
+    # K11 where the path runs it: the padded table of the store without
+    # decoys, with the same query keys
+    pargs = (k0, k1, pad["bits"], pad["k0"], pad["k1"], pad["row"],
+             pad["W"])
+    occ = (pad["row"] >= 0).reshape(-1, pad["W"]).sum(dim=1)
+    bucket = srl(k0, 56 - pad["bits"])
+    n_cmp = int(occ[bucket].sum())
+    n_read = int(occ[torch.unique(bucket)].sum())
+    found, row = tpr.probe_keys(*pargs)
+    n_rows = torch.unique(row[found]).numel()
+    print(f"  the path's padded table ('mode 1'): "
+          f"{len(stores['mode 1'].index_keys)} keys, W={pad['W']}, bits "
+          f"{pad['bits']}; {int(found.sum())} of {k0.numel()} query keys "
+          f"found, {n_cmp} occupied slots compared, {n_read} in the "
+          f"buckets probed")
     arr, lens = pad_batch(q_seqs)
     seqs = torch.from_numpy(arr).to(dev)
     lens = torch.from_numpy(lens).to(torch.int64).to(dev)
@@ -1054,24 +1177,30 @@ def phase_batch_device(dev, kb, targets, queries):
             f"K9 sketch_mode1, seqs {tuple(seqs.shape)}, w={w}",
             lambda: ts1.sketch_mode1_dense(seqs, lens, K, w),
             lambda: ts1.sketch_mode1_dense_plain(seqs, lens, K, w),
-            [seqs, lens], (OPS_WALK + OPS_WINDOWS) * seqs.numel(),
-            plain_reps=1),
+            # x; strand and emitted (y's position is the column); the
+            # palindrome flag per row
+            [seqs, lens], lambda got: need(got["x"].numel(), 8, BIT, BIT)
+            + need(got["palindrome"].numel(), BIT),
+            (OPS_WALK + OPS_WINDOWS) * seqs.numel(), plain_reps=1),
         "probe_keys": measure(
-            f"K11 probe_keys, {k0.numel()} keys, W={pad['W']}",
+            f"K11 probe_keys, {k0.numel()} keys, 'mode 1' padded table "
+            f"W={pad['W']}, bits {pad['bits']}",
             lambda: tpr.probe_keys(*pargs),
             lambda: tpr.probe_keys_plain(*pargs),
-            16 * k0.numel() + 20 * n_cmp, OPS_COMPARE * n_cmp),
+            # read once: each query key's two words, the keys of each
+            # bucket probed, the row of each slot hit; a compare per
+            # query key and occupied slot of its bucket
+            16 * k0.numel() + 16 * n_read + 4 * n_rows,
+            lambda got: need(got[0].numel(), *HIT), OPS_COMPARE * n_cmp),
     }
     measure(f"K5 probe_fetch found-only, {k0.numel()} keys",
             lambda: tpr.probe_fetch(k0, k1, al["bits"], al["k0"], al["k1"],
                                     al["fence"], None),
             lambda: tpr.probe_fetch_plain(k0, k1, al["bits"], al["k0"],
                                           al["k1"], al["fence"], None, 128),
-            *probe_work(k0, al["bits"], al["fence"], al["k0"], 0))
-    keys, groups = dq._count_filtered_groups(store, dict(
-        pairs, j=np.where(found5.cpu().numpy(), np.searchsorted(
-            dq._store_ckeys(store),
-            dq.cols_ckeys(pairs["k0"], pairs["k1"])), -1)), 128, 128, 128)
+            *probe_work(k0, k1, al["bits"], al["fence"], al["k0"], 0))
+    keys, groups = collect_target_hits_batch(
+        store, dict(pairs, j=j5.long().cpu().numpy()), 128, 128, 128)
     anchors, valid = tc._sorted_batch(groups)
     a_t = torch.from_numpy(anchors.astype(np.int64)).to(dev)
     v_t = torch.from_numpy(valid).to(dev)
@@ -1080,8 +1209,9 @@ def phase_batch_device(dev, kb, targets, queries):
         f"K10 chain_scores_dense, ({G}, {N}), W=32",
         lambda: tc.chain_scores_dense(a_t, v_t, 0.025),
         lambda: tc.chain_scores_dense_plain(a_t, v_t, 0.025),
-        [a_t, v_t], 32 * (3 * 32 + OPS_SLOT) * int(valid.sum()), reps=2,
-        plain_reps=1)
+        [a_t, v_t], lambda got: need(got[0].numel(), *SCORE)
+        + need(got[2].numel(), BIT),  # inexact per group
+        32 * (3 * 32 + OPS_SLOT) * int(valid.sum()), reps=2, plain_reps=1)
     for name in results:
         results[name]["launches"] = launches[name]
     return results
@@ -1121,13 +1251,20 @@ def main():
               f"(host)")
         phase_bench(dev, tsk, tp, targets)
         phase_host_api(dev, tsk)
-        measured = phase_main_path(dev, tsk, tp, mesh, kb)
-        query_measured, query_errs = phase_query(dev, kb, tsk, tp, targets,
-                                                 queries)
+        measured, index_step = phase_main_path(dev, tsk, tp, mesh, kb)
+        query_measured, query_errs, query_step = phase_query(
+            dev, kb, tsk, tp, targets, queries)
         measured.update(query_measured)
         for name, err in query_errs.items():  # K1-K4 on the query path too
             measured[name]["max_abs_err"] = max(
                 measured[name]["max_abs_err"], err)
+        print(f"bounds of the steps: index {index_step['bound'][0]:.4f} ms "
+              f"by {index_step['bound'][1]}, query "
+              f"{query_step['bound'][0]:.4f} ms by {query_step['bound'][1]}"
+              f" (sums of their kernels' bounds)")
+        print("bounds of the device functions not ported yet:")
+        for row, (ms, by) in unported_bounds(index_step, query_step):
+            print(f"  {ms:.4f} ms by {by}: {row}")
         measured.update(phase_batch_device(dev, kb, targets, queries))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -1,70 +1,122 @@
-"""Canonical query pairs and the count filters — the port's copies of
-pgrtk_tpu/core/query.py:20-39 (pair_shmmrs_canonical) and :100-133
-(collect_target_hits), the semantics of the reference's raw query and
-aln.rs:147-199.  parallel/device_query.py runs vectorised equivalents;
-these tuple versions are their specification.
+"""Canonical query pairs, postings and the count filters over a whole
+query batch — the port's counterparts of pgrtk_tpu/core/query.py:20-39
+(pair_shmmrs_canonical) and :100-133 (collect_target_hits), the semantics
+of the reference's raw query and aln.rs:147-199.  They are vectorised
+with NumPy, as pgrtk_tpu/core/query.py::query_fragment_to_hps_columnar
+is, and give exactly what the JAX package's tuple loops give one query
+at a time (tests/test_torch_device_query.py holds them to it).
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
-FragmentSignature = Tuple[int, int, int, int, int]
-FragmentHit = Tuple[Tuple[int, int], Tuple[int, int, int],
-                    List[FragmentSignature]]
-HitPair = Tuple[Tuple[int, int, int], Tuple[int, int, int]]
+import numpy as np
 
 
-def pair_shmmrs_canonical(mers) -> List[Tuple[int, int, int, int, int]]:
-    """Consecutive shimmer pairs as (hash0, hash1, pos0, pos1, orientation)
-    with canonical hash ordering (reference: seq_db.rs:1206-1218).  The
-    query side breaks ties with a strict `<` (orientation 1 on equal
-    hashes, seq_db.rs:1213); the index builder uses `<=` (seq_db.rs:391,
-    core/seqdb.py)."""
-    out = []
-    for i in range(len(mers) - 1):
-        x0, y0 = mers[i]
-        x1, y1 = mers[i + 1]
-        s0, s1 = x0 >> 8, x1 >> 8
-        p0 = ((y0 & 0xFFFFFFFF) >> 1) + 1
-        p1 = ((y1 & 0xFFFFFFFF) >> 1) + 1
-        if s0 < s1:
-            out.append((s0, s1, p0, p1, 0))
-        else:
-            out.append((min(s0, s1), max(s0, s1), p0, p1, 1))
+def pair_shmmrs_canonical_batch(mers) -> Optional[Dict[str, np.ndarray]]:
+    """Consecutive shimmer pairs of every query's (x, y) mer arrays as
+    flat columns: qid, k0, k1 uint64 with canonical hash order, p0, p1
+    (position + 1) and ori (reference: seq_db.rs:1206-1218).  The query
+    side breaks ties with a strict `<` (orientation 1 on equal hashes,
+    seq_db.rs:1213); the index builder uses `<=` (seq_db.rs:391,
+    core/seqdb.py).  None when no query has a pair."""
+    cols = {n: [] for n in ("qid", "k0", "k1", "p0", "p1", "ori")}
+    for q, (mx, my) in enumerate(mers):
+        if len(mx) < 2:
+            continue
+        h = mx >> np.uint64(8)
+        p = ((my & np.uint64(0xFFFFFFFF)) >> np.uint64(1)).astype(np.int64)
+        s0, s1 = h[:-1], h[1:]
+        swap = s0 >= s1
+        cols["qid"].append(np.full(len(s0), q, dtype=np.int64))
+        cols["k0"].append(np.where(swap, s1, s0))
+        cols["k1"].append(np.where(swap, s0, s1))
+        cols["p0"].append(p[:-1] + 1)
+        cols["p1"].append(p[1:] + 1)
+        cols["ori"].append(swap.astype(np.int64))
+    if not cols["qid"]:
+        return None
+    return {n: np.concatenate(v) for n, v in cols.items()}
+
+
+def postings(store, js: np.ndarray):
+    """The signatures of key indices `js` of a columnar store,
+    concatenated in order, and the count of each key."""
+    c = store.index_counts[js].astype(np.int64)
+    s = store.index_starts[js].astype(np.int64)
+    sigs = store.index_sigs
+    if isinstance(sigs, np.ndarray):
+        H = int(c.sum())
+        reps = np.repeat(np.arange(len(js)), c)
+        offs = np.cumsum(c) - c
+        return sigs[s[reps] + (np.arange(H) - offs[reps])], c
+    # a lazy store (pgrtk_tpu/core/mdb.py LazySigs): one slice per key
+    parts = [np.asarray(sigs[int(a): int(a) + int(n)]) for a, n in zip(s, c)]
+    return (np.concatenate(parts) if parts
+            else np.zeros(0, dtype=sigs[0:0].dtype)), c
+
+
+def tuple_counts(*cols: np.ndarray) -> np.ndarray:
+    """For each element, how many elements share its tuple of values
+    across the equal-length integer `cols` (a lexsort and run lengths,
+    so no combined key has to fit in 64 bits)."""
+    n = len(cols[0])
+    if not n:
+        return np.zeros(0, dtype=np.int64)
+    order = np.lexsort(cols)
+    new = np.zeros(n, dtype=bool)
+    new[0] = True
+    for c in cols:
+        s = c[order]
+        new[1:] |= s[1:] != s[:-1]
+    starts = np.flatnonzero(new)
+    sizes = np.diff(np.append(starts, n))
+    out = np.empty(n, dtype=np.int64)
+    out[order] = np.repeat(sizes, sizes)
     return out
 
 
-def collect_target_hits(
-    raw_query_hits: List[FragmentHit],
-    max_count: Optional[int] = None,
+def collect_target_hits_batch(
+    store, pairs: Dict[str, np.ndarray], max_count: Optional[int] = None,
     max_count_query: Optional[int] = None,
     max_count_target: Optional[int] = None,
-) -> Dict[int, List[HitPair]]:
-    """Count-filter raw hits into per-target anchor lists (the stage of
-    aln.rs:147-199 before chaining): drop shimmer pairs that occur too
-    often in the query or on a given target."""
-    pair_count: Dict[Tuple[int, int], int] = {}
-    target_pair_count: Dict[Tuple[int, int, int], int] = {}
-    for pair, _qpos, sigs in raw_query_hits:
-        pair_count[pair] = pair_count.get(pair, 0) + 1
-        for _fid, sid, _b, _e, _o in sigs:
-            key = (pair[0], pair[1], sid)
-            target_pair_count[key] = target_pair_count.get(key, 0) + 1
-
-    max_count = 128 if max_count is None else max_count
-    max_count_query = 128 if max_count_query is None else max_count_query
-    max_count_target = 128 if max_count_target is None else max_count_target
-
-    target_hits: Dict[int, List[HitPair]] = {}
-    for pair, qpos, sigs in raw_query_hits:
-        count = pair_count.get(pair, 0)
-        if count > max_count or count > max_count_query:
-            continue
-        for _fid, sid, p0, p1, orientation in sigs:
-            if target_pair_count.get((pair[0], pair[1], sid), 0) > (
-                    max_count_target):
-                continue
-            target_hits.setdefault(sid, []).append(
-                (qpos, (p0, p1, orientation))
-            )
-    return target_hits
+) -> Tuple[List[Tuple[int, int]], List[np.ndarray]]:
+    """The count filters of collect_target_hits over all queries at once.
+    `pairs` holds pair_shmmrs_canonical_batch's columns and `j`, each
+    pair's key index in the store (-1: not found).  Returns (qid, sid)
+    group keys in (qid, sid) order and each group's anchors (n, 6) uint32
+    in hit order, groups of one anchor left out.  pair_count is per key
+    and query; target_pair_count, for a key that passes, equals its hit
+    count per sid because the first filter keeps or drops all of a key's
+    occurrences together."""
+    mc = 128 if max_count is None else max_count
+    mcq = 128 if max_count_query is None else max_count_query
+    mct = 128 if max_count_target is None else max_count_target
+    j = pairs["j"]
+    found = np.flatnonzero(j >= 0)
+    if not found.size:
+        return [], []
+    pc = tuple_counts(pairs["qid"][found], j[found])
+    sel = found[~((pc > mc) | (pc > mcq))]
+    if not sel.size:
+        return [], []
+    sg, c = postings(store, j[sel])
+    hit = sel[np.repeat(np.arange(len(sel)), c)]
+    sid = sg["seq_id"].astype(np.int64)
+    qid = pairs["qid"][hit]
+    tok = tuple_counts(qid, j[hit], sid) <= mct
+    anchors = np.stack([pairs["p0"][hit], pairs["p1"][hit],
+                        pairs["ori"][hit], sg["bgn"], sg["end"],
+                        sg["orientation"]], axis=1).astype(np.uint32)[tok]
+    qid, sid = qid[tok], sid[tok]
+    order = np.lexsort((sid, qid))  # stable: hit order within a group
+    anchors, qid, sid = anchors[order], qid[order], sid[order]
+    new = np.ones(len(qid), dtype=bool)
+    new[1:] = (qid[1:] != qid[:-1]) | (sid[1:] != sid[:-1])
+    bounds = np.append(np.flatnonzero(new), len(qid))
+    keys, groups = [], []
+    for a, b in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+        if b - a > 1:
+            keys.append((int(qid[a]), int(sid[a])))
+            groups.append(anchors[a:b])
+    return keys, groups

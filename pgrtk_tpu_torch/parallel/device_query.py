@@ -11,10 +11,10 @@ for dup-flagged groups, the scalar sparse_aln for inexact ones).
 The index is a columnar store — anything with `spec`, `index_keys`,
 `index_starts`, `index_counts` and `index_sigs` as an FRG database loads
 them (a pgrtk_tpu FragFileStorage as it is, or
-core/seqdb.build_columnar_store).  The host glue is vectorised with
-NumPy, as pgrtk_tpu/core/query.py::query_fragment_to_hps_columnar does;
-its results are those of the tuple loops of the JAX function
-(core/query.py here holds them as the specification).
+core/seqdb.build_columnar_store).  The probe gives each found pair its
+key index on the card (the padded table's row plane for K11, the aligned
+table's slot-to-key plane for K5's slot); the pairs and count filters
+are core/query.py's batch versions of the JAX tuple loops.
 """
 from __future__ import annotations
 
@@ -24,19 +24,21 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core.query import (collect_target_hits_batch,
+                          pair_shmmrs_canonical_batch, postings)
 from ..ops import chain as chain_ops
 from ..ops import probe as probe_ops
 from ..ops import sketch as sketch_ops
 from ..ops import sketch1 as sketch1_ops
 from ..utils.stats import count, tick
-from ..utils.u64pair import cols_ckeys, pair_ckeys
 
 
 def _device_tables(store, device):
     """The store's probe table on `device`, built once and cached on the
     store: the aligned fence layout, or the padded-bucket layout when a
     bucket overflows the aligned 128-slot window
-    (pgrtk_tpu/parallel/device_query.py:20-54)."""
+    (pgrtk_tpu/parallel/device_query.py:20-54).  Either carries `row`,
+    the key-sorted index of each slot (-1 at pad)."""
     dev = torch.device(device)
     cache = getattr(store, "_torch_probe_tables", None)
     if cache is None:
@@ -46,8 +48,11 @@ def _device_tables(store, device):
         keys = store.index_keys
         try:
             t = probe_ops.build_probe_table_aligned(keys)
+            row = np.full(len(t["k0"]), -1, dtype=np.int32)
+            row[t["pos"]] = np.arange(t["n"], dtype=np.int32)
             table = dict(layout="aligned", bits=t["bits"],
-                         fence=torch.from_numpy(t["fence"]).to(dev))
+                         fence=torch.from_numpy(t["fence"]).to(dev),
+                         row=torch.from_numpy(row).to(dev))
         except ValueError:
             t = probe_ops.build_probe_table(keys)
             table = dict(layout="padded", bits=t["bits"], W=t["W"],
@@ -58,16 +63,6 @@ def _device_tables(store, device):
     return cache[dev]
 
 
-def _store_ckeys(store):
-    """The store's keys as complex128 lexicographic keys, cached."""
-    ck = getattr(store, "_torch_pair_ckeys", None)
-    if ck is None:
-        ck = pair_ckeys(np.ascontiguousarray(store.index_keys,
-                                             dtype=np.uint64))
-        store._torch_pair_ckeys = ck
-    return ck
-
-
 def _sketch(store, query_seqs, device, stats):
     spec = store.spec
     if spec.sketch:
@@ -76,34 +71,28 @@ def _sketch(store, query_seqs, device, stats):
                                            device=device, stats=stats)
 
 
-def _query_pairs(mers):
-    """Canonical pairs of every query as flat arrays: qid, k0, k1 uint64
-    (query tie rule: equal hashes -> orientation 1, seq_db.rs:1213), p0,
-    p1 (position + 1) and ori."""
-    cols = {n: [] for n in ("qid", "k0", "k1", "p0", "p1", "ori")}
-    for q, (mx, my) in enumerate(mers):
-        if len(mx) < 2:
-            continue
-        h = mx >> np.uint64(8)
-        p = ((my & np.uint64(0xFFFFFFFF)) >> np.uint64(1)).astype(np.int64)
-        s0, s1 = h[:-1], h[1:]
-        swap = s0 >= s1
-        cols["qid"].append(np.full(len(s0), q, dtype=np.int64))
-        cols["k0"].append(np.where(swap, s1, s0))
-        cols["k1"].append(np.where(swap, s0, s1))
-        cols["p0"].append(p[:-1] + 1)
-        cols["p1"].append(p[1:] + 1)
-        cols["ori"].append(swap.astype(np.int64))
-    if not cols["qid"]:
-        return None
-    return {n: np.concatenate(v) for n, v in cols.items()}
+def probe_key_index(table, k0: torch.Tensor, k1: torch.Tensor, stats=None):
+    """Key index (key-sorted, -1 when absent) of each (Q,) int64 query
+    key in a _device_tables table, on the table's device: K5 found-only
+    on the aligned layout, its slot mapped through the row plane; K11 on
+    the padded layout, whose row already is the key index."""
+    if table["layout"] == "aligned":
+        found, slot, _ = probe_ops.probe_fetch(k0, k1, table["bits"],
+                                               table["k0"], table["k1"],
+                                               table["fence"], None)
+        return torch.where(found, table["row"][slot.clamp(min=0).long()],
+                           -1)
+    count(stats, "padded_probe", 1)  # a bucket overflowed the aligned window
+    return probe_ops.probe_keys(k0, k1, table["bits"], table["k0"],
+                                table["k1"], table["row"], table["W"])[1]
 
 
 def _raw_arrays(store, query_seqs, device, stats):
-    """Sketch, pair, probe on the card, then the key index `j` of every
-    found pair (-1 when not found) by one host searchsorted."""
+    """Sketch, pair and probe on the card: the pair columns and `j`, the
+    key index of every pair (-1 when not found)."""
     t = time.perf_counter()
-    pairs = _query_pairs(_sketch(store, query_seqs, device, stats))
+    pairs = pair_shmmrs_canonical_batch(
+        _sketch(store, query_seqs, device, stats))
     t = tick(stats, "device sketch", t)
     if pairs is None:
         return None
@@ -111,44 +100,12 @@ def _raw_arrays(store, query_seqs, device, stats):
     dev = table["k0"].device
     k0 = torch.from_numpy(pairs["k0"].view(np.int64)).to(dev)
     k1 = torch.from_numpy(pairs["k1"].view(np.int64)).to(dev)
-    if table["layout"] == "aligned":
-        found, _, _ = probe_ops.probe_fetch(k0, k1, table["bits"],
-                                            table["k0"], table["k1"],
-                                            table["fence"], None)
-    else:  # a bucket overflowed the aligned window
-        found, _ = probe_ops.probe_keys(k0, k1, table["bits"], table["k0"],
-                                        table["k1"], table["row"],
-                                        table["W"])
-        count(stats, "padded_probe", 1)
-    found = found.cpu().numpy()
-    t = tick(stats, "probe", t)
-    j = np.full(len(found), -1, dtype=np.int64)
-    sel = np.flatnonzero(found)
-    if sel.size:
-        ck = _store_ckeys(store)
-        j[sel] = np.searchsorted(
-            ck, cols_ckeys(pairs["k0"][sel], pairs["k1"][sel]))
+    j = probe_key_index(table, k0, k1, stats).long().cpu().numpy()
+    tick(stats, "probe", t)
     pairs["j"] = j
-    count(stats, "pairs", len(found))
-    count(stats, "keys_found", sel.size)
+    count(stats, "pairs", len(j))
+    count(stats, "keys_found", int((j >= 0).sum()))
     return pairs
-
-
-def _postings(store, js):
-    """The signatures of key indices `js`, concatenated in order, and the
-    count of each key."""
-    c = store.index_counts[js].astype(np.int64)
-    s = store.index_starts[js].astype(np.int64)
-    sigs = store.index_sigs
-    if isinstance(sigs, np.ndarray):
-        H = int(c.sum())
-        reps = np.repeat(np.arange(len(js)), c)
-        offs = np.cumsum(c) - c
-        return sigs[s[reps] + (np.arange(H) - offs[reps])], c
-    # a lazy store (pgrtk_tpu/core/mdb.py LazySigs): one slice per key
-    parts = [np.asarray(sigs[int(a): int(a) + int(n)]) for a, n in zip(s, c)]
-    return (np.concatenate(parts) if parts
-            else np.zeros(0, dtype=sigs[0:0].dtype)), c
 
 
 def batch_raw_query(store, query_seqs: Sequence[bytes], *, device="cuda"):
@@ -163,7 +120,7 @@ def batch_raw_query(store, query_seqs: Sequence[bytes], *, device="cuda"):
         return out
     j = pairs["j"]
     sel = np.flatnonzero(j >= 0)
-    sg, c = _postings(store, j[sel])
+    sg, c = postings(store, j[sel])
     sig_lists = [[] for _ in range(len(j))]
     flat = sg.tolist()
     bounds = np.append(0, np.cumsum(c)).tolist()
@@ -175,53 +132,6 @@ def batch_raw_query(store, query_seqs: Sequence[bytes], *, device="cuda"):
             pairs["p1"].tolist(), pairs["ori"].tolist(), sig_lists):
         out[q].append(((a, b), (p0, p1, o), sigs))
     return out
-
-
-def _count_filtered_groups(store, pairs, max_count, max_count_query,
-                           max_count_target):
-    """The count filters of core/query.py::collect_target_hits over all
-    queries at once: (qid, sid) group keys in (qid, sid) order and each
-    group's anchors (n, 6) uint32 in hit order.  pair_count is per key
-    and query; target_pair_count, for a key that passes, equals its hit
-    count per sid because the first filter keeps or drops all of a key's
-    occurrences together."""
-    mc = 128 if max_count is None else max_count
-    mcq = 128 if max_count_query is None else max_count_query
-    mct = 128 if max_count_target is None else max_count_target
-    j = pairs["j"]
-    found = np.flatnonzero(j >= 0)
-    if not found.size:
-        return [], []
-    n_keys = len(store.index_keys)
-    comb = pairs["qid"][found] * n_keys + j[found]
-    _, inv, cnt = np.unique(comb, return_inverse=True, return_counts=True)
-    pc = cnt[inv.ravel()]
-    sel = found[~((pc > mc) | (pc > mcq))]
-    if not sel.size:
-        return [], []
-    sg, c = _postings(store, j[sel])
-    reps = np.repeat(np.arange(len(sel)), c)
-    hit = sel[reps]
-    sid = sg["seq_id"].astype(np.int64)
-    qid = pairs["qid"][hit]
-    comb2 = (qid * n_keys + j[hit]) * (int(sid.max(initial=0)) + 1) + sid
-    _, inv2, cnt2 = np.unique(comb2, return_inverse=True, return_counts=True)
-    tok = cnt2[inv2.ravel()] <= mct
-    anchors = np.stack([pairs["p0"][hit], pairs["p1"][hit],
-                        pairs["ori"][hit], sg["bgn"], sg["end"],
-                        sg["orientation"]], axis=1).astype(np.uint32)[tok]
-    qid, sid = qid[tok], sid[tok]
-    order = np.lexsort((sid, qid))  # stable: hit order within a group
-    anchors, qid, sid = anchors[order], qid[order], sid[order]
-    new = np.ones(len(qid), dtype=bool)
-    new[1:] = (qid[1:] != qid[:-1]) | (sid[1:] != sid[:-1])
-    bounds = np.append(np.flatnonzero(new), len(qid))
-    keys, groups = [], []
-    for a, b in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
-        if b - a > 1:
-            keys.append((int(qid[a]), int(sid[a])))
-            groups.append(anchors[a:b])
-    return keys, groups
 
 
 def batch_query_to_hps(
@@ -255,8 +165,8 @@ def batch_query_to_hps(
     if pairs is None:
         return out
     t = time.perf_counter()
-    keys, groups = _count_filtered_groups(store, pairs, max_count,
-                                          max_count_query, max_count_target)
+    keys, groups = collect_target_hits_batch(
+        store, pairs, max_count, max_count_query, max_count_target)
     tick(stats, "host lookup and filters", t)
     span = 8 if max_aln_span is None else max_aln_span
     chained = chain_ops.chain_groups(

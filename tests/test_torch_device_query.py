@@ -11,6 +11,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import pgrtk_tpu
 from pgrtk_tpu.core.seqdb import CompactSeqDB
@@ -165,34 +166,85 @@ def test_probe_layout_and_decoys(dbs, jax_hps):
 
 @pytest.mark.parametrize("max_count", [128, 2])
 def test_vectorised_glue_matches_the_tuple_spec(dbs, max_count):
-    """The port's copies of pair_shmmrs_canonical and collect_target_hits
-    equal the JAX package's, and the vectorised pairs and count filters of
-    batch_query_to_hps give the groups the tuple loops give (a low
-    max_count drops the tandem's repeated keys)."""
+    """The port's batch pairs and count filters give, query by query,
+    what the JAX package's tuple loops pair_shmmrs_canonical and
+    collect_target_hits give on the JAX raw query (a low max_count drops
+    the tandem's repeated keys)."""
     from pgrtk_tpu.core import query as jquery
     from pgrtk_tpu_torch.core import query as tquery
     from pgrtk_tpu_torch.ops import sketch1 as ts1
 
     db, spec = dbs["dbs"]["mode1"]
     queries = dbs["queries"]
-    mers = ts1.sketch_mode1(queries, spec=spec, device="cpu")
-    for m in mers:
-        assert tquery.pair_shmmrs_canonical(m) == (
-            jquery.pair_shmmrs_canonical(m))
-    raw = tdq.batch_raw_query(db.frg_db, queries, device="cpu")
+    mers = ts1.sketch_mode1_arrays(queries, spec=spec, device="cpu")
+    cols = tquery.pair_shmmrs_canonical_batch(mers)
+    for q, (mx, my) in enumerate(mers):
+        sel = cols["qid"] == q
+        got = list(zip(*(cols[n][sel].tolist()
+                         for n in ("k0", "k1", "p0", "p1", "ori"))))
+        assert got == jquery.pair_shmmrs_canonical(
+            list(zip(mx.tolist(), my.tolist())))
+    raw = jdq.batch_raw_query(db, queries)
     pairs = tdq._raw_arrays(db.frg_db, queries, "cpu", None)
-    keys, groups = tdq._count_filtered_groups(db.frg_db, pairs, max_count,
-                                              128, max_count)
+    keys, groups = tquery.collect_target_hits_batch(
+        db.frg_db, pairs, max_count, 128, max_count)
     want = []
     for q, hits in enumerate(raw):
-        th = tquery.collect_target_hits(hits, max_count, 128, max_count)
-        assert th == jquery.collect_target_hits(hits, max_count, 128,
-                                                max_count)
+        th = jquery.collect_target_hits(hits, max_count, 128, max_count)
         want += [((q, sid), np.asarray([[*a, *b] for a, b in th[sid]],
                                        dtype=np.uint32))
                  for sid in sorted(th) if len(th[sid]) > 1]
     assert keys == [k for k, _ in want]
     assert all(np.array_equal(g, w) for g, (_, w) in zip(groups, want))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tuple_counts_past_64_bits(seed):
+    """tuple_counts counts equal (qid, key, sid) triples however wide the
+    values: here their mixed-radix product would wrap int64 many times
+    over, and distinct triples that a wrapped key would merge stay
+    apart."""
+    from collections import Counter
+
+    from pgrtk_tpu_torch.core.query import tuple_counts
+
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 1 << 62, size=(40, 3), dtype=np.int64)
+    rows = base[rng.integers(0, len(base), size=2_000)]
+    # a triple whose (qid * n_keys + key) * n_sids + sid equals another's
+    # modulo 2^64 with n_keys = n_sids = 2^32
+    rows[:3] = [(1, 0, 5), (1 + (1 << 32), 0, 5), (1, 1 << 32, 5)]
+    cols = [np.ascontiguousarray(rows[:, i]) for i in range(3)]
+    want = Counter(map(tuple, rows.tolist()))
+    got = tuple_counts(*cols)
+    assert got.tolist() == [want[tuple(r)] for r in rows.tolist()]
+    assert got[:3].tolist() == [1, 1, 1]
+
+
+@pytest.mark.parametrize("layout", ["padded", "aligned"])
+def test_probe_key_index_is_the_key_sorted_index(dbs, layout):
+    """The probe's key index on either table layout (K11's row; K5's
+    slot through the aligned table's row plane) is the position of the
+    key in the store's key-sorted index_keys, -1 for an absent key."""
+    db, spec = dbs["dbs"]["mode1"]
+    store = db.frg_db
+    if layout == "aligned":
+        store = tseqdb.build_columnar_store(
+            [s for _, s in dbs["targets"]], spec, device="cpu",
+            n_decoys=40_000, seed=5)
+    table = tdq._device_tables(store, "cpu")
+    assert table["layout"] == layout
+    keys = np.ascontiguousarray(store.index_keys, dtype=np.uint64)
+    rng = np.random.default_rng(11)
+    pick = rng.integers(0, len(keys), size=3_000)
+    absent = rng.integers(0, 1 << 56, size=(500, 2), dtype=np.uint64)
+    q = np.concatenate([keys[pick], absent])
+    j = tdq.probe_key_index(table, torch.from_numpy(q[:, 0].view(np.int64)),
+                            torch.from_numpy(q[:, 1].view(np.int64)))
+    lookup = {(int(a), int(b)): i for i, (a, b) in enumerate(keys.tolist())}
+    want = [lookup.get((int(a), int(b)), -1) for a, b in q.tolist()]
+    assert j.tolist() == want
+    assert (j[:len(pick)] >= 0).all()
 
 
 def test_lazy_store_matches_jax(dbs, jax_hps, monkeypatch):
