@@ -66,6 +66,26 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      path's shapes (K11 on the padded table of the store without
      decoys, the one the path probes).
 
+  8. runs pgr-pbundle-decomp (pgrtk_tpu_torch/cli/pgr_pbundle_decomp.py,
+     its defaults: w 48, k 56, r 4, min_span 12) on 64 haplotypes of
+     4,194,304 bases (268 Mbase: an MHC-sized region across 64 of HPRC
+     year 1's 94 haplotypes) from bench.py's generator at seed 3, the CNV
+     tandem in every other haplotype, SNPs at 1e-3, written to
+     build/pbundle_corpus.fa: per-stage host times, the graph's counts
+     (rows, links, nodes, edges, bundles, BED lines, repeat and unique
+     partitions), K12's launches (reset before, read after: the MAP-graph
+     GFA and the bundles sort the rows once each); the same six files by
+     sha256 from a run with every kernel replaced by its plain version on
+     the card, and from the card and the CPU on 8 x 524,288 bases; the
+     device idle share from torch.profiler over the whole run and over one
+     sort_link_rows;
+     K12 against its plain version on the path's rows (8b).  K12's radix
+     engine also sorts the index step's pair table: phase 5 holds it
+     against the torch.sort passes (library_ms) and phase 1 runs K12 on
+     its edge cases (digit ties, duplicate rows, values at the top of
+     each width, 0-3 rows, past one tile) and a bgn of 2**32, which
+     raises.
+
 Between phases 6 and 7 it prints the bounds of the index and query
 steps (sums of their kernels' bounds in this run) and of the JAX
 package's device functions not ported yet, at their callers' shapes.
@@ -104,8 +124,10 @@ REPLACES = {
     "sketch_mode1": "pgrtk_tpu/ops/sketch1.py:124",
     "chain_scores_dense": "pgrtk_tpu/ops/chain.py:63",
     "probe_keys": "pgrtk_tpu/ops/probe.py:88",
+    "sort_link_rows": "pgrtk_tpu/ops/adj.py:20",
+    "sort_pairs": "pgrtk_tpu/ops/pairs.py:349",
 }
-INDEX_KERNELS = tuple(REPLACES)[:4]
+INDEX_KERNELS = tuple(REPLACES)[:4] + ("sort_pairs",)
 QUERY_KERNELS = tuple(REPLACES)[:8]
 BATCH_KERNELS = ("sketch_walk_compact", "rank_extract", "probe_fetch",
                  "chain_scores_fast", "sketch_mode1", "chain_scores_dense",
@@ -137,6 +159,10 @@ OPS_ENTRY = 16       # K2/K3/K4/K6 per stream entry: scan, compares
 OPS_POSTING = 16     # K7 per postings slot
 OPS_SLOT = 32        # K8/K10 per anchor and window slot: filters, score
 OPS_COMPARE = 4      # K5/K11 per table slot compared: two 64-bit equals
+OPS_DIGIT = 8        # K12 per entry and 8-bit digit that is not constant:
+                     # extract, rank among equal digits, place
+ROW = (4, 4, 4, 7, 7, BIT)  # a MAP-graph row: sid, bgn, end (u32), h0,
+                            # h1 (56 bits), ori
 
 
 class SmokeFailure(Exception):
@@ -328,6 +354,17 @@ def phase_kernels(dev, tsk, tp):
         check(name, kernel(), plain())
     for name, kernel, plain in cases.batch_device_cases(dev):
         check(name, kernel(), plain())
+    for name, kernel, plain in cases.adj_cases(dev):
+        check(name, kernel(), plain())
+    from pgrtk_tpu_torch.ops import adj as ta
+
+    rows, mask = cases.adj_rows(1, 3_000)
+    rows[1_234, 1] = np.uint64(1 << 32)  # a bgn past u32
+    try:
+        ta.sort_link_rows(rows, mask, device=dev)
+        raise SmokeFailure("K12 took a bgn of 2**32")
+    except ValueError as e:
+        print(f"  K12 on a bgn of 2**32 raises: {e}")
 
 
 Q = 65_536  # bench.py's 64 kb query chunk: repeat blocks sit inside one
@@ -402,6 +439,7 @@ def bench_corpus(dev):
 def index_stage(tsk, tp, seqs, lens, rids, plain):
     """bench.py:206-216: sketch + compaction at BENCH_KW, min_span,
     pairs, sort — through the kernels, or all plain."""
+    sort = tp.sort_pairs_plain if plain else tp.sort_pairs
     if plain:
         x, y, v, o1, inexact = tsk.sketch_walk_compact_plain(
             seqs, lens, K, R, CHUNK, BENCH_KW["slots"], False)
@@ -415,7 +453,7 @@ def index_stage(tsk, tp, seqs, lens, rids, plain):
                                                 CHUNK, **BENCH_KW)
         keep = tp.min_span_filter_gapped(x, y, v, MIN_SPAN)
         pr = tp.pair_mers_gapped(x, y, keep)
-    return dict(table=tp.sort_pairs(pr, rids),
+    return dict(table=sort(pr, rids),
                 n_pairs=pr["pair_valid"].sum(), n_mers=keep.sum(),
                 overflow=ovf)
 
@@ -644,19 +682,24 @@ def phase_main_path(dev, tsk, tp, mesh, kb, B=16, L=16_777_216):
         [x2, y2, keep], lambda got: need(got["k0"].numel(), *PAIR),
         OPS_ENTRY * keep.numel())
     pr = tp.pair_mers_gapped(x2, y2, keep)
-    sort_ms = cuda_ms(lambda: tp.sort_pairs(pr, rids), 5)
-    # out: valid, k0, k1, sid, bgn, end, orientation per entry
-    sort_bound = bound(nbytes(*pr.values(), rids) + need(
-        pr["k0"].numel(), BIT, 8, 8, 4, 4, 4, BIT))
-    print(f"  sort_pairs (torch.sort, the library call; no hand-written "
-          f"kernel yet): {sort_ms:.4f} ms on {pr['k0'].numel()} entries; "
-          f"bound {sort_bound[0]:.4f} ms by {sort_bound[1]}")
+    n = pr["k0"].numel()
+    _, keys, _ = tp._pair_sort_planes(pr, rids)
+    results["sort_pairs"] = measure(
+        f"K12 engine as sort_pairs, {n} entries",
+        lambda: tp.sort_pairs(pr, rids),
+        lambda: tp.sort_pairs_plain(pr, rids), [*pr.values(), rids],
+        # valid, k0, k1, sid, bgn, end, orientation per entry
+        lambda got: need(n, BIT, 8, 8, 4, 4, 4, BIT),
+        OPS_DIGIT * n * digit_passes(keys, tp.PAIR_KEY_BITS))
+    results["sort_pairs"]["library_ms"] = cuda_ms(
+        lambda: tp.sort_pairs_plain(pr, rids), 5)
+    print(f"    library: the four torch.sort passes "
+          f"{results['sort_pairs']['library_ms']:.4f} ms")
 
     for name in INDEX_KERNELS:
         results[name]["launches"] = launches[name]
-    step = dict(B=B, L=L, pairs=pr["k0"].numel(), bound=step_bound(
-        [(r["bound_ms"], r["bound_by"]) for r in results.values()]
-        + [sort_bound]))
+    step = dict(B=B, L=L, pairs=n, bound=step_bound(
+        [(r["bound_ms"], r["bound_by"]) for r in results.values()]))
     return results, step
 
 
@@ -673,6 +716,17 @@ CERTIFY_FLAGS = ("overflow", "dup", "inexact", "row_ovf", "mult_ovf",
                  "lane_ovf")
 
 
+def digit_passes(keys, bits):
+    """The 8-bit digit positions of the key planes that are not constant
+    over the entries: the radix passes these inputs need."""
+    n = 0
+    for k, b in zip(keys, bits):
+        for d in range(0, b, 8):
+            digit = (k >> d) & 255
+            n += bool(k.numel()) and int(digit.min()) != int(digit.max())
+    return n
+
+
 def step_bound(parts):
     """The bound of a step made of kernels with bounds `parts` [(ms,
     by)]: their sum, by what bounds the largest."""
@@ -681,7 +735,7 @@ def step_bound(parts):
 
 def unported_bounds(index_step, query_step):
     """Bounds (ms, by) of the JAX package's device functions not ported
-    yet (rows 14-19 of PERF.md's kernel table), at the shapes their
+    yet (rows 14-17 and 19 of PERF.md's kernel table), at the shapes their
     callers give them at this run's sizes.  A sharded step per card is
     its single-card step (this run's kernel bounds) plus the bytes it
     sends over NVLink."""
@@ -705,8 +759,6 @@ def unported_bounds(index_step, query_step):
         ("17 parallel/mesh.py:55/210/533 v1 steps, per card: the index "
          "step + all_gather of the packed table",
          linked(index_step["bound"], 7 * 4 * pairs)),
-        (f"18 ops/adj.py:20 _device_sort_and_link, {pairs} rows of 8 int32 "
-         "keys in and out, a link flag", bound(pairs * (32 + 32 + BIT))),
         ("19 ops/wfa.py:103 wfa_forward_batch, 1,024 segments, 384 steps "
          "of a 384-cell wavefront, M history kept (int32)",
          bound(1024 * 384 * 384 * 4, 1024 * 384 * 384 * 12)),
@@ -975,7 +1027,8 @@ class plain_kernels:
     plain versions on the card's tensors."""
 
     def __init__(self):
-        from pgrtk_tpu_torch.ops import chain, pairs, probe, sketch, sketch1
+        from pgrtk_tpu_torch.ops import (adj, chain, pairs, probe, sketch,
+                                         sketch1)
 
         def walk(seqs, lens, k, r, chunk=512, slots=12, exact=False):
             return sketch.sketch_walk_compact_plain(seqs, lens, k, r, chunk,
@@ -996,6 +1049,8 @@ class plain_kernels:
             (chain, "chain_scores_fast", chain.chain_scores_fast_plain),
             (chain, "chain_scores_dense", chain.chain_scores_dense_plain),
             (sketch1, "sketch_mode1_dense", mode1),
+            (pairs, "sort_pairs", pairs.sort_pairs_plain),
+            (adj, "sort_link_planes", adj.sort_link_rows_plain),
         ]
 
     def __enter__(self):
@@ -1217,6 +1272,174 @@ def phase_batch_device(dev, kb, targets, queries):
     return results
 
 
+PB_HAPS, PB_LEN = 64, 4_194_304   # 268 Mbase: an MHC-sized region x 64
+PB_CUT = (8, 524_288)             # the card-vs-CPU check
+PB_OUTPUTS = (".bed", ".ctg.summary.tsv", ".mapg.gfa", ".mapg.idx",
+              ".pmapg.gfa", ".pdb")
+PB_STAGES = ("read fastx", "load and sketch", "rows and mask",
+             "K12 sort_link_rows", "intern and CSR", "walk", "peel",
+             "smps from the index", "projection", "write mapg.gfa",
+             "write mapg.idx", "write pmapg.gfa", "write pdb",
+             "bed and summary")
+PB_COUNTS = ("rows", "links", "nodes", "edges", "bundles", "bed_lines",
+             "repeat_partitions", "unique_partitions")
+
+
+def pbundle_corpus(dev, n, L, seed=3):
+    """bench.py's corpus generator (bench_corpus above) at seed 3 for
+    pgr-pbundle-decomp: n haplotypes of L bases of one base sequence with
+    the 16-copy 3 kb CNV tandem, the 3-copy 8 kb tandem and the 24 kb
+    segdup; every other haplotype has the CNV block replaced by random
+    bases; each haplotype has SNPs at 1e-3."""
+    S16, U16, N16 = 3 * Q + 8_192, 3_072, 16
+    E16 = S16 + U16 * N16
+    prng = np.random.default_rng(seed)
+    base = prng.integers(0, 4, size=L, dtype=np.uint8)
+    base[S16:E16] = np.tile(pick_tandem_unit(prng, U16, N16, dev), N16)
+    add_shared_repeats(base, prng, dev)
+    haps = np.empty((n, L), dtype=np.uint8)
+    for h in range(n):
+        haps[h] = base
+        if h % 2:
+            haps[h, S16:E16] = prng.integers(0, 4, E16 - S16, dtype=np.uint8)
+        pos = prng.choice(L, size=prng.binomial(L, 1e-3), replace=False)
+        haps[h, pos] = (haps[h, pos] + prng.integers(1, 4, len(pos))) % 4
+    return haps
+
+
+def write_fasta(path, haps, width=64):
+    """haps (n, L) 2-bit rows as a fasta of `width`-base lines, records
+    hap0, hap1, ..."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    with open(path, "wb") as f:
+        for h, row in enumerate(haps):
+            f.write(f">hap{h}\n".encode())
+            s = acgt[row]
+            full = len(s) // width * width
+            lines = np.full((full // width, width + 1), 10, dtype=np.uint8)
+            lines[:, :width] = s[:full].reshape(-1, width)
+            f.write(lines.tobytes())
+            if full < len(s):
+                f.write(s[full:].tobytes() + b"\n")
+
+
+def run_pbundle(out_dir, fa, dev, stats=None):
+    """The CLI at its defaults, `python -m
+    pgrtk_tpu_torch.cli.pgr_pbundle_decomp FA out` from out_dir (so the
+    BED's command line is the same in every directory); returns the
+    sha256 of each output file."""
+    import hashlib
+
+    from pgrtk_tpu_torch.cli import pgr_pbundle_decomp as cli
+
+    os.makedirs(out_dir, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(out_dir)
+    try:
+        require(cli.main([fa, "out"], device=dev, stats=stats) == 0,
+                "pgr-pbundle-decomp exited non-zero")
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        return {e: hashlib.sha256(open("out" + e, "rb").read()).hexdigest()
+                for e in PB_OUTPUTS}
+    finally:
+        os.chdir(cwd)
+
+
+def phase_pbundle(dev, kb, build_dir):
+    """pgr-pbundle-decomp on the card at an MHC-sized region across 64
+    haplotypes: stage times, counts, K12's launches, the profiler, the
+    all-plain and CPU checks, K12 against its plain version."""
+    from pgrtk_tpu_torch.ops import adj as ta
+
+    print(f"phase 8: pgr-pbundle-decomp, {PB_HAPS} x {PB_LEN} bases")
+    os.makedirs(build_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    haps = pbundle_corpus(dev, PB_HAPS, PB_LEN)
+    fa = os.path.join(build_dir, "pbundle_corpus.fa")
+    write_fasta(fa, haps)
+    print(f"  corpus {haps.shape} -> {fa} in {time.perf_counter() - t0:.1f} s"
+          f" (host)")
+    seen = []
+    sort_link_rows = ta.sort_link_rows
+
+    def spy(rows, mask, *, device="cuda"):
+        seen.append((rows, mask))
+        return sort_link_rows(rows, mask, device=device)
+
+    stats, sha = {}, {}
+
+    def run():
+        t = time.perf_counter()
+        sha.update(run_pbundle(os.path.join(build_dir, "pbundle_k12"), fa,
+                               dev, stats))
+        stats["wall"] = time.perf_counter() - t
+
+    ta.sort_link_rows = spy  # graph/bundles.py calls adj_ops.sort_link_rows
+    try:
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        print("  one CLI run under torch.profiler:")
+        profile_steps(run, n=1, trace="pbundle_cli_trace.json")
+        launches = {k.name: k.launches for k in kb.KERNELS}
+    finally:
+        ta.sort_link_rows = sort_link_rows
+    print(f"  one CLI run: {stats['wall']:.3f} s (host clock, "
+          f"synchronized); launches {launches}")
+    require(launches["sort_link_rows"] >= 2 and len(seen) >= 2,
+            "K12 ran fewer than twice on the pbundle path")
+    require(launches["sketch_mode1"] > 0, "K9 never ran on the pbundle path")
+    print("  stages (host clock, s): " + ", ".join(
+        f"{k} {' + '.join(f'{v:.3f}' for v in stats[k])}"
+        for k in PB_STAGES if k in stats))
+    counts = {k: stats[k] for k in PB_COUNTS}
+    print(f"  counts {counts}")
+    require(counts["bundles"] > 0 and counts["bed_lines"] > 0
+            and counts["repeat_partitions"] > 0
+            and counts["unique_partitions"] > 0,
+            f"no repeat and unique partitions: {counts}")
+
+    t = time.perf_counter()
+    with plain_kernels():
+        kb.reset_launches()
+        plain = run_pbundle(os.path.join(build_dir, "pbundle_plain"), fa, dev)
+        require(not any(k.launches for k in kb.KERNELS),
+                "a kernel launched in the plain run")
+    require(plain == sha, "the all-plain run on the card wrote other files")
+    print(f"  (a) every kernel replaced by its plain version on the card: "
+          f"the same six files by sha256 ({time.perf_counter() - t:.1f} s)")
+    cut = os.path.join(build_dir, "pbundle_cut.fa")
+    write_fasta(cut, haps[:PB_CUT[0], :PB_CUT[1]])
+    t = time.perf_counter()
+    on_card = run_pbundle(os.path.join(build_dir, "pbundle_cut_card"), cut,
+                          dev)
+    on_cpu = run_pbundle(os.path.join(build_dir, "pbundle_cut_cpu"), cut,
+                         "cpu")
+    require(on_card == on_cpu, "card and CPU wrote other files on the cut")
+    print(f"  (b) {PB_CUT[0]} x {PB_CUT[1]} bases: card and CPU write the "
+          f"same six files ({time.perf_counter() - t:.1f} s)")
+    del haps
+
+    rows, mask = seen[-1]
+    print("  profiler, one sort_link_rows (host entry, copies included):")
+    profile_steps(lambda: ta.sort_link_rows(rows, mask, device=dev), n=1,
+                  trace="pbundle_sort_trace.json")
+
+    print("phase 8b: K12 vs plain at the path's shapes")
+    n = len(rows)
+    planes = [torch.from_numpy(np.ascontiguousarray(rows[:, j]).view(
+        np.int64)).to(dev) for j in range(6)]
+    m = torch.from_numpy(mask).to(dev)
+    result = measure(
+        f"K12 sort_link_rows, {n} rows",
+        lambda: ta.sort_link_planes(planes, m),
+        lambda: ta.sort_link_rows_plain(planes, m), [*planes, m],
+        lambda got: need(n, *ROW) + need(n - 1, BIT),
+        OPS_DIGIT * n * digit_passes(planes, ta.ROW_BITS))
+    result["launches"] = launches["sort_link_rows"]
+    return {"sort_link_rows": result}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1266,6 +1489,10 @@ def main():
         for row, (ms, by) in unported_bounds(index_step, query_step):
             print(f"  {ms:.4f} ms by {by}: {row}")
         measured.update(phase_batch_device(dev, kb, targets, queries))
+        del targets, queries
+        build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "build")
+        measured.update(phase_pbundle(dev, kb, build_dir))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

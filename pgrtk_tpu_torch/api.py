@@ -1,0 +1,270 @@
+"""SeqIndexDB — the part of pgrtk_tpu/api.py that pgr-pbundle-decomp
+uses, over the port's columnar store (core/seqdb.py).
+
+The database sketches on the card (`device="cuda"`, K9) unless the
+caller asks for the CPU, and the MAP graph sorts and links its rows with
+K12 on the same device.  The bundle order/direction vote, the vertex
+map, the projection and the GFA/index writers give the JAX facade's
+results exactly.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .core import seqdb
+from .core.fasta import read_fastx
+from .core.spec import ShmmrSpec
+from .graph import bundles as gb
+from .graph import gfa as gfa_mod
+
+
+def consensus_bundle_order_direction(
+    bundle_orders: Dict[int, List[float]],
+    bundle_dirs: Dict[int, List[int]],
+    n_bundles: int,
+) -> List[Tuple[int, int, int]]:
+    """The bundle order/direction consensus vote (pgrtk_tpu/api.py:23-58;
+    reference ext.rs:601-625).  Returns sorted [(mean_ord, bid,
+    direction)], with the reference's quirks kept bit for bit:
+
+      * the order mean is accumulated in f32 one element at a time, in
+        input order (`let sum: f32 = orders.iter().sum()`), divided in
+        f32, then TRUNCATED — above 2^24 the f32 sum rounds, and a
+        pairwise or wider sum would round elsewhere;
+      * the direction rule is `dir_sum < (len >> 1)` -> 0 else 1, not a
+        majority vote;
+      * bundles no sequence visits get order usize::MAX and direction 0
+        and sort last.
+    """
+    out: List[Tuple[int, int, int]] = []
+    for bid in range(n_bundles):
+        if bid in bundle_orders:
+            orders = bundle_orders[bid]
+            s = np.float32(0.0)
+            for o in orders:
+                s = np.float32(s + np.float32(o))
+            mean_ord = int(np.float32(s / np.float32(len(orders))))
+            dirs = bundle_dirs[bid]
+            direction = 0 if sum(dirs) < (len(dirs) >> 1) else 1
+            out.append((mean_ord, bid, direction))
+        else:
+            out.append((2**64 - 1, bid, 0))  # usize::MAX (ext.rs:609)
+    out.sort()
+    return out
+
+
+class SeqIndexDB:
+    """An in-memory sequence database with its shimmer-pair index (the
+    JAX facade's FASTX and MEMORY backends).  `stats`, when a dict, gets
+    the host seconds of each stage and the graph's counts."""
+
+    def __init__(self, device="cuda", stats: Optional[dict] = None):
+        self.device = device
+        self.stats = stats
+        self.store = None
+        self.shmmr_spec: Optional[ShmmrSpec] = None
+        self.seq_index: Optional[Dict[Tuple[str, Optional[str]],
+                                      Tuple[int, int]]] = None
+        self.seq_info: Optional[Dict[int, Tuple[str, Optional[str],
+                                                int]]] = None
+        self._pb_cache = None
+        self._smps_cache = None
+
+    def _time(self, name: str, t0: float) -> None:
+        if self.stats is not None:
+            self.stats.setdefault(name, []).append(time.perf_counter() - t0)
+
+    # ---------------------------------------------------------- loaders
+    def load_from_store(self, store) -> None:
+        """Use a columnar store (core/seqdb.py; convert.store_from_frag_map
+        makes one from a JAX frag_map)."""
+        self.store = store
+        self.shmmr_spec = store.spec
+        self.seq_info = dict(store.seq_info)
+        self.seq_index = dict(store.seq_index)
+        self._pb_cache = None
+        self._smps_cache = None
+
+    def _load(self, records, spec) -> None:
+        t0 = time.perf_counter()
+        store = seqdb.build_columnar_store(
+            [r[2] for r in records], spec, device=self.device,
+            names=[r[1] for r in records], sources=[r[0] for r in records])
+        self._time("load and sketch", t0)
+        self.load_from_store(store)
+
+    def load_from_fastx(self, filepath: str, w=80, k=56, r=4,
+                        min_span=64) -> None:
+        """(pgrtk_tpu/api.py:99-115; reference ext.rs:152-181)"""
+        spec = ShmmrSpec(w=w, k=k, r=r, min_span=min_span, sketch=False)
+        t0 = time.perf_counter()
+        records = [(rec.source, rec.id.decode(), rec.seq)
+                   for rec in read_fastx(filepath)]
+        self._time("read fastx", t0)
+        self._load(records, spec)
+
+    def load_from_seq_list(self, seq_list: Sequence[Tuple[str, bytes]],
+                           source: Optional[str] = "Memory", w=80, k=56,
+                           r=4, min_span=8) -> None:
+        """(pgrtk_tpu/api.py:124-142; min_span defaults to 8 here, 64 in
+        load_from_fastx, a reference asymmetry)"""
+        spec = ShmmrSpec(w=w, k=k, r=r, min_span=min_span, sketch=False)
+        self._load([(source, name, seq) for name, seq in seq_list], spec)
+
+    def get_seq(self, sample_name: str, ctg_name: str) -> bytes:
+        sid, _ = self.seq_index[(ctg_name, sample_name)]
+        if self.store.seqs is None:
+            raise ValueError("this database keeps no sequences")
+        return self.store.seqs[sid]
+
+    # ------------------------------------- MAP graph / principal bundles
+    def _principal_cached(self, min_count, path_len_cutoff):
+        """The decomposition, cached per parameter set
+        (pgrtk_tpu/api.py:406-425): the BED and the principal GFA share
+        one run."""
+        key = (min_count, path_len_cutoff)
+        if self._pb_cache is not None and self._pb_cache[0] == key:
+            return self._pb_cache[1]
+        res = gb.principal_bundles_from_store(
+            self.store, min_count, None, path_len_cutoff,
+            device=self.device, stats=self.stats)
+        self._pb_cache = (key, res)
+        return res
+
+    def get_principal_bundles(self, min_count: int, path_len_cutoff: int):
+        pb, _ = self._principal_cached(min_count, path_len_cutoff)
+        return pb
+
+    @staticmethod
+    def _get_vertex_map_from_principal_bundles(pb):
+        out = {}
+        for bundle_id, path in enumerate(pb):
+            for p, v in enumerate(path):
+                out[(v[0], v[1])] = (bundle_id, v[2], p)
+        return out
+
+    def get_smps_by_id(self, sid: int):
+        """Shimmer pairs of an indexed sequence from the index itself
+        (pgrtk_tpu/api.py:450-466): (h0, h1, bgn, end, ori) in position
+        order, hash ties flipped to orientation 1."""
+        return self._sid_smps_from_index().get(sid, [])
+
+    def _sid_smps_from_index(self):
+        """{sid: [(h0, h1, bgn, end, ori)]} in (sid, frg_id) order, from
+        one pass over the index (pgrtk_tpu/api.py:468-531, columnar)."""
+        if self._smps_cache is not None:
+            return self._smps_cache
+        t0 = time.perf_counter()
+        st = self.store
+        counts = np.asarray(st.index_counts, dtype=np.int64)
+        keys = np.repeat(np.asarray(st.index_keys, dtype=np.uint64), counts,
+                         axis=0)
+        sigs = st.index_sigs
+        sid = sigs["seq_id"].astype(np.int64)
+        order = np.lexsort((sigs["frg_id"], sid))
+        h0, h1 = keys[order, 0], keys[order, 1]
+        ori = np.where(h0 == h1, np.uint8(1), sigs["orientation"][order])
+        cols = list(zip(h0.tolist(), h1.tolist(),
+                        sigs["bgn"][order].tolist(),
+                        sigs["end"][order].tolist(), ori.tolist()))
+        per_sid: Dict[int, list] = {s: [] for s in self.seq_info}
+        sid_sorted = sid[order]
+        cut = np.flatnonzero(np.diff(sid_sorted)) + 1
+        for a, b in zip(np.concatenate([[0], cut]).tolist(),
+                        np.append(cut, len(order)).tolist()):
+            if b > a:
+                per_sid[int(sid_sorted[a])] = cols[a:b]
+        self._smps_cache = per_sid
+        self._time("smps from the index", t0)
+        return per_sid
+
+    def get_principal_bundles_with_id(self, min_count: int,
+                                      path_len_cutoff: int):
+        """Reordered bundles + vertex map (pgrtk_tpu/api.py:533-549).
+        Returns ([(bid, mean_order, [(h0, h1, dir)])], vertex_map)."""
+        pb = self.get_principal_bundles(min_count, path_len_cutoff)
+        smps_map = self._sid_smps_from_index()
+        seqid_smps = [(sid, smps_map.get(sid, []))
+                      for sid in sorted(self.seq_info)]
+        return self._principal_bundle_projection(pb, seqid_smps)
+
+    def _principal_bundle_projection(self, pb, seqid_smps):
+        """(pgrtk_tpu/api.py:551-604; reference pgr-tk/src/lib.rs:
+        1147-1285), for the database's own sequences `seqid_smps` [(sid,
+        smps)]: the bundles reordered and oriented by the consensus vote,
+        and the vertex map.  (The JAX function's per-sequence projection,
+        which get_principal_bundles_with_id drops, is left out.)"""
+        t0 = time.perf_counter()
+        vertex_map = self._get_vertex_map_from_principal_bundles(pb)
+        bundle_dirs: Dict[int, List[int]] = {}
+        bundle_orders: Dict[int, List[float]] = {}
+        for _sid, smps in seqid_smps:
+            visited = set()
+            for order, v in enumerate(smps):
+                bid = vertex_map.get((v[0], v[1]))
+                if bid is None:
+                    continue
+                if bid[0] not in visited:
+                    bundle_orders.setdefault(bid[0], []).append(float(order))
+                    visited.add(bid[0])
+                bundle_dirs.setdefault(bid[0], []).append(
+                    0 if bid[1] == v[4] else 1)
+        mean_order_direction = consensus_bundle_order_direction(
+            bundle_orders, bundle_dirs, len(pb))
+        principal_bundles = []
+        for ord_, bid, direction in mean_order_direction:
+            if direction == 1:
+                rpb = [(v[0], v[1], 1 - v[2]) for v in reversed(pb[bid])]
+                for p, v in enumerate(rpb):
+                    vertex_map[(v[0], v[1])] = (bid, v[2], p)
+                bundle = rpb
+            else:
+                bundle = list(pb[bid])
+            principal_bundles.append((bid, ord_, bundle))
+        self._time("projection", t0)
+        return principal_bundles, vertex_map
+
+    def generate_mapg_gfa(self, min_count: int, filepath: str):
+        """(pgrtk_tpu/api.py:624-645, the "from_fragmap" method)"""
+        edges = gb.adj_edges(self.store, min_count, device=self.device,
+                             stats=self.stats)
+        t0 = time.perf_counter()
+        gfa_mod.write_mapg_gfa(self.store, edges, self.shmmr_spec.k,
+                               filepath)
+        self._time("write mapg.gfa", t0)
+
+    def write_mapg_idx(self, filepath: str):
+        t0 = time.perf_counter()
+        gfa_mod.write_mapg_idx(self.shmmr_spec, self.seq_info, self.store,
+                               filepath)
+        self._time("write mapg.idx", t0)
+
+    def generate_principal_mapg_gfa(self, min_count: int,
+                                    path_len_cutoff: int, filepath: str):
+        """(pgrtk_tpu/api.py:654-677)"""
+        pb, filtered = self._principal_cached(min_count, path_len_cutoff)
+        if not pb and not len(filtered):
+            # skip the file only when there is no graph at all; when
+            # path_len_cutoff filtered every path, still write the
+            # (header-only) GFA
+            if not len(gb.adj_edges(self.store, min_count,
+                                    device=self.device)):
+                return
+        t0 = time.perf_counter()
+        vertex_map = self._get_vertex_map_from_principal_bundles(pb)
+        gfa_mod.write_mapg_gfa(self.store, filtered, self.shmmr_spec.k,
+                               filepath, vertex_to_bundle=vertex_map)
+        self._time("write pmapg.gfa", t0)
+
+
+def get_principal_bundle_decomposition(vertex_to_bundle_id_direction_pos,
+                                       seq_db):
+    """Decomposition against a precomputed vertex map
+    (pgrtk_tpu/api.py:802-824; reference ext.rs:976-1015): the
+    database's own shimmer pairs, from its index."""
+    vm = vertex_to_bundle_id_direction_pos
+    return [(sid, [(v, vm.get((v[0], v[1]))) for v in seq_db.get_smps_by_id(
+        sid)]) for sid in sorted(seq_db.seq_info)]

@@ -3,7 +3,9 @@ uint32 planes become the port's int64 tensors, and back.
 
 The system has no weights; what crosses is data: mer streams
 (x_hi, x_lo, y_lo, valid), pair planes (k0_hi .. pair_valid) and the
-sorted pair table (sort_pairs fields).  Inputs are anything numpy can
+sorted pair table (sort_pairs fields), and the in-memory index of a
+SeqIndexDB (a frag_map dict of plain ints -> the port's columnar store).
+Inputs are anything numpy can
 read (numpy arrays, or JAX arrays, which this module never imports);
 outputs are CPU tensors or numpy arrays.
 """
@@ -141,3 +143,26 @@ def query_to_jax(res: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
             a = a.astype(np.uint32)
         out[name] = a
     return out
+
+
+def store_from_frag_map(frag_map, seq_info, spec):
+    """A JAX CompactSeqDB.frag_map {(h0, h1): [(frg_id, sid, bgn, end,
+    ori), ...]} (plain Python ints) and its SeqIndexDB.seq_info {sid:
+    (name, source, length)} -> the port's columnar store
+    (core/seqdb.py): keys in sorted order, each key's postings in list
+    order, no sequences."""
+    from .core.seqdb import SIG_DTYPE, _store, with_seqs
+
+    keys = sorted(frag_map)
+    counts = [len(frag_map[k]) for k in keys]
+    flat_keys = np.repeat(np.asarray(keys, dtype=np.uint64).reshape(-1, 2),
+                          counts, axis=0)
+    sigs = np.array([tuple(s) for k in keys for s in frag_map[k]],
+                    dtype=SIG_DTYPE)
+    info = [seq_info[sid] for sid in sorted(seq_info)]
+    if sorted(seq_info) != list(range(len(info))):
+        raise ValueError("sequence ids must be 0..n-1")
+    return with_seqs(_store(spec, flat_keys, sigs), None,
+                     [i[0] for i in info], [i[1] for i in info],
+                     [i[2] for i in info])
+

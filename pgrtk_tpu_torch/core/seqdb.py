@@ -6,7 +6,12 @@ layout of pgrtk_tpu/core/mdb.py (read_mdb_columnar, :109-139).
 The store holds what a query reads from an FRG database — `spec`,
 `index_keys` (n, 2) uint64 key-sorted, `index_starts` and `index_counts`
 (n,) int64, `index_sigs` (SIG_DTYPE: frg_id, seq_id, bgn, end,
-orientation, grouped by key) — and no fragment bases.  Sequences are
+orientation, grouped by key) — and what the in-memory database of
+pgrtk_tpu/api.py's SeqIndexDB keeps beside its index: `seqs` (the
+sequences, for get_seq), `seq_info` {sid: (name, source, length)} and
+`seq_index` {(name, source): (sid, length)}.  The index is the JAX
+builder's frag_map in columnar form: its keys in sorted order, each key's
+postings in the frag_map's list order.  Sequences are
 sketched with the port's own device paths (ops/sketch1.py for mode 1,
 ops/sketch.py for mode 2) and paired with the builder's tie rule
 (s0 <= s1 -> orientation 0, reference seq_db.rs:391).  Fragment ids are
@@ -16,7 +21,7 @@ fragment per pair, a suffix (two fragments when it has no mer).
 from __future__ import annotations
 
 from types import SimpleNamespace
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -105,13 +110,17 @@ def _store(spec, keys, sigs):
 
 
 def build_columnar_store(seqs: Sequence[bytes], spec, *, device="cuda",
-                         n_decoys: int = 0, seed: int = 0):
+                         n_decoys: int = 0, seed: int = 0,
+                         names: Optional[Sequence[str]] = None,
+                         sources: Optional[Sequence[Optional[str]]] = None):
     """Sketch `seqs` (sequence ids 0..len-1) on `device` and index their
     canonical shimmer pairs: the same four index arrays, frg_id numbering
     and postings order as writing the database with the JAX package and
-    loading it as a FragFileStorage.  `n_decoys` random single-posting
-    keys (np.random.default_rng(seed)) pad the key set, as bench.py pads
-    its index."""
+    loading it as a FragFileStorage, or as the JAX FASTX/MEMORY builder's
+    frag_map (pgrtk_tpu/core/seqdb.py:62-155).  `n_decoys` random
+    single-posting keys (np.random.default_rng(seed)) pad the key set, as
+    bench.py pads its index.  `names` and `sources` (default "seq<sid>"
+    and None) fill seq_info and seq_index."""
     cols = _pair_columns(_sketch(seqs, spec, device))
     keys = np.stack([cols["k0"], cols["k1"]], axis=1).astype(np.uint64)
     sigs = np.zeros(len(keys), dtype=SIG_DTYPE)
@@ -125,4 +134,23 @@ def build_columnar_store(seqs: Sequence[bytes], spec, *, device="cuda",
         sigs = np.concatenate([sigs, ds])
         order = np.lexsort((keys[:, 1], keys[:, 0]))
         keys, sigs = keys[order], sigs[order]
-    return _store(spec, keys, sigs)
+    store = _store(spec, keys, sigs)
+    if names is None:
+        names = [f"seq{sid}" for sid in range(len(seqs))]
+    if sources is None:
+        sources = [None] * len(seqs)
+    return with_seqs(store, list(seqs), names, sources)
+
+
+def with_seqs(store, seqs, names, sources, lens=None):
+    """`store` with `seqs` (or None), `seq_info` and `seq_index` for the
+    sequences `names` from `sources` (lengths `lens`, default those of
+    `seqs`), sequence id = position."""
+    if lens is None:
+        lens = [len(s) for s in seqs]
+    store.seqs = seqs
+    store.seq_info = {sid: (name, src, int(n)) for sid, (name, src, n)
+                      in enumerate(zip(names, sources, lens))}
+    store.seq_index = {(name, src): (sid, n) for sid, (name, src, n)
+                       in store.seq_info.items()}
+    return store

@@ -35,3 +35,7 @@ DEFAULT_SPEC = ShmmrSpec(w=80, k=56, r=4, min_span=64, sketch=True)
 # Default spec used by load_from_fastx / the Python API surface
 # (reference: pgr-db/src/ext.rs:152-166, pgr-tk/src/lib.rs:142).
 FASTX_SPEC = ShmmrSpec(w=80, k=56, r=4, min_span=64, sketch=False)
+
+# pgr-pbundle-decomp's defaults (pgrtk_tpu/cli/pgr_pbundle_decomp.py:81-84;
+# reference: pgr-bin/src/bin/pgr-pbundle-decomp.rs)
+PBUNDLE_SPEC = ShmmrSpec(w=48, k=56, r=4, min_span=12, sketch=False)

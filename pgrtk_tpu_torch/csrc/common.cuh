@@ -1,8 +1,9 @@
 // Shared helpers for the pgrtk_tpu_torch kernels.
 //
 // Every C entry point launches on the stream it is given, allocates
-// nothing, does not synchronise, and returns cudaGetLastError() so the
-// Python wrapper can raise on a refused launch.
+// nothing, and returns cudaGetLastError() so the Python wrapper can raise
+// on a refused launch.  None synchronises but K12 (adj.cu), which reads
+// its digit histograms on the host once.
 #pragma once
 
 #include <cstdint>

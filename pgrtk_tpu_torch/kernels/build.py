@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels of csrc/.
 
-At first use, nvcc compiles every csrc/*.cu into one shared library with
-a plain C interface (no PyTorch headers, so the build takes seconds) in
+At first use, nvcc compiles every csrc/*.cu (one process per source, all
+started together) and links them into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds) in
 `build/pgrtk_tpu_torch/` beside the package, named by a hash of the
 sources and flags so an edit rebuilds.  The library is loaded with
 ctypes.  Each C entry launches on the stream it is given and returns
@@ -66,19 +67,37 @@ def _build() -> Path:
         build_report.update(path=str(lib_path), seconds=0.0, log="")
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all started together, then one link
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    procs = [subprocess.Popen([nvcc, *compile_flags, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        failed = [(s.name, p.returncode, log)
+                  for s, p, log in zip(sources, procs, logs) if p.returncode]
+        if not failed:
+            link = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            if link.returncode:
+                failed = [("link", link.returncode, logs[-1])]
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{name} ({rc}):\n{log}" for name, rc, log in failed))
     os.replace(tmp, lib_path)
-    build_report.update(
-        path=str(lib_path), seconds=seconds, log=proc.stdout + proc.stderr
-    )
+    build_report.update(path=str(lib_path), seconds=seconds,
+                        log="".join(logs))
     return lib_path
 
 
@@ -94,6 +113,8 @@ def library() -> ctypes.CDLL:
             lib.pgrtk_row_rank_scratch.argtypes = [_I, _LL]
             lib.pgrtk_sketch_scratch_bytes.restype = _LL
             lib.pgrtk_sketch_scratch_bytes.argtypes = [_I, _LL, _I, _I]
+            lib.pgrtk_radix_scratch_bytes.restype = _LL
+            lib.pgrtk_radix_scratch_bytes.argtypes = [_LL]
             for k in KERNELS:
                 fn = getattr(lib, "pgrtk_" + k.name)
                 fn.restype = _I
@@ -172,10 +193,20 @@ probe_keys = Kernel(
     "probe_keys", "pgrtk_tpu_torch/csrc/probe.cu",
     [_P, _P, _LL, _I, _P, _P, _P, _I, _P, _P, _P],
 )
-# index stage K1-K4, query stage K5-K8, the --batch-device path K9-K11
+# K12: one radix engine (csrc/adj.cu) behind two entry points, the
+# MAP-graph rows with their link flag and the index step's pair table
+_RADIX_ARGS = [ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _LL,
+               ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _P, _P, _P, _P, _P,
+               _P]
+sort_link_rows = Kernel("sort_link_rows", "pgrtk_tpu_torch/csrc/adj.cu",
+                        _RADIX_ARGS)
+sort_pairs = Kernel("sort_pairs", "pgrtk_tpu_torch/csrc/adj.cu", _RADIX_ARGS)
+# index stage K1-K4, query stage K5-K8, the --batch-device path K9-K11,
+# the pgr-pbundle-decomp path K12
 KERNELS = (sketch_walk_compact, rank_extract, min_span_filter_gapped,
            pair_mers_gapped, probe_fetch, dup_pair_counts, expand_postings,
-           chain_scores_fast, sketch_mode1, chain_scores_dense, probe_keys)
+           chain_scores_fast, sketch_mode1, chain_scores_dense, probe_keys,
+           sort_link_rows, sort_pairs)
 
 
 def reset_launches() -> None:
@@ -193,6 +224,12 @@ def sketch1_scratch(B: int, L: int, chunk: int, device) -> torch.Tensor:
     """uint8 scratch for K9: the exact walk's plus one byte per base."""
     n = library().pgrtk_sketch_scratch_bytes(B, L, chunk, 1) + B * L
     return torch.empty(n, dtype=torch.uint8, device=device)
+
+
+def radix_scratch(n: int, device) -> torch.Tensor:
+    """uint8 scratch for K12 on n entries."""
+    n_bytes = library().pgrtk_radix_scratch_bytes(n)
+    return torch.empty(n_bytes, dtype=torch.uint8, device=device)
 
 
 def row_rank_scratch(B: int, C: int, device) -> torch.Tensor:

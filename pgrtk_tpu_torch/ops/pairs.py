@@ -228,6 +228,36 @@ def pair_mers_gapped(x, y, kept, tie_orientation_one: bool = False
 TABLE_FIELDS = ("valid", "k0", "k1", "sid", "bgn", "end", "orientation")
 
 
+def _pair_sort_planes(pairs: Dict[str, torch.Tensor], sid: torch.Tensor):
+    """Flat (valid, keys (k0, k1, sid, bgn), the six table planes after
+    valid): invalid entries' k0 and k1 forced to INT64_MAX."""
+    B, C = pairs["k0"].shape
+    valid = pairs["pair_valid"].reshape(-1)
+    sid_f = sid.to(torch.int64)[:, None].expand(B, C).reshape(-1)
+    k0 = torch.where(valid, pairs["k0"].reshape(-1), INT64_MAX)
+    k1 = torch.where(valid, pairs["k1"].reshape(-1), INT64_MAX)
+    bgn = pairs["bgn"].reshape(-1)
+    table = (k0, k1, sid_f, bgn, pairs["end"].reshape(-1),
+             pairs["orientation"].reshape(-1))
+    return valid, (k0, k1, sid_f, bgn), table
+
+
+def sort_pairs_plain(pairs: Dict[str, torch.Tensor], sid: torch.Tensor
+                     ) -> Dict[str, torch.Tensor]:
+    """The plain PyTorch version of sort_pairs, on any device: torch.sort
+    (stable) in four least-significant-key-first passes."""
+    valid, keys, table = _pair_sort_planes(pairs, sid)
+    order = torch.arange(valid.numel(), device=valid.device)
+    for key in reversed(keys):
+        order = order[torch.sort(key[order], stable=True).indices]
+    cols: Tuple[torch.Tensor, ...] = (valid, *table)
+    return {name: c[order] for name, c in zip(TABLE_FIELDS, cols)}
+
+
+# k0 and k1 reach INT64_MAX on invalid entries; sid and bgn are u32
+PAIR_KEY_BITS = (63, 63, 32, 32)
+
+
 def sort_pairs(pairs: Dict[str, torch.Tensor], sid: torch.Tensor
                ) -> Dict[str, torch.Tensor]:
     """Sort all pairs of a batch by (k0, k1, sid, bgn), invalid entries
@@ -236,18 +266,17 @@ def sort_pairs(pairs: Dict[str, torch.Tensor], sid: torch.Tensor
 
     pairs: (B, C) planes from pair_mers_gapped; sid: (B,) sequence ids.
     Returns flat (B*C,) planes `TABLE_FIELDS`; invalid entries carry
-    INT64_MAX keys.  The sort is torch.sort(stable=True) in four
-    least-significant-key-first passes (a hand-written radix sort is
-    later work)."""
-    B, C = pairs["k0"].shape
-    flat = {k: v.reshape(-1) for k, v in pairs.items()}
-    valid = flat["pair_valid"]
-    sid_f = sid.to(torch.int64)[:, None].expand(B, C).reshape(-1)
-    k0 = torch.where(valid, flat["k0"], INT64_MAX)
-    k1 = torch.where(valid, flat["k1"], INT64_MAX)
-    order = torch.arange(B * C, device=valid.device)
-    for key in (flat["bgn"], sid_f, k1, k0):
-        order = order[torch.sort(key[order], stable=True).indices]
-    cols: Tuple[torch.Tensor, ...] = (valid, k0, k1, sid_f, flat["bgn"],
-                                      flat["end"], flat["orientation"])
-    return {name: c[order] for name, c in zip(TABLE_FIELDS, cols)}
+    INT64_MAX keys.  CUDA tensors sort with K12's stable radix engine
+    (csrc/adj.cu), CPU tensors with the plain version's torch.sort
+    passes; both give the same table bit for bit."""
+    if not on_cuda(pairs["k0"], pairs["pair_valid"], sid):
+        return sort_pairs_plain(pairs, sid)
+    from .adj import radix_sort_gather
+
+    valid, keys, table = _pair_sort_planes(pairs, sid)
+    keys = [k.contiguous() for k in keys]
+    table = [t.contiguous() for t in table]
+    outs, valid_s, _, _ = radix_sort_gather(
+        kb.sort_pairs, keys, PAIR_KEY_BITS, table, valid.contiguous(), False,
+        ("k0", "k1", "sid", "bgn"))
+    return dict(zip(TABLE_FIELDS, (valid_s, *outs)))

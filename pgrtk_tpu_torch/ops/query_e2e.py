@@ -58,10 +58,10 @@ def pack_meta(sid, m, mult, keyovf):
     )
 
 
-def _sketch_pair_arrays(target_seqs, k, r, min_span, target_lens):
+def _sketch_pair_arrays(target_seqs, k, r, min_span, target_lens, device):
     """Index-side (tie -> orientation 0) pair arrays of (T, L) 2-bit
-    targets, in (sid, position) order, from this package's sketch on the
-    CPU."""
+    targets, in (sid, position) order, from this package's sketch on
+    `device`."""
     spec = SimpleNamespace(k=k, r=r, min_span=min_span, sketch=True)
     bases = np.frombuffer(b"ACGTN", dtype=np.uint8)
     seqs = []
@@ -72,7 +72,7 @@ def _sketch_pair_arrays(target_seqs, k, r, min_span, target_lens):
         seqs.append(bases[np.minimum(row, 4)].tobytes())
     cols = {kk: [] for kk in ("k0", "k1", "sid", "bgn", "end", "ori")}
     for sid, (mx, my) in enumerate(
-            sketch_ops.sketch_mode2(seqs, None, spec, device="cpu")):
+            sketch_ops.sketch_mode2(seqs, None, spec, device=device)):
         if len(mx) < 2:
             continue
         h = mx >> np.uint64(8)
@@ -110,12 +110,13 @@ def pair_arrays_from_table(table: Dict[str, torch.Tensor], n_pairs) -> dict:
 
 def build_index(target_seqs=None, pair_arrays=None, k: int = 56, r: int = 4,
                 min_span: int = 64, n_decoys: int = 0, seed: int = 7,
-                build_lookup: bool = True, P: int = 16, target_lens=None):
+                build_lookup: bool = True, P: int = 16, target_lens=None,
+                device="cuda"):
     """Host index build (pgrtk_tpu/ops/query_e2e.py:78 build_index): the
     same keys, postings, decoys, stats and lookup, byte for byte.
 
-    Input: `target_seqs`, (T, L) uint8 2-bit sequences sketched on the
-    CPU with this package's sketch_mode2, or `pair_arrays`, a dict of
+    Input: `target_seqs`, (T, L) uint8 2-bit sequences sketched on
+    `device` with this package's sketch_mode2, or `pair_arrays`, a dict of
     flat numpy arrays (k0, k1 uint64; sid, bgn, end, ori uint32) in
     (sid, position) order: pair_arrays_from_table makes them from the
     index step's table, which is the way for large targets on a card.  `n_decoys`
@@ -133,7 +134,7 @@ def build_index(target_seqs=None, pair_arrays=None, k: int = 56, r: int = 4,
     """
     if pair_arrays is None:
         pair_arrays = _sketch_pair_arrays(target_seqs, k, r, min_span,
-                                          target_lens)
+                                          target_lens, device)
         n_targets = len(target_seqs)
     else:
         sid = pair_arrays["sid"]

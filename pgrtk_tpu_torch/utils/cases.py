@@ -314,3 +314,123 @@ def batch_device_cases(dev):
                   lambda a=args: tpr.probe_keys(*a),
                   lambda a=args: tpr.probe_keys_plain(*a)))
     return cases
+
+
+ADJ_SIZES = (0, 1, 2, 3, 2_047, 2_049, 70_000)
+
+
+def adj_rows(seed, n):
+    """(n, 6) uint64 MAP-graph rows (sid, bgn, end, h0, h1, ori) and an
+    (n,) bool mask, with K12's traps: values from small pools, so most
+    8-bit digits tie across rows; a quarter of the rows exact duplicates
+    of others; fragments that chain (end == another row's bgn) within a
+    sid; values at the top of each width (sid, bgn and end up to
+    2**32 - 1, hashes up to 2**56 - 1); the mask a function of (h0, h1,
+    sid), as the path makes it, so it falls in runs once sorted."""
+    rng = np.random.default_rng(seed)
+    top32, top56 = (1 << 32) - 1, (1 << 56) - 1
+    sid = rng.choice(np.array([0, 1, 2, 255, 256, top32 - 1, top32],
+                              dtype=np.uint64), n)
+    base = rng.choice(np.array([0, 65_536, top32 - 5_000], dtype=np.uint64),
+                      n)
+    g = rng.integers(0, 40, n).astype(np.uint64)
+    bgn = base + np.uint64(100) * g
+    end = bgn + np.uint64(100)
+    end[rng.random(n) < 0.02] = np.uint64(top32)
+    pool = rng.integers(0, 1 << 56, 16, dtype=np.uint64)
+    pool[:6] &= ~np.uint64(0xFFFF)  # low digits shared
+    pool[0], pool[1] = top56, 0
+    i0, i1 = rng.integers(0, 16, n), rng.integers(0, 16, n)
+    ori = rng.integers(0, 2, n).astype(np.uint64)
+    rows = np.stack([sid, bgn, end, pool[i0], pool[i1], ori], axis=1)
+    if n > 3:
+        dup = rng.random(n) < 0.25
+        rows[dup] = rows[rng.integers(0, n, int(dup.sum()))]
+    keep = rng.random((16, 16)) < 0.7
+    idx = {int(h): i for i, h in enumerate(pool)}
+    j0 = np.array([idx[int(h)] for h in rows[:, 3]], dtype=np.int64)
+    j1 = np.array([idx[int(h)] for h in rows[:, 4]], dtype=np.int64)
+    mask = keep[j0, j1] | (rows[:, 0] == 1) if n else np.zeros(0, bool)
+    return rows, mask
+
+
+def pair_planes(seed, B, C):
+    """(B, C) pair planes as pair_mers_gapped makes them (k0, k1, bgn,
+    end, orientation int64, pair_valid bool; invalid entries 0) with keys
+    from a small pool (long runs of equal keys, equal sid and bgn too)
+    and (B,) sequence ids with repeats."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 1 << 56, size=(24, 2), dtype=np.uint64)
+    pool[:4, 0] = pool[0, 0]  # one k0 with several k1
+    keys = pool[rng.integers(0, 24, size=(B, C))].view(np.int64)
+    valid = rng.random((B, C)) < 0.8
+    valid[0, : C // 3] = False
+    bgn = rng.integers(1, 1 << 20, size=(B, C))
+    bgn[:, 1::2] = bgn[:, ::2][:, : C // 2]
+    pr = dict(k0=keys[..., 0], k1=keys[..., 1], bgn=bgn,
+              end=bgn + rng.integers(10, 5_000, size=(B, C)),
+              orientation=rng.integers(0, 2, size=(B, C)))
+    pr = {k: np.where(valid, v, 0).astype(np.int64) for k, v in pr.items()}
+    pr["pair_valid"] = valid
+    sid = rng.integers(0, max(1, B // 2), B).astype(np.int64)
+    return pr, sid
+
+
+def adj_cases(dev):
+    """K12 on its traps: the rows of adj_rows at every ADJ_SIZES size
+    (empty, one row, past one 2,048-row tile, 70,000 rows), and the
+    sort_pairs engine on pair_planes past one tile."""
+    from ..ops import adj as ta
+    from ..ops import pairs as tp
+
+    t = _to(dev)
+    cases = []
+    for n in ADJ_SIZES:
+        rows, mask = adj_rows(n + 1, n)
+        planes = [t(rows[:, j].view(np.int64)) for j in range(6)]
+        m = t(mask)
+        cases.append((f"K12 sort_link_rows n={n}",
+                      lambda p=planes, m=m: ta.sort_link_planes(p, m),
+                      lambda p=planes, m=m: ta.sort_link_rows_plain(p, m)))
+    for B, C in ((1, 0), (3, 700), (8, 9_000)):
+        pr, sid = pair_planes(B + C, B, C)
+        pr = {k: t(v) for k, v in pr.items()}
+        sid = t(sid)
+        cases.append((f"K12 sort_pairs engine ({B}, {C})",
+                      lambda p=pr, s=sid: tp.sort_pairs(p, s),
+                      lambda p=pr, s=sid: tp.sort_pairs_plain(p, s)))
+    return cases
+
+
+def pbundle_haplotypes(n, L, seed, base_seed=0, snp_rate=1e-3):
+    """n haplotypes [(name, bases)] for pgr-pbundle-decomp: SNP-mutated
+    copies (rate `snp_rate`, drawn from `seed`) of one random L-base
+    genome (from `base_seed`) that carries a 6 kb segmental duplication,
+    so the decomposition has repeat bundles; every other haplotype also
+    carries a 16-copy tandem of a 700-base unit."""
+    base_rng = np.random.default_rng(base_seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    base = base_rng.integers(0, 4, L, dtype=np.uint8)
+    a, b = L // 6, (2 * L) // 3
+    base[b:b + 6_000] = base[a:a + 6_000]
+    unit = base_rng.integers(0, 4, 700, dtype=np.uint8)
+    rng = np.random.default_rng(seed)
+    out = []
+    for h in range(n):
+        s = base.copy()
+        pos = rng.choice(L, size=rng.binomial(L, snp_rate), replace=False)
+        s[pos] = (s[pos] + rng.integers(1, 4, len(pos))) % 4
+        if h % 2 == 0:
+            s = np.concatenate([s[:L // 2], np.tile(unit, 16), s[L // 2:]])
+        out.append((f"hap{h}", acgt[s].tobytes()))
+    return out
+
+
+def write_fasta(path, records, width=60):
+    """Write [(name, bases)] as a fasta with `width`-base lines and a
+    description after each name."""
+    with open(path, "wb") as f:
+        for name, seq in records:
+            f.write(b">" + name.encode() + b" synthetic\n")
+            for i in range(0, len(seq), width):
+                f.write(seq[i:i + width] + b"\n")

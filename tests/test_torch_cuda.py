@@ -2,8 +2,9 @@
 step, the query step and the --batch-device query on the card against
 the same on the CPU, K2 past its old block cap and K5-K11 against their
 plain versions on the edge cases of pgrtk_tpu_torch/utils/cases.py, the
-kernels that put rows on gridDim.y on more rows than it takes, and the
-kernels' input checks.
+kernels that put rows on gridDim.y on more rows than it takes, the
+kernels' input checks, and K12 (the MAP-graph row sort and the sort_pairs
+engine) with pgr-pbundle-decomp on the card against the CPU.
 
 Marked `cuda`; each test skips when torch.cuda.is_available() is false.
 Imports no JAX, so it runs on a machine without it:
@@ -175,3 +176,47 @@ def test_batch_query_on_card_matches_cpu(dev):
                                                   kernel=kernel, device=dev)
             assert gpu == cpu
             assert kb.sketch_mode1.launches > 0 and used.launches > 0
+
+
+@pytest.mark.parametrize("entry", ["sort_link_rows", "sort_pairs"])
+def test_radix_sort_matches_plain_on_edge_cases(dev, entry):
+    """K12 on its traps (digit ties, duplicate rows, values at the top of
+    each width, 0-3 rows, past one tile): the MAP-graph rows against
+    sort_link_rows_plain, the sort_pairs engine against the torch.sort
+    passes."""
+    picked = [c for c in cases.adj_cases(dev) if c[0].split()[1] == entry]
+    assert picked
+    for name, kernel, plain in picked:
+        assert _equal(kernel(), plain()), name
+    torch.cuda.synchronize()
+
+
+def test_radix_sort_raises_on_wide_values(dev):
+    from pgrtk_tpu_torch.ops import adj as tadj
+
+    rows, mask = cases.adj_rows(1, 3_000)
+    for j, value in ((0, 1 << 32), (2, 1 << 40), (3, 1 << 56), (5, 2)):
+        planes = [torch.from_numpy(rows[:, i].view(np.int64)).to(dev)
+                  for i in range(6)]
+        planes[j][1234] = value
+        with pytest.raises(ValueError):
+            tadj.sort_link_planes(planes, torch.from_numpy(mask).to(dev))
+
+
+def test_pbundle_cli_on_card_matches_cpu(dev, tmp_path):
+    """pgr-pbundle-decomp on the card (K9, K12) writes the CPU run's
+    files."""
+    from pgrtk_tpu_torch.cli import pgr_pbundle_decomp as cli
+
+    fa = str(tmp_path / "in.fa")
+    cases.write_fasta(fa, cases.pbundle_haplotypes(6, 80_000, 3))
+    kb.reset_launches()
+    assert cli.main([fa, str(tmp_path / "gpu")], device=dev) == 0
+    assert kb.sort_link_rows.launches >= 2 and kb.sketch_mode1.launches > 0
+    assert cli.main([fa, str(tmp_path / "cpu")], device="cpu") == 0
+    for ext in (".ctg.summary.tsv", ".mapg.gfa", ".mapg.idx", ".pmapg.gfa",
+                ".pdb"):
+        assert (tmp_path / ("gpu" + ext)).read_bytes() == (
+            tmp_path / ("cpu" + ext)).read_bytes(), ext
+    gpu_bed = (tmp_path / "gpu.bed").read_text().split("\n", 1)[1]
+    assert gpu_bed == (tmp_path / "cpu.bed").read_text().split("\n", 1)[1]

@@ -166,7 +166,7 @@ from pgrtk_tpu_torch.ops import query_e2e
 rng = np.random.default_rng(1)
 base = rng.integers(0, 4, size=4096, dtype=np.uint8)
 targets = np.stack([base, base, rng.integers(0, 4, 4096, dtype=np.uint8)])
-idx = query_e2e.build_index(targets, n_decoys=100, P=8)
+idx = query_e2e.build_index(targets, n_decoys=100, P=8, device="cpu")
 res = query_e2e.query_e2e_step(
     torch.from_numpy(base[None]), torch.tensor([4096]), C=idx["C"], P=8,
     M=2, **query_e2e.index_tensors(idx, "cpu"))
@@ -186,6 +186,16 @@ assert len(sketch1.sketch_mode1_arrays(seqs, spec=FASTX_SPEC,
                                        device="cpu")[0][0]) > 10
 hps = device_query.batch_query_to_hps(store, [seqs[0][:6000]], device="cpu")
 assert hps[0] and hps[0][0][0] == 0 and hps[0][0][1][0][0] > 0
+# pgr-pbundle-decomp: the host C++ walk and peel and the plain K12 sort
+import os, tempfile
+from pgrtk_tpu_torch.cli import pgr_pbundle_decomp
+assert len(cases.adj_cases("cpu")) > 5
+with tempfile.TemporaryDirectory() as d:
+    fa = os.path.join(d, "in.fa")
+    cases.write_fasta(fa, cases.pbundle_haplotypes(4, 30_000, 1))
+    assert pgr_pbundle_decomp.main([fa, os.path.join(d, "out")],
+                                   device="cpu") == 0
+    assert os.path.getsize(os.path.join(d, "out.pmapg.gfa")) > 1000
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("ok")
 """

@@ -275,6 +275,23 @@ def index_targets():
     return targets, lens
 
 
+def test_build_index_sketches_on_the_card_by_default(monkeypatch):
+    """build_index(target_seqs=...) sketches on the card unless the caller
+    asks for the CPU, like every host entry point of the port."""
+    seen = []
+
+    def fake_sketch(seqs, rids=None, spec=None, device="cuda"):
+        seen.append(device)
+        return [(np.zeros(0, np.uint64), np.zeros(0, np.uint64))
+                for _ in seqs]
+
+    monkeypatch.setattr(tq.sketch_ops, "sketch_mode2", fake_sketch)
+    targets = np.zeros((2, 512), np.uint8)
+    tq.build_index(targets, n_decoys=0)
+    tq.build_index(targets, n_decoys=0, device="cpu")
+    assert seen == ["cuda", "cpu"]
+
+
 @pytest.mark.parametrize("form", ["target_seqs", "pair_arrays",
                                   "index_step_table"])
 def test_build_index_matches_jax(form, index_targets):
@@ -282,7 +299,7 @@ def test_build_index_matches_jax(form, index_targets):
     kw = dict(n_decoys=300, seed=3, P=16)
     want = jq.build_index(targets, target_lens=lens, **kw)
     if form == "target_seqs":
-        got = tq.build_index(targets, target_lens=lens, **kw)
+        got = tq.build_index(targets, target_lens=lens, device="cpu", **kw)
     elif form == "pair_arrays":
         arrays = _pair_arrays([t[:n] for t, n in zip(targets, lens)])
         got = tq.build_index(pair_arrays=arrays, **kw)
