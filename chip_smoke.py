@@ -85,6 +85,25 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      its edge cases (digit ties, duplicate rows, values at the top of
      each width, 0-3 rows, past one tile) and a bgn of 2**32, which
      raises.
+  9. runs pgr-get-sv-candidate-regions
+     (pgrtk_tpu_torch/cli/pgr_get_sv_candidate_regions.py, its defaults
+     and --generate-sv-candidate-fasta-file) on a 16,777,216-base
+     reference from bench.py's generator at seed 4 (the CNV tandem, the
+     3-copy tandem, the segdup) and 2 assembly haplotypes of it cut into
+     8 contigs each (pgrtk_tpu_torch/utils/cases.py::sv_assembly: SNPs at
+     1e-3, short indels, planted deletions, insertions, random
+     substitutions, inversions and copies, soft-masked stretches,
+     reverse-complemented and duplicated contigs), written to build/:
+     per-stage host times, the counts (gap segments, S/L/E/A classes,
+     segments aligned by K13 and sent to the arbiter by reason, lines per
+     file), the launches (reset before, read after) and the device idle
+     share from torch.profiler over the whole run; every gap segment's
+     alignment against the port's C++ arbiter (native/wfa.cc); the same
+     ten files by sha256 from the card and the CPU on a 1,048,576-base
+     cut; and (9b) K13 against its plain version on the path's first
+     1,024 segments, both timed, with its bound.  Phase 1 also holds K13
+     to its plain version on cases.wfa_pairs at L 512 and 8,192 and an
+     S_max of 61.
 
 Between phases 6 and 7 it prints the bounds of the index and query
 steps (sums of their kernels' bounds in this run) and of the JAX
@@ -126,6 +145,7 @@ REPLACES = {
     "probe_keys": "pgrtk_tpu/ops/probe.py:88",
     "sort_link_rows": "pgrtk_tpu/ops/adj.py:20",
     "sort_pairs": "pgrtk_tpu/ops/pairs.py:349",
+    "wfa_forward": "pgrtk_tpu/ops/wfa.py:103",
 }
 INDEX_KERNELS = tuple(REPLACES)[:4] + ("sort_pairs",)
 QUERY_KERNELS = tuple(REPLACES)[:8]
@@ -163,6 +183,11 @@ OPS_DIGIT = 8        # K12 per entry and 8-bit digit that is not constant:
                      # extract, rank among equal digits, place
 ROW = (4, 4, 4, 7, 7, BIT)  # a MAP-graph row: sid, bgn, end (u32), h0,
                             # h1 (56 bits), ori
+OPS_WFA_CELL = 24    # K13 per window cell and score step: five window-
+                     # checked reads, the recurrences, the bounds check,
+                     # the progress key (the extension's compares are not
+                     # counted)
+WFA_ROW = (2, 2, 2)  # a history cell: M, I and D offsets (int16)
 
 
 class SmokeFailure(Exception):
@@ -358,6 +383,14 @@ def phase_kernels(dev, tsk, tp):
         check(name, kernel(), plain())
     from pgrtk_tpu_torch.ops import adj as ta
 
+    from pgrtk_tpu_torch.ops import wfa as tw
+
+    for L, S_max in ((512, 256), (8192, 256), (512, 61)):
+        args = [torch.from_numpy(a).to(dev)
+                for a in cases.wfa_batch(cases.wfa_pairs(L=L), L)]
+        check(f"K13 wfa_forward L={L} S_max={S_max}",
+              tw.wfa_forward_batch(*args, L=L, S_max=S_max),
+              tw.wfa_forward_batch_plain(*args, L=L, S_max=S_max))
     rows, mask = cases.adj_rows(1, 3_000)
     rows[1_234, 1] = np.uint64(1 << 32)  # a bgn past u32
     try:
@@ -735,7 +768,7 @@ def step_bound(parts):
 
 def unported_bounds(index_step, query_step):
     """Bounds (ms, by) of the JAX package's device functions not ported
-    yet (rows 14-17 and 19 of PERF.md's kernel table), at the shapes their
+    yet (rows 14-17 of PERF.md's kernel table), at the shapes their
     callers give them at this run's sizes.  A sharded step per card is
     its single-card step (this run's kernel bounds) plus the bytes it
     sends over NVLink."""
@@ -759,9 +792,6 @@ def unported_bounds(index_step, query_step):
         ("17 parallel/mesh.py:55/210/533 v1 steps, per card: the index "
          "step + all_gather of the packed table",
          linked(index_step["bound"], 7 * 4 * pairs)),
-        ("19 ops/wfa.py:103 wfa_forward_batch, 1,024 segments, 384 steps "
-         "of a 384-cell wavefront, M history kept (int32)",
-         bound(1024 * 384 * 384 * 4, 1024 * 384 * 384 * 12)),
     ]
 
 
@@ -1028,7 +1058,7 @@ class plain_kernels:
 
     def __init__(self):
         from pgrtk_tpu_torch.ops import (adj, chain, pairs, probe, sketch,
-                                         sketch1)
+                                         sketch1, wfa)
 
         def walk(seqs, lens, k, r, chunk=512, slots=12, exact=False):
             return sketch.sketch_walk_compact_plain(seqs, lens, k, r, chunk,
@@ -1051,6 +1081,7 @@ class plain_kernels:
             (sketch1, "sketch_mode1_dense", mode1),
             (pairs, "sort_pairs", pairs.sort_pairs_plain),
             (adj, "sort_link_planes", adj.sort_link_rows_plain),
+            (wfa, "wfa_forward_batch", wfa.wfa_forward_batch_plain),
         ]
 
     def __enter__(self):
@@ -1440,6 +1471,183 @@ def phase_pbundle(dev, kb, build_dir):
     return {"sort_link_rows": result}
 
 
+SV_REF_LEN = 16_777_216  # reference bases of phase 9
+SV_HAPS, SV_CONTIGS = 2, 8
+SV_CUT = 1_048_576       # the card-vs-CPU check: reference bases
+SV_FORWARD_SEGMENTS = 1_024  # phase 9b
+SV_OPTS = ["--generate-sv-candidate-fasta-file"]
+SV_STAGES = ("read fastx", "load and sketch", "read assembly",
+             "device sketch", "probe", "host lookup and filters",
+             "chain kernels", "traceback", "fallbacks", "query", "classify",
+             "WFA forward", "backtrace", "arbiter", "variants", "records",
+             "writers")
+
+
+def sv_corpus(dev, build_dir, L, n_haps, n_contigs, tag, seed=4):
+    """bench.py's generator at `seed` for pgr-get-sv-candidate-regions: an
+    L-base reference with the 16-copy 3 kb CNV tandem, the 3-copy 8 kb
+    tandem and the 24 kb segdup (those L allows), as build/<tag>_ref.fa;
+    n_haps haplotypes of it cut into n_contigs contigs each, with
+    pgrtk_tpu_torch/utils/cases.py::sv_assembly's SVs, SNPs, indels,
+    soft-masking, inversions, reverse-complemented and duplicated
+    contigs, as build/<tag>_asm.fa.  Returns the two paths."""
+    from pgrtk_tpu_torch.utils import cases
+
+    S16, U16, N16 = 3 * Q + 8_192, 3_072, 16
+    prng = np.random.default_rng(seed)
+    base = prng.integers(0, 4, size=L, dtype=np.uint8)
+    if L >= SD2 + SDL:
+        base[S16:S16 + U16 * N16] = np.tile(
+            pick_tandem_unit(prng, U16, N16, dev), N16)
+        add_shared_repeats(base, prng, dev)
+    ref = os.path.join(build_dir, f"{tag}_ref.fa")
+    asm = os.path.join(build_dir, f"{tag}_asm.fa")
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    cases.write_fasta(ref, [("chr1", acgt[base].tobytes())])
+    cases.write_fasta(asm, cases.sv_assembly(base, n_haps, n_contigs,
+                                             seed + 1))
+    return ref, asm
+
+
+def run_sv(out_dir, ref, asm, dev, stats=None):
+    """The CLI (with --generate-sv-candidate-fasta-file) on `dev`; returns
+    the sha256 of each of its ten files."""
+    import hashlib
+
+    from pgrtk_tpu_torch.cli import pgr_get_sv_candidate_regions as cli
+
+    os.makedirs(out_dir, exist_ok=True)
+    prefix = os.path.join(out_dir, "out")
+    require(cli.main([ref, asm, prefix] + SV_OPTS, device=dev,
+                     stats=stats) == 0,
+            "pgr-get-sv-candidate-regions exited non-zero")
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    return {e: hashlib.sha256(open(prefix + e, "rb").read()).hexdigest()
+            for e in cli.OUTPUTS + cli.FASTA_OUTPUTS}
+
+
+def wfa_work(res, n, m, kb_lo, DB):
+    """Input bytes (t and q as needed), output bytes (each score row up
+    to final_s, or up to S_last without completion, at its window's
+    width inside the band: M, I, D, lo, hi; final_s) and operations
+    (OPS_WFA_CELL per such window cell) of a K13 call's result."""
+    fs = res["final_s"].long()
+    S_rows = res["lo_hist"].shape[1]
+    last = torch.where(fs >= 0, fs, S_rows - 1)
+    rows = torch.arange(S_rows, device=fs.device)[None] <= last[:, None]
+    lo = res["lo_hist"].long().clamp(min=kb_lo)
+    hi = res["hi_hist"].long().clamp(max=kb_lo + DB - 1)
+    cells = int(((hi - lo + 1).clamp(min=0) * rows).sum())
+    n_rows = int(rows.sum())
+    return (int(n.sum() + m.sum()), need(cells, *WFA_ROW)
+            + need(n_rows, 2, 2) + 4 * len(fs), OPS_WFA_CELL * cells)
+
+
+def phase_sv(dev, kb, build_dir):
+    """pgr-get-sv-candidate-regions on the card: stage times, counts, the
+    profiler, every segment against the arbiter, card and CPU files on a
+    cut, K13 against its plain version at the path's segments (9b)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pgrtk_tpu_torch.native import build as native
+    from pgrtk_tpu_torch.ops import wfa as tw
+
+    print(f"phase 9: pgr-get-sv-candidate-regions, {SV_REF_LEN}-base "
+          f"reference, {SV_HAPS} haplotypes x {SV_CONTIGS} contigs")
+    os.makedirs(build_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    ref, asm = sv_corpus(dev, build_dir, SV_REF_LEN, SV_HAPS, SV_CONTIGS,
+                         "sv")
+    print(f"  corpus -> {ref}, {asm} in {time.perf_counter() - t0:.1f} s "
+          f"(host)")
+    seen = []
+    batch_wfa_align = tw.batch_wfa_align
+
+    def spy(pairs, *a, **kw):
+        out = batch_wfa_align(pairs, *a, **kw)
+        seen.append((pairs, out, kw["L"]))
+        return out
+
+    stats = {}
+
+    def run():
+        t = time.perf_counter()
+        run_sv(os.path.join(build_dir, "sv_card"), ref, asm, dev, stats)
+        stats["wall"] = time.perf_counter() - t
+
+    tw.batch_wfa_align = spy  # core/wfa.py calls dev_wfa.batch_wfa_align
+    try:
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        print("  one CLI run under torch.profiler:")
+        profile_steps(run, n=1, trace="sv_cli_trace.json")
+        launches = {k.name: k.launches for k in kb.KERNELS}
+    finally:
+        tw.batch_wfa_align = batch_wfa_align
+    print(f"  one CLI run: {stats['wall']:.3f} s (host clock, "
+          f"synchronized); launches {launches}")
+    for name in ("wfa_forward", "sketch_mode1", "rank_extract",
+                 "chain_scores_fast"):
+        require(launches[name] > 0, f"{name} never ran on the SV path")
+    sec = stats.pop("seconds")
+    for k in ("read fastx", "load and sketch"):
+        sec[k] = sum(stats.pop(k))
+    print("  stages (host clock, s): " + ", ".join(
+        f"{k} {sec[k]:.3f}" for k in SV_STAGES if k in sec))
+    stats.pop("wall")
+    print(f"  counts {stats}")
+    require(stats["wfa_on_device"] > 0, "K13 aligned no segment")
+    pairs, aligned, L = seen[0]
+    t = time.perf_counter()
+
+    def arbiter(tq):
+        return native.wfa_align(*tq, 384, 3, 3, 1, 1024)
+
+    with ThreadPoolExecutor() as ex:
+        want = list(ex.map(arbiter, pairs, chunksize=256))
+    bad = [i for i, (g, w) in enumerate(zip(aligned, want)) if g != w]
+    require(not bad, f"{len(bad)} segments differ from the arbiter, first "
+            f"{bad[:5]}")
+    print(f"  all {len(pairs)} segments equal the C++ arbiter's alignment "
+          f"({stats['wfa_on_device']} by K13; {time.perf_counter() - t:.1f}"
+          f" s, host threads)")
+
+    t = time.perf_counter()
+    cut_ref, cut_asm = sv_corpus(dev, build_dir, SV_CUT, SV_HAPS, 2,
+                                 "sv_cut")
+    on_card = run_sv(os.path.join(build_dir, "sv_cut_card"), cut_ref,
+                     cut_asm, dev)
+    on_cpu = run_sv(os.path.join(build_dir, "sv_cut_cpu"), cut_ref, cut_asm,
+                    "cpu")
+    require(on_card == on_cpu, "card and CPU wrote other files on the cut")
+    print(f"  (b) {SV_CUT}-base reference, {SV_HAPS} x 2 contigs: card and "
+          f"CPU write the same ten files ({time.perf_counter() - t:.1f} s)")
+
+    print(f"phase 9b: K13 vs plain on the path's first "
+          f"{SV_FORWARD_SEGMENTS} segments")
+    seg = [p for p in pairs if 0 < len(p[0]) <= L and 0 < len(p[1]) <= L]
+    seg = seg[:SV_FORWARD_SEGMENTS]
+    from pgrtk_tpu_torch.utils import cases
+
+    args = [torch.from_numpy(a).to(dev) for a in cases.wfa_batch(seg, L)]
+    S_last, kb_lo, DB = tw.wfa_band(L, 256)
+    res = tw.wfa_forward_batch(*args, L=L)
+    in_b, out_b, ops = wfa_work(res, args[2], args[3], kb_lo, DB)
+    fs = res["final_s"]
+    print(f"  {len(seg)} segments of {min(len(a) for a, _ in seg)}-"
+          f"{max(max(len(a), len(b)) for a, b in seg)} bases, L={L}, band "
+          f"{DB} diagonals, S_last {S_last}; {int((fs >= 0).sum())} complete"
+          f", final_s up to {int(fs.max())}")
+    result = measure(
+        f"K13 wfa_forward, {len(seg)} segments",
+        lambda: tw.wfa_forward_batch(*args, L=L),
+        lambda: tw.wfa_forward_batch_plain(*args, L=L), in_b,
+        lambda got: out_b, ops, plain_reps=1)
+    result["launches"] = launches["wfa_forward"]
+    return {"wfa_forward": result}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1493,6 +1701,7 @@ def main():
         build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                  "build")
         measured.update(phase_pbundle(dev, kb, build_dir))
+        measured.update(phase_sv(dev, kb, build_dir))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

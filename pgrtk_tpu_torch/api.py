@@ -1,11 +1,13 @@
-"""SeqIndexDB — the part of pgrtk_tpu/api.py that pgr-pbundle-decomp
-uses, over the port's columnar store (core/seqdb.py).
+"""SeqIndexDB — the part of pgrtk_tpu/api.py that pgr-pbundle-decomp and
+pgr-get-sv-candidate-regions use, over the port's columnar store
+(core/seqdb.py).
 
 The database sketches on the card (`device="cuda"`, K9) unless the
-caller asks for the CPU, and the MAP graph sorts and links its rows with
-K12 on the same device.  The bundle order/direction vote, the vertex
-map, the projection and the GFA/index writers give the JAX facade's
-results exactly.
+caller asks for the CPU, the MAP graph sorts and links its rows with
+K12 on the same device, and queries run the --batch-device path
+(parallel/device_query.py) there.  The bundle order/direction vote, the
+vertex map, the projection, the GFA/index writers and the chains of a
+query give the JAX facade's results exactly.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from .core.fasta import read_fastx
 from .core.spec import ShmmrSpec
 from .graph import bundles as gb
 from .graph import gfa as gfa_mod
+from .parallel import device_query
 
 
 def consensus_bundle_order_direction(
@@ -116,9 +119,49 @@ class SeqIndexDB:
 
     def get_seq(self, sample_name: str, ctg_name: str) -> bytes:
         sid, _ = self.seq_index[(ctg_name, sample_name)]
+        return self.get_seq_by_id(sid)
+
+    def get_seq_by_id(self, sid: int) -> bytes:
+        """(pgrtk_tpu/api.py:349-350)"""
         if self.store.seqs is None:
             raise ValueError("this database keeps no sequences")
         return self.store.seqs[sid]
+
+    def get_sub_seq_by_id(self, sid: int, bgn: int, end: int) -> bytes:
+        """Bases [bgn, end) of sequence `sid` (pgrtk_tpu/api.py:352-353)."""
+        return self.get_seq_by_id(sid)[bgn:end]
+
+    # ---------------------------------------------------------- queries
+    def query_fragment_to_hps(self, seq: bytes, penalty: float,
+                              max_count: Optional[int] = None,
+                              max_count_query: Optional[int] = None,
+                              max_count_target: Optional[int] = None,
+                              max_aln_span: Optional[int] = None,
+                              max_gap: Optional[int] = None,
+                              oriented: bool = False):
+        """Count-filtered, chained hits of one query (pgrtk_tpu/api.py:
+        288-326; reference aln.rs:147-242): [(target sid, [(score,
+        [((q_bgn, q_end, q_ori), (t_bgn, t_end, t_ori))])])] in sid
+        order, targets with one hit left out."""
+        return self.query_fragments_to_hps(
+            [seq], penalty, max_count, max_count_query, max_count_target,
+            max_aln_span, max_gap, oriented)[0]
+
+    def query_fragments_to_hps(self, seqs: Sequence[bytes], penalty: float,
+                               max_count: Optional[int] = None,
+                               max_count_query: Optional[int] = None,
+                               max_count_target: Optional[int] = None,
+                               max_aln_span: Optional[int] = None,
+                               max_gap: Optional[int] = None,
+                               oriented: bool = False):
+        """query_fragment_to_hps of many queries in one batch on the
+        database's device (parallel/device_query.py::batch_query_to_hps:
+        the sketch, the probe and the chain DP on the card, the count
+        filters on the host); one result per query, in order."""
+        return device_query.batch_query_to_hps(
+            self.store, seqs, penalty, max_count, max_count_query,
+            max_count_target, max_aln_span, max_gap, oriented,
+            device=self.device, stats=self.stats)
 
     # ------------------------------------- MAP graph / principal bundles
     def _principal_cached(self, min_count, path_len_cutoff):

@@ -201,12 +201,17 @@ _RADIX_ARGS = [ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _LL,
 sort_link_rows = Kernel("sort_link_rows", "pgrtk_tpu_torch/csrc/adj.cu",
                         _RADIX_ARGS)
 sort_pairs = Kernel("sort_pairs", "pgrtk_tpu_torch/csrc/adj.cu", _RADIX_ARGS)
+wfa_forward = Kernel(
+    "wfa_forward", "pgrtk_tpu_torch/csrc/wfa.cu",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+     _P, _P],
+)
 # index stage K1-K4, query stage K5-K8, the --batch-device path K9-K11,
-# the pgr-pbundle-decomp path K12
+# the pgr-pbundle-decomp path K12, the pgr-get-sv-candidate-regions WFA K13
 KERNELS = (sketch_walk_compact, rank_extract, min_span_filter_gapped,
            pair_mers_gapped, probe_fetch, dup_pair_counts, expand_postings,
            chain_scores_fast, sketch_mode1, chain_scores_dense, probe_keys,
-           sort_link_rows, sort_pairs)
+           sort_link_rows, sort_pairs, wfa_forward)
 
 
 def reset_launches() -> None:

@@ -1,13 +1,14 @@
-"""Build, load and call the host C++ of the MAP-graph layer: the weighted
-bidirected DFS walk (dfs_walk.cc) and the principal-bundle peel
-(bundle_peel.cc), copies of pgrtk_tpu/native/src's files.
+"""Build, load and call the port's host C++: the weighted bidirected DFS
+walk (dfs_walk.cc) and the principal-bundle peel (bundle_peel.cc) of the
+MAP-graph layer, and the gap-affine WFA arbiter (wfa.cc), copies of
+pgrtk_tpu/native/src's files.
 
 At first use the system C++ compiler ($CXX, else g++, else c++) builds
 both files into one shared library in `build/pgrtk_tpu_torch/` beside
 the package, named by a hash of the sources and flags, loaded with
 ctypes.  No compiler raises: there is no Python fallback.  The flags
 keep the JAX package's `-ffp-contract=off`.  The bindings are those of
-pgrtk_tpu/native/api.py:570-632.
+pgrtk_tpu/native/api.py:570-632 and pgrtk_tpu/core/wfa.py:28-44.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from pathlib import Path
 import numpy as np
 
 SRC = Path(__file__).resolve().parent
-SOURCES = ("dfs_walk.cc", "bundle_peel.cc")
+SOURCES = ("dfs_walk.cc", "bundle_peel.cc", "wfa.cc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pgrtk_tpu_torch"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off")
 
@@ -79,6 +80,13 @@ def library() -> ctypes.CDLL:
             lib.pgr_bundle_peel.argtypes = [
                 nd(np.int64), nd(np.uint32), nd(np.int64), nd(np.uint32),
                 nd(np.uint32), ctypes.c_int64, ctypes.c_int64, *out]
+            lib.pgr_wfa_align.restype = ctypes.c_int32
+            lib.pgr_wfa_align.argtypes = [
+                ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p,
+                ctypes.c_int64, ctypes.c_uint32, ctypes.c_int32,
+                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_void_p)]
             _lib = lib
         return _lib
 
@@ -122,3 +130,24 @@ def bundle_peel(succ_indptr, succ_idx, pred_indptr, pred_idx, order,
         c(order, dtype=np.uint32), int(n_nodes), len(order),
         ctypes.byref(out), ctypes.byref(out_len))
     return _take(lib, out, out_len)
+
+
+def wfa_align(t: bytes, q: bytes, max_wf_length: int, mismatch: int,
+              gap_open: int, gap_ext: int, max_steps: int):
+    """Gap-affine WFA of target `t` against query `q` (wfa.cc, adaptive
+    trim to max_wf_length diagonals): (aligned target, aligned query)
+    with '-' gaps, or None when no alignment completes within max_steps
+    score steps."""
+    lib = library()
+    ta, qa = ctypes.c_void_p(), ctypes.c_void_p()
+    score = lib.pgr_wfa_align(t, len(t), q, len(q), max_wf_length,
+                              mismatch, gap_open, gap_ext, max_steps,
+                              ctypes.byref(ta), ctypes.byref(qa))
+    if score < 0:
+        return None
+    try:
+        return (ctypes.string_at(ta.value).decode(),
+                ctypes.string_at(qa.value).decode())
+    finally:
+        lib.pgr_free(ta)
+        lib.pgr_free(qa)

@@ -37,6 +37,11 @@ from . import pairs as pairs_ops
 from .int64 import ult, wang_hash
 
 OVERLAP = 64  # warm-up bases of the fast walk (ops/sketch.py:211)
+# Padded bases (B x L_pad) of one host-API sketch launch: a batch with
+# chromosome-length skew goes in length-sorted sub-batches under this
+# budget (bench.py's 16 x 16 Mbase index batch), not padded to its
+# longest sequence in one launch.
+SKETCH_BASES = 268_435_456
 _HASH_SALT = 0xAD12CF59
 
 
@@ -250,6 +255,22 @@ def pad_batch(seqs, pad_to=None, multiple: int = 512
     return arr, lens
 
 
+def length_batches(lengths: Sequence[int], multiple: int
+                   ) -> List[List[int]]:
+    """Indices of length-sorted sub-batches whose padded size, B x the
+    longest length rounded up to `multiple`, stays within SKETCH_BASES;
+    a sequence longer than the budget goes alone."""
+    order = sorted(range(len(lengths)), key=lambda i: lengths[i])
+    batches: List[List[int]] = []
+    for i in order:
+        L = max(multiple, -(-lengths[i] // multiple) * multiple)
+        if batches and (len(batches[-1]) + 1) * L <= SKETCH_BASES:
+            batches[-1].append(i)
+        else:
+            batches.append([i])
+    return batches
+
+
 def sketch_mode2(seqs: Sequence[bytes], rids: Optional[Sequence[int]] = None,
                  spec=None, chunk: int = 512, *,
                  device="cuda") -> List[Tuple[np.ndarray, np.ndarray]]:
@@ -257,7 +278,9 @@ def sketch_mode2(seqs: Sequence[bytes], rids: Optional[Sequence[int]] = None,
     `device` and return per-sequence (x, y) uint64 numpy arrays matching
     the scalar reference.  Runs the fused path; when its overflow flag
     fires, reruns through the exact walk with one slot per base, which
-    cannot overflow.
+    cannot overflow.  The sequences go in length-sorted sub-batches of
+    at most SKETCH_BASES padded bases (length_batches), each with its own
+    overflow rerun; results come back in input order.
 
     spec: a core.spec.ShmmrSpec, or anything with its k, r, min_span and
     sketch fields; by default core.spec.DEFAULT_SPEC (mode 2)."""
@@ -267,6 +290,17 @@ def sketch_mode2(seqs: Sequence[bytes], rids: Optional[Sequence[int]] = None,
         raise ValueError("sketch_mode2 requires spec.sketch=True")
     if rids is None:
         rids = list(range(len(seqs)))
+    res: List[Tuple[np.ndarray, np.ndarray]] = [None] * len(seqs)
+    for idx in length_batches([len(s) for s in seqs], chunk):
+        for i, r in zip(idx, _sketch_mode2_batch(
+                [seqs[i] for i in idx], [rids[i] for i in idx], spec, chunk,
+                device)):
+            res[i] = r
+    return res
+
+
+def _sketch_mode2_batch(seqs, rids, spec, chunk, device):
+    """sketch_mode2 of one sub-batch, padded to its longest sequence."""
     arr, lens = pad_batch(seqs, multiple=chunk)
     seqs_t = torch.from_numpy(arr).to(device)
     lens_t = torch.from_numpy(lens).to(device)

@@ -224,14 +224,27 @@ def sketch_mode1_arrays(seqs: Sequence[bytes], rids=None,
     equal to the scalar reference.  A row with a palindromic k-mer, a
     compaction overflow, or too short for the parallel path
     (t0 < k+w-1) goes to the scalar sketcher (core/sketch_ref); `stats`,
-    when given, counts them under "scalar_sketch"."""
+    when given, counts them under "scalar_sketch".  The sequences go in
+    length-sorted sub-batches of at most ops/sketch.py's SKETCH_BASES
+    padded bases (sketch.length_batches); results come back in input
+    order."""
     spec = spec or ShmmrSpec(sketch=False)
     if spec.sketch:
         raise ValueError("sketch_mode1_arrays requires spec.sketch=False")
     if rids is None:
         rids = list(range(len(seqs)))
-    if not len(seqs):
-        return []
+    results: List[Tuple[np.ndarray, np.ndarray]] = [None] * len(seqs)
+    for idx in sketch_ops.length_batches([len(s) for s in seqs], chunk):
+        for i, r in zip(idx, _sketch_mode1_batch(
+                [seqs[i] for i in idx], [rids[i] for i in idx], spec, chunk,
+                device, stats)):
+            results[i] = r
+    return results
+
+
+def _sketch_mode1_batch(seqs, rids, spec, chunk, device, stats):
+    """sketch_mode1_arrays of one sub-batch, padded to its longest
+    sequence."""
     w, k = spec.w, spec.k
     arr, lens = sketch_ops.pad_batch(seqs, multiple=chunk)
     out = mode1_compacted(torch.from_numpy(arr).to(device),

@@ -434,3 +434,157 @@ def write_fasta(path, records, width=60):
             f.write(b">" + name.encode() + b" synthetic\n")
             for i in range(0, len(seq), width):
                 f.write(seq[i:i + width] + b"\n")
+
+
+_COMPLEMENT = bytes.maketrans(b"ACGTacgt", b"TGCAtgca")
+
+
+def _revcomp(codes):
+    return (3 - codes)[::-1]
+
+
+def sv_assembly(ref, n_haps, n_contigs, seed, event_every=25_000):
+    """Assembly contigs [(name, bases)] of `n_haps` haplotypes of `ref`
+    ((L,) uint8 codes 0-3) for pgr-get-sv-candidate-regions, from
+    np.random.default_rng(seed).  Each haplotype carries, one every
+    ~`event_every` bases in turn: a 500-5,000-base deletion, a
+    500-5,000-base random insertion, an 800-1,500-base random
+    substitution (a segment WFA does not close), a 5-15 kb inversion and
+    a 4-8 kb copy of a distant stretch of `ref`; then SNPs at 1e-3,
+    1-20-base indels at 1e-4 and, one every ~100 kb, a 50-200-base
+    soft-masked (lowercase) stretch.  It is cut into `n_contigs` contigs, every
+    other one starting 2-6 kb before the previous one ends, every third
+    one reverse-complemented, plus one 20 kb duplicate of a stretch of
+    the first contig, so that both orientations and the target and query
+    duplicate and overlap records occur."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    L = len(ref)
+    kinds = ("del", "ins", "sub", "inv", "copy")
+    out = []
+    for h in range(n_haps):
+        pieces, cur = [], 0
+        starts = np.arange(event_every // 2, L - event_every, event_every)
+        for e, p in enumerate(starts + rng.integers(-2_000, 2_000,
+                                                    len(starts))):
+            pieces.append(ref[cur:p])
+            kind = kinds[(e + h) % len(kinds)]
+            cur = p
+            if kind == "del":
+                cur = p + int(rng.integers(500, 5_001))
+            elif kind == "ins":
+                pieces.append(rng.integers(0, 4, int(rng.integers(500, 5_001)),
+                                           dtype=np.uint8))
+            elif kind == "sub":
+                n = int(rng.integers(800, 1_501))
+                pieces.append(rng.integers(0, 4, n, dtype=np.uint8))
+                cur = p + n
+            elif kind == "inv":
+                n = int(rng.integers(5_000, 15_001))
+                pieces.append(_revcomp(ref[p:p + n]))
+                cur = p + n
+            else:
+                n = int(rng.integers(4_000, 8_001))
+                src = int(rng.integers(0, L - n))
+                pieces.append(ref[src:src + n])
+        pieces.append(ref[cur:])
+        s = np.concatenate(pieces)
+        pos = rng.choice(len(s), size=rng.binomial(len(s), 1e-3),
+                         replace=False)
+        s[pos] = (s[pos] + rng.integers(1, 4, len(pos))) % 4
+        indel = np.sort(rng.choice(len(s) - 20, size=rng.binomial(
+            len(s), 1e-4), replace=False))
+        parts, cur = [], 0
+        for p in indel.tolist():
+            if p < cur:
+                continue
+            parts.append(s[cur:p])
+            n = int(rng.integers(1, 21))
+            if rng.random() < 0.5:
+                cur = p + n
+            else:
+                parts.append(rng.integers(0, 4, n, dtype=np.uint8))
+                cur = p
+        parts.append(s[cur:])
+        s = acgt[np.concatenate(parts)]
+        for p in rng.choice(len(s) - 200, size=max(1, len(s) // 100_000),
+                            replace=False).tolist():
+            s[p:p + int(rng.integers(50, 201))] |= 0x20
+        cuts = np.linspace(0, len(s), n_contigs + 1).astype(np.int64)
+        cuts[1:-1] += rng.integers(-len(s) // (8 * n_contigs),
+                                   len(s) // (8 * n_contigs), n_contigs - 1)
+        for c in range(n_contigs):
+            a = cuts[c] - (int(rng.integers(2_000, 6_001)) if c % 2 else 0)
+            ctg = s[max(a, 0):cuts[c + 1]].tobytes()
+            if c % 3 == 1:
+                ctg = ctg[::-1].translate(_COMPLEMENT)
+            out.append((f"h{h}ctg{c}", ctg))
+        a = int(cuts[0] + (cuts[1] - cuts[0]) // 3)
+        out.append((f"h{h}dup", s[a:a + 20_000].tobytes()))
+    return out
+
+
+def sv_reference(L, seed):
+    """A random L-base reference [("chr1", bases)] and its (L,) codes."""
+    ref = np.random.default_rng(seed).integers(0, 4, L, dtype=np.uint8)
+    return [("chr1", np.frombuffer(b"ACGT", np.uint8)[ref].tobytes())], ref
+
+
+def wfa_pairs(seed=14, L=512):
+    """(target, query) byte pairs of at most L bases for the WFA forward
+    pass: identical, one SNP, 20-base deletion and insertion, SNPs with
+    1-30-base indels, 80 and 60 SNPs on 480 bases (the adaptive trim; 80
+    does not complete by S_max 256), unrelated, soft-masked (lowercase
+    against uppercase), empty sides, and n = L."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+
+    def rand(n):
+        return acgt[rng.integers(0, 4, n)].tobytes()
+
+    def snps(s, k):
+        b = bytearray(s)
+        for p in rng.choice(len(b), size=k, replace=False).tolist():
+            b[p] = acgt[(acgt.tolist().index(b[p]) + rng.integers(1, 4)) % 4]
+        return bytes(b)
+
+    def indels(s, k):
+        b = bytearray(s)
+        for _ in range(k if len(b) > 96 else 0):
+            p = int(rng.integers(16, len(b) - 48))
+            n = int(rng.integers(1, 31))
+            if rng.random() < 0.5:
+                del b[p:p + n]
+            else:
+                b[p:p] = rand(n)
+        return bytes(b)
+
+    t = rand(100)
+    pairs = [(t, t), (t, snps(t, 1)), (t, t[:40] + t[60:]),
+             (t[:40] + t[60:], t), (b"", t), (t, b""), (rand(300), rand(280))]
+    for _ in range(12):
+        s = rand(int(rng.integers(40, 460)))
+        pairs.append((s, indels(snps(s, int(rng.integers(0, 6))),
+                                int(rng.integers(0, 3)))))
+    s = rand(480)
+    pairs += [(s, snps(s, 80)), (s, snps(s, 60))]
+    s = rand(300)
+    pairs.append((s, s[:100] + s[100:180].lower() + s[180:]))
+    s = rand(L)
+    pairs.append((s, indels(snps(s, 5), 2)[:L]))
+    return pairs
+
+
+def wfa_batch(pairs, L):
+    """(t, q) (G, L) uint8, (n, m) (G,) int32 of `pairs`, padded as
+    pgrtk_tpu/ops/wfa.py pads (t with 0, q with 0xFF)."""
+    G = len(pairs)
+    t = np.zeros((G, L), np.uint8)
+    q = np.full((G, L), 0xFF, np.uint8)
+    n = np.zeros(G, np.int32)
+    m = np.zeros(G, np.int32)
+    for i, (a, b) in enumerate(pairs):
+        t[i, :len(a)] = np.frombuffer(a, np.uint8)
+        q[i, :len(b)] = np.frombuffer(b, np.uint8)
+        n[i], m[i] = len(a), len(b)
+    return t, q, n, m

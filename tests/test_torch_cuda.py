@@ -4,7 +4,9 @@ the same on the CPU, K2 past its old block cap and K5-K11 against their
 plain versions on the edge cases of pgrtk_tpu_torch/utils/cases.py, the
 kernels that put rows on gridDim.y on more rows than it takes, the
 kernels' input checks, and K12 (the MAP-graph row sort and the sort_pairs
-engine) with pgr-pbundle-decomp on the card against the CPU.
+engine) with pgr-pbundle-decomp on the card against the CPU, and K13
+(the WFA forward pass) against its plain version and the arbiter, with
+pgr-get-sv-candidate-regions on the card against the CPU.
 
 Marked `cuda`; each test skips when torch.cuda.is_available() is false.
 Imports no JAX, so it runs on a machine without it:
@@ -220,3 +222,54 @@ def test_pbundle_cli_on_card_matches_cpu(dev, tmp_path):
             tmp_path / ("cpu" + ext)).read_bytes(), ext
     gpu_bed = (tmp_path / "gpu.bed").read_text().split("\n", 1)[1]
     assert gpu_bed == (tmp_path / "cpu.bed").read_text().split("\n", 1)[1]
+
+
+@pytest.mark.parametrize("L,S_max", [(512, 256), (8192, 256), (512, 61)])
+def test_wfa_forward_matches_plain(dev, L, S_max):
+    """K13 against its plain version on the card, every output tensor
+    equal: completions, trims, empty sides, soft-masked bases, n = L, an
+    S_max that is not a multiple of 8."""
+    from pgrtk_tpu_torch.ops import wfa as twfa
+
+    pairs = cases.wfa_pairs(L=L)
+    args = [torch.from_numpy(a).to(dev) for a in cases.wfa_batch(pairs, L)]
+    before = kb.wfa_forward.launches
+    got = twfa.wfa_forward_batch(*args, L=L, S_max=S_max)
+    assert kb.wfa_forward.launches == before + 1
+    want = twfa.wfa_forward_batch_plain(*args, L=L, S_max=S_max)
+    torch.cuda.synchronize()
+    assert got.keys() == want.keys()
+    for k in got:
+        assert _equal(got[k], want[k]), k
+    assert int((got["final_s"] >= 0).sum()) > len(pairs) // 2
+
+
+def test_batch_wfa_align_on_card_matches_arbiter(dev):
+    from pgrtk_tpu_torch.native import build as native
+    from pgrtk_tpu_torch.ops import wfa as twfa
+
+    pairs = cases.wfa_pairs(L=8192)
+    stats = {}
+    got = twfa.batch_wfa_align(pairs, L=8192, device=dev, stats=stats)
+    for i, (t, q) in enumerate(pairs):
+        assert got[i] == native.wfa_align(t, q, 384, 3, 3, 1, 1024), i
+    assert stats["wfa_on_device"] > len(pairs) // 2
+
+
+def test_sv_cli_on_card_matches_cpu(dev, tmp_path):
+    """pgr-get-sv-candidate-regions on the card (K9, K2, K5 or K11, K8,
+    K13) writes the CPU run's ten files."""
+    from pgrtk_tpu_torch.cli import pgr_get_sv_candidate_regions as cli
+
+    recs, ref = cases.sv_reference(200_000, 1)
+    cases.write_fasta(tmp_path / "ref.fa", recs)
+    cases.write_fasta(tmp_path / "asm.fa", cases.sv_assembly(ref, 2, 3, 2))
+    argv = [str(tmp_path / "ref.fa"), str(tmp_path / "asm.fa")]
+    opt = ["--generate-sv-candidate-fasta-file"]
+    kb.reset_launches()
+    assert cli.main(argv + [str(tmp_path / "gpu")] + opt, device=dev) == 0
+    assert kb.wfa_forward.launches > 0 and kb.sketch_mode1.launches > 0
+    assert cli.main(argv + [str(tmp_path / "cpu")] + opt, device="cpu") == 0
+    for ext in cli.OUTPUTS + cli.FASTA_OUTPUTS:
+        assert (tmp_path / ("gpu" + ext)).read_bytes() == (
+            tmp_path / ("cpu" + ext)).read_bytes(), ext
