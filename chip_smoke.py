@@ -104,6 +104,23 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      1,024 segments, both timed, with its bound.  Phase 1 also holds K13
      to its plain version on cases.wfa_pairs at L 512 and 8,192 and an
      S_max of 61.
+ 10. runs the hash-range-sharded v2 path (parallel/mesh.py) over a real
+     NCCL process group of world size 1 (a FileStore under build/; the
+     NCCL all_to_all between ranks needs more cards): (10a) the dry run
+     of pgrtk_tpu_torch/dryrun.py, which must reproduce
+     MULTICHIP_r05.json's counts exactly; (10b) sharded_index_v2_step
+     on phase 4's 268 Mbase batch with the lambda retry: flags clean,
+     n_pairs and the shard equal to phase 4's sorted table, median of 5
+     steps beside phase 4's step, a torch.profiler pass; (10c)
+     sharded_query_v2_e2e_step on phase 6's 128 x 65,536 query rows
+     against a v2 index of the 8 bench targets: flags clean, anchors,
+     gvalid and f32 scores equal to the single-card query_e2e_step over
+     build_index(n_decoys=0) on every group neither flags, timed the
+     same way; (10d) K14 and K15 against their plain versions at 10b's
+     and 10c's shapes (launch counts from those runs) and on
+     cases.shard_cases (buckets of 128 and 129 entries, keys with Pp and
+     Pp + 1 postings, sid runs with m 15 and 16, padded route slots,
+     the last of three owners).
 
 Between phases 6 and 7 it prints the bounds of the index and query
 steps (sums of their kernels' bounds in this run) and of the JAX
@@ -146,6 +163,8 @@ REPLACES = {
     "sort_link_rows": "pgrtk_tpu/ops/adj.py:20",
     "sort_pairs": "pgrtk_tpu/ops/pairs.py:349",
     "wfa_forward": "pgrtk_tpu/ops/wfa.py:103",
+    "shard_probe_planes": "pgrtk_tpu/parallel/mesh.py:312",
+    "owner_postings": "pgrtk_tpu/parallel/mesh.py:764",
 }
 INDEX_KERNELS = tuple(REPLACES)[:4] + ("sort_pairs",)
 QUERY_KERNELS = tuple(REPLACES)[:8]
@@ -716,7 +735,7 @@ def phase_main_path(dev, tsk, tp, mesh, kb, B=16, L=16_777_216):
         OPS_ENTRY * keep.numel())
     pr = tp.pair_mers_gapped(x2, y2, keep)
     n = pr["k0"].numel()
-    _, keys, _ = tp._pair_sort_planes(pr, rids)
+    keys = tp._sort_keys(tp._pair_table(pr, rids))
     results["sort_pairs"] = measure(
         f"K12 engine as sort_pairs, {n} entries",
         lambda: tp.sort_pairs(pr, rids),
@@ -766,9 +785,9 @@ def step_bound(parts):
     return sum(ms for ms, _ in parts), max(parts)[1]
 
 
-def unported_bounds(index_step, query_step):
+def unported_bounds(index_step):
     """Bounds (ms, by) of the JAX package's device functions not ported
-    yet (rows 14-17 of PERF.md's kernel table), at the shapes their
+    yet (rows 14 and 17 of PERF.md's kernel table), at the shapes their
     callers give them at this run's sizes.  A sharded step per card is
     its single-card step (this run's kernel bounds) plus the bytes it
     sends over NVLink."""
@@ -781,14 +800,6 @@ def unported_bounds(index_step, query_step):
     return [
         ("14 ops/pairs.py dense variants: compact_mers on the dense "
          f"({B}, {L}) x, y planes and mask", bound(B * L * 17)),
-        ("15 parallel/mesh.py:372 sharded_index_v2_step, per card: the "
-         f"index step + all_to_all of 7 u32 planes of {pairs} pairs",
-         linked(index_step["bound"], 7 * 4 * pairs)),
-        ("16 parallel/mesh.py:603 sharded_query_v2_e2e_step, per card: the "
-         f"query step + two all_to_alls of {query_step['keys']} keys and "
-         "their hit rows",
-         linked(query_step["bound"],
-                query_step["keys"] * (16 + query_step["row_bytes"]))),
         ("17 parallel/mesh.py:55/210/533 v1 steps, per card: the index "
          "step + all_gather of the packed table",
          linked(index_step["bound"], 7 * 4 * pairs)),
@@ -985,7 +996,7 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
             + need(got[2].numel(), BIT, BIT),  # dup, inexact per group
             OPS_SLOT * E2E_KW["lookback"] * n_valid, plain_reps=1),
     }
-    step_info = dict(keys=q_k0.numel(), row_bytes=12 * P, bound=step_bound(
+    step_info = dict(bound=step_bound(
         [(r["bound_ms"], r["bound_by"])
          for r in (*errs.values(), *results.values())]))
     errs = {name: r["max_abs_err"] for name, r in errs.items()}
@@ -1648,6 +1659,307 @@ def phase_sv(dev, kb, build_dir):
     return {"wfa_forward": result}
 
 
+# MULTICHIP_r05.json's counts of the JAX dry run at 8 devices (B = 8 at
+# n = 1, 2, 4 and 8, so they do not depend on n)
+MULTICHIP_R05 = dict(bases=8_388_608, mers=20_726, pairs=20_718,
+                     e2e_hits=157_406, anchor_groups=64, chain_groups=64)
+# 10c: the sharded query at bench.py's query knobs (E2E_KW) that the v2
+# step has: its front end is the default sizing and 512-entry pair blocks
+V2_QUERY_KW = dict(slots2=192, lookback=24, M=3, postings_cap=32)
+PLANE_OUT = (7, 7, 4, 4, 4, 4)  # a probe slot: k0, k1 (56 bits), sid,
+                                # bgnori, end, row
+SHARD_KERNELS = ("shard_probe_planes", "owner_postings")
+
+
+class capture:
+    """Within the block, calls of module attribute `name` are recorded
+    (args in self.calls) and passed on."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def spy(*args, **kw):
+            self.calls.append((args, kw))
+            return self.orig(*args, **kw)
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def v2_index(mesh, comm, seqs, lens, rids, cap):
+    """sharded_index_v2_step with the lambda retry of
+    __graft_entry__.py:153-161; returns (result, lambda, tries)."""
+    from pgrtk_tpu_torch.dryrun import LAMBDAS
+
+    for i, lam in enumerate(LAMBDAS):
+        out = mesh.sharded_index_v2_step(seqs, lens, rids, shard_capacity=cap,
+                                         avg_per_bucket=lam, comm=comm)
+        print(f"  lambda {lam}: bits {out['bits']}, probe_overflow "
+              f"{int(out['probe_overflow'])}")
+        if not bool(out["probe_overflow"]):
+            return out, lam, i + 1
+    raise SmokeFailure("v2 probe buckets overflow at every lambda")
+
+
+def median_step(step, n=5):
+    step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return statistics.median(times), times
+
+
+def planes_list(res):
+    planes, ovf = res
+    return [planes[f] for f in sorted(planes)] + [ovf]
+
+
+def k14_work(shard, bits):
+    """Input bytes (the shard planes as given), output bytes (each slot's
+    fields at the width they need) and operations (8 per entry and
+    digit of the bucket key's sort, 16 per slot written) of K14."""
+    n, nb = shard["valid"].numel(), 1 << bits
+    digits = -(-(bits + 1) // 8)
+    return (nbytes(*shard.values()), lambda got: need(nb * 128, *PLANE_OUT),
+            OPS_DIGIT * n * digits + OPS_ENTRY * nb * 128)
+
+
+def k15_work(qk0, qk1, bits, Pp):
+    """Input bytes, output bytes and operations of K15: each received key
+    (16 bytes), each distinct bucket row probed once (128 keys of 16
+    bytes), the postings fields of each hit (12 bytes); the (Q, 3Pp)
+    int32 rows out; 4 operations per slot compared."""
+    from pgrtk_tpu_torch.ops.int64 import INT64_MAX
+
+    live = qk0 != INT64_MAX
+    rows = torch.unique((qk0[live] & 0xFFFFFFFF) >> (32 - bits)).numel()
+    Q = qk0.numel()
+
+    def out_bytes(got):
+        return Q * 3 * Pp * 4
+
+    return (16 * Q + rows * 128 * 16, out_bytes,
+            OPS_COMPARE * int(live.sum()) * 128)
+
+
+def phase_sharded(dev, kb, mesh, targets, queries, build_dir):
+    """Phase 10: the hash-range-sharded v2 index and query on one card,
+    over a real NCCL process group of world size 1 (FileStore under
+    build/).  The NCCL all_to_all between ranks is not exercised."""
+    import torch.distributed as dist
+
+    from pgrtk_tpu_torch import dryrun
+    from pgrtk_tpu_torch.ops import query_e2e as tq
+    from pgrtk_tpu_torch.parallel import comm as pcomm
+
+    store = os.path.join(build_dir, "nccl_store")
+    if os.path.exists(store):
+        os.remove(store)
+    pcomm.init(0, 1, store, dev)
+    try:
+        comm = pcomm.Comm()
+        require(comm.distributed and comm.size == 1, "no process group")
+        print(f"phase 10a: the v2 dry run (pgrtk_tpu_torch/dryrun.py) at "
+              f"world size 1 over {dist.get_backend()}")
+        t = time.perf_counter()
+        counts = dryrun.dryrun_rank(comm, dev)
+        print(f"  {dryrun.line(1, counts)}  ({time.perf_counter() - t:.1f} s;"
+              f" lambda {counts['lam']}, shard capacity "
+              f"{counts['shard_capacity']}, {counts['clean_groups']} exact "
+              f"groups)")
+        got = {k: counts[k] for k in MULTICHIP_R05}
+        require(got == MULTICHIP_R05,
+                f"dry run counts {got} differ from MULTICHIP_r05's "
+                f"{MULTICHIP_R05}")
+        measured = phase_v2_index(dev, kb, mesh, comm)
+        measured.update(phase_v2_query(dev, kb, mesh, comm, tq, targets,
+                                       queries))
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    return measured
+
+
+def phase_v2_index(dev, kb, mesh, comm, B=16, L=16_777_216):
+    print(f"phase 10b: sharded_index_v2_step at world size 1 on phase 4's "
+          f"{B} x {L} batch")
+    seqs = torch.from_numpy(realistic_batch(B, L, dev)).to(dev)
+    lens = torch.full((B,), L, device=dev)
+    rids = torch.arange(B, device=dev)
+
+    def phase4_step():
+        return mesh.sketch_index_step_auto(seqs, lens, rids, k=K, r=R,
+                                           min_span=MIN_SPAN, chunk=CHUNK)
+
+    ref = phase4_step()
+    n = int(ref["n_pairs"])
+    require(not ref["safe_rerun"] and not bool(ref["overflow"]),
+            "phase 4's step overflowed")
+    cap = max(128, 2 * n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kb.reset_launches()
+    with capture(mesh, "shard_probe_planes") as k14:
+        v2, lam, tries = v2_index(mesh, comm, seqs, lens, rids, cap)
+    torch.cuda.synchronize()
+    launches = kb.shard_probe_planes.launches
+    print(f"  lambda retry settled at {lam} after {tries} tries; launches "
+          f"shard_probe_planes {launches}, sort_pairs "
+          f"{kb.sort_pairs.launches}")
+    require(launches == tries, "K14 did not launch once per try")
+    flags = {f: int(v2[f]) for f in ("shard_overflow", "route_overflow",
+                                     "probe_overflow", "compact_overflow")}
+    print(f"  flags {flags}; n_pairs {int(v2['n_pairs'])} (phase 4's step "
+          f"{n}); shard capacity {cap}, bits {v2['bits']}")
+    require(not any(flags.values()), f"v2 index flags set: {flags}")
+    require(int(v2["n_pairs"]) == n, "v2 n_pairs differs from phase 4's")
+    shard = v2["shard"]
+    require(bool(shard["valid"][:n].all()) and not bool(
+        shard["valid"][n:].any()), "shard valid prefix")
+    check("shard vs phase 4's sorted table (valid prefix)",
+          [shard[f][:n] for f in sorted(shard)],
+          [ref["table"][f][:n] for f in sorted(shard)])
+
+    def step():
+        return mesh.sharded_index_v2_step(seqs, lens, rids, shard_capacity=cap,
+                                          avg_per_bucket=lam, comm=comm)
+
+    med, times = median_step(step)
+    med4, _ = median_step(phase4_step)
+    print(f"  v2 step times s {[round(t, 6) for t in times]}; median "
+          f"{med:.6f} s = {B * L / med / 1e6:.1f} Mbase/s; phase 4's step "
+          f"{med4:.6f} s in this phase; route + owner sort + probe planes "
+          f"{(med - med4) * 1e3:.3f} ms over it")
+    print(f"  peak device memory over the retries and the timed steps "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_steps(step, trace="sharded_index_trace.json")
+    print("phase 10d: K14 vs plain at 10b's shapes")
+    (sh, bits), _ = k14.calls[-1]
+    in_b, out_b, ops = k14_work(sh, bits)
+    res = measure(f"K14 shard_probe_planes, {sh['valid'].numel()} entries, "
+                  f"{1 << bits} buckets",
+                  lambda: planes_list(mesh.shard_probe_planes(sh, bits)),
+                  lambda: planes_list(mesh.shard_probe_planes_plain(sh, bits)),
+                  in_b, out_b, ops)
+    res["launches"] = launches
+    return {"shard_probe_planes": res}
+
+
+def phase_v2_query(dev, kb, mesh, comm, tq, targets, queries):
+    from pgrtk_tpu_torch.utils import cases
+
+    B, L = queries.shape
+    C = targets.shape[0]
+    print(f"phase 10c: sharded_query_v2_e2e_step at world size 1, {B} x {L} "
+          f"query rows against a v2 index of the {C} bench targets")
+    ts = torch.from_numpy(targets).to(dev)
+    tl = torch.full((C,), targets.shape[1], device=dev)
+    tr = torch.arange(C, device=dev)
+    n = int(mesh.sketch_index_step(ts, tl, tr, chunk=CHUNK)["n_pairs"])
+    cap = max(128, 2 * n)
+    v2, lam, _ = v2_index(mesh, comm, ts, tl, tr, cap)
+    require(not any(bool(v2[f]) for f in (
+        "shard_overflow", "route_overflow", "compact_overflow")),
+        "v2 index of the targets flagged")
+    q = torch.from_numpy(queries).to(dev)
+    ql = torch.full((B,), L, device=dev)
+    qr = torch.arange(B, device=dev)
+
+    def step():
+        return mesh.sharded_query_v2_e2e_step(
+            q, ql, qr, v2["probe"], shard_capacity=cap, n_targets=C,
+            avg_per_bucket=lam, comm=comm, **V2_QUERY_KW)
+
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    with capture(mesh, "owner_postings") as k15:
+        res = step()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kb.KERNELS if k.launches}
+    print(f"  launches {launches}")
+    for name in QUERY_KERNELS[:4] + ("dup_pair_counts", "expand_postings",
+                                     "chain_scores_fast", "sort_pairs",
+                                     "owner_postings"):
+        require(launches.get(name, 0) > 0,
+                f"kernel {name} never launched on the sharded query")
+    flags = {f: int(res[f]) for f in ("compact_overflow", "route_overflow",
+                                     "postings_overflow")}
+    print(f"  flags {flags}; n_hits {int(res['n_hits'])}")
+    require(not any(flags.values()), f"sharded query flags set: {flags}")
+
+    # the single-card step over build_index(n_decoys=0) of the same
+    # targets, at the same knobs
+    idx = tq.build_index(targets, n_decoys=0, build_lookup=False,
+                         P=V2_QUERY_KW["postings_cap"], device=dev)
+    tens = tq.index_tensors(idx, dev)
+
+    def one_step():
+        return tq.query_e2e_step(
+            q, ql, C=C, P=V2_QUERY_KW["postings_cap"], M=V2_QUERY_KW["M"],
+            slots2=V2_QUERY_KW["slots2"], lookback=V2_QUERY_KW["lookback"],
+            sketch_compact=(DEFAULT_KW["slots"], DEFAULT_KW["block2"],
+                            DEFAULT_KW["slots2"]), pair_block=512, **tens)
+
+    one = one_step()
+    require(not bool(one["overflow"]), "single-card step overflowed")
+
+    def flagged(r):
+        return (r["dup"] | r["inexact"] | r["mult_ovf"] | r["lane_ovf"]
+                | r["row_ovf"].repeat_interleave(C))
+
+    ok = ~flagged(res) & ~flagged(one)
+    G = ok.numel()
+    require(res["gvalid"].shape == one["gvalid"].shape, "lane shapes")
+    gv = res["gvalid"][ok]
+    same = (torch.equal(gv, one["gvalid"][ok])
+            and torch.equal(res["anchors"][ok][gv], one["anchors"][ok][gv])
+            and torch.equal(res["scores"][ok][gv].view(torch.int32),
+                            one["scores"][ok][gv].view(torch.int32)))
+    print(f"  vs single-card query_e2e_step (build_index(n_decoys=0), same "
+          f"knobs): {int(ok.sum())} of {G} groups flagged by neither, "
+          f"{int(gv.sum())} anchors; anchors, gvalid and f32 scores equal: "
+          f"{same}")
+    require(same, "sharded query differs from the single-card step")
+    require(int(ok.sum()) >= G * 3 // 4, "too few unflagged groups")
+
+    med, times = median_step(step)
+    med1, _ = median_step(one_step)
+    print(f"  v2 query step times s {[round(t, 6) for t in times]}; median "
+          f"{med:.6f} s = {B * L / med / 1e6:.1f} Mbase/s; the single-card "
+          f"step at the same knobs {med1:.6f} s")
+    profile_steps(step, trace="sharded_query_trace.json")
+
+    print("phase 10d: K15 vs plain at 10c's shapes, K14 and K15 on the edge "
+          "cases")
+    (qk0, qk1, planes, bits, Pp), _ = k15.calls[-1]
+    in_b, out_b, ops = k15_work(qk0, qk1, bits, Pp)
+    result = measure(
+        f"K15 owner_postings, {qk0.numel()} received keys, Pp {Pp}",
+        lambda: mesh.owner_postings(qk0, qk1, planes, bits, Pp),
+        lambda: mesh.owner_postings_plain(qk0, qk1, planes, bits, Pp),
+        in_b, out_b, ops)
+    result["launches"] = launches.get("owner_postings", 0)
+    for name, table, b, c0, c1 in cases.shard_cases(dev):
+        got = mesh.shard_probe_planes(table, b)
+        check(f"K14 {name}", planes_list(got),
+              planes_list(mesh.shard_probe_planes_plain(table, b)))
+        check(f"K15 {name}",
+              mesh.owner_postings(c0, c1, got[0], b, cases.SHARD_PP),
+              mesh.owner_postings_plain(c0, c1, got[0], b, cases.SHARD_PP))
+    return {"owner_postings": result}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1694,14 +2006,15 @@ def main():
               f"{query_step['bound'][0]:.4f} ms by {query_step['bound'][1]}"
               f" (sums of their kernels' bounds)")
         print("bounds of the device functions not ported yet:")
-        for row, (ms, by) in unported_bounds(index_step, query_step):
+        for row, (ms, by) in unported_bounds(index_step):
             print(f"  {ms:.4f} ms by {by}: {row}")
         measured.update(phase_batch_device(dev, kb, targets, queries))
-        del targets, queries
         build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                  "build")
         measured.update(phase_pbundle(dev, kb, build_dir))
         measured.update(phase_sv(dev, kb, build_dir))
+        measured.update(phase_sharded(dev, kb, mesh, targets, queries,
+                                      build_dir))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

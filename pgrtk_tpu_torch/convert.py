@@ -166,3 +166,57 @@ def store_from_frag_map(frag_map, seq_info, spec):
                      [i[0] for i in info], [i[1] for i in info],
                      [i[2] for i in info])
 
+
+
+# ------------------------------------------- the sharded v2 index and query
+
+_PROBE_KEYS = ("k0", "k1")
+_PROBE_POSTINGS = ("sid", "bgnori", "end")
+
+
+def probe_planes_to_jax(planes: Dict[str, torch.Tensor]):
+    """The port's v2 probe planes (parallel/mesh.py::shard_probe_planes)
+    -> the JAX layout: (7 (2^bits, 128) uint32 planes k0_hi, k0_lo,
+    k1_hi, k1_lo, sid, bgnori, end; row int32).  Empty slots (INT64_MAX
+    keys) get all-ones key words, as the JAX planes are filled."""
+    out = []
+    for name in _PROBE_KEYS:
+        t = planes[name]
+        hi, lo = planes_from_int64(t)
+        empty = (t == (1 << 63) - 1).cpu().numpy()
+        out += [np.where(empty, np.uint32(_U32), hi),
+                np.where(empty, np.uint32(_U32), lo)]
+    out += [planes[name].detach().cpu().numpy().view(np.uint32)
+            for name in _PROBE_POSTINGS]
+    return out, planes["row"].detach().cpu().numpy().astype(np.int32)
+
+
+def probe_planes_from_jax(planes, row) -> Dict[str, torch.Tensor]:
+    """JAX v2 probe planes (7 uint32 planes as probe_planes_to_jax gives
+    them, row int32) -> the port's dict (all-ones keys -> INT64_MAX)."""
+    p = [np.ascontiguousarray(v, dtype=np.uint32) for v in planes]
+    out = {}
+    for i, name in enumerate(_PROBE_KEYS):
+        hi, lo = p[2 * i], p[2 * i + 1]
+        v = int64_from_planes(hi, lo)
+        empty = torch.from_numpy((hi == _U32) & (lo == _U32))
+        out[name] = torch.where(empty, (1 << 63) - 1, v)
+    for i, name in enumerate(_PROBE_POSTINGS):
+        out[name] = torch.from_numpy(p[4 + i].view(np.int32).copy())
+    out["row"] = torch.from_numpy(np.array(row, dtype=np.int32))
+    return out
+
+
+def e2e_to_jax(res: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """A port sharded_query_v2_e2e_step result -> the JAX result's
+    dtypes: anchors uint32, scores float32, prev int32, masks and flags
+    bool, n_hits int."""
+    out = {}
+    for name, t in res.items():
+        a = t.detach().cpu().numpy()
+        if name == "anchors":
+            a = a.astype(np.uint32)
+        elif name == "n_hits":
+            a = int(a)
+        out[name] = a
+    return out

@@ -112,6 +112,11 @@ def sparse_aln(
         v = best_v
         while v is not None and v in unvisited:
             track.append(v)
+            if len(track) > len(uniq):
+                raise ValueError(
+                    f"sparse_aln: the traceback from {best_v} revisits {v}: "
+                    "an exact duplicate anchor recurs after other anchors "
+                    f"of this group of {len(hits)} hits")
             v = best_pre.get(v)
         track.reverse()
         unvisited.difference_update(track)

@@ -79,13 +79,14 @@ def tuple_counts(*cols: np.ndarray) -> np.ndarray:
 def collect_target_hits_batch(
     store, pairs: Dict[str, np.ndarray], max_count: Optional[int] = None,
     max_count_query: Optional[int] = None,
-    max_count_target: Optional[int] = None,
+    max_count_target: Optional[int] = None, min_anchors: int = 2,
 ) -> Tuple[List[Tuple[int, int]], List[np.ndarray]]:
     """The count filters of collect_target_hits over all queries at once.
     `pairs` holds pair_shmmrs_canonical_batch's columns and `j`, each
     pair's key index in the store (-1: not found).  Returns (qid, sid)
     group keys in (qid, sid) order and each group's anchors (n, 6) uint32
-    in hit order, groups of one anchor left out.  pair_count is per key
+    in hit order, groups of fewer than `min_anchors` anchors (default: one
+    anchor, which no chain needs) left out.  pair_count is per key
     and query; target_pair_count, for a key that passes, equals its hit
     count per sid because the first filter keeps or drops all of a key's
     occurrences together."""
@@ -116,7 +117,7 @@ def collect_target_hits_batch(
     bounds = np.append(np.flatnonzero(new), len(qid))
     keys, groups = [], []
     for a, b in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
-        if b - a > 1:
+        if b - a >= min_anchors:
             keys.append((int(qid[a]), int(sid[a])))
             groups.append(anchors[a:b])
     return keys, groups

@@ -3,7 +3,8 @@
 // Every C entry point launches on the stream it is given, allocates
 // nothing, and returns cudaGetLastError() so the Python wrapper can raise
 // on a refused launch.  None synchronises but K12 (adj.cu), which reads
-// its digit histograms on the host once.
+// its digit histograms on the host once, and K14 (shard.cu), which sorts
+// with K12's engine.
 #pragma once
 
 #include <cstdint>
@@ -49,5 +50,14 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* total,
   __syncthreads();
   return incl - v;
 }
+
+// K12's stable LSD radix sort with its payload gather (adj.cu), for the
+// kernels that sort on their way: keys (int64 planes, most significant
+// first, each below 2^bits), payload planes gathered into outs, host the
+// 2 + 8*8*256 host words.  Synchronises the stream once.
+int radix_engine(const void* const* keys, const int* bits, int n_keys,
+                 long long n, const void* const* planes, void* const* outs,
+                 int n_planes, const void* mask, void* mask_out, void* link,
+                 void* scratch, void* host, void* stream);
 
 }  // namespace pgrtk

@@ -206,12 +206,24 @@ wfa_forward = Kernel(
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
      _P, _P],
 )
+# K14 and K15: the owner side of the hash-range-sharded v2 index
+shard_probe_planes = Kernel(
+    "shard_probe_planes", "pgrtk_tpu_torch/csrc/shard.cu",
+    [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+     _P, _P],
+)
+owner_postings = Kernel(
+    "owner_postings", "pgrtk_tpu_torch/csrc/shard.cu",
+    [_P, _P, _LL, _I, _P, _P, _P, _P, _P, _I, _P, _P],
+)
 # index stage K1-K4, query stage K5-K8, the --batch-device path K9-K11,
-# the pgr-pbundle-decomp path K12, the pgr-get-sv-candidate-regions WFA K13
+# the pgr-pbundle-decomp path K12, the pgr-get-sv-candidate-regions WFA
+# K13, the sharded v2 index and query K14-K15
 KERNELS = (sketch_walk_compact, rank_extract, min_span_filter_gapped,
            pair_mers_gapped, probe_fetch, dup_pair_counts, expand_postings,
            chain_scores_fast, sketch_mode1, chain_scores_dense, probe_keys,
-           sort_link_rows, sort_pairs, wfa_forward)
+           sort_link_rows, sort_pairs, wfa_forward, shard_probe_planes,
+           owner_postings)
 
 
 def reset_launches() -> None:

@@ -340,7 +340,9 @@ def traceback(scores: np.ndarray, prev: np.ndarray, valid: np.ndarray,
     scores as an f32 difference.  Each round takes the unvisited
     candidate of highest score (> 0), the first on ties, so one pass over
     the candidates sorted by (score desc, first appearance) replaces the
-    per-round rescan.
+    per-round rescan.  An exact duplicate anchor that recurs after other
+    anchors can make the value-keyed predecessors cycle; a walk longer
+    than the group's distinct anchors raises ValueError naming the group.
 
     Returns per group [(score, track)], the track a list of
     ((q_bgn, q_end, q_ori), (t_bgn, t_end, t_ori)) tuples, or with
@@ -379,6 +381,12 @@ def traceback(scores: np.ndarray, prev: np.ndarray, valid: np.ndarray,
             u = best
             while u >= 0 and unvisited[u]:
                 track.append(u)
+                if len(track) > len(first):
+                    raise ValueError(
+                        f"group {g}: the traceback from anchor "
+                        f"{rows[first[best]].tolist()} revisits anchor "
+                        f"{rows[first[u]].tolist()}: an exact duplicate "
+                        "anchor recurs after other anchors of the group")
                 u = pred_l[u]
             track.reverse()
             unvisited[track] = False
@@ -469,8 +477,11 @@ def chain_groups(groups, penalty: float, max_span: int = 8, max_gap=None,
         hits = [((int(r[0]), int(r[1]), int(r[2])),
                  (int(r[3]), int(r[4]), int(r[5])))
                 for r in anchors[row][valid[row]].tolist()]
-        chains = aln_ref.sparse_aln(hits, max_span, penalty, max_gap,
-                                    oriented)
+        try:
+            chains = aln_ref.sparse_aln(hits, max_span, penalty, max_gap,
+                                        oriented)
+        except ValueError as e:
+            raise ValueError(f"group {row}: {e}") from e
         if as_arrays:
             chains = [(score, np.asarray([[*q, *r] for q, r in track],
                                          dtype=np.uint32).reshape(-1, 6))

@@ -14,7 +14,7 @@ beside it, CUDA tensors launch the kernel from csrc/ or raise.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Sequence
 
 import torch
 
@@ -228,34 +228,66 @@ def pair_mers_gapped(x, y, kept, tie_orientation_one: bool = False
 TABLE_FIELDS = ("valid", "k0", "k1", "sid", "bgn", "end", "orientation")
 
 
-def _pair_sort_planes(pairs: Dict[str, torch.Tensor], sid: torch.Tensor):
-    """Flat (valid, keys (k0, k1, sid, bgn), the six table planes after
-    valid): invalid entries' k0 and k1 forced to INT64_MAX."""
+def _pair_table(pairs: Dict[str, torch.Tensor], sid: torch.Tensor
+                ) -> Dict[str, torch.Tensor]:
+    """The flat (B*C,) table planes `TABLE_FIELDS` of a batch's pairs in
+    batch order, invalid entries' k0 and k1 forced to INT64_MAX."""
     B, C = pairs["k0"].shape
     valid = pairs["pair_valid"].reshape(-1)
-    sid_f = sid.to(torch.int64)[:, None].expand(B, C).reshape(-1)
-    k0 = torch.where(valid, pairs["k0"].reshape(-1), INT64_MAX)
-    k1 = torch.where(valid, pairs["k1"].reshape(-1), INT64_MAX)
-    bgn = pairs["bgn"].reshape(-1)
-    table = (k0, k1, sid_f, bgn, pairs["end"].reshape(-1),
-             pairs["orientation"].reshape(-1))
-    return valid, (k0, k1, sid_f, bgn), table
+    return dict(
+        valid=valid,
+        k0=torch.where(valid, pairs["k0"].reshape(-1), INT64_MAX),
+        k1=torch.where(valid, pairs["k1"].reshape(-1), INT64_MAX),
+        sid=sid.to(torch.int64)[:, None].expand(B, C).reshape(-1),
+        bgn=pairs["bgn"].reshape(-1),
+        end=pairs["end"].reshape(-1),
+        orientation=pairs["orientation"].reshape(-1),
+    )
+
+
+PAIR_KEYS = ("k0", "k1", "sid", "bgn")
+# k0 and k1 reach INT64_MAX on invalid entries; sid and bgn are u32
+PAIR_KEY_BITS = (63, 63, 32, 32)
+
+
+def _sort_keys(table: Dict[str, torch.Tensor]):
+    return tuple(table[f] for f in PAIR_KEYS)
+
+
+def sort_table_plain(table: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """The plain PyTorch version of sort_table, on any device: torch.sort
+    (stable) in four least-significant-key-first passes."""
+    order = torch.arange(table["valid"].numel(), device=table["valid"].device)
+    for key in reversed(_sort_keys(table)):
+        order = order[torch.sort(key[order], stable=True).indices]
+    return {name: table[name][order] for name in TABLE_FIELDS}
 
 
 def sort_pairs_plain(pairs: Dict[str, torch.Tensor], sid: torch.Tensor
                      ) -> Dict[str, torch.Tensor]:
-    """The plain PyTorch version of sort_pairs, on any device: torch.sort
-    (stable) in four least-significant-key-first passes."""
-    valid, keys, table = _pair_sort_planes(pairs, sid)
-    order = torch.arange(valid.numel(), device=valid.device)
-    for key in reversed(keys):
-        order = order[torch.sort(key[order], stable=True).indices]
-    cols: Tuple[torch.Tensor, ...] = (valid, *table)
-    return {name: c[order] for name, c in zip(TABLE_FIELDS, cols)}
+    """The plain PyTorch version of sort_pairs, on any device."""
+    return sort_table_plain(_pair_table(pairs, sid))
 
 
-# k0 and k1 reach INT64_MAX on invalid entries; sid and bgn are u32
-PAIR_KEY_BITS = (63, 63, 32, 32)
+def sort_table(table: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Stable sort of a flat pair table, the (N,) planes `TABLE_FIELDS`
+    (int64 but `valid`; invalid entries carry INT64_MAX keys), by (k0,
+    k1, sid, bgn), invalid entries last: equal keys keep (sid, bgn)
+    order, the reference's postings order, whatever order they came in.
+    CUDA tensors sort with K12's stable radix engine (csrc/adj.cu), CPU
+    tensors with the plain version's torch.sort passes; both give the
+    same table bit for bit."""
+    if not on_cuda(*table.values()):
+        return sort_table_plain(table)
+    from .adj import radix_sort_gather
+
+    keys = [k.contiguous() for k in _sort_keys(table)]
+    planes = [table[f].contiguous() for f in TABLE_FIELDS[1:]]
+    outs, valid_s, _, _ = radix_sort_gather(
+        kb.sort_pairs, keys, PAIR_KEY_BITS, planes,
+        table["valid"].contiguous(), False, PAIR_KEYS)
+    return dict(zip(TABLE_FIELDS, (valid_s, *outs)))
 
 
 def sort_pairs(pairs: Dict[str, torch.Tensor], sid: torch.Tensor
@@ -266,17 +298,35 @@ def sort_pairs(pairs: Dict[str, torch.Tensor], sid: torch.Tensor
 
     pairs: (B, C) planes from pair_mers_gapped; sid: (B,) sequence ids.
     Returns flat (B*C,) planes `TABLE_FIELDS`; invalid entries carry
-    INT64_MAX keys.  CUDA tensors sort with K12's stable radix engine
-    (csrc/adj.cu), CPU tensors with the plain version's torch.sort
-    passes; both give the same table bit for bit."""
-    if not on_cuda(pairs["k0"], pairs["pair_valid"], sid):
-        return sort_pairs_plain(pairs, sid)
+    INT64_MAX keys.  Sorted by `sort_table`."""
+    return sort_table(_pair_table(pairs, sid))
+
+
+def sort_keys_plain(k0: torch.Tensor, k1: torch.Tensor, valid: torch.Tensor):
+    """The plain PyTorch version of sort_keys, on any device."""
+    mk0 = torch.where(valid, k0, INT64_MAX)
+    mk1 = torch.where(valid, k1, INT64_MAX)
+    order = torch.sort(mk1, stable=True).indices
+    order = order[torch.sort(mk0[order], stable=True).indices]
+    return mk0[order], mk1[order], order
+
+
+def sort_keys(k0: torch.Tensor, k1: torch.Tensor, valid: torch.Tensor):
+    """Stable sort of flat (N,) int64 query keys by (k0, k1), invalid
+    entries masked to INT64_MAX and last, carrying each entry's original
+    index (pgrtk_tpu/parallel/mesh.py:693-696, the route sort of the
+    sharded query).  Returns (sorted k0, sorted k1, original index), all
+    int64.  CUDA tensors sort with K12's engine, CPU tensors with torch.sort
+    passes."""
+    k0, k1, valid = k0.contiguous(), k1.contiguous(), valid.contiguous()
+    if not on_cuda(k0, k1, valid):
+        return sort_keys_plain(k0, k1, valid)
     from .adj import radix_sort_gather
 
-    valid, keys, table = _pair_sort_planes(pairs, sid)
-    keys = [k.contiguous() for k in keys]
-    table = [t.contiguous() for t in table]
-    outs, valid_s, _, _ = radix_sort_gather(
-        kb.sort_pairs, keys, PAIR_KEY_BITS, table, valid.contiguous(), False,
-        ("k0", "k1", "sid", "bgn"))
-    return dict(zip(TABLE_FIELDS, (valid_s, *outs)))
+    mk0 = torch.where(valid, k0, INT64_MAX)
+    mk1 = torch.where(valid, k1, INT64_MAX)
+    iota = torch.arange(k0.numel(), device=k0.device)
+    outs, _, _, _ = radix_sort_gather(
+        kb.sort_pairs, [mk0, mk1], PAIR_KEY_BITS[:2], [mk0, mk1, iota], None,
+        False, PAIR_KEYS[:2])
+    return tuple(outs)

@@ -1,19 +1,63 @@
-"""The SHIMMER index step on one device — the single-device counterpart
-of pgrtk_tpu/parallel/mesh.py:55-166 (sharded_sketch_index_step and its
-_auto wrapper), without collectives: the multi-card form comes with
-torch.distributed.
+"""The SHIMMER index and query steps across ranks — the counterpart of
+pgrtk_tpu/parallel/mesh.py on torch.distributed, one rank per device.
 
-sketch -> two-level compaction -> min_span filter -> canonical pairs ->
-pair-key sort, all on the device of the input tensors.
+`sketch_index_step(_auto)` is the one-device body of
+sharded_sketch_index_step (:55-166): sketch -> two-level compaction ->
+min_span filter -> canonical pairs -> pair-key sort, on the device of the
+input tensors.
+
+The hash-range-sharded v2 index (:301-530) and its end-to-end query
+(:603-988) keep each rank's hash range of the pair table and never build
+the whole table anywhere:
+- `sharded_index_v2_step`: each rank sorts its local pairs, cuts them
+  into hash-range runs, sends run d to rank d (one all_to_all), sorts
+  what it received into its shard (K12's engine) and builds the shard's
+  bucketed probe planes (K14 `shard_probe_planes`);
+- `sharded_query_v2_e2e_step`: each rank pairs its queries, sends each
+  key to the rank owning its range (all_to_all #1), the owner extracts
+  the key's postings run from its probe planes (K15 `owner_postings`)
+  and sends the hit rows back (all_to_all #2), and the querying rank
+  scatters them to pair order, expands them into chain lanes (K7) and
+  chains (K8).
+
+Owner d holds the keys with hash0 >> 32 in [d, d + 1) * (2^24 // n), the
+last owner the remainder (:436-448).  Every overflow flag is combined
+across ranks before it is returned (`comm.Comm.any`).  On a CPU tensor
+K14 and K15 run their plain versions, on a CUDA tensor csrc/shard.cu.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
+from ..kernels import build as kb
+from ..ops import chain as chain_ops
 from ..ops import pairs as pairs_ops
+from ..ops import query_e2e as qe
 from ..ops import sketch as sketch_ops
+from ..ops.adj import _HOST_WORDS
+from ..ops.int64 import INT64_MAX, as_i32
+from ..utils.device import on_cuda
+from .comm import Comm
+
+PROBE_W = 128  # a probe bucket row; decides probe_overflow, so semantics
+
+
+def _front_end(seqs_u8, lengths, k, r, min_span, chunk, compact_kw):
+    """The sketch and two-level compaction every step starts with
+    (pgrtk_tpu/parallel/mesh.py:34 _sketch_compact): the fast walk at the
+    default sizing, or with compact_kw (pairs.SAFE_COMPACT_KW) the exact
+    walk at that sizing.  Returns (x, y, valid, overflow)."""
+    if compact_kw is None:
+        sizing = dict(chunk=chunk)
+    else:
+        sizing = dict(compact_kw)
+        sizing["chunk"] = sizing.pop("block")
+    return sketch_ops.sketch_compact_mode2(
+        seqs_u8, lengths, k, r, min_span, exact=compact_kw is not None,
+        **sizing)
 
 
 def sketch_index_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
@@ -26,15 +70,8 @@ def sketch_index_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
     tensor on the input's device.  On `overflow` (compaction overflow or
     the fast walk's inexact warm-up) rerun with
     compact_kw=pairs.SAFE_COMPACT_KW, as sketch_index_step_auto does."""
-    if compact_kw is None:
-        sizing = dict(chunk=chunk)
-    else:  # the overflow rerun: the exact walk at compact_kw's sizing
-        sizing = dict(compact_kw)
-        sizing["chunk"] = sizing.pop("block")
-    x, y, valid, overflow = sketch_ops.sketch_compact_mode2(
-        seqs_u8, lengths, k, r, min_span, exact=compact_kw is not None,
-        **sizing
-    )
+    x, y, valid, overflow = _front_end(seqs_u8, lengths, k, r, min_span,
+                                       chunk, compact_kw)
     keep = pairs_ops.min_span_filter_gapped(x, y, valid, min_span)
     pr = pairs_ops.pair_mers_gapped(x, y, keep)
     return dict(
@@ -67,3 +104,394 @@ def sketch_index_step_auto(seqs_u8: torch.Tensor, lengths: torch.Tensor,
         )
     out["safe_rerun"] = True
     return out
+
+
+# ------------------------------------------------- the v2 sharded index
+
+def probe_bits_for(shard_capacity: int, avg_per_bucket: int = 64) -> int:
+    """Bucket-index width of a shard's probe planes: about
+    avg_per_bucket entries per 128-slot bucket row
+    (pgrtk_tpu/parallel/mesh.py:301)."""
+    return max(1, int(np.ceil(np.log2(max(2, shard_capacity
+                                              / avg_per_bucket)))))
+
+
+def route_offsets(k0_sorted: torch.Tensor, n_valid: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """(n + 1,) int64 run bounds of a key-sorted table over n owners:
+    run d = [off[d], off[d + 1]) holds hash0 >> 32 in [d, d + 1) *
+    (2^24 // n), the last run the rest of the valid prefix
+    (pgrtk_tpu/parallel/mesh.py:436-448; no interior bound at n = 1)."""
+    dev = k0_sorted.device
+    per = (1 << 24) // n
+    bounds = torch.arange(1, n, device=dev, dtype=torch.int64) * per << 32
+    offs = torch.searchsorted(k0_sorted, bounds)
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    return torch.cat([zero, offs, n_valid.reshape(1).to(torch.int64)])
+
+
+def route_slots(off: torch.Tensor, C: int, route_cap: int):
+    """The fixed send buffer of a route: (n, route_cap) source index and
+    mask.  Block d reads route_cap entries from start_d = clip(off[d], 0,
+    C - route_cap), as the JAX dynamic_slice does, and keeps those inside
+    run d (pgrtk_tpu/parallel/mesh.py:455-465).  A run longer than
+    route_cap loses its tail: route_overflow."""
+    dev = off.device
+    start = off[:-1].clamp(0, max(0, C - route_cap))
+    gidx = start[:, None] + torch.arange(route_cap, device=dev)
+    mask = (gidx >= off[:-1, None]) & (gidx < off[1:, None])
+    return gidx.clamp(max=max(C - 1, 0)), mask
+
+
+def _route_cap(route_capacity, C: int, n: int) -> int:
+    return route_capacity or min(C, max(128, -(-2 * C // n)))
+
+
+# --------------------------------------------------------------- K14
+
+PLANE_FIELDS = ("k0", "k1", "sid", "bgnori", "end", "row")
+
+
+def _shard_planes_in(shard):
+    valid = shard["valid"].contiguous()
+    planes = [shard[f].contiguous() for f in
+              ("k0", "k1", "sid", "bgn", "end", "orientation")]
+    if valid.dtype != torch.bool or valid.dim() != 1 or any(
+            p.dtype != torch.int64 or p.shape != valid.shape
+            for p in planes):
+        raise TypeError("the shard is (N,) int64 planes beside an (N,) "
+                        "bool valid")
+    return valid, planes
+
+
+def shard_probe_planes_plain(shard: Dict[str, torch.Tensor], bits: int):
+    """The plain PyTorch version of K14 (`shard_probe_planes`), on any
+    device: a stable sort by bucket, run starts by searchsorted, one
+    scatter per plane, as the JAX function does."""
+    valid, (k0, k1, sid, bgn, end, ori) = _shard_planes_in(shard)
+    dev = valid.device
+    nb, W = 1 << bits, PROBE_W
+    n = valid.numel()
+    bucket = torch.where(valid, (k0 & 0xFFFFFFFF) >> (32 - bits), nb)
+    b_sorted, idx = torch.sort(bucket, stable=True)
+    starts = torch.searchsorted(b_sorted,
+                                torch.arange(nb, device=dev, dtype=torch.int64))
+    col = torch.arange(n, device=dev) - starts[b_sorted.clamp(max=nb - 1)]
+    overflow = ((col >= W) & (b_sorted < nb)).any()
+    target = torch.where((b_sorted < nb) & (col < W), b_sorted * W + col,
+                         nb * W)
+    cols = dict(k0=k0, k1=k1, sid=as_i32(sid), bgnori=as_i32(ori << 31 | bgn),
+                end=as_i32(end), row=torch.arange(n, device=dev,
+                                                  dtype=torch.int32))
+    fills = dict(k0=INT64_MAX, k1=INT64_MAX, sid=0, bgnori=0, end=0, row=-1)
+    out = {}
+    for f in PLANE_FIELDS:
+        v = cols[f]
+        flat = torch.full((nb * W + 1,), fills[f], dtype=v.dtype, device=dev)
+        flat[target] = v[idx]
+        out[f] = flat[:-1].reshape(nb, W)
+    return out, overflow
+
+
+def shard_probe_planes(shard: Dict[str, torch.Tensor], bits: int):
+    """K14: the bucketed probe and postings planes of one shard
+    (pgrtk_tpu/parallel/mesh.py:312 _shard_probe_planes).
+
+    shard: a key-sorted table (`pairs.TABLE_FIELDS` planes).  Each valid
+    entry goes to bucket (k0 & 0xFFFFFFFF) >> (32 - bits), the top bits
+    of hash0's low word (uniform and independent of the hash-range
+    sharding), at its stable rank among its bucket's entries, so each
+    key's postings are one contiguous run of its bucket row in (sid,
+    bgn) order.  Returns ({k0, k1: (2^bits, 128) int64, INT64_MAX where
+    empty; sid, bgnori = ori << 31 | bgn, end: int32 u32 patterns, 0
+    where empty; row: int32 shard index, -1 where empty}, 0-dim bool
+    probe_overflow: a bucket held more than 128 entries and kept its
+    first 128)."""
+    if not 1 <= bits <= 31:
+        raise ValueError("bits must be in [1, 31]")
+    valid, planes = _shard_planes_in(shard)
+    if not on_cuda(valid, *planes):
+        return shard_probe_planes_plain(shard, bits)
+    dev = valid.device
+    n, nb = valid.numel(), 1 << bits
+    out = {f: torch.empty((nb, PROBE_W), device=dev,
+                          dtype=torch.int64 if f in ("k0", "k1")
+                          else torch.int32) for f in PLANE_FIELDS}
+    scratch = torch.empty(4 * n + 2 * nb, dtype=torch.int64, device=dev)
+    rscratch = kb.radix_scratch(n, dev)
+    host = torch.zeros(_HOST_WORDS, dtype=torch.int64)
+    flag = torch.empty(1, dtype=torch.int32, device=dev)
+    kb.shard_probe_planes(
+        valid.data_ptr(), *(p.data_ptr() for p in planes), n, bits,
+        scratch.data_ptr(), rscratch.data_ptr(), host.data_ptr(),
+        *(out[f].data_ptr() for f in PLANE_FIELDS), flag.data_ptr(),
+        kb.stream_handle(valid))
+    return out, flag[0] != 0
+
+
+# --------------------------------------------------------------- K15
+
+def _owner_in(qk0, qk1, planes, bits, Pp):
+    if not 1 <= bits <= 31 or not 1 <= Pp <= 127:
+        raise ValueError("need bits in [1, 31] and 1 <= postings_cap <= 127 "
+                         "(the 7-bit mult field)")
+    qk0, qk1 = qk0.contiguous(), qk1.contiguous()
+    p = [planes[f].contiguous() for f in ("k0", "k1", "sid", "bgnori", "end")]
+    if qk0.dim() != 1 or qk1.shape != qk0.shape or (
+            qk0.dtype != torch.int64 or qk1.dtype != torch.int64):
+        raise TypeError("received keys are (Q,) int64")
+    if p[0].shape != (1 << bits, PROBE_W) or any(q.shape != p[0].shape
+                                                 for q in p):
+        raise ValueError(f"planes must be (2^{bits}, {PROBE_W})")
+    if p[0].dtype != torch.int64 or p[1].dtype != torch.int64 or any(
+            q.dtype != torch.int32 for q in p[2:]):
+        raise TypeError("key planes int64, postings planes int32")
+    return qk0, qk1, p
+
+
+def owner_postings_plain(qk0, qk1, planes, bits: int, Pp: int):
+    """The plain PyTorch version of K15 (`owner_postings`), on any
+    device: the (Q, 128) hit mask, the run read at first + j, run bounds
+    by cummax/cummin over the slots."""
+    qk0, qk1, (pk0, pk1, psid, pbo, pend) = _owner_in(qk0, qk1, planes, bits,
+                                                      Pp)
+    dev = qk0.device
+    W = PROBE_W
+    live = qk0 != INT64_MAX
+    b = torch.where(live, (qk0 & 0xFFFFFFFF) >> (32 - bits), 0)
+    hit = (pk0[b] == qk0[:, None]) & (pk1[b] == qk1[:, None]) & live[:, None]
+    count = hit.sum(dim=1)
+    w_iota = torch.arange(W, device=dev)
+    first = torch.where(hit, w_iota, W).min(dim=1).values
+    j = torch.arange(Pp, device=dev)
+    p = first[:, None] + j
+    pc = p.clamp(max=W - 1)
+    h = (p < W) & hit.gather(1, pc)
+
+    def take(plane):
+        return torch.where(h, plane[b].gather(1, pc), 0)
+
+    sid = take(psid).long() & 0xFFFFFFFF
+    valid = j < count[:, None]
+    newrun = valid.clone()
+    newrun[:, 1:] &= sid[:, 1:] != sid[:, :-1]
+    nxt_new = torch.ones_like(newrun)
+    nxt_new[:, :-1] = newrun[:, 1:]
+    nxt_valid = torch.zeros_like(valid)
+    nxt_valid[:, :-1] = valid[:, 1:]
+    lastrun = valid & (nxt_new | ~nxt_valid)
+    run_start = torch.where(newrun, j, 0).cummax(dim=1).values
+    run_end = torch.where(lastrun, j, Pp - 1).flip(1).cummin(dim=1).values
+    run_end = run_end.flip(1)
+    m = j - run_start
+    mult = run_end - run_start + 1
+    keyovf = (count > Pp) | (valid & (m > 15)).any(dim=1)
+    meta = ((keyovf.long() << 31)[:, None] | mult.clamp(max=127) << 24
+            | m.clamp(max=15) << 20 | sid)
+    meta = torch.where(valid, meta, qe.META_EMPTY)
+    return torch.cat([as_i32(meta), take(pbo), take(pend)], dim=1)
+
+
+def owner_postings(qk0: torch.Tensor, qk1: torch.Tensor,
+                   planes: Dict[str, torch.Tensor], bits: int,
+                   Pp: int) -> torch.Tensor:
+    """K15: the owner's postings rows for the keys it received (the owner
+    block of pgrtk_tpu/parallel/mesh.py:764-887).
+
+    qk0, qk1: (Q,) int64 keys, INT64_MAX for a padded route slot (never a
+    hit); planes: K14's.  Each key's hits are one contiguous run of its
+    bucket row; slot j < Pp takes row position first + j.  Per slot the
+    occurrence rank m within the key's same-sid run and the run's size
+    mult; keyovf = more than Pp hits or a valid m > 15.  Returns (Q, 3Pp)
+    int32 u32 patterns [meta | bgnori | end], meta = keyovf(1) | mult(7)
+    | m(4) | sid(20) and META_EMPTY in an empty slot: the rows
+    ops/query_e2e.py::expand_postings (K7) takes."""
+    qk0, qk1, p = _owner_in(qk0, qk1, planes, bits, Pp)
+    if not on_cuda(qk0, qk1, *p):
+        return owner_postings_plain(qk0, qk1, planes, bits, Pp)
+    Q = qk0.numel()
+    out = torch.empty((Q, 3 * Pp), dtype=torch.int32, device=qk0.device)
+    kb.owner_postings(qk0.data_ptr(), qk1.data_ptr(), Q, bits,
+                      *(t.data_ptr() for t in p), Pp, out.data_ptr(),
+                      kb.stream_handle(qk0))
+    return out
+
+
+# ------------------------------------------------------------ the steps
+
+def sharded_index_v2_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
+                          rids: torch.Tensor, *, shard_capacity: int,
+                          k: int = 56, r: int = 4, min_span: int = 64,
+                          chunk: int = 512,
+                          route_capacity: Optional[int] = None,
+                          compact_kw: Optional[dict] = None,
+                          avg_per_bucket: int = 64,
+                          comm: Optional[Comm] = None) -> dict:
+    """The hash-range-sharded index build on this rank
+    (pgrtk_tpu/parallel/mesh.py:372 sharded_index_v2_step): its (B_loc,
+    L) batch with (B_loc,) lengths and sequence ids is sketched, paired
+    and sorted locally, its hash-range runs go to their owners in one
+    all_to_all of (n, 6, route_cap) int64 field rows, the owner sorts what
+    it received (sort_table: equal keys in (sid, bgn) order) into its
+    shard of shard_capacity entries and builds the shard's probe planes
+    (K14) at probe_bits_for(shard_capacity, avg_per_bucket) bits.
+
+    Returns dict(shard = the shard table (`pairs.TABLE_FIELDS`),
+    probe = K14's planes, bits, n_pairs (over all ranks), and the flags
+    shard_overflow, route_overflow, probe_overflow and compact_overflow,
+    each over all ranks).  On probe_overflow rerun at a smaller
+    avg_per_bucket (and query with the same value); on compact_overflow
+    rerun with compact_kw=pairs.SAFE_COMPACT_KW."""
+    comm = comm or Comm()
+    n = comm.size
+    bits = probe_bits_for(shard_capacity, avg_per_bucket)
+    x, y, valid, c_ovf = _front_end(seqs_u8, lengths, k, r, min_span, chunk,
+                                    compact_kw)
+    keep = pairs_ops.min_span_filter_gapped(x, y, valid, min_span)
+    pr = pairs_ops.pair_mers_gapped(x, y, keep)
+    local = pairs_ops.sort_pairs(pr, rids)
+    C = local["k0"].numel()
+    route_cap = _route_cap(route_capacity, C, n)
+    off = route_offsets(local["k0"], local["valid"].sum(), n)
+    route_overflow = (off.diff() > route_cap).any()
+    gidx, mask = route_slots(off, C, route_cap)
+    fields = pairs_ops.TABLE_FIELDS[1:]  # k0, k1, sid, bgn, end, orientation
+    fill = torch.tensor([INT64_MAX, INT64_MAX, 0, 0, 0, 0],
+                        device=gidx.device)[:, None]
+    # (n, fields, route_cap): a field's run for owner d is one row
+    send = torch.where(mask[:, None],
+                       torch.stack([local[f][gidx] for f in fields], 1), fill)
+    rsize = n * route_cap
+    recv = comm.all_to_all(send).transpose(0, 1).reshape(len(fields), rsize)
+    if rsize < shard_capacity:
+        recv = torch.cat([recv, fill.expand(-1, shard_capacity - rsize)], 1)
+    table = dict(zip(fields, recv))
+    table["valid"] = table["k0"] != INT64_MAX
+    shard_overflow = comm.any(table["valid"].sum() > shard_capacity)
+    shard = pairs_ops.sort_table(table)
+    shard = {f: v[:shard_capacity].contiguous() for f, v in shard.items()}
+    n_pairs = comm.sum(shard["valid"].sum())
+    planes, probe_overflow = shard_probe_planes(shard, bits)
+    return dict(
+        shard=shard,
+        probe=planes,
+        bits=bits,
+        n_pairs=n_pairs,
+        shard_overflow=shard_overflow,
+        route_overflow=comm.any(route_overflow),
+        probe_overflow=comm.any(probe_overflow),
+        compact_overflow=comm.any(c_ovf),
+    )
+
+
+def sharded_query_v2_e2e_step(
+        seqs_u8: torch.Tensor, lengths: torch.Tensor, rids: torch.Tensor,
+        probe: Dict[str, torch.Tensor], *, shard_capacity: int,
+        n_targets: int, k: int = 56, r: int = 4, min_span: int = 64,
+        chunk: int = 512, slots2: int = 384, penalty: float = 0.025,
+        lookback: int = 32, max_span: int = 8, M: int = 4,
+        postings_cap: int = 16, max_count: int = 128,
+        max_count_query: int = 128, max_count_target: int = 128,
+        route_capacity: Optional[int] = None,
+        compact_kw: Optional[dict] = None, slots3: Optional[int] = None,
+        avg_per_bucket: int = 64, comm: Optional[Comm] = None) -> dict:
+    """The end-to-end query against the v2 index on this rank
+    (pgrtk_tpu/parallel/mesh.py:603 sharded_query_v2_e2e_step): the
+    reference's raw query, count filters and chain DP (seq_db.rs:
+    1198-1257, aln.rs:147-242) with two all_to_alls.
+
+    The rank's (B_loc, L) queries are sketched and paired (a tie gives
+    orientation 1), the pair stream rank-extracted to slots2 slots per
+    512, the keys sorted (sort_keys, original index as payload) and
+    routed to their owners; the owner extracts each key's postings (K15
+    on `probe`, this rank's K14 planes built at the same shard_capacity
+    and avg_per_bucket) and sends the (3*postings_cap,) int32 rows back;
+    they are scattered straight to their pairs, expanded into (query,
+    target) lanes with the live count filters (K6, K7; n_targets
+    targets, M occurrences a pair) and chained (K8; optional slots3 lane
+    compaction, K2).
+
+    Returns dict: anchors (G, N, 6) int64, gvalid, scores (f32), prev
+    (G, N), dup, inexact, mult_ovf, lane_ovf (G,), row_ovf (B_loc,),
+    G = B_loc * n_targets lanes query-major; n_hits over all ranks; and
+    compact_overflow, route_overflow, postings_overflow over all ranks.
+    Chain traceback stays on the host (ops/chain.py::traceback)."""
+    comm = comm or Comm()
+    n = comm.size
+    bits = probe_bits_for(shard_capacity, avg_per_bucket)
+    C, Pp = n_targets, postings_cap
+    if not 1 <= Pp <= 127:
+        raise ValueError("postings_cap > 127 overflows the 7-bit mult field")
+    B_loc = seqs_u8.shape[0]
+    x, y, valid, c_ovf = _front_end(seqs_u8, lengths, k, r, min_span, chunk,
+                                    compact_kw)
+    keep = pairs_ops.min_span_filter_gapped(x, y, valid, min_span)
+    pr = pairs_ops.pair_mers_gapped(x, y, keep, tie_orientation_one=True)
+    (q_k0, q_k1, q_bgn, q_end, q_ori), cvalid, ovf2 = (
+        pairs_ops.rank_extract_planes(
+            [pr[f] for f in ("k0", "k1", "bgn", "end", "orientation")],
+            pr["pair_valid"], 512, slots2))
+    Pc = q_k0.shape[1]
+    n_loc = B_loc * Pc
+
+    # route: keys in owner order, each carrying its pair's index
+    sk0, sk1, perm = pairs_ops.sort_keys(q_k0.reshape(-1), q_k1.reshape(-1),
+                                         cvalid.reshape(-1))
+    # the in-query duplicate-pair count filter, per query row
+    # (aln.rs:203-211); the per-(pair, sid) filter runs in K7
+    run_len = qe.dup_pair_counts(q_k0, q_k1, cvalid)
+    count_ok = run_len <= min(max_count, max_count_query)
+    off = route_offsets(sk0, cvalid.sum(), n)
+    route_cap = _route_cap(route_capacity, n_loc, n)
+    route_overflow = (off.diff() > route_cap).any()
+    gidx, mask = route_slots(off, n_loc, route_cap)
+    send = torch.where(mask[:, None], torch.stack([sk0[gidx], sk1[gidx]], 1),
+                       INT64_MAX)  # (n, 2, route_cap)
+    recv = comm.all_to_all(send).transpose(0, 1).reshape(2, n * route_cap)
+
+    # owner side, then the rows back in the send layout
+    rows = owner_postings(recv[0], recv[1], probe, bits, Pp)
+    back = comm.all_to_all(rows.reshape(n, route_cap, 3 * Pp))
+    hits = torch.zeros((n_loc, 3 * Pp), dtype=torch.int32,
+                       device=back.device)
+    hits[:, :Pp] = -1  # META_EMPTY's int32 pattern
+    hits[perm[gidx[mask]]] = back[mask]
+
+    ex = qe.expand_postings(hits.reshape(B_loc, Pc, 3 * Pp),
+                            cvalid & count_ok, run_len, C, M,
+                            max_count_target)
+    G, N = B_loc * C, Pc * M
+
+    def lane_q(v):  # (B_loc, Pc) -> (G, N)
+        return v[:, None, :, None].expand(B_loc, C, Pc, M).reshape(G, N)
+
+    t_bgnori = qe._u32(ex["t_bgnori"]).reshape(G, N)
+    planes6 = [lane_q(q_bgn), lane_q(q_end), lane_q(q_ori),
+               t_bgnori & 0x7FFFFFFF, qe._u32(ex["t_end"]).reshape(G, N),
+               t_bgnori >> 31]
+    gvalid = ex["hv"].reshape(G, N)
+    lane_ovf = torch.zeros(G, dtype=torch.bool, device=gvalid.device)
+    if slots3 is not None and slots3 < N:
+        # order-keeping per-lane anchor compaction before the chain scan
+        lane_ovf = gvalid.sum(dim=1) > slots3
+        planes6, gvalid, _ = pairs_ops.rank_extract_planes(planes6, gvalid,
+                                                           N, slots3)
+    anchors = torch.stack(planes6, dim=-1)
+    scores, prev, dup, inexact = chain_ops.chain_scores_fast(
+        anchors, gvalid, penalty, -1, False, lookback=lookback,
+        max_span=max_span)
+    return dict(
+        anchors=anchors,
+        gvalid=gvalid,
+        scores=scores,
+        prev=prev,
+        dup=dup,
+        inexact=inexact,
+        mult_ovf=ex["grp_ovf"].reshape(G),
+        lane_ovf=lane_ovf,
+        row_ovf=ex["row_ovf"],
+        n_hits=comm.sum(gvalid.sum()),
+        compact_overflow=comm.any(c_ovf | ovf2),
+        route_overflow=comm.any(route_overflow),
+        postings_overflow=comm.any(ex["row_ovf"].any()),
+    )

@@ -530,6 +530,39 @@ def sv_reference(L, seed):
     return [("chr1", np.frombuffer(b"ACGT", np.uint8)[ref].tobytes())], ref
 
 
+def sv_junction(seed, L=60_000, shared=10_000, flank=20_000):
+    """A two-chromosome reference and contigs that join them for
+    pgr-get-sv-candidate-regions' query overlap (QO) records: chr1 and
+    chr2 (L random bases each) share one `shared`-base segment S, and
+    contig "join" reads `flank` bases of chr1 before S, S, and `flank`
+    bases of chr2 after it, so its alignments to the two chromosomes
+    overlap on the contig over S; contig "join-rc" is the same junction
+    reverse-complemented, "plain" a stretch of chr1.  SNPs at 1e-3 in
+    the contigs, from np.random.default_rng(seed).  Returns (reference
+    records, contig records), each [(name, bases)]."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    seg = rng.integers(0, 4, shared, dtype=np.uint8)
+    p1, p2 = L // 2, L // 3
+    chroms = []
+    for p in (p1, p2):
+        c = rng.integers(0, 4, L, dtype=np.uint8)
+        c[p:p + shared] = seg
+        chroms.append(c)
+    join = np.concatenate([chroms[0][p1 - flank:p1 + shared],
+                           chroms[1][p2 + shared:p2 + shared + flank]])
+    contigs = []
+    for name, c in (("join", join), ("join-rc", _revcomp(join[2_000:])),
+                    ("plain", chroms[0][1_000:p1 - 2_000])):
+        c = c.copy()
+        pos = rng.choice(len(c), size=rng.binomial(len(c), 1e-3),
+                         replace=False)
+        c[pos] = (c[pos] + rng.integers(1, 4, len(pos))) % 4
+        contigs.append((name, acgt[c].tobytes()))
+    return ([(f"chr{i + 1}", acgt[c].tobytes()) for i, c in
+             enumerate(chroms)], contigs)
+
+
 def wfa_pairs(seed=14, L=512):
     """(target, query) byte pairs of at most L bases for the WFA forward
     pass: identical, one SNP, 20-base deletion and insertion, SNPs with
@@ -588,3 +621,127 @@ def wfa_batch(pairs, L):
         q[i, :len(b)] = np.frombuffer(b, np.uint8)
         n[i], m[i] = len(a), len(b)
     return t, q, n, m
+
+
+# ------------------------------------------- K14, K15: the v2 shard planes
+
+SHARD_PP = 32  # postings_cap of the K15 cases
+
+
+def shard_table(seed, capacity, bits, n_keys=2000, crowd=0, runs=()):
+    """A key-sorted v2 shard table (`pairs.TABLE_FIELDS` numpy planes,
+    int64 but `valid`) of `capacity` entries, the invalid tail at
+    INT64_MAX keys and 0 postings: n_keys random 56-bit keys with 1-3
+    postings each; `crowd` single-posting keys in bucket 7 (at `bits`
+    bits); and per (n_postings, n_sids) in `runs` one key with that many
+    postings spread over that many sids, in (sid, bgn) order, each in a
+    bucket of its own."""
+    rng = np.random.default_rng(seed)
+    shift = np.uint64(32 - bits)
+
+    def in_bucket(b, m):  # m random keys of bucket b
+        lo = rng.integers(0, 1 << (32 - bits), size=m, dtype=np.uint64)
+        hi = rng.integers(0, 1 << 24, size=m, dtype=np.uint64)
+        return list((hi << np.uint64(32)) | (np.uint64(b) << shift) | lo)
+
+    # the crowd has bucket 7 to itself, run key i bucket 9 + 2i
+    mine = [7] + [9 + 2 * i for i in range(len(runs))]
+    k0 = rng.integers(0, 1 << 56, size=n_keys, dtype=np.uint64)
+    b = (k0 & np.uint64(0xFFFFFFFF)) >> shift
+    k0 = list(k0[~np.isin(b, mine)])
+    mult = list(rng.integers(1, 4, size=len(k0)))
+    k0 += in_bucket(7, crowd)
+    mult += [1] * crowd
+    sids = [None] * len(k0)
+    for i, (npost, nsid) in enumerate(runs):
+        k0 += in_bucket(9 + 2 * i, 1)
+        mult.append(npost)
+        sids.append(np.sort(rng.integers(0, nsid, size=npost)))
+    k1 = rng.integers(0, 1 << 56, size=len(k0), dtype=np.uint64)
+    cols = {f: [] for f in ("k0", "k1", "sid", "bgn", "end", "orientation")}
+    for i, m in enumerate(mult):
+        sid = sids[i] if sids[i] is not None else rng.integers(0, 64, size=m)
+        cols["k0"].append(np.full(m, k0[i], dtype=np.uint64))
+        cols["k1"].append(np.full(m, k1[i], dtype=np.uint64))
+        cols["sid"].append(np.asarray(sid, dtype=np.int64))
+        cols["bgn"].append(rng.integers(1, 1 << 30, size=m))
+        cols["end"].append(rng.integers(1, 1 << 30, size=m))
+        cols["orientation"].append(rng.integers(0, 2, size=m))
+    t = {f: np.concatenate(v) for f, v in cols.items()}
+    for f in ("k0", "k1"):
+        t[f] = t[f].view(np.int64)
+    order = np.lexsort((t["bgn"], t["sid"], t["k1"], t["k0"]))
+    n = len(order)
+    if n > capacity:
+        raise ValueError(f"{n} entries exceed the capacity {capacity}")
+    out = {"valid": np.arange(capacity) < n}
+    for f, v in t.items():
+        fill = (1 << 63) - 1 if f in ("k0", "k1") else 0
+        out[f] = np.concatenate([v[order].astype(np.int64),
+                                 np.full(capacity - n, fill, np.int64)])
+    return out
+
+
+def owner_queries(table, seed, n_miss=300, n_pad=200):
+    """Received keys for K15 against `table`'s shard: every distinct
+    valid key, misses, and padded route slots (INT64_MAX), shuffled."""
+    rng = np.random.default_rng(seed)
+    v = table["valid"]
+    keys = np.unique(np.stack([table["k0"][v], table["k1"][v]], 1), axis=0)
+    miss = rng.integers(0, 1 << 56, size=(n_miss, 2)).astype(np.int64)
+    pad = np.full((n_pad, 2), (1 << 63) - 1, dtype=np.int64)
+    q = np.concatenate([keys, miss, pad])
+    q = q[rng.permutation(len(q))]
+    return q[:, 0].copy(), q[:, 1].copy()
+
+
+def last_owner_shard(seed, n=3, capacity=8192):
+    """The shard of the last of n owners (hash0 >> 32 from (n - 1) *
+    (2^24 // n) to 2^24 - 1, which at n = 3 holds the remainder): the
+    entries of a random table that route there, keys at the top of the
+    hash range included."""
+    t = shard_table(seed, capacity * n, 9, n_keys=3 * 2000)
+    lo = ((n - 1) * ((1 << 24) // n)) << 32
+    keep = t["valid"] & (t["k0"] >= lo)
+    top = {f: v[keep] for f, v in t.items()}
+    top["k0"][:3] = (1 << 56) - 1 - np.arange(3)
+    order = np.lexsort((top["bgn"], top["sid"], top["k1"], top["k0"]))
+    m = int(keep.sum())
+    out = {}
+    for f, v in top.items():
+        fill = ((1 << 63) - 1 if f in ("k0", "k1") else
+                (False if f == "valid" else 0))
+        out[f] = np.concatenate([v[order], np.full(capacity - m, fill,
+                                                   dtype=v.dtype)])
+    return out
+
+
+def shard_cases(dev):
+    """(name, shard table, bits, received k0, received k1) on `dev`: a
+    random shard; a bucket of exactly 128 entries and one of 129 (K14's
+    overflow); keys with Pp and Pp + 1 postings and sid runs with m = 15
+    and 16 (K15's keyovf); the last of three owners.  Every case's
+    received keys include misses and padded route slots."""
+    from ..parallel.mesh import probe_bits_for
+
+    Pp = SHARD_PP
+    bits = probe_bits_for(8192, 16)
+    tables = [
+        ("random", shard_table(20, 8192, bits)),
+        ("bucket of 128", shard_table(21, 8192, bits, n_keys=1500,
+                                      crowd=128)),
+        ("bucket of 129", shard_table(22, 8192, bits, n_keys=1500,
+                                      crowd=129)),
+        ("Pp, Pp + 1 postings; m 15, 16",
+         shard_table(23, 8192, bits, runs=((Pp, 9), (Pp + 1, 9), (16, 1),
+                                           (17, 1), (Pp + 1, 1), (127, 64),
+                                           (128, 3)))),
+        ("last of 3 owners", last_owner_shard(24)),
+    ]
+    t = _to(dev)
+    out = []
+    for i, (name, tab) in enumerate(tables):
+        qk0, qk1 = owner_queries(tab, 30 + i)
+        out.append((name, {f: t(v) for f, v in tab.items()}, bits, t(qk0),
+                    t(qk1)))
+    return out

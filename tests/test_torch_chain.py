@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from pgrtk_tpu.ops import chain as jchain
+from pgrtk_tpu_torch.core import aln_ref
 from pgrtk_tpu_torch.ops import chain as tchain
 from pgrtk_tpu_torch.utils import cases
 
@@ -179,3 +180,40 @@ def test_traceback_matches_jax_and_native():
                                  as_arrays=True)
     assert [[(s, t.tolist()) for s, t in g] for g in arrays] == [
         [(s, t.tolist()) for s, t in g] for g in nat]
+
+
+# an exact duplicate anchor that recurs after other anchors of its group:
+# sorted by q_bgn (stable) it reads A, B, C, A with B and C sharing A's
+# q_bgn, and the value-keyed predecessors of A and C point at each other
+RECURRING_DUPLICATE = [((100, 120, 0), (184, 254, 0)),
+                       ((200, 265, 0), (162, 211, 0)),
+                       ((200, 245, 0), (211, 244, 0)),
+                       ((200, 267, 0), (31, 75, 0)),
+                       ((200, 265, 0), (162, 211, 0))]
+
+
+def _trace_recurring_duplicate(path):
+    hits = RECURRING_DUPLICATE
+    group = np.array([[*q, *t] for q, t in hits], dtype=np.uint32)
+    if path == "sparse_aln":
+        return aln_ref.sparse_aln(hits, 8, 0.025)
+    if path == "traceback":  # on the dense DP's scores, as chain_groups
+        anchors, valid = tchain._sorted_batch([group, group[:3]])
+        scores, prev, _ = tchain.chain_scores_dense_plain(
+            torch.from_numpy(anchors.astype(np.int64)),
+            torch.from_numpy(valid), 0.025)
+        return tchain.traceback(scores.numpy(), prev.numpy(), valid, anchors)
+    return tchain.chain_groups([group[:3], group], 0.025, device="cpu")
+
+
+@pytest.mark.parametrize("path,message", [
+    ("sparse_aln", "revisits .* group of 5 hits"),
+    ("traceback", "group 0: .* revisits"),
+    ("chain_groups", "group 1: .* revisits"),
+])
+def test_traceback_raises_on_a_recurring_duplicate(path, message):
+    """The port's tracebacks stop a walk that revisits an anchor and
+    raise, naming the group, where the value-keyed walk of the reference
+    (and of the JAX package) cycles forever."""
+    with pytest.raises(ValueError, match=message):
+        _trace_recurring_duplicate(path)

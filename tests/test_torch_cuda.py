@@ -273,3 +273,54 @@ def test_sv_cli_on_card_matches_cpu(dev, tmp_path):
     for ext in cli.OUTPUTS + cli.FASTA_OUTPUTS:
         assert (tmp_path / ("gpu" + ext)).read_bytes() == (
             tmp_path / ("cpu" + ext)).read_bytes(), ext
+
+
+def test_shard_kernels_match_plain_on_edge_cases(dev):
+    """K14 and K15 on cases.shard_cases (a bucket of 128 and of 129
+    entries, keys with Pp and Pp + 1 postings, sid runs with m 15 and 16,
+    padded route slots, the last of three owners) against their plain
+    versions, and the sort helpers of the owner and the route against
+    theirs."""
+    from pgrtk_tpu_torch.ops import pairs as tp
+
+    before = (kb.shard_probe_planes.launches, kb.owner_postings.launches)
+    for name, table, bits, qk0, qk1 in cases.shard_cases(dev):
+        got = mesh.shard_probe_planes(table, bits)
+        want = mesh.shard_probe_planes_plain(table, bits)
+        assert _equal(got, want), name
+        rows = mesh.owner_postings(qk0, qk1, got[0], bits, cases.SHARD_PP)
+        assert _equal(rows, mesh.owner_postings_plain(
+            qk0, qk1, want[0], bits, cases.SHARD_PP)), name
+        perm = torch.randperm(len(table["valid"]),
+                              generator=torch.Generator().manual_seed(1))
+        shuffled = {f: v[perm.to(dev)] for f, v in table.items()}
+        assert _equal(tp.sort_table(shuffled), tp.sort_table_plain(shuffled))
+        valid = qk0 != mesh.INT64_MAX
+        assert _equal(tp.sort_keys(qk0, qk1, valid),
+                      tp.sort_keys_plain(qk0, qk1, valid))
+    torch.cuda.synchronize()
+    assert kb.shard_probe_planes.launches == before[0] + 5
+    assert kb.owner_postings.launches == before[1] + 5
+
+
+def test_sharded_steps_on_card_match_cpu(dev):
+    """sharded_index_v2_step and sharded_query_v2_e2e_step at world size 1
+    (no process group) on the card against the CPU, on the dry run's
+    corpus cut to 8 x 32,768 bases."""
+    from pgrtk_tpu_torch import dryrun
+
+    seqs, lens = dryrun.corpus(1, 32_768)
+    args = (torch.from_numpy(seqs), torch.from_numpy(lens),
+            torch.arange(len(seqs)))
+    outs = []
+    for d in ("cpu", dev):
+        a = [t.to(d) for t in args]
+        v2 = mesh.sharded_index_v2_step(*a, shard_capacity=4096)
+        e2e = mesh.sharded_query_v2_e2e_step(
+            *a, v2["probe"], shard_capacity=4096, n_targets=len(seqs),
+            M=4, postings_cap=40)
+        outs.append([v2["shard"], v2["probe"], e2e])
+    torch.cuda.synchronize()
+    cpu, gpu = outs
+    for c, g in zip(cpu, gpu):
+        assert _equal({k: v.cpu() for k, v in g.items()}, c)

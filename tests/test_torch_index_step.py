@@ -196,6 +196,11 @@ with tempfile.TemporaryDirectory() as d:
     assert pgr_pbundle_decomp.main([fa, os.path.join(d, "out")],
                                    device="cpu") == 0
     assert os.path.getsize(os.path.join(d, "out.pmapg.gfa")) > 1000
+# the sharded v2 index and query on one rank, no process group
+from pgrtk_tpu_torch import dryrun
+from pgrtk_tpu_torch.parallel.comm import Comm
+counts = dryrun.dryrun_rank(Comm(), "cpu", L=32_768)
+assert counts["anchor_groups"] == counts["chain_groups"] == 64
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("ok")
 """
@@ -218,8 +223,8 @@ def test_chip_smoke_tandem_picker_matches_synth():
 
 def test_port_imports_and_runs_without_jax():
     """The port and chip_smoke.py import neither JAX nor the JAX
-    package, and the query stage and the --batch-device path build and
-    run without them."""
+    package, and the query stage, the --batch-device path, the
+    decomposition and the sharded v2 path build and run without them."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c", _JAX_BLOCKED], cwd=REPO, env=env,

@@ -110,3 +110,27 @@ def test_query_batches_keep_order_under_the_budget():
     assert [list(r) for r in tcli.query_batches([20, 1], 9)] == [[0], [1]]
     assert tcli.query_batches([], 9) == []
 
+
+
+def test_query_overlap_records_match_jax(tmp_path):
+    """utils/cases.py::sv_junction: contigs that join two chromosomes
+    through a segment they share align to both over it, which gives
+    query overlap (QO) records in both orientations; the port writes the
+    JAX CLI's ten files byte for byte."""
+    ref, asm = cases.sv_junction(6)
+    cases.write_fasta(tmp_path / "ref.fa", ref)
+    cases.write_fasta(tmp_path / "asm.fa", asm)
+    opts = VARIANTS["fasta"]
+    args = [str(tmp_path / "ref.fa"), str(tmp_path / "asm.fa")]
+    assert jcli.main(args + [str(tmp_path / "jax")] + opts) == 0
+    assert tcli.main(args + [str(tmp_path / "port")] + opts,
+                     device="cpu") == 0
+    files = _files("fasta")
+    assert len(files) == 10
+    for e in files:
+        assert (tmp_path / f"port{e}").read_bytes() == (
+            tmp_path / f"jax{e}").read_bytes(), e
+    qo = [line.split("\t")[3].split(":")[-3:]
+          for line in open(tmp_path / "jax.ctgsv.bed")
+          if line.split("\t")[3].startswith("QO:")]
+    assert {o[1] for o in qo} == {"0", "1"}  # both orientations
