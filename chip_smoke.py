@@ -165,6 +165,10 @@ REPLACES = {
     "wfa_forward": "pgrtk_tpu/ops/wfa.py:103",
     "shard_probe_planes": "pgrtk_tpu/parallel/mesh.py:312",
     "owner_postings": "pgrtk_tpu/parallel/mesh.py:764",
+    "pair_key_search": "pgrtk_tpu/parallel/mesh.py:259",
+    "shard_probe_found": "pgrtk_tpu/parallel/mesh.py:576",
+    "min_span_filter_dense": "pgrtk_tpu/ops/pairs.py:221",
+    "pair_mers_dense": "pgrtk_tpu/ops/pairs.py:248",
 }
 INDEX_KERNELS = tuple(REPLACES)[:4] + ("sort_pairs",)
 QUERY_KERNELS = tuple(REPLACES)[:8]
@@ -197,7 +201,10 @@ OPS_WINDOWS = 16     # K9 per base: sliding min and max by van Herk
 OPS_ENTRY = 16       # K2/K3/K4/K6 per stream entry: scan, compares
 OPS_POSTING = 16     # K7 per postings slot
 OPS_SLOT = 32        # K8/K10 per anchor and window slot: filters, score
-OPS_COMPARE = 4      # K5/K11 per table slot compared: two 64-bit equals
+OPS_COMPARE = 4      # K5/K11/K15/K17 per table slot compared: two 64-bit
+                     # equals
+OPS_SEARCH = 8       # K16 per key and search round: a 64-bit less-than,
+                     # equal and select on (k0, k1)
 OPS_DIGIT = 8        # K12 per entry and 8-bit digit that is not constant:
                      # extract, rank among equal digits, place
 ROW = (4, 4, 4, 7, 7, BIT)  # a MAP-graph row: sid, bgn, end (u32), h0,
@@ -293,7 +300,10 @@ def measure(name, kernel_fn, plain_fn, in_bytes, out_bytes, ops, reps=5,
 
 def flat(out):
     """Tensors of a kernel's result in a fixed order (dicts by key); a
-    None (K5's rows when it only probes) is kept as is."""
+    None (K5's rows when it only probes) is kept as is.  A single tensor
+    is one result, not a sequence of rows."""
+    if isinstance(out, torch.Tensor):
+        return [out]
     if isinstance(out, dict):
         return [out[k] for k in sorted(out)]
     res = []
@@ -783,27 +793,6 @@ def step_bound(parts):
     """The bound of a step made of kernels with bounds `parts` [(ms,
     by)]: their sum, by what bounds the largest."""
     return sum(ms for ms, _ in parts), max(parts)[1]
-
-
-def unported_bounds(index_step):
-    """Bounds (ms, by) of the JAX package's device functions not ported
-    yet (rows 14 and 17 of PERF.md's kernel table), at the shapes their
-    callers give them at this run's sizes.  A sharded step per card is
-    its single-card step (this run's kernel bounds) plus the bytes it
-    sends over NVLink."""
-    B, L, pairs = index_step["B"], index_step["L"], index_step["pairs"]
-
-    def linked(step, link_bytes):
-        ms, by = step
-        return ms + link_bytes / NVLINK_BYTES_PER_S * 1e3, by
-
-    return [
-        ("14 ops/pairs.py dense variants: compact_mers on the dense "
-         f"({B}, {L}) x, y planes and mask", bound(B * L * 17)),
-        ("17 parallel/mesh.py:55/210/533 v1 steps, per card: the index "
-         "step + all_gather of the packed table",
-         linked(index_step["bound"], 7 * 4 * pairs)),
-    ]
 
 
 def distinct_keys(k0, k1):
@@ -1662,6 +1651,7 @@ def phase_sv(dev, kb, build_dir):
 # MULTICHIP_r05.json's counts of the JAX dry run at 8 devices (B = 8 at
 # n = 1, 2, 4 and 8, so they do not depend on n)
 MULTICHIP_R05 = dict(bases=8_388_608, mers=20_726, pairs=20_718,
+                     self_hits=20_718, probe_hits=20_718, v2_hits=20_718,
                      e2e_hits=157_406, anchor_groups=64, chain_groups=64)
 # 10c: the sharded query at bench.py's query knobs (E2E_KW) that the v2
 # step has: its front end is the default sizing and 512-entry pair blocks
@@ -1752,7 +1742,7 @@ def k15_work(qk0, qk1, bits, Pp):
             OPS_COMPARE * int(live.sum()) * 128)
 
 
-def phase_sharded(dev, kb, mesh, targets, queries, build_dir):
+def phase_sharded(dev, kb, mesh, targets, queries, build_dir, stamp):
     """Phase 10: the hash-range-sharded v2 index and query on one card,
     over a real NCCL process group of world size 1 (FileStore under
     build/).  The NCCL all_to_all between ranks is not exercised."""
@@ -1769,8 +1759,9 @@ def phase_sharded(dev, kb, mesh, targets, queries, build_dir):
     try:
         comm = pcomm.Comm()
         require(comm.distributed and comm.size == 1, "no process group")
-        print(f"phase 10a: the v2 dry run (pgrtk_tpu_torch/dryrun.py) at "
-              f"world size 1 over {dist.get_backend()}")
+        print(f"phase 10a (and 11a): the dry run of all five steps "
+              f"(pgrtk_tpu_torch/dryrun.py) at world size 1 over "
+              f"{dist.get_backend()}")
         t = time.perf_counter()
         counts = dryrun.dryrun_rank(comm, dev)
         print(f"  {dryrun.line(1, counts)}  ({time.perf_counter() - t:.1f} s;"
@@ -1781,9 +1772,12 @@ def phase_sharded(dev, kb, mesh, targets, queries, build_dir):
         require(got == MULTICHIP_R05,
                 f"dry run counts {got} differ from MULTICHIP_r05's "
                 f"{MULTICHIP_R05}")
-        measured = phase_v2_index(dev, kb, mesh, comm)
+        measured, batch = phase_v2_index(dev, kb, mesh, comm)
         measured.update(phase_v2_query(dev, kb, mesh, comm, tq, targets,
                                        queries))
+        stamp("phase 10")
+        measured.update(phase_v1(dev, kb, mesh, comm, batch, stamp))
+        stamp("phase 11")
     finally:
         dist.destroy_process_group()
         if os.path.exists(store):
@@ -1853,7 +1847,9 @@ def phase_v2_index(dev, kb, mesh, comm, B=16, L=16_777_216):
                   lambda: planes_list(mesh.shard_probe_planes_plain(sh, bits)),
                   in_b, out_b, ops)
     res["launches"] = launches
-    return {"shard_probe_planes": res}
+    return {"shard_probe_planes": res}, dict(
+        seqs=seqs, lens=lens, rids=rids, v2=v2, lam=lam, cap=cap,
+        n_pairs=n, phase4_step=phase4_step)
 
 
 def phase_v2_query(dev, kb, mesh, comm, tq, targets, queries):
@@ -1960,6 +1956,243 @@ def phase_v2_query(dev, kb, mesh, comm, tq, targets, queries):
     return {"owner_postings": result}
 
 
+V1_KERNELS = ("pair_key_search", "shard_probe_found", "min_span_filter_dense",
+              "pair_mers_dense")
+
+
+def k16_work(tk0, qk0):
+    """Input bytes (the table's keys and the query keys, each read once),
+    output bytes (a flag per key) and operations (ceil(log2(N + 1))
+    search rounds per key) of K16."""
+    n, Q = tk0.numel(), qk0.numel()
+    return (16 * n + 16 * Q, lambda got: need(Q, BIT),
+            OPS_SEARCH * Q * max(1, n.bit_length()))
+
+
+def k17_work(qk0, bits):
+    """K15's model without the postings: each key (16 bytes), each
+    distinct bucket row probed once (128 keys of 16 bytes), a flag per
+    key; 4 operations per slot compared."""
+    from pgrtk_tpu_torch.ops.int64 import INT64_MAX
+
+    live = qk0 != INT64_MAX
+    rows = torch.unique((qk0[live] & 0xFFFFFFFF) >> (32 - bits)).numel()
+    Q = qk0.numel()
+    return (16 * Q + rows * 128 * 16, lambda got: need(Q, BIT),
+            OPS_COMPARE * int(live.sum()) * 128)
+
+
+def query_steps(mesh, comm, batch, table, probe):
+    """The three self-queries of phase 11c as steps."""
+    args = (batch["seqs"], batch["lens"], batch["rids"])
+    return {
+        "count (K16)": lambda: mesh.sharded_query_count_step(
+            *args, table, comm=comm, chunk=CHUNK),
+        "probe (K11)": lambda: mesh.sharded_query_probe_step(
+            *args, probe, comm=comm, chunk=CHUNK),
+        "v2 probe-only (K17)": lambda: mesh.sharded_query_v2_step(
+            *args, batch["v2"]["probe"], shard_capacity=batch["cap"],
+            avg_per_bucket=batch["lam"], comm=comm, chunk=CHUNK),
+    }
+
+
+def phase_v1(dev, kb, mesh, comm, batch, stamp):
+    """Phase 11: the v1 replicated-index programs at world size 1 on phase
+    4's 268 Mbase batch (kept from phase 10b, with its v2 planes), and
+    the dense pair variants on its dense planes."""
+    from pgrtk_tpu_torch.ops import pairs as tp
+
+    seqs, lens, rids = batch["seqs"], batch["lens"], batch["rids"]
+    B, L = seqs.shape
+    n = batch["n_pairs"]
+    print(f"phase 11b: sharded_sketch_index_step_auto at world size 1 on "
+          f"phase 4's {B} x {L} batch")
+    ref = batch["phase4_step"]()
+
+    def v1_step():
+        return mesh.sharded_sketch_index_step_auto(seqs, lens, rids,
+                                                   comm=comm, chunk=CHUNK)
+
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    with capture(mesh, "pair_key_search") as k16, \
+            capture(mesh, "shard_probe_found") as k17:
+        v1 = v1_step()
+        table = v1["table"]
+        print(f"  safe_rerun {v1['safe_rerun']} overflow "
+              f"{int(v1['overflow'])} n_pairs {int(v1['n_pairs'])} n_mers "
+              f"{int(v1['n_mers'])} (phase 4's step: {n} pairs, "
+              f"{int(ref['n_mers'])} mers); table {table['k0'].numel()} "
+              f"entries")
+        require(not v1["safe_rerun"] and not bool(v1["overflow"]),
+                "v1 index flags set")
+        require(int(v1["n_pairs"]) == n and int(v1["n_mers"]) == int(
+            ref["n_mers"]), "v1 counts differ from phase 4's step")
+        check("v1 table vs phase 4's sorted table (whole table)",
+              ref["table"], table)
+        t = time.perf_counter()
+        probe = mesh.replicated_probe_table(table)
+        print(f"  replicated probe table (host build_probe_table): bits "
+              f"{probe['bits']}, W {probe['W']}, "
+              f"{time.perf_counter() - t:.2f} s (set-up, not timed below)")
+        print("phase 11c: the count, probe and v2 probe-only steps, the "
+              "batch against itself")
+        steps = query_steps(mesh, comm, batch, table, probe)
+        hits = {}
+        for name, step in steps.items():
+            res = step()
+            hits[name] = int(res["n_hits"])
+            require(not bool(res["overflow"]), f"{name} step overflow")
+        torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kb.KERNELS if k.launches}
+    print(f"  n_hits {hits} (n_pairs {n}); launches {launches}")
+    require(min(hits.values()) >= n, "a self-query found fewer than n_pairs")
+    require(len(set(hits.values())) == 1, "the three self-queries differ")
+    for name in INDEX_KERNELS + ("probe_keys", "pair_key_search",
+                                 "shard_probe_found"):
+        require(launches.get(name, 0) > 0,
+                f"kernel {name} never launched on the v1 path")
+
+    times = {"v1 index": median_step(v1_step),
+             "phase 4's index step": median_step(batch["phase4_step"])}
+    times.update((name, median_step(step)) for name, step in steps.items())
+    for name, (med, ts) in times.items():
+        print(f"  {name}: step times s {[round(t, 6) for t in ts]}; median "
+              f"{med:.6f} s = {B * L / med / 1e6:.1f} Mbase/s")
+    profile_steps(v1_step, trace="v1_index_trace.json")
+    profile_steps(steps["count (K16)"], trace="v1_count_trace.json")
+
+    stamp("phases 11b-c")
+    print("phase 11d: K16, K17 vs plain at 11c's shapes and on the edge "
+          "cases")
+    from pgrtk_tpu_torch.utils import cases
+
+    results = {}
+    (tk0, tk1, qk0, qk1), _ = k16.calls[-1]
+    in_b, out_b, ops = k16_work(tk0, qk0)
+    results["pair_key_search"] = measure(
+        f"K16 pair_key_search, {qk0.numel()} keys in {tk0.numel()} entries",
+        lambda: mesh.pair_key_search(tk0, tk1, qk0, qk1),
+        lambda: mesh.pair_key_search_plain(tk0, tk1, qk0, qk1),
+        in_b, out_b, ops)
+    (fk0, fk1, planes, bits), _ = k17.calls[-1]
+    in_b, out_b, ops = k17_work(fk0, bits)
+    results["shard_probe_found"] = measure(
+        f"K17 shard_probe_found, {fk0.numel()} gathered keys, "
+        f"{1 << bits} buckets",
+        lambda: mesh.shard_probe_found(fk0, fk1, planes, bits),
+        lambda: mesh.shard_probe_found_plain(fk0, fk1, planes, bits),
+        in_b, out_b, ops)
+    edge = {"pair_key_search": 0.0, "shard_probe_found": 0.0}
+    for name, a, b, c, d in cases.v1_search_cases(dev):
+        edge["pair_key_search"] = max(edge["pair_key_search"], check(
+            f"K16 {name}", [mesh.pair_key_search(a, b, c, d)],
+            [mesh.pair_key_search_plain(a, b, c, d)]))
+    for name, tab, b, c0, c1 in cases.shard_cases(dev):
+        pl, _ = mesh.shard_probe_planes(tab, b)
+        edge["shard_probe_found"] = max(edge["shard_probe_found"], check(
+            f"K17 {name}", [mesh.shard_probe_found(c0, c1, pl, b)],
+            [mesh.shard_probe_found_plain(c0, c1, pl, b)]))
+    for name in ("pair_key_search", "shard_probe_found"):
+        results[name]["launches"] = launches.get(name, 0)
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                           edge[name])
+    n_mers = int(ref["n_mers"])
+    stamp("phase 11d, K16 and K17")
+    del table, probe, v1, ref
+    torch.cuda.empty_cache()
+    results.update(phase_dense(dev, kb, mesh, tp, seqs, lens, rids,
+                               (n, n_mers)))
+    return results
+
+
+def phase_dense(dev, kb, mesh, tp, seqs, lens, rids, counts):
+    """Phase 11d, the dense variants: the dense pipeline
+    (mesh.dense_index_step, gapped and not) on the batch at capacity
+    L / 64, its (pairs, mers) against phase 4's `counts`; K18 and K19
+    (and compact_mers, recompact_mers on K2 and K12's engine) against
+    their plain versions at its shapes and on cases.dense_cases."""
+    from pgrtk_tpu_torch.ops import sketch as tsk
+    from pgrtk_tpu_torch.utils import cases
+
+    B, L = seqs.shape
+    cap = L // 64
+    print(f"phase 11d: the dense pipeline on {B} x {L} (capacity {cap})")
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    with capture(tp, "min_span_filter_dense") as k18, \
+            capture(tp, "pair_mers_dense") as k19, \
+            capture(tp, "compact_mers") as comp, \
+            capture(tp, "recompact_mers") as recomp:
+        outs = {}
+        for gapped in (True, False):
+            t = time.perf_counter()
+            out = mesh.dense_index_step(seqs, lens, rids, capacity=cap,
+                                        gapped=gapped)
+            torch.cuda.synchronize()
+            outs[gapped] = (int(out["n_pairs"]), int(out["n_mers"]))
+            print(f"  gapped={gapped}: n_pairs {outs[gapped][0]} n_mers "
+                  f"{outs[gapped][1]} overflow {int(out['overflow'])} "
+                  f"inexact {int(out['inexact'])}; "
+                  f"{time.perf_counter() - t:.3f} s (the dense sketch is "
+                  f"torch glue)")
+            require(not bool(out["overflow"]) and not bool(out["inexact"]),
+                    "dense pipeline flags set")
+            del out
+    launches = {k.name: k.launches for k in kb.KERNELS if k.launches}
+    print(f"  launches {launches}")
+    require(outs[True] == outs[False] == counts,
+            f"the dense pipelines' (pairs, mers) {outs} differ from phase "
+            f"4's {counts}")
+    for name in ("rank_extract", "sort_pairs", "min_span_filter_dense",
+                 "pair_mers_dense", "pair_mers_gapped"):
+        require(launches.get(name, 0) > 0,
+                f"kernel {name} never launched on the dense pipeline")
+    torch.cuda.empty_cache()
+
+    results = {}
+    (x, y, sel, c), _ = comp.calls[-1]
+    measure(f"compact_mers (K2 + K12's engine), dense planes "
+            f"{tuple(x.shape)}, capacity {c}",
+            lambda: tp.compact_mers(x, y, sel, c),
+            lambda: tp.compact_mers_plain(x, y, sel, c), [x, y, sel],
+            lambda got: need(got[0].numel(), *SLOT),
+            OPS_ENTRY * x.numel())
+    del x, y, sel, comp
+    torch.cuda.empty_cache()
+    (x, y, valid, ms), _ = k18.calls[-1]
+    results["min_span_filter_dense"] = measure(
+        f"K18 min_span_filter_dense, {tuple(x.shape)}",
+        lambda: tp.min_span_filter_dense(x, y, valid, ms),
+        lambda: tp.min_span_filter_dense_plain(x, y, valid, ms),
+        [x, y, valid], lambda got: need(got.numel(), BIT),
+        OPS_ENTRY * x.numel())
+    (x, y, keep), _ = recomp.calls[-1]
+    measure(f"recompact_mers (K12's engine), {tuple(x.shape)}",
+            lambda: tp.recompact_mers(x, y, keep),
+            lambda: tp.sort_by_position_plain(x, y, keep), [x, y, keep],
+            lambda got: need(got[0].numel(), *SLOT),
+            OPS_DIGIT * x.numel() * 5)
+    (x, y, valid), _ = k19.calls[-1]
+    results["pair_mers_dense"] = measure(
+        f"K19 pair_mers_dense, {tuple(x.shape)}",
+        lambda: tp.pair_mers_dense(x, y, valid),
+        lambda: tp.pair_mers_dense_plain(x, y, valid), [x, y, valid],
+        lambda got: need(got["k0"].numel(), *PAIR), OPS_ENTRY * x.numel())
+    for name, a, b, v in cases.dense_cases(dev):
+        for k, kern, plain in (
+                ("min_span_filter_dense",
+                 lambda: tp.min_span_filter_dense(a, b, v, MIN_SPAN),
+                 lambda: tp.min_span_filter_dense_plain(a, b, v, MIN_SPAN)),
+                ("pair_mers_dense", lambda: tp.pair_mers_dense(a, b, v),
+                 lambda: tp.pair_mers_dense_plain(a, b, v))):
+            results[k]["max_abs_err"] = max(results[k]["max_abs_err"], check(
+                f"{k} {name}", kern(), plain()))
+    for k in ("min_span_filter_dense", "pair_mers_dense"):
+        results[k]["launches"] = launches.get(k, 0)
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1973,6 +2206,12 @@ def main():
     from pgrtk_tpu_torch.utils.device import card_info
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    def stamp(label):
+        print(f"[{time.perf_counter() - t_start:.1f} s since the start] "
+              f"{label} done")
+
     card = card_info()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1987,6 +2226,7 @@ def main():
             print("  ptxas", line.strip())
     try:
         phase_kernels(dev, tsk, tp)
+        stamp("phase 1")
         t0 = time.perf_counter()
         targets, queries = bench_corpus(dev)
         print(f"bench corpus: targets {targets.shape}, queries "
@@ -1994,7 +2234,9 @@ def main():
               f"(host)")
         phase_bench(dev, tsk, tp, targets)
         phase_host_api(dev, tsk)
+        stamp("phases 2-3")
         measured, index_step = phase_main_path(dev, tsk, tp, mesh, kb)
+        stamp("phases 4-5")
         query_measured, query_errs, query_step = phase_query(
             dev, kb, tsk, tp, targets, queries)
         measured.update(query_measured)
@@ -2005,16 +2247,18 @@ def main():
               f"by {index_step['bound'][1]}, query "
               f"{query_step['bound'][0]:.4f} ms by {query_step['bound'][1]}"
               f" (sums of their kernels' bounds)")
-        print("bounds of the device functions not ported yet:")
-        for row, (ms, by) in unported_bounds(index_step):
-            print(f"  {ms:.4f} ms by {by}: {row}")
+        stamp("phase 6")
         measured.update(phase_batch_device(dev, kb, targets, queries))
+        stamp("phase 7")
         build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                  "build")
         measured.update(phase_pbundle(dev, kb, build_dir))
+        stamp("phase 8")
         measured.update(phase_sv(dev, kb, build_dir))
+        stamp("phase 9")
         measured.update(phase_sharded(dev, kb, mesh, targets, queries,
-                                      build_dir))
+                                      build_dir, stamp))
+        stamp("phases 10-11")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

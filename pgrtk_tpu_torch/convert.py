@@ -220,3 +220,31 @@ def e2e_to_jax(res: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
             a = int(a)
         out[name] = a
     return out
+
+
+# ------------------------------------------- the v1 replicated programs
+#
+# The v1 table is the sort_pairs layout (table_to_jax, table_from_jax);
+# dense (B, C) mer and pair planes go through mers_to_jax, mers_from_jax
+# and pairs_to_jax like the gapped ones.
+
+def hits_to_jax(res: Dict[str, torch.Tensor]):
+    """A port v1 query result (sharded_query_count_step,
+    sharded_query_probe_step: all_hits; sharded_query_v2_step: found) ->
+    the JAX step's (n_hits int, hit mask bool array, overflow bool)."""
+    mask = res["all_hits"] if "all_hits" in res else res["found"]
+    return int(res["n_hits"]), _bool_np(mask), bool(res["overflow"])
+
+
+def padded_probe_from_jax(pt: Dict) -> Dict:
+    """A JAX padded-bucket probe table (ops/probe.py::build_probe_table:
+    bits, planes 4 x (2^bits, W) uint32, row (2^bits, W) int32) -> the
+    port's (bits, W, flat int64 k0 and k1, all ones at pad slots, flat
+    int32 row)."""
+    planes = np.asarray(pt["planes"])
+    W = planes.shape[-1]
+    return dict(bits=int(pt["bits"]), W=W,
+                k0=int64_from_planes(planes[0], planes[1]).reshape(-1),
+                k1=int64_from_planes(planes[2], planes[3]).reshape(-1),
+                row=torch.from_numpy(np.asarray(pt["row"], np.int32)
+                                     .reshape(-1).copy()))

@@ -1,5 +1,5 @@
-// K14 shard_probe_planes and K15 owner_postings: the owner side of the
-// hash-range-sharded v2 index.
+// K14 shard_probe_planes, K15 owner_postings and K17 shard_probe_found:
+// the owner side of the hash-range-sharded v2 index.
 //
 // K14 replaces pgrtk_tpu/parallel/mesh.py:312 _shard_probe_planes.  Each
 // valid entry of a key-sorted shard table goes to bucket b = the top
@@ -37,6 +37,16 @@
 // bounds by log shifts; a warp reads the row directly.  What bounds it on
 // this card: device memory (the received keys, each probed bucket row of
 // keys, the postings of the hits, the output).
+//
+// K17 replaces the compare block of pgrtk_tpu/parallel/mesh.py:576-582
+// (inside sharded_query_v2_step, the v2 probe-only fan-out): is each
+// gathered query key in its bucket row of this rank's K14 planes?  The
+// bucket is K14's, the top `bits` of k0's low word (not K11's top bits of
+// the 56-bit hash).  One warp per key reads the 128-slot row, 4 slots a
+// lane, with the same ballot as K15 (`row_hits`), and lane 0 writes the
+// OR of the four masks.  An INT64_MAX key (a padded slot) never hits.
+// What bounds it on this card: device memory (the keys, each probed
+// bucket row of keys once, the flags).
 #include "common.cuh"
 
 namespace {
@@ -111,6 +121,24 @@ __global__ void fill_planes_kernel(const i64* __restrict__ start,
   }
 }
 
+// The 128-slot row compare of K15 and K17: bit s of mask[t] is set when
+// slot 32 t + s of the row at `row` holds (k0, k1) and the key is live.
+// Every lane of the warp must call it.
+__device__ __forceinline__ void row_hits(const i64* __restrict__ pk0,
+                                         const i64* __restrict__ pk1, i64 row,
+                                         i64 k0, i64 k1, bool live, int lane,
+                                         unsigned mask[4]) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const i64 p = row + 32 * t + lane;
+    mask[t] = __ballot_sync(0xffffffffu, live && pk0[p] == k0 && pk1[p] == k1);
+  }
+}
+
+__device__ __forceinline__ i64 row_of(i64 k0, int bits) {
+  return (i64)(((u64)k0 & 0xFFFFFFFFull) >> (32 - bits)) * kW;
+}
+
 __global__ void owner_postings_kernel(const i64* __restrict__ qk0,
                                       const i64* __restrict__ qk1, i64 Q,
                                       int bits, const i64* __restrict__ pk0,
@@ -128,15 +156,11 @@ __global__ void owner_postings_kernel(const i64* __restrict__ qk0,
   const i64 k0 = qk0[q];
   const i64 k1 = qk1[q];
   const bool live = k0 != kKeyFill;  // padded route slots never hit
-  const i64 row =
-      live ? (i64)(((u64)k0 & 0xFFFFFFFFull) >> (32 - bits)) * kW : 0;
+  const i64 row = live ? row_of(k0, bits) : 0;
   unsigned mask[4];
+  row_hits(pk0, pk1, row, k0, k1, live, lane, mask);
   int count = 0;
-  for (int t = 0; t < 4; ++t) {
-    const i64 p = row + 32 * t + lane;
-    mask[t] = __ballot_sync(full, live && pk0[p] == k0 && pk1[p] == k1);
-    count += __popc(mask[t]);
-  }
+  for (int t = 0; t < 4; ++t) count += __popc(mask[t]);
   int first = kW;
   for (int t = 3; t >= 0; --t)
     if (mask[t]) first = 32 * t + __ffs(mask[t]) - 1;
@@ -175,6 +199,22 @@ __global__ void owner_postings_kernel(const i64* __restrict__ qk0,
     if (j >= Pp) break;
     o[j] = (int)(j < nv && keyovf ? meta[t] | 0x80000000u : meta[t]);
   }
+}
+
+__global__ void shard_probe_found_kernel(const i64* __restrict__ qk0,
+                                         const i64* __restrict__ qk1, i64 Q,
+                                         int bits, const i64* __restrict__ pk0,
+                                         const i64* __restrict__ pk1,
+                                         bool* __restrict__ found) {
+  const int lane = threadIdx.x & 31;
+  const i64 q = ((i64)blockIdx.x * kThreads + threadIdx.x) >> 5;
+  if (q >= Q) return;  // whole warps leave together
+  const i64 k0 = qk0[q];
+  const i64 k1 = qk1[q];
+  const bool live = k0 != kKeyFill;
+  unsigned mask[4];
+  row_hits(pk0, pk1, live ? row_of(k0, bits) : 0, k0, k1, live, lane, mask);
+  if (lane == 0) found[q] = (mask[0] | mask[1] | mask[2] | mask[3]) != 0u;
 }
 
 int blocks(i64 n) { return (int)((n + kThreads - 1) / kThreads); }
@@ -244,5 +284,21 @@ extern "C" int pgrtk_owner_postings(const void* qk0, const void* qk1,
       (const i64*)qk0, (const i64*)qk1, Q, bits, (const i64*)pk0,
       (const i64*)pk1, (const int*)psid, (const int*)pbgnori,
       (const int*)pend, Pp, (int*)out);
+  return (int)cudaGetLastError();
+}
+
+// K17.  Query keys qk0, qk1 (int64, Q of them; INT64_MAX = padded slot),
+// the key planes of K14 (2^bits rows of 128).  Writes found (Q,) bool.
+extern "C" int pgrtk_shard_probe_found(const void* qk0, const void* qk1,
+                                       long long Q, int bits, const void* pk0,
+                                       const void* pk1, void* found,
+                                       void* stream) {
+  if (Q < 0 || bits < 1 || bits > 31) return (int)cudaErrorInvalidValue;
+  if (Q == 0) return (int)cudaSuccess;
+  const i64 grid = (Q + kWarps - 1) / kWarps;
+  shard_probe_found_kernel<<<(unsigned)grid, kThreads, 0,
+                             (cudaStream_t)stream>>>(
+      (const i64*)qk0, (const i64*)qk1, Q, bits, (const i64*)pk0,
+      (const i64*)pk1, (bool*)found);
   return (int)cudaGetLastError();
 }

@@ -1,25 +1,31 @@
-"""Multi-rank dry run of the hash-range-sharded v2 path — the port's
-counterpart of __graft_entry__.py::dryrun_multichip (steps 1, 4 and 5).
+"""Multi-rank dry run of the sharded programs — the port's counterpart of
+__graft_entry__.py::dryrun_multichip (steps 1-5).
 
     python -m pgrtk_tpu_torch.dryrun N [--device cpu] [--bases L]
 
-spawns N ranks (gloo on the CPU; NCCL on N cards, one rank per card) and
-runs the corpus of __graft_entry__.py:69-95: B = N * ceil(8 / N)
-SNP-mutated copies of one random L-base sequence (default 1,048,576)
-with an 8 kb block tandem-tripled (per-(key, sid) multiplicity 3) and
-ragged lengths, through
-1. `parallel/mesh.py::sketch_index_step` on each rank's rows, for the mer
-   and pair counts;
-2. `sharded_index_v2_step` at shard capacity max(128, 2 * pairs / N),
-   retried at avg_per_bucket 64, 32, 16, 8 while probe_overflow fires;
-3. `sharded_query_v2_e2e_step` of the corpus against itself (slots2 384,
+spawns N ranks (NCCL on N cards, one rank per card; gloo on the CPU with
+--device cpu) and runs the corpus of __graft_entry__.py:69-95: B = N *
+ceil(8 / N) SNP-mutated copies of one random L-base sequence (default
+1,048,576) with an 8 kb block tandem-tripled (per-(key, sid) multiplicity
+3) and ragged lengths, through
+1. `parallel/mesh.py::sharded_sketch_index_step`, the replicated v1
+   index: the mer and pair counts, and the same table on every rank;
+2. `sharded_query_count_step` of the corpus against that table (binary
+   search, K16): self-hits >= pairs;
+3. `sharded_query_probe_step` against a replicated probe table of its
+   keys (K11): probe-hits == self-hits;
+4. `sharded_index_v2_step` at shard capacity max(128, 2 * pairs / N),
+   retried at avg_per_bucket 64, 32, 16, 8 while probe_overflow fires,
+   then `sharded_query_v2_step`, the probe-only fan-out (K17): v2-hits ==
+   self-hits;
+5. `sharded_query_v2_e2e_step` of the corpus against itself (slots2 384,
    M 4, postings_cap min(127, max(32, 3B + 16))).
 Each rank holds its queries' anchors and, for the groups the chain scan
 took exactly, its chains against the port's host pipeline: the postings
 of ops/query_e2e.py::build_index(n_decoys=0), core/query.py's pairs and
 count filters, core/aln_ref.py::sparse_aln.  It prints the line the JAX
-dry run prints, without the counts of the v1 and probe-only steps (not
-ported): bases, mers, pairs, e2e-hits, anchor-groups, chain-groups.
+dry run prints: bases, mers, pairs, self-hits, probe-hits, v2-hits,
+e2e-hits, anchor-groups, chain-groups.
 """
 from __future__ import annotations
 
@@ -115,13 +121,31 @@ def dryrun_rank(comm: pcomm.Comm, device, L: int = FULL_BASES) -> dict:
         if not cond:
             bad.append(f"rank {rank}: {msg}")
 
-    # 1) the index step's counts
-    out = mesh.sketch_index_step(ts, tl, tr, chunk=512)
-    n_pairs = int(comm.sum(out["n_pairs"]))
-    n_mers = int(comm.sum(out["n_mers"]))
-    need(not bool(comm.any(out["overflow"])), "index step overflow")
+    # 1) the replicated v1 index, the same table on every rank
+    v1 = mesh.sharded_sketch_index_step(ts, tl, tr, comm=comm, chunk=512)
+    n_pairs, n_mers = int(v1["n_pairs"]), int(v1["n_mers"])
+    need(not bool(v1["overflow"]), "v1 index step overflow")
+    table = v1["table"]
+    sums = comm.all_gather(table_checksum(table).reshape(1))
+    need(bool((sums == sums[0]).all()), "v1 tables differ across ranks")
+    need(int(table["valid"].sum()) == n_pairs, "v1 table size != pairs")
 
-    # 2) the v2 index, with the lambda retry on probe_overflow
+    # 2) the count step against the replicated table (binary search)
+    count = mesh.sharded_query_count_step(ts, tl, tr, table, comm=comm,
+                                          chunk=512)
+    self_hits = int(count["n_hits"])
+    need(not bool(count["overflow"]), "count step overflow")
+    need(self_hits >= n_pairs, f"self-hits {self_hits} < pairs {n_pairs}")
+
+    # 3) the probe step against a replicated probe table of its keys
+    probe = mesh.sharded_query_probe_step(
+        ts, tl, tr, mesh.replicated_probe_table(table), comm=comm, chunk=512)
+    need(not bool(probe["overflow"]), "probe step overflow")
+    need(int(probe["n_hits"]) == self_hits,
+         f"probe-hits {int(probe['n_hits'])} != self-hits {self_hits}")
+    del table, v1
+
+    # 4) the v2 index, with the lambda retry on probe_overflow
     cap = max(128, 2 * n_pairs // n)
     for lam in LAMBDAS:
         v2 = mesh.sharded_index_v2_step(ts, tl, tr, shard_capacity=cap,
@@ -135,8 +159,14 @@ def dryrun_rank(comm: pcomm.Comm, device, L: int = FULL_BASES) -> dict:
         need(not bool(v2[flag]), flag)
     need(int(v2["n_pairs"]) == n_pairs,
          f"v2 n_pairs {int(v2['n_pairs'])} != {n_pairs}")
+    v2q = mesh.sharded_query_v2_step(ts, tl, tr, v2["probe"],
+                                     shard_capacity=cap, avg_per_bucket=lam,
+                                     comm=comm, chunk=512)
+    need(not bool(v2q["overflow"]), "probe-only step overflow")
+    need(int(v2q["n_hits"]) == self_hits,
+         f"v2-hits {int(v2q['n_hits'])} != self-hits {self_hits}")
 
-    # 3) the end-to-end query of the corpus against itself
+    # 5) the end-to-end query of the corpus against itself
     e2e = mesh.sharded_query_v2_e2e_step(
         ts, tl, tr, v2["probe"], shard_capacity=cap, n_targets=B,
         slots2=384, M=4, postings_cap=min(127, max(32, 3 * B + 16)),
@@ -175,7 +205,8 @@ def dryrun_rank(comm: pcomm.Comm, device, L: int = FULL_BASES) -> dict:
                 n_chain += same
     n_bad = int(comm.sum(torch.tensor(len(bad), device=dev)))
     counts = dict(
-        bases=B * L, mers=n_mers, pairs=n_pairs,
+        bases=B * L, mers=n_mers, pairs=n_pairs, self_hits=self_hits,
+        probe_hits=int(probe["n_hits"]), v2_hits=int(v2q["n_hits"]),
         e2e_hits=int(e2e["n_hits"]),
         anchor_groups=int(comm.sum(torch.tensor(n_anchor, device=dev))),
         chain_groups=int(comm.sum(torch.tensor(n_chain, device=dev))),
@@ -230,10 +261,68 @@ def steps_rank(comm: pcomm.Comm, device, seqs, lens, index_kw: dict,
     return out
 
 
+def v1_steps_rank(comm: pcomm.Comm, device, seqs, lens, rids=None,
+                  auto: bool = False, v2_capacity: Optional[int] = None
+                  ) -> dict:
+    """The v1 programs on this rank's rows of batches split evenly over
+    the ranks (rank r takes rows [r * B / n, (r + 1) * B / n); sequence
+    ids `rids`, default the row numbers): the index (with the SAFE rerun
+    when `auto`), the count and probe steps of `seqs` against it and,
+    with `v2_capacity`, the v2 index at that shard capacity and the
+    probe-only step against it.  Returns numpy in the JAX layout: table
+    (table_to_jax), the index counts and flags, and (n_hits, mask,
+    overflow) per query step (hits_to_jax)."""
+    from . import convert
+
+    n, rank = comm.size, comm.rank
+    dev = torch.device(device)
+
+    def mine(a):
+        bl = len(a) // n
+        return torch.from_numpy(np.ascontiguousarray(
+            a[rank * bl:(rank + 1) * bl])).to(dev)
+
+    ts, tl = mine(seqs), mine(lens)
+    tr = mine(np.arange(len(seqs)) if rids is None else np.asarray(rids))
+    step = (mesh.sharded_sketch_index_step_auto if auto
+            else mesh.sharded_sketch_index_step)
+    v1 = step(ts, tl, tr, comm=comm, chunk=512)
+    out = dict(table=convert.table_to_jax(v1["table"]),
+               index={f: int(v1[f]) for f in (
+                   "n_pairs", "n_mers", "overflow", "safe_rerun") if f in v1})
+    kw = dict(comm=comm, chunk=512)
+    out["count"] = convert.hits_to_jax(
+        mesh.sharded_query_count_step(ts, tl, tr, v1["table"], **kw))
+    out["probe"] = convert.hits_to_jax(mesh.sharded_query_probe_step(
+        ts, tl, tr, mesh.replicated_probe_table(v1["table"]), **kw))
+    if v2_capacity is not None:
+        v2 = mesh.sharded_index_v2_step(ts, tl, tr,
+                                        shard_capacity=v2_capacity, **kw)
+        out["v2"] = convert.hits_to_jax(mesh.sharded_query_v2_step(
+            ts, tl, tr, v2["probe"], shard_capacity=v2_capacity, **kw))
+    return out
+
+
+def table_checksum(table) -> torch.Tensor:
+    """A 0-dim int64 checksum of a pair table's planes (wrapping sums of
+    each plane weighted by an odd multiple of the entry index), to tell
+    whether two ranks hold the same table without moving it."""
+    n = table["k0"].numel()
+    w = torch.arange(n, device=table["k0"].device) * 0x5851F42D4C957F2D | 1
+    s = torch.zeros((), dtype=torch.int64, device=w.device)
+    for i, f in enumerate(("valid", "k0", "k1", "sid", "bgn", "end",
+                           "orientation")):
+        s = s * 31 + (table[f].long() * w).sum() + i
+    return s
+
+
 def line(n: int, counts: dict) -> str:
-    """The JAX dry run's summary line, for the steps the port runs."""
+    """The JAX dry run's summary line."""
     return (f"dryrun_multichip({n}): bases={counts['bases']} "
             f"mers={counts['mers']} pairs={counts['pairs']} "
+            f"self-hits={counts['self_hits']} "
+            f"probe-hits={counts['probe_hits']} "
+            f"v2-hits={counts['v2_hits']} "
             f"e2e-hits={counts['e2e_hits']} "
             f"anchor-groups={counts['anchor_groups']} "
             f"chain-groups={counts['chain_groups']} content-parity OK")
@@ -244,11 +333,6 @@ def dryrun_multichip(n: int, device="cuda", L: int = FULL_BASES,
     """Spawn n ranks on `device` ("cuda": NCCL, one card per rank, n at
     most torch.cuda.device_count(); "cpu": gloo) and run the dry run.
     Prints its line and returns rank 0's counts."""
-    if torch.device(device).type == "cuda" and (
-            not torch.cuda.is_available()
-            or n > torch.cuda.device_count()):
-        raise RuntimeError(f"{n} ranks on CUDA need {n} cards; "
-                           f"{torch.cuda.device_count()} found")
     if threads is None:
         threads = max(1, torch.get_num_threads() // n)
     counts = pcomm.spawn(dryrun_rank, n, L, device=device,

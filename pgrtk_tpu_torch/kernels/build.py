@@ -216,14 +216,35 @@ owner_postings = Kernel(
     "owner_postings", "pgrtk_tpu_torch/csrc/shard.cu",
     [_P, _P, _LL, _I, _P, _P, _P, _P, _P, _I, _P, _P],
 )
+# K16 and K17: the v1 count step's table search and the v2 probe-only
+# step's row compare
+pair_key_search = Kernel(
+    "pair_key_search", "pgrtk_tpu_torch/csrc/v1.cu",
+    [_P, _P, _LL, _P, _P, _LL, _P, _P],
+)
+shard_probe_found = Kernel(
+    "shard_probe_found", "pgrtk_tpu_torch/csrc/shard.cu",
+    [_P, _P, _LL, _I, _P, _P, _P, _P],
+)
+# K18 and K19: the dense pair variants
+min_span_filter_dense = Kernel(
+    "min_span_filter_dense", "pgrtk_tpu_torch/csrc/dense.cu",
+    [_P, _P, _P, _LL, _LL, _I, _P, _P, _P],
+)
+pair_mers_dense = Kernel(
+    "pair_mers_dense", "pgrtk_tpu_torch/csrc/dense.cu",
+    [_P, _P, _P, _LL, _LL, _P, _P, _P, _P, _P, _P, _P],
+)
 # index stage K1-K4, query stage K5-K8, the --batch-device path K9-K11,
 # the pgr-pbundle-decomp path K12, the pgr-get-sv-candidate-regions WFA
-# K13, the sharded v2 index and query K14-K15
+# K13, the sharded v2 index and query K14-K15, the v1 sharded steps K16,
+# the v2 probe-only step K17, the dense pair variants K18-K19
 KERNELS = (sketch_walk_compact, rank_extract, min_span_filter_gapped,
            pair_mers_gapped, probe_fetch, dup_pair_counts, expand_postings,
            chain_scores_fast, sketch_mode1, chain_scores_dense, probe_keys,
            sort_link_rows, sort_pairs, wfa_forward, shard_probe_planes,
-           owner_postings)
+           owner_postings, pair_key_search, shard_probe_found,
+           min_span_filter_dense, pair_mers_dense)
 
 
 def reset_launches() -> None:

@@ -6,10 +6,13 @@ Layout: a mer stream is two (B, W) int64 planes, `x = hash << 8 | k`
 mask.  A compacted stream keeps the JAX package's per-block valid-prefix
 slot layout, gaps included, so the planes compare one to one.
 
-Three functions hold a kernel (K2 rank_extract_planes, K3
-min_span_filter_gapped, K4 pair_mers_gapped).  Each dispatches on where
-its tensors live: CPU tensors run the plain PyTorch version defined
-beside it, CUDA tensors launch the kernel from csrc/ or raise.
+Five functions hold a kernel (K2 rank_extract_planes, K3
+min_span_filter_gapped, K4 pair_mers_gapped, K18 min_span_filter_dense,
+K19 pair_mers_dense).  Each dispatches on where its tensors live: CPU
+tensors run the plain PyTorch version defined beside it, CUDA tensors
+launch the kernel from csrc/ or raise.  The pair-table sorts and the
+dense compactions (compact_mers, recompact_mers) run on K12's radix
+engine (csrc/adj.cu) on CUDA tensors, on torch.sort on CPU tensors.
 """
 from __future__ import annotations
 
@@ -330,3 +333,171 @@ def sort_keys(k0: torch.Tensor, k1: torch.Tensor, valid: torch.Tensor):
         kb.sort_pairs, [mk0, mk1], PAIR_KEY_BITS[:2], [mk0, mk1, iota], None,
         False, PAIR_KEYS[:2])
     return tuple(outs)
+
+
+# ------------------------------------------------- the dense variants
+#
+# pgrtk_tpu/ops/pairs.py:153-248 and :473: a compacted stream whose valid
+# entries sit in a prefix of each row, position-ordered.  Their one
+# caller in the JAX package is the dense pipeline of
+# tests/test_pairs_and_mesh.py::_device_table (mesh.py::dense_index_step
+# here).
+
+POS_FILL = 0xFFFFFFFF  # the position key of an invalid entry: sorts last
+
+
+def sort_by_position_plain(x, y, valid):
+    """The plain PyTorch version of sort_by_position: one stable
+    torch.sort of each row's position keys."""
+    gpos = torch.where(valid, y >> 1, POS_FILL)
+    order = torch.sort(gpos, dim=1, stable=True).indices
+    return x.gather(1, order), y.gather(1, order), valid.gather(1, order)
+
+
+def sort_by_position(x, y, valid):
+    """Stable sort of each row of (B, W) mer planes by position (y >> 1),
+    invalid entries last in their row (the payload sort of
+    pgrtk_tpu/ops/pairs.py:210 and :477, keyed on position with invalid
+    entries at 0xFFFFFFFF).  Returns the sorted (x, y, valid).  CUDA
+    tensors sort on K12's engine by (row, position), CPU tensors with
+    torch.sort."""
+    x, y, valid = _check_stream(x, y, valid)
+    if not on_cuda(x, y, valid):
+        return sort_by_position_plain(x, y, valid)
+    from .adj import radix_sort_gather
+
+    B, W = x.shape
+    row = torch.arange(B, device=x.device)[:, None].expand(B, W).reshape(-1)
+    gpos = torch.where(valid, y >> 1, POS_FILL).reshape(-1)
+    (xs, ys), vs, _, _ = radix_sort_gather(
+        kb.sort_pairs, [row, gpos], [max(1, (B - 1).bit_length()), 32],
+        [x.reshape(-1), y.reshape(-1)], valid.reshape(-1), False,
+        ("row", "position"))
+    return xs.reshape(B, W), ys.reshape(B, W), vs.reshape(B, W)
+
+
+def compact_mers_plain(x, y, selected, capacity: int, block: int = 512,
+                       slots: int = 16):
+    """The plain PyTorch version of compact_mers."""
+    x, y, selected = _check_stream(x, y, selected)
+    (x3, y3), v3, overflow = rank_extract_planes_plain((x, y), selected,
+                                                       block, slots)
+    x4, y4, v4 = sort_by_position_plain(x3, y3, v3)
+    return x4[:, :capacity], y4[:, :capacity], v4[:, :capacity], overflow
+
+
+def compact_mers(x, y, selected, capacity: int, block: int = 512,
+                 slots: int = 16):
+    """Per-row compaction of dense (B, L) mer planes to a valid prefix of
+    at most `capacity` entries (pgrtk_tpu/ops/pairs.py:153): stage 1
+    packs each `block`-wide segment's selected mers into `slots` slots
+    (K2), stage 2 sorts each row by position (sort_by_position) and keeps
+    its first `capacity` columns.  Returns (x, y, valid) of shape (B,
+    min(capacity, ceil(L/block) * slots)) and the 0-dim bool overflow (a
+    segment held more than `slots`; mers past `capacity` are dropped
+    without a flag, as in the JAX function).  Empty slots hold 0."""
+    x, y, selected = _check_stream(x, y, selected)
+    (x3, y3), v3, overflow = rank_extract_planes((x, y), selected, block,
+                                                 slots)
+    x4, y4, v4 = sort_by_position(x3, y3, v3)
+    return x4[:, :capacity], y4[:, :capacity], v4[:, :capacity], overflow
+
+
+def recompact_mers(x, y, keep):
+    """Re-compact (B, C) planes after a filter (pgrtk_tpu/ops/pairs.py:
+    473): each row sorted by position with the entries `keep` drops last
+    (sort_by_position).  Returns (x, y, valid).  The dropped entries keep
+    their payload in row order; the JAX sort leaves them in its own
+    order, so only the valid prefix compares."""
+    return sort_by_position(x, y, keep)
+
+
+# --------------------------------------------------------------- K18
+
+def _shift(v, by: int):
+    """v moved `by` columns right (by 1) or left (by -1), 0 (False)
+    shifted in: jnp.roll followed by the JAX functions' fill."""
+    out = torch.zeros_like(v)
+    if by > 0:
+        out[:, by:] = v[:, :-by]
+    else:
+        out[:, :by] = v[:, -by:]
+    return out
+
+
+def min_span_filter_dense_plain(x, y, valid, min_span: int):
+    """The plain PyTorch version of K18 (`min_span_filter_dense`), on any
+    device."""
+    C = x.shape[1]
+    pos = y >> 1
+    idx = torch.arange(C, device=x.device)
+    n_valid = valid.sum(dim=1, keepdim=True)
+    interior_ok = ((pos - _shift(pos, 1) > min_span)
+                   & (_shift(pos, -1) - pos > min_span)
+                   & (_shift(x, 1) != x) & (_shift(x, -1) != x))
+    return valid & ((idx == 0) | (idx == n_valid - 1) | interior_ok)
+
+
+def min_span_filter_dense(x, y, valid, min_span: int) -> torch.Tensor:
+    """min_span/distinctness filter on dense (B, C) mer planes
+    (pgrtk_tpu/ops/pairs.py:221; reference shmmrutils.rs:536-555) with
+    neighbours by INDEX: a valid entry at index 0 or at index n_valid - 1
+    (n_valid the row's count of valid entries) is kept; any other needs
+    a span > min_span to the entries at the indices beside it (position 0
+    past either end) and an x distinct from both.  On a valid prefix this
+    is the gapped filter's rule; on any other mask it is not, and it
+    returns what the JAX function returns.  Returns the (B, C) bool keep
+    mask."""
+    x, y, valid = _check_stream(x, y, valid)
+    if not on_cuda(x, y, valid):
+        return min_span_filter_dense_plain(x, y, valid, min_span)
+    B, C = x.shape
+    keep = torch.empty_like(valid)
+    if x.numel():
+        count = torch.empty(B, dtype=torch.int32, device=x.device)
+        kb.min_span_filter_dense(x.data_ptr(), y.data_ptr(), valid.data_ptr(),
+                                 B, C, min_span, count.data_ptr(),
+                                 keep.data_ptr(), kb.stream_handle(x))
+    return keep
+
+
+# --------------------------------------------------------------- K19
+
+def pair_mers_dense_plain(x, y, valid):
+    """The plain PyTorch version of K19 (`pair_mers_dense`), on any
+    device."""
+    pair_valid = valid & _shift(valid, -1)
+    h = srl(x, 8)
+    nh = _shift(h, -1)
+    swap = h > nh
+    out = dict(
+        k0=torch.where(swap, nh, h),
+        k1=torch.where(swap, h, nh),
+        bgn=(y >> 1) + 1,
+        end=_shift(y >> 1, -1) + 1,
+        orientation=swap.long(),
+    )
+    out = {k: torch.where(pair_valid, v, 0) for k, v in out.items()}
+    out["pair_valid"] = pair_valid
+    return out
+
+
+def pair_mers_dense(x, y, valid) -> Dict[str, torch.Tensor]:
+    """Canonical shimmer pairs of dense (B, C) mer planes
+    (pgrtk_tpu/ops/pairs.py:248; reference seq_db.rs:386-399): entry i
+    pairs mer i with mer i + 1 when both are valid (the last column never
+    pairs), with the index tie rule (equal hashes keep orientation 0).
+    Returns the planes of pair_mers_gapped: k0, k1, bgn, end (pos + 1),
+    orientation (int64), pair_valid (bool); entries without a pair are
+    0."""
+    x, y, valid = _check_stream(x, y, valid)
+    if not on_cuda(x, y, valid):
+        return pair_mers_dense_plain(x, y, valid)
+    B, C = x.shape
+    out = {k: torch.empty_like(x) for k in PAIR_FIELDS}
+    out["pair_valid"] = torch.empty_like(valid)
+    if x.numel():
+        kb.pair_mers_dense(x.data_ptr(), y.data_ptr(), valid.data_ptr(), B, C,
+                           *(out[k].data_ptr() for k in PAIR_FIELDS),
+                           out["pair_valid"].data_ptr(), kb.stream_handle(x))
+    return out

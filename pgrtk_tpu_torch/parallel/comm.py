@@ -1,6 +1,6 @@
 """The collectives of the sharded steps — the counterpart of shard_map's
-`all_to_all` and `psum` over a 1-D ("data",) mesh, on torch.distributed
-with one rank per device.
+`all_to_all`, `psum` and tiled `all_gather` over a 1-D ("data",) mesh,
+on torch.distributed with one rank per device.
 
 A `Comm` holds the rank and the world size of the default process group
 (rank 0 of 1 when none is initialised; its collectives are then local
@@ -8,11 +8,12 @@ copies).  The backend is NCCL for CUDA tensors and gloo for CPU tensors:
 `init` picks it from the device.  As in the JAX steps, every overflow
 flag is combined across ranks (`any`) before a caller acts on it, so no
 rank returns early while another waits in a collective.  NCCL has no
-bool reduction, so a flag travels as an int32 MAX.
+bool reduction, so a flag travels as an int32 SUM.
 
 `spawn` starts one process per rank on one host, each with its own
 process group over a FileStore, and returns what each rank's function
-returned.
+returned.  Like every entry point of the port it runs on the card unless
+the caller passes device="cpu".
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import os
 import tempfile
 import time
 import traceback
+import warnings
 from typing import Any, Callable, List
 
 import torch
@@ -50,6 +52,23 @@ class Comm:
         dist.all_to_all_single(out, x)
         return out
 
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """shard_map's all_gather(x, axis, tiled=True): x is (m, ...) on
+        every rank; returns the (size * m, ...) concatenation in rank
+        order.  A bool tensor travels as uint8 (NCCL has no bool)."""
+        x = x.contiguous()
+        if not self.distributed:
+            return x.clone()
+        send = x.view(torch.uint8) if x.dtype == torch.bool else x
+        out = torch.empty((self.size * x.shape[0], *x.shape[1:]),
+                          dtype=send.dtype, device=x.device)
+        with warnings.catch_warnings():
+            # torch 2.13 marks it deprecated in favour of all_gather_single,
+            # which older releases lack
+            warnings.simplefilter("ignore", FutureWarning)
+            dist.all_gather_into_tensor(out, send)
+        return out.view(torch.bool) if x.dtype == torch.bool else out
+
     def sum(self, v: torch.Tensor) -> torch.Tensor:
         """psum of a scalar count: a 0-dim int64 on v's device."""
         t = v.reshape(1).to(torch.int64)
@@ -57,13 +76,18 @@ class Comm:
             dist.all_reduce(t, op=dist.ReduceOp.SUM)
         return t[0]
 
+    def any_rank(self, mask: torch.Tensor) -> torch.Tensor:
+        """psum(mask.astype(int32)) > 0: a bool tensor of mask's shape,
+        true where any rank's mask is (an int32 SUM all_reduce)."""
+        t = mask.to(torch.int32)
+        if self.distributed:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        return t > 0
+
     def any(self, flag: torch.Tensor) -> torch.Tensor:
         """psum(flag) > 0: a 0-dim bool on flag's device, true when any
         element of any rank's flag is."""
-        t = flag.reshape(-1).any().reshape(1).to(torch.int32)
-        if self.distributed:
-            dist.all_reduce(t, op=dist.ReduceOp.MAX)
-        return t[0] != 0
+        return self.any_rank(flag.reshape(-1).any().reshape(1))[0]
 
 
 def backend_for(device) -> str:
@@ -102,16 +126,26 @@ def _rank_main(rank, size, store_path, device, fn, args, results, threads):
         results.put((rank, False, traceback.format_exc()))
 
 
-def spawn(fn: Callable[..., Any], size: int, *args, device="cpu",
+def spawn(fn: Callable[..., Any], size: int, *args, device="cuda",
           threads: int = 1, timeout: float = 1800.0) -> List[Any]:
     """Run fn(comm, device, *args) in `size` new processes, one rank
-    each, and return their results in rank order.  `fn` and `args` must
-    pickle (a module-level function).  Each group gets a FileStore in a
-    fresh temporary directory, so groups of parallel callers never meet.
-    Raises RuntimeError with the rank's traceback if any rank fails."""
+    each, and return their results in rank order: NCCL on `size` cards,
+    one rank per card (the default), or gloo on the CPU with
+    device="cpu".  `fn` and `args` must pickle (a module-level function).
+    Each group gets a FileStore in a fresh temporary directory, so groups
+    of parallel callers never meet.  Raises RuntimeError before it starts
+    a process when `device` is CUDA and there are fewer than `size`
+    cards, and with the rank's traceback if any rank fails."""
     import queue
 
     import torch.multiprocessing as mp
+
+    if torch.device(device).type == "cuda" and (
+            not torch.cuda.is_available()
+            or size > torch.cuda.device_count()):
+        raise RuntimeError(f"{size} ranks on CUDA need {size} cards; "
+                           f"{torch.cuda.device_count()} found (pass "
+                           "device='cpu' for gloo ranks on the CPU)")
 
     ctx = mp.get_context("spawn")
     results = ctx.Queue()

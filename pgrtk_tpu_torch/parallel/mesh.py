@@ -4,7 +4,20 @@ pgrtk_tpu/parallel/mesh.py on torch.distributed, one rank per device.
 `sketch_index_step(_auto)` is the one-device body of
 sharded_sketch_index_step (:55-166): sketch -> two-level compaction ->
 min_span filter -> canonical pairs -> pair-key sort, on the device of the
-input tensors.
+input tensors.  `dense_index_step` is the same index through the dense
+pair variants (the pipeline of tests/test_pairs_and_mesh.py:35-60).
+
+The v1 programs (:55-298) replicate the whole pair table on every rank:
+- `sharded_sketch_index_step(_auto)`: each rank pairs its rows, the flat
+  tables are all_gathered and sorted once (K12's engine), the counts and
+  the overflow flag combined over the ranks;
+- `sharded_query_count_step`: each rank's query pairs looked up in the
+  replicated table by binary search (K16 `pair_key_search`);
+- `sharded_query_probe_step`: the same against a replicated
+  padded-bucket probe table of the table's keys (K11, ops/probe.py);
+- `sharded_query_v2_step`: the probe-only fan-out against the v2 index:
+  the query keys are all_gathered, every rank probes its own shard's
+  planes (K17 `shard_probe_found`) and the found masks are OR-ed.
 
 The hash-range-sharded v2 index (:301-530) and its end-to-end query
 (:603-988) keep each rank's hash range of the pair table and never build
@@ -23,7 +36,8 @@ the whole table anywhere:
 Owner d holds the keys with hash0 >> 32 in [d, d + 1) * (2^24 // n), the
 last owner the remainder (:436-448).  Every overflow flag is combined
 across ranks before it is returned (`comm.Comm.any`).  On a CPU tensor
-K14 and K15 run their plain versions, on a CUDA tensor csrc/shard.cu.
+K14-K17 run their plain versions, on a CUDA tensor csrc/shard.cu and
+csrc/v1.cu.
 """
 from __future__ import annotations
 
@@ -35,6 +49,7 @@ import torch
 from ..kernels import build as kb
 from ..ops import chain as chain_ops
 from ..ops import pairs as pairs_ops
+from ..ops import probe as probe_ops
 from ..ops import query_e2e as qe
 from ..ops import sketch as sketch_ops
 from ..ops.adj import _HOST_WORDS
@@ -60,6 +75,18 @@ def _front_end(seqs_u8, lengths, k, r, min_span, chunk, compact_kw):
         **sizing)
 
 
+def _pairs(seqs_u8, lengths, k, r, min_span, chunk, compact_kw,
+           tie_orientation_one=False):
+    """The front end, the min_span filter and the canonical pairs every
+    step starts with (the index tie rule unless tie_orientation_one).
+    Returns (pairs, keep, overflow)."""
+    x, y, valid, overflow = _front_end(seqs_u8, lengths, k, r, min_span,
+                                       chunk, compact_kw)
+    keep = pairs_ops.min_span_filter_gapped(x, y, valid, min_span)
+    return (pairs_ops.pair_mers_gapped(x, y, keep, tie_orientation_one),
+            keep, overflow)
+
+
 def sketch_index_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
                       rids: torch.Tensor, *, k: int = 56, r: int = 4,
                       min_span: int = 64, chunk: int = 512,
@@ -70,16 +97,33 @@ def sketch_index_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
     tensor on the input's device.  On `overflow` (compaction overflow or
     the fast walk's inexact warm-up) rerun with
     compact_kw=pairs.SAFE_COMPACT_KW, as sketch_index_step_auto does."""
-    x, y, valid, overflow = _front_end(seqs_u8, lengths, k, r, min_span,
-                                       chunk, compact_kw)
-    keep = pairs_ops.min_span_filter_gapped(x, y, valid, min_span)
-    pr = pairs_ops.pair_mers_gapped(x, y, keep)
+    pr, keep, overflow = _pairs(seqs_u8, lengths, k, r, min_span, chunk,
+                                compact_kw)
     return dict(
         table=pairs_ops.sort_pairs(pr, rids),
         n_pairs=pr["pair_valid"].sum(),
         n_mers=keep.sum(),
         overflow=overflow,
     )
+
+
+def _with_safe_rerun(step, *args, **kw) -> dict:
+    """step(*args, **kw), and when its overflow flag fires, the same call
+    with compact_kw=SAFE_COMPACT_KW; adds `safe_rerun`.  A sharded step's
+    flag is already combined over the ranks, so every rank takes the same
+    branch.  Raises OverflowError if the safe sizing overflows too."""
+    out = step(*args, **kw)
+    if not bool(out["overflow"]):
+        out["safe_rerun"] = False
+        return out
+    out = step(*args, compact_kw=pairs_ops.SAFE_COMPACT_KW, **kw)
+    if bool(out["overflow"]):
+        raise OverflowError(
+            "compaction overflow at SAFE_COMPACT_KW sizing; "
+            "rebuild this batch via the exact host path"
+        )
+    out["safe_rerun"] = True
+    return out
 
 
 def sketch_index_step_auto(seqs_u8: torch.Tensor, lengths: torch.Tensor,
@@ -90,20 +134,36 @@ def sketch_index_step_auto(seqs_u8: torch.Tensor, lengths: torch.Tensor,
     SAFE_COMPACT_KW sizing.  Adds `safe_rerun` (bool) to the result.
     Raises OverflowError if the safe sizing overflows too; callers then
     build through the exact host path."""
-    kw = dict(k=k, r=r, min_span=min_span, chunk=chunk)
-    out = sketch_index_step(seqs_u8, lengths, rids, **kw)
-    if not bool(out["overflow"]):
-        out["safe_rerun"] = False
-        return out
-    out = sketch_index_step(seqs_u8, lengths, rids,
-                            compact_kw=pairs_ops.SAFE_COMPACT_KW, **kw)
-    if bool(out["overflow"]):
-        raise OverflowError(
-            "compaction overflow at SAFE_COMPACT_KW sizing; "
-            "rebuild this batch via the exact host path"
-        )
-    out["safe_rerun"] = True
-    return out
+    return _with_safe_rerun(sketch_index_step, seqs_u8, lengths, rids, k=k,
+                            r=r, min_span=min_span, chunk=chunk)
+
+
+def dense_index_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
+                     rids: torch.Tensor, *, capacity: int,
+                     gapped: bool = True, k: int = 56, r: int = 4,
+                     min_span: int = 64, chunk: int = 512) -> dict:
+    """The index through the dense pair variants, as
+    tests/test_pairs_and_mesh.py:35-60 (_device_table) composes them:
+    the dense sketch (ops/sketch.py::sketch_mode2_dense, the overlap
+    walk), compact_mers to `capacity` mers a row, min_span_filter_dense
+    (K18), then pair_mers_gapped over the filtered stream (gapped) or
+    recompact_mers and pair_mers_dense (K19), and sort_pairs.  Returns
+    dict(table, n_pairs, n_mers, overflow = a compaction segment
+    overflowed, inexact = the overlap walk's warm-up flag)."""
+    d = sketch_ops.sketch_mode2_dense(seqs_u8, lengths, k, r, chunk)
+    x, y, valid, overflow = pairs_ops.compact_mers(d["x"], d["y"],
+                                                   d["selected"], capacity)
+    inexact = d["inexact"]
+    del d
+    keep = pairs_ops.min_span_filter_dense(x, y, valid, min_span)
+    if gapped:
+        pr = pairs_ops.pair_mers_gapped(x, y, keep)
+    else:
+        x, y, valid = pairs_ops.recompact_mers(x, y, keep)
+        pr = pairs_ops.pair_mers_dense(x, y, valid)
+    return dict(table=pairs_ops.sort_pairs(pr, rids),
+                n_pairs=pr["pair_valid"].sum(), n_mers=keep.sum(),
+                overflow=overflow, inexact=inexact)
 
 
 # ------------------------------------------------- the v2 sharded index
@@ -317,6 +377,52 @@ def owner_postings(qk0: torch.Tensor, qk1: torch.Tensor,
     return out
 
 
+# --------------------------------------------------------------- K17
+
+def _found_in(qk0, qk1, planes, bits):
+    if not 1 <= bits <= 31:
+        raise ValueError("bits must be in [1, 31]")
+    qk0, qk1 = qk0.contiguous(), qk1.contiguous()
+    pk0, pk1 = planes["k0"].contiguous(), planes["k1"].contiguous()
+    if qk0.dim() != 1 or qk1.shape != qk0.shape or (
+            qk0.dtype != torch.int64 or qk1.dtype != torch.int64):
+        raise TypeError("query keys are (Q,) int64")
+    if pk0.shape != (1 << bits, PROBE_W) or pk1.shape != pk0.shape or (
+            pk0.dtype != torch.int64 or pk1.dtype != torch.int64):
+        raise ValueError(f"key planes must be (2^{bits}, {PROBE_W}) int64")
+    return qk0, qk1, pk0, pk1
+
+
+def shard_probe_found_plain(qk0, qk1, planes, bits: int) -> torch.Tensor:
+    """The plain PyTorch version of K17 (`shard_probe_found`), on any
+    device: a gather of each key's bucket row and a compare."""
+    qk0, qk1, pk0, pk1 = _found_in(qk0, qk1, planes, bits)
+    live = qk0 != INT64_MAX
+    b = torch.where(live, (qk0 & 0xFFFFFFFF) >> (32 - bits), 0)
+    hit = (pk0[b] == qk0[:, None]) & (pk1[b] == qk1[:, None])
+    return hit.any(dim=1) & live
+
+
+def shard_probe_found(qk0: torch.Tensor, qk1: torch.Tensor,
+                      planes: Dict[str, torch.Tensor],
+                      bits: int) -> torch.Tensor:
+    """K17: is each (Q,) int64 key (k0, k1) in its bucket row of a shard's
+    K14 planes (the compare block of pgrtk_tpu/parallel/mesh.py:576-582)?
+    The bucket is (k0 & 0xFFFFFFFF) >> (32 - bits), K14's geometry; the
+    row is 128 slots of the (2^bits, 128) int64 k0 and k1 planes,
+    INT64_MAX where empty.  An INT64_MAX key never hits.  Returns (Q,)
+    bool."""
+    qk0, qk1, pk0, pk1 = _found_in(qk0, qk1, planes, bits)
+    if not on_cuda(qk0, qk1, pk0, pk1):
+        return shard_probe_found_plain(qk0, qk1, planes, bits)
+    Q = qk0.numel()
+    found = torch.empty(Q, dtype=torch.bool, device=qk0.device)
+    kb.shard_probe_found(qk0.data_ptr(), qk1.data_ptr(), Q, bits,
+                         pk0.data_ptr(), pk1.data_ptr(), found.data_ptr(),
+                         kb.stream_handle(qk0))
+    return found
+
+
 # ------------------------------------------------------------ the steps
 
 def sharded_index_v2_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
@@ -345,10 +451,8 @@ def sharded_index_v2_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
     comm = comm or Comm()
     n = comm.size
     bits = probe_bits_for(shard_capacity, avg_per_bucket)
-    x, y, valid, c_ovf = _front_end(seqs_u8, lengths, k, r, min_span, chunk,
-                                    compact_kw)
-    keep = pairs_ops.min_span_filter_gapped(x, y, valid, min_span)
-    pr = pairs_ops.pair_mers_gapped(x, y, keep)
+    pr, _, c_ovf = _pairs(seqs_u8, lengths, k, r, min_span, chunk,
+                          compact_kw)
     local = pairs_ops.sort_pairs(pr, rids)
     C = local["k0"].numel()
     route_cap = _route_cap(route_capacity, C, n)
@@ -423,10 +527,8 @@ def sharded_query_v2_e2e_step(
     if not 1 <= Pp <= 127:
         raise ValueError("postings_cap > 127 overflows the 7-bit mult field")
     B_loc = seqs_u8.shape[0]
-    x, y, valid, c_ovf = _front_end(seqs_u8, lengths, k, r, min_span, chunk,
-                                    compact_kw)
-    keep = pairs_ops.min_span_filter_gapped(x, y, valid, min_span)
-    pr = pairs_ops.pair_mers_gapped(x, y, keep, tie_orientation_one=True)
+    pr, _, c_ovf = _pairs(seqs_u8, lengths, k, r, min_span, chunk,
+                          compact_kw, tie_orientation_one=True)
     (q_k0, q_k1, q_bgn, q_end, q_ori), cvalid, ovf2 = (
         pairs_ops.rank_extract_planes(
             [pr[f] for f in ("k0", "k1", "bgn", "end", "orientation")],
@@ -495,3 +597,217 @@ def sharded_query_v2_e2e_step(
         route_overflow=comm.any(route_overflow),
         postings_overflow=comm.any(ex["row_ovf"].any()),
     )
+
+
+# --------------------------------------------------------------- K16
+
+HASH_LIMIT = 1 << 56  # shimmer hashes are 56-bit
+
+
+def _search_in(tk0, tk1, qk0, qk1):
+    ts = [t.contiguous() for t in (tk0, tk1, qk0, qk1)]
+    if any(t.dim() != 1 or t.dtype != torch.int64 for t in ts) or (
+            ts[0].shape != ts[1].shape or ts[2].shape != ts[3].shape):
+        raise TypeError("the table keys are (N,) and the query keys (Q,) "
+                        "int64")
+    return ts
+
+
+def _check_signed_order(tk0, tk1, qk0, qk1):
+    """K16 compares the keys as signed int64, which orders them as the
+    JAX package's u32 planes only when every key is a 56-bit hash or (in
+    the table) the INT64_MAX fill.  Raises ValueError otherwise."""
+    bad = torch.zeros((), dtype=torch.bool, device=tk0.device)
+    for q in (qk0, qk1):
+        bad |= ((q < 0) | (q >= HASH_LIMIT)).any()
+    for t in (tk0, tk1):
+        bad |= ((t < 0) | ((t >= HASH_LIMIT) & (t != INT64_MAX))).any()
+    if bool(bad):
+        raise ValueError("pair keys must be 56-bit hashes (table keys may "
+                         "also be the INT64_MAX fill)")
+
+
+def pair_key_search_plain(tk0, tk1, qk0, qk1) -> torch.Tensor:
+    """The plain PyTorch version of K16 (`pair_key_search`), on any
+    device: the JAX function's ceil(log2(N + 1)) vectorised lower_bound
+    rounds, then the equality test."""
+    tk0, tk1, qk0, qk1 = _search_in(tk0, tk1, qk0, qk1)
+    n = tk0.numel()
+    if n == 0:
+        return torch.zeros(qk0.shape, dtype=torch.bool, device=qk0.device)
+    lo = torch.zeros_like(qk0)
+    hi = torch.full_like(qk0, n)
+    for _ in range(n.bit_length()):
+        active = lo < hi
+        mid = ((lo + hi) // 2).clamp(0, n - 1)
+        t0 = tk0[mid]
+        less = (t0 < qk0) | ((t0 == qk0) & (tk1[mid] < qk1))
+        lo = torch.where(active & less, mid + 1, lo)
+        hi = torch.where(active & ~less, mid, hi)
+    idx = lo.clamp(max=n - 1)
+    return (lo < n) & (tk0[idx] == qk0) & (tk1[idx] == qk1)
+
+
+def pair_key_search(tk0: torch.Tensor, tk1: torch.Tensor, qk0: torch.Tensor,
+                    qk1: torch.Tensor) -> torch.Tensor:
+    """K16: is each (Q,) int64 query key (k0, k1) in the (N,) table
+    sorted on (k0, k1) (pgrtk_tpu/parallel/mesh.py:259
+    _searchsorted_pairkey)?  A lower_bound over the whole table, then an
+    equality test.  The table may carry the v1 table's invalid tail of
+    INT64_MAX keys; query keys are 56-bit hashes.  Both are checked,
+    since the kernel compares signed.  N = 0 finds nothing.  Returns (Q,)
+    bool."""
+    tk0, tk1, qk0, qk1 = _search_in(tk0, tk1, qk0, qk1)
+    _check_signed_order(tk0, tk1, qk0, qk1)
+    if not on_cuda(tk0, tk1, qk0, qk1):
+        return pair_key_search_plain(tk0, tk1, qk0, qk1)
+    Q = qk0.numel()
+    found = torch.empty(Q, dtype=torch.bool, device=qk0.device)
+    kb.pair_key_search(tk0.data_ptr(), tk1.data_ptr(), tk0.numel(),
+                       qk0.data_ptr(), qk1.data_ptr(), Q, found.data_ptr(),
+                       kb.stream_handle(qk0))
+    return found
+
+
+# ------------------------------------------- the v1 replicated programs
+
+def sharded_sketch_index_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
+                              rids: torch.Tensor, *,
+                              comm: Optional[Comm] = None, k: int = 56,
+                              r: int = 4, min_span: int = 64,
+                              chunk: int = 512,
+                              compact_kw: Optional[dict] = None) -> dict:
+    """The replicated-index (v1) build on this rank
+    (pgrtk_tpu/parallel/mesh.py:55 sharded_sketch_index_step): its
+    (B_loc, L) batch with (B_loc,) lengths and sequence ids is sketched
+    and paired, every rank's flat (B_loc * C,) pair table is all_gathered
+    (one collective of the six int64 planes) and the gathered table
+    sorted once (pairs.sort_table, K12's engine on the card), so every
+    rank holds the same table of n * B_loc * C entries.
+
+    Returns dict(table = the replicated table (`pairs.TABLE_FIELDS`,
+    invalid entries INT64_MAX keys, last), n_pairs and n_mers summed over
+    the ranks, overflow = any rank's front end overflowed).  Equal keys
+    are in (sid, bgn) order, which is the JAX table's order when the
+    sequence ids ascend over the ranks' rows in rank order."""
+    comm = comm or Comm()
+    pr, keep, overflow = _pairs(seqs_u8, lengths, k, r, min_span, chunk,
+                                compact_kw)
+    local = pairs_ops._pair_table(pr, rids)
+    fields = pairs_ops.TABLE_FIELDS[1:]  # k0, k1, sid, bgn, end, orientation
+    m = local["k0"].numel()
+    gathered = comm.all_gather(torch.stack([local[f] for f in fields]))
+    planes = gathered.reshape(comm.size, len(fields), m).transpose(0, 1)
+    table = dict(zip(fields, planes.reshape(len(fields), comm.size * m)))
+    table["valid"] = table["k0"] != INT64_MAX
+    return dict(table=pairs_ops.sort_table(table),
+                n_pairs=comm.sum(pr["pair_valid"].sum()),
+                n_mers=comm.sum(keep.sum()),
+                overflow=comm.any(overflow))
+
+
+def sharded_sketch_index_step_auto(seqs_u8: torch.Tensor,
+                                   lengths: torch.Tensor, rids: torch.Tensor,
+                                   *, comm: Optional[Comm] = None,
+                                   k: int = 56, r: int = 4,
+                                   min_span: int = 64,
+                                   chunk: int = 512) -> dict:
+    """sharded_sketch_index_step with the SAFE rerun
+    (pgrtk_tpu/parallel/mesh.py:129): when any rank overflowed, every
+    rank reruns at SAFE_COMPACT_KW; raises OverflowError on every rank
+    when that overflows too.  Adds `safe_rerun`."""
+    return _with_safe_rerun(sharded_sketch_index_step, seqs_u8, lengths,
+                            rids, comm=comm, k=k, r=r, min_span=min_span,
+                            chunk=chunk)
+
+
+def sharded_query_count_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
+                             rids: torch.Tensor,
+                             table: Dict[str, torch.Tensor], *,
+                             comm: Optional[Comm] = None, k: int = 56,
+                             r: int = 4, min_span: int = 64,
+                             chunk: int = 512,
+                             compact_kw: Optional[dict] = None) -> dict:
+    """The v1 query by binary search on this rank
+    (pgrtk_tpu/parallel/mesh.py:169 sharded_query_count_step): the
+    rank's (B_loc, L) queries are paired (the index tie rule, as the JAX
+    step) and each pair key looked up in the replicated table's k0, k1
+    (K16).  Returns dict(n_hits over the ranks, all_hits = the (n *
+    B_loc, C) hit masks of every rank in rank order, overflow over the
+    ranks).  On overflow rerun with compact_kw=pairs.SAFE_COMPACT_KW."""
+    comm = comm or Comm()
+    pr, _, overflow = _pairs(seqs_u8, lengths, k, r, min_span, chunk,
+                             compact_kw)
+    found = pair_key_search(table["k0"], table["k1"], pr["k0"].reshape(-1),
+                            pr["k1"].reshape(-1))
+    hit = found.reshape(pr["k0"].shape) & pr["pair_valid"]
+    return dict(n_hits=comm.sum(hit.sum()), all_hits=comm.all_gather(hit),
+                overflow=comm.any(overflow))
+
+
+def replicated_probe_table(table: Dict[str, torch.Tensor],
+                           avg_per_bucket: int = 64) -> dict:
+    """The padded-bucket probe table (ops/probe.py::build_probe_table, on
+    the host) of a v1 table's valid keys, as __graft_entry__.py:127-135
+    builds it: dict(bits, W, k0, k1, row) with the planes on the table's
+    device."""
+    valid = table["valid"]
+    keys = torch.stack([table["k0"][valid], table["k1"][valid]], 1)
+    pt = probe_ops.build_probe_table(keys.cpu().numpy().view(np.uint64),
+                                     avg_per_bucket)
+    dev = valid.device
+    return dict(bits=pt["bits"], W=pt["W"],
+                **{f: torch.from_numpy(pt[f]).to(dev)
+                   for f in ("k0", "k1", "row")})
+
+
+def sharded_query_probe_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
+                             rids: torch.Tensor, probe: dict, *,
+                             comm: Optional[Comm] = None, k: int = 56,
+                             r: int = 4, min_span: int = 64,
+                             chunk: int = 512,
+                             compact_kw: Optional[dict] = None) -> dict:
+    """The v1 query against a replicated bucketed probe table on this rank
+    (pgrtk_tpu/parallel/mesh.py:210 sharded_query_probe_step): the
+    rank's pair keys probed (K11, found output) in `probe`
+    (replicated_probe_table).  Returns dict(n_hits, all_hits, overflow)
+    as sharded_query_count_step."""
+    comm = comm or Comm()
+    pr, _, overflow = _pairs(seqs_u8, lengths, k, r, min_span, chunk,
+                             compact_kw)
+    found, _ = probe_ops.probe_keys(
+        pr["k0"].reshape(-1), pr["k1"].reshape(-1), probe["bits"],
+        probe["k0"], probe["k1"], probe["row"], probe["W"])
+    hit = found.reshape(pr["k0"].shape) & pr["pair_valid"]
+    return dict(n_hits=comm.sum(hit.sum()), all_hits=comm.all_gather(hit),
+                overflow=comm.any(overflow))
+
+
+def sharded_query_v2_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
+                          rids: torch.Tensor,
+                          probe: Dict[str, torch.Tensor], *,
+                          shard_capacity: int, avg_per_bucket: int = 64,
+                          comm: Optional[Comm] = None, k: int = 56,
+                          r: int = 4, min_span: int = 64, chunk: int = 512,
+                          compact_kw: Optional[dict] = None) -> dict:
+    """The probe-only fan-out against the v2 index on this rank
+    (pgrtk_tpu/parallel/mesh.py:533 sharded_query_v2_step): the rank's
+    pair keys (the index tie rule) and their valid mask are all_gathered,
+    every rank looks each gathered key up in its own shard's K14 planes
+    (`probe` of sharded_index_v2_step built at the same shard_capacity
+    and avg_per_bucket; K17), and a key is found when any rank found it
+    (an int32 SUM all_reduce > 0, the JAX psum).
+
+    Returns dict(n_hits, found = the (n * B_loc * C,) mask over the
+    gathered pair slots in rank order, overflow over the ranks); the same
+    on every rank."""
+    comm = comm or Comm()
+    bits = probe_bits_for(shard_capacity, avg_per_bucket)
+    pr, _, overflow = _pairs(seqs_u8, lengths, k, r, min_span, chunk,
+                             compact_kw)
+    q = comm.all_gather(torch.stack([pr["k0"].reshape(-1),
+                                     pr["k1"].reshape(-1),
+                                     pr["pair_valid"].reshape(-1).long()], 1))
+    hit = shard_probe_found(q[:, 0], q[:, 1], probe, bits) & (q[:, 2] != 0)
+    found = comm.any_rank(hit)
+    return dict(n_hits=found.sum(), found=found, overflow=comm.any(overflow))

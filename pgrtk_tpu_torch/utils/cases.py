@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.int64 import INT64_MAX
+
 K = 56
 
 
@@ -745,3 +747,96 @@ def shard_cases(dev):
         out.append((name, {f: t(v) for f, v in tab.items()}, bits, t(qk0),
                     t(qk1)))
     return out
+
+
+# ---------------------- K16: the v1 table search; K18, K19: dense planes
+
+def search_table(seed, n_keys=3000, n_fill=500):
+    """A v1 table's (k0, k1) int64 planes: n_keys random 56-bit keys,
+    some sharing k0, each repeated 1-4 times (runs of equal keys),
+    sorted on (k0, k1), then n_fill INT64_MAX fill entries."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 1 << 56, size=(n_keys, 2), dtype=np.int64)
+    keys[1::7, 0] = keys[0::7, 0][:len(keys[1::7])]  # shared k0
+    keys = np.repeat(keys, rng.integers(1, 5, size=n_keys), axis=0)
+    keys = keys[np.lexsort((keys[:, 1], keys[:, 0]))]
+    fill = np.full((n_fill, 2), INT64_MAX, dtype=np.int64)
+    keys = np.concatenate([keys, fill])
+    return keys[:, 0].copy(), keys[:, 1].copy()
+
+
+def search_queries(tk0, tk1, seed, n_miss=500):
+    """Every valid key of a search table, keys below its first and above
+    its last valid entry, keys between two entries (k1 between two keys
+    of one k0, k0 between two k0s) and random misses, shuffled."""
+    rng = np.random.default_rng(seed)
+    v = tk0 != INT64_MAX
+    keys = np.stack([tk0[v], tk1[v]], 1)
+    q = [keys, rng.integers(0, 1 << 56, size=(n_miss, 2), dtype=np.int64),
+         np.array([[0, 0], [(1 << 56) - 1, (1 << 56) - 1]], np.int64)]
+    if len(keys):
+        lo, hi = keys[0], keys[-1]
+        q.append(np.array([[lo[0], max(lo[1] - 1, 0)], [max(lo[0] - 1, 0),
+                                                         lo[1]],
+                           [hi[0], min(hi[1] + 1, (1 << 56) - 1)],
+                           [min(hi[0] + 1, (1 << 56) - 1), 0]], np.int64))
+        a, b = keys[:-1], keys[1:]
+        same = (a[:, 0] == b[:, 0]) & (b[:, 1] - a[:, 1] > 1)
+        q.append(np.stack([a[same, 0], (a[same, 1] + b[same, 1]) // 2], 1))
+        gap = b[:, 0] - a[:, 0] > 1
+        q.append(np.stack([(a[gap, 0] + b[gap, 0]) // 2, a[gap, 1]], 1))
+    q = np.concatenate(q)
+    q = q[rng.permutation(len(q))]
+    return q[:, 0].copy(), q[:, 1].copy()
+
+
+def v1_search_cases(dev):
+    """(name, table k0, table k1, query k0, query k1) on `dev` for K16: a
+    table with runs of equal keys and an INT64_MAX tail; the same without
+    a tail; N = 0; N = 1 (one key); N = 1 (only the fill); N = 2 (one key
+    twice)."""
+    t = _to(dev)
+    tk0, tk1 = search_table(40)
+    one = (np.array([5 << 40], np.int64), np.array([77], np.int64))
+    tables = [
+        ("runs and the fill", (tk0, tk1)),
+        ("no fill", search_table(41, n_fill=0)),
+        ("N = 0", (np.zeros(0, np.int64), np.zeros(0, np.int64))),
+        ("N = 1", one),
+        ("N = 1, the fill", (np.array([INT64_MAX]), np.array([INT64_MAX]))),
+        ("N = 2, one key twice", (np.repeat(one[0], 2), np.repeat(one[1], 2))),
+    ]
+    out = []
+    for i, (name, (a, b)) in enumerate(tables):
+        q0, q1 = search_queries(a, b, 50 + i)
+        if len(a) < 3:  # a key beside the single key in each coordinate
+            q0 = np.concatenate([q0, one[0], one[0], one[0] - 1, one[0] + 1])
+            q1 = np.concatenate([q1, one[1] - 1, one[1] + 1, one[1], one[1]])
+        out.append((name, t(a), t(b), t(q0), t(q1)))
+    return out
+
+
+def dense_cases(dev):
+    """(name, x, y, valid) (B, C) mer planes on `dev` for K18 and K19:
+    tie_stream's random non-prefix masks with equal neighbouring hashes;
+    the same with each row's valid entries moved to a prefix; rows with
+    no valid entry and with one (at index 0, inside, at the last index);
+    and prefix rows of one repeated hash and of hashes in equal pairs."""
+    x, y, valid = (a.cpu().numpy() for a in tie_stream("cpu", B=4, C=700))
+    prefix = np.arange(x.shape[1]) < valid.sum(axis=1, keepdims=True)
+    one = np.zeros((4, 40), bool)
+    one[1, 0] = one[2, 17] = one[3, 39] = True
+    rng = np.random.default_rng(6)
+    pos = np.cumsum(rng.integers(30, 120, size=(2, 300)), axis=1)
+    h = rng.integers(0, 1 << 56, size=(2, 300), dtype=np.uint64)
+    h[0] = h[0, 0]
+    h[1, 1::2] = h[1, 0::2]
+    xt = ((h << np.uint64(8)) | np.uint64(K)).view(np.int64)
+    t = _to(dev)
+    return [(name, t(a), t(b), t(c)) for name, a, b, c in (
+        ("non-prefix masks, equal neighbours", x, y, valid),
+        ("prefix masks", x, y, prefix),
+        ("n_valid 0 and 1", x[:4, :40], y[:4, :40], one),
+        ("equal hashes", xt, pos << 1, np.arange(300) < np.array([[300],
+                                                                  [251]])),
+    )]

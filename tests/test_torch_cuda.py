@@ -6,7 +6,9 @@ kernels that put rows on gridDim.y on more rows than it takes, the
 kernels' input checks, and K12 (the MAP-graph row sort and the sort_pairs
 engine) with pgr-pbundle-decomp on the card against the CPU, and K13
 (the WFA forward pass) against its plain version and the arbiter, with
-pgr-get-sv-candidate-regions on the card against the CPU.
+pgr-get-sv-candidate-regions on the card against the CPU, K14-K19 against
+their plain versions on the edge cases, the dense pair variants and the
+v1 programs (over NCCL at world size 1) on the card against the CPU.
 
 Marked `cuda`; each test skips when torch.cuda.is_available() is false.
 Imports no JAX, so it runs on a machine without it:
@@ -324,3 +326,83 @@ def test_sharded_steps_on_card_match_cpu(dev):
     cpu, gpu = outs
     for c, g in zip(cpu, gpu):
         assert _equal({k: v.cpu() for k, v in g.items()}, c)
+
+
+def test_v1_and_dense_kernels_match_plain_on_edge_cases(dev):
+    """K16 on cases.v1_search_cases (runs of equal keys, keys below,
+    above and between the entries, N = 0 and 1, the INT64_MAX tail), K17
+    on K14's planes of cases.shard_cases (a full 128-slot row, INT64_MAX
+    pads, padded query slots), K18 and K19 on cases.dense_cases (masks
+    that are not a prefix, n_valid 0 and 1, equal hashes)."""
+    from pgrtk_tpu_torch.ops import pairs as tp
+
+    kb.reset_launches()
+    for name, tk0, tk1, qk0, qk1 in cases.v1_search_cases(dev):
+        assert _equal(mesh.pair_key_search(tk0, tk1, qk0, qk1),
+                      mesh.pair_key_search_plain(tk0, tk1, qk0, qk1)), name
+    for name, table, bits, qk0, qk1 in cases.shard_cases(dev):
+        planes, _ = mesh.shard_probe_planes(table, bits)
+        assert _equal(mesh.shard_probe_found(qk0, qk1, planes, bits),
+                      mesh.shard_probe_found_plain(qk0, qk1, planes, bits))
+    for name, x, y, valid in cases.dense_cases(dev):
+        assert _equal(tp.min_span_filter_dense(x, y, valid, 64),
+                      tp.min_span_filter_dense_plain(x, y, valid, 64)), name
+        assert _equal(tp.pair_mers_dense(x, y, valid),
+                      tp.pair_mers_dense_plain(x, y, valid)), name
+    torch.cuda.synchronize()
+    assert kb.pair_key_search.launches == 6
+    assert kb.shard_probe_found.launches == 5
+    assert kb.min_span_filter_dense.launches == 4
+    assert kb.pair_mers_dense.launches == 4
+
+
+def test_dense_variants_on_card_match_cpu(dev):
+    """compact_mers, recompact_mers and the dense pipeline (gapped and
+    not) on the card against the CPU, on 4 x 32,768 bases of the dry run's
+    corpus."""
+    from pgrtk_tpu_torch import dryrun
+    from pgrtk_tpu_torch.ops import pairs as tp
+
+    seqs, lens = dryrun.corpus(4, 32_768)
+    outs = []
+    for d in ("cpu", dev):
+        a = (torch.from_numpy(seqs[:4]).to(d), torch.from_numpy(lens[:4]).to(d),
+             torch.arange(4, device=d))
+        dense = tsk.sketch_mode2_dense(a[0], a[1], K, R, CHUNK)
+        comp = tp.compact_mers(dense["x"], dense["y"], dense["selected"], 512)
+        keep = tp.min_span_filter_dense(*comp[:3], 64)
+        re = tp.recompact_mers(*comp[:2], keep)
+        outs.append([comp, keep, re] + [
+            mesh.dense_index_step(*a, capacity=512, gapped=g)
+            for g in (True, False)])
+    torch.cuda.synchronize()
+    cpu, gpu = outs
+
+    def to_cpu(v):
+        if isinstance(v, dict):
+            return {k: to_cpu(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [to_cpu(x) for x in v]
+        return v.cpu()
+
+    assert _equal(to_cpu(gpu), to_cpu(cpu))
+
+
+def test_v1_steps_over_nccl_match_cpu(dev):
+    """The four v1 steps of the dry run over an NCCL group of world size 1
+    (spawned on the card, the default) against a gloo group on the CPU,
+    on the dry run's corpus cut to 8 x 16,384 bases."""
+    from pgrtk_tpu_torch import dryrun
+    from pgrtk_tpu_torch.parallel import comm as pcomm
+
+    seqs, lens = dryrun.corpus(1, 16_384)
+    args = (dryrun.v1_steps_rank, 1, seqs, lens, None, False, 4096)
+    (gpu,) = pcomm.spawn(*args)
+    (cpu,) = pcomm.spawn(*args, device="cpu")
+    assert gpu["index"] == cpu["index"] and not gpu["index"]["overflow"]
+    for f in cpu["table"]:
+        assert np.array_equal(gpu["table"][f], cpu["table"][f]), f
+    for step in ("count", "probe", "v2"):
+        (g, gm, go), (c, cm, co) = gpu[step], cpu[step]
+        assert (g, go) == (c, co) and np.array_equal(gm, cm), step
+    assert cpu["count"][0] == cpu["probe"][0] == cpu["v2"][0] > 0

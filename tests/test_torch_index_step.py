@@ -149,6 +149,9 @@ class _NoJax:
 sys.meta_path.insert(0, _NoJax())
 import numpy as np
 import torch
+# one thread: the suite runs this process beside its other workers, where
+# a thread per core spends most of its time waiting for the others
+torch.set_num_threads(1)
 import pgrtk_tpu_torch
 for m in pkgutil.walk_packages(pgrtk_tpu_torch.__path__, "pgrtk_tpu_torch."):
     importlib.import_module(m.name)

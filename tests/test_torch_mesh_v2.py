@@ -149,7 +149,7 @@ def test_sharded_index_v2_matches_jax(n):
     cap = 4096
     _, _, want = jax_index(n, seqs, lens, cap)
     got = pcomm.spawn(dryrun.steps_rank, n, seqs, lens,
-                      dict(shard_capacity=cap))
+                      dict(shard_capacity=cap), device="cpu")
     for f in ("n_pairs", "shard_overflow", "route_overflow",
               "probe_overflow", "compact_overflow"):
         assert all(o["flags"][f] == int(want[f]) for o in got), f
@@ -192,7 +192,7 @@ def test_sharded_index_v2_flags_overflow_on_every_rank(kw, flag):
     cap = kw["shard_capacity"]
     _, _, want = jax_index(2, seqs, lens, cap,
                            route_capacity=kw.get("route_capacity"))
-    got = pcomm.spawn(dryrun.steps_rank, 2, seqs, lens, kw)
+    got = pcomm.spawn(dryrun.steps_rank, 2, seqs, lens, kw, device="cpu")
     for f in ("shard_overflow", "route_overflow", "probe_overflow",
               "compact_overflow"):
         assert [o["flags"][f] for o in got] == [int(want[f])] * 2, f

@@ -53,7 +53,8 @@ def _jax_e2e(n, seqs, lens, queries, qlens, **kw):
 
 def _port_e2e(n, seqs, lens, queries, qlens, **kw):
     got = pcomm.spawn(dryrun.steps_rank, n, seqs, lens,
-                      dict(shard_capacity=CAP), kw, queries, qlens)
+                      dict(shard_capacity=CAP), kw, queries, qlens,
+                      device="cpu")
     out = {}
     for k, v in got[0]["e2e"].items():
         if np.ndim(v) == 0:
@@ -118,12 +119,15 @@ def test_sharded_e2e_count_filter(n, kw):
 
 def test_dryrun_two_ranks_equal_one():
     """python -m pgrtk_tpu_torch.dryrun on a cut corpus (8 x 32,768
-    bases): two gloo ranks give one rank's counts, and every group's
-    anchors and every exact group's chains equal the host pipeline's."""
+    bases): two gloo ranks give one rank's counts (the JAX line's nine),
+    the three self-query counts agree, and every group's anchors and
+    every exact group's chains equal the host pipeline's."""
     one = dryrun.dryrun_multichip(1, device="cpu", L=32_768, threads=2)
     two = dryrun.dryrun_multichip(2, device="cpu", L=32_768, threads=1)
-    line = ("bases", "mers", "pairs", "e2e_hits", "anchor_groups",
-            "chain_groups")
+    line = ("bases", "mers", "pairs", "self_hits", "probe_hits", "v2_hits",
+            "e2e_hits", "anchor_groups", "chain_groups")
     assert [one[k] for k in line] == [two[k] for k in line]
+    assert one["self_hits"] >= one["pairs"]
+    assert one["self_hits"] == one["probe_hits"] == one["v2_hits"]
     assert one["anchor_groups"] == one["chain_groups"] == B * B
     assert one["bases"] == B * 32_768 and one["e2e_hits"] > 10_000
