@@ -121,10 +121,24 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      cases.shard_cases (buckets of 128 and 129 entries, keys with Pp and
      Pp + 1 postings, sid runs with m 15 and 16, padded route slots,
      the last of three owners).
+ 11. runs the v1 replicated-index programs over the same group: (11a)
+     the dry run of 10a prints the JAX line whole, self-, probe- and
+     v2-hits included; (11b) sharded_sketch_index_step_auto on phase
+     4's batch: flags clean, the table equal to phase 4's sorted table,
+     median of 5 steps beside phase 4's step, a torch.profiler pass;
+     (11c) the count (K16), probe (K11) and v2 probe-only (K17) steps,
+     the batch against itself: all three counts equal and at least
+     n_pairs, median of 5 each; (11d) K16 and K17 against their plain
+     versions at 11c's shapes and on cases.v1_search_cases and
+     cases.shard_cases, then the dense pipeline (mesh.dense_index_step,
+     gapped and not) on phase 4's batch: its counts equal to phase 4's,
+     K1's dense mode, compact_mers, K18, recompact_mers and K19 against
+     their plain versions at its shapes, K18 and K19 on
+     cases.dense_cases.  Phase 1 also holds K1's dense mode to its plain
+     version on its edge cases.
 
 Between phases 6 and 7 it prints the bounds of the index and query
-steps (sums of their kernels' bounds in this run) and of the JAX
-package's device functions not ported yet, at their callers' shapes.
+steps (sums of their kernels' bounds in this run).
 Every comparison is exact (integers, tolerance 0).  Any failed phase
 exits non-zero.  The second-to-last line is the per-kernel JSON (with
 each kernel's bound: the larger of its bytes over the memory rate and
@@ -181,8 +195,10 @@ BATCH_KERNELS = ("sketch_walk_compact", "rank_extract", "probe_fetch",
 # operations over the ALU rate, both from NVIDIA's H100 SXM data
 # sheet.  Bytes: each input read once as it is given (for a probe, only
 # the table slots of the buckets probed, each once however many keys
-# probe it), each output written once at the width its values need, not
-# the wrapper's (the per-entry widths below).
+# probe it; for a search, only the table entries at the keys' distinct
+# lower_bound positions; for the dense filter and pairing, x and y only
+# at the entries the rule reads), each output written once at the width
+# its values need, not the wrapper's (the per-entry widths below).
 # Operations: 32-bit ALU operations of the work, a 64-bit integer
 # operation counting two, at the float32 rate outside the tensor cores
 # (the table has no integer row).  The per-element counts are the model
@@ -370,6 +386,10 @@ def phase_kernels(dev, tsk, tp):
                                                  slots, exact)
             check(f"K1 sketch_walk_compact exact={exact}, {name}", got, want)
             require(bool(got[4]) == (not exact), "K1 inexact flag")
+            check(f"K1 dense mode exact={exact}, {name}",
+                  tsk.sketch_mode2_dense(seqs, lens, K, R, CHUNK, exact),
+                  tsk.sketch_mode2_dense_plain(seqs, lens, K, R, CHUNK,
+                                               exact))
             if not exact:
                 x1, y1, v1 = got[:3]
             del got, want
@@ -1960,13 +1980,36 @@ V1_KERNELS = ("pair_key_search", "shard_probe_found", "min_span_filter_dense",
               "pair_mers_dense")
 
 
-def k16_work(tk0, qk0):
-    """Input bytes (the table's keys and the query keys, each read once),
-    output bytes (a flag per key) and operations (ceil(log2(N + 1))
-    search rounds per key) of K16."""
-    n, Q = tk0.numel(), qk0.numel()
-    return (16 * n + 16 * Q, lambda got: need(Q, BIT),
-            OPS_SEARCH * Q * max(1, n.bit_length()))
+def lower_bounds(tk0, tk1, qk0, qk1):
+    """(Q,) lower_bound positions of the (k0, k1) query keys in the
+    table sorted on (k0, k1), from one stable lexicographic sort of the
+    table and the queries together (a query before an equal entry): a
+    query's position is the count of table entries sorted before it."""
+    n = tk0.numel()
+    k0, k1 = torch.cat([qk0, tk0]), torch.cat([qk1, tk1])
+    order = torch.sort(k1, stable=True)[1]
+    order = order[torch.sort(k0[order], stable=True)[1]]
+    is_entry = (order >= qk0.numel()).long()
+    before = torch.cumsum(is_entry, 0) - is_entry
+    pos = torch.empty_like(before)
+    pos[order] = before
+    return pos[:qk0.numel()].clamp(max=n)
+
+
+def k16_work(tk0, tk1, qk0, qk1):
+    """Input bytes (the query keys, and the table entries at the keys'
+    distinct lower_bound positions, each read once; the INT64_MAX tail
+    past the last of them is never needed), output bytes (a flag per
+    key) and operations (ceil(log2(m + 1)) search rounds per key over
+    the m entries before the tail) of K16."""
+    from pgrtk_tpu_torch.ops.int64 import INT64_MAX
+
+    Q = qk0.numel()
+    pos = lower_bounds(tk0, tk1, qk0, qk1)
+    entries = torch.unique(pos[pos < tk0.numel()]).numel()
+    m = int((tk0 != INT64_MAX).sum())
+    return (16 * Q + 16 * entries, lambda got: need(Q, BIT),
+            OPS_SEARCH * Q * max(1, m.bit_length()))
 
 
 def k17_work(qk0, bits):
@@ -1980,6 +2023,40 @@ def k17_work(qk0, bits):
     Q = qk0.numel()
     return (16 * Q + rows * 128 * 16, lambda got: need(Q, BIT),
             OPS_COMPARE * int(live.sum()) * 128)
+
+
+def dense_read(valid, *offsets):
+    """Entries of (B, C) planes that a rule over `valid` entries reads:
+    each valid entry at the column offsets given (0 the entry itself),
+    kept inside its row."""
+    C = valid.shape[1]
+    read = torch.zeros_like(valid)
+    for d in offsets:
+        if d >= 0:
+            read[:, d:] |= valid[:, :C - d]
+        else:
+            read[:, :C + d] |= valid[:, -d:]
+    return int(read.sum())
+
+
+def k18_work(x, valid):
+    """Input bytes (the valid mask, and x and y at each valid entry and
+    its two index neighbours), output bytes (a keep flag per entry) and
+    operations of K18."""
+    n = x.numel()
+    return (nbytes(valid) + 16 * dense_read(valid, -1, 0, 1),
+            lambda got: need(n, BIT), OPS_ENTRY * n)
+
+
+def k19_work(x, valid):
+    """Input bytes (the valid mask, and x and y of each entry that pairs
+    with the next one and of that next one), output bytes (a pair per
+    entry) and operations of K19."""
+    n = x.numel()
+    pairs = torch.zeros_like(valid)
+    pairs[:, :-1] = valid[:, :-1] & valid[:, 1:]
+    return (nbytes(valid) + 16 * dense_read(pairs, 0, 1),
+            lambda got: need(n, *PAIR), OPS_ENTRY * n)
 
 
 def query_steps(mesh, comm, batch, table, probe):
@@ -2069,7 +2146,7 @@ def phase_v1(dev, kb, mesh, comm, batch, stamp):
 
     results = {}
     (tk0, tk1, qk0, qk1), _ = k16.calls[-1]
-    in_b, out_b, ops = k16_work(tk0, qk0)
+    in_b, out_b, ops = k16_work(tk0, tk1, qk0, qk1)
     results["pair_key_search"] = measure(
         f"K16 pair_key_search, {qk0.numel()} keys in {tk0.numel()} entries",
         lambda: mesh.pair_key_search(tk0, tk1, qk0, qk1),
@@ -2120,7 +2197,8 @@ def phase_dense(dev, kb, mesh, tp, seqs, lens, rids, counts):
     print(f"phase 11d: the dense pipeline on {B} x {L} (capacity {cap})")
     torch.cuda.synchronize()
     kb.reset_launches()
-    with capture(tp, "min_span_filter_dense") as k18, \
+    with capture(tsk, "sketch_mode2_dense") as walk, \
+            capture(tp, "min_span_filter_dense") as k18, \
             capture(tp, "pair_mers_dense") as k19, \
             capture(tp, "compact_mers") as comp, \
             capture(tp, "recompact_mers") as recomp:
@@ -2134,8 +2212,7 @@ def phase_dense(dev, kb, mesh, tp, seqs, lens, rids, counts):
             print(f"  gapped={gapped}: n_pairs {outs[gapped][0]} n_mers "
                   f"{outs[gapped][1]} overflow {int(out['overflow'])} "
                   f"inexact {int(out['inexact'])}; "
-                  f"{time.perf_counter() - t:.3f} s (the dense sketch is "
-                  f"torch glue)")
+                  f"{time.perf_counter() - t:.3f} s")
             require(not bool(out["overflow"]) and not bool(out["inexact"]),
                     "dense pipeline flags set")
             del out
@@ -2144,13 +2221,22 @@ def phase_dense(dev, kb, mesh, tp, seqs, lens, rids, counts):
     require(outs[True] == outs[False] == counts,
             f"the dense pipelines' (pairs, mers) {outs} differ from phase "
             f"4's {counts}")
-    for name in ("rank_extract", "sort_pairs", "min_span_filter_dense",
-                 "pair_mers_dense", "pair_mers_gapped"):
+    for name in ("sketch_walk_compact", "rank_extract", "sort_pairs",
+                 "min_span_filter_dense", "pair_mers_dense",
+                 "pair_mers_gapped"):
         require(launches.get(name, 0) > 0,
                 f"kernel {name} never launched on the dense pipeline")
     torch.cuda.empty_cache()
 
     results = {}
+    (s_, l_, k_, r_, chunk), _ = walk.calls[-1]
+    measure(f"K1 dense mode (sketch_mode2_dense), {tuple(s_.shape)}",
+            lambda: tsk.sketch_mode2_dense(s_, l_, k_, r_, chunk),
+            lambda: tsk.sketch_mode2_dense_plain(s_, l_, k_, r_, chunk),
+            [s_, l_], lambda got: need(got["x"].numel(), *SLOT),
+            OPS_WALK * s_.numel())
+    del s_, l_, walk
+    torch.cuda.empty_cache()
     (x, y, sel, c), _ = comp.calls[-1]
     measure(f"compact_mers (K2 + K12's engine), dense planes "
             f"{tuple(x.shape)}, capacity {c}",
@@ -2165,8 +2251,7 @@ def phase_dense(dev, kb, mesh, tp, seqs, lens, rids, counts):
         f"K18 min_span_filter_dense, {tuple(x.shape)}",
         lambda: tp.min_span_filter_dense(x, y, valid, ms),
         lambda: tp.min_span_filter_dense_plain(x, y, valid, ms),
-        [x, y, valid], lambda got: need(got.numel(), BIT),
-        OPS_ENTRY * x.numel())
+        *k18_work(x, valid))
     (x, y, keep), _ = recomp.calls[-1]
     measure(f"recompact_mers (K12's engine), {tuple(x.shape)}",
             lambda: tp.recompact_mers(x, y, keep),
@@ -2177,8 +2262,8 @@ def phase_dense(dev, kb, mesh, tp, seqs, lens, rids, counts):
     results["pair_mers_dense"] = measure(
         f"K19 pair_mers_dense, {tuple(x.shape)}",
         lambda: tp.pair_mers_dense(x, y, valid),
-        lambda: tp.pair_mers_dense_plain(x, y, valid), [x, y, valid],
-        lambda got: need(got["k0"].numel(), *PAIR), OPS_ENTRY * x.numel())
+        lambda: tp.pair_mers_dense_plain(x, y, valid),
+        *k19_work(x, valid))
     for name, a, b, v in cases.dense_cases(dev):
         for k, kern, plain in (
                 ("min_span_filter_dense",

@@ -30,10 +30,108 @@
 // the run.  Instead the lane folds in per-chunk tails found through the
 // row ranks of the chunks holding ACGT (walk.cuh, shared with K9): at
 // most k lookups, however long the N run.  Exact for any input; no flag.
+//
+// Dense mode (dense=1) replaces sketch_mode2_dense :369 with the overlap
+// walk :210 (or, with exact=1, :169): the same lanes and warm-ups, but
+// every lane walks its whole chunk, live or not, and writes every
+// position's hash word, position word and selected flag into (B, L)
+// planes, as the plain version's (ops/sketch.py::sketch_mode2_dense_plain)
+// are.  About 17 bytes are written per base, so device memory bounds it.
+// A thread's positions are consecutive but its neighbours' lie a chunk
+// away: written directly, a warp's store touches 32 lines, each partly,
+// and the partly written lines overflow L2.  So each step of 16 positions is staged in shared memory and the block
+// writes it back whole: a warp store covers two lanes' full 128-byte
+// runs of x (or y).
 #include "walk.cuh"
 
 namespace pgrtk {
 namespace {
+
+// The registers at the start of a lane: the exact warm-up, or the
+// `overlap` bases before the chunk, raising flags[1] (inexact) when a
+// live, non-first lane's warm-up holds fewer than k ACGT bases.
+__device__ __forceinline__ Regs lane_start(const uint8_t* row,
+                                           long long start, bool live,
+                                           long long lane, long long row0,
+                                           int k, int overlap, int exact,
+                                           const ExactScratch& ex,
+                                           int* flags) {
+  if (exact) return exact_start(ex, lane, row0, k);
+  const uint64_t mask = (1ull << k) - 1;
+  Regs s = {0, 0, 0, 0};
+  int seen = 0;
+  for (long long p = start > overlap ? start - overlap : 0; p < start; ++p) {
+    const int c = base_code(row[p]);
+    seen += c < 4;
+    push(s, c, mask, k - 1);
+  }
+  if (live && start > 0 && seen < k) atomicOr(&flags[1], 1);
+  return s;
+}
+
+constexpr int kLaneThreads = 64;  // threads (lanes) per block
+
+// Dense mode: every position of the lane's chunk, 16 at a time through
+// shared memory (rows padded to 17 entries against bank conflicts).
+__global__ void __launch_bounds__(kLaneThreads) sketch_walk_dense_kernel(
+    const uint8_t* __restrict__ seqs, const int64_t* __restrict__ lengths,
+    long long n_lanes, long long L, int nc, int k, int r, int chunk,
+    int overlap, int exact, ExactScratch ex, int64_t* __restrict__ out_x,
+    int64_t* __restrict__ out_y, bool* __restrict__ out_sel,
+    int* __restrict__ flags) {
+  __shared__ int64_t sx[kLaneThreads][17];
+  __shared__ int64_t sy[kLaneThreads][17];
+  __shared__ bool ssel[kLaneThreads][16];
+  const int t = threadIdx.x;
+  const long long lane0 = (long long)blockIdx.x * kLaneThreads;
+  const long long lane = lane0 + t;
+  const bool active = lane < n_lanes;  // the rest only help write back
+  const long long b = active ? lane / nc : 0;
+  const long long start = active ? (lane % nc) * (long long)chunk : 0;
+  const long long len = active ? lengths[b] : 0;
+  const uint8_t* row = seqs + b * L;
+  const uint64_t mask = (1ull << k) - 1;
+  const uint64_t thr = (~0ull >> 4) >> r;
+  const int top = k - 1;
+  Regs s = {0, 0, 0, 0};
+  if (active)
+    s = lane_start(row, start, start < len, lane, b * nc, k, overlap, exact,
+                   ex, flags);
+  for (int q = 0; q < chunk; q += 16) {
+    if (active) {
+      const uint4 w = *reinterpret_cast<const uint4*>(row + start + q);
+      const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const long long p = start + q + i;
+        push(s, base_code((words[i >> 2] >> (8 * (i & 3))) & 0xFFu), mask,
+             top);
+        const bool rev = s.r0 < s.f0;
+        const uint64_t h = wang(rev ? s.r0 : s.f0) ^
+                           wang((rev ? s.r1 : s.f1) ^ 0xAD12CF59ull);
+        sx[t][i] = (int64_t)((h << 8) | (uint64_t)k);
+        sy[t][i] = (int64_t)((p << 1) | (long long)rev);
+        ssel[t][i] = p < len && p >= k &&
+                     !(s.f0 == s.r0 && s.f1 == s.r1) && h < thr;
+      }
+    }
+    __syncthreads();
+    // entry e of the block's 64 x 16: lane e / 16 of the block, position
+    // q + e % 16 of its chunk
+#pragma unroll 4
+    for (int e = t; e < kLaneThreads * 16; e += kLaneThreads) {
+      const int j = e >> 4, i = e & 15;
+      const long long l = lane0 + j;
+      if (l < n_lanes) {
+        const long long g = (l / nc) * L + (l % nc) * (long long)chunk + q + i;
+        out_x[g] = sx[j][i];
+        out_y[g] = sy[j][i];
+        out_sel[g] = ssel[j][i];
+      }
+    }
+    __syncthreads();
+  }
+}
 
 __global__ void sketch_walk_compact_kernel(
     const uint8_t* __restrict__ seqs, const int64_t* __restrict__ lengths,
@@ -56,20 +154,8 @@ __global__ void sketch_walk_compact_kernel(
     const uint64_t mask = (1ull << k) - 1;
     const uint64_t thr = (~0ull >> 4) >> r;
     const int top = k - 1;
-    Regs s = {0, 0, 0, 0};
-
-    if (exact) {
-      s = exact_start(ex, lane, b * nc, k);
-    } else {
-      int seen = 0;
-      for (long long p = start > overlap ? start - overlap : 0; p < start;
-           ++p) {
-        const int c = base_code(row[p]);
-        seen += c < 4;
-        push(s, c, mask, top);
-      }
-      if (start > 0 && seen < k) atomicOr(&flags[1], 1);
-    }
+    Regs s = lane_start(row, start, true, lane, b * nc, k, overlap, exact,
+                        ex, flags);
 
     for (long long q = start; q < stop; q += 16) {
       const uint4 w = *reinterpret_cast<const uint4*>(row + q);
@@ -117,21 +203,31 @@ extern "C" long long pgrtk_sketch_scratch_bytes(int B, long long L,
 // seqs (B, L) uint8 16-byte aligned, L % chunk == 0, chunk % 16 == 0;
 // lengths (B,) int64; scratch of pgrtk_sketch_scratch_bytes() bytes;
 // out_x/out_y (B, L/chunk*slots) int64, out_valid bool; flags int32[2]
-// zeroed by the caller: [0] overflow, [1] inexact.
+// zeroed by the caller: [0] overflow, [1] inexact.  With dense=1 (slots
+// unused) out_x/out_y are (B, L) int64 and out_valid the (B, L) selected
+// mask; flags[0] stays 0.
 extern "C" int pgrtk_sketch_walk_compact(
     const void* seqs, const void* lengths, int B, long long L, int k, int r,
-    int chunk, int slots, int overlap, int exact, void* scratch, void* out_x,
-    void* out_y, void* out_valid, void* flags, void* stream) {
+    int chunk, int slots, int overlap, int exact, int dense, void* scratch,
+    void* out_x, void* out_y, void* out_valid, void* flags, void* stream) {
   const int nc = (int)(L / chunk);
   const long long n_lanes = (long long)B * nc;
   if (n_lanes == 0) return (int)cudaSuccess;
   const cudaStream_t st = (cudaStream_t)stream;
-  const int threads = 64;
+  constexpr int threads = 64;
   const unsigned blocks = (unsigned)((n_lanes + threads - 1) / threads);
   pgrtk::ExactScratch ex = {};
   if (exact) {
     ex = pgrtk::carve_exact(scratch, B, nc);
     pgrtk::exact_warmup((const uint8_t*)seqs, B, L, nc, k, chunk, ex, st);
+  }
+  if (dense) {
+    static_assert(threads == pgrtk::kLaneThreads, "one lane per thread");
+    pgrtk::sketch_walk_dense_kernel<<<blocks, threads, 0, st>>>(
+        (const uint8_t*)seqs, (const int64_t*)lengths, n_lanes, L, nc, k, r,
+        chunk, overlap, exact, ex, (int64_t*)out_x, (int64_t*)out_y,
+        (bool*)out_valid, (int*)flags);
+    return (int)cudaGetLastError();
   }
   pgrtk::sketch_walk_compact_kernel<<<blocks, threads, 0, st>>>(
       (const uint8_t*)seqs, (const int64_t*)lengths, n_lanes, L, nc, k, r,

@@ -303,6 +303,12 @@ def v1_steps_rank(comm: pcomm.Comm, device, seqs, lens, rids=None,
     return out
 
 
+def v1_runs_rank(comm: pcomm.Comm, device, runs) -> list:
+    """v1_steps_rank on each argument tuple of `runs` in turn, in one
+    process group: [v1_steps_rank(comm, device, *a) for a in runs]."""
+    return [v1_steps_rank(comm, device, *a) for a in runs]
+
+
 def table_checksum(table) -> torch.Tensor:
     """A 0-dim int64 checksum of a pair table's planes (wrapping sums of
     each plane weighted by an odd multiple of the entry index), to tell

@@ -150,7 +150,7 @@ class Kernel:
 
 sketch_walk_compact = Kernel(
     "sketch_walk_compact", "pgrtk_tpu_torch/csrc/sketch.cu",
-    [_P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    [_P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
 )
 rank_extract = Kernel(
     "rank_extract", "pgrtk_tpu_torch/csrc/compact.cu",
@@ -220,7 +220,7 @@ owner_postings = Kernel(
 # step's row compare
 pair_key_search = Kernel(
     "pair_key_search", "pgrtk_tpu_torch/csrc/v1.cu",
-    [_P, _P, _LL, _P, _P, _LL, _P, _P],
+    [_P, _P, _LL, _P, _P, _LL, _P, _P, _P],
 )
 shard_probe_found = Kernel(
     "shard_probe_found", "pgrtk_tpu_torch/csrc/shard.cu",

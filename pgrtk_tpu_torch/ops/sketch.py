@@ -8,9 +8,10 @@ carried; `sketch_mode2` adds it on the host), plus a bool mask.
 
 K1 (`sketch_walk_compact`) walks each (row, chunk) lane and keeps its
 first `slots` selected mers; it dispatches on where its tensors live: a
-CPU tensor runs the plain PyTorch version (`sketch_mode2_dense` followed
-by the plain level-1 rank extraction), a CUDA tensor launches
-csrc/sketch.cu or raises.
+CPU tensor runs the plain PyTorch version (`sketch_mode2_dense_plain`
+followed by the plain level-1 rank extraction), a CUDA tensor launches
+csrc/sketch.cu or raises.  `sketch_mode2_dense` is K1's dense mode: the
+same walk writing every position into (B, L) planes.
 
 The plain version computes the rolling k-mer registers without a scan:
 the registers after position p hold the last min(k, n) ACGT bases of the
@@ -120,16 +121,11 @@ def _window_before(code: torch.Tensor, chunk: int, exact: bool):
     return before.repeat_interleave(chunk, dim=1), warm
 
 
-def sketch_mode2_dense(seqs_u8: torch.Tensor, lengths: torch.Tensor,
-                       k: int, r: int, chunk: int = 512,
-                       exact: bool = False) -> dict:
-    """Mode-2 sketch of a padded batch as dense (B, L) planes
-    (pgrtk_tpu/ops/sketch.py:369; plain PyTorch on any device).
-
-    Returns dict(x, y int64, selected bool (pre-min_span), inexact 0-dim
-    bool).  exact=False reproduces the JAX overlap walk, whose `inexact`
-    flag marks a live non-first chunk with fewer than k ACGT bases in its
-    warm-up; exact=True is the exact walk (inexact always False)."""
+def sketch_mode2_dense_plain(seqs_u8: torch.Tensor, lengths: torch.Tensor,
+                             k: int, r: int, chunk: int = 512,
+                             exact: bool = False) -> dict:
+    """The plain PyTorch version of `sketch_mode2_dense`, on any
+    device."""
     seqs_u8, lengths = _check_batch(seqs_u8, lengths, k, r, chunk)
     B, L = seqs_u8.shape
     dev = seqs_u8.device
@@ -160,21 +156,41 @@ def sketch_mode2_dense(seqs_u8: torch.Tensor, lengths: torch.Tensor,
 
 # --------------------------------------------------------------- K1
 
+def sketch_mode2_dense(seqs_u8: torch.Tensor, lengths: torch.Tensor,
+                       k: int, r: int, chunk: int = 512,
+                       exact: bool = False) -> dict:
+    """Mode-2 sketch of a padded batch as dense (B, L) planes
+    (pgrtk_tpu/ops/sketch.py:369 with the overlap walk :210, or the exact
+    walk :169): K1's dense mode on a CUDA tensor, the plain version on a
+    CPU tensor.
+
+    Returns dict(x, y int64, selected bool (pre-min_span), inexact 0-dim
+    bool).  exact=False reproduces the JAX overlap walk, whose `inexact`
+    flag marks a live non-first chunk with fewer than k ACGT bases in its
+    warm-up; exact=True is the exact walk (inexact always False)."""
+    seqs_u8, lengths = _check_batch(seqs_u8, lengths, k, r, chunk)
+    if not on_cuda(seqs_u8, lengths):
+        return sketch_mode2_dense_plain(seqs_u8, lengths, k, r, chunk, exact)
+    x, y, selected, _, inexact = _walk_cuda(seqs_u8, lengths, k, r, chunk,
+                                            0, exact, dense=True)
+    return dict(x=x, y=y, selected=selected, inexact=inexact)
+
+
 def sketch_walk_compact_plain(seqs_u8, lengths, k, r, chunk, slots, exact):
     """The plain PyTorch version of K1 (`sketch_walk_compact`), on any
     device: the dense sketch, then the plain level-1 rank extraction."""
-    d = sketch_mode2_dense(seqs_u8, lengths, k, r, chunk, exact)
+    d = sketch_mode2_dense_plain(seqs_u8, lengths, k, r, chunk, exact)
     (x, y), valid, ovf = pairs_ops.rank_extract_planes_plain(
         (d["x"], d["y"]), d["selected"], chunk, slots
     )
     return x, y, valid, ovf, d["inexact"]
 
 
-def _walk_compact_cuda(seqs_u8, lengths, k, r, chunk, slots, exact):
+def _walk_cuda(seqs_u8, lengths, k, r, chunk, slots, exact, dense=False):
     if seqs_u8.data_ptr() % 16:
         raise ValueError("seqs_u8 must be 16-byte aligned for the kernel")
     B, L = seqs_u8.shape
-    W = (L // chunk) * slots
+    W = L if dense else (L // chunk) * slots
     dev = seqs_u8.device
     x = torch.empty((B, W), dtype=torch.int64, device=dev)
     y = torch.empty((B, W), dtype=torch.int64, device=dev)
@@ -184,7 +200,7 @@ def _walk_compact_cuda(seqs_u8, lengths, k, r, chunk, slots, exact):
         scratch = kb.sketch_scratch(B, L, chunk, exact, dev)
         kb.sketch_walk_compact(
             seqs_u8.data_ptr(), lengths.data_ptr(), B, L, k, r, chunk, slots,
-            OVERLAP, int(exact), scratch.data_ptr(), x.data_ptr(),
+            OVERLAP, int(exact), int(dense), scratch.data_ptr(), x.data_ptr(),
             y.data_ptr(), valid.data_ptr(), flags.data_ptr(),
             kb.stream_handle(seqs_u8),
         )
@@ -207,7 +223,7 @@ def sketch_walk_compact(seqs_u8: torch.Tensor, lengths: torch.Tensor,
     if not on_cuda(seqs_u8, lengths):
         return sketch_walk_compact_plain(seqs_u8, lengths, k, r, chunk,
                                          slots, exact)
-    return _walk_compact_cuda(seqs_u8, lengths, k, r, chunk, slots, exact)
+    return _walk_cuda(seqs_u8, lengths, k, r, chunk, slots, exact)
 
 
 def sketch_compact_mode2(seqs_u8, lengths, k: int, r: int, min_span: int,

@@ -144,8 +144,8 @@ def dense_index_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
                      min_span: int = 64, chunk: int = 512) -> dict:
     """The index through the dense pair variants, as
     tests/test_pairs_and_mesh.py:35-60 (_device_table) composes them:
-    the dense sketch (ops/sketch.py::sketch_mode2_dense, the overlap
-    walk), compact_mers to `capacity` mers a row, min_span_filter_dense
+    the dense sketch (ops/sketch.py::sketch_mode2_dense, K1's dense mode
+    on the overlap walk), compact_mers to `capacity` mers a row, min_span_filter_dense
     (K18), then pair_mers_gapped over the filtered stream (gapped) or
     recompact_mers and pair_mers_dense (K19), and sort_pairs.  Returns
     dict(table, n_pairs, n_mers, overflow = a compaction segment
@@ -613,6 +613,10 @@ def _search_in(tk0, tk1, qk0, qk1):
     return ts
 
 
+_BAD_KEYS = ("pair keys must be 56-bit hashes (table keys may also be the "
+             "INT64_MAX fill)")
+
+
 def _check_signed_order(tk0, tk1, qk0, qk1):
     """K16 compares the keys as signed int64, which orders them as the
     JAX package's u32 planes only when every key is a 56-bit hash or (in
@@ -623,8 +627,7 @@ def _check_signed_order(tk0, tk1, qk0, qk1):
     for t in (tk0, tk1):
         bad |= ((t < 0) | ((t >= HASH_LIMIT) & (t != INT64_MAX))).any()
     if bool(bad):
-        raise ValueError("pair keys must be 56-bit hashes (table keys may "
-                         "also be the INT64_MAX fill)")
+        raise ValueError(_BAD_KEYS)
 
 
 def pair_key_search_plain(tk0, tk1, qk0, qk1) -> torch.Tensor:
@@ -655,17 +658,22 @@ def pair_key_search(tk0: torch.Tensor, tk1: torch.Tensor, qk0: torch.Tensor,
     _searchsorted_pairkey)?  A lower_bound over the whole table, then an
     equality test.  The table may carry the v1 table's invalid tail of
     INT64_MAX keys; query keys are 56-bit hashes.  Both are checked,
-    since the kernel compares signed.  N = 0 finds nothing.  Returns (Q,)
+    since the kernel compares signed: on the CPU every key, on the card
+    every key the kernel compares (a flag it sets, read after it); a key
+    out of range raises ValueError.  N = 0 finds nothing.  Returns (Q,)
     bool."""
     tk0, tk1, qk0, qk1 = _search_in(tk0, tk1, qk0, qk1)
-    _check_signed_order(tk0, tk1, qk0, qk1)
     if not on_cuda(tk0, tk1, qk0, qk1):
+        _check_signed_order(tk0, tk1, qk0, qk1)
         return pair_key_search_plain(tk0, tk1, qk0, qk1)
     Q = qk0.numel()
     found = torch.empty(Q, dtype=torch.bool, device=qk0.device)
+    bad = torch.zeros(1, dtype=torch.int32, device=qk0.device)
     kb.pair_key_search(tk0.data_ptr(), tk1.data_ptr(), tk0.numel(),
                        qk0.data_ptr(), qk1.data_ptr(), Q, found.data_ptr(),
-                       kb.stream_handle(qk0))
+                       bad.data_ptr(), kb.stream_handle(qk0))
+    if bool(bad):
+        raise ValueError(_BAD_KEYS)
     return found
 
 
@@ -721,6 +729,21 @@ def sharded_sketch_index_step_auto(seqs_u8: torch.Tensor,
                             chunk=chunk)
 
 
+def _v1_query(seqs_u8, lengths, lookup, comm, k, r, min_span, chunk,
+              compact_kw) -> dict:
+    """The skeleton of the v1 query steps: the rank's pair keys (the
+    index tie rule) go through `lookup(k0, k1)`, a (Q,) found mask;
+    returns dict(n_hits over the ranks, all_hits = the (n * B_loc, C)
+    hit masks of every rank in rank order, overflow over the ranks)."""
+    comm = comm or Comm()
+    pr, _, overflow = _pairs(seqs_u8, lengths, k, r, min_span, chunk,
+                             compact_kw)
+    found = lookup(pr["k0"].reshape(-1), pr["k1"].reshape(-1))
+    hit = found.reshape(pr["k0"].shape) & pr["pair_valid"]
+    return dict(n_hits=comm.sum(hit.sum()), all_hits=comm.all_gather(hit),
+                overflow=comm.any(overflow))
+
+
 def sharded_query_count_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
                              rids: torch.Tensor,
                              table: Dict[str, torch.Tensor], *,
@@ -735,14 +758,10 @@ def sharded_query_count_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
     (K16).  Returns dict(n_hits over the ranks, all_hits = the (n *
     B_loc, C) hit masks of every rank in rank order, overflow over the
     ranks).  On overflow rerun with compact_kw=pairs.SAFE_COMPACT_KW."""
-    comm = comm or Comm()
-    pr, _, overflow = _pairs(seqs_u8, lengths, k, r, min_span, chunk,
-                             compact_kw)
-    found = pair_key_search(table["k0"], table["k1"], pr["k0"].reshape(-1),
-                            pr["k1"].reshape(-1))
-    hit = found.reshape(pr["k0"].shape) & pr["pair_valid"]
-    return dict(n_hits=comm.sum(hit.sum()), all_hits=comm.all_gather(hit),
-                overflow=comm.any(overflow))
+    return _v1_query(
+        seqs_u8, lengths,
+        lambda q0, q1: pair_key_search(table["k0"], table["k1"], q0, q1),
+        comm, k, r, min_span, chunk, compact_kw)
 
 
 def replicated_probe_table(table: Dict[str, torch.Tensor],
@@ -772,15 +791,12 @@ def sharded_query_probe_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
     rank's pair keys probed (K11, found output) in `probe`
     (replicated_probe_table).  Returns dict(n_hits, all_hits, overflow)
     as sharded_query_count_step."""
-    comm = comm or Comm()
-    pr, _, overflow = _pairs(seqs_u8, lengths, k, r, min_span, chunk,
-                             compact_kw)
-    found, _ = probe_ops.probe_keys(
-        pr["k0"].reshape(-1), pr["k1"].reshape(-1), probe["bits"],
-        probe["k0"], probe["k1"], probe["row"], probe["W"])
-    hit = found.reshape(pr["k0"].shape) & pr["pair_valid"]
-    return dict(n_hits=comm.sum(hit.sum()), all_hits=comm.all_gather(hit),
-                overflow=comm.any(overflow))
+    return _v1_query(
+        seqs_u8, lengths,
+        lambda q0, q1: probe_ops.probe_keys(
+            q0, q1, probe["bits"], probe["k0"], probe["k1"], probe["row"],
+            probe["W"])[0],
+        comm, k, r, min_span, chunk, compact_kw)
 
 
 def sharded_query_v2_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,

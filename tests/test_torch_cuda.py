@@ -356,6 +356,42 @@ def test_v1_and_dense_kernels_match_plain_on_edge_cases(dev):
     assert kb.pair_mers_dense.launches == 4
 
 
+def test_pair_key_search_on_card_rejects_keys_it_would_misorder(dev):
+    """K16's flag: a query key out of range, or a table key it compares
+    that is neither a 56-bit hash nor the INT64_MAX fill, raises."""
+    tk = torch.tensor([1, 2, (1 << 63) - 1], device=dev)
+    with pytest.raises(ValueError):
+        mesh.pair_key_search(tk, tk, torch.tensor([-1], device=dev),
+                             torch.tensor([0], device=dev))
+    with pytest.raises(ValueError):
+        mesh.pair_key_search(torch.tensor([1 << 56], device=dev),
+                             torch.tensor([0], device=dev),
+                             torch.tensor([1], device=dev),
+                             torch.tensor([0], device=dev))
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_sketch_dense_mode_matches_plain(dev, exact):
+    """K1's dense mode (sketch_mode2_dense on the card) against its
+    plain version on rows with N runs across chunk boundaries, a ragged
+    row and lowercase bases: every plane and the inexact flag."""
+    rng = np.random.default_rng(11)
+    seqs = rng.integers(0, 4, size=(3, 8192), dtype=np.uint8)
+    seqs = np.frombuffer(b"ACGT", dtype=np.uint8)[seqs]
+    seqs[0, 1000:1530] = ord("N")
+    seqs[1, 2040:2060] = ord("n")
+    seqs[2, 100:600] = seqs[2, 100:600] | 0x20
+    args = (torch.from_numpy(seqs.copy()).to(dev),
+            torch.tensor([8192, 8192, 5000], device=dev))
+    before = kb.sketch_walk_compact.launches
+    got = tsk.sketch_mode2_dense(*args, K, R, CHUNK, exact)
+    torch.cuda.synchronize()
+    assert kb.sketch_walk_compact.launches == before + 1
+    want = tsk.sketch_mode2_dense_plain(*args, K, R, CHUNK, exact)
+    assert bool(got["inexact"]) == (not exact)
+    assert _equal(got, want)
+
+
 def test_dense_variants_on_card_match_cpu(dev):
     """compact_mers, recompact_mers and the dense pipeline (gapped and
     not) on the card against the CPU, on 4 x 32,768 bases of the dry run's

@@ -8,6 +8,7 @@ edge-case planes of pgrtk_tpu_torch/utils/cases.py (masks that are not a
 valid prefix, n_valid 0 and 1, equal hashes); and the whole dense
 pipeline (tests/test_pairs_and_mesh.py:35-60, gapped and not) against
 parallel/mesh.py::dense_index_step."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +23,10 @@ from pgrtk_tpu_torch.utils import cases
 
 K, R, MIN_SPAN, CHUNK = 56, 4, 64, 512
 L = 16_384
+# jitted, as their callers in the JAX package run them
+JAX_FILTER = jax.jit(jax_pairs.min_span_filter_dense,
+                     static_argnames="min_span")
+JAX_PAIRS = jax.jit(jax_pairs.pair_mers_dense)
 TABLE_FIELDS = ("valid", "k0_hi", "k0_lo", "k1_hi", "k1_lo", "sid", "bgn",
                 "end", "orientation")
 
@@ -86,8 +91,7 @@ def _jax_planes(x, y, valid):
 def test_min_span_filter_dense_matches_jax(case):
     _, x, y, valid = DENSE[case]
     got = tp.min_span_filter_dense(x, y, valid, MIN_SPAN)
-    want = jax_pairs.min_span_filter_dense(*_jax_planes(x, y, valid),
-                                           MIN_SPAN)
+    want = JAX_FILTER(*_jax_planes(x, y, valid), min_span=MIN_SPAN)
     assert np.array_equal(got.numpy(), np.asarray(want))
     assert bool(got.any())
     if case == 0:  # on a non-prefix mask the gapped rule differs
@@ -107,8 +111,7 @@ def _same_pairs(got, want):
 def test_pair_mers_dense_matches_jax(case):
     _, x, y, valid = DENSE[case]
     got = tp.pair_mers_dense(x, y, valid)
-    pv = _same_pairs(got, jax_pairs.pair_mers_dense(*_jax_planes(x, y,
-                                                                 valid)))
+    pv = _same_pairs(got, JAX_PAIRS(*_jax_planes(x, y, valid)))
     assert not pv[:, -1].any()
     invalid = ~got["pair_valid"]
     assert all(not bool(got[k][invalid].any()) for k in tp.PAIR_FIELDS)

@@ -112,18 +112,41 @@ def _n_run_corpus():
     return seqs, lens
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_auto():
+    """The JAX fast index step's overflow flag and the _auto step on the
+    N-run corpus at 2 devices."""
+    seqs, lens = _n_run_corpus()
+    mesh, steps = _jax_steps(2)
+    args = _jax_args(mesh, seqs, lens, np.arange(len(seqs)))
+    out = steps["auto"](*args)
+    return bool(steps["index"](*args)["overflow"]), dict(
+        n_pairs=int(out["n_pairs"]), n_mers=int(out["n_mers"]),
+        table=_np(out["table"]))
+
+
 @pytest.fixture(scope="module")
 def port_v1():
-    """The port's groups, started together: the four steps at 1, 2 and 4
-    ranks, and the SAFE-rerun case ("auto") at 2."""
+    """The port's groups at 1, 2 and 4 ranks, started together, each
+    running the four steps; the 2-rank group then runs the SAFE-rerun
+    case ("auto").  The JAX steps run meanwhile, each mesh size in a
+    thread of its own."""
     seqs, lens = _corpus()
-    runs = {n: (seqs, lens, None, False, V2_CAP) for n in (1, 2, 4)}
-    runs["auto"] = (*_n_run_corpus(), None, True)
-    with ThreadPoolExecutor(len(runs)) as pool:
-        futs = {k: pool.submit(pcomm.spawn, dryrun.v1_steps_rank,
-                               2 if k == "auto" else k, *a, device="cpu")
-                for k, a in runs.items()}
-        return {k: f.result() for k, f in futs.items()}
+    runs = {n: [(seqs, lens, None, False, V2_CAP)] for n in (1, 2, 4)}
+    runs[2].append((*_n_run_corpus(), None, True))
+    with ThreadPoolExecutor(2 * len(runs) + 1) as pool:
+        futs = {n: pool.submit(pcomm.spawn, dryrun.v1_runs_rank, n, r,
+                               device="cpu") for n, r in runs.items()}
+        for n in runs:  # built here, so that no two threads build one
+            _jax_steps(n)
+        jax_runs = [pool.submit(_jax_v1, n) for n in runs]
+        jax_runs.append(pool.submit(_jax_auto))
+        for f in jax_runs:
+            f.result()
+        got = {n: f.result() for n, f in futs.items()}
+    out = {n: [rank[0] for rank in got[n]] for n in runs}
+    out["auto"] = [rank[1] for rank in got[2]]
+    return out
 
 
 @pytest.mark.parametrize("n", [1, 2, 4])
@@ -159,16 +182,13 @@ def test_replicated_probe_table_matches_jax(port_v1):
 
 
 def test_auto_reruns_on_every_rank_when_one_overflows(port_v1):
-    seqs, lens = _n_run_corpus()
-    mesh, steps = _jax_steps(2)
-    args = _jax_args(mesh, seqs, lens, np.arange(len(seqs)))
-    assert bool(steps["index"](*args)["overflow"])  # the fast step flags
-    want = steps["auto"](*args)
+    fast_overflow, want = _jax_auto()
+    assert fast_overflow  # the fast step flags
     for o in port_v1["auto"]:
         assert o["index"]["safe_rerun"] == 1 and o["index"]["overflow"] == 0
-        assert o["index"]["n_pairs"] == int(want["n_pairs"])
-        assert o["index"]["n_mers"] == int(want["n_mers"])
-        _same_table(o["table"], _np(want["table"]))
+        assert o["index"]["n_pairs"] == want["n_pairs"]
+        assert o["index"]["n_mers"] == want["n_mers"]
+        _same_table(o["table"], want["table"])
 
 
 def test_table_order_with_permuted_rids():
@@ -214,8 +234,8 @@ def test_pair_key_search_matches_jax(case):
          for k in (tk0, tk1) for p in convert.planes_from_int64(k)]
     q = [p for k in (qk0, qk1) for p in convert.planes_from_int64(k)]
     if tk0.numel():
-        want = np.asarray(jax_mesh._searchsorted_pairkey(
-            *(jnp.asarray(a) for a in t + q)))
+        want = np.asarray(jax.jit(jax_mesh._searchsorted_pairkey)(
+            *(jnp.asarray(a) for a in t + q)))  # jitted, as in its step
     else:  # the JAX search clips into an empty table; nothing is found
         want = np.zeros(qk0.numel(), dtype=bool)
     assert np.array_equal(got.numpy(), want)
