@@ -84,7 +84,13 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      against the torch.sort passes (library_ms) and phase 1 runs K12 on
      its edge cases (digit ties, duplicate rows, values at the top of
      each width, 0-3 rows, past one tile) and a bgn of 2**32, which
-     raises.
+     raises; phase 1 also holds K12's engine on cases.radix_cases (0, 1,
+     a tile - 1, a tile, a tile + 1 and many tiles of entries with equal
+     keys across tiles, every digit constant, the top digit only,
+     sort_keys, sort_by_position, K14's sort) and K2 on
+     cases.compact_cases (block 1 to 3,072, all-invalid and all-valid
+     rows, views off their 16-byte words), and checks that the index
+     step raises the CPU's ValueError on a sid of 2**32.
   9. runs pgr-get-sv-candidate-regions
      (pgrtk_tpu_torch/cli/pgr_get_sv_candidate_regions.py, its defaults
      and --generate-sv-candidate-fasta-file) on a 16,777,216-base
@@ -142,7 +148,8 @@ steps (sums of their kernels' bounds in this run).
 Every comparison is exact (integers, tolerance 0).  Any failed phase
 exits non-zero.  The second-to-last line is the per-kernel JSON (with
 each kernel's bound: the larger of its bytes over the memory rate and
-its operations over the ALU rate, see HBM_BYTES_PER_S), the last line
+its operations over the integer issue rate, see HBM_BYTES_PER_S), the
+last line
 {"ok": true, "device": {...}}.
 """
 import json
@@ -192,19 +199,27 @@ BATCH_KERNELS = ("sketch_walk_compact", "rank_extract", "probe_fetch",
 
 # The least time the card could take for a kernel's work (bound_ms): the
 # larger of the bytes it must move over the memory rate and its
-# operations over the ALU rate, both from NVIDIA's H100 SXM data
-# sheet.  Bytes: each input read once as it is given (for a probe, only
-# the table slots of the buckets probed, each once however many keys
-# probe it; for a search, only the table entries at the keys' distinct
-# lower_bound positions; for the dense filter and pairing, x and y only
-# at the entries the rule reads), each output written once at the width
-# its values need, not the wrapper's (the per-entry widths below).
-# Operations: 32-bit ALU operations of the work, a 64-bit integer
-# operation counting two, at the float32 rate outside the tensor cores
-# (the table has no integer row).  The per-element counts are the model
-# below, at the least work the function needs.
+# operations over the integer issue rate.  Bytes: each input read once as
+# it is given (for a probe, only the table slots of the buckets probed,
+# each once however many keys probe it; for a search, only the table
+# entries at the keys' distinct lower_bound positions; for the dense
+# filter and pairing, x and y only at the entries the rule reads), each
+# output written once at the width its values need, not the wrapper's
+# (the per-entry widths below); 3.35 TB/s from NVIDIA's H100 SXM data
+# sheet.  Operations: 32-bit integer instruction slots of the work, a
+# 64-bit operation counting two, at Hopper's integer issue rate: an SM
+# has 64 INT32 lanes (against 128 FP32 lanes), so 32-bit integer
+# instructions issue at 64 a clock per SM, SMs x 64 x the card's maximum
+# SM clock (nvidia-smi clocks.max.sm; 132 x 64 x 1,980 MHz = 16.7e12/s
+# on the H100 SXM).  The data sheet's 67e12 is the FP32 rate counting an
+# FMA as two operations; no integer work issues at it.  The walks' counts
+# are the instruction slots per base of their compiled loops
+# (kernels/sass_ops.py on the built library, set in main()); the other
+# per-element counts are the model below, at the least work the function
+# needs.
 HBM_BYTES_PER_S = 3.35e12
-ALU_OPS_PER_S = 67e12
+INT_LANES_PER_SM = 64
+INT_OPS_PER_S = None  # set in main() from the card
 NVLINK_BYTES_PER_S = 450e9  # each way, per card
 BIT = 1 / 8          # a flag or a mask entry
 SLOT = (8, 4, BIT)   # a compacted mer: x, y (position and strand in 32
@@ -212,8 +227,11 @@ SLOT = (8, 4, BIT)   # a compacted mer: x, y (position and strand in 32
 PAIR = (8, 8, 4, 4, BIT, BIT)  # a pair: k0, k1, bgn, end, orientation, valid
 HIT = (BIT, 4)       # a probed key: found, its slot or key index
 SCORE = (4, 4)       # a chained anchor: score, best predecessor
-OPS_WALK = 128       # K1/K9 per base: two 64-bit Wang hashes, registers
-OPS_WINDOWS = 16     # K9 per base: sliding min and max by van Herk
+# K1's compact and dense walks and K9's walk per base: set in main()
+# from the SASS of the built loops (two 64-bit Wang hashes, registers)
+OPS_WALK = OPS_WALK_DENSE = OPS_WALK_MODE1 = None
+OPS_WINDOWS = 16     # K9 per base: sliding min and max by van Herk (the
+                     # least work; the kernel scans each window whole)
 OPS_ENTRY = 16       # K2/K3/K4/K6 per stream entry: scan, compares
 OPS_POSTING = 16     # K7 per postings slot
 OPS_SLOT = 32        # K8/K10 per anchor and window slot: filters, score
@@ -286,7 +304,7 @@ def need(n, *widths):
 def bound(n_bytes, ops=0):
     """(ms, "bytes" or "operations"): the larger of the two times."""
     return max((n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-               (ops / ALU_OPS_PER_S * 1e3, "operations"))
+               (ops / INT_OPS_PER_S * 1e3, "operations"))
 
 
 def measure(name, kernel_fn, plain_fn, in_bytes, out_bytes, ops, reps=5,
@@ -430,7 +448,25 @@ def phase_kernels(dev, tsk, tp):
         check(name, kernel(), plain())
     for name, kernel, plain in cases.adj_cases(dev):
         check(name, kernel(), plain())
+    for name, kernel, plain in cases.radix_cases(dev) + cases.compact_cases(
+            dev):
+        check(name, kernel(), plain())
     from pgrtk_tpu_torch.ops import adj as ta
+    from pgrtk_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(71)
+    args = (torch.from_numpy(rng.integers(0, 4, (2, 4096), dtype=np.uint8)),
+            torch.full((2,), 4096), torch.tensor([0, 1 << 32]))
+    errors = []
+    for on in ("cpu", dev):
+        try:
+            mesh.sketch_index_step_auto(*(a.to(on) for a in args))
+            raise SmokeFailure(f"the index step on {on} took a sid of 2**32")
+        except ValueError as e:
+            errors.append(str(e))
+    require(errors[0] == errors[1], f"width errors differ: {errors}")
+    print(f"  index step on a sid of 2**32 raises on the card as on the "
+          f"CPU: {errors[1]}")
 
     from pgrtk_tpu_torch.ops import wfa as tw
 
@@ -1287,7 +1323,7 @@ def phase_batch_device(dev, kb, targets, queries):
             # palindrome flag per row
             [seqs, lens], lambda got: need(got["x"].numel(), 8, BIT, BIT)
             + need(got["palindrome"].numel(), BIT),
-            (OPS_WALK + OPS_WINDOWS) * seqs.numel(), plain_reps=1),
+            (OPS_WALK_MODE1 + OPS_WINDOWS) * seqs.numel(), plain_reps=1),
         "probe_keys": measure(
             f"K11 probe_keys, {k0.numel()} keys, 'mode 1' padded table "
             f"W={pad['W']}, bits {pad['bits']}",
@@ -2234,7 +2270,7 @@ def phase_dense(dev, kb, mesh, tp, seqs, lens, rids, counts):
             lambda: tsk.sketch_mode2_dense(s_, l_, k_, r_, chunk),
             lambda: tsk.sketch_mode2_dense_plain(s_, l_, k_, r_, chunk),
             [s_, l_], lambda got: need(got["x"].numel(), *SLOT),
-            OPS_WALK * s_.numel())
+            OPS_WALK_DENSE * s_.numel())
     del s_, l_, walk
     torch.cuda.empty_cache()
     (x, y, sel, c), _ = comp.calls[-1]
@@ -2278,6 +2314,35 @@ def phase_dense(dev, kb, mesh, tp, seqs, lens, rids, counts):
     return results
 
 
+def set_op_rates():
+    """INT_OPS_PER_S from the card (SMs x 64 INT32 lanes x the maximum SM
+    clock), and the walks' instruction slots per base from the SASS of
+    the built library (kernels/sass_ops.py)."""
+    global INT_OPS_PER_S, OPS_WALK, OPS_WALK_DENSE, OPS_WALK_MODE1
+    import subprocess
+    from pathlib import Path
+
+    from pgrtk_tpu_torch.kernels import build as kb
+    from pgrtk_tpu_torch.kernels import sass_ops
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits", "-i", "0"], check=True,
+        capture_output=True, text=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    INT_OPS_PER_S = sms * INT_LANES_PER_SM * mhz * 1e6
+    walks = sass_ops.count(Path(kb.build_report["path"]))
+    OPS_WALK = walks["K1 compact walk"]["slots"]
+    OPS_WALK_DENSE = walks["K1 dense walk"]["slots"]
+    OPS_WALK_MODE1 = walks["K9 mode-1 walk"]["slots"]
+    print(f"integer issue rate {INT_OPS_PER_S:.4e}/s ({sms} SMs x "
+          f"{INT_LANES_PER_SM} lanes x {mhz:.0f} MHz)")
+    for label, w in walks.items():
+        print(f"  {label}: {w['alu']:.3f} ALU, {w['fma']:.3f} FMA-pipe, "
+              f"{w['other']:.3f} other instructions per base -> "
+              f"{w['slots']:.3f} slots")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -2309,6 +2374,7 @@ def main():
     for line in kb.build_report["log"].splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas", line.strip())
+    set_op_rates()
     try:
         phase_kernels(dev, tsk, tp)
         stamp("phase 1")

@@ -2,9 +2,8 @@
 //
 // Every C entry point launches on the stream it is given, allocates
 // nothing, and returns cudaGetLastError() so the Python wrapper can raise
-// on a refused launch.  None synchronises but K12 (adj.cu), which reads
-// its digit histograms on the host once, and K14 (shard.cu), which sorts
-// with K12's engine.
+// on a refused launch.  None synchronises: K12 (adj.cu) plans its digit
+// passes on the card, and K14 (shard.cu) sorts with K12's engine.
 #pragma once
 
 #include <cstdint>
@@ -51,13 +50,44 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* total,
   return incl - v;
 }
 
+// Allow `kernel` `bytes` of dynamic shared memory on the current device,
+// once per device and size (the call costs host time on every launch
+// otherwise).  Returns the error of the first call.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, int bytes) {
+  static int done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && done[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < 64) done[dev] = bytes;
+  return err;
+}
+
+// The current device's SM count, read once per device.
+inline int sm_count() {
+  static int sms[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
+  if (dev < 64 && sms[dev]) return sms[dev];
+  int n = 0;
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  n = n > 0 ? n : 132;
+  if (dev < 64) sms[dev] = n;
+  return n;
+}
+
 // K12's stable LSD radix sort with its payload gather (adj.cu), for the
 // kernels that sort on their way: keys (int64 planes, most significant
-// first, each below 2^bits), payload planes gathered into outs, host the
-// 2 + 8*8*256 host words.  Synchronises the stream once.
+// first, each below 2^bits), payload planes gathered into outs, wide one
+// device uint64 that receives the planes holding wider values.  Never
+// waits for the stream.
 int radix_engine(const void* const* keys, const int* bits, int n_keys,
                  long long n, const void* const* planes, void* const* outs,
                  int n_planes, const void* mask, void* mask_out, void* link,
-                 void* scratch, void* host, void* stream);
+                 void* scratch, void* wide, void* stream);
 
 }  // namespace pgrtk

@@ -223,12 +223,13 @@ int blocks(i64 n) { return (int)((n + kThreads - 1) / kThreads); }
 
 // K14.  Shard planes valid (bool), k0, k1, sid, bgn, end, ori (int64),
 // n entries, key-sorted; bits in [1, 31].  scratch: 4n + 2 * 2^bits
-// int64; radix_scratch: pgrtk_radix_scratch_bytes(n) bytes; host:
-// K12's host words.  Writes the (2^bits, 128) planes and *overflow (int).
+// int64; radix_scratch: pgrtk_radix_scratch_bytes(n) bytes; wide: one
+// device int64 for K12's width flag (the bucket keys always fit).  Writes
+// the (2^bits, 128) planes and *overflow (int).
 extern "C" int pgrtk_shard_probe_planes(
     const void* valid, const void* k0, const void* k1, const void* sid,
     const void* bgn, const void* end, const void* ori, long long n, int bits,
-    void* scratch, void* radix_scratch, void* host, void* pk0, void* pk1,
+    void* scratch, void* radix_scratch, void* wide, void* pk0, void* pk1,
     void* psid, void* pbgnori, void* pend, void* prow, void* overflow,
     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
@@ -253,7 +254,7 @@ extern "C" int pgrtk_shard_probe_planes(
     void* outs[2] = {bkey, perm};
     const int rc = pgrtk::radix_engine(keys, kbits, 1, n, in, outs, 2,
                                        nullptr, nullptr, nullptr,
-                                       radix_scratch, host, stream);
+                                       radix_scratch, wide, stream);
     if (rc != 0) return rc;
     bucket_bounds_kernel<<<blocks(n), kThreads, 0, st>>>(bkey, n, nb, bstart,
                                                          bend);

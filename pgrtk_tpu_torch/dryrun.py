@@ -125,6 +125,7 @@ def dryrun_rank(comm: pcomm.Comm, device, L: int = FULL_BASES) -> dict:
     v1 = mesh.sharded_sketch_index_step(ts, tl, tr, comm=comm, chunk=512)
     n_pairs, n_mers = int(v1["n_pairs"]), int(v1["n_mers"])
     need(not bool(v1["overflow"]), "v1 index step overflow")
+    need(not int(v1["wide"]), "v1 index step: keys outside their widths")
     table = v1["table"]
     sums = comm.all_gather(table_checksum(table).reshape(1))
     need(bool((sums == sums[0]).all()), "v1 tables differ across ranks")

@@ -195,7 +195,7 @@ probe_keys = Kernel(
 )
 # K12: one radix engine (csrc/adj.cu) behind two entry points, the
 # MAP-graph rows with their link flag and the index step's pair table
-_RADIX_ARGS = [ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _LL,
+_RADIX_ARGS = [ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _I, _LL,
                ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _P, _P, _P, _P, _P,
                _P]
 sort_link_rows = Kernel("sort_link_rows", "pgrtk_tpu_torch/csrc/adj.cu",

@@ -14,6 +14,11 @@ stable LSD radix sort plus the link pass).  CPU tensors run its plain
 version `sort_link_rows_plain`; CUDA tensors launch K12 or raise.  K12's
 radix engine also sorts the index step's pair table
 (ops/pairs.py::sort_pairs) through `radix_sort_gather`.
+
+The engine never waits for the card: it leaves its flag of keys wider
+than their bit width on the device (`wide_flags` computes the same flag
+on any device), and each caller raises `raise_if_wide`'s ValueError at a
+host read it makes anyway, so the card and the CPU raise alike.
 """
 from __future__ import annotations
 
@@ -31,52 +36,85 @@ ROW_FIELDS = ("sid", "bgn", "end", "h0", "h1", "ori")
 # (the JAX path truncates them to u32; the port raises instead), the
 # hashes 56 bits, ori one bit
 ROW_BITS = (32, 32, 32, 56, 56, 1)
-_MAX_KEYS = 8
-_HOST_WORDS = 2 + _MAX_KEYS * 8 * 256
+
+
+def wide_flags(planes: Sequence[torch.Tensor], bits: Sequence[int]
+               ) -> torch.Tensor:
+    """0-dim int64 on the planes' device: bit j set when plane j holds a
+    value outside [0, 2**bits[j]), as K12's engine computes it on the
+    card.  No host read."""
+    dev = planes[0].device
+    wide = torch.zeros((), dtype=torch.int64, device=dev)
+    for j, (p, b) in enumerate(zip(planes, bits)):
+        if b < 64:  # a 64-bit plane holds any u64 pattern
+            out = p < 0 if b == 63 else (p < 0) | (p >> b != 0)
+            wide = wide | (out.any().long() << j)
+    return wide
+
+
+def wide_error(flags: int, bits: Sequence[int], names: Sequence[str]
+               ) -> Optional[ValueError]:
+    """The ValueError for a wide flag read on the host (None when no bit
+    is set)."""
+    if not flags:
+        return None
+    bad = [f"{names[j]} ({bits[j]} bits)" for j in range(len(names))
+           if flags >> j & 1]
+    return ValueError("values outside their width: " + ", ".join(bad))
+
+
+def raise_if_wide(wide: torch.Tensor, bits: Sequence[int],
+                  names: Sequence[str]) -> None:
+    """Raise `wide_error` for a 0-dim wide flag (one host read)."""
+    err = wide_error(int(wide), bits, names)
+    if err is not None:
+        raise err
 
 
 def check_widths(planes: Sequence[torch.Tensor], bits: Sequence[int],
                  names: Sequence[str]) -> None:
-    """Raise ValueError when a plane holds a value outside [0, 2**bits)."""
-    for p, b, name in zip(planes, bits, names):
-        if p.numel() and (int(p.min()) < 0 or (b < 63 and int(p.max()) >> b)):
-            raise ValueError(f"{name} holds values outside {b} bits")
+    """Raise ValueError when a plane holds a value outside [0, 2**bits),
+    with the message the card's engine gives."""
+    if planes and planes[0].numel():
+        raise_if_wide(wide_flags(planes, bits), bits, names)
 
 
 def radix_sort_gather(kernel, keys: Sequence[torch.Tensor],
                       bits: Sequence[int], planes: Sequence[torch.Tensor],
                       mask: Optional[torch.Tensor], link: bool,
-                      names: Sequence[str]):
+                      fill_keys: int = 0):
     """K12's engine on CUDA tensors: sort by `keys` (most significant
     first, non-negative, each below 2**bits), gather `planes` and `mask`
     into that order and, with `link`, the link flag from planes 0-2 and
-    the mask.  Returns (sorted planes, sorted mask or None, link or None,
-    digit passes run)."""
+    the mask.  `fill_keys`: the leading keys that hold their width's
+    maximum wherever the mask is false (the pair tables' INT64_MAX
+    fill); the engine then sorts them over the kept entries alone when
+    the card finds that so, with the same result.  Returns (sorted
+    planes, sorted mask or None, link or None, wide): wide is
+    `wide_flags(keys, bits)` as a 0-dim int64 on the card, not read here;
+    when it is non-zero nothing was sorted, and the caller raises
+    (`raise_if_wide`) at a host read of its own."""
     n = keys[0].numel()
     dev = keys[0].device
     outs = [torch.empty_like(p) for p in planes]
     mask_out = torch.empty_like(mask) if mask is not None else None
     link_out = (torch.empty(max(n - 1, 0), dtype=torch.bool, device=dev)
                 if link else None)
-    host = torch.zeros(_HOST_WORDS, dtype=torch.int64)
-    if n:
-        scratch = kb.radix_scratch(n, dev)
+    wide = torch.zeros((), dtype=torch.int64, device=dev)
+    if not n:
+        return outs, mask_out, link_out, wide
+    scratch = kb.radix_scratch(n, dev)
 
-        def arr(ts):
-            return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
+    def arr(ts):
+        return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
 
-        kernel(arr(keys), (ctypes.c_int * len(bits))(*bits), len(keys), n,
-               arr(planes), arr(outs), len(planes),
-               mask.data_ptr() if mask is not None else None,
-               mask_out.data_ptr() if mask_out is not None else None,
-               link_out.data_ptr() if link_out is not None else None,
-               scratch.data_ptr(), host.data_ptr(), kb.stream_handle(keys[0]))
-        wide = int(host[0])
-        if wide:
-            bad = [f"{names[j]} ({bits[j]} bits)" for j in range(len(keys))
-                   if wide >> j & 1]
-            raise ValueError("values outside their width: " + ", ".join(bad))
-    return outs, mask_out, link_out, int(host[1])
+    kernel(arr(keys), (ctypes.c_int * len(bits))(*bits), len(keys),
+           fill_keys, n, arr(planes), arr(outs), len(planes),
+           mask.data_ptr() if mask is not None else None,
+           mask_out.data_ptr() if mask_out is not None else None,
+           link_out.data_ptr() if link_out is not None else None,
+           scratch.data_ptr(), wide.data_ptr(), kb.stream_handle(keys[0]))
+    return outs, mask_out, link_out, wide
 
 
 def _check_rows(planes, mask):
@@ -121,8 +159,9 @@ def sort_link_planes(planes: Sequence[torch.Tensor], mask: torch.Tensor
     planes, mask = _check_rows(planes, mask)
     if not on_cuda(mask, *planes):
         return sort_link_rows_plain(planes, mask)
-    outs, _, link, _ = radix_sort_gather(kb.sort_link_rows, planes, ROW_BITS,
-                                         planes, mask, True, ROW_FIELDS)
+    outs, _, link, wide = radix_sort_gather(kb.sort_link_rows, planes,
+                                            ROW_BITS, planes, mask, True)
+    raise_if_wide(wide, ROW_BITS, ROW_FIELDS)
     return outs, link
 
 

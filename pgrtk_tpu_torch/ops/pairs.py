@@ -273,6 +273,25 @@ def sort_pairs_plain(pairs: Dict[str, torch.Tensor], sid: torch.Tensor
     return sort_table_plain(_pair_table(pairs, sid))
 
 
+def sort_table_deferred(table: Dict[str, torch.Tensor]):
+    """`sort_table` with its width check left to the caller: returns
+    (the sorted table, wide), wide the 0-dim int64 flag of
+    ops/adj.py::wide_flags over (k0, k1, sid, bgn) at `PAIR_KEY_BITS`,
+    not read on the host.  When it is non-zero the table is not sorted;
+    raise with ops/adj.py::raise_if_wide(wide, PAIR_KEY_BITS,
+    PAIR_KEYS)."""
+    from .adj import radix_sort_gather, wide_flags
+
+    keys = [k.contiguous() for k in _sort_keys(table)]
+    if not on_cuda(*table.values()):
+        return sort_table_plain(table), wide_flags(keys, PAIR_KEY_BITS)
+    planes = [table[f].contiguous() for f in TABLE_FIELDS[1:]]
+    outs, valid_s, _, wide = radix_sort_gather(
+        kb.sort_pairs, keys, PAIR_KEY_BITS, planes,
+        table["valid"].contiguous(), False, fill_keys=2)
+    return dict(zip(TABLE_FIELDS, (valid_s, *outs))), wide
+
+
 def sort_table(table: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Stable sort of a flat pair table, the (N,) planes `TABLE_FIELDS`
     (int64 but `valid`; invalid entries carry INT64_MAX keys), by (k0,
@@ -280,17 +299,19 @@ def sort_table(table: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     order, the reference's postings order, whatever order they came in.
     CUDA tensors sort with K12's stable radix engine (csrc/adj.cu), CPU
     tensors with the plain version's torch.sort passes; both give the
-    same table bit for bit."""
-    if not on_cuda(*table.values()):
-        return sort_table_plain(table)
-    from .adj import radix_sort_gather
+    same table bit for bit, and both raise ValueError when a key is
+    outside `PAIR_KEY_BITS` (a negative key, a sid or bgn >= 2**32)."""
+    from .adj import raise_if_wide
 
-    keys = [k.contiguous() for k in _sort_keys(table)]
-    planes = [table[f].contiguous() for f in TABLE_FIELDS[1:]]
-    outs, valid_s, _, _ = radix_sort_gather(
-        kb.sort_pairs, keys, PAIR_KEY_BITS, planes,
-        table["valid"].contiguous(), False, PAIR_KEYS)
-    return dict(zip(TABLE_FIELDS, (valid_s, *outs)))
+    out, wide = sort_table_deferred(table)
+    raise_if_wide(wide, PAIR_KEY_BITS, PAIR_KEYS)
+    return out
+
+
+def sort_pairs_deferred(pairs: Dict[str, torch.Tensor], sid: torch.Tensor):
+    """`sort_pairs` with its width check left to the caller, as
+    `sort_table_deferred`: returns (table, wide)."""
+    return sort_table_deferred(_pair_table(pairs, sid))
 
 
 def sort_pairs(pairs: Dict[str, torch.Tensor], sid: torch.Tensor
@@ -301,7 +322,8 @@ def sort_pairs(pairs: Dict[str, torch.Tensor], sid: torch.Tensor
 
     pairs: (B, C) planes from pair_mers_gapped; sid: (B,) sequence ids.
     Returns flat (B*C,) planes `TABLE_FIELDS`; invalid entries carry
-    INT64_MAX keys.  Sorted by `sort_table`."""
+    INT64_MAX keys.  Sorted by `sort_table`, which raises ValueError on
+    a sid outside [0, 2**32)."""
     return sort_table(_pair_table(pairs, sid))
 
 
@@ -320,18 +342,22 @@ def sort_keys(k0: torch.Tensor, k1: torch.Tensor, valid: torch.Tensor):
     index (pgrtk_tpu/parallel/mesh.py:693-696, the route sort of the
     sharded query).  Returns (sorted k0, sorted k1, original index), all
     int64.  CUDA tensors sort with K12's engine, CPU tensors with torch.sort
-    passes."""
-    k0, k1, valid = k0.contiguous(), k1.contiguous(), valid.contiguous()
-    if not on_cuda(k0, k1, valid):
-        return sort_keys_plain(k0, k1, valid)
-    from .adj import radix_sort_gather
+    passes; both raise ValueError on a negative valid key."""
+    from .adj import check_widths, radix_sort_gather, raise_if_wide
 
+    k0, k1, valid = k0.contiguous(), k1.contiguous(), valid.contiguous()
+    bits, names = PAIR_KEY_BITS[:2], PAIR_KEYS[:2]
+    if not on_cuda(k0, k1, valid):
+        check_widths([torch.where(valid, k, INT64_MAX) for k in (k0, k1)],
+                     bits, names)
+        return sort_keys_plain(k0, k1, valid)
     mk0 = torch.where(valid, k0, INT64_MAX)
     mk1 = torch.where(valid, k1, INT64_MAX)
     iota = torch.arange(k0.numel(), device=k0.device)
-    outs, _, _, _ = radix_sort_gather(
-        kb.sort_pairs, [mk0, mk1], PAIR_KEY_BITS[:2], [mk0, mk1, iota], None,
-        False, PAIR_KEYS[:2])
+    outs, _, _, wide = radix_sort_gather(
+        kb.sort_pairs, [mk0, mk1], bits, [mk0, mk1, iota], valid, False,
+        fill_keys=2)
+    raise_if_wide(wide, bits, names)
     return tuple(outs)
 
 
@@ -360,19 +386,22 @@ def sort_by_position(x, y, valid):
     pgrtk_tpu/ops/pairs.py:210 and :477, keyed on position with invalid
     entries at 0xFFFFFFFF).  Returns the sorted (x, y, valid).  CUDA
     tensors sort on K12's engine by (row, position), CPU tensors with
-    torch.sort."""
-    x, y, valid = _check_stream(x, y, valid)
-    if not on_cuda(x, y, valid):
-        return sort_by_position_plain(x, y, valid)
-    from .adj import radix_sort_gather
+    torch.sort; both raise ValueError on a valid position outside
+    [0, 2**32)."""
+    from .adj import check_widths, radix_sort_gather, raise_if_wide
 
+    x, y, valid = _check_stream(x, y, valid)
     B, W = x.shape
-    row = torch.arange(B, device=x.device)[:, None].expand(B, W).reshape(-1)
     gpos = torch.where(valid, y >> 1, POS_FILL).reshape(-1)
-    (xs, ys), vs, _, _ = radix_sort_gather(
-        kb.sort_pairs, [row, gpos], [max(1, (B - 1).bit_length()), 32],
-        [x.reshape(-1), y.reshape(-1)], valid.reshape(-1), False,
-        ("row", "position"))
+    bits, names = [max(1, (B - 1).bit_length()), 32], ("row", "position")
+    if not on_cuda(x, y, valid):
+        check_widths([gpos], bits[1:], names[1:])
+        return sort_by_position_plain(x, y, valid)
+    row = torch.arange(B, device=x.device)[:, None].expand(B, W).reshape(-1)
+    (xs, ys), vs, _, wide = radix_sort_gather(
+        kb.sort_pairs, [row, gpos], bits, [x.reshape(-1), y.reshape(-1)],
+        valid.reshape(-1), False)
+    raise_if_wide(wide, bits, names)
     return xs.reshape(B, W), ys.reshape(B, W), vs.reshape(B, W)
 
 

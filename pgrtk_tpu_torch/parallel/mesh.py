@@ -52,7 +52,7 @@ from ..ops import pairs as pairs_ops
 from ..ops import probe as probe_ops
 from ..ops import query_e2e as qe
 from ..ops import sketch as sketch_ops
-from ..ops.adj import _HOST_WORDS
+from ..ops import adj as adj_ops
 from ..ops.int64 import INT64_MAX, as_i32
 from ..utils.device import on_cuda
 from .comm import Comm
@@ -96,28 +96,46 @@ def sketch_index_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
     (pairs.sort_pairs fields), n_pairs, n_mers, overflow), every value a
     tensor on the input's device.  On `overflow` (compaction overflow or
     the fast walk's inexact warm-up) rerun with
-    compact_kw=pairs.SAFE_COMPACT_KW, as sketch_index_step_auto does."""
+    compact_kw=pairs.SAFE_COMPACT_KW, as sketch_index_step_auto does.
+    `wide` is the sort's 0-dim width flag (pairs.sort_table_deferred): a
+    sequence id outside [0, 2**32) leaves the table unsorted, and
+    sketch_index_step_auto raises ValueError on it."""
     pr, keep, overflow = _pairs(seqs_u8, lengths, k, r, min_span, chunk,
                                 compact_kw)
+    table, wide = pairs_ops.sort_pairs_deferred(pr, rids)
     return dict(
-        table=pairs_ops.sort_pairs(pr, rids),
+        table=table,
         n_pairs=pr["pair_valid"].sum(),
         n_mers=keep.sum(),
         overflow=overflow,
+        wide=wide,
     )
+
+
+def _flags(out: dict) -> bool:
+    """The step's overflow flag, read in one transfer with its sort's
+    width flag; raises ValueError on the latter."""
+    overflow, wide = torch.stack([out["overflow"].to(torch.int64),
+                                  out["wide"]]).tolist()
+    err = adj_ops.wide_error(wide, pairs_ops.PAIR_KEY_BITS,
+                             pairs_ops.PAIR_KEYS)
+    if err is not None:
+        raise err
+    return bool(overflow)
 
 
 def _with_safe_rerun(step, *args, **kw) -> dict:
     """step(*args, **kw), and when its overflow flag fires, the same call
     with compact_kw=SAFE_COMPACT_KW; adds `safe_rerun`.  A sharded step's
     flag is already combined over the ranks, so every rank takes the same
-    branch.  Raises OverflowError if the safe sizing overflows too."""
+    branch.  Raises OverflowError if the safe sizing overflows too, and
+    ValueError when the sort's keys are outside their widths."""
     out = step(*args, **kw)
-    if not bool(out["overflow"]):
+    if not _flags(out):
         out["safe_rerun"] = False
         return out
     out = step(*args, compact_kw=pairs_ops.SAFE_COMPACT_KW, **kw)
-    if bool(out["overflow"]):
+    if _flags(out):
         raise OverflowError(
             "compaction overflow at SAFE_COMPACT_KW sizing; "
             "rebuild this batch via the exact host path"
@@ -279,11 +297,11 @@ def shard_probe_planes(shard: Dict[str, torch.Tensor], bits: int):
                           else torch.int32) for f in PLANE_FIELDS}
     scratch = torch.empty(4 * n + 2 * nb, dtype=torch.int64, device=dev)
     rscratch = kb.radix_scratch(n, dev)
-    host = torch.zeros(_HOST_WORDS, dtype=torch.int64)
+    wide = torch.empty((), dtype=torch.int64, device=dev)
     flag = torch.empty(1, dtype=torch.int32, device=dev)
     kb.shard_probe_planes(
         valid.data_ptr(), *(p.data_ptr() for p in planes), n, bits,
-        scratch.data_ptr(), rscratch.data_ptr(), host.data_ptr(),
+        scratch.data_ptr(), rscratch.data_ptr(), wide.data_ptr(),
         *(out[f].data_ptr() for f in PLANE_FIELDS), flag.data_ptr(),
         kb.stream_handle(valid))
     return out, flag[0] != 0
@@ -445,7 +463,9 @@ def sharded_index_v2_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
     Returns dict(shard = the shard table (`pairs.TABLE_FIELDS`),
     probe = K14's planes, bits, n_pairs (over all ranks), and the flags
     shard_overflow, route_overflow, probe_overflow and compact_overflow,
-    each over all ranks).  On probe_overflow rerun at a smaller
+    each over all ranks).  Raises ValueError when a sequence id is
+    outside [0, 2**32) (one host read of the sorts' width flags, at the
+    end).  On probe_overflow rerun at a smaller
     avg_per_bucket (and query with the same value); on compact_overflow
     rerun with compact_kw=pairs.SAFE_COMPACT_KW."""
     comm = comm or Comm()
@@ -453,7 +473,7 @@ def sharded_index_v2_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
     bits = probe_bits_for(shard_capacity, avg_per_bucket)
     pr, _, c_ovf = _pairs(seqs_u8, lengths, k, r, min_span, chunk,
                           compact_kw)
-    local = pairs_ops.sort_pairs(pr, rids)
+    local, wide = pairs_ops.sort_pairs_deferred(pr, rids)
     C = local["k0"].numel()
     route_cap = _route_cap(route_capacity, C, n)
     off = route_offsets(local["k0"], local["valid"].sum(), n)
@@ -472,10 +492,13 @@ def sharded_index_v2_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
     table = dict(zip(fields, recv))
     table["valid"] = table["k0"] != INT64_MAX
     shard_overflow = comm.any(table["valid"].sum() > shard_capacity)
-    shard = pairs_ops.sort_table(table)
+    shard, shard_wide = pairs_ops.sort_table_deferred(table)
     shard = {f: v[:shard_capacity].contiguous() for f, v in shard.items()}
     n_pairs = comm.sum(shard["valid"].sum())
     planes, probe_overflow = shard_probe_planes(shard, bits)
+    # the two sorts' width flags, read once (a sid outside [0, 2**32))
+    adj_ops.raise_if_wide(wide | shard_wide, pairs_ops.PAIR_KEY_BITS,
+                          pairs_ops.PAIR_KEYS)
     return dict(
         shard=shard,
         probe=planes,
@@ -695,7 +718,9 @@ def sharded_sketch_index_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
 
     Returns dict(table = the replicated table (`pairs.TABLE_FIELDS`,
     invalid entries INT64_MAX keys, last), n_pairs and n_mers summed over
-    the ranks, overflow = any rank's front end overflowed).  Equal keys
+    the ranks, overflow = any rank's front end overflowed, wide = the
+    sort's width flag, the same on every rank; the _auto step raises
+    ValueError on it).  Equal keys
     are in (sid, bgn) order, which is the JAX table's order when the
     sequence ids ascend over the ranks' rows in rank order."""
     comm = comm or Comm()
@@ -708,10 +733,11 @@ def sharded_sketch_index_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
     planes = gathered.reshape(comm.size, len(fields), m).transpose(0, 1)
     table = dict(zip(fields, planes.reshape(len(fields), comm.size * m)))
     table["valid"] = table["k0"] != INT64_MAX
-    return dict(table=pairs_ops.sort_table(table),
+    table, wide = pairs_ops.sort_table_deferred(table)
+    return dict(table=table,
                 n_pairs=comm.sum(pr["pair_valid"].sum()),
                 n_mers=comm.sum(keep.sum()),
-                overflow=comm.any(overflow))
+                overflow=comm.any(overflow), wide=wide)
 
 
 def sharded_sketch_index_step_auto(seqs_u8: torch.Tensor,

@@ -404,6 +404,150 @@ def adj_cases(dev):
     return cases
 
 
+RADIX_TILE = 4_096  # entries a block of K12's digit pass takes
+RADIX_SIZES = (0, 1, RADIX_TILE - 1, RADIX_TILE, RADIX_TILE + 1, 100_003)
+
+
+def radix_table(n, seed, mode="pool"):
+    """A flat pair table (`pairs.TABLE_FIELDS`) of n entries for K12's
+    engine: "pool" draws (k0, k1) from 3 keys (runs of equal keys across
+    every tile boundary), sid from 4 and bgn from 50 values, 30% invalid
+    (INT64_MAX keys); "constant" makes every digit of every key constant
+    (no pass runs); "top" varies k0's top digit only (one pass).  end
+    and orientation count the entries, so any unstable move shows."""
+    rng = np.random.default_rng(seed)
+    if mode == "pool":
+        pool = rng.integers(0, 1 << 56, size=(3, 2))
+        k = pool[rng.integers(0, 3, n)]
+        k0, k1 = k[:, 0], k[:, 1]
+        sid = rng.integers(0, 4, n)
+        bgn = rng.integers(1, 51, n)
+        valid = rng.random(n) < 0.7
+    elif mode == "constant":
+        k0 = np.full(n, 5)
+        k1 = np.full(n, 9)
+        sid = np.full(n, 2)
+        bgn = np.full(n, 7)
+        valid = np.ones(n, dtype=bool)
+    else:
+        k0 = rng.integers(0, 128, n) << 56
+        k1 = np.full(n, 1 << 40)
+        sid = np.zeros(n, dtype=np.int64)
+        bgn = np.full(n, 3)
+        valid = np.ones(n, dtype=bool)
+    fill = np.iinfo(np.int64).max
+    return dict(valid=valid, k0=np.where(valid, k0, fill).astype(np.int64),
+                k1=np.where(valid, k1, fill).astype(np.int64),
+                sid=sid.astype(np.int64), bgn=bgn.astype(np.int64),
+                end=np.arange(n, dtype=np.int64),
+                orientation=(np.arange(n) // 3 % 2).astype(np.int64))
+
+
+def radix_cases(dev):
+    """K12's engine against its plain versions: sort_table at 0, 1, a
+    tile - 1, a tile, a tile + 1 and many tiles of entries with runs of
+    equal keys across the tiles (stability under the look-back), every
+    digit constant (no pass runs), only the top digit varying (one
+    pass), no entry masked, every entry masked, and the fill contract of
+    the partition route broken by an invalid key off INT64_MAX and by a
+    valid k0 at it; sort_keys (the v2 route sort) at a tile + 1 and many
+    tiles;
+    sort_by_position past a tile; K14's sort of a shard of 100,003
+    entries."""
+    from ..ops import pairs as tp
+    from ..parallel import mesh as tm
+
+    t = _to(dev)
+    cases = []
+    tables = [(f"n={n}", radix_table(n, 40 + i))
+              for i, n in enumerate(RADIX_SIZES)]
+    tables += [("every digit constant", radix_table(9_000, 47, "constant")),
+               ("top digit only", radix_table(9_000, 48, "top"))]
+    # the partition route's edges: nothing masked, everything masked, and
+    # the fill contract broken both ways (the full route must run)
+    for name, edit in (("all valid", "valid"), ("all invalid", "invalid"),
+                       ("an invalid k1 off the fill", "k1"),
+                       ("a valid k0 at the fill", "k0")):
+        tab = radix_table(9_000, 49)
+        if edit == "valid":
+            tab = radix_table(9_000, 49, "top")
+        elif edit == "invalid":
+            tab["valid"][:] = False
+            tab["k0"][:] = tab["k1"][:] = np.iinfo(np.int64).max
+        elif edit == "k1":
+            tab["k1"][np.flatnonzero(~tab["valid"])[5]] = 7
+        else:
+            tab["k0"][np.flatnonzero(tab["valid"])[5]] = np.iinfo(np.int64).max
+        tables.append((name, tab))
+    for name, tab in tables:
+        tab = {k: t(v) for k, v in tab.items()}
+        cases.append((f"K12 sort_table {name}",
+                      lambda a=tab: tp.sort_table(a),
+                      lambda a=tab: tp.sort_table_plain(a)))
+    for n in (RADIX_TILE + 1, 100_003):
+        tab = {k: t(v) for k, v in radix_table(n, 50 + n % 7).items()}
+        args = (tab["k0"], tab["k1"], tab["valid"])
+        cases.append((f"K12 sort_keys n={n}",
+                      lambda a=args: tp.sort_keys(*a),
+                      lambda a=args: tp.sort_keys_plain(*a)))
+    rng = np.random.default_rng(52)
+    x = t(rng.integers(0, 1 << 62, (3, 3_000)))
+    y = t(rng.integers(0, 1 << 12, (3, 3_000)))
+    v = t(rng.random((3, 3_000)) < 0.6)
+    cases.append(("K12 sort_by_position (3, 3000)",
+                  lambda: tp.sort_by_position(x, y, v),
+                  lambda: tp.sort_by_position_plain(x, y, v)))
+    shard = {k: t(v) for k, v in radix_table(100_003, 53).items()}
+    shard = tp.sort_table_plain(shard)
+
+    def k14(fn):
+        planes, flag = fn(shard, 12)
+        return [planes[f] for f in tm.PLANE_FIELDS] + [flag]
+
+    cases.append(("K12 in K14 shard_probe_planes n=100003",
+                  lambda: k14(tm.shard_probe_planes),
+                  lambda: k14(tm.shard_probe_planes_plain)))
+    return cases
+
+
+def compact_args(dev):
+    """(name, (planes, valid, block, slots)) for K2 on its traps: block
+    1, 31, 33, 512, 1,025 and 3,072 with W not a multiple of block, rows
+    all invalid, all valid and at three densities, slots below the block
+    (the all-valid row overflows) and above it; and mask and planes whose
+    pointers sit off their 16-byte words."""
+    t = _to(dev)
+    rng = np.random.default_rng(60)
+    out = []
+    for block in (1, 31, 33, 512, 1_025, 3_072):
+        W = 3 * block + (7 if block > 7 else 1)
+        valid = t(rng.random((5, W)) < np.array([[0.0], [1.0], [0.1], [0.5],
+                                                 [0.9]]))
+        planes = [t(rng.integers(-(1 << 62), 1 << 62, size=(5, W)))
+                  for _ in range(3)]
+        for slots in (max(1, block // 2), block + 3):
+            out.append((f"block={block} W={W} slots={slots}",
+                        (planes, valid, block, slots)))
+    B, W = 7, 1_111
+    vbuf = t(rng.random(B * W + 3) < 0.5)
+    pbuf = [t(rng.integers(-(1 << 62), 1 << 62, size=B * W + 1))
+            for _ in range(2)]
+    out.append((f"off 16-byte words ({B}, {W}) block=100",
+                ([p[1:].view(B, W) for p in pbuf], vbuf[3:].view(B, W), 100,
+                 60)))
+    return out
+
+
+def compact_cases(dev):
+    """K2 against its plain version on `compact_args`."""
+    from ..ops import pairs as tp
+
+    return [(f"K2 rank_extract {name}",
+             lambda a=args: tp.rank_extract_planes(*a),
+             lambda a=args: tp.rank_extract_planes_plain(*a))
+            for name, args in compact_args(dev)]
+
+
 def pbundle_haplotypes(n, L, seed, base_seed=0, snp_rate=1e-3):
     """n haplotypes [(name, bases)] for pgr-pbundle-decomp: SNP-mutated
     copies (rate `snp_rate`, drawn from `seed`) of one random L-base

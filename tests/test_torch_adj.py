@@ -69,3 +69,28 @@ def test_sort_pairs_matches_jax(B, C):
     mine = convert.table_to_jax(got)
     for k, v in want.items():
         assert np.array_equal(mine[k], np.asarray(v)), k
+
+
+@pytest.mark.parametrize("family", ["radix", "compact"])
+def test_engine_and_compaction_edge_cases_on_cpu(family):
+    """utils/cases.py's K12 engine cases (0, 1, a tile - 1, a tile, a
+    tile + 1 and many tiles of entries; every digit constant; the top
+    digit only; sort_keys, sort_by_position, K14) and K2 cases (block 1
+    to 3,072, views off their 16-byte words) build, and the wrappers give
+    their plain versions' results on the CPU: the inputs the card holds
+    its kernels to in tests/test_torch_cuda.py and chip_smoke.py."""
+    picked = (cases.radix_cases if family == "radix"
+              else cases.compact_cases)("cpu")
+    assert len(picked) > 10
+
+    def flat(out):
+        if isinstance(out, torch.Tensor):
+            return [out]
+        if isinstance(out, dict):
+            out = [out[k] for k in sorted(out)]
+        return [t for o in out for t in flat(o)]
+
+    for name, kernel, plain in picked:
+        got, want = flat(kernel()), flat(plain())
+        assert len(got) == len(want) > 0, name
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), name

@@ -4,7 +4,9 @@ the same on the CPU, K2 past its old block cap and K5-K11 against their
 plain versions on the edge cases of pgrtk_tpu_torch/utils/cases.py, the
 kernels that put rows on gridDim.y on more rows than it takes, the
 kernels' input checks, and K12 (the MAP-graph row sort and the sort_pairs
-engine) with pgr-pbundle-decomp on the card against the CPU, and K13
+engine) with pgr-pbundle-decomp on the card against the CPU, K12's
+onesweep engine and K2's warp compaction on their edge cases, the width
+errors of the sorts on the card against the CPU's, and K13
 (the WFA forward pass) against its plain version and the arbiter, with
 pgr-get-sv-candidate-regions on the card against the CPU, K14-K19 against
 their plain versions on the edge cases, the dense pair variants and the
@@ -205,6 +207,68 @@ def test_radix_sort_raises_on_wide_values(dev):
         planes[j][1234] = value
         with pytest.raises(ValueError):
             tadj.sort_link_planes(planes, torch.from_numpy(mask).to(dev))
+
+
+@pytest.mark.parametrize("family", ["radix", "compact"])
+def test_onesweep_engine_and_warp_compaction_match_plain(dev, family):
+    """K12's onesweep engine (0, 1, a tile - 1, a tile, a tile + 1 and
+    many tiles of entries with equal keys across the tiles; every digit
+    constant, so no pass runs; the top digit only; sort_keys,
+    sort_by_position and K14's sort) and K2's warp-per-segment compaction
+    (block 1, 31, 33, 512, 1,025, 3,072, W not a multiple of block,
+    all-invalid and all-valid rows, overflow, views off their 16-byte
+    words) bit for bit against their plain versions."""
+    picked = (cases.radix_cases if family == "radix"
+              else cases.compact_cases)(dev)
+    for name, kernel, plain in picked:
+        assert _equal(kernel(), plain()), name
+    torch.cuda.synchronize()
+
+
+def _width_error(fn):
+    with pytest.raises(ValueError) as e:
+        fn()
+    return str(e.value)
+
+
+def test_width_errors_on_card_match_cpu(dev):
+    """sort_table, sort_keys, sort_by_position, sort_link_planes and the
+    index step raise the CPU's ValueError for keys outside their widths;
+    the step itself leaves the flag on the card."""
+    from pgrtk_tpu_torch.ops import adj as tadj
+    from pgrtk_tpu_torch.ops import pairs as tp
+
+    tab = cases.radix_table(5_000, 70)
+    tab["sid"][17] = 1 << 32
+    tab["bgn"][19] = -3
+    rows, mask = cases.adj_rows(1, 3_000)
+    rows[5, 2] = np.uint64(1 << 33)
+    rng = np.random.default_rng(71)
+    x = rng.integers(0, 1 << 40, (2, 500))
+    y = rng.integers(0, 1 << 20, (2, 500))
+    y[1, 7] = 1 << 34
+    k0, k1 = tab["k0"].copy(), tab["k1"].copy()
+    k0[tab["valid"].nonzero()[0][3]] = -1
+    calls = [
+        lambda t: tp.sort_table({k: t(v) for k, v in tab.items()}),
+        lambda t: tp.sort_keys(t(k0), t(k1), t(tab["valid"])),
+        lambda t: tp.sort_by_position(t(x), t(y), t(np.ones((2, 500), bool))),
+        lambda t: tadj.sort_link_planes(
+            [t(rows[:, i].view(np.int64)) for i in range(6)], t(mask)),
+    ]
+    for call in calls:
+        cpu = _width_error(lambda: call(torch.from_numpy))
+        card = _width_error(lambda: call(lambda a: torch.from_numpy(
+            np.ascontiguousarray(a)).to(dev)))
+        assert card == cpu and cpu.startswith("values outside their width")
+    seqs = torch.from_numpy(rng.integers(0, 4, (2, 4096), dtype=np.uint8))
+    args = (seqs, torch.full((2,), 4096), torch.tensor([0, 1 << 32]))
+    out = mesh.sketch_index_step(*(a.to(dev) for a in args))
+    assert out["wide"].device == dev and int(out["wide"]) == 4
+    cpu = _width_error(lambda: mesh.sketch_index_step_auto(*args))
+    card = _width_error(lambda: mesh.sketch_index_step_auto(
+        *(a.to(dev) for a in args)))
+    assert card == cpu
 
 
 def test_pbundle_cli_on_card_matches_cpu(dev, tmp_path):

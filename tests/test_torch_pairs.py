@@ -10,6 +10,7 @@ import torch
 from pgrtk_tpu.ops import pairs as jax_pairs
 from pgrtk_tpu_torch import convert
 from pgrtk_tpu_torch.ops import pairs as tpairs
+from pgrtk_tpu_torch.utils import cases
 
 MIN_SPAN = 64
 # one compile each instead of op-by-op dispatch of the jump-pointer rounds
@@ -176,3 +177,30 @@ def test_convert_round_trips_jax_layouts():
         for k, want in jax_side.items():
             assert back[k].dtype == want.dtype, k
             assert np.array_equal(back[k], want), k
+
+
+def _u32_words(p):
+    """An int64 plane as its (hi, lo) uint32 words, the JAX layout."""
+    a = p.numpy().view(np.uint64)
+    return (a >> np.uint64(32)).astype(np.uint32), a.astype(np.uint32)
+
+
+@pytest.mark.parametrize("name, args", [
+    c for c in cases.compact_args("cpu") if int(c[1][2]) <= 512])
+def test_rank_extract_edge_cases_match_jax(name, args):
+    """K2's traps (utils/cases.py::compact_args: block 1, 31, 33 and 512,
+    W not a multiple of block, all-invalid and all-valid rows, overflow,
+    views off their 16-byte words) through the plain version against
+    the JAX _rank_extract_planes on the planes' u32 words."""
+    planes, valid, block, slots = args
+    words = [w for p in planes for w in _u32_words(p)]
+    jp, jv, jo = jax_pairs._rank_extract_planes(
+        tuple(jnp.asarray(w) for w in words), jnp.asarray(valid.numpy()),
+        block, slots)
+    (*tp_planes,), tv, to = tpairs.rank_extract_planes(planes, valid, block,
+                                                        slots)
+    assert np.array_equal(tv.numpy(), np.asarray(jv)), name
+    got = [w for p in tp_planes for w in _u32_words(p)]
+    for g, w in zip(got, jp):
+        assert np.array_equal(g, np.asarray(w)), name
+    assert bool(to) == bool(jo)
