@@ -139,7 +139,8 @@ __global__ void __launch_bounds__(kThreadsE) mode1_emit_kernel(
 }  // namespace
 }  // namespace pgrtk
 
-// seqs (B, L) uint8, L % chunk == 0; lengths (B,) int64; scratch of
+// seqs (B, L) uint8 16-byte aligned, chunk % 16 == 0, L % chunk == 0;
+// lengths (B,) int64; scratch of
 // pgrtk_sketch_scratch_bytes(B, L, chunk, 1) + B*L bytes; outputs x, y
 // (B, L) int64, emitted (B, L) bool, pal (B,) int32 zeroed by the caller.
 // 2 <= w <= 128, 0 < k <= 56.
@@ -149,7 +150,8 @@ extern "C" int pgrtk_sketch_mode1(const void* seqs, const void* lengths,
                                   void* out_y, void* emitted, void* pal,
                                   void* stream) {
   namespace P = pgrtk;
-  if (w < 2 || w > P::kMaxW || k < 1 || k > 56 || chunk < 1 || L % chunk)
+  if (w < 2 || w > P::kMaxW || k < 1 || k > 56 || chunk < 16 ||
+      chunk % 16 || L % chunk)
     return (int)cudaErrorInvalidValue;
   const int nc = (int)(L / chunk);
   const long long n_lanes = (long long)B * nc;

@@ -3,7 +3,8 @@
 // chunk lane (the registers at its start, from the tails of the nearest
 // chunks before it that hold ACGT bases).
 //
-// Used by K1 (sketch.cu, exact=1) and K9 (sketch1.cu).  The warm-up:
+// Used by K1 (sketch.cu, exact=1) and K9 (sketch1.cu), both with
+// chunk % 16 == 0 and 16-byte aligned rows.  The warm-up:
 // chunk_tail_kernel stores each chunk's last min(k, n) ACGT codes as
 // forward registers (walking back from the chunk's end: about k bases
 // outside N runs), and the row ranks of the chunks holding any ACGT base
@@ -11,7 +12,8 @@
 // nearest such chunks before a lane, newest first, until it holds k
 // codes or runs out: at most k lookups, however long an N run.  The
 // reverse registers follow from the forward ones (bit i of f is bit
-// k-1-i of r, complemented).
+// k-1-i of r, complemented).  With a row gate (B ints), only the rows
+// whose gate is set are filled (K1's lane warm-up mode).
 #pragma once
 
 #include "rank.cuh"
@@ -85,19 +87,28 @@ __device__ __forceinline__ uint64_t wang(uint64_t key) {
 
 __global__ void chunk_tail_kernel(const uint8_t* __restrict__ seqs,
                                   long long n_lanes, long long L, int nc,
-                                  int k, int chunk, ExactScratch ex) {
+                                  int k, int chunk, ExactScratch ex,
+                                  const int* __restrict__ gate) {
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n_lanes) return;
+  if (lane >= n_lanes || (gate && !gate[lane / nc])) return;
   const long long start = (lane % nc) * (long long)chunk;
   const uint8_t* row = seqs + (lane / nc) * L;
   uint64_t f0 = 0, f1 = 0;
   int n = 0;
-  for (long long p = start + chunk - 1; p >= start && n < k; --p) {
-    const int c = base_code(row[p]);
-    if (c < 4) {
-      f0 |= (uint64_t)(c & 1) << n;
-      f1 |= (uint64_t)(c >> 1) << n;
-      ++n;
+  // back from the chunk's end, 16 bases a load (chunk % 16 == 0 and the
+  // rows 16-byte aligned): a lane's neighbours lie a chunk away, so a
+  // warp's load touches 32 lines whatever its width
+  for (long long q = start + chunk - 16; q >= start && n < k; q -= 16) {
+    const uint4 w = *reinterpret_cast<const uint4*>(row + q);
+    const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 15; i >= 0; --i) {
+      const int c = base_code((words[i >> 2] >> (8 * (i & 3))) & 0xFFu);
+      if (c < 4 && n < k) {
+        f0 |= (uint64_t)(c & 1) << n;
+        f1 |= (uint64_t)(c >> 1) << n;
+        ++n;
+      }
     }
   }
   ex.tail0[lane] = f0;
@@ -132,16 +143,17 @@ __device__ __forceinline__ Regs exact_start(const ExactScratch& ex,
 }
 
 // The exact warm-up's scratch filled for a (B, L) batch of nc chunks per
-// row: chunk tails, then the row ranks of the chunks with ACGT.
+// row: chunk tails, then the row ranks of the chunks with ACGT; with
+// `gate`, of the rows whose gate is set.
 inline void exact_warmup(const uint8_t* seqs, int B, long long L, int nc,
                          int k, int chunk, const ExactScratch& ex,
-                         cudaStream_t st) {
+                         cudaStream_t st, const int* gate = nullptr) {
   const long long n_lanes = (long long)B * nc;
   const int threads = 64;
   const unsigned blocks = (unsigned)((n_lanes + threads - 1) / threads);
   chunk_tail_kernel<<<blocks, threads, 0, st>>>(seqs, n_lanes, L, nc, k,
-                                                chunk, ex);
-  row_rank(ex.has, B, nc, ex.rank, st);
+                                                chunk, ex, gate);
+  row_rank(ex.has, B, nc, ex.rank, st, gate);
 }
 
 }  // namespace

@@ -136,6 +136,45 @@ def tie_stream(dev, B=4, C=3000):
     return t(x), t(y), t(valid)
 
 
+# N-run lengths around K1's warm-up limits: 64 - 56 = 8 is the longest
+# run the fast walk's 64-base warm-up absorbs, 56 the k-mer, 512 the chunk
+WARMUP_RUNS = (8, 9, 55, 56, 57, 64, 65, 511, 512, 513, 20_000)
+
+
+def warmup_batch(n_run=None, all_n_row=False, B=4, L=32_768):
+    """A (B, L) uint8 batch and (B,) int32 lengths for K1's lane mode,
+    seeded by n_run.  Row 0: uppercase ACGT, an N run of n_run bases
+    ending at the chunk start 20,480.  Row 1: lowercase acgt, length
+    30,001 (not a multiple of 512), a run of lowercase n ending at the
+    chunk start 10,240 (clipped at the row start).  Row 2: raw codes 0-3,
+    or all N with all_n_row.  Row 3: ACGT, length 25,000, an N run ending
+    at the row's length.  Rows past 3 are raw codes."""
+    rng = np.random.default_rng(11 + (n_run or 0))
+    arr = rng.integers(0, 4, size=(B, L), dtype=np.uint8)
+    lens = np.full(B, L, dtype=np.int32)
+    lens[1], lens[3] = 30_001, 25_000
+    for b in (0, 3):
+        arr[b] = np.frombuffer(b"ACGT", np.uint8)[arr[b]]
+    arr[1] = np.frombuffer(b"acgt", np.uint8)[arr[1]]
+    if n_run:
+        arr[0, 20_480 - n_run:20_480] = ord("N")
+        arr[1, max(0, 10_240 - n_run):10_240] = ord("n")
+        arr[3, 25_000 - n_run:25_000] = ord("N")
+    if all_n_row:
+        arr[2] = ord("N")
+    for b, n in enumerate(lens):
+        arr[b, n:] = ord("N")
+    return arr, lens
+
+
+def warmup_cases():
+    """{name: (seqs, lengths)} numpy batches whose N runs end at chunk
+    starts (warmup_batch at each of WARMUP_RUNS, and with an all-N row)."""
+    out = {f"run{n}": warmup_batch(n) for n in WARMUP_RUNS}
+    out["all_n_row"] = warmup_batch(all_n_row=True)
+    return out
+
+
 def query_kernel_cases(dev):
     """K2 past the old 1024-entry block cap and K5-K8 on the edge-case
     inputs above."""

@@ -10,7 +10,9 @@ errors of the sorts on the card against the CPU's, and K13
 (the WFA forward pass) against its plain version and the arbiter, with
 pgr-get-sv-candidate-regions on the card against the CPU, K14-K19 against
 their plain versions on the edge cases, the dense pair variants and the
-v1 programs (over NCCL at world size 1) on the card against the CPU.
+v1 programs (over NCCL at world size 1) on the card against the CPU,
+and K1's lane warm-up mode against its exact mode and plain version, with
+the auto index step that runs it on the card against the CPU.
 
 Marked `cuda`; each test skips when torch.cuda.is_available() is false.
 Imports no JAX, so it runs on a machine without it:
@@ -506,3 +508,57 @@ def test_v1_steps_over_nccl_match_cpu(dev):
         (g, gm, go), (c, cm, co) = gpu[step], cpu[step]
         assert (g, go) == (c, co) and np.array_equal(gm, cm), step
     assert cpu["count"][0] == cpu["probe"][0] == cpu["v2"][0] > 0
+
+
+WARMUP_CASES = [f"run{n}" for n in cases.WARMUP_RUNS] + ["all_n_row"]
+
+
+@pytest.mark.parametrize("case", WARMUP_CASES)
+def test_lane_mode_matches_exact_kernel_and_plain(dev, case):
+    """K1's lane mode on batches whose N runs end at chunk starts
+    (cases.warmup_cases): every plane and flag equal to the exact=1
+    kernel and to the plain exact walk, and the re-walked lanes those the
+    fast walk's inexact flag marks."""
+    arr, lens = cases.warmup_cases()[case]
+    seqs = torch.from_numpy(arr).to(dev)
+    tl = torch.from_numpy(lens).to(dev)
+    before = kb.sketch_walk_compact.launches
+    got = tsk.sketch_walk_compact(seqs, tl, K, R, CHUNK, 12, lanes=True)
+    torch.cuda.synchronize()
+    assert kb.sketch_walk_compact.launches == before + 1
+    exact = tsk.sketch_walk_compact(seqs, tl, K, R, CHUNK, 12, True)
+    plain = tsk.sketch_walk_compact_plain(seqs, tl, K, R, CHUNK, 12, True)
+    assert _equal(list(got[:5]), list(exact))
+    assert _equal(list(got[:5]), list(plain))
+    count = int(got[5])
+    assert count == int(tsk.short_warmup_count(seqs, tl, K, CHUNK))
+    assert (count > 0) == (case != "run8")
+
+
+def test_lane_mode_on_a_clean_batch_lists_no_lane(dev):
+    """Without N runs (ragged rows, lowercase bases) the list stays empty
+    and lane mode's planes and flags are the fast mode's."""
+    arr, lens = cases.warmup_batch()
+    seqs = torch.from_numpy(arr).to(dev)
+    tl = torch.from_numpy(lens).to(dev)
+    lanes = tsk.sketch_walk_compact(seqs, tl, K, R, CHUNK, 12, lanes=True)
+    fast = tsk.sketch_walk_compact(seqs, tl, K, R, CHUNK, 12)
+    assert int(lanes[5]) == 0
+    assert _equal(list(lanes[:5]), list(fast))
+
+
+def test_auto_step_on_card_redoes_short_warm_ups_as_cpu(dev):
+    """The auto index step on a batch with short warm-ups: one K1 launch
+    (lane mode), no rerun, the same lanes re-walked and the same table,
+    padding included, as on the CPU."""
+    arr, lens = cases.warmup_batch(513)
+    args = (torch.from_numpy(arr), torch.from_numpy(lens), torch.arange(4))
+    cpu = mesh.sketch_index_step_auto(*args)
+    before = kb.sketch_walk_compact.launches
+    gpu = mesh.sketch_index_step_auto(*(a.to(dev) for a in args))
+    assert kb.sketch_walk_compact.launches == before + 1
+    assert not gpu["safe_rerun"] and not cpu["safe_rerun"]
+    for key in ("n_pairs", "n_mers", "overflow", "rewalked"):
+        assert _equal(gpu[key].cpu(), cpu[key]), key
+    assert int(gpu["rewalked"]) == 3
+    assert _equal({k: t.cpu() for k, t in gpu["table"].items()}, cpu["table"])

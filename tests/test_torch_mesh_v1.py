@@ -7,8 +7,10 @@ size: the replicated table (its valid entries and its length), n_pairs,
 n_mers, every flag, n_hits and the hit masks, exactly.  The corpus is the
 dry run's cut to 8 x 16,384 bases, sequence ids ascending over the ranks.
 Then K16 and K17 against the JAX lookups on the edge cases of
-pgrtk_tpu_torch/utils/cases.py, the SAFE rerun when one rank's rows hold
-an N run, and the table order with permuted sequence ids."""
+pgrtk_tpu_torch/utils/cases.py, the auto step when one rank's rows hold
+an N run (no rerun: K1's lane mode) and when they also overflow the
+compaction (every rank reruns), and the table order with permuted
+sequence ids."""
 import functools
 from concurrent.futures import ThreadPoolExecutor
 
@@ -112,11 +114,25 @@ def _n_run_corpus():
     return seqs, lens
 
 
-@functools.lru_cache(maxsize=None)
-def _jax_auto():
-    """The JAX fast index step's overflow flag and the _auto step on the
-    N-run corpus at 2 devices."""
+def _repeat_corpus():
+    """The N-run corpus with the period-11 repeat of
+    tests/test_torch_index_step.py::test_index_step_auto_reruns_on_overflow
+    in row 5 (rank 1 of 2), which overflows the default sizing."""
+    motif = [0, 0, 1, 2, 0, 0, 0, 2, 0, 0, 1]  # AACGAAAGAAC
     seqs, lens = _n_run_corpus()
+    run = (motif * 24)[: 56 + 14 * 11]
+    seqs[5, 1088:1088 + len(run)] = np.frombuffer(b"ACGT", np.uint8)[run]
+    return seqs, lens
+
+
+AUTO_CORPORA = {"n_run": _n_run_corpus, "repeat": _repeat_corpus}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_auto(corpus):
+    """The JAX fast index step's overflow flag and the _auto step on one
+    of AUTO_CORPORA at 2 devices."""
+    seqs, lens = AUTO_CORPORA[corpus]()
     mesh, steps = _jax_steps(2)
     args = _jax_args(mesh, seqs, lens, np.arange(len(seqs)))
     out = steps["auto"](*args)
@@ -128,24 +144,25 @@ def _jax_auto():
 @pytest.fixture(scope="module")
 def port_v1():
     """The port's groups at 1, 2 and 4 ranks, started together, each
-    running the four steps; the 2-rank group then runs the SAFE-rerun
-    case ("auto").  The JAX steps run meanwhile, each mesh size in a
-    thread of its own."""
+    running the four steps; the 2-rank group then runs the auto step on
+    each of AUTO_CORPORA.  The JAX steps run meanwhile, each mesh size in
+    a thread of its own."""
     seqs, lens = _corpus()
     runs = {n: [(seqs, lens, None, False, V2_CAP)] for n in (1, 2, 4)}
-    runs[2].append((*_n_run_corpus(), None, True))
-    with ThreadPoolExecutor(2 * len(runs) + 1) as pool:
+    runs[2] += [(*AUTO_CORPORA[c](), None, True) for c in AUTO_CORPORA]
+    with ThreadPoolExecutor(2 * len(runs) + 2) as pool:
         futs = {n: pool.submit(pcomm.spawn, dryrun.v1_runs_rank, n, r,
                                device="cpu") for n, r in runs.items()}
         for n in runs:  # built here, so that no two threads build one
             _jax_steps(n)
         jax_runs = [pool.submit(_jax_v1, n) for n in runs]
-        jax_runs.append(pool.submit(_jax_auto))
+        jax_runs += [pool.submit(_jax_auto, c) for c in AUTO_CORPORA]
         for f in jax_runs:
             f.result()
         got = {n: f.result() for n, f in futs.items()}
     out = {n: [rank[0] for rank in got[n]] for n in runs}
-    out["auto"] = [rank[1] for rank in got[2]]
+    for i, c in enumerate(AUTO_CORPORA, 1):
+        out[c] = [rank[i] for rank in got[2]]
     return out
 
 
@@ -181,10 +198,37 @@ def test_replicated_probe_table_matches_jax(port_v1):
         assert torch.equal(got[f], exp[f]), f
 
 
-def test_auto_reruns_on_every_rank_when_one_overflows(port_v1):
-    fast_overflow, want = _jax_auto()
+def _same_valid_entries(got, want):
+    """The valid entries field for field, in table order (the port's
+    lane-mode table is padded to the default sizing, JAX's rerun table to
+    SAFE_COMPACT_KW's)."""
+    gv, wv = got["valid"], want["valid"]
+    assert gv.sum() == wv.sum()
+    for f in TABLE_FIELDS:
+        assert np.array_equal(got[f][gv], want[f][wv]), f
+
+
+def test_auto_redoes_a_short_warm_up_without_rerun(port_v1):
+    """An N run before a chunk start in one rank's rows: the JAX fast
+    step flags it and the JAX auto step reruns at SAFE sizing; the port's
+    auto step redoes the lane in K1's lane mode, reruns on no rank, and
+    gives the same valid entries, n_pairs and n_mers."""
+    fast_overflow, want = _jax_auto("n_run")
     assert fast_overflow  # the fast step flags
-    for o in port_v1["auto"]:
+    for o in port_v1["n_run"]:
+        assert o["index"]["safe_rerun"] == 0 and o["index"]["overflow"] == 0
+        assert o["index"]["n_pairs"] == want["n_pairs"]
+        assert o["index"]["n_mers"] == want["n_mers"]
+        _same_valid_entries(o["table"], want["table"])
+
+
+def test_auto_reruns_on_every_rank_when_one_overflows(port_v1):
+    """The period-11 repeat in one rank's rows overflows its compaction:
+    every rank reruns at SAFE sizing and equals the JAX auto step, the
+    table's padding included."""
+    fast_overflow, want = _jax_auto("repeat")
+    assert fast_overflow
+    for o in port_v1["repeat"]:
         assert o["index"]["safe_rerun"] == 1 and o["index"]["overflow"] == 0
         assert o["index"]["n_pairs"] == want["n_pairs"]
         assert o["index"]["n_mers"] == want["n_mers"]
