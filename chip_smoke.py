@@ -17,10 +17,10 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      K2, K3, K4 and K6 on 70,000 rows, past gridDim.y's 65,535; the
      inputs are pgrtk_tpu_torch/utils/cases.py's; K9 on mode-1 rows with
      N runs, a palindromic 56-mer and an (AC)n run at two specs, K10 on
-     the chain groups, K11 on a widened padded table; K1's lane mode on
-     its batches and on cases.warmup_cases: N runs of 8 to 20,000 bases
-     ending at chunk starts, an all-N row), and times the exact walk
-     with and without the long N runs;
+     the chain groups, K11 on a widened padded table; K1's exact walk at
+     the auto step's 12 slots on its batches and on cases.warmup_cases:
+     N runs of 8 to 20,000 bases ending at chunk starts, an all-N row),
+     and times the exact walk with and without the long N runs;
   2. runs the index stage of bench.py's corpus (seed 2, 8 x 1 Mbase) as
      bench.py composes it, asserts no overflow and a table equal to the
      all-plain path on the same card;
@@ -29,20 +29,21 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      to the scalar arbiter core/sketch_ref) on 50 kb ACGTN sequences;
   4. drives the main path, sketch_index_step_auto, on 16 x 16,777,216
      bases (268 Mbase) with the default sizing, once as is and once with
-     scaffold gaps (N runs up to 4 Mbase), whose short warm-ups K1's lane
-     mode redoes lane by lane: launch counts reset just before, read just
-     after; neither step may rerun, the gapped one must re-walk lanes
-     (the count is printed) and give the valid entries, n_pairs and
-     n_mers of one SAFE_COMPACT_KW step of the same batch (the JAX auto
-     step's rerun); median of 5 timed runs of each as Mbase/s, and their
-     ratio, and the peak device memory; a torch.profiler run of 5 steps
-     of each for the device busy time, idle share and largest kernels
+     scaffold gaps (N runs up to 4 Mbase), whose short warm-ups the auto
+     step's exact walk starts right: launch counts reset just before,
+     read just after; neither step may rerun, the fast walk must flag the
+     gapped batch inexact and not the other (the JAX auto step reruns on
+     that flag), and the gapped step must give the valid entries, n_pairs
+     and n_mers of one SAFE_COMPACT_KW step of the same batch (the JAX
+     auto step's rerun); median of 5 timed runs of each as Mbase/s,
+     their ratio, and the peak device memory; a torch.profiler run of 5
+     steps of each for the device busy time, idle share and largest kernels
      (traces in build/main_path_trace.json and
      build/main_path_gapped_trace.json);
   5. then each kernel against its plain version at the shapes that run
-     gave it, with both times (CUDA events), K1 also in its exact mode
-     and its lane mode on the gapped batch (with the lane mode's device
-     time per kernel, the fix-up apart, from torch.profiler);
+     gave it, with both times (CUDA events): K1 in the main path's mode,
+     the exact walk at 12 slots, on both batches, and its fast mode (the
+     query path's) on both;
   6. runs the query stage of bench.py (bench.py:239-356) on the card:
      the index of phase 2's targets from the port's index step plus
      4,194,304 decoy keys (build_index, P=32), 128 query rows of 65,536
@@ -140,8 +141,8 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      the dry run of 10a prints the JAX line whole, self-, probe- and
      v2-hits included; (11b) sharded_sketch_index_step_auto on phase
      4's batch: flags clean, the table equal to phase 4's sorted table,
-     and on its scaffold gaps: no rerun, lanes re-walked, the table equal
-     to phase 4's step's on them; medians of 5 steps of both beside phase
+     and on its scaffold gaps: no rerun, the table equal to phase 4's
+     step's on them; medians of 5 steps of both beside phase
      4's step, a torch.profiler pass;
      (11c) the count (K16), probe (K11) and v2 probe-only (K17) steps,
      the batch against itself: all three counts equal and at least
@@ -181,7 +182,9 @@ DEFAULT_KW = dict(slots=12, block2=512, slots2=144)  # ops/sketch.py:340
 # the default sketch spec (pgrtk_tpu/core/spec.py ShmmrSpec(sketch=True))
 SPEC = SimpleNamespace(k=K, r=R, min_span=MIN_SPAN, sketch=True)
 REPLACES = {
-    "sketch_walk_compact": "pgrtk_tpu/ops/sketch.py:253",
+    # the main path's mode, the exact walk (the fast walk :253 runs on
+    # the query path, phase 6b)
+    "sketch_walk_compact": "pgrtk_tpu/ops/sketch.py:169",
     "rank_extract": "pgrtk_tpu/ops/pairs.py:23",
     "min_span_filter_gapped": "pgrtk_tpu/ops/pairs.py:134",
     "pair_mers_gapped": "pgrtk_tpu/ops/pairs.py:290",
@@ -401,16 +404,11 @@ def long_n_batch(dev, with_n=True):
     return torch.from_numpy(arr).to(dev), torch.from_numpy(lens).to(dev)
 
 
-def check_lane_mode(tsk, name, seqs, lens, slots=12):
-    """K1's lane mode against the exact plain walk, and its count of
-    re-walked lanes against the plain count."""
-    got = tsk.sketch_walk_compact(seqs, lens, K, R, CHUNK, slots, lanes=True)
-    check(name, got[:5],
-          tsk.sketch_walk_compact_plain(seqs, lens, K, R, CHUNK, slots, True))
-    n = int(got[5])
-    require(n == int(tsk.short_warmup_count(seqs, lens, K, CHUNK)),
-            f"{name}: re-walked lane count")
-    print(f"    {n} lanes re-walked")
+def check_exact_default(tsk, name, seqs, lens):
+    """K1's exact walk at the auto index steps' 12 slots against its
+    plain version."""
+    check(name, tsk.sketch_walk_compact(seqs, lens, K, R, CHUNK, 12, True),
+          tsk.sketch_walk_compact_plain(seqs, lens, K, R, CHUNK, 12, True))
 
 
 def phase_kernels(dev, tsk, tp):
@@ -434,11 +432,11 @@ def phase_kernels(dev, tsk, tp):
             if not exact:
                 x1, y1, v1 = got[:3]
             del got, want
-        check_lane_mode(tsk, f"K1 lane mode, {name}", seqs, lens)
+        check_exact_default(tsk, f"K1 exact, 12 slots, {name}", seqs, lens)
     for name, (arr, lens) in cases.warmup_cases().items():
-        check_lane_mode(tsk, f"K1 lane mode, warm-up case {name}",
-                        torch.from_numpy(arr).to(dev),
-                        torch.from_numpy(lens).to(dev))
+        check_exact_default(tsk, f"K1 exact, 12 slots, warm-up case {name}",
+                            torch.from_numpy(arr).to(dev),
+                            torch.from_numpy(lens).to(dev))
     for with_n in (True, False):
         seqs, lens = long_n_batch(dev, with_n)
         ms = cuda_ms(lambda: tsk.sketch_walk_compact(seqs, lens, K, R, CHUNK,
@@ -730,46 +728,6 @@ def profile_steps(step, n=5, trace="main_path_trace.json"):
         print(f"    {us / n / 1e3:.4f} ms/step  {100 * us / busy:.1f}%  {name}")
 
 
-def lane_fixup_times(tsk, seqs, lens, slots, n=5):
-    """Device time per call of K1's lane mode by kernel (torch.profiler
-    over n calls): the walk, and the fix-up (the gate memset, the gated
-    chunk tails and row ranks, the re-walk).  Trace in
-    build/lane_fixup_trace.json."""
-    from torch.profiler import ProfilerActivity, profile
-
-    def fn():
-        return tsk.sketch_walk_compact(seqs, lens, K, R, CHUNK, slots,
-                                       lanes=True)
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                       "lane_fixup_trace.json")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    prof.export_chrome_trace(out)
-    with open(out) as f:
-        events = json.load(f)["traceEvents"]
-    per = Counter()
-    for e in events:
-        if e.get("cat") in ("kernel", "gpu_memset"):
-            per[e["name"][:60] if e["cat"] == "kernel" else "memset"] += (
-                e["dur"])
-    fix = ("memset", "chunk_tail", "tile_", "lane_rewalk")
-    fixup = sum(us for name, us in per.items()
-                if any(f in name for f in fix))
-    print(f"    K1 lane mode device time per call by kernel ({n} calls, "
-          f"trace {out}):")
-    for name, us in per.most_common():
-        print(f"      {us / n / 1e3:.4f} ms  {name}")
-    print(f"    the fix-up (memset, gated chunk tails and row ranks, "
-          f"re-walk): {fixup / n / 1e3:.4f} ms a call")
-
-
 def phase_main_path(dev, tsk, tp, mesh, kb, B=16, L=16_777_216):
     print(f"phase 4: main path, sketch_index_step_auto on {B} x {L}")
     t0 = time.perf_counter()
@@ -802,17 +760,19 @@ def phase_main_path(dev, tsk, tp, mesh, kb, B=16, L=16_777_216):
         n = int(out["n_pairs"])
         print(f"  {name}: safe_rerun {out['safe_rerun']} overflow "
               f"{int(out['overflow'])} n_pairs {n} n_mers "
-              f"{int(out['n_mers'])} lanes re-walked "
-              f"{int(out.get('rewalked', -1))}")
+              f"{int(out['n_mers'])}")
         require(not bool(out["overflow"]), f"{name}: main path overflow")
         require(not out["safe_rerun"], f"{name}: the step took the SAFE rerun")
         require(n > B * L // 1000, f"{name}: too few pairs ({n})")
         assert_sorted(out["table"], n)
-    require(int(outs["as is"]["rewalked"]) == 0,
-            "the fix-up re-walked lanes of the batch without gaps")
+    inexact = {name: bool(tsk.sketch_walk_compact(
+        batch, lens, K, R, CHUNK, DEFAULT_KW["slots"])[4])
+        for name, batch in batches.items()}
+    print(f"  the fast walk's inexact flag (the JAX auto step reruns on it): "
+          f"{inexact}")
+    require(inexact == {"as is": False, "scaffold gaps": True},
+            "the fast walk's inexact flag on the two batches")
     gap = outs["scaffold gaps"]
-    require(int(gap["rewalked"]) > 0,
-            "the fix-up re-walked no lane of the scaffold gaps")
     # the SAFE rerun the JAX auto step takes on them: the same entries
     safe = mesh.sketch_index_step(gapped, lens, rids, k=K, r=R,
                                   min_span=MIN_SPAN, chunk=CHUNK,
@@ -854,33 +814,22 @@ def phase_main_path(dev, tsk, tp, mesh, kb, B=16, L=16_777_216):
 
     slots, b2, s2 = (DEFAULT_KW[k] for k in ("slots", "block2", "slots2"))
     walk_ops = OPS_WALK * B * L
-    results["sketch_walk_compact"] = measure(
-        f"K1 fast, seqs {tuple(seqs.shape)}",
-        lambda: tsk.sketch_walk_compact(seqs, lens, K, R, CHUNK, slots),
-        lambda: tsk.sketch_walk_compact_plain(seqs, lens, K, R, CHUNK, slots,
-                                              False), [seqs, lens],
-        lambda got: need(got[0].numel(), *SLOT), walk_ops)
-    measure(f"K1 exact (SAFE rerun sizing), scaffold gaps "
-            f"{tuple(gapped.shape)}",
-            lambda: tsk.sketch_walk_compact(gapped, lens, K, R, CHUNK, 16,
-                                            True),
-            lambda: tsk.sketch_walk_compact_plain(gapped, lens, K, R, CHUNK,
-                                                  16, True),
-            [gapped, lens], lambda got: need(got[0].numel(), *SLOT),
-            walk_ops)
-    measure(f"K1 lane mode (the main path's), scaffold gaps "
-            f"{tuple(gapped.shape)}",
-            lambda: tsk.sketch_walk_compact(gapped, lens, K, R, CHUNK, slots,
-                                            lanes=True)[:5],
-            lambda: tsk.sketch_walk_compact_plain(gapped, lens, K, R, CHUNK,
-                                                  slots, True),
-            [gapped, lens], lambda got: need(got[0].numel(), *SLOT),
-            walk_ops)
-    ms = cuda_ms(lambda: tsk.sketch_walk_compact(gapped, lens, K, R, CHUNK,
-                                                 slots), 5)
-    print(f"    K1 fast on the scaffold gaps (inexact): {ms:.4f} ms")
-    lane_fixup_times(tsk, gapped, lens, slots)
-    del gapped
+    # the main path's mode (the auto step's exact walk at 12 slots) goes
+    # into the kernels line; the fast mode, the query path's, is printed
+    for name, batch in batches.items():
+        for exact in (True, False):
+            out = measure(
+                f"K1 {'exact' if exact else 'fast'}, {name} "
+                f"{tuple(batch.shape)}",
+                lambda: tsk.sketch_walk_compact(batch, lens, K, R, CHUNK,
+                                                slots, exact),
+                lambda: tsk.sketch_walk_compact_plain(batch, lens, K, R,
+                                                      CHUNK, slots, exact),
+                [batch, lens], lambda got: need(got[0].numel(), *SLOT),
+                walk_ops)
+            if exact and batch is seqs:
+                results["sketch_walk_compact"] = out
+    del gapped, batches
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"    peak device memory so far {peak:.2f} GiB")
     x1, y1, v1, _, _ = tsk.sketch_walk_compact(seqs, lens, K, R, CHUNK, slots)
@@ -2281,13 +2230,11 @@ def phase_v1(dev, kb, mesh, comm, batch, stamp):
         gapped, lens, rids, k=K, r=R, min_span=MIN_SPAN, chunk=CHUNK)
     print(f"  phase 4's scaffold gaps: safe_rerun {gap['safe_rerun']} "
           f"overflow {int(gap['overflow'])} n_pairs {int(gap['n_pairs'])} "
-          f"n_mers {int(gap['n_mers'])} lanes re-walked "
-          f"{int(gap['rewalked'])}")
-    require(not gap["safe_rerun"] and not bool(gap["overflow"])
-            and int(gap["rewalked"]) > 0,
-            "v1 index of the scaffold gaps: a rerun or no lane re-walked")
+          f"n_mers {int(gap['n_mers'])}")
+    require(not gap["safe_rerun"] and not bool(gap["overflow"]),
+            "v1 index of the scaffold gaps: a rerun")
     require(all(int(gap[f]) == int(gap_ref[f]) for f in (
-        "n_pairs", "n_mers", "rewalked")),
+        "n_pairs", "n_mers")),
         "v1 counts of the scaffold gaps differ from phase 4's step")
     check("v1 table of the scaffold gaps vs phase 4's step (whole table)",
           gap_ref["table"], gap["table"])

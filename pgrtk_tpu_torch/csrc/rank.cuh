@@ -7,8 +7,6 @@
 // of the tile counts, and the per-tile scan with the tile's offset
 // added.  Used by the neighbour kernels (pairs.cu) and by the exact walk
 // (sketch.cu) to find the nearest set entry before a column directly.
-// With a row gate (B ints), a row whose gate is 0 is skipped: its blocks
-// return at once and its entries stay unset.
 #pragma once
 
 #include "common.cuh"
@@ -49,11 +47,9 @@ inline RankScratch carve_rank(int* p, int B, long long C) {
 }
 
 __global__ void tile_count_kernel(const bool* __restrict__ mask, long long C,
-                                  int row0, int* __restrict__ tile_counts,
-                                  const int* __restrict__ gate) {
+                                  int row0, int* __restrict__ tile_counts) {
   __shared__ int warp_sums[32];
   const long long b = (long long)row0 + blockIdx.y;
-  if (gate && !gate[b]) return;
   const long long i = (long long)blockIdx.x * kTile + threadIdx.x;
   const int v = (i < C && mask[b * C + i]) ? 1 : 0;
   int total;
@@ -63,11 +59,9 @@ __global__ void tile_count_kernel(const bool* __restrict__ mask, long long C,
 
 __global__ void tile_offset_kernel(const int* __restrict__ tile_counts,
                                    int ntiles, int* __restrict__ tile_off,
-                                   int* __restrict__ totals,
-                                   const int* __restrict__ gate) {
+                                   int* __restrict__ totals) {
   __shared__ int warp_sums[32];
   const long long b = blockIdx.x;
-  if (gate && !gate[b]) return;
   int carry = 0;
   for (int t0 = 0; t0 < ntiles; t0 += kTile) {
     const int t = t0 + threadIdx.x;
@@ -83,11 +77,9 @@ __global__ void tile_offset_kernel(const int* __restrict__ tile_counts,
 __global__ void tile_rank_kernel(const bool* __restrict__ mask, long long C,
                                  int row0, const int* __restrict__ tile_off,
                                  int* __restrict__ rank_excl,
-                                 int* __restrict__ vidx,
-                                 const int* __restrict__ gate) {
+                                 int* __restrict__ vidx) {
   __shared__ int warp_sums[32];
   const long long b = (long long)row0 + blockIdx.y;
-  if (gate && !gate[b]) return;
   const long long i = (long long)blockIdx.x * kTile + threadIdx.x;
   const bool in = i < C;
   const int v = (in && mask[b * C + i]) ? 1 : 0;
@@ -100,25 +92,23 @@ __global__ void tile_rank_kernel(const bool* __restrict__ mask, long long C,
   }
 }
 
-// rank_excl, vidx and totals of `mask` (B, C) into the scratch buffer;
-// with `gate`, of the rows whose gate is set.
+// rank_excl, vidx and totals of `mask` (B, C) into the scratch buffer.
 inline void row_rank(const bool* mask, int B, long long C,
-                     const RankScratch& s, cudaStream_t stream,
-                     const int* gate = nullptr) {
+                     const RankScratch& s, cudaStream_t stream) {
   const long long nt = n_tiles(C);
   for (int r0 = 0; r0 < B; r0 += kMaxGridY) {
     const int rows = B - r0 < kMaxGridY ? B - r0 : kMaxGridY;
     const dim3 grid((unsigned)nt, (unsigned)rows);
     tile_count_kernel<<<grid, kTile, 0, stream>>>(mask, C, r0,
-                                                  s.tile_counts, gate);
+                                                  s.tile_counts);
   }
   tile_offset_kernel<<<B, kTile, 0, stream>>>(s.tile_counts, (int)nt,
-                                              s.tile_off, s.totals, gate);
+                                              s.tile_off, s.totals);
   for (int r0 = 0; r0 < B; r0 += kMaxGridY) {
     const int rows = B - r0 < kMaxGridY ? B - r0 : kMaxGridY;
     const dim3 grid((unsigned)nt, (unsigned)rows);
     tile_rank_kernel<<<grid, kTile, 0, stream>>>(mask, C, r0, s.tile_off,
-                                                 s.rank_excl, s.vidx, gate);
+                                                 s.rank_excl, s.vidx);
   }
 }
 

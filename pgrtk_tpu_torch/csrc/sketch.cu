@@ -30,17 +30,6 @@
 // the run.  Instead the lane folds in per-chunk tails found through the
 // row ranks of the chunks holding ACGT (walk.cuh, shared with K9): at
 // most k lookups, however long the N run.  Exact for any input; no flag.
-// Warm-up, lane mode (exact=2, the auto index steps' first try): the
-// exact walk's result at the fast walk's cost where warm-ups are long
-// enough.  Every lane warms up as in fast mode; a lane the fast mode
-// would flag appends its id to a device list (count in flags[2]), marks
-// its row, and writes nothing: its fast-walk mers may differ from the
-// exact ones, so they neither survive nor raise the overflow flag.  A
-// fix-up follows with no host wait: the exact warm-up scratch of the
-// marked rows only (the other rows' blocks return at once), then
-// lane_rewalk_kernel walks each listed lane from its exact start, a warp
-// to a lane.  A clean batch pays one memset and launches that exit at
-// once.
 //
 // Dense mode (dense=1) replaces sketch_mode2_dense :369 with the overlap
 // walk :210 (or, with exact=1, :169): the same lanes and warm-ups, but
@@ -58,23 +47,6 @@
 namespace pgrtk {
 namespace {
 
-// The registers after the `overlap` bases before the chunk, and how many
-// of those bases are ACGT.
-__device__ __forceinline__ Regs overlap_start(const uint8_t* row,
-                                              long long start, int k,
-                                              int overlap, int* seen) {
-  const uint64_t mask = (1ull << k) - 1;
-  Regs s = {0, 0, 0, 0};
-  int n = 0;
-  for (long long p = start > overlap ? start - overlap : 0; p < start; ++p) {
-    const int c = base_code(row[p]);
-    n += c < 4;
-    push(s, c, mask, k - 1);
-  }
-  *seen = n;
-  return s;
-}
-
 // The registers at the start of a lane: the exact warm-up, or the
 // `overlap` bases before the chunk, raising flags[1] (inexact) when a
 // live, non-first lane's warm-up holds fewer than k ACGT bases.
@@ -85,8 +57,14 @@ __device__ __forceinline__ Regs lane_start(const uint8_t* row,
                                            const ExactScratch& ex,
                                            int* flags) {
   if (exact) return exact_start(ex, lane, row0, k);
-  int seen;
-  const Regs s = overlap_start(row, start, k, overlap, &seen);
+  const uint64_t mask = (1ull << k) - 1;
+  Regs s = {0, 0, 0, 0};
+  int seen = 0;
+  for (long long p = start > overlap ? start - overlap : 0; p < start; ++p) {
+    const int c = base_code(row[p]);
+    seen += c < 4;
+    push(s, c, mask, k - 1);
+  }
   if (live && start > 0 && seen < k) atomicOr(&flags[1], 1);
   return s;
 }
@@ -155,37 +133,50 @@ __global__ void __launch_bounds__(kLaneThreads) sketch_walk_dense_kernel(
   }
 }
 
-// Walks chunk [start, stop) of `row` from registers s and writes its
-// first `slots` selected mers to ox/oy/ov, zeros after them; raises
-// flags[0] (overflow) when it selects more.
-__device__ __forceinline__ void walk_chunk(const uint8_t* row, long long start,
-                                           long long stop, Regs s, int k,
-                                           int r, int slots, int64_t* ox,
-                                           int64_t* oy, bool* ov,
-                                           int* flags) {
-  const uint64_t mask = (1ull << k) - 1;
-  const uint64_t thr = (~0ull >> 4) >> r;
-  const int top = k - 1;
+__global__ void sketch_walk_compact_kernel(
+    const uint8_t* __restrict__ seqs, const int64_t* __restrict__ lengths,
+    long long n_lanes, long long L, int nc, int k, int r, int chunk,
+    int slots, int overlap, int exact, ExactScratch ex,
+    int64_t* __restrict__ out_x, int64_t* __restrict__ out_y,
+    bool* __restrict__ out_valid, int* __restrict__ flags) {
+  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n_lanes) return;
+  const long long b = lane / nc;
+  const long long start = (lane % nc) * (long long)chunk;
+  const long long stop = min(start + (long long)chunk, (long long)lengths[b]);
+  const uint8_t* row = seqs + b * L;
+  int64_t* ox = out_x + lane * slots;
+  int64_t* oy = out_y + lane * slots;
+  bool* ov = out_valid + lane * slots;
   int cnt = 0;
-  for (long long q = start; q < stop; q += 16) {
-    const uint4 w = *reinterpret_cast<const uint4*>(row + q);
-    const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+
+  if (start < stop) {
+    const uint64_t mask = (1ull << k) - 1;
+    const uint64_t thr = (~0ull >> 4) >> r;
+    const int top = k - 1;
+    Regs s = lane_start(row, start, true, lane, b * nc, k, overlap, exact,
+                        ex, flags);
+
+    for (long long q = start; q < stop; q += 16) {
+      const uint4 w = *reinterpret_cast<const uint4*>(row + q);
+      const uint32_t words[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const long long p = q + i;
-      push(s, base_code((words[i >> 2] >> (8 * (i & 3))) & 0xFFu), mask,
-           top);
-      if (p >= stop || p < k) continue;
-      if (s.f0 == s.r0 && s.f1 == s.r1) continue;  // palindromic k-mer
-      const bool rev = s.r0 < s.f0;
-      const uint64_t h = wang(rev ? s.r0 : s.f0) ^
-                         wang((rev ? s.r1 : s.f1) ^ 0xAD12CF59ull);
-      if (h < thr) {
-        if (cnt < slots) {
-          ox[cnt] = (int64_t)((h << 8) | (uint64_t)k);
-          oy[cnt] = (int64_t)((p << 1) | (long long)rev);
+      for (int i = 0; i < 16; ++i) {
+        const long long p = q + i;
+        push(s, base_code((words[i >> 2] >> (8 * (i & 3))) & 0xFFu), mask,
+             top);
+        if (p >= stop || p < k) continue;
+        if (s.f0 == s.r0 && s.f1 == s.r1) continue;  // palindromic k-mer
+        const bool rev = s.r0 < s.f0;
+        const uint64_t h = wang(rev ? s.r0 : s.f0) ^
+                           wang((rev ? s.r1 : s.f1) ^ 0xAD12CF59ull);
+        if (h < thr) {
+          if (cnt < slots) {
+            ox[cnt] = (int64_t)((h << 8) | (uint64_t)k);
+            oy[cnt] = (int64_t)((p << 1) | (long long)rev);
+          }
+          ++cnt;
         }
-        ++cnt;
       }
     }
   }
@@ -200,223 +191,25 @@ __device__ __forceinline__ void walk_chunk(const uint8_t* row, long long start,
   if (cnt > slots) atomicOr(&flags[0], 1);
 }
 
-// Lane mode's list of lanes whose fast warm-up is short: gate[b] set for
-// a row holding one, the lane ids, their count in flags[2].
-struct LaneList {
-  int* gate;   // (B,)
-  int* lanes;  // (B * nc,)
-};
-
-__global__ void sketch_walk_compact_kernel(
-    const uint8_t* __restrict__ seqs, const int64_t* __restrict__ lengths,
-    long long n_lanes, long long L, int nc, int k, int r, int chunk,
-    int slots, int overlap, int exact, ExactScratch ex, LaneList list,
-    int64_t* __restrict__ out_x, int64_t* __restrict__ out_y,
-    bool* __restrict__ out_valid, int* __restrict__ flags) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n_lanes) return;
-  const long long b = lane / nc;
-  const long long start = (lane % nc) * (long long)chunk;
-  const long long stop = min(start + (long long)chunk, (long long)lengths[b]);
-  const uint8_t* row = seqs + b * L;
-  Regs s = {0, 0, 0, 0};
-  if (start < stop) {
-    if (exact == 2) {
-      int seen;
-      s = overlap_start(row, start, k, overlap, &seen);
-      if (start > 0 && seen < k) {  // the fix-up walks this lane
-        list.gate[b] = 1;
-        list.lanes[atomicAdd(&flags[2], 1)] = (int)lane;
-        return;
-      }
-    } else {
-      s = lane_start(row, start, true, lane, b * nc, k, overlap, exact, ex,
-                     flags);
-    }
-  }
-  walk_chunk(row, start, stop, s, k, r, slots, out_x + lane * slots,
-             out_y + lane * slots, out_valid + lane * slots, flags);
-}
-
-// The rolling registers' change over a run of bases, as in the JAX exact
-// walk's chunk transforms (_combine_transform): applied to registers X it
-// gives ((X << n) | f) & mask forward and (X >> n) | r reverse, n the
-// run's ACGT bases (at most 63: a shift past k clears X either way).
-struct RegRun {
-  uint64_t f0, f1, r0, r1;
-  int n;
-};
-
-// Run b after run a (or b applied to registers a, with n unused).
-__device__ __forceinline__ RegRun then(const RegRun& a, const RegRun& b,
-                                       uint64_t mask) {
-  return {((a.f0 << b.n) | b.f0) & mask, ((a.f1 << b.n) | b.f1) & mask,
-          (a.r0 >> b.n) | b.r0, (a.r1 >> b.n) | b.r1, min(a.n + b.n, 63)};
-}
-
-__device__ __forceinline__ RegRun shfl_up(const RegRun& v, int d) {
-  constexpr unsigned all = 0xFFFFFFFFu;
-  return {__shfl_up_sync(all, v.f0, d), __shfl_up_sync(all, v.f1, d),
-          __shfl_up_sync(all, v.r0, d), __shfl_up_sync(all, v.r1, d),
-          __shfl_up_sync(all, v.n, d)};
-}
-
-__device__ __forceinline__ RegRun shfl_from(const RegRun& v, int src) {
-  constexpr unsigned all = 0xFFFFFFFFu;
-  return {__shfl_sync(all, v.f0, src), __shfl_sync(all, v.f1, src),
-          __shfl_sync(all, v.r0, src), __shfl_sync(all, v.r1, src),
-          __shfl_sync(all, v.n, src)};
-}
-
-constexpr int kFixWarps = 4;  // warps per block of the fix-up
-
-// Lane mode's fix-up: a warp walks each listed lane (grid-stride over the
-// list; every warp returns at once when it is empty).  One lane is a
-// chain of dependent register steps, which one thread would walk at a
-// fraction of its issue rate, so the warp splits it: 32 threads take 16
-// bases each (512 a round), turn them into register runs, and a warp
-// scan of the runs gives each thread its start from the lane's exact
-// start.  Each thread then marks its selected positions, a warp scan of
-// their counts places them, and a second pass hashes only the marked
-// positions to write them.
-__global__ void __launch_bounds__(32 * kFixWarps) lane_rewalk_kernel(
-    const uint8_t* __restrict__ seqs, const int64_t* __restrict__ lengths,
-    long long L, int nc, int k, int r, int chunk, int slots, ExactScratch ex,
-    const int* __restrict__ lanes, int64_t* __restrict__ out_x,
-    int64_t* __restrict__ out_y, bool* __restrict__ out_valid,
-    int* __restrict__ flags) {
-  constexpr unsigned all = 0xFFFFFFFFu;
-  const int t = threadIdx.x & 31;
-  const int n = flags[2];
-  const uint64_t mask = (1ull << k) - 1;
-  const uint64_t thr = (~0ull >> 4) >> r;
-  const int top = k - 1;
-  const long long warps = (long long)gridDim.x * kFixWarps;
-  for (long long i = (long long)blockIdx.x * kFixWarps + (threadIdx.x >> 5);
-       i < n; i += warps) {
-    const long long lane = lanes[i];
-    const long long b = lane / nc;
-    const long long start = (lane % nc) * (long long)chunk;
-    const long long stop =
-        min(start + (long long)chunk, (long long)lengths[b]);
-    const uint8_t* row = seqs + b * L;
-    int64_t* ox = out_x + lane * slots;
-    int64_t* oy = out_y + lane * slots;
-    const Regs s0 = exact_start(ex, lane, b * nc, k);
-    RegRun carry = {s0.f0, s0.f1, s0.r0, s0.r1, 0};  // registers so far
-    int cnt = 0;
-    for (long long base = start; base < stop; base += 32 * 16) {
-      const long long q = base + 16 * t;
-      uint32_t words[4] = {0, 0, 0, 0};
-      if (q < stop) {
-        const uint4 w = *reinterpret_cast<const uint4*>(row + q);
-        words[0] = w.x, words[1] = w.y, words[2] = w.z, words[3] = w.w;
-      }
-      // this thread's run from empty registers (none past stop)
-      Regs z = {0, 0, 0, 0};
-      int acgt = 0;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int c = q < stop
-                          ? base_code((words[j >> 2] >> (8 * (j & 3))) & 0xFFu)
-                          : 4;
-        acgt += c < 4;
-        push(z, c, mask, top);
-      }
-      RegRun inc = {z.f0, z.f1, z.r0, z.r1, acgt};
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const RegRun o = shfl_up(inc, d);
-        if (t >= d) inc = then(o, inc, mask);
-      }
-      RegRun before = shfl_up(inc, 1);
-      if (t == 0) before = {0, 0, 0, 0, 0};
-      const RegRun st = then(carry, before, mask);
-      // pass 1: mark the selected positions
-      Regs s = {st.f0, st.f1, st.r0, st.r1};
-      uint32_t sel = 0;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const long long p = q + j;
-        push(s, base_code((words[j >> 2] >> (8 * (j & 3))) & 0xFFu), mask,
-             top);
-        if (p >= stop || p < k) continue;
-        if (s.f0 == s.r0 && s.f1 == s.r1) continue;  // palindromic k-mer
-        const bool rev = s.r0 < s.f0;
-        const uint64_t h = wang(rev ? s.r0 : s.f0) ^
-                           wang((rev ? s.r1 : s.f1) ^ 0xAD12CF59ull);
-        if (h < thr) sel |= 1u << j;
-      }
-      int off = __popc(sel);  // inclusive scan of the counts
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int o = __shfl_up_sync(all, off, d);
-        if (t >= d) off += o;
-      }
-      const int total = __shfl_sync(all, off, 31);
-      // pass 2: write the marked positions that fit in the slots
-      int slot = cnt + off - __popc(sel);
-      if (sel && slot < slots) {
-        s = {st.f0, st.f1, st.r0, st.r1};
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          push(s, base_code((words[j >> 2] >> (8 * (j & 3))) & 0xFFu), mask,
-               top);
-          if (!((sel >> j) & 1) || slot >= slots) continue;
-          const bool rev = s.r0 < s.f0;
-          const uint64_t h = wang(rev ? s.r0 : s.f0) ^
-                             wang((rev ? s.r1 : s.f1) ^ 0xAD12CF59ull);
-          ox[slot] = (int64_t)((h << 8) | (uint64_t)k);
-          oy[slot] = (int64_t)(((q + j) << 1) | (long long)rev);
-          ++slot;
-        }
-      }
-      cnt += total;
-      carry = then(carry, shfl_from(inc, 31), mask);
-    }
-    for (int j = t; j < slots; j += 32) {
-      const bool v = j < cnt;
-      out_valid[lane * slots + j] = v;
-      if (!v) {
-        ox[j] = 0;
-        oy[j] = 0;
-      }
-    }
-    if (t == 0 && cnt > slots) atomicOr(&flags[0], 1);
-  }
-}
-
 }  // namespace
 }  // namespace pgrtk
-
-// Bytes of lane mode's list ahead of the exact scratch (8-byte aligned).
-static long long lane_list_bytes(int B, int nc) {
-  return (4 * ((long long)B + (long long)B * nc) + 7) / 8 * 8;
-}
 
 // Bytes of scratch pgrtk_sketch_walk_compact needs: 0 for the fast walk.
 extern "C" long long pgrtk_sketch_scratch_bytes(int B, long long L,
                                                 int chunk, int exact) {
-  const int nc = (int)(L / chunk);
-  if (!exact) return 0;
-  return pgrtk::exact_scratch_bytes(B, nc) +
-         (exact == 2 ? lane_list_bytes(B, nc) : 0);
+  return exact ? pgrtk::exact_scratch_bytes(B, (int)(L / chunk)) : 0;
 }
 
 // seqs (B, L) uint8 16-byte aligned, L % chunk == 0, chunk % 16 == 0;
 // lengths (B,) int64; scratch of pgrtk_sketch_scratch_bytes() bytes;
-// out_x/out_y (B, L/chunk*slots) int64, out_valid bool; flags int32[3]
-// zeroed by the caller: [0] overflow, [1] inexact, [2] lanes the lane
-// mode re-walked.  exact: 0 the fast walk, 1 the exact walk, 2 lane mode
-// (the exact walk's result; flags[1] stays 0).  With dense=1 (slots
-// unused, exact 0 or 1) out_x/out_y are (B, L) int64 and out_valid the
-// (B, L) selected mask; flags[0] stays 0.
+// out_x/out_y (B, L/chunk*slots) int64, out_valid bool; flags int32[2]
+// zeroed by the caller: [0] overflow, [1] inexact.  With dense=1 (slots
+// unused) out_x/out_y are (B, L) int64 and out_valid the (B, L) selected
+// mask; flags[0] stays 0.
 extern "C" int pgrtk_sketch_walk_compact(
     const void* seqs, const void* lengths, int B, long long L, int k, int r,
     int chunk, int slots, int overlap, int exact, int dense, void* scratch,
     void* out_x, void* out_y, void* out_valid, void* flags, void* stream) {
-  if (exact < 0 || exact > 2 || (dense && exact == 2))
-    return (int)cudaErrorInvalidValue;
   const int nc = (int)(L / chunk);
   const long long n_lanes = (long long)B * nc;
   if (n_lanes == 0) return (int)cudaSuccess;
@@ -424,16 +217,9 @@ extern "C" int pgrtk_sketch_walk_compact(
   constexpr int threads = 64;
   const unsigned blocks = (unsigned)((n_lanes + threads - 1) / threads);
   pgrtk::ExactScratch ex = {};
-  pgrtk::LaneList list = {};
-  if (exact == 1) {
+  if (exact) {
     ex = pgrtk::carve_exact(scratch, B, nc);
     pgrtk::exact_warmup((const uint8_t*)seqs, B, L, nc, k, chunk, ex, st);
-  } else if (exact == 2) {
-    list.gate = (int*)scratch;
-    list.lanes = list.gate + B;
-    ex = pgrtk::carve_exact((char*)scratch + lane_list_bytes(B, nc), B, nc);
-    const cudaError_t e = cudaMemsetAsync(list.gate, 0, 4 * (size_t)B, st);
-    if (e != cudaSuccess) return (int)e;
   }
   if (dense) {
     static_assert(threads == pgrtk::kLaneThreads, "one lane per thread");
@@ -445,21 +231,8 @@ extern "C" int pgrtk_sketch_walk_compact(
   }
   pgrtk::sketch_walk_compact_kernel<<<blocks, threads, 0, st>>>(
       (const uint8_t*)seqs, (const int64_t*)lengths, n_lanes, L, nc, k, r,
-      chunk, slots, overlap, exact, ex, list, (int64_t*)out_x,
-      (int64_t*)out_y, (bool*)out_valid, (int*)flags);
-  if (exact == 2) {
-    pgrtk::exact_warmup((const uint8_t*)seqs, B, L, nc, k, chunk, ex, st,
-                        list.gate);
-    // a warp per listed lane, at most 4,096 warps (the list is walked
-    // grid-stride)
-    constexpr int w = pgrtk::kFixWarps;
-    const long long want = (n_lanes + w - 1) / w;
-    const unsigned fix_blocks = (unsigned)(want < 1024 ? want : 1024);
-    pgrtk::lane_rewalk_kernel<<<fix_blocks, 32 * w, 0, st>>>(
-        (const uint8_t*)seqs, (const int64_t*)lengths, L, nc, k, r, chunk,
-        slots, ex, list.lanes, (int64_t*)out_x, (int64_t*)out_y,
-        (bool*)out_valid, (int*)flags);
-  }
+      chunk, slots, overlap, exact, ex, (int64_t*)out_x, (int64_t*)out_y,
+      (bool*)out_valid, (int*)flags);
   return (int)cudaGetLastError();
 }
 

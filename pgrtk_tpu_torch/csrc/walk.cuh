@@ -12,8 +12,7 @@
 // nearest such chunks before a lane, newest first, until it holds k
 // codes or runs out: at most k lookups, however long an N run.  The
 // reverse registers follow from the forward ones (bit i of f is bit
-// k-1-i of r, complemented).  With a row gate (B ints), only the rows
-// whose gate is set are filled (K1's lane warm-up mode).
+// k-1-i of r, complemented).
 #pragma once
 
 #include "rank.cuh"
@@ -87,10 +86,9 @@ __device__ __forceinline__ uint64_t wang(uint64_t key) {
 
 __global__ void chunk_tail_kernel(const uint8_t* __restrict__ seqs,
                                   long long n_lanes, long long L, int nc,
-                                  int k, int chunk, ExactScratch ex,
-                                  const int* __restrict__ gate) {
+                                  int k, int chunk, ExactScratch ex) {
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n_lanes || (gate && !gate[lane / nc])) return;
+  if (lane >= n_lanes) return;
   const long long start = (lane % nc) * (long long)chunk;
   const uint8_t* row = seqs + (lane / nc) * L;
   uint64_t f0 = 0, f1 = 0;
@@ -143,17 +141,16 @@ __device__ __forceinline__ Regs exact_start(const ExactScratch& ex,
 }
 
 // The exact warm-up's scratch filled for a (B, L) batch of nc chunks per
-// row: chunk tails, then the row ranks of the chunks with ACGT; with
-// `gate`, of the rows whose gate is set.
+// row: chunk tails, then the row ranks of the chunks with ACGT.
 inline void exact_warmup(const uint8_t* seqs, int B, long long L, int nc,
                          int k, int chunk, const ExactScratch& ex,
-                         cudaStream_t st, const int* gate = nullptr) {
+                         cudaStream_t st) {
   const long long n_lanes = (long long)B * nc;
   const int threads = 64;
   const unsigned blocks = (unsigned)((n_lanes + threads - 1) / threads);
   chunk_tail_kernel<<<blocks, threads, 0, st>>>(seqs, n_lanes, L, nc, k,
-                                                chunk, ex, gate);
-  row_rank(ex.has, B, nc, ex.rank, st, gate);
+                                                chunk, ex);
+  row_rank(ex.has, B, nc, ex.rank, st);
 }
 
 }  // namespace

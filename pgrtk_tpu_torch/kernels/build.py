@@ -252,10 +252,9 @@ def reset_launches() -> None:
         k.launches = 0
 
 
-def sketch_scratch(B: int, L: int, chunk: int, mode: int, device):
-    """uint8 scratch for the sketch walk in `mode` (0 the fast walk, 1 the
-    exact walk, 2 lane mode; empty for the fast walk)."""
-    n = library().pgrtk_sketch_scratch_bytes(B, L, chunk, mode)
+def sketch_scratch(B: int, L: int, chunk: int, exact: bool, device):
+    """uint8 scratch for the sketch walk (empty for the fast walk)."""
+    n = library().pgrtk_sketch_scratch_bytes(B, L, chunk, int(exact))
     return torch.empty(n, dtype=torch.uint8, device=device)
 
 

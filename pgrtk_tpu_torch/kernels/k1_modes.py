@@ -1,5 +1,7 @@
 """Device times of K1's walk modes, and of the index step that runs them,
-on a clean and a scaffold-gapped 268 Mbase batch.
+on a clean and a scaffold-gapped 268 Mbase batch: the fast walk, which
+the query path runs, against the exact walk at the default sizing, which
+the auto index steps run.
 
     python -m pgrtk_tpu_torch.kernels.k1_modes
 
@@ -11,15 +13,13 @@ rounds whose order rotates, 10 back-to-back calls (CUDA events) of:
   walk fast   sketch_walk_compact at 12 slots, the overlap walk
   walk exact  the same with exact=True: the exact warm-up scratch (chunk
               tails, row ranks) and the walk from each lane's exact start
-  walk lanes  the same with lanes=True: the overlap walk, and the exact
-              walk of the lanes whose warm-up is short
-  step fast / step exact / step lanes
+  step fast / step exact
               sketch_index_step with that front end at the default sizing
               (12 slots, then 144 a 512-entry block), its flags read on
               the host as the auto step reads them
 and prints each round's ms a call and their median, the step's host-clock
-median (synchronized), that the exact and lane tables are equal, and the
-device time by kernel of one exact and one lane walk (torch.profiler).
+median (synchronized), the two steps' flags and counts, and the device
+time by kernel of each walk (torch.profiler).
 """
 from __future__ import annotations
 
@@ -71,9 +71,7 @@ def variants(seqs, lens, rids):
         return run
 
     return {"walk fast": walk(), "walk exact": walk(exact=True),
-            "walk lanes": walk(lanes=True), "step fast": step(),
-            "step exact": step(compact_kw=EXACT_KW),
-            "step lanes": step(lanes=True)}
+            "step fast": step(), "step exact": step(compact_kw=EXACT_KW)}
 
 
 def events_ms(fn, n=10):
@@ -123,14 +121,11 @@ def main() -> int:
     rids = torch.arange(B, device=dev)
     for name, seqs in batches(dev).items():
         fns = variants(seqs, lens, rids)
-        exact, lanes = fns["step exact"](), fns["step lanes"]()
-        same = all(torch.equal(exact["table"][f], lanes["table"][f])
-                   for f in exact["table"])
-        print(f"{name}: exact and lane tables equal {same}; overflow "
-              f"{int(exact['overflow'])} {int(lanes['overflow'])}; "
-              f"n_pairs {int(exact['n_pairs'])}; lanes re-walked "
-              f"{int(lanes['rewalked'])}")
-        del exact, lanes
+        for v in ("step fast", "step exact"):
+            out = fns[v]()
+            print(f"{name}, {v}: overflow {int(out['overflow'])} n_pairs "
+                  f"{int(out['n_pairs'])} n_mers {int(out['n_mers'])}")
+        del out
         for fn in fns.values():
             fn()
         torch.cuda.synchronize()
@@ -144,7 +139,7 @@ def main() -> int:
                 else ""
             print(f"  {v}: ms a call {[round(t, 4) for t in ms[v]]}, median "
                   f"{statistics.median(ms[v]):.4f}{host}")
-        for v in ("walk exact", "walk lanes"):
+        for v in ("walk fast", "walk exact"):
             print(f"  {v} by kernel (ms a call): {by_kernel(fns[v])}")
     return 0
 

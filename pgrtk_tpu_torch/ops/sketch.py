@@ -11,10 +11,7 @@ first `slots` selected mers; it dispatches on where its tensors live: a
 CPU tensor runs the plain PyTorch version (`sketch_mode2_dense_plain`
 followed by the plain level-1 rank extraction), a CUDA tensor launches
 csrc/sketch.cu or raises.  `sketch_mode2_dense` is K1's dense mode: the
-same walk writing every position into (B, L) planes.  K1's lane mode
-(`lanes=True`, taken only by the auto index steps of parallel/mesh.py)
-gives the exact walk's result: the fast walk, and on the card a fix-up
-of just the lanes whose warm-up holds fewer than k ACGT bases.
+same walk writing every position into (B, L) planes.
 
 The plain version computes the rolling k-mer registers without a scan:
 the registers after position p hold the last min(k, n) ACGT bases of the
@@ -124,17 +121,6 @@ def _window_before(code: torch.Tensor, chunk: int, exact: bool):
     return before.repeat_interleave(chunk, dim=1), warm
 
 
-def _short_warmups(warm: torch.Tensor, lengths: torch.Tensor, k: int,
-                   chunk: int) -> torch.Tensor:
-    """(B, nc) lanes whose fast warm-up is short: live (starting before
-    the row's length), not first, fewer than k ACGT bases in the warm-up.
-    The fast walk's `inexact` flag is any of them; lane mode re-walks
-    them."""
-    starts = torch.arange(warm.shape[1], device=warm.device) * chunk
-    live = (starts[None, :] < lengths[:, None]) & (starts[None, :] > 0)
-    return (warm < k) & live
-
-
 def sketch_mode2_dense_plain(seqs_u8: torch.Tensor, lengths: torch.Tensor,
                              k: int, r: int, chunk: int = 512,
                              exact: bool = False) -> dict:
@@ -157,7 +143,9 @@ def sketch_mode2_dense_plain(seqs_u8: torch.Tensor, lengths: torch.Tensor,
     if exact:
         inexact = torch.zeros((), dtype=torch.bool, device=dev)
     else:
-        inexact = _short_warmups(warm, lengths, k, chunk).any()
+        starts = torch.arange(L // chunk, device=dev) * chunk
+        live = (starts[None, :] < lengths[:, None]) & (starts[None, :] > 0)
+        inexact = ((warm < k) & live).any()
     return dict(
         x=(h << 8) | k,
         y=(pos << 1) | reverse.long(),
@@ -183,9 +171,8 @@ def sketch_mode2_dense(seqs_u8: torch.Tensor, lengths: torch.Tensor,
     seqs_u8, lengths = _check_batch(seqs_u8, lengths, k, r, chunk)
     if not on_cuda(seqs_u8, lengths):
         return sketch_mode2_dense_plain(seqs_u8, lengths, k, r, chunk, exact)
-    x, y, selected, _, inexact, _ = _walk_cuda(seqs_u8, lengths, k, r,
-                                               chunk, 0, int(exact),
-                                               dense=True)
+    x, y, selected, _, inexact = _walk_cuda(seqs_u8, lengths, k, r, chunk,
+                                            0, exact, dense=True)
     return dict(x=x, y=y, selected=selected, inexact=inexact)
 
 
@@ -199,17 +186,7 @@ def sketch_walk_compact_plain(seqs_u8, lengths, k, r, chunk, slots, exact):
     return x, y, valid, ovf, d["inexact"]
 
 
-def short_warmup_count(seqs_u8, lengths, k, chunk) -> torch.Tensor:
-    """0-dim int32: the lanes K1's lane mode re-walks (those the fast
-    walk's `inexact` flag marks), on any device."""
-    code = encode_bases(seqs_u8)
-    warm = _window_before(code, chunk, False)[1]
-    return _short_warmups(warm, lengths, k, chunk).sum().to(torch.int32)
-
-
-def _walk_cuda(seqs_u8, lengths, k, r, chunk, slots, mode, dense=False):
-    """K1 on the card.  mode 0 the fast walk, 1 the exact walk, 2 lane
-    mode.  Returns (x, y, valid, overflow, inexact, rewalked)."""
+def _walk_cuda(seqs_u8, lengths, k, r, chunk, slots, exact, dense=False):
     if seqs_u8.data_ptr() % 16:
         raise ValueError("seqs_u8 must be 16-byte aligned for the kernel")
     B, L = seqs_u8.shape
@@ -218,22 +195,21 @@ def _walk_cuda(seqs_u8, lengths, k, r, chunk, slots, mode, dense=False):
     x = torch.empty((B, W), dtype=torch.int64, device=dev)
     y = torch.empty((B, W), dtype=torch.int64, device=dev)
     valid = torch.empty((B, W), dtype=torch.bool, device=dev)
-    # overflow, inexact, lanes re-walked
-    flags = torch.zeros(3, dtype=torch.int32, device=dev)
+    flags = torch.zeros(2, dtype=torch.int32, device=dev)
     if seqs_u8.numel():
-        scratch = kb.sketch_scratch(B, L, chunk, mode, dev)
+        scratch = kb.sketch_scratch(B, L, chunk, exact, dev)
         kb.sketch_walk_compact(
             seqs_u8.data_ptr(), lengths.data_ptr(), B, L, k, r, chunk, slots,
-            OVERLAP, mode, int(dense), scratch.data_ptr(), x.data_ptr(),
+            OVERLAP, int(exact), int(dense), scratch.data_ptr(), x.data_ptr(),
             y.data_ptr(), valid.data_ptr(), flags.data_ptr(),
             kb.stream_handle(seqs_u8),
         )
-    return x, y, valid, flags[0] != 0, flags[1] != 0, flags[2]
+    return x, y, valid, flags[0] != 0, flags[1] != 0
 
 
 def sketch_walk_compact(seqs_u8: torch.Tensor, lengths: torch.Tensor,
                         k: int, r: int, chunk: int = 512, slots: int = 12,
-                        exact: bool = False, *, lanes: bool = False):
+                        exact: bool = False):
     """K1: mode-2 sketch with fused level-1 compaction
     (pgrtk_tpu/ops/sketch.py:253 _register_walk_overlap_compact; with
     exact=True the exact walk of :169 _register_walk).
@@ -242,30 +218,18 @@ def sketch_walk_compact(seqs_u8: torch.Tensor, lengths: torch.Tensor,
     rank_extract_planes(block=chunk, slots) layout, then two 0-dim bool
     flags: overflow (a chunk selected more than `slots` mers) and
     inexact (the fast walk's warm-up held fewer than k ACGT bases; always
-    False with exact=True).
-
-    lanes=True (lane mode, for the auto index steps) gives the exact
-    walk's result (its plain version is this function's with
-    exact=True; `exact` is not read) and a sixth entry, the 0-dim int32
-    count of lanes whose fast warm-up was short (`short_warmup_count`):
-    on the card the fast walk skips them and a fix-up walks them from
-    their exact start, with no host wait."""
+    False with exact=True)."""
     seqs_u8, lengths = _check_batch(seqs_u8, lengths, k, r, chunk)
     if not on_cuda(seqs_u8, lengths):
-        out = sketch_walk_compact_plain(seqs_u8, lengths, k, r, chunk,
-                                        slots, exact or lanes)
-        if lanes:
-            out = (*out, short_warmup_count(seqs_u8, lengths, k, chunk))
-        return out
-    out = _walk_cuda(seqs_u8, lengths, k, r, chunk, slots,
-                     2 if lanes else int(exact))
-    return out if lanes else out[:5]
+        return sketch_walk_compact_plain(seqs_u8, lengths, k, r, chunk,
+                                         slots, exact)
+    return _walk_cuda(seqs_u8, lengths, k, r, chunk, slots, exact)
 
 
 def sketch_compact_mode2(seqs_u8, lengths, k: int, r: int, min_span: int,
                          chunk: int = 512, slots: int = 12,
                          block2: int = 512, slots2: int = 144,
-                         exact: bool = False, *, lanes: bool = False):
+                         exact: bool = False):
     """Fused mode-2 sketch + two-level compaction
     (pgrtk_tpu/ops/sketch.py:333): K1 then K2.  Returns (x, y, valid,
     overflow); the flag also covers the fast walk's `inexact`.
@@ -274,18 +238,16 @@ def sketch_compact_mode2(seqs_u8, lengths, k: int, r: int, min_span: int,
     _sketch_compact with compact_kw): the exact walk, the same stream as the JAX
     sketch_mode2_dense(exact=True) + compact_mers_packed(block=chunk,
     slots, block2, slots2); pairs.SAFE_COMPACT_KW gives its sizing.
-    lanes=True is K1's lane mode: the same stream as exact=True at this
-    sizing, with the count of re-walked lanes as a fifth entry.
     min_span is applied later (min_span_filter_gapped); it is taken here
     so that calls read as in the JAX package."""
     del min_span
-    out = sketch_walk_compact(seqs_u8, lengths, k, r, chunk, slots, exact,
-                              lanes=lanes)
-    x, y, valid, ovf1, inexact = out[:5]
+    x, y, valid, ovf1, inexact = sketch_walk_compact(
+        seqs_u8, lengths, k, r, chunk, slots, exact
+    )
     (x, y), valid, ovf2 = pairs_ops.rank_extract_planes(
         (x, y), valid, block2, slots2
     )
-    return (x, y, valid, ovf1 | ovf2 | inexact, *out[5:])
+    return x, y, valid, ovf1 | ovf2 | inexact
 
 
 # ------------------------------------------------------------ host API

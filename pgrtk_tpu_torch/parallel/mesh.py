@@ -6,10 +6,10 @@ sharded_sketch_index_step (:55-166): sketch -> two-level compaction ->
 min_span filter -> canonical pairs -> pair-key sort, on the device of the
 input tensors.  `dense_index_step` is the same index through the dense
 pair variants (the pipeline of tests/test_pairs_and_mesh.py:35-60).
-The auto steps run K1's lane mode first, which redoes a short warm-up
-lane by lane on the card, and rerun the batch at SAFE_COMPACT_KW only on
-compaction overflow: the JAX auto steps also rerun on a short warm-up,
-and give the same valid entries in a table padded otherwise.
+The auto steps run the exact walk at the default sizing and rerun at
+SAFE_COMPACT_KW only on compaction overflow: the JAX auto steps run the
+fast walk and also rerun on its short warm-ups, and give the same valid
+entries in a table padded otherwise.
 
 The v1 programs (:55-298) replicate the whole pair table on every rank:
 - `sharded_sketch_index_step(_auto)`: each rank pairs its rows, the flat
@@ -64,47 +64,37 @@ from .comm import Comm
 PROBE_W = 128  # a probe bucket row; decides probe_overflow, so semantics
 
 
-def _front_end(seqs_u8, lengths, k, r, min_span, chunk, compact_kw,
-               lanes=False):
+def _front_end(seqs_u8, lengths, k, r, min_span, chunk, compact_kw):
     """The sketch and two-level compaction every step starts with
     (pgrtk_tpu/parallel/mesh.py:34 _sketch_compact): the fast walk at the
     default sizing, or with compact_kw (pairs.SAFE_COMPACT_KW) the exact
-    walk at that sizing, or with `lanes` (and no compact_kw) K1's lane
-    mode, the exact walk at the default sizing.  Returns (x, y, valid,
-    overflow, rewalked): the lanes lane mode re-walked, else None."""
-    if compact_kw is not None:
+    walk at that sizing.  Returns (x, y, valid, overflow)."""
+    if compact_kw is None:
+        sizing = dict(chunk=chunk)
+    else:
         sizing = dict(compact_kw)
         sizing["chunk"] = sizing.pop("block")
-        return (*sketch_ops.sketch_compact_mode2(
-            seqs_u8, lengths, k, r, min_span, exact=True, **sizing), None)
-    out = sketch_ops.sketch_compact_mode2(seqs_u8, lengths, k, r, min_span,
-                                          chunk, lanes=lanes)
-    return out if lanes else (*out, None)
+    return sketch_ops.sketch_compact_mode2(
+        seqs_u8, lengths, k, r, min_span, exact=compact_kw is not None,
+        **sizing)
 
 
 def _pairs(seqs_u8, lengths, k, r, min_span, chunk, compact_kw,
-           tie_orientation_one=False, lanes=False):
+           tie_orientation_one=False):
     """The front end, the min_span filter and the canonical pairs every
     step starts with (the index tie rule unless tie_orientation_one).
-    Returns (pairs, keep, overflow, rewalked)."""
-    x, y, valid, overflow, rewalked = _front_end(
-        seqs_u8, lengths, k, r, min_span, chunk, compact_kw, lanes)
+    Returns (pairs, keep, overflow)."""
+    x, y, valid, overflow = _front_end(seqs_u8, lengths, k, r, min_span,
+                                       chunk, compact_kw)
     keep = pairs_ops.min_span_filter_gapped(x, y, valid, min_span)
     return (pairs_ops.pair_mers_gapped(x, y, keep, tie_orientation_one),
-            keep, overflow, rewalked)
-
-
-def _with_rewalked(out: dict, rewalked) -> dict:
-    if rewalked is not None:
-        out["rewalked"] = rewalked
-    return out
+            keep, overflow)
 
 
 def sketch_index_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
                       rids: torch.Tensor, *, k: int = 56, r: int = 4,
                       min_span: int = 64, chunk: int = 512,
-                      compact_kw: Optional[dict] = None,
-                      lanes: bool = False) -> dict:
+                      compact_kw: Optional[dict] = None) -> dict:
     """One index-build step over a (B, L) uint8 batch with (B,) lengths
     and (B,) sequence ids.  Returns dict(table = the sorted pair table
     (pairs.sort_pairs fields), n_pairs, n_mers, overflow), every value a
@@ -113,21 +103,17 @@ def sketch_index_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
     compact_kw=pairs.SAFE_COMPACT_KW, as sketch_index_step_auto does.
     `wide` is the sort's 0-dim width flag (pairs.sort_table_deferred): a
     sequence id outside [0, 2**32) leaves the table unsorted, and
-    sketch_index_step_auto raises ValueError on it.  `lanes` (the auto
-    step's first try) runs K1's lane mode: the exact walk at the default
-    sizing, so only compaction overflow sets `overflow`, and the result
-    adds `rewalked`, the 0-dim count of lanes whose warm-up the fix-up
-    redid."""
-    pr, keep, overflow, rewalked = _pairs(seqs_u8, lengths, k, r, min_span,
-                                          chunk, compact_kw, lanes=lanes)
+    sketch_index_step_auto raises ValueError on it."""
+    pr, keep, overflow = _pairs(seqs_u8, lengths, k, r, min_span, chunk,
+                                compact_kw)
     table, wide = pairs_ops.sort_pairs_deferred(pr, rids)
-    return _with_rewalked(dict(
+    return dict(
         table=table,
         n_pairs=pr["pair_valid"].sum(),
         n_mers=keep.sum(),
         overflow=overflow,
         wide=wide,
-    ), rewalked)
+    )
 
 
 def _flags(out: dict) -> bool:
@@ -142,19 +128,21 @@ def _flags(out: dict) -> bool:
     return bool(overflow)
 
 
-def _with_safe_rerun(step, *args, **kw) -> dict:
-    """step(*args, lanes=True, **kw) (K1's lane mode: short warm-ups are
-    redone on the card, lane by lane), and when its overflow flag fires
-    (compaction overflow at the default sizing), the same call with
-    compact_kw=SAFE_COMPACT_KW; adds `safe_rerun`.  A sharded step's flag
-    is already combined over the ranks, so every rank takes the same
+def _with_safe_rerun(step, *args, chunk, **kw) -> dict:
+    """step(*args, **kw) through the exact walk at the default sizing (12
+    slots a chunk, 144 a 512-entry block), so that only compaction
+    overflow sets its flag, and when it fires, the same call with
+    compact_kw=SAFE_COMPACT_KW; adds `safe_rerun`.  A sharded step's
+    flag is already combined over the ranks, so every rank takes the same
     branch.  Raises OverflowError if the safe sizing overflows too, and
     ValueError when the sort's keys are outside their widths."""
-    out = step(*args, lanes=True, **kw)
+    exact = dict(block=chunk, slots=12, block2=512, slots2=144)
+    out = step(*args, chunk=chunk, compact_kw=exact, **kw)
     if not _flags(out):
         out["safe_rerun"] = False
         return out
-    out = step(*args, compact_kw=pairs_ops.SAFE_COMPACT_KW, **kw)
+    out = step(*args, chunk=chunk, compact_kw=pairs_ops.SAFE_COMPACT_KW,
+               **kw)
     if _flags(out):
         raise OverflowError(
             "compaction overflow at SAFE_COMPACT_KW sizing; "
@@ -167,13 +155,12 @@ def _with_safe_rerun(step, *args, **kw) -> dict:
 def sketch_index_step_auto(seqs_u8: torch.Tensor, lengths: torch.Tensor,
                            rids: torch.Tensor, *, k: int = 56, r: int = 4,
                            min_span: int = 64, chunk: int = 512) -> dict:
-    """Overflow-safe index step: the step in K1's lane mode (the exact
-    walk at the default sizing, whose fix-up redoes only the lanes with
-    short warm-ups), and when compaction overflows, the same batch again
-    through the exact walk at SAFE_COMPACT_KW sizing.  Adds `safe_rerun`
-    (bool) to the result, and `rewalked` when it did not rerun.  Its
-    valid entries, n_pairs and n_mers are those of the JAX auto step,
-    which reruns at SAFE sizing on short warm-ups too.  Raises
+    """Overflow-safe index step: the step through the exact walk at the
+    default sizing, and when compaction overflows, the same batch again
+    at SAFE_COMPACT_KW sizing.  Adds `safe_rerun` (bool) to the result.
+    The JAX auto step runs the fast walk first and also reruns on its
+    short warm-ups (`inexact`); the valid entries, n_pairs and n_mers are
+    the same, the table's padding is the default sizing's.  Raises
     OverflowError if the safe sizing overflows too; callers then build
     through the exact host path."""
     return _with_safe_rerun(sketch_index_step, seqs_u8, lengths, rids, k=k,
@@ -495,8 +482,8 @@ def sharded_index_v2_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
     comm = comm or Comm()
     n = comm.size
     bits = probe_bits_for(shard_capacity, avg_per_bucket)
-    pr, _, c_ovf, _ = _pairs(seqs_u8, lengths, k, r, min_span, chunk,
-                             compact_kw)
+    pr, _, c_ovf = _pairs(seqs_u8, lengths, k, r, min_span, chunk,
+                          compact_kw)
     local, wide = pairs_ops.sort_pairs_deferred(pr, rids)
     C = local["k0"].numel()
     route_cap = _route_cap(route_capacity, C, n)
@@ -574,8 +561,8 @@ def sharded_query_v2_e2e_step(
     if not 1 <= Pp <= 127:
         raise ValueError("postings_cap > 127 overflows the 7-bit mult field")
     B_loc = seqs_u8.shape[0]
-    pr, _, c_ovf, _ = _pairs(seqs_u8, lengths, k, r, min_span, chunk,
-                             compact_kw, tie_orientation_one=True)
+    pr, _, c_ovf = _pairs(seqs_u8, lengths, k, r, min_span, chunk,
+                          compact_kw, tie_orientation_one=True)
     (q_k0, q_k1, q_bgn, q_end, q_ori), cvalid, ovf2 = (
         pairs_ops.rank_extract_planes(
             [pr[f] for f in ("k0", "k1", "bgn", "end", "orientation")],
@@ -731,8 +718,7 @@ def sharded_sketch_index_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
                               comm: Optional[Comm] = None, k: int = 56,
                               r: int = 4, min_span: int = 64,
                               chunk: int = 512,
-                              compact_kw: Optional[dict] = None,
-                              lanes: bool = False) -> dict:
+                              compact_kw: Optional[dict] = None) -> dict:
     """The replicated-index (v1) build on this rank
     (pgrtk_tpu/parallel/mesh.py:55 sharded_sketch_index_step): its
     (B_loc, L) batch with (B_loc,) lengths and sequence ids is sketched
@@ -747,12 +733,10 @@ def sharded_sketch_index_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
     sort's width flag, the same on every rank; the _auto step raises
     ValueError on it).  Equal keys
     are in (sid, bgn) order, which is the JAX table's order when the
-    sequence ids ascend over the ranks' rows in rank order.  `lanes` runs
-    K1's lane mode, as sketch_index_step does; `rewalked` then counts this
-    rank's re-walked lanes."""
+    sequence ids ascend over the ranks' rows in rank order."""
     comm = comm or Comm()
-    pr, keep, overflow, rewalked = _pairs(seqs_u8, lengths, k, r, min_span,
-                                          chunk, compact_kw, lanes=lanes)
+    pr, keep, overflow = _pairs(seqs_u8, lengths, k, r, min_span, chunk,
+                                compact_kw)
     local = pairs_ops._pair_table(pr, rids)
     fields = pairs_ops.TABLE_FIELDS[1:]  # k0, k1, sid, bgn, end, orientation
     m = local["k0"].numel()
@@ -761,11 +745,10 @@ def sharded_sketch_index_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
     table = dict(zip(fields, planes.reshape(len(fields), comm.size * m)))
     table["valid"] = table["k0"] != INT64_MAX
     table, wide = pairs_ops.sort_table_deferred(table)
-    return _with_rewalked(dict(table=table,
-                               n_pairs=comm.sum(pr["pair_valid"].sum()),
-                               n_mers=comm.sum(keep.sum()),
-                               overflow=comm.any(overflow), wide=wide),
-                          rewalked)
+    return dict(table=table,
+                n_pairs=comm.sum(pr["pair_valid"].sum()),
+                n_mers=comm.sum(keep.sum()),
+                overflow=comm.any(overflow), wide=wide)
 
 
 def sharded_sketch_index_step_auto(seqs_u8: torch.Tensor,
@@ -775,10 +758,11 @@ def sharded_sketch_index_step_auto(seqs_u8: torch.Tensor,
                                    min_span: int = 64,
                                    chunk: int = 512) -> dict:
     """sharded_sketch_index_step with the SAFE rerun
-    (pgrtk_tpu/parallel/mesh.py:129), first in K1's lane mode as
-    sketch_index_step_auto: when any rank's compaction overflowed, every
-    rank reruns at SAFE_COMPACT_KW; raises OverflowError on every rank
-    when that overflows too.  Adds `safe_rerun`."""
+    (pgrtk_tpu/parallel/mesh.py:129), first through the exact walk at the
+    default sizing as sketch_index_step_auto: when any rank's compaction
+    overflowed, every rank reruns at SAFE_COMPACT_KW; raises
+    OverflowError on every rank when that overflows too.  Adds
+    `safe_rerun`."""
     return _with_safe_rerun(sharded_sketch_index_step, seqs_u8, lengths,
                             rids, comm=comm, k=k, r=r, min_span=min_span,
                             chunk=chunk)
@@ -791,8 +775,8 @@ def _v1_query(seqs_u8, lengths, lookup, comm, k, r, min_span, chunk,
     returns dict(n_hits over the ranks, all_hits = the (n * B_loc, C)
     hit masks of every rank in rank order, overflow over the ranks)."""
     comm = comm or Comm()
-    pr, _, overflow, _ = _pairs(seqs_u8, lengths, k, r, min_span, chunk,
-                                compact_kw)
+    pr, _, overflow = _pairs(seqs_u8, lengths, k, r, min_span, chunk,
+                             compact_kw)
     found = lookup(pr["k0"].reshape(-1), pr["k1"].reshape(-1))
     hit = found.reshape(pr["k0"].shape) & pr["pair_valid"]
     return dict(n_hits=comm.sum(hit.sum()), all_hits=comm.all_gather(hit),
@@ -874,8 +858,8 @@ def sharded_query_v2_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
     on every rank."""
     comm = comm or Comm()
     bits = probe_bits_for(shard_capacity, avg_per_bucket)
-    pr, _, overflow, _ = _pairs(seqs_u8, lengths, k, r, min_span, chunk,
-                                compact_kw)
+    pr, _, overflow = _pairs(seqs_u8, lengths, k, r, min_span, chunk,
+                             compact_kw)
     q = comm.all_gather(torch.stack([pr["k0"].reshape(-1),
                                      pr["k1"].reshape(-1),
                                      pr["pair_valid"].reshape(-1).long()], 1))

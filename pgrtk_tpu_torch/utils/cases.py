@@ -142,7 +142,7 @@ WARMUP_RUNS = (8, 9, 55, 56, 57, 64, 65, 511, 512, 513, 20_000)
 
 
 def warmup_batch(n_run=None, all_n_row=False, B=4, L=32_768):
-    """A (B, L) uint8 batch and (B,) int32 lengths for K1's lane mode,
+    """A (B, L) uint8 batch and (B,) int32 lengths for K1's warm-ups,
     seeded by n_run.  Row 0: uppercase ACGT, an N run of n_run bases
     ending at the chunk start 20,480.  Row 1: lowercase acgt, length
     30,001 (not a multiple of 512), a run of lowercase n ending at the

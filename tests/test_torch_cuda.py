@@ -11,8 +11,9 @@ errors of the sorts on the card against the CPU's, and K13
 pgr-get-sv-candidate-regions on the card against the CPU, K14-K19 against
 their plain versions on the edge cases, the dense pair variants and the
 v1 programs (over NCCL at world size 1) on the card against the CPU,
-and K1's lane warm-up mode against its exact mode and plain version, with
-the auto index step that runs it on the card against the CPU.
+and K1's exact walk at the default sizing against its plain version on
+short warm-ups, with the auto index step that runs it on the card
+against the CPU.
 
 Marked `cuda`; each test skips when torch.cuda.is_available() is false.
 Imports no JAX, so it runs on a machine without it:
@@ -514,43 +515,41 @@ WARMUP_CASES = [f"run{n}" for n in cases.WARMUP_RUNS] + ["all_n_row"]
 
 
 @pytest.mark.parametrize("case", WARMUP_CASES)
-def test_lane_mode_matches_exact_kernel_and_plain(dev, case):
-    """K1's lane mode on batches whose N runs end at chunk starts
-    (cases.warmup_cases): every plane and flag equal to the exact=1
-    kernel and to the plain exact walk, and the re-walked lanes those the
-    fast walk's inexact flag marks."""
+def test_exact_walk_at_default_sizing_matches_plain(dev, case):
+    """K1's exact walk at 12 slots, as the auto index steps run it, on
+    batches whose N runs end at chunk starts (cases.warmup_cases): every
+    plane and flag equal to the plain exact walk; the fast kernel, equal
+    to its plain version, flags inexact on every run longer than 8."""
     arr, lens = cases.warmup_cases()[case]
     seqs = torch.from_numpy(arr).to(dev)
     tl = torch.from_numpy(lens).to(dev)
     before = kb.sketch_walk_compact.launches
-    got = tsk.sketch_walk_compact(seqs, tl, K, R, CHUNK, 12, lanes=True)
+    exact = tsk.sketch_walk_compact(seqs, tl, K, R, CHUNK, 12, True)
     torch.cuda.synchronize()
     assert kb.sketch_walk_compact.launches == before + 1
-    exact = tsk.sketch_walk_compact(seqs, tl, K, R, CHUNK, 12, True)
     plain = tsk.sketch_walk_compact_plain(seqs, tl, K, R, CHUNK, 12, True)
-    assert _equal(list(got[:5]), list(exact))
-    assert _equal(list(got[:5]), list(plain))
-    count = int(got[5])
-    assert count == int(tsk.short_warmup_count(seqs, tl, K, CHUNK))
-    assert (count > 0) == (case != "run8")
+    assert _equal(list(exact), list(plain))
+    fast = tsk.sketch_walk_compact(seqs, tl, K, R, CHUNK, 12)
+    assert _equal(list(fast), list(tsk.sketch_walk_compact_plain(
+        seqs, tl, K, R, CHUNK, 12, False)))
+    assert bool(fast[4]) == (case != "run8")
 
 
-def test_lane_mode_on_a_clean_batch_lists_no_lane(dev):
-    """Without N runs (ragged rows, lowercase bases) the list stays empty
-    and lane mode's planes and flags are the fast mode's."""
+def test_exact_walk_on_a_clean_batch_matches_fast(dev):
+    """Without N runs (ragged rows, lowercase bases) the exact walk's
+    planes and flags are the fast walk's."""
     arr, lens = cases.warmup_batch()
     seqs = torch.from_numpy(arr).to(dev)
     tl = torch.from_numpy(lens).to(dev)
-    lanes = tsk.sketch_walk_compact(seqs, tl, K, R, CHUNK, 12, lanes=True)
+    exact = tsk.sketch_walk_compact(seqs, tl, K, R, CHUNK, 12, True)
     fast = tsk.sketch_walk_compact(seqs, tl, K, R, CHUNK, 12)
-    assert int(lanes[5]) == 0
-    assert _equal(list(lanes[:5]), list(fast))
+    assert _equal(list(exact), list(fast))
 
 
-def test_auto_step_on_card_redoes_short_warm_ups_as_cpu(dev):
+def test_auto_step_on_card_walks_short_warm_ups_as_cpu(dev):
     """The auto index step on a batch with short warm-ups: one K1 launch
-    (lane mode), no rerun, the same lanes re-walked and the same table,
-    padding included, as on the CPU."""
+    (the exact walk), no rerun, and the same table, padding included, as
+    on the CPU."""
     arr, lens = cases.warmup_batch(513)
     args = (torch.from_numpy(arr), torch.from_numpy(lens), torch.arange(4))
     cpu = mesh.sketch_index_step_auto(*args)
@@ -558,7 +557,6 @@ def test_auto_step_on_card_redoes_short_warm_ups_as_cpu(dev):
     gpu = mesh.sketch_index_step_auto(*(a.to(dev) for a in args))
     assert kb.sketch_walk_compact.launches == before + 1
     assert not gpu["safe_rerun"] and not cpu["safe_rerun"]
-    for key in ("n_pairs", "n_mers", "overflow", "rewalked"):
+    for key in ("n_pairs", "n_mers", "overflow"):
         assert _equal(gpu[key].cpu(), cpu[key]), key
-    assert int(gpu["rewalked"]) == 3
     assert _equal({k: t.cpu() for k, t in gpu["table"].items()}, cpu["table"])

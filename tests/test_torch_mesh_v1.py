@@ -8,7 +8,8 @@ n_mers, every flag, n_hits and the hit masks, exactly.  The corpus is the
 dry run's cut to 8 x 16,384 bases, sequence ids ascending over the ranks.
 Then K16 and K17 against the JAX lookups on the edge cases of
 pgrtk_tpu_torch/utils/cases.py, the auto step when one rank's rows hold
-an N run (no rerun: K1's lane mode) and when they also overflow the
+an N run (no rerun: the port's auto step walks exactly from the start)
+and when they also overflow the
 compaction (every rank reruns), and the table order with permuted
 sequence ids."""
 import functools
@@ -200,7 +201,7 @@ def test_replicated_probe_table_matches_jax(port_v1):
 
 def _same_valid_entries(got, want):
     """The valid entries field for field, in table order (the port's
-    lane-mode table is padded to the default sizing, JAX's rerun table to
+    table is padded to the default sizing, JAX's rerun table to
     SAFE_COMPACT_KW's)."""
     gv, wv = got["valid"], want["valid"]
     assert gv.sum() == wv.sum()
@@ -211,8 +212,8 @@ def _same_valid_entries(got, want):
 def test_auto_redoes_a_short_warm_up_without_rerun(port_v1):
     """An N run before a chunk start in one rank's rows: the JAX fast
     step flags it and the JAX auto step reruns at SAFE sizing; the port's
-    auto step redoes the lane in K1's lane mode, reruns on no rank, and
-    gives the same valid entries, n_pairs and n_mers."""
+    auto step, which takes the exact walk at the default sizing, reruns
+    on no rank and gives the same valid entries, n_pairs and n_mers."""
     fast_overflow, want = _jax_auto("n_run")
     assert fast_overflow  # the fast step flags
     for o in port_v1["n_run"]:
