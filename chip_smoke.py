@@ -13,7 +13,11 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      overflow, equal-hash ties; K2 at blocks 1024, 1025, 1152 and 3072;
      probe hits, misses and pad slots in both table layouts; long query
      rows; postings with every flag; chain groups with same-left runs,
-     duplicates, coordinates above 2^24 and all four filter settings;
+     duplicates, coordinates above 2^24 and all four filter settings,
+     and K8's staging edges: 31, 33 and 577 anchors, invalid runs longer
+     than a chunk, a group without a valid anchor, ties in 3-5 slots;
+     K4 on its tile edges (kept entries at 1,023/1,024, a kept-free run
+     of more than 32 tiles, C not a multiple of 1,024);
      K2, K3, K4 and K6 on 70,000 rows, past gridDim.y's 65,535; the
      inputs are pgrtk_tpu_torch/utils/cases.py's; K9 on mode-1 rows with
      N runs, a palindromic 56-mer and an (AC)n run at two specs, K10 on
@@ -234,6 +238,7 @@ BATCH_KERNELS = ("sketch_walk_compact", "rank_extract", "probe_fetch",
 HBM_BYTES_PER_S = 3.35e12
 INT_LANES_PER_SM = 64
 INT_OPS_PER_S = None  # set in main() from the card
+SM_HZ = None  # the card's maximum SM clock, set in main()
 NVLINK_BYTES_PER_S = 450e9  # each way, per card
 BIT = 1 / 8          # a flag or a mask entry
 SLOT = (8, 4, BIT)   # a compacted mer: x, y (position and strand in 32
@@ -1095,6 +1100,8 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
             + need(got[2].numel(), BIT, BIT),  # dup, inexact per group
             OPS_SLOT * E2E_KW["lookback"] * n_valid, plain_reps=1),
     }
+    print(f"    K8: {results['chain_scores_fast']['ms'] * 1e-3 * SM_HZ / N:.0f}"
+          f" cycles a scan step at the maximum SM clock")
     step_info = dict(bound=step_bound(
         [(r["bound_ms"], r["bound_by"])
          for r in (*errs.values(), *results.values())]))
@@ -2393,7 +2400,7 @@ def set_op_rates():
     """INT_OPS_PER_S from the card (SMs x 64 INT32 lanes x the maximum SM
     clock), and the walks' instruction slots per base from the SASS of
     the built library (kernels/sass_ops.py)."""
-    global INT_OPS_PER_S, OPS_WALK, OPS_WALK_DENSE, OPS_WALK_MODE1
+    global INT_OPS_PER_S, SM_HZ, OPS_WALK, OPS_WALK_DENSE, OPS_WALK_MODE1
     import subprocess
     from pathlib import Path
 
@@ -2405,7 +2412,8 @@ def set_op_rates():
          "--format=csv,noheader,nounits", "-i", "0"], check=True,
         capture_output=True, text=True, timeout=60).stdout.split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    INT_OPS_PER_S = sms * INT_LANES_PER_SM * mhz * 1e6
+    SM_HZ = mhz * 1e6
+    INT_OPS_PER_S = sms * INT_LANES_PER_SM * SM_HZ
     walks = sass_ops.count(Path(kb.build_report["path"]))
     OPS_WALK = walks["K1 compact walk"]["slots"]
     OPS_WALK_DENSE = walks["K1 dense walk"]["slots"]

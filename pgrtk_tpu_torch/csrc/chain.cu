@@ -5,170 +5,297 @@
 // Replaces pgrtk_tpu/ops/chain.py:252 chain_scores_fast (the reference's
 // serial DP, aln.rs:12-142, with a W-anchor recency window).
 //
-// What bounds it on this card: the sequential dependence along a group.
-// Anchor i's score needs anchor i-1's, so a group is N dependent steps of
-// a few dozen instructions each (N = 576 at the bench step); the data
-// (48 bytes per anchor in, 8 out) is small.  The card gets parallelism
-// only across groups (G = 1024 at the bench step), so the kernel is
-// latency bound.
+// What bounds it on this card: the latency of each step's dependent chain.
+// Anchor i's score needs anchor i-1's, so a group is N dependent steps
+// (N = 576 at the bench step); the data (48 bytes per anchor in, 8 out) is
+// small.  The card gets parallelism only across groups (G = 1024 at the
+// bench step: one warp each, two warps per scheduler), so a step costs the
+// latency of its chain of votes, popcounts and reductions, not the issue
+// of its instructions.  The first design spent ~880 cycles a step: a
+// global load one step ahead, two five-level shuffle trees, two scalar
+// stores and the window's nine-register shift, every step.
 //
-// Design: one warp per group, window slot d in lane d (W <= 32), the
-// window recency-ordered as the JAX scan keeps it.  Per step every lane
-// reads the current anchor (the next one is loaded a step ahead), tests
-// its slot against the reference's filters, and ballots replace the JAX
-// scans: the distinct-left count is a popcount of the run-start mask
-// below the lane, the segmented OR-scan (oriented / max_gap) a mask of
-// the unfiltered slots between the lane's run start and the lane, the
-// best score a shuffle max and the nearest-wins tie a shuffle max of the
-// slot's anchor index.  Invalid anchors do not enter the window; the push
-// is a __shfl_up_sync gated on validity.  Arithmetic is in the
-// reference's f32 op order with explicit round-to-nearest intrinsics, so
-// nvcc's default -fmad=true cannot contract `s1 - penalty*gap` into an
-// FMA (the JAX code blocks that with abs(), ops/chain.py:181-186);
-// coordinates are converted to f32 before any subtraction.  Equality
-// tests use the 32-bit patterns, as the JAX int32 casts do.
+// Design: one warp per group, one window slot per lane (W <= 32).
+//  - Staging: each group's anchors come in 32 at a time, one anchor a lane
+//    (three 16-byte loads), a chunk ahead of the walk.  Each lane converts
+//    its anchor once (u32 -> f32, self score, relative orientation) into
+//    shared memory; a step reads its anchor there (two broadcast 16-byte
+//    loads), so no global load sits on the chain.
+//  - A ring window: the k-th valid anchor goes to lane (-k) mod 32 and no
+//    other lane moves; lane l holds recency d = (l - h) mod 32, h the lane
+//    of the newest anchor.  The JAX scan's recency order lives in masks:
+//    a ballot in lane order is rotated by h where order matters.  The run
+//    starts (a slot whose left coordinates differ from the nearer slot's)
+//    are one warp-uniform mask in recency order that a push shifts; what a
+//    lane derives from them (nearer slots, its run, its start bit) is
+//    recomputed only on a push.  Invalid anchors leave the window as it
+//    is, so their steps push nothing.
+//  - The best score is one __reduce_max_sync (redux.sync) on an order-
+//    preserving int32 image of the f32 candidate (the bits, negative ones
+//    with the magnitude flipped): -3e38 stays below every score and the
+//    image is positive exactly when the float is > +0, so `best > 0` and
+//    the best value itself come from the image; +0 and -0 differ there but
+//    never reach an output (a best of zero takes the self score and prev
+//    -1).  Nearest wins the ties: the winners' largest anchor index is a
+//    second redux.
+//  - A two-stage software pipeline: a step's best is settled in the next
+//    step, after that step's filters (its score enters the pushed slot,
+//    its prev's reduction is issued), and its prev is read a step later
+//    still.  The filters need only the window's coordinates, so each
+//    reduction's latency overlaps the next step's filters, and an invalid
+//    step adds nothing to the score chain.
+//  - Outputs: lane j keeps step j's score and prev of the chunk; the warp
+//    stores 32 of each at once.
+// Every warp vote is executed by all 32 lanes (no short circuit around
+// one), and the candidate is computed on every lane and selected: a branch
+// around it costs each step a convergence barrier.
+//
+// Arithmetic is in the reference's f32 op order with explicit
+// round-to-nearest intrinsics, so nvcc's default -fmad=true cannot
+// contract `s1 - penalty*gap` into an FMA (the JAX code blocks that with
+// abs(), ops/chain.py:181-186); coordinates are converted to f32 before
+// any subtraction.  Equality tests use the 32-bit patterns, as the JAX
+// int32 casts do.
 #include "common.cuh"
 
 namespace {
 
 constexpr float kNeg = -3.0e38f;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kChunk = 32;       // anchors staged at a time, one a lane
+constexpr int kWarpsPerBlock = 4;
 
-struct Anchor {
-  unsigned qb, qe, qo, tb, te, to;
+// One staged anchor, in the three 16-byte rows a step reads.
+struct __align__(16) StepHead {  // every step
+  float fqb, ta, self;  // ta: t_bgn if the orientations agree, else t_end
+  int rel;              // q_ori ^ t_ori (0: same orientation)
+};
+struct __align__(16) StepLeft {  // every step: the distinct-left test
+  unsigned qb, qe, qo, pad;
+};
+struct __align__(16) StepPush {  // valid steps: the pushed slot
+  float fqe, ftb, fte, pad;
+};
+struct Chunk {
+  StepHead head[kChunk];
+  StepLeft left[kChunk];
+  StepPush push[kChunk];
+};
+
+// Order-preserving int32 image of a (non-NaN) float: signed compares of
+// the images order the floats, and image > 0 iff the float is > +0.
+__device__ __forceinline__ int order_key(float f) {
+  const int b = __float_as_int(f);
+  return b ^ ((b >> 31) & 0x7fffffff);
+}
+
+__device__ __forceinline__ unsigned rotl(unsigned x, int s) {
+  return __funnelshift_l(x, x, s);
+}
+
+__device__ __forceinline__ unsigned rotr(unsigned x, int s) {
+  return __funnelshift_r(x, x, s);
+}
+
+// The six u32 coordinates of one anchor (int64 (6,) row) and its flag.
+struct Raw {
+  longlong2 a, b, c;
   bool valid;
 };
 
-__device__ __forceinline__ Anchor load_anchor(const long long* a,
-                                              const bool* v, int i) {
-  Anchor x;
-  x.qb = (unsigned)a[i * 6 + 0];
-  x.qe = (unsigned)a[i * 6 + 1];
-  x.qo = (unsigned)a[i * 6 + 2];
-  x.tb = (unsigned)a[i * 6 + 3];
-  x.te = (unsigned)a[i * 6 + 4];
-  x.to = (unsigned)a[i * 6 + 5];
-  x.valid = v[i];
-  return x;
+__device__ __forceinline__ void fetch(const longlong2* __restrict__ rows,
+                                      const bool* __restrict__ v, int i,
+                                      int N, Raw& r) {
+  if (i < N) {
+    r.a = __ldg(rows + i * 3);
+    r.b = __ldg(rows + i * 3 + 1);
+    r.c = __ldg(rows + i * 3 + 2);
+    r.valid = v[i];
+  } else {
+    r.a = r.b = r.c = make_longlong2(0, 0);
+    r.valid = false;
+  }
 }
 
-__global__ void chain_fast_kernel(const long long* __restrict__ anchors,
-                                  const bool* __restrict__ valid, int G,
-                                  int N, float penalty, int pen_neg,
-                                  float max_gap, int use_max_gap,
-                                  int oriented, int W, int max_span,
-                                  float* __restrict__ scores,
-                                  int* __restrict__ prev,
-                                  bool* __restrict__ dup_out,
-                                  bool* __restrict__ inexact_out) {
-  const int g = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+// Stage lane's anchor into the chunk; returns the chunk's valid mask.
+__device__ __forceinline__ unsigned stage(const Raw& r, Chunk& ck,
+                                          int lane) {
+  const unsigned qb = (unsigned)r.a.x, qe = (unsigned)r.a.y;
+  const unsigned qo = (unsigned)r.b.x, tb = (unsigned)r.b.y;
+  const unsigned te = (unsigned)r.c.x, to = (unsigned)r.c.y;
+  const float fqb = __uint2float_rn(qb), fqe = __uint2float_rn(qe);
+  const float ftb = __uint2float_rn(tb), fte = __uint2float_rn(te);
+  const int rel = (int)(qo ^ to);
+  ck.head[lane] = StepHead{fqb, rel == 0 ? ftb : fte, __fsub_rn(fqe, fqb),
+                           rel};
+  ck.left[lane] = StepLeft{qb, qe, qo, 0u};
+  ck.push[lane] = StepPush{fqe, ftb, fte, 0.f};
+  return __ballot_sync(kFull, r.valid);
+}
+
+template <bool kOriented, bool kMaxGap>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    chain_fast_kernel(const long long* __restrict__ anchors,
+                      const bool* __restrict__ valid, int G, int N,
+                      float penalty, int pen_neg, float max_gap, int W,
+                      int max_span, float* __restrict__ scores,
+                      int* __restrict__ prev, bool* __restrict__ dup_out,
+                      bool* __restrict__ inexact_out) {
+  __shared__ Chunk chunks[kWarpsPerBlock];
+  const int warp = threadIdx.x >> 5;
+  const int g = blockIdx.x * kWarpsPerBlock + warp;
   const int lane = threadIdx.x & 31;
   if (g >= G) return;  // uniform across the warp
-  const bool in_win = lane < W;
-  const unsigned win = W == 32 ? kFull : ((1u << W) - 1u);
-  const unsigned below = (1u << lane) - 1u;  // lanes nearer than this one
-  const long long* a = anchors + (long long)g * N * 6;
+  Chunk& ck = chunks[warp];
+  const longlong2* rows =
+      reinterpret_cast<const longlong2*>(anchors + (long long)g * N * 6);
   const bool* v = valid + (long long)g * N;
   float* out_s = scores + (long long)g * N;
   int* out_p = prev + (long long)g * N;
 
-  // window slot `lane` (slot 0 = most recent valid anchor)
+  // this lane's ring slot
   int w_idx = -1;
   float f_qe = 0.f, f_tb = 0.f, f_te = 0.f, w_score = kNeg;
   unsigned i_qb = kFull, i_qe = kFull, i_qo = kFull;
   int w_rel = 0;
-  int nv = 0;
+  // what the lane derives from the window on a push
+  bool occ = false, is_start = false;
+  unsigned nearer = 0u, run = 0u;  // lane-order masks
+  // warp-uniform window state
+  int h = 0, nv = 0;
+  unsigned starts = 1u;  // recency order; slot 0 always starts a run
+  unsigned s0_qb = kFull, s0_qe = kFull, s0_qo = kFull;  // newest left
   bool dup = false, inexact = false;
 
-  Anchor nxt = N > 0 ? load_anchor(a, v, 0) : Anchor{};
-  for (int i = 0; i < N; ++i) {
-    const Anchor x = nxt;
-    if (i + 1 < N) nxt = load_anchor(a, v, i + 1);
-    const float fqb = __uint2float_rn(x.qb), fqe = __uint2float_rn(x.qe);
-    const float ftb = __uint2float_rn(x.tb), fte = __uint2float_rn(x.te);
-    const float self_score = __fsub_rn(fqe, fqb);
-    const int rel = (int)(x.qo ^ x.to);
-    const bool so = x.qo == x.to;
+  Raw raw;
+  fetch(rows, v, lane, N, raw);
+  for (int c0 = 0; c0 < N; c0 += kChunk) {
+    __syncwarp();
+    const unsigned vmask = stage(raw, ck, lane);
+    __syncwarp();
+    fetch(rows, v, c0 + kChunk + lane, N, raw);  // in flight meanwhile
+    const int n = min(kChunk, N - c0);
+    float my_s = kNeg;  // lane j: step j's outputs
+    int my_p = -1;
+    // A step's best is settled one step later (its score, the push's
+    // slot score, its prev's reduction) and its prev one step after
+    // that, so each reduction's latency overlaps the next step's filters.
+    // p_*: the pending step; q_*: the prev reduction in flight.
+    bool pend = false, q_pend = false, p_valid = false, q_use = false;
+    int p_j = 0, p_h = 0, p_best = 0, p_key = 0, p_widx = -1;
+    int q_j = 0, q_bp = -1;
+    float p_self = 0.f;
+    StepHead hd = ck.head[0];
+    StepLeft lf = ck.left[0];
+    for (int j = 0; j < n; ++j) {
+      const bool x_valid = (vmask >> j) & 1u;
+      // filters: the window's coordinates and the anchor only
+      const float gap_q = fabsf(__fsub_rn(hd.fqb, f_qe));
+      const float gap_t = fabsf(__fsub_rn(hd.ta, hd.rel == 0 ? f_te : f_tb));
+      bool unf = occ;
+      if (kOriented) unf = unf && w_rel == hd.rel;
+      if (kMaxGap) unf = unf && gap_q <= max_gap && gap_t <= max_gap;
+      const bool same_left = i_qb == lf.qb && i_qe == lf.qe && i_qo == lf.qo;
+      unf = unf && !same_left;
+      bool is_new;
+      if (kOriented || kMaxGap) {
+        // new iff no nearer slot of the same run is unfiltered (every
+        // lane ballots: no short circuit around the vote)
+        const unsigned unf_m = __ballot_sync(kFull, unf);
+        is_new = unf && !(unf_m & run);
+      } else {
+        is_new = unf && is_start;
+      }
+      const unsigned new_m = __ballot_sync(kFull, is_new);
+      const bool scored = unf && __popc(new_m & nearer) < max_span;
+      float gp = fabsf(__fmul_rn(penalty, __fadd_rn(gap_q, gap_t)));
+      if (pen_neg) gp = -gp;
 
-    const bool occ = in_win && w_idx >= 0;
-    const float gap_q = fabsf(__fsub_rn(fqb, f_qe));
-    const float gap_t = so ? fabsf(__fsub_rn(ftb, f_te))
-                           : fabsf(__fsub_rn(fte, f_tb));
-    bool unf = occ;
-    if (oriented) unf = unf && w_rel == rel;
-    if (use_max_gap) unf = unf && gap_q <= max_gap && gap_t <= max_gap;
-    const bool same_left = i_qb == x.qb && i_qe == x.qe && i_qo == x.qo;
-    unf = unf && !same_left;
+      if (q_pend && lane == q_j) my_p = q_use ? q_bp : -1;
+      q_pend = pend;
+      if (pend) {  // settle the pending step
+        const bool use = p_best > 0;
+        const float sc = use ? __int_as_float(p_best) : p_self;
+        if (p_valid && lane == p_h) w_score = sc;
+        if (lane == p_j) my_s = p_valid ? sc : kNeg;
+        // nearest wins: the largest anchor index among the best
+        q_bp = __reduce_max_sync(kFull, p_key == p_best ? p_widx : -1);
+        q_use = use;
+        q_j = p_j;
+      }
 
-    // run starts: the slot's left differs from the nearer slot's
-    const unsigned p_qb = __shfl_up_sync(kFull, i_qb, 1);
-    const unsigned p_qe = __shfl_up_sync(kFull, i_qe, 1);
-    const unsigned p_qo = __shfl_up_sync(kFull, i_qo, 1);
-    const bool diff_prev =
-        lane == 0 || p_qb != i_qb || p_qe != i_qe || p_qo != i_qo;
-    const unsigned unf_m = __ballot_sync(kFull, unf) & win;
-    bool is_new;
-    if (oriented || use_max_gap) {
-      // new iff no nearer slot of the same run is unfiltered
-      const unsigned starts = __ballot_sync(kFull, diff_prev) & win;
-      const unsigned upto = lane == 31 ? kFull : ((2u << lane) - 1u);
-      const int rs = 31 - __clz(starts & upto);  // bit 0 is always set
-      const unsigned run = below & ~((1u << rs) - 1u);
-      is_new = unf && !(unf_m & run);
-    } else {
-      is_new = unf && diff_prev;
+      // this step's candidates in the reference's f32 op order, no
+      // contraction, and their best
+      const float s1 = __fadd_rn(w_score, hd.self);
+      // computed on every lane and selected: a branch around it costs the
+      // step a convergence barrier
+      const float s1_gp = __fsub_rn(s1, gp);
+      const float cand = scored ? s1_gp : kNeg;
+      p_key = order_key(cand);
+      p_best = __reduce_max_sync(kFull, p_key);
+      p_widx = w_idx;
+      p_j = j;
+      p_valid = x_valid;
+      p_self = hd.self;
+      pend = true;
+
+      if (x_valid) {  // uniform: the anchor enters the window
+        if (nv > W && __popc(new_m) < max_span) inexact = true;
+        // a same-left slot after a slot that is not: the run is broken
+        const bool slc = same_left && occ;
+        const unsigned slc_r = rotr(__ballot_sync(kFull, slc), h);
+        const StepPush ps = ck.push[j];
+        const bool fulldup = __any_sync(
+            kFull, slc && f_tb == ps.ftb && f_te == ps.fte && w_rel == hd.rel);
+        if ((slc_r & (slc_r + 1u)) != 0u || fulldup) dup = true;
+
+        const bool differs = lf.qb != s0_qb || lf.qe != s0_qe || lf.qo != s0_qo;
+        starts = ((starts << 1) & ~3u) | (differs ? 3u : 1u);
+        s0_qb = lf.qb;
+        s0_qe = lf.qe;
+        s0_qo = lf.qo;
+        h = (h + 31) & 31;
+        p_h = h;
+        if (lane == h) {  // its score follows when the step settles
+          w_idx = c0 + j;
+          f_qe = ps.fqe;
+          f_tb = ps.ftb;
+          f_te = ps.fte;
+          i_qb = lf.qb;
+          i_qe = lf.qe;
+          i_qo = lf.qo;
+          w_rel = hd.rel;
+        }
+        ++nv;
+        const int d = (lane - h) & 31;
+        occ = d < W && d < nv;
+        const unsigned nearer_r = (1u << d) - 1u;
+        nearer = rotl(nearer_r, h);
+        if (kOriented || kMaxGap) {
+          const int rs = 31 - __clz(starts & ((2u << d) - 1u));
+          run = rotl(nearer_r & ~((1u << rs) - 1u), h);
+        } else {
+          is_start = (starts >> d) & 1u;
+        }
+      }
+      hd = ck.head[(j + 1) & (kChunk - 1)];  // the next step's anchor
+      lf = ck.left[(j + 1) & (kChunk - 1)];
     }
-    const unsigned new_m = __ballot_sync(kFull, is_new) & win;
-    const bool scored = unf && __popc(new_m & below) < max_span;
-    if (x.valid && nv > W && __popc(new_m) < max_span) inexact = true;
-
-    // a same-left slot after a slot that is not: the run is broken
-    const bool slc = same_left && occ;
-    const unsigned slc_m = __ballot_sync(kFull, slc) & win;
-    const bool nonconsec = (slc_m & (slc_m + 1u)) != 0u;
-    const bool fulldup = __any_sync(
-        kFull, slc && f_tb == ftb && f_te == fte && w_rel == rel);
-    if (x.valid && (nonconsec || fulldup)) dup = true;
-
-    // score in the reference's f32 op order, no contraction
-    const float s1 = __fadd_rn(w_score, self_score);
-    float gp = fabsf(__fmul_rn(penalty, __fadd_rn(gap_q, gap_t)));
-    if (pen_neg) gp = -gp;
-    const float cand = scored ? __fsub_rn(s1, gp) : kNeg;
-    float best = cand;
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1)
-      best = fmaxf(best, __shfl_xor_sync(kFull, best, d));
-    int best_prev = scored && cand == best ? w_idx : -1;
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1)
-      best_prev = max(best_prev, __shfl_xor_sync(kFull, best_prev, d));
-    const bool use_prev = best > 0.f;
-    float score_i = use_prev ? best : self_score;
-    if (!x.valid) score_i = kNeg;
-    if (lane == 0) {
-      out_s[i] = score_i;
-      out_p[i] = use_prev ? best_prev : -1;
+    // drain: the chunk's last steps
+    if (q_pend && lane == q_j) my_p = q_use ? q_bp : -1;
+    if (pend) {
+      const bool use = p_best > 0;
+      const float sc = use ? __int_as_float(p_best) : p_self;
+      if (p_valid && lane == p_h) w_score = sc;
+      const int bp = __reduce_max_sync(kFull, p_key == p_best ? p_widx : -1);
+      if (lane == p_j) {
+        my_s = p_valid ? sc : kNeg;
+        my_p = use ? bp : -1;
+      }
     }
-
-    if (x.valid) {  // push: slot d takes slot d-1, slot 0 the anchor
-      const int s_idx = __shfl_up_sync(kFull, w_idx, 1);
-      const float s_qe = __shfl_up_sync(kFull, f_qe, 1);
-      const float s_tb = __shfl_up_sync(kFull, f_tb, 1);
-      const float s_te = __shfl_up_sync(kFull, f_te, 1);
-      const float s_sc = __shfl_up_sync(kFull, w_score, 1);
-      const int s_rel = __shfl_up_sync(kFull, w_rel, 1);
-      const bool first = lane == 0;
-      w_idx = first ? i : s_idx;
-      f_qe = first ? fqe : s_qe;
-      f_tb = first ? ftb : s_tb;
-      f_te = first ? fte : s_te;
-      w_score = first ? score_i : s_sc;
-      w_rel = first ? rel : s_rel;
-      i_qb = first ? x.qb : p_qb;
-      i_qe = first ? x.qe : p_qe;
-      i_qo = first ? x.qo : p_qo;
-      ++nv;
+    if (lane < n) {
+      out_s[c0 + lane] = my_s;
+      out_p[c0 + lane] = my_p;
     }
   }
   if (lane == 0) {
@@ -177,25 +304,46 @@ __global__ void chain_fast_kernel(const long long* __restrict__ anchors,
   }
 }
 
+template <bool kOriented, bool kMaxGap>
+void launch_fast(const void* anchors, const void* valid, int G, int N,
+                 float penalty, float max_gap, int W, int max_span,
+                 void* scores, void* prev, void* dup, void* inexact,
+                 cudaStream_t stream) {
+  chain_fast_kernel<kOriented, kMaxGap>
+      <<<(unsigned)((G + kWarpsPerBlock - 1) / kWarpsPerBlock),
+         kWarpsPerBlock * 32, 0, stream>>>(
+          (const long long*)anchors, (const bool*)valid, G, N, penalty,
+          penalty < 0.f ? 1 : 0, max_gap, W, max_span, (float*)scores,
+          (int*)prev, (bool*)dup, (bool*)inexact);
+}
+
 }  // namespace
 
-// anchors (G, N, 6) int64 holding u32 values; valid (G, N) bool; outputs
-// scores (G, N) float32, prev (G, N) int32, dup and inexact (G,) bool.
-// max_gap is read only when use_max_gap; 1 <= W <= 32.
+// anchors (G, N, 6) int64 holding u32 values, 16-byte aligned; valid
+// (G, N) bool; outputs scores (G, N) float32, prev (G, N) int32, dup and
+// inexact (G,) bool.  max_gap is read only when use_max_gap; 1 <= W <= 32.
 extern "C" int pgrtk_chain_scores_fast(const void* anchors, const void* valid,
                                        int G, int N, float penalty,
                                        float max_gap, int use_max_gap,
                                        int oriented, int W, int max_span,
                                        void* scores, void* prev, void* dup,
                                        void* inexact, void* stream) {
-  if (G < 0 || N < 0 || W < 1 || W > 32) return (int)cudaErrorInvalidValue;
+  if (G < 0 || N < 0 || W < 1 || W > 32 || ((uintptr_t)anchors & 15))
+    return (int)cudaErrorInvalidValue;
   if (G == 0) return (int)cudaSuccess;
-  const int threads = 128;  // 4 groups per block
-  chain_fast_kernel<<<(unsigned)((G + 3) / 4), threads, 0,
-                      (cudaStream_t)stream>>>(
-      (const long long*)anchors, (const bool*)valid, G, N, penalty,
-      penalty < 0.f ? 1 : 0, max_gap, use_max_gap, oriented, W, max_span,
-      (float*)scores, (int*)prev, (bool*)dup, (bool*)inexact);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (oriented && use_max_gap)
+    launch_fast<true, true>(anchors, valid, G, N, penalty, max_gap, W,
+                            max_span, scores, prev, dup, inexact, st);
+  else if (oriented)
+    launch_fast<true, false>(anchors, valid, G, N, penalty, max_gap, W,
+                             max_span, scores, prev, dup, inexact, st);
+  else if (use_max_gap)
+    launch_fast<false, true>(anchors, valid, G, N, penalty, max_gap, W,
+                             max_span, scores, prev, dup, inexact, st);
+  else
+    launch_fast<false, false>(anchors, valid, G, N, penalty, max_gap, W,
+                              max_span, scores, prev, dup, inexact, st);
   return (int)cudaGetLastError();
 }
 
@@ -229,6 +377,24 @@ extern "C" int pgrtk_chain_scores_fast(const void* anchors, const void* valid,
 // cannot contract to an FMA; coordinates are converted to f32 before any
 // subtraction; equality tests use the 32-bit patterns.
 namespace {
+
+struct Anchor {
+  unsigned qb, qe, qo, tb, te, to;
+  bool valid;
+};
+
+__device__ __forceinline__ Anchor load_anchor(const long long* a,
+                                              const bool* v, int i) {
+  Anchor x;
+  x.qb = (unsigned)a[i * 6 + 0];
+  x.qe = (unsigned)a[i * 6 + 1];
+  x.qo = (unsigned)a[i * 6 + 2];
+  x.tb = (unsigned)a[i * 6 + 3];
+  x.te = (unsigned)a[i * 6 + 4];
+  x.to = (unsigned)a[i * 6 + 5];
+  x.valid = v[i];
+  return x;
+}
 
 __global__ void chain_dense_kernel(const long long* __restrict__ anchors,
                                    const bool* __restrict__ valid, int G,

@@ -111,6 +111,8 @@ def library() -> ctypes.CDLL:
             lib.pgrtk_error_string.argtypes = [_I]
             lib.pgrtk_row_rank_scratch.restype = _LL
             lib.pgrtk_row_rank_scratch.argtypes = [_I, _LL]
+            lib.pgrtk_pair_summary_ints.restype = _LL
+            lib.pgrtk_pair_summary_ints.argtypes = [_I, _LL]
             lib.pgrtk_sketch_scratch_bytes.restype = _LL
             lib.pgrtk_sketch_scratch_bytes.argtypes = [_I, _LL, _I, _I]
             lib.pgrtk_radix_scratch_bytes.restype = _LL
@@ -271,6 +273,12 @@ def radix_scratch(n: int, device) -> torch.Tensor:
 
 
 def row_rank_scratch(B: int, C: int, device) -> torch.Tensor:
-    """int32 scratch for the neighbour kernels on a (B, C) stream."""
+    """int32 scratch for K3's row ranks on a (B, C) stream."""
     n = library().pgrtk_row_rank_scratch(B, C)
+    return torch.empty(n, dtype=torch.int32, device=device)
+
+
+def pair_summary(B: int, C: int, device) -> torch.Tensor:
+    """int32 per-tile summary for K4 on a (B, C) stream."""
+    n = library().pgrtk_pair_summary_ints(B, C)
     return torch.empty(n, dtype=torch.int32, device=device)

@@ -183,6 +183,8 @@ def chain_scores_fast(anchors: torch.Tensor, valid: torch.Tensor,
     _check_window(lookback)
     G, N, _ = anchors.shape
     dev = anchors.device
+    if anchors.data_ptr() % 16:  # the kernel stages anchors 16 bytes a load
+        anchors = anchors.clone()
     scores = torch.empty((G, N), dtype=torch.float32, device=dev)
     prev = torch.empty((G, N), dtype=torch.int32, device=dev)
     dup = torch.empty(G, dtype=torch.bool, device=dev)

@@ -216,10 +216,10 @@ def pair_mers_gapped(x, y, kept, tie_orientation_one: bool = False
     out = {k: torch.empty_like(x) for k in PAIR_FIELDS}
     out["pair_valid"] = torch.empty_like(kept)
     if x.numel():
-        scratch = kb.row_rank_scratch(B, C, x.device)
+        summary = kb.pair_summary(B, C, x.device)
         kb.pair_mers_gapped(
             x.data_ptr(), y.data_ptr(), kept.data_ptr(), B, C,
-            int(tie_orientation_one), scratch.data_ptr(),
+            int(tie_orientation_one), summary.data_ptr(),
             *(out[k].data_ptr() for k in PAIR_FIELDS),
             out["pair_valid"].data_ptr(), kb.stream_handle(x),
         )

@@ -85,25 +85,118 @@ def chain_groups(seed, G=16, N=96, big=False):
     step = 4_000 if big else 40
     anchors = np.zeros((G, N, 6), np.uint32)
     for g in range(G):
-        rows, qb = [], lo + int(rng.integers(0, 100))
-        while len(rows) < N:
-            qe = qb + int(rng.integers(8, 200))
-            qo = int(rng.integers(0, 2))
-            run = int(rng.integers(1, 4)) if g != 3 else N
-            tb = lo + int(rng.integers(0, 50 * step))
-            for _ in range(run):
-                t = (tb, tb + int(rng.integers(8, 200)),
-                     int(rng.integers(0, 2)))
-                rows.append((qb, qe, qo, *t))
-                if rng.random() < 0.1:
-                    rows.append((qb, qe, qo, *t))  # exact duplicate
-            qb += int(rng.integers(0, step))
-        anchors[g] = np.asarray(rows[:N], dtype=np.uint32)
+        anchors[g] = _anchor_rows(rng, N, lo, step, one_run=g == 3)
     valid = rng.random((G, N)) < 0.8
     garbage = rng.integers(0, 1 << 32, size=(G, N, 6), dtype=np.uint64)
     anchors = np.where(valid[..., None], anchors, garbage.astype(np.uint32))
     valid[G - 1] = False
     return anchors, valid
+
+
+def _anchor_rows(rng, N, lo, step, one_run=False):
+    """N q_bgn-sorted anchors (N, 6): same-left runs of 1-3 target hits
+    (all N with one_run), ~10% exact duplicates, random orientations."""
+    rows, qb = [], lo + int(rng.integers(0, 100))
+    while len(rows) < N:
+        qe = qb + int(rng.integers(8, 200))
+        qo = int(rng.integers(0, 2))
+        run = int(rng.integers(1, 4)) if not one_run else N
+        tb = lo + int(rng.integers(0, 50 * step))
+        for _ in range(run):
+            t = (tb, tb + int(rng.integers(8, 200)), int(rng.integers(0, 2)))
+            rows.append((qb, qe, qo, *t))
+            if rng.random() < 0.1:
+                rows.append((qb, qe, qo, *t))  # exact duplicate
+        qb += int(rng.integers(0, step))
+    return np.asarray(rows[:N], dtype=np.uint32)
+
+
+def _tie_rows(N, lo):
+    """N anchors in blocks of 3-5 that share their left coordinates, each
+    block 100 bases after the last, its targets 1,000 bases apart: at
+    penalty 0 every anchor of a block scores alike, so the next block's
+    anchors see a tie in 3-5 window slots."""
+    rows, k = [], 0
+    while len(rows) < N:
+        qb = lo + 100 * k
+        m = 3 + k % 3
+        for j in range(m):
+            tb = lo + 5_000 + 100 * k + 1_000 * (j - m // 2)
+            rows.append((qb, qb + 10, 0, tb, tb + 10, 0))
+        k += 1
+    return np.asarray(rows[:N], dtype=np.uint32)
+
+
+# scan lengths around K8's 32-anchor staging: short, one past, the bench
+# step's 576 plus one
+CHAIN_EDGE_N = (31, 33, 577)
+
+
+def chain_edge_groups(N, big=False, seed=21):
+    """Six (N, 6) anchor groups at K8's edges, with valid masks: invalid
+    slots leading and trailing (a third of N, at most 40, each side),
+    alternating, and in runs of 33-80 (longer than a staged chunk); a
+    group with no valid anchor; and two groups of tie blocks (_tie_rows),
+    all valid and with every third slot invalid.  Invalid slots hold
+    garbage.  big=True puts the coordinates above 2^24."""
+    rng = np.random.default_rng(seed + N + big)
+    lo = (1 << 24) + 12_345 if big else 0
+    step = 4_000 if big else 40
+    G = 6
+    anchors = np.stack([_anchor_rows(rng, N, lo, step) for _ in range(3)]
+                       + [_anchor_rows(rng, N, lo, step)]
+                       + [_tie_rows(N, lo)] * 2)
+    valid = rng.random((G, N)) < 0.8
+    edge = min(40, N // 3)
+    valid[0, :edge] = valid[0, N - edge:] = False
+    valid[1] = np.arange(N) % 2 == 0
+    i = 0
+    while i < N:  # valid runs of 1-10, invalid runs of 33-80
+        i += int(rng.integers(1, 11))
+        gap = int(rng.integers(33, 81))
+        valid[2, i:i + gap] = False
+        i += gap
+    valid[3] = False
+    valid[4] = True
+    valid[5] = np.arange(N) % 3 != 2
+    garbage = rng.integers(0, 1 << 32, size=(G, N, 6), dtype=np.uint64)
+    anchors = np.where(valid[..., None], anchors, garbage.astype(np.uint32))
+    return anchors, valid
+
+
+# K8's edge runs: (N, big, penalty, lookback); penalty 0 makes the tie
+# blocks tie
+CHAIN_EDGE_SETTINGS = [(N, big, penalty, lookback)
+                       for N in CHAIN_EDGE_N for big in (False, True)
+                       for penalty, lookback in ((0.025, 24), (0.0, 32))]
+
+
+def pair_edge_stream(C=40_000):
+    """A (6, C) kept stream at K4's edges, as JAX planes (x_hi, x_lo,
+    y_lo, kept): row 0 keeps nothing, row 1 one entry, row 2 only columns
+    1,023, 1,024, 2,047 and 2,048 (tile and group edges), row 3 only its
+    first 3,000 and last 1,500 columns (a kept-free run across more than
+    32 tiles of 1,024), row 4 ~35% with hashes from a pool of 5 (equal
+    neighbouring hashes: both tie rules bite), row 5 only its first and
+    last columns.  C = 40,000 is not a multiple of 1,024."""
+    rng = np.random.default_rng(22)
+    B = 6
+    kept = np.zeros((B, C), dtype=bool)
+    kept[1, 777] = True
+    kept[2, [1023, 1024, 2047, 2048]] = True
+    kept[3, :3000] = rng.random(3000) < 0.35
+    kept[3, C - 1500:] = rng.random(1500) < 0.35
+    kept[4] = rng.random(C) < 0.35
+    kept[5, [0, C - 1]] = True
+    h = rng.integers(0, 1 << 56, size=(B, C), dtype=np.uint64)
+    h[4] = h[4, rng.integers(0, 5, size=C)]
+    x = (h << np.uint64(8)) | np.uint64(K)
+    pos = np.cumsum(rng.integers(1, 100, size=(B, C)), axis=1)
+    y = (pos.astype(np.uint64) << np.uint64(1)) | rng.integers(
+        0, 2, size=(B, C), dtype=np.uint64)
+    return ((x >> np.uint64(32)).astype(np.uint32),
+            (x & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+            y.astype(np.uint32), kept)
 
 
 CHAIN_SETTINGS = [(big, oriented, max_gap, lookback)
@@ -176,8 +269,8 @@ def warmup_cases():
 
 
 def query_kernel_cases(dev):
-    """K2 past the old 1024-entry block cap and K5-K8 on the edge-case
-    inputs above."""
+    """K2 past the old 1024-entry block cap, K5-K8 on the edge-case
+    inputs above, K8 on chain_edge_groups and K4 on pair_edge_stream."""
     from ..ops import chain as tc
     from ..ops import pairs as tp
     from ..ops import probe as tpr
@@ -234,6 +327,27 @@ def query_kernel_cases(dev):
     cases.append(("K8 chain_scores_fast span 2, W=6",
                   lambda a=args: tc.chain_scores_fast(*a),
                   lambda a=args: tc.chain_scores_fast_plain(*a)))
+    for N, big, penalty, lookback in CHAIN_EDGE_SETTINGS:
+        anchors, valid = chain_edge_groups(N, big)
+        for max_gap, oriented in ((-1, False), (3000, True)):
+            args = (t(anchors.astype(np.int64)), t(valid), penalty, max_gap,
+                    oriented, lookback, 8)
+            cases.append((f"K8 chain_scores_fast edges N={N} big={big} "
+                          f"penalty={penalty} W={lookback} "
+                          f"max_gap={max_gap} oriented={oriented}",
+                          lambda a=args: tc.chain_scores_fast(*a),
+                          lambda a=args: tc.chain_scores_fast_plain(*a)))
+    for C in (40_000, 40_007):  # rows 16-byte aligned, and not
+        x_hi, x_lo, y_lo, kept = pair_edge_stream(C)
+        x = t(((x_hi.astype(np.uint64) << np.uint64(32)) | x_lo).view(
+            np.int64))
+        y, kept = t(y_lo.astype(np.int64)), t(kept)
+        for tie in (False, True):
+            a = (x, y, kept, tie)
+            cases.append((f"K4 pair_mers_gapped edges {tuple(x.shape)} "
+                          f"tie_one={tie}",
+                          lambda a=a: tp.pair_mers_gapped(*a),
+                          lambda a=a: tp.pair_mers_gapped_plain(*a)))
     return cases
 
 

@@ -78,6 +78,23 @@ def test_span_break_and_window_eviction_match_jax():
     assert want[3].any()
 
 
+@pytest.mark.parametrize("N,big,penalty,lookback", cases.CHAIN_EDGE_SETTINGS)
+def test_chain_edge_groups_match_jax(N, big, penalty, lookback):
+    """K8's staging and ring edges (utils/cases.py::chain_edge_groups):
+    scans of 31, 33 and 577 steps around the 32-anchor chunks; invalid
+    slots leading, trailing, alternating and in runs longer than a chunk;
+    a group with no valid anchor; score ties in 3-5 window slots (penalty
+    0); W 24 and 32; coordinates above 2^24.  Every slot, scores as f32
+    bit patterns, the rest exactly."""
+    anchors, valid = cases.chain_edge_groups(N, big)
+    want = _run_both(anchors, valid, penalty, -1, False, lookback, 8)
+    assert (want[0][3] == np.float32(tchain.NEG)).all()  # no valid anchor
+    if penalty == 0:  # nearest wins: the anchors of a tie block all
+        # point at the previous block's last anchor
+        ties = (want[1][4, 1:] == want[1][4, :-1]) & (want[1][4, 1:] >= 0)
+        assert ties.sum() >= N // 3
+
+
 def _run_dense(anchors, valid, penalty, max_gap, oriented, lookback,
                max_span):
     want = [np.asarray(a) for a in jchain.chain_scores_dense(

@@ -78,11 +78,12 @@ def test_sketch_kernel_rejects_misaligned_bytes(dev):
                                 K, R, CHUNK, 12)
 
 
-@pytest.mark.parametrize("family", ["K2", "K5", "K6", "K7", "K8"])
+@pytest.mark.parametrize("family", ["K2", "K4", "K5", "K6", "K7", "K8"])
 def test_query_kernels_match_plain_on_edge_cases(dev, family):
-    """K2 at blocks 1024, 1025, 1152 and 3072; K5-K8 on the inputs the
-    CPU tests hold the plain versions to the JAX functions with (K8
-    with coordinates above 2^24, where an FMA would change scores)."""
+    """K2 at blocks 1024, 1025, 1152 and 3072; K4 and K5-K8 on the inputs
+    the CPU tests hold the plain versions to the JAX functions with (K8
+    with coordinates above 2^24, where an FMA would change scores, and on
+    its staging and ring edges; K4 on its tile and group edges)."""
     picked = [c for c in cases.query_kernel_cases(dev)
               if c[0].startswith(family)]
     assert picked
@@ -342,6 +343,53 @@ def test_sv_cli_on_card_matches_cpu(dev, tmp_path):
     for ext in cli.OUTPUTS + cli.FASTA_OUTPUTS:
         assert (tmp_path / ("gpu" + ext)).read_bytes() == (
             tmp_path / ("cpu" + ext)).read_bytes(), ext
+
+
+def _same_chains(got, want):
+    for g, w in zip(got, want, strict=True):
+        for (gs, gt), (ws, wt) in zip(g, w, strict=True):
+            assert gs == ws
+            if isinstance(gt, np.ndarray):
+                assert gt.dtype == wt.dtype and np.array_equal(gt, wt)
+            else:
+                assert gt == wt
+
+
+def test_chain_groups_on_card_match_cpu_on_sv_groups(dev, tmp_path,
+                                                     monkeypatch):
+    """The anchor groups pgr-get-sv-candidate-regions chains on the seeded
+    SV corpus, captured from its run on the card: chain_groups on the
+    card (K8, its dup rows on K10) gives the CPU's chains, and K8 on the
+    padded batch equals its plain version on every slot."""
+    from pgrtk_tpu_torch.cli import pgr_get_sv_candidate_regions as cli
+
+    calls = []
+    real = tchain.chain_groups
+
+    def capture(groups, *args, **kw):
+        calls.append((groups, args, kw))
+        return real(groups, *args, **kw)
+
+    monkeypatch.setattr(tchain, "chain_groups", capture)
+    recs, ref = cases.sv_reference(200_000, 1)
+    cases.write_fasta(tmp_path / "ref.fa", recs)
+    cases.write_fasta(tmp_path / "asm.fa", cases.sv_assembly(ref, 2, 3, 2))
+    assert cli.main([str(tmp_path / "ref.fa"), str(tmp_path / "asm.fa"),
+                     str(tmp_path / "out")], device=dev) == 0
+    assert calls
+    for groups, args, kw in calls:
+        kw = {k: v for k, v in kw.items() if k not in ("device", "stats")}
+        _same_chains(real(groups, *args, device=dev, **kw),
+                     real(groups, *args, device="cpu", **kw))
+        anchors, valid = tchain._sorted_batch(groups)
+        a = (torch.from_numpy(anchors.astype(np.int64)).to(dev),
+             torch.from_numpy(valid).to(dev), *args[:1],
+             -1 if kw.get("max_gap") is None else int(kw["max_gap"]),
+             kw.get("oriented", False), kw.get("lookback", 32),
+             kw.get("max_span", 8))
+        assert _equal(tchain.chain_scores_fast(*a),
+                      tchain.chain_scores_fast_plain(*a))
+    torch.cuda.synchronize()
 
 
 def test_shard_kernels_match_plain_on_edge_cases(dev):

@@ -131,6 +131,33 @@ def test_pair_mers_gapped_matches_jax(tie_one):
     assert (p["orientation"][ties] == int(tie_one)).all()
 
 
+@pytest.mark.parametrize("tie_one", [False, True], ids=["index", "query"])
+def test_pair_mers_gapped_edges_match_jax(tie_one):
+    """K4's tile and group edges (utils/cases.py::pair_edge_stream): rows
+    with 0 and 1 kept entries, kept entries only at columns 1,023/1,024
+    and 2,047/2,048, a kept-free run across more than 32 tiles of 1,024,
+    a row whose only pair spans it whole, C = 40,000 (not a multiple of
+    1,024), equal neighbouring hashes.  Every plane on every entry,
+    exactly."""
+    x_hi, x_lo, y_lo, kept = cases.pair_edge_stream()
+    j = _jax_pair(*(jnp.asarray(a) for a in (x_hi, x_lo, y_lo, kept)),
+                  tie_orientation_one=tie_one)
+    x, y, k = convert.mers_from_jax(x_hi, x_lo, y_lo, kept)
+    p = convert.pairs_to_jax(
+        tpairs.pair_mers_gapped(x, y, k, tie_orientation_one=tie_one))
+    pv = np.asarray(j["pair_valid"])
+    assert np.array_equal(p["pair_valid"], pv)
+    for name in ("k0_hi", "k0_lo", "k1_hi", "k1_lo", "bgn", "end",
+                 "orientation"):
+        assert np.array_equal(p[name][pv], np.asarray(j[name])[pv]), name
+        assert not p[name][~pv].any(), name  # no pair: zero
+    assert pv.sum(axis=1).tolist()[:4] == [0, 0, 3, int(kept[3].sum()) - 1]
+    assert pv[5, 0] and pv.sum(axis=1)[5] == 1  # across 39 tiles
+    ties = (p["k0_hi"] == p["k1_hi"]) & (p["k0_lo"] == p["k1_lo"]) & pv
+    assert ties.any()
+    assert (p["orientation"][ties] == int(tie_one)).all()
+
+
 def test_sort_pairs_matches_jax_with_unordered_rids():
     x_hi, x_lo, y_lo, valid = _gapped_stream()
     jx = [jnp.asarray(a) for a in (x_hi, x_lo, y_lo)]
