@@ -16,8 +16,9 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      duplicates, coordinates above 2^24 and all four filter settings,
      and K8's staging edges: 31, 33 and 577 anchors, invalid runs longer
      than a chunk, a group without a valid anchor, ties in 3-5 slots;
-     K4 on its tile edges (kept entries at 1,023/1,024, a kept-free run
-     of more than 32 tiles, C not a multiple of 1,024);
+     K3 and K4 on their tile edges (marked entries at 1,023/1,024, a
+     marked-free run of more than 32 tiles, C not a multiple of 1,024);
+     K7's anchors entry on the same postings as its JAX-shaped entry;
      K2, K3, K4 and K6 on 70,000 rows, past gridDim.y's 65,535; the
      inputs are pgrtk_tpu_torch/utils/cases.py's; K9 on mode-1 rows with
      N runs, a palindromic 56-mer and an (AC)n run at two specs, K10 on
@@ -53,13 +54,16 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      4,194,304 decoy keys (build_index, P=32), 128 query rows of 65,536
      bases, query_e2e_step at bench.py's knobs; certifies the flags and
      the corpus counts BENCH_r05.json recorded, exactly; launch counts of
-     K1-K8 reset before the step and read after; median of 5 steps as
-     query Mbase/s, peak memory, a torch.profiler pass (trace in
-     build/query_path_trace.json); K1-K8 against their plain versions
-     on the step's own inputs (K2 on the level-2 stream, the whole-row
-     pair stream and the slots3 lane planes); and the step again with
-     pair_block=512 and a slots3 lane compaction, which must give the
-     same anchors and scores;
+     K1-K8 reset before the step and read after (K7 through its anchors
+     entry, which writes K8's input; the JAX-shaped entry must not run);
+     median of 5 steps as query Mbase/s, peak memory, a torch.profiler
+     pass (device launches and time by kernel; trace in
+     build/query_path_trace.json); K1-K8, and both entries of K7, against
+     their plain versions on the step's own inputs (K2 on the level-2
+     stream, the whole-row pair stream and the slots3 lane planes); and
+     the step again with pair_block=512 and a slots3 lane compaction,
+     which must run K7's JAX-shaped entry and give the same anchors and
+     scores;
   7. runs the pgr-query --batch-device path, parallel/device_query.py's
      batch_query_to_hps, on bench.py's corpus: the 8 targets as
      in-memory FRG stores (core/seqdb.build_columnar_store) at the CLI
@@ -195,6 +199,8 @@ REPLACES = {
     "probe_fetch": "pgrtk_tpu/ops/probe.py:228",
     "dup_pair_counts": "pgrtk_tpu/ops/query_e2e.py:365",
     "expand_postings": "pgrtk_tpu/ops/query_e2e.py:430",
+    # the same function with the JAX step's anchor build (:665-671)
+    "expand_postings_anchors": "pgrtk_tpu/ops/query_e2e.py:430",
     "chain_scores_fast": "pgrtk_tpu/ops/chain.py:252",
     "sketch_mode1": "pgrtk_tpu/ops/sketch1.py:124",
     "chain_scores_dense": "pgrtk_tpu/ops/chain.py:63",
@@ -210,7 +216,10 @@ REPLACES = {
     "pair_mers_dense": "pgrtk_tpu/ops/pairs.py:248",
 }
 INDEX_KERNELS = tuple(REPLACES)[:4] + ("sort_pairs",)
-QUERY_KERNELS = tuple(REPLACES)[:8]
+QUERY_KERNELS = tuple(REPLACES)[:9]
+# the query step at slots3=None runs K7's anchors entry; the slots3
+# route (phase 6c) the JAX-shaped one
+STEP_KERNELS = tuple(k for k in QUERY_KERNELS if k != "expand_postings")
 BATCH_KERNELS = ("sketch_walk_compact", "rank_extract", "probe_fetch",
                  "chain_scores_fast", "sketch_mode1", "chain_scores_dense",
                  "probe_keys")
@@ -698,7 +707,8 @@ def scaffold_gaps(seqs):
 def profile_steps(step, n=5, trace="main_path_trace.json"):
     """torch.profiler over n steps: device busy time per step (the union
     of kernel, memset and memcpy intervals), the device idle share of the
-    steps' host-clock span, and the largest kernels.  Writes the trace to
+    steps' host-clock span, the device launches per step (kernels,
+    memsets, memcpys) and the largest kernels.  Writes the trace to
     build/<trace> beside this script."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -728,7 +738,8 @@ def profile_steps(step, n=5, trace="main_path_trace.json"):
             per_name[e["name"][:60]] += e["dur"]
     print(f"  profiler: {n} steps in {span_us / n / 1e3:.3f} ms each "
           f"(host clock), device busy {busy / n / 1e3:.3f} ms each, "
-          f"device idle {100 * (1 - busy / span_us):.1f}%; trace {out}")
+          f"device idle {100 * (1 - busy / span_us):.1f}%, "
+          f"{len(spans) / n:g} device launches each; trace {out}")
     for name, us in per_name.most_common(12):
         print(f"    {us / n / 1e3:.4f} ms/step  {100 * us / busy:.1f}%  {name}")
 
@@ -981,8 +992,11 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
     launches = {k.name: k.launches for k in kb.KERNELS
                 if k.name in QUERY_KERNELS}
     print(f"  launches {launches}")
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} never launched on the query path")
+    for name in STEP_KERNELS:
+        require(launches[name] > 0,
+                f"kernel {name} never launched on the query path")
+    require(launches["expand_postings"] == 0,
+            "the step at slots3=None took the JAX-shaped lane planes")
     flags = {name: int(res[name].sum()) for name in CERTIFY_FLAGS}
     counts.update(n_anchors=int(res["gvalid"].sum()),
                   n_q_filtered=int(res["n_q_filtered"]),
@@ -1067,6 +1081,7 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
     run_len = tq.dup_pair_counts(q_k0, q_k1, cvalid)
     base_hit = cvalid & found.reshape(B, Pc) & (run_len <= 128)
     ex_args = (rows.reshape(B, Pc, 3 * P), base_hit, run_len, C, M, 128)
+    anchor_args = (*ex_args[:3], *planes[2:], C, M, 128)
     chain_args = (res["anchors"], res["gvalid"], 0.025, -1, False,
                   E2E_KW["lookback"], 8)
     n_valid = int(res["gvalid"].sum())
@@ -1092,6 +1107,17 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
             list(ex_args[:3]), lambda got: need(got["hv"].numel(), 4, 4, BIT)
             + need(got["row_ovf"].numel() + got["grp_ovf"].numel(), BIT),
             OPS_POSTING * B * Pc * P),
+        "expand_postings_anchors": measure(
+            f"K7 expand_postings_anchors, ({B}, {Pc}, {P}) -> ({G}, {N}, 6)",
+            lambda: tq.expand_postings_anchors(*anchor_args),
+            lambda: tq.expand_postings_anchors_plain(*anchor_args),
+            # q_bgn, q_end, q_ori, t_bgn, t_end, t_ori and gvalid per
+            # lane; row_ovf, grp_ovf
+            list(anchor_args[:6]),
+            lambda got: need(got["gvalid"].numel(), 4, 4, BIT, 4, 4, BIT,
+                             BIT)
+            + need(got["row_ovf"].numel() + got["grp_ovf"].numel(), BIT),
+            OPS_POSTING * B * Pc * P),
         "chain_scores_fast": measure(
             f"K8 chain_scores_fast, ({G}, {N}), W={E2E_KW['lookback']}",
             lambda: tc.chain_scores_fast(*chain_args),
@@ -1100,11 +1126,16 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
             + need(got[2].numel(), BIT, BIT),  # dup, inexact per group
             OPS_SLOT * E2E_KW["lookback"] * n_valid, plain_reps=1),
     }
+    written = nbytes(*anchor_args[:6]) + G * N * (6 * 8 + 1)
+    print(f"    K7 anchors entry at the widths it writes ((G, N, 6) int64, "
+          f"gvalid): {written} bytes, "
+          f"{written / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory rate")
     print(f"    K8: {results['chain_scores_fast']['ms'] * 1e-3 * SM_HZ / N:.0f}"
           f" cycles a scan step at the maximum SM clock")
     step_info = dict(bound=step_bound(
         [(r["bound_ms"], r["bound_by"])
-         for r in (*errs.values(), *results.values())]))
+         for name, r in (*errs.items(), *results.items())
+         if name != "expand_postings"]))
     errs = {name: r["max_abs_err"] for name, r in errs.items()}
     errs["rank_extract"] = max(errs["rank_extract"],
                                errs.pop("rank_extract pairs"))
@@ -1117,15 +1148,22 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
             lambda: tpr.probe_fetch_plain(*dense_args),
             *probe_work(q_k0.reshape(-1), q_k1.reshape(-1), dense["bits"],
                         dense["fence"], dense["k0"], 0))
-    del probe_args, found, rows, run_len, base_hit, ex_args, chain_args
+    del probe_args, found, rows, run_len, base_hit, ex_args, anchor_args
+    del chain_args
     del dense_args, dense
 
     per_lane = int(res["gvalid"].sum(dim=1).max())
     slots3 = -(-per_lane // 64) * 64
     print(f"phase 6c: pair_block=512, slots3={slots3} (largest lane "
           f"{per_lane} anchors)")
+    kb.reset_launches()
     res3 = step(pair_block=512, slots3=slots3)
     torch.cuda.synchronize()
+    launches["expand_postings"] = kb.expand_postings.launches
+    print(f"  K7's JAX-shaped entry launched {launches['expand_postings']} "
+          f"times, its anchors entry {kb.expand_postings_anchors.launches}")
+    require(launches["expand_postings"] > 0,
+            "the slots3 route never launched K7's JAX-shaped entry")
     require(not any(int(res3[n].sum()) for n in CERTIFY_FLAGS),
             "slots3 run raised a flag")
     require(res3["gvalid"].shape == (G, slots3), "slots3 lane width")
@@ -2001,7 +2039,8 @@ def phase_v2_query(dev, kb, mesh, comm, tq, targets, queries):
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kb.KERNELS if k.launches}
     print(f"  launches {launches}")
-    for name in QUERY_KERNELS[:4] + ("dup_pair_counts", "expand_postings",
+    for name in QUERY_KERNELS[:4] + ("dup_pair_counts",
+                                     "expand_postings_anchors",
                                      "chain_scores_fast", "sort_pairs",
                                      "owner_postings"):
         require(launches.get(name, 0) > 0,

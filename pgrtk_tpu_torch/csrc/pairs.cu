@@ -8,65 +8,34 @@
 // What bounds them on this card: device memory and launch count.  The
 // stream is ~1/150 of the bases (C ~ 110k entries per 16-Mbase row), a
 // few tens of bytes per entry; the work per entry is a handful of
-// compares.  K4 writes five int64 planes and a flag per entry (41 bytes
-// against 17 read), so its stores set its floor.
+// compares.  K3 reads 17 bytes an entry and writes one; K4 writes five
+// int64 planes and a flag per entry (41 bytes against 17 read), so its
+// stores set its floor.
 //
-// K3's design: the TPU found each entry's nearest valid neighbour with
-// log2(C) rounds of shift-and-select over whole planes.  Here a row-wide
-// exclusive prefix count of the mask ranks every entry, the valid
-// entries scatter their column to a compacted index (vidx[rank] = col),
-// and each entry then reads its neighbours directly: the previous valid
-// entry is vidx[rank - 1], the next one vidx[rank + 1].  Rows are wider
-// than a block, so the prefix count runs in three launches over
-// 1024-entry tiles (rank.cuh); a fourth applies the filter.
+// Both find an entry's nearest marked neighbours without ranks.  The TPU
+// took log2(C) rounds of shift-and-select over whole planes; here a block
+// takes a 1024-entry tile of a row, 256 threads with four entries each
+// (column tid + 256 r).  Each warp ballots its 32 consecutive entries: an
+// entry's next marked column inside those 32 is the lowest set bit of the
+// ballot above its lane, its previous one the highest set bit below.  The
+// 32 groups of the tile share their first and last marked columns through
+// shared memory, and one warp turns them into each group's nearest marked
+// column after it (and before it, for K3).  The entries at the tile's
+// ends take the nearest marked column outside the tile from a per-tile
+// summary (first and last marked column of each 1,024 entries) that a
+// first, small launch writes; a warp reads it 32 tiles a load, so a
+// marked-free run of tens of thousands of entries costs a few loads, not
+// one per tile.  x and y of an in-tile neighbour come from shared memory,
+// the at most two neighbours outside the tile from device memory.  Two
+// launches (one when a row is a single tile), no scratch beyond the
+// summary, each plane read once and written once.
 //
-// K4's design: an entry needs only the next kept entry of its row, which
-// needs no ranks.  A block takes a 1024-entry tile of a row, 256 threads
-// with four entries each (column tid + 256 r).  Each warp ballots its 32
-// consecutive entries: an entry's next kept column inside those 32 is the
-// lowest set bit of the ballot above its lane.  The 32 groups of the tile
-// share their first kept columns through shared memory, and one warp
-// turns them into each group's next kept column after it.  The last kept
-// entries of a tile take the first kept column after the tile from a
-// per-tile summary (one int per 1,024 entries) that a first, small launch
-// writes; the warp reads it 32 tiles a load, so a kept-free run of tens of
-// thousands of entries costs a few loads, not one per tile.  x and y of
-// an in-tile neighbour come from shared memory, the one neighbour past
-// the tile from device memory.  Two launches (one when a row is a single
-// tile), no rank scratch, each plane read once and written once.
-#include "rank.cuh"
+// K3 marks the valid entries and keeps an entry by its previous and next
+// valid neighbour; K4 marks the kept entries and pairs each with its next
+// kept neighbour.
+#include "common.cuh"
 
 namespace {
-
-using pgrtk::RankScratch;
-
-// shmmrutils.rs:536-555: first and last valid mers are kept; an interior
-// one needs a span > min_span to both neighbours and a hash distinct
-// from both.
-__global__ void min_span_kernel(const int64_t* __restrict__ x,
-                                const int64_t* __restrict__ y,
-                                const bool* __restrict__ valid, long long C,
-                                long long n, int min_span, RankScratch s,
-                                bool* __restrict__ keep) {
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n) return;
-  const long long b = g / C;
-  bool k = false;
-  if (valid[g]) {
-    const int r = s.rank_excl[g];
-    if (r == 0 || r + 1 >= s.totals[b]) {
-      k = true;
-    } else {
-      const long long pi = b * C + s.vidx[b * C + r - 1];
-      const long long ni = b * C + s.vidx[b * C + r + 1];
-      const int64_t pos = y[g] >> 1;
-      const int64_t xx = x[g];
-      k = pos - (y[pi] >> 1) > min_span && (y[ni] >> 1) - pos > min_span &&
-          x[pi] != xx && x[ni] != xx;
-    }
-  }
-  keep[g] = k;
-}
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kPairTile = 1024;    // entries a block takes
@@ -78,32 +47,43 @@ __host__ __device__ inline long long pair_tiles(long long C) {
   return (C + kPairTile - 1) / kPairTile;
 }
 
-// The first kept column of each 1024-entry tile of each row (kNone if
-// the tile keeps nothing), one warp a tile: 32 entries a lane in two
-// 16-byte loads where the tile is whole and aligned, else a byte a load.
-__global__ void pair_summary_kernel(const bool* __restrict__ kept,
+// The first and, where `last` is given, the last marked column of each
+// 1024-entry tile of each row (kNone if the tile marks nothing), one warp
+// a tile: 32 entries a lane in two 16-byte loads where the tile is whole
+// and aligned, else a byte a load.
+__global__ void tile_summary_kernel(const bool* __restrict__ mark,
                                     long long C, int ntiles, int row0,
-                                    int* __restrict__ first) {
+                                    int* __restrict__ first,
+                                    int* __restrict__ last) {
   const int warps = blockDim.x >> 5;
   const int t = blockIdx.x * warps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (t >= ntiles) return;  // uniform across the warp
   const long long b = (long long)row0 + blockIdx.y;
-  const bool* row = kept + b * C;
+  const bool* row = mark + b * C;
   const long long c0 = (long long)t * kPairTile;
-  int f = kNone;
+  int f = kNone, l = kNone;
   if (((uintptr_t)(row + c0) & 15) == 0 && c0 + kPairTile <= C) {
     const uint4* p = reinterpret_cast<const uint4*>(row + c0) + lane * 2;
     const uint4 lo = __ldg(p), hi = __ldg(p + 1);
     const unsigned w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-    int mine = 32;  // the lane's first kept entry of its 32 (bytes 0/1)
+    // the lane's first and last marked entry of its 32 (bytes 0/1)
+    int mine = 32, mine_last = -1;
 #pragma unroll
     for (int k = 7; k >= 0; --k)
       if (w[k]) mine = 4 * k + ((__ffs(w[k]) - 1) >> 3);
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (w[k]) mine_last = 4 * k + ((31 - __clz(w[k])) >> 3);
     const unsigned has = __ballot_sync(kFull, mine < 32);
-    const int l = has ? __ffs(has) - 1 : 0;
-    const int at = __shfl_sync(kFull, mine, l);
-    if (has) f = (int)c0 + l * 32 + at;
+    const int lf = has ? __ffs(has) - 1 : 0;
+    const int ll = has ? 31 - __clz(has) : 0;
+    const int at = __shfl_sync(kFull, mine, lf);
+    const int at_last = __shfl_sync(kFull, mine_last, ll);
+    if (has) {
+      f = (int)c0 + lf * 32 + at;
+      l = (int)c0 + ll * 32 + at_last;
+    }
   } else {
     bool k[32];
 #pragma unroll
@@ -112,12 +92,148 @@ __global__ void pair_summary_kernel(const bool* __restrict__ kept,
       k[q] = c < C && row[c];
     }
 #pragma unroll
-    for (int q = 31; q >= 0; --q) {
+    for (int q = 0; q < 32; ++q) {
       const unsigned m = __ballot_sync(kFull, k[q]);
-      if (m) f = (int)c0 + q * 32 + __ffs(m) - 1;
+      if (m) {
+        if (f == kNone) f = (int)c0 + q * 32 + __ffs(m) - 1;
+        l = (int)c0 + q * 32 + 31 - __clz(m);
+      }
     }
   }
-  if (lane == 0) first[b * ntiles + t] = f;
+  if (lane == 0) {
+    first[b * ntiles + t] = f;
+    if (last) last[b * ntiles + t] = l;
+  }
+}
+
+// The summary launch of a (B, C) mask: rows in tiles of gridDim.y.
+void tile_summary(const bool* mark, int B, long long C, int* first,
+                  int* last, cudaStream_t st) {
+  const int nt = (int)pair_tiles(C);
+  const int warps = 8;
+  for (int r0 = 0; r0 < B; r0 += pgrtk::kMaxGridY) {
+    const int rows = B - r0 < pgrtk::kMaxGridY ? B - r0 : pgrtk::kMaxGridY;
+    tile_summary_kernel<<<dim3((unsigned)((nt + warps - 1) / warps),
+                               (unsigned)rows),
+                          warps * 32, 0, st>>>(mark, C, nt, r0, first, last);
+  }
+}
+
+// shmmrutils.rs:536-555: first and last valid mers are kept; an interior
+// one needs a span > min_span to both valid neighbours and a hash
+// distinct from both.
+__global__ void __launch_bounds__(kPairThreads)
+    min_span_kernel(const int64_t* __restrict__ x,
+                    const int64_t* __restrict__ y,
+                    const bool* __restrict__ valid, long long C, int ntiles,
+                    int row0, int min_span, const int* __restrict__ first,
+                    const int* __restrict__ last, bool* __restrict__ keep) {
+  __shared__ int64_t sx[kPairTile], sy[kPairTile];
+  __shared__ int group_first[32], group_last[32], group_next[32],
+      group_prev[32];
+  __shared__ int tile_after, tile_before;
+  const long long b = (long long)row0 + blockIdx.y;
+  const int t = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long base = b * C;
+  const int c0 = t * kPairTile;  // C < 2^31 (the entry point checks)
+
+  bool v[kPairRounds];
+  unsigned m[kPairRounds];
+#pragma unroll
+  for (int r = 0; r < kPairRounds; ++r) {
+    const int e = r * kPairThreads + tid;
+    const long long c = (long long)c0 + e;
+    v[r] = c < C && valid[base + c];
+    if (v[r]) {
+      sx[e] = x[base + c];
+      sy[e] = y[base + c];
+    }
+    m[r] = __ballot_sync(kFull, v[r]);
+    if (lane == 0) {
+      const int g0 = c0 + r * kPairThreads + warp * 32;
+      group_first[r * 8 + warp] = m[r] ? g0 + __ffs(m[r]) - 1 : kNone;
+      group_last[r * 8 + warp] = m[r] ? g0 + 31 - __clz(m[r]) : kNone;
+    }
+  }
+  // the nearest valid columns outside this tile, from the summary: the
+  // first after it (C if none) and the last before it (kNone if none)
+  if (warp == 0) {
+    int after = (int)C;
+    for (int t2 = t + 1; t2 < ntiles; t2 += 32) {
+      const int f = t2 + lane < ntiles ? first[b * ntiles + t2 + lane] : kNone;
+      const unsigned ne = __ballot_sync(kFull, f != kNone);
+      if (ne) {
+        after = __shfl_sync(kFull, f, __ffs(ne) - 1);
+        break;
+      }
+    }
+    if (lane == 0) tile_after = after;
+  } else if (warp == 1) {
+    int before = kNone;
+    for (int t2 = t - 1; t2 >= 0; t2 -= 32) {
+      const int l = t2 - lane >= 0 ? last[b * ntiles + t2 - lane] : kNone;
+      const unsigned ne = __ballot_sync(kFull, l != kNone);
+      if (ne) {
+        before = __shfl_sync(kFull, l, __ffs(ne) - 1);
+        break;
+      }
+    }
+    if (lane == 0) tile_before = before;
+  }
+  __syncthreads();
+  if (warp == 0) {  // each group's nearest valid columns outside it
+    const int f = group_first[lane];
+    const unsigned ne = __ballot_sync(kFull, f != kNone);
+    const unsigned later = ne & ~((2u << lane) - 1u);  // lane 31: none
+    const int nf = __shfl_sync(kFull, f, later ? __ffs(later) - 1 : 0);
+    group_next[lane] = later ? nf : tile_after;
+    const int l = group_last[lane];
+    const unsigned nl = __ballot_sync(kFull, l != kNone);
+    const unsigned earlier = nl & ((1u << lane) - 1u);
+    const int pl = __shfl_sync(kFull, l, earlier ? 31 - __clz(earlier) : 0);
+    group_prev[lane] = earlier ? pl : tile_before;
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int r = 0; r < kPairRounds; ++r) {
+    const int e = r * kPairThreads + tid;
+    const long long c = (long long)c0 + e;
+    if (c >= C) break;  // later rounds are further right
+    bool k = false;
+    if (v[r]) {
+      const int g0 = c0 + r * kPairThreads + warp * 32;
+      const unsigned below = m[r] & ((1u << lane) - 1u);
+      const unsigned above = m[r] & ~((2u << lane) - 1u);
+      const int pc = below ? g0 + 31 - __clz(below) : group_prev[r * 8 + warp];
+      const int nc = above ? g0 + __ffs(above) - 1 : group_next[r * 8 + warp];
+      if (pc == kNone || nc >= C) {
+        k = true;  // the row's first or last valid entry
+      } else {
+        int64_t px, py, nx, ny;
+        if (pc >= c0) {
+          px = sx[pc - c0];
+          py = sy[pc - c0];
+        } else {
+          px = x[base + pc];
+          py = y[base + pc];
+        }
+        if (nc < c0 + kPairTile) {
+          nx = sx[nc - c0];
+          ny = sy[nc - c0];
+        } else {
+          nx = x[base + nc];
+          ny = y[base + nc];
+        }
+        const int64_t pos = sy[e] >> 1;
+        const int64_t xx = sx[e];
+        k = pos - (py >> 1) > min_span && (ny >> 1) - pos > min_span &&
+            px != xx && nx != xx;
+      }
+    }
+    keep[base + c] = k;
+  }
 }
 
 // seq_db.rs:386-399: each kept mer pairs with the next kept one; the key
@@ -220,35 +336,38 @@ __global__ void __launch_bounds__(kPairThreads)
 
 }  // namespace
 
-// Number of int32 scratch entries K3's entry below needs for a (B, C)
-// stream (its row ranks).
-extern "C" long long pgrtk_row_rank_scratch(int B, long long C) {
-  return pgrtk::rank_scratch_ints(B, C);
+// Number of int32 entries of one summary plane of a (B, C) stream: a
+// column of each 1024-entry tile.  K4 takes one plane (the first kept
+// columns), K3 two (the first, then the last valid columns).
+extern "C" long long pgrtk_pair_summary_ints(int B, long long C) {
+  return (long long)B * pair_tiles(C);
 }
 
-// x, y (B, C) int64; valid (B, C) bool; scratch int32
-// [pgrtk_row_rank_scratch(B, C)]; keep (B, C) bool.
+// x, y (B, C) int64; valid (B, C) bool; summary int32
+// [2 * pgrtk_pair_summary_ints(B, C)]; keep (B, C) bool.  C must be below
+// 2^31.
 extern "C" int pgrtk_min_span_filter_gapped(const void* x, const void* y,
                                             const void* valid, int B,
                                             long long C, int min_span,
-                                            void* scratch, void* keep,
+                                            void* summary, void* keep,
                                             void* stream) {
-  const long long n = (long long)B * C;
-  if (n == 0) return (int)cudaSuccess;
+  if (B < 0 || C < 0 || C >= (1ll << 31) - kPairTile)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)B * C == 0) return (int)cudaSuccess;
   const cudaStream_t st = (cudaStream_t)stream;
-  const RankScratch s = pgrtk::carve_rank((int*)scratch, B, C);
-  pgrtk::row_rank((const bool*)valid, B, C, s, st);
-  const int threads = 256;
-  min_span_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                    st>>>((const int64_t*)x, (const int64_t*)y,
-                          (const bool*)valid, C, n, min_span, s, (bool*)keep);
+  const int nt = (int)pair_tiles(C);
+  int* first = (int*)summary;
+  int* last = first + (long long)B * nt;
+  if (nt > 1)  // a single tile has nothing before or after it
+    tile_summary((const bool*)valid, B, C, first, last, st);
+  for (int r0 = 0; r0 < B; r0 += pgrtk::kMaxGridY) {
+    const int rows = B - r0 < pgrtk::kMaxGridY ? B - r0 : pgrtk::kMaxGridY;
+    min_span_kernel<<<dim3((unsigned)nt, (unsigned)rows), kPairThreads, 0,
+                      st>>>((const int64_t*)x, (const int64_t*)y,
+                            (const bool*)valid, C, nt, r0, min_span, first,
+                            last, (bool*)keep);
+  }
   return (int)cudaGetLastError();
-}
-
-// Number of int32 summary entries pgrtk_pair_mers_gapped needs for a
-// (B, C) stream: the first kept column of each 1024-entry tile.
-extern "C" long long pgrtk_pair_summary_ints(int B, long long C) {
-  return (long long)B * pair_tiles(C);
 }
 
 // x, y (B, C) int64; kept (B, C) bool; summary int32
@@ -266,15 +385,10 @@ extern "C" int pgrtk_pair_mers_gapped(const void* x, const void* y,
   if ((long long)B * C == 0) return (int)cudaSuccess;
   const cudaStream_t st = (cudaStream_t)stream;
   const int nt = (int)pair_tiles(C);
-  const int summary_warps = 8;
+  if (nt > 1)  // a single tile has nothing after it
+    tile_summary((const bool*)kept, B, C, (int*)summary, nullptr, st);
   for (int r0 = 0; r0 < B; r0 += pgrtk::kMaxGridY) {
     const int rows = B - r0 < pgrtk::kMaxGridY ? B - r0 : pgrtk::kMaxGridY;
-    if (nt > 1)  // a single tile has nothing after it
-      pair_summary_kernel<<<dim3((unsigned)((nt + summary_warps - 1) /
-                                            summary_warps),
-                                 (unsigned)rows),
-                            summary_warps * 32, 0, st>>>(
-          (const bool*)kept, C, nt, r0, (int*)summary);
     pair_kernel<<<dim3((unsigned)nt, (unsigned)rows), kPairThreads, 0, st>>>(
         (const int64_t*)x, (const int64_t*)y, (const bool*)kept, C, nt, r0,
         tie_one, (const int*)summary, (int64_t*)k0, (int64_t*)k1,

@@ -15,15 +15,27 @@
 // capped.  Invalid slots carry the all-ones key, so they count the row's
 // invalid slots, as the JAX all-ones segment does.
 //
-// K7.  What bounds it on this card: device memory.  Each thread reads
-// three words of one postings slot and writes at most three lane
-// entries; B*Pc*P threads (786k at the bench step).  The JAX function
-// built a (B, Pc, P, C*M) one-hot and summed over P; here each selected
-// hit is written straight to its lane (b*C + sid, p*M + m) of zero-filled
-// planes.  The writes are atomic adds on the u32 bit patterns, so the
-// result is the JAX sum in every case (a (sid, m) pair is unique per key
-// row as build_index makes them, and then the add is a store).  The
-// filtered-hit count is an integer atomic, the same in any order.
+// K7.  What bounds it on this card: device memory, and the launches
+// around it.  Its output is the (B*C, Pc*M) chain lanes, most of them
+// empty (N = Pc*M = 576 lanes for each of the 1,024 (query, target)
+// groups at the bench step, ~27% of them hit), and K8 reads them as
+// (G, N, 6) int64 anchors: 28.3 MB written against 9.4 MB of postings
+// read.  The JAX function built a (B, Pc, P, C*M) one-hot and summed over
+// P, and the JAX step then broadcast the query fields over the lanes and
+// stacked the anchors, writing every lane again; a scatter of the hits
+// into zero-filled planes would still need that pass.  Here one gather core
+// writes every lane exactly once, 0 where it has no hit, behind two
+// entries: the JAX-shaped planes (t_bgnori, t_end, hv), and K8's anchors
+// (q_bgn, q_end, q_ori, t_bgn, t_end, t_ori) with their valid mask.  A
+// block takes one query row and a chunk of targets c; for each tile of
+// pair slots it reads their postings rows once, decodes sid, m and mult,
+// applies the count filter and adds each hit into a shared-memory
+// accumulator of the chunk's lanes (u32 wrap-around adds: colliding
+// (sid, m) hits sum as the JAX one-hot sum does), then writes, target by
+// target, the run of lanes contiguous over (p, m), consecutive threads on
+// consecutive 16-byte words, so stores cover whole lines.  A row owns its
+// flags: row_ovf and grp_ovf are written once, and the filtered-hit count
+// takes one atomic a block.  No zero-fill but that one counter.
 #include "common.cuh"
 
 namespace {
@@ -63,42 +75,212 @@ __global__ void dup_pair_counts_kernel(const long long* __restrict__ k0,
 }
 
 constexpr unsigned kMetaEmpty = 0xffffffffu;
+constexpr int kExpandThreads = 512;
+constexpr int kExpandLanes = 3072;  // accumulator lanes a block holds
+constexpr int kExpandSlots = 256;   // pair slots a tile at most
+constexpr int kLaneM = 16;          // m is 4 bits: lanes m >= 16 stay empty
+constexpr int kBatch = 8;           // postings slots a thread loads at once
 
-__global__ void expand_postings_kernel(
-    const unsigned* __restrict__ rows, const bool* __restrict__ base_hit,
-    const int* __restrict__ run_len, long long n, int Pc, int P, int C,
-    int M, unsigned max_count_target, unsigned* __restrict__ t_bgnori,
-    unsigned* __restrict__ t_end, bool* __restrict__ hv,
-    bool* __restrict__ row_ovf, bool* __restrict__ grp_ovf,
-    unsigned long long* __restrict__ n_t_filtered) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int j = (int)(i % P);
-  const long long bp = i / P;  // b * Pc + p
-  const int p = (int)(bp % Pc);
-  const long long b = bp / Pc;
-  if (!base_hit[bp]) return;
-  const unsigned* row = rows + bp * 3 * P;
-  const unsigned meta = row[j];
-  if (meta == kMetaEmpty) return;
-  if (j == 0 && (meta >> 31)) row_ovf[b] = true;
-  const unsigned sid = meta & 0xfffffu;
-  const unsigned m = (meta >> 20) & 0xfu;
-  const unsigned mult = (meta >> 24) & 0x7fu;
-  if (sid >= (unsigned)C) return;
-  if ((unsigned)run_len[bp] * mult > max_count_target) {
-    atomicAdd(n_t_filtered, 1ull);
-    return;
+struct Expand {
+  const unsigned* rows;  // (B, Pc, 3P) [meta | bgnori | end]
+  const bool* base_hit;  // (B, Pc)
+  const int* run_len;    // (B, Pc)
+  int Pc, P, C, M;
+  int Me;      // accumulated lanes a slot: min(M, 16)
+  int TP;      // pair slots a tile
+  int Cc;      // targets a chunk
+  int chunks;  // chunks a row
+  unsigned max_count_target;
+  bool* row_ovf;                        // (B,)
+  bool* grp_ovf;                        // (B, C)
+  unsigned long long* n_t_filtered;     // one counter, zeroed
+  unsigned* t_bgnori;                   // (B, C, Pc, M), JAX entry
+  unsigned* t_end;
+  bool* hv;
+  const long long* q_bgn;               // (B, Pc), anchors entry
+  const long long* q_end;
+  const long long* q_ori;
+  long long* anchors;                   // (B*C, Pc*M, 6)
+  bool* gvalid;                         // (B*C, Pc*M)
+};
+
+// One query row b and one chunk of targets a block.  kAnchors selects the
+// entry: K8's anchors, or the JAX-shaped planes.
+template <bool kAnchors>
+__global__ void __launch_bounds__(kExpandThreads) expand_kernel(Expand a) {
+  __shared__ unsigned s_bgnori[kExpandLanes], s_end[kExpandLanes];
+  __shared__ unsigned char s_hit[kExpandLanes], s_grp[kExpandLanes];
+  __shared__ long long s_q[3][kAnchors ? kExpandSlots : 1];
+  __shared__ unsigned long long s_filtered;
+  const int tid = threadIdx.x;
+  const long long b = blockIdx.x / a.chunks;
+  const int c0 = (int)(blockIdx.x % a.chunks) * a.Cc;
+  const int cn = min(a.Cc, a.C - c0);
+  const int P = a.P, M = a.M, Me = a.Me, TP = a.TP;
+  const long long N = (long long)a.Pc * M;
+  const long long bp0 = b * a.Pc;
+  const unsigned* rows = a.rows + bp0 * 3 * P;
+
+  if (c0 == 0) {  // slot 0 carries keyovf; one block a row writes it
+    int ovf = 0;
+    for (int p = tid; p < a.Pc; p += kExpandThreads) {
+      const unsigned meta = rows[(long long)p * 3 * P];
+      ovf |= a.base_hit[bp0 + p] && meta != kMetaEmpty && (meta >> 31);
+    }
+    ovf = __syncthreads_or(ovf);
+    if (tid == 0) a.row_ovf[b] = ovf;
   }
-  const long long g = b * C + sid;
-  if (m >= (unsigned)M) {
-    grp_ovf[g] = true;
-    return;
+  for (int c = tid; c < cn; c += kExpandThreads) s_grp[c] = 0;
+  if (tid == 0) s_filtered = 0;
+  unsigned filtered = 0;
+
+  for (int p0 = 0; p0 < a.Pc; p0 += TP) {
+    const int tn = min(TP, a.Pc - p0);
+    for (int i = tid; i < cn * TP * Me; i += kExpandThreads) {
+      s_bgnori[i] = 0;
+      s_end[i] = 0;
+      s_hit[i] = 0;
+    }
+    if (kAnchors) {
+      for (int p = tid; p < tn; p += kExpandThreads) {
+        s_q[0][p] = a.q_bgn[bp0 + p0 + p];
+        s_q[1][p] = a.q_end[bp0 + p0 + p];
+        s_q[2][p] = a.q_ori[bp0 + p0 + p];
+      }
+    }
+    __syncthreads();
+    // each postings slot (p, j) of the tile once, in address order; a
+    // thread loads kBatch slots whole before it decodes any, so their
+    // loads are in flight together
+    for (int i0 = 0; i0 < tn * P; i0 += kExpandThreads * kBatch) {
+      unsigned meta[kBatch], bgnori[kBatch], end[kBatch], run[kBatch];
+      int slot[kBatch];
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q) {
+        const int i = i0 + q * kExpandThreads + tid;
+        meta[q] = kMetaEmpty;
+        bgnori[q] = end[q] = run[q] = 0;
+        slot[q] = 0;
+        if (i < tn * P) {
+          const int p = i / P, j = i - p * P;
+          const unsigned* row = rows + (long long)(p0 + p) * 3 * P + j;
+          const bool hit = a.base_hit[bp0 + p0 + p];
+          const unsigned mt = row[0];
+          bgnori[q] = row[P];
+          end[q] = row[2 * P];
+          run[q] = (unsigned)a.run_len[bp0 + p0 + p];
+          meta[q] = hit ? mt : kMetaEmpty;
+          slot[q] = p;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q) {
+        if (meta[q] == kMetaEmpty) continue;
+        const int sid = (int)(meta[q] & 0xfffffu);
+        if (sid < c0 || sid >= c0 + cn) continue;  // another chunk, or >= C
+        const unsigned m = (meta[q] >> 20) & 0xfu;
+        const unsigned mult = (meta[q] >> 24) & 0x7fu;
+        if (run[q] * mult > a.max_count_target) {
+          ++filtered;
+          continue;
+        }
+        if (m >= (unsigned)M) {
+          s_grp[sid - c0] = 1;
+          continue;
+        }
+        const int k = ((sid - c0) * TP + slot[q]) * Me + (int)m;
+        atomicAdd(&s_bgnori[k], bgnori[q]);
+        atomicAdd(&s_end[k], end[q]);
+        s_hit[k] = 1;
+      }
+    }
+    __syncthreads();
+    // the tile's lanes, one target at a time: lanes (g, p*M + m) for the
+    // tile's p are contiguous
+    const int run = tn * M;
+    for (int c = 0; c < cn; ++c) {
+      const long long lane0 = (b * a.C + c0 + c) * N + (long long)p0 * M;
+      const int k0 = c * TP * Me;
+      if (kAnchors) {
+        // three 16-byte words a lane: (q_bgn, q_end), (q_ori, t_bgn),
+        // (t_end, t_ori)
+        longlong2* out = reinterpret_cast<longlong2*>(a.anchors + lane0 * 6);
+        for (int u = tid; u < 3 * run; u += kExpandThreads) {
+          const int l = u / 3, part = u - 3 * l;
+          const int p = l / M, m = l - p * M;
+          unsigned s = 0, e = 0;
+          if (m < Me) {
+            s = s_bgnori[k0 + p * Me + m];
+            e = s_end[k0 + p * Me + m];
+          }
+          longlong2 w;
+          if (part == 0) {
+            w.x = s_q[0][p];
+            w.y = s_q[1][p];
+          } else if (part == 1) {
+            w.x = s_q[2][p];
+            w.y = s & 0x7fffffffu;
+          } else {
+            w.x = e;
+            w.y = s >> 31;
+          }
+          out[u] = w;
+        }
+        for (int l = tid; l < run; l += kExpandThreads) {
+          const int p = l / M, m = l - p * M;
+          a.gvalid[lane0 + l] = m < Me && s_hit[k0 + p * Me + m];
+        }
+      } else {
+        for (int l = tid; l < run; l += kExpandThreads) {
+          const int p = l / M, m = l - p * M;
+          const bool h = m < Me;
+          const int k = k0 + p * Me + (h ? m : 0);
+          a.t_bgnori[lane0 + l] = h ? s_bgnori[k] : 0u;
+          a.t_end[lane0 + l] = h ? s_end[k] : 0u;
+          a.hv[lane0 + l] = h && s_hit[k];
+        }
+      }
+    }
+    __syncthreads();  // the accumulators are cleared for the next tile
   }
-  const long long lane = g * ((long long)Pc * M) + (long long)p * M + m;
-  atomicAdd(t_bgnori + lane, row[P + j]);
-  atomicAdd(t_end + lane, row[2 * P + j]);
-  hv[lane] = true;
+  for (int c = tid; c < cn; c += kExpandThreads)
+    a.grp_ovf[b * a.C + c0 + c] = s_grp[c];
+  // hits the count filter dropped: one atomic a block
+  filtered = __reduce_add_sync(0xffffffffu, filtered);
+  if ((tid & 31) == 0 && filtered) atomicAdd(&s_filtered, filtered);
+  __syncthreads();
+  if (tid == 0 && s_filtered) atomicAdd(a.n_t_filtered, s_filtered);
+}
+
+// The launch shape of a (B, Pc, P) row set over C targets and M lanes a
+// slot: tiles of pair slots and as few chunks of targets as the block's
+// accumulators allow (each chunk's block reads the row's postings again).
+int expand_launch(Expand& a, int B, int Pc, int P, int C, int M,
+                  unsigned max_count_target, cudaStream_t st, bool anchors) {
+  if (B < 0 || Pc < 0 || P < 1 || C < 0 || M < 1 ||
+      3ll * Pc * M >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
+  a.Pc = Pc;
+  a.P = P;
+  a.C = C;
+  a.M = M;
+  a.Me = M < kLaneM ? M : kLaneM;
+  a.max_count_target = max_count_target;
+  int tp = Pc < kExpandSlots ? Pc : kExpandSlots;
+  if (tp * a.Me > kExpandLanes) tp = kExpandLanes / a.Me;
+  a.TP = tp > 0 ? tp : 1;
+  const int cc_max = kExpandLanes / (a.TP * a.Me);
+  const int chunks = (C + cc_max - 1) / cc_max;
+  a.Cc = chunks > 0 ? (C + chunks - 1) / chunks : 1;  // balanced chunks
+  a.chunks = C > 0 ? (C + a.Cc - 1) / a.Cc : 1;
+  const long long blocks = (long long)B * a.chunks;
+  if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  if (anchors)
+    expand_kernel<true><<<(unsigned)blocks, kExpandThreads, 0, st>>>(a);
+  else
+    expand_kernel<false><<<(unsigned)blocks, kExpandThreads, 0, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -122,24 +304,51 @@ extern "C" int pgrtk_dup_pair_counts(const void* k0, const void* k1,
 }
 
 // rows (B, Pc, 3P) int32 [meta | bgnori | end]; base_hit (B, Pc) bool;
-// run_len (B, Pc) int32.  Outputs, zeroed by the caller: t_bgnori and
-// t_end (B, C, Pc, M) int32, hv (B, C, Pc, M) bool, row_ovf (B,) bool,
-// grp_ovf (B, C) bool, n_t_filtered one uint64.
+// run_len (B, Pc) int32.  Outputs: t_bgnori and t_end (B, C, Pc, M) int32,
+// hv (B, C, Pc, M) bool, row_ovf (B,) bool, grp_ovf (B, C) bool, each
+// written whole; n_t_filtered one uint64, zeroed by the caller.
 extern "C" int pgrtk_expand_postings(
     const void* rows, const void* base_hit, const void* run_len, int B,
     int Pc, int P, int C, int M, unsigned max_count_target, void* t_bgnori,
     void* t_end, void* hv, void* row_ovf, void* grp_ovf, void* n_t_filtered,
     void* stream) {
-  if (B < 0 || Pc < 0 || P < 1 || C < 0 || M < 1)
-    return (int)cudaErrorInvalidValue;
-  const long long n = (long long)B * Pc * P;
-  if (n == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  expand_postings_kernel<<<(unsigned)((n + threads - 1) / threads), threads,
-                           0, (cudaStream_t)stream>>>(
-      (const unsigned*)rows, (const bool*)base_hit, (const int*)run_len, n,
-      Pc, P, C, M, max_count_target, (unsigned*)t_bgnori, (unsigned*)t_end,
-      (bool*)hv, (bool*)row_ovf, (bool*)grp_ovf,
-      (unsigned long long*)n_t_filtered);
-  return (int)cudaGetLastError();
+  Expand a = {};
+  a.rows = (const unsigned*)rows;
+  a.base_hit = (const bool*)base_hit;
+  a.run_len = (const int*)run_len;
+  a.t_bgnori = (unsigned*)t_bgnori;
+  a.t_end = (unsigned*)t_end;
+  a.hv = (bool*)hv;
+  a.row_ovf = (bool*)row_ovf;
+  a.grp_ovf = (bool*)grp_ovf;
+  a.n_t_filtered = (unsigned long long*)n_t_filtered;
+  return expand_launch(a, B, Pc, P, C, M, max_count_target,
+                       (cudaStream_t)stream, false);
+}
+
+// The same postings, straight into K8's input: q_bgn, q_end, q_ori
+// (B, Pc) int64; anchors (B*C, Pc*M, 6) int64 (16-byte aligned), gvalid
+// (B*C, Pc*M) bool, row_ovf (B,) bool, grp_ovf (B*C,) bool, each written
+// whole; n_t_filtered one uint64, zeroed by the caller.
+extern "C" int pgrtk_expand_postings_anchors(
+    const void* rows, const void* base_hit, const void* run_len,
+    const void* q_bgn, const void* q_end, const void* q_ori, int B, int Pc,
+    int P, int C, int M, unsigned max_count_target, void* anchors,
+    void* gvalid, void* row_ovf, void* grp_ovf, void* n_t_filtered,
+    void* stream) {
+  if ((uintptr_t)anchors & 15) return (int)cudaErrorInvalidValue;
+  Expand a = {};
+  a.rows = (const unsigned*)rows;
+  a.base_hit = (const bool*)base_hit;
+  a.run_len = (const int*)run_len;
+  a.q_bgn = (const long long*)q_bgn;
+  a.q_end = (const long long*)q_end;
+  a.q_ori = (const long long*)q_ori;
+  a.anchors = (long long*)anchors;
+  a.gvalid = (bool*)gvalid;
+  a.row_ovf = (bool*)row_ovf;
+  a.grp_ovf = (bool*)grp_ovf;
+  a.n_t_filtered = (unsigned long long*)n_t_filtered;
+  return expand_launch(a, B, Pc, P, C, M, max_count_target,
+                       (cudaStream_t)stream, true);
 }

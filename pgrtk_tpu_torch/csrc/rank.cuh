@@ -5,8 +5,8 @@
 // compacted index of the set columns), and totals[b] counts them all.
 // Three launches over 1024-entry tiles: per-tile counts, a per-row scan
 // of the tile counts, and the per-tile scan with the tile's offset
-// added.  Used by K3's neighbour lookup (pairs.cu) and by the exact walk
-// (sketch.cu) to find the nearest set entry before a column directly.
+// added.  The exact walk (walk.cuh, for sketch.cu and sketch1.cu) uses it
+// to find the nearest chunk with an ACGT base before a chunk directly.
 #pragma once
 
 #include "common.cuh"

@@ -109,8 +109,6 @@ def library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_build()))
             lib.pgrtk_error_string.restype = ctypes.c_char_p
             lib.pgrtk_error_string.argtypes = [_I]
-            lib.pgrtk_row_rank_scratch.restype = _LL
-            lib.pgrtk_row_rank_scratch.argtypes = [_I, _LL]
             lib.pgrtk_pair_summary_ints.restype = _LL
             lib.pgrtk_pair_summary_ints.argtypes = [_I, _LL]
             lib.pgrtk_sketch_scratch_bytes.restype = _LL
@@ -228,6 +226,11 @@ shard_probe_found = Kernel(
     "shard_probe_found", "pgrtk_tpu_torch/csrc/shard.cu",
     [_P, _P, _LL, _I, _P, _P, _P, _P],
 )
+# K7's second entry: the same gather core writing K8's (G, N, 6) anchors
+expand_postings_anchors = Kernel(
+    "expand_postings_anchors", "pgrtk_tpu_torch/csrc/query.cu",
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _P, _P, _P, _P, _P, _P],
+)
 # K18 and K19: the dense pair variants
 min_span_filter_dense = Kernel(
     "min_span_filter_dense", "pgrtk_tpu_torch/csrc/dense.cu",
@@ -240,13 +243,14 @@ pair_mers_dense = Kernel(
 # index stage K1-K4, query stage K5-K8, the --batch-device path K9-K11,
 # the pgr-pbundle-decomp path K12, the pgr-get-sv-candidate-regions WFA
 # K13, the sharded v2 index and query K14-K15, the v1 sharded steps K16,
-# the v2 probe-only step K17, the dense pair variants K18-K19
+# the v2 probe-only step K17, the dense pair variants K18-K19, and K7's
+# anchors entry
 KERNELS = (sketch_walk_compact, rank_extract, min_span_filter_gapped,
            pair_mers_gapped, probe_fetch, dup_pair_counts, expand_postings,
            chain_scores_fast, sketch_mode1, chain_scores_dense, probe_keys,
            sort_link_rows, sort_pairs, wfa_forward, shard_probe_planes,
            owner_postings, pair_key_search, shard_probe_found,
-           min_span_filter_dense, pair_mers_dense)
+           min_span_filter_dense, pair_mers_dense, expand_postings_anchors)
 
 
 def reset_launches() -> None:
@@ -272,13 +276,8 @@ def radix_scratch(n: int, device) -> torch.Tensor:
     return torch.empty(n_bytes, dtype=torch.uint8, device=device)
 
 
-def row_rank_scratch(B: int, C: int, device) -> torch.Tensor:
-    """int32 scratch for K3's row ranks on a (B, C) stream."""
-    n = library().pgrtk_row_rank_scratch(B, C)
-    return torch.empty(n, dtype=torch.int32, device=device)
-
-
-def pair_summary(B: int, C: int, device) -> torch.Tensor:
-    """int32 per-tile summary for K4 on a (B, C) stream."""
+def pair_summary(B: int, C: int, device, planes: int = 1) -> torch.Tensor:
+    """int32 per-tile summary on a (B, C) stream: one plane for K4 (the
+    first kept column of each tile), two for K3 (first and last valid)."""
     n = library().pgrtk_pair_summary_ints(B, C)
-    return torch.empty(n, dtype=torch.int32, device=device)
+    return torch.empty(planes * n, dtype=torch.int32, device=device)

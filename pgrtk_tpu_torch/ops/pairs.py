@@ -163,10 +163,10 @@ def min_span_filter_gapped(x, y, valid, min_span: int) -> torch.Tensor:
     B, C = x.shape
     keep = torch.empty_like(valid)
     if x.numel():
-        scratch = kb.row_rank_scratch(B, C, x.device)
+        summary = kb.pair_summary(B, C, x.device, planes=2)
         kb.min_span_filter_gapped(
             x.data_ptr(), y.data_ptr(), valid.data_ptr(), B, C, min_span,
-            scratch.data_ptr(), keep.data_ptr(), kb.stream_handle(x),
+            summary.data_ptr(), keep.data_ptr(), kb.stream_handle(x),
         )
     return keep
 

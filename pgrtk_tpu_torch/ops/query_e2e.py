@@ -18,9 +18,10 @@ checks P exactly.  meta packs keyovf(1) | mult(7) | m(4) | sid(20), all
 ones for an empty slot.  Lane planes and anchors hold u32 values: int32
 bit patterns out of K7, int64 from the chain lanes on.
 
-Two functions hold a kernel (K6 `dup_pair_counts`, K7
-`expand_postings`); CPU tensors run the plain PyTorch version beside
-each, CUDA tensors launch csrc/query.cu or raise.  The step also runs
+Three functions hold a kernel (K6 `dup_pair_counts`, K7
+`expand_postings` and `expand_postings_anchors`, two entries of one
+gather core); CPU tensors run the plain PyTorch version beside each,
+CUDA tensors launch csrc/query.cu or raise.  The step also runs
 K1-K4 (sketch and pairs), K5 (`probe.probe_fetch`) and K8
 (`chain.chain_scores_fast`).
 """
@@ -377,6 +378,20 @@ def expand_postings_plain(rows, base_hit, run_len, C: int, M: int,
     )
 
 
+def _check_postings(rows, base_hit, run_len, C, M):
+    rows, base_hit = rows.contiguous(), base_hit.contiguous()
+    run_len = run_len.contiguous()
+    if rows.dim() != 3 or rows.shape[2] % 3 or rows.shape[:2] != (
+            base_hit.shape) or run_len.shape != base_hit.shape:
+        raise ValueError("rows (B, Pc, 3P), base_hit and run_len (B, Pc)")
+    if rows.dtype != torch.int32 or run_len.dtype != torch.int32 or (
+            base_hit.dtype != torch.bool):
+        raise TypeError("rows and run_len must be int32, base_hit bool")
+    if M < 1 or C < 0:
+        raise ValueError("need M >= 1 and C >= 0")
+    return rows, base_hit, run_len
+
+
 def expand_postings(rows: torch.Tensor, base_hit: torch.Tensor,
                     run_len: torch.Tensor, C: int, M: int,
                     max_count_target: int) -> dict:
@@ -393,36 +408,91 @@ def expand_postings(rows: torch.Tensor, base_hit: torch.Tensor,
     (B,) bool (slot 0 carries keyovf on a base hit), grp_ovf (B, C) bool
     (a hit with m >= M) and n_t_filtered (0-dim int64: hits the count
     filter dropped)."""
-    rows, base_hit = rows.contiguous(), base_hit.contiguous()
-    run_len = run_len.contiguous()
-    if rows.dim() != 3 or rows.shape[2] % 3 or rows.shape[:2] != (
-            base_hit.shape) or run_len.shape != base_hit.shape:
-        raise ValueError("rows (B, Pc, 3P), base_hit and run_len (B, Pc)")
-    if rows.dtype != torch.int32 or run_len.dtype != torch.int32 or (
-            base_hit.dtype != torch.bool):
-        raise TypeError("rows and run_len must be int32, base_hit bool")
-    if M < 1 or C < 0:
-        raise ValueError("need M >= 1 and C >= 0")
+    rows, base_hit, run_len = _check_postings(rows, base_hit, run_len, C, M)
     if not on_cuda(rows, base_hit, run_len):
         return expand_postings_plain(rows, base_hit, run_len, C, M,
                                      max_count_target)
     B, Pc, P3 = rows.shape
     dev = rows.device
     out = dict(
-        t_bgnori=torch.zeros((B, C, Pc, M), dtype=torch.int32, device=dev),
-        t_end=torch.zeros((B, C, Pc, M), dtype=torch.int32, device=dev),
-        hv=torch.zeros((B, C, Pc, M), dtype=torch.bool, device=dev),
-        row_ovf=torch.zeros(B, dtype=torch.bool, device=dev),
-        grp_ovf=torch.zeros((B, C), dtype=torch.bool, device=dev),
+        t_bgnori=torch.empty((B, C, Pc, M), dtype=torch.int32, device=dev),
+        t_end=torch.empty((B, C, Pc, M), dtype=torch.int32, device=dev),
+        hv=torch.empty((B, C, Pc, M), dtype=torch.bool, device=dev),
+        row_ovf=torch.empty(B, dtype=torch.bool, device=dev),
+        grp_ovf=torch.empty((B, C), dtype=torch.bool, device=dev),
         n_t_filtered=torch.zeros((), dtype=torch.int64, device=dev),
     )
-    if rows.numel():
+    if B:
         kb.expand_postings(
             rows.data_ptr(), base_hit.data_ptr(), run_len.data_ptr(), B, Pc,
             P3 // 3, C, M, ctypes.c_uint(max_count_target & _U32),
             *(out[k].data_ptr() for k in ("t_bgnori", "t_end", "hv",
                                           "row_ovf", "grp_ovf",
                                           "n_t_filtered")),
+            kb.stream_handle(rows),
+        )
+    return out
+
+
+def expand_postings_anchors_plain(rows, base_hit, run_len, q_bgn, q_end,
+                                  q_ori, C: int, M: int,
+                                  max_count_target: int):
+    """The plain PyTorch version of K7's anchors entry, on any device:
+    expand_postings_plain, then the query fields broadcast over the
+    lanes and the six planes stacked."""
+    ex = expand_postings_plain(rows, base_hit, run_len, C, M,
+                               max_count_target)
+    B, Pc = base_hit.shape
+    G, N = B * C, Pc * M
+
+    def lane_q(v):  # (B, Pc) -> (G, N)
+        return v[:, None, :, None].expand(B, C, Pc, M).reshape(G, N)
+
+    tbo = _u32(ex["t_bgnori"]).reshape(G, N)
+    anchors = torch.stack(
+        [lane_q(q_bgn), lane_q(q_end), lane_q(q_ori), tbo & 0x7FFFFFFF,
+         _u32(ex["t_end"]).reshape(G, N), tbo >> 31], dim=-1)
+    return dict(anchors=anchors, gvalid=ex["hv"].reshape(G, N),
+                row_ovf=ex["row_ovf"], grp_ovf=ex["grp_ovf"].reshape(G),
+                n_t_filtered=ex["n_t_filtered"])
+
+
+def expand_postings_anchors(rows: torch.Tensor, base_hit: torch.Tensor,
+                            run_len: torch.Tensor, q_bgn: torch.Tensor,
+                            q_end: torch.Tensor, q_ori: torch.Tensor,
+                            C: int, M: int, max_count_target: int) -> dict:
+    """K7's second entry: expand_postings written straight into the
+    chain DP's input.  rows, base_hit, run_len, C, M and
+    max_count_target as expand_postings takes them; q_bgn, q_end, q_ori
+    (B, Pc) int64, the query pairs' fields.  Returns anchors (G, N, 6)
+    int64 = (q_bgn, q_end, q_ori, t_bgn, t_end, t_ori) on every lane
+    (G = B*C, N = Pc*M; the t fields split from t_bgnori's bit 31, 0
+    where the lane has no hit), gvalid (G, N) bool, row_ovf (B,) bool,
+    grp_ovf (G,) bool and n_t_filtered (0-dim int64)."""
+    rows, base_hit, run_len = _check_postings(rows, base_hit, run_len, C, M)
+    q = [v.contiguous() for v in (q_bgn, q_end, q_ori)]
+    if any(v.shape != base_hit.shape or v.dtype != torch.int64 for v in q):
+        raise ValueError("q_bgn, q_end and q_ori must be (B, Pc) int64")
+    if not on_cuda(rows, base_hit, run_len, *q):
+        return expand_postings_anchors_plain(rows, base_hit, run_len, *q, C,
+                                             M, max_count_target)
+    B, Pc, P3 = rows.shape
+    G, N = B * C, Pc * M
+    dev = rows.device
+    out = dict(
+        anchors=torch.empty((G, N, 6), dtype=torch.int64, device=dev),
+        gvalid=torch.empty((G, N), dtype=torch.bool, device=dev),
+        row_ovf=torch.empty(B, dtype=torch.bool, device=dev),
+        grp_ovf=torch.empty(G, dtype=torch.bool, device=dev),
+        n_t_filtered=torch.zeros((), dtype=torch.int64, device=dev),
+    )
+    if B:
+        kb.expand_postings_anchors(
+            rows.data_ptr(), base_hit.data_ptr(), run_len.data_ptr(),
+            *(v.data_ptr() for v in q), B, Pc, P3 // 3, C, M,
+            ctypes.c_uint(max_count_target & _U32),
+            *(out[k].data_ptr() for k in ("anchors", "gvalid", "row_ovf",
+                                          "grp_ovf", "n_t_filtered")),
             kb.stream_handle(rows),
         )
     return out
@@ -511,29 +581,34 @@ def query_e2e_step(
     base_hit = cvalid & found & count_ok
     n_q_filtered = (cvalid & found & ~count_ok).sum()
 
-    ex = expand_postings(rows.reshape(B, Pc, 3 * P), base_hit, run_len, C,
-                         M, max_count_target)
+    rows = rows.reshape(B, Pc, 3 * P)
     G, N = B * C, Pc * M
+    lane_ovf = torch.zeros(G, dtype=torch.bool, device=rows.device)
+    if slots3 is None or slots3 >= N:
+        ex = expand_postings_anchors(rows, base_hit, run_len, q_bgn, q_end,
+                                     q_ori, C, M, max_count_target)
+        anchors, gvalid = ex["anchors"], ex["gvalid"]
+    else:
+        ex = expand_postings(rows, base_hit, run_len, C, M,
+                             max_count_target)
 
-    def lane_q(v):  # (B, Pc) -> (G, N)
-        return v[:, None, :, None].expand(B, C, Pc, M).reshape(G, N)
+        def lane_q(v):  # (B, Pc) -> (G, N)
+            return v[:, None, :, None].expand(B, C, Pc, M).reshape(G, N)
 
-    # q_ori rides in q_bgn's top bit (q_bgn < 2^31) through the lanes
-    planes4 = [lane_q(q_bgn | (q_ori << 31)), lane_q(q_end),
-               _u32(ex["t_bgnori"]).reshape(G, N),
-               _u32(ex["t_end"]).reshape(G, N)]
-    gvalid = ex["hv"].reshape(G, N)
-    lane_ovf = torch.zeros(G, dtype=torch.bool, device=gvalid.device)
-    if slots3 is not None and slots3 < N:
+        # q_ori rides in q_bgn's top bit (q_bgn < 2^31) through the lanes
+        planes4 = [lane_q(q_bgn | (q_ori << 31)), lane_q(q_end),
+                   _u32(ex["t_bgnori"]).reshape(G, N),
+                   _u32(ex["t_end"]).reshape(G, N)]
+        gvalid = ex["hv"].reshape(G, N)
         # order-preserving per-lane anchor compaction: same chain, fewer
         # scan steps; a lane with more than slots3 anchors flags
         lane_ovf = gvalid.sum(dim=1) > slots3
-        planes4, gvalid, _ = pairs_ops.rank_extract_planes(
+        (qbo, qe, tbo, te), gvalid, _ = pairs_ops.rank_extract_planes(
             planes4, gvalid, N, slots3)
-    qbo, qe, tbo, te = planes4
-    mask31 = (1 << 31) - 1
-    anchors = torch.stack(
-        [qbo & mask31, qe, qbo >> 31, tbo & mask31, te, tbo >> 31], dim=-1)
+        mask31 = (1 << 31) - 1
+        anchors = torch.stack(
+            [qbo & mask31, qe, qbo >> 31, tbo & mask31, te, tbo >> 31],
+            dim=-1)
     scores, prev, dup, inexact = chain_ops.chain_scores_fast(
         anchors, gvalid, penalty, -1, False, lookback=lookback,
         max_span=max_span)

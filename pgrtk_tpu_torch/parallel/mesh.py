@@ -593,26 +593,29 @@ def sharded_query_v2_e2e_step(
     hits[:, :Pp] = -1  # META_EMPTY's int32 pattern
     hits[perm[gidx[mask]]] = back[mask]
 
-    ex = qe.expand_postings(hits.reshape(B_loc, Pc, 3 * Pp),
-                            cvalid & count_ok, run_len, C, M,
-                            max_count_target)
+    post = (hits.reshape(B_loc, Pc, 3 * Pp), cvalid & count_ok, run_len)
     G, N = B_loc * C, Pc * M
+    lane_ovf = torch.zeros(G, dtype=torch.bool, device=hits.device)
+    if slots3 is None or slots3 >= N:
+        ex = qe.expand_postings_anchors(*post, q_bgn, q_end, q_ori, C, M,
+                                        max_count_target)
+        anchors, gvalid = ex["anchors"], ex["gvalid"]
+    else:
+        ex = qe.expand_postings(*post, C, M, max_count_target)
 
-    def lane_q(v):  # (B_loc, Pc) -> (G, N)
-        return v[:, None, :, None].expand(B_loc, C, Pc, M).reshape(G, N)
+        def lane_q(v):  # (B_loc, Pc) -> (G, N)
+            return v[:, None, :, None].expand(B_loc, C, Pc, M).reshape(G, N)
 
-    t_bgnori = qe._u32(ex["t_bgnori"]).reshape(G, N)
-    planes6 = [lane_q(q_bgn), lane_q(q_end), lane_q(q_ori),
-               t_bgnori & 0x7FFFFFFF, qe._u32(ex["t_end"]).reshape(G, N),
-               t_bgnori >> 31]
-    gvalid = ex["hv"].reshape(G, N)
-    lane_ovf = torch.zeros(G, dtype=torch.bool, device=gvalid.device)
-    if slots3 is not None and slots3 < N:
+        t_bgnori = qe._u32(ex["t_bgnori"]).reshape(G, N)
+        planes6 = [lane_q(q_bgn), lane_q(q_end), lane_q(q_ori),
+                   t_bgnori & 0x7FFFFFFF, qe._u32(ex["t_end"]).reshape(G, N),
+                   t_bgnori >> 31]
+        gvalid = ex["hv"].reshape(G, N)
         # order-keeping per-lane anchor compaction before the chain scan
         lane_ovf = gvalid.sum(dim=1) > slots3
         planes6, gvalid, _ = pairs_ops.rank_extract_planes(planes6, gvalid,
                                                            N, slots3)
-    anchors = torch.stack(planes6, dim=-1)
+        anchors = torch.stack(planes6, dim=-1)
     scores, prev, dup, inexact = chain_ops.chain_scores_fast(
         anchors, gvalid, penalty, -1, False, lookback=lookback,
         max_span=max_span)

@@ -73,6 +73,28 @@ def postings_rows(seed, B, Pc, P, C):
             base_hit, run_len)
 
 
+def query_fields(seed, B, Pc):
+    """The query pair fields K7's anchors entry places on the lanes:
+    q_bgn (below 2^31), q_end (u32), q_ori (0 or 1), (B, Pc) int64."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(1, 1 << 31, size=(B, Pc)),
+            rng.integers(0, 1 << 32, size=(B, Pc)),
+            rng.integers(0, 2, size=(B, Pc)))
+
+
+# K7's postings cases: (C, M, max_count_target); M = 16 makes random
+# (sid, m) repeats in a row collide and add up
+POSTINGS_SETTINGS = ((4, 3, 128), (3, 1, 6), (8, 16, 40))
+
+
+def postings_case(C, M, B=3, Pc=40, P=8):
+    """postings_rows at one POSTINGS_SETTINGS entry's seed, as K7's
+    inputs: rows (B, Pc, 3P) int32, base_hit, run_len, and query_fields."""
+    meta, bgnori, end, hit, run = postings_rows(C * 100 + M, B, Pc, P, C)
+    rows = np.concatenate([meta, bgnori, end], axis=2).view(np.int32)
+    return (rows, hit, run), query_fields(C * 100 + M + 1, B, Pc)
+
+
 def chain_groups(seed, G=16, N=96, big=False):
     """G q_bgn-sorted (G, N, 6) uint32 anchor groups with same-left runs
     (a query pair hitting several target positions), exact duplicates,
@@ -173,12 +195,13 @@ CHAIN_EDGE_SETTINGS = [(N, big, penalty, lookback)
 
 def pair_edge_stream(C=40_000):
     """A (6, C) kept stream at K4's edges, as JAX planes (x_hi, x_lo,
-    y_lo, kept): row 0 keeps nothing, row 1 one entry, row 2 only columns
-    1,023, 1,024, 2,047 and 2,048 (tile and group edges), row 3 only its
-    first 3,000 and last 1,500 columns (a kept-free run across more than
-    32 tiles of 1,024), row 4 ~35% with hashes from a pool of 5 (equal
-    neighbouring hashes: both tie rules bite), row 5 only its first and
-    last columns.  C = 40,000 is not a multiple of 1,024."""
+    y_lo, kept); K3 reads `kept` as its valid mask.  Row 0 keeps
+    nothing, row 1 one entry, row 2 only columns 1,023, 1,024, 2,047 and
+    2,048 (tile and group edges), row 3 only its first 3,000 and last
+    1,500 columns (a kept-free run across more than 32 tiles of 1,024),
+    row 4 ~35% with hashes from a pool of 5 (equal neighbouring hashes:
+    both tie rules bite), row 5 only its first and last columns.  C =
+    40,000 is not a multiple of 1,024."""
     rng = np.random.default_rng(22)
     B = 6
     kept = np.zeros((B, C), dtype=bool)
@@ -270,7 +293,8 @@ def warmup_cases():
 
 def query_kernel_cases(dev):
     """K2 past the old 1024-entry block cap, K5-K8 on the edge-case
-    inputs above, K8 on chain_edge_groups and K4 on pair_edge_stream."""
+    inputs above (K7's two entries on the same postings), K8 on
+    chain_edge_groups, and K3 and K4 on pair_edge_stream."""
     from ..ops import chain as tc
     from ..ops import pairs as tp
     from ..ops import probe as tpr
@@ -307,13 +331,16 @@ def query_kernel_cases(dev):
         cases.append((f"K6 dup_pair_counts ({B}, {Pc})",
                       lambda a=args: tq.dup_pair_counts(*a),
                       lambda a=args: tq.dup_pair_counts_plain(*a)))
-    for C, M, mct in ((4, 3, 128), (3, 1, 6), (8, 16, 40)):
-        meta, bgnori, end, hit, run = postings_rows(C * 100 + M, 3, 40, 8, C)
-        rows = np.concatenate([meta, bgnori, end], axis=2).view(np.int32)
-        args = (t(rows), t(hit), t(run), C, M, mct)
+    for C, M, mct in POSTINGS_SETTINGS:
+        post, q = postings_case(C, M)
+        args = (*map(t, post), C, M, mct)
         cases.append((f"K7 expand_postings C={C} M={M} max={mct}",
                       lambda a=args: tq.expand_postings(*a),
                       lambda a=args: tq.expand_postings_plain(*a)))
+        args = (*map(t, post), *map(t, q), C, M, mct)
+        cases.append((f"K7 expand_postings_anchors C={C} M={M} max={mct}",
+                      lambda a=args: tq.expand_postings_anchors(*a),
+                      lambda a=args: tq.expand_postings_anchors_plain(*a)))
     for big, oriented, max_gap, lookback in CHAIN_SETTINGS:
         anchors, valid = chain_groups(lookback + 7 * big, big=big)
         args = (t(anchors.astype(np.int64)), t(valid), 0.025, max_gap,
@@ -342,6 +369,11 @@ def query_kernel_cases(dev):
         x = t(((x_hi.astype(np.uint64) << np.uint64(32)) | x_lo).view(
             np.int64))
         y, kept = t(y_lo.astype(np.int64)), t(kept)
+        # K3 reads the same marks as its valid mask
+        a = (x, y, kept, 64)
+        cases.append((f"K3 min_span_filter_gapped edges {tuple(x.shape)}",
+                      lambda a=a: [tp.min_span_filter_gapped(*a)],
+                      lambda a=a: [tp.min_span_filter_gapped_plain(*a)]))
         for tie in (False, True):
             a = (x, y, kept, tie)
             cases.append((f"K4 pair_mers_gapped edges {tuple(x.shape)} "
@@ -355,8 +387,8 @@ MANY_ROWS = 70_000  # past the 65,535 limit of gridDim.y
 
 
 def many_row_cases(dev):
-    """The kernels that put rows on gridDim.y (K2, K6, and K3/K4 through
-    their row ranks) on 70,000 short rows."""
+    """The kernels that put rows on gridDim.y (K2, K3, K4, K6) on 70,000
+    short rows."""
     from ..ops import pairs as tp
     from ..ops import query_e2e as tq
 

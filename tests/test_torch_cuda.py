@@ -78,12 +78,14 @@ def test_sketch_kernel_rejects_misaligned_bytes(dev):
                                 K, R, CHUNK, 12)
 
 
-@pytest.mark.parametrize("family", ["K2", "K4", "K5", "K6", "K7", "K8"])
+@pytest.mark.parametrize("family", ["K2", "K3", "K4", "K5", "K6", "K7",
+                                    "K8"])
 def test_query_kernels_match_plain_on_edge_cases(dev, family):
-    """K2 at blocks 1024, 1025, 1152 and 3072; K4 and K5-K8 on the inputs
-    the CPU tests hold the plain versions to the JAX functions with (K8
-    with coordinates above 2^24, where an FMA would change scores, and on
-    its staging and ring edges; K4 on its tile and group edges)."""
+    """K2 at blocks 1024, 1025, 1152 and 3072; K3, K4 and K5-K8 on the
+    inputs the CPU tests hold the plain versions to the JAX functions with
+    (K8 with coordinates above 2^24, where an FMA would change scores, and
+    on its staging and ring edges; K3 and K4 on their tile and group
+    edges; K7's two entries on the same postings)."""
     picked = [c for c in cases.query_kernel_cases(dev)
               if c[0].startswith(family)]
     assert picked

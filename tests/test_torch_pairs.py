@@ -107,6 +107,25 @@ def test_min_span_filter_gapped_matches_jax():
     assert p[1].sum() < p[0].sum()
 
 
+@pytest.mark.parametrize("C", [40_000, 40_007])
+def test_min_span_filter_gapped_edges_match_jax(C):
+    """K3 on K4's tile and group edges (utils/cases.py::pair_edge_stream,
+    its marks read as the valid mask): rows with 0 and 1 valid entries,
+    valid entries only at columns 1,023/1,024 and 2,047/2,048, a
+    valid-free run across more than 32 tiles of 1,024, a row whose only
+    two valid entries span it whole, C a multiple of 16 and not, equal
+    neighbouring hashes.  Every entry, exactly."""
+    x_hi, x_lo, y_lo, valid = cases.pair_edge_stream(C)
+    j = np.asarray(_jax_min_span(
+        *(jnp.asarray(a) for a in (x_hi, x_lo, y_lo, valid)), MIN_SPAN))
+    x, y, v = convert.mers_from_jax(x_hi, x_lo, y_lo, valid)
+    p = tpairs.min_span_filter_gapped(x, y, v, MIN_SPAN).numpy()
+    assert np.array_equal(p, j)
+    assert p.sum(axis=1).tolist()[:2] == [0, 1]
+    assert p[5].sum() == 2  # first and last: kept across 39 tiles
+    assert 0 < p[4].sum() < valid[4].sum()  # span and hash rules bite
+
+
 @pytest.mark.parametrize("tie_one", [False, True], ids=["index", "query"])
 def test_pair_mers_gapped_matches_jax(tie_one):
     x_hi, x_lo, y_lo, valid = _gapped_stream()

@@ -378,6 +378,48 @@ def test_expand_postings_matches_jax(C, M, mct):
     assert np.asarray(want["grp_ovf"]).any() == (M < 16)
 
 
+@pytest.mark.parametrize("C,M,mct", cases.POSTINGS_SETTINGS)
+def test_expand_postings_anchors_matches_jax(C, M, mct):
+    """K7's anchors entry against JAX expand_postings followed by the JAX
+    step's anchor build (q_ori packed into q_bgn's bit 31, the lanes
+    broadcast, six u32 planes stacked), on every lane: the q fields on
+    every lane, the t fields 0 where a lane has no hit; M=16 sums
+    colliding (sid, m) hits."""
+    (rows, base_hit, run_len), (q_bgn, q_end, q_ori) = cases.postings_case(
+        C, M)
+    B, Pc, P3 = rows.shape
+    meta, bgnori, end = np.split(rows.view(np.uint32), 3, axis=2)
+    ex = jq.expand_postings(*(jnp.asarray(a) for a in (
+        meta, bgnori, end, base_hit, run_len)), C, M, mct)
+    G, N = B * C, Pc * M
+
+    def lane_q(v):
+        return jnp.broadcast_to(v[:, None, :, None], (B, C, Pc, M)).reshape(
+            G, N)
+
+    def lane(v):
+        return v.reshape(G, N)
+
+    u32 = [jnp.asarray(v.astype(np.uint32)) for v in (q_bgn, q_end, q_ori)]
+    qbo = lane_q(u32[0] | (u32[2] << 31))
+    mask31 = jnp.uint32(0x7FFFFFFF)
+    want = np.asarray(jnp.stack(
+        [qbo & mask31, lane_q(u32[1]), qbo >> 31,
+         lane(ex["t_bgnori"]) & mask31, lane(ex["t_end"]),
+         lane(ex["t_bgnori"]) >> 31], axis=-1)).astype(np.int64)
+    got = tq.expand_postings_anchors(
+        *(torch.from_numpy(a) for a in (rows, base_hit, run_len, q_bgn,
+                                        q_end, q_ori)), C, M, mct)
+    assert got["anchors"].dtype == torch.int64
+    assert np.array_equal(got["anchors"].numpy(), want)
+    assert np.array_equal(got["gvalid"].numpy(), np.asarray(lane(ex["hv"])))
+    assert np.array_equal(got["row_ovf"].numpy(), np.asarray(ex["row_ovf"]))
+    assert np.array_equal(got["grp_ovf"].numpy(),
+                          np.asarray(ex["grp_ovf"]).reshape(G))
+    assert int(got["n_t_filtered"]) == int(ex["n_t_filtered"]) > 0
+    assert got["gvalid"].any() and not got["gvalid"].all()
+
+
 def test_step_rejects_a_wrong_p():
     """p_rows must be exactly 3P wide: P=16 against P=32 rows raises
     instead of reading bgnori as meta."""
