@@ -11,8 +11,11 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      bit for bit, on edge-case inputs (short rows, lowercase, an N run
      across a chunk boundary, N runs of 150 kb and 1 Mbase, dense
      overflow, equal-hash ties; K2 at blocks 1024, 1025, 1152 and 3072;
-     probe hits, misses and pad slots in both table layouts; long query
-     rows; postings with every flag; chain groups with same-left runs,
+     probe hits, misses and pad slots in both table layouts, and K5's
+     three entries on cases.probe_edge_tables (a full bucket ending a
+     128-slot row, empty buckets, the last bucket, k0 >= 2^56, duplicate
+     keys, a dense bucket past its 256-slot window); long query rows; K6's two entries; postings with every
+     flag, K7 fetched and in index form; chain groups with same-left runs,
      duplicates, coordinates above 2^24 and all four filter settings,
      and K8's staging edges: 31, 33 and 577 anchors, invalid runs longer
      than a chunk, a group without a valid anchor, ties in 3-5 slots;
@@ -54,16 +57,21 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      4,194,304 decoy keys (build_index, P=32), 128 query rows of 65,536
      bases, query_e2e_step at bench.py's knobs; certifies the flags and
      the corpus counts BENCH_r05.json recorded, exactly; launch counts of
-     K1-K8 reset before the step and read after (K7 through its anchors
-     entry, which writes K8's input; the JAX-shaped entry must not run);
+     K1-K8 reset before the step and read after (K5, K6 and K7 through
+     the step's entries: probe_step, which fetches no rows, dup_pair_filter
+     and K7's anchors entry in index form, which writes K8's input; K5's
+     fetching entry, K6's JAX-shaped entry and K7's other entries must not
+     run);
      median of 5 steps as query Mbase/s, peak memory, a torch.profiler
      pass (device launches and time by kernel; trace in
-     build/query_path_trace.json); K1-K8, and both entries of K7, against
-     their plain versions on the step's own inputs (K2 on the level-2
-     stream, the whole-row pair stream and the slots3 lane planes); and
-     the step again with pair_block=512 and a slots3 lane compaction,
-     which must run K7's JAX-shaped entry and give the same anchors and
-     scores;
+     build/query_path_trace.json); K1-K8 against their plain versions on
+     the step's own inputs, through the entries the step runs, and K5's
+     fetching entry and K7's JAX-shaped entry in index form beside them
+     (K2 on the level-2 stream, the whole-row pair stream and the slots3
+     lane planes); and the step
+     again with pair_block=512 and a slots3 lane compaction, which must
+     run K7's JAX-shaped entry in index form and give the same anchors
+     and scores;
   7. runs the pgr-query --batch-device path, parallel/device_query.py's
      batch_query_to_hps, on bench.py's corpus: the 8 targets as
      in-memory FRG stores (core/seqdb.build_columnar_store) at the CLI
@@ -140,11 +148,15 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      against a v2 index of the 8 bench targets: flags clean, anchors,
      gvalid and f32 scores equal to the single-card query_e2e_step over
      build_index(n_decoys=0) on every group neither flags, timed the
-     same way; (10d) K14 and K15 against their plain versions at 10b's
-     and 10c's shapes (launch counts from those runs) and on
-     cases.shard_cases (buckets of 128 and 129 entries, keys with Pp and
-     Pp + 1 postings, sid runs with m 15 and 16, padded route slots,
-     the last of three owners).
+     same way, and again with a slots3 lane compaction (mesh's route
+     through K7's JAX-shaped entry on fetched rows), lane by lane the
+     same anchors and scores; (10d) K14 and K15, and the entries that only
+     this path runs (K6's JAX-shaped entry, K7's two entries on fetched
+     rows), against their plain versions at 10b's and 10c's shapes, on
+     the inputs those runs gave them (launch counts from those runs)
+     and on cases.shard_cases (buckets of 128 and 129 entries, keys with
+     Pp and Pp + 1 postings, sid runs with m 15 and 16, padded route
+     slots, the last of three owners).
  11. runs the v1 replicated-index programs over the same group: (11a)
      the dry run of 10a prints the JAX line whole, self-, probe- and
      v2-hits included; (11b) sharded_sketch_index_step_auto on phase
@@ -196,11 +208,18 @@ REPLACES = {
     "rank_extract": "pgrtk_tpu/ops/pairs.py:23",
     "min_span_filter_gapped": "pgrtk_tpu/ops/pairs.py:134",
     "pair_mers_gapped": "pgrtk_tpu/ops/pairs.py:290",
+    # K5 with the row fetch (:612-620), and the query step's entry
     "probe_fetch": "pgrtk_tpu/ops/probe.py:228",
+    "probe_step": "pgrtk_tpu/ops/probe.py:228",
+    # K6, and the query step's entry with the count filter (:623-627)
     "dup_pair_counts": "pgrtk_tpu/ops/query_e2e.py:365",
+    "dup_pair_filter": "pgrtk_tpu/ops/query_e2e.py:365",
+    # K7 on fetched rows and in index form; the anchors entries with the
+    # JAX step's anchor build (:665-671)
     "expand_postings": "pgrtk_tpu/ops/query_e2e.py:430",
-    # the same function with the JAX step's anchor build (:665-671)
     "expand_postings_anchors": "pgrtk_tpu/ops/query_e2e.py:430",
+    "expand_postings_indexed": "pgrtk_tpu/ops/query_e2e.py:430",
+    "expand_postings_anchors_indexed": "pgrtk_tpu/ops/query_e2e.py:430",
     "chain_scores_fast": "pgrtk_tpu/ops/chain.py:252",
     "sketch_mode1": "pgrtk_tpu/ops/sketch1.py:124",
     "chain_scores_dense": "pgrtk_tpu/ops/chain.py:63",
@@ -216,10 +235,13 @@ REPLACES = {
     "pair_mers_dense": "pgrtk_tpu/ops/pairs.py:248",
 }
 INDEX_KERNELS = tuple(REPLACES)[:4] + ("sort_pairs",)
-QUERY_KERNELS = tuple(REPLACES)[:9]
-# the query step at slots3=None runs K7's anchors entry; the slots3
-# route (phase 6c) the JAX-shaped one
-STEP_KERNELS = tuple(k for k in QUERY_KERNELS if k != "expand_postings")
+QUERY_KERNELS = tuple(REPLACES)[:13]
+# the query step at slots3=None: K5, K6 and K7 through their step
+# entries (the slots3 route, phase 6c, runs K7's JAX-shaped planes in
+# index form); the fetching K5 entry and the rows forms never run there
+STEP_KERNELS = QUERY_KERNELS[:4] + ("probe_step", "dup_pair_filter",
+                                    "expand_postings_anchors_indexed",
+                                    "chain_scores_fast")
 BATCH_KERNELS = ("sketch_walk_compact", "rank_extract", "probe_fetch",
                  "chain_scores_fast", "sketch_mode1", "chain_scores_dense",
                  "probe_keys")
@@ -921,6 +943,28 @@ def step_bound(parts):
     return sum(ms for ms, _ in parts), max(parts)[1]
 
 
+def k7_planes_out(got):
+    """Output bytes of K7's JAX-shaped planes: t_bgnori, t_end and hv a
+    lane; row_ovf, grp_ovf."""
+    return (need(got["hv"].numel(), 4, 4, BIT)
+            + need(got["row_ovf"].numel() + got["grp_ovf"].numel(), BIT))
+
+
+def k7_anchors_out(got):
+    """Output bytes of K7's anchors entry: q_bgn, q_end, q_ori, t_bgn,
+    t_end, t_ori and gvalid a lane; row_ovf, grp_ovf."""
+    return (need(got["gvalid"].numel(), 4, 4, BIT, 4, 4, BIT, BIT)
+            + need(got["row_ovf"].numel() + got["grp_ovf"].numel(), BIT))
+
+
+def indexed_bytes(p_rows, row, base_hit, *rest):
+    """Input bytes of K7's index form: the row index, the masks and
+    fields as given, and each postings row that a base-hit slot names,
+    once."""
+    n_rows = torch.unique(row[base_hit]).numel()
+    return nbytes(row, base_hit, *rest) + n_rows * p_rows.shape[1] * 4
+
+
 def distinct_keys(k0, k1):
     return torch.unique(torch.stack([k0, k1]), dim=1).shape[1]
 
@@ -995,8 +1039,10 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
     for name in STEP_KERNELS:
         require(launches[name] > 0,
                 f"kernel {name} never launched on the query path")
-    require(launches["expand_postings"] == 0,
-            "the step at slots3=None took the JAX-shaped lane planes")
+    for name in QUERY_KERNELS:
+        require(name in STEP_KERNELS or launches[name] == 0,
+                f"the step at slots3=None ran {name} (K5 must fetch no "
+                f"rows, K7 read postings by row index into K8's anchors)")
     flags = {name: int(res[name].sum()) for name in CERTIFY_FLAGS}
     counts.update(n_anchors=int(res["gvalid"].sum()),
                   n_q_filtered=int(res["n_q_filtered"]),
@@ -1075,48 +1121,57 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
     }
     del x1, y1, v1, x2, y2, v2, keep, pr, pair_args
     probe_args = (q_k0.reshape(-1), q_k1.reshape(-1), tens["probe_bits"],
-                  *tens["probe_planes"], tens["probe_fence"], tens["p_rows"],
-                  tpr.WINDOW_ALIGNED)
-    found, _, rows = tpr.probe_fetch(*probe_args)
-    run_len = tq.dup_pair_counts(q_k0, q_k1, cvalid)
-    base_hit = cvalid & found.reshape(B, Pc) & (run_len <= 128)
-    ex_args = (rows.reshape(B, Pc, 3 * P), base_hit, run_len, C, M, 128)
-    anchor_args = (*ex_args[:3], *planes[2:], C, M, 128)
+                  *tens["probe_planes"], tens["probe_fence"])
+    fetch_args = (*probe_args, tens["p_rows"], tpr.WINDOW_ALIGNED)
+    found, row, _ = tpr.probe_step(*probe_args)
+    filter_args = (q_k0, q_k1, cvalid, found.reshape(B, Pc), 128)
+    run_len, base_hit, _ = tq.dup_pair_filter(*filter_args)
+    ix_args = (tens["p_rows"], row.reshape(B, Pc), base_hit, run_len, C, M,
+               128)
+    ix_anchor_args = (*ix_args[:4], *planes[2:], C, M, 128)
+    # K6's step entry adds to a counter: one a side, not refilled while
+    # timed (the step's is zeroed by K5)
+    counters = [torch.zeros((), dtype=torch.int64, device=dev)
+                for _ in range(2)]
     chain_args = (res["anchors"], res["gvalid"], 0.025, -1, False,
                   E2E_KW["lookback"], 8)
     n_valid = int(res["gvalid"].sum())
     results = {
         "probe_fetch": measure(
-            f"K5 probe_fetch, {q_k0.numel()} keys",
-            lambda: tpr.probe_fetch(*probe_args),
-            lambda: tpr.probe_fetch_plain(*probe_args),
+            f"K5 probe_fetch (rows fetched), {q_k0.numel()} keys",
+            lambda: tpr.probe_fetch(*fetch_args),
+            lambda: tpr.probe_fetch_plain(*fetch_args),
             *probe_work(q_k0.reshape(-1), q_k1.reshape(-1),
                         tens["probe_bits"], tens["probe_fence"],
                         tens["probe_planes"][0], 12 * P)),
-        "dup_pair_counts": measure(
-            f"K6 dup_pair_counts, ({B}, {Pc})",
-            lambda: tq.dup_pair_counts(q_k0, q_k1, cvalid),
-            lambda: tq.dup_pair_counts_plain(q_k0, q_k1, cvalid),
-            [q_k0, q_k1, cvalid], lambda got: need(got.numel(), 4),
-            OPS_ENTRY * cvalid.numel()),
-        "expand_postings": measure(
-            f"K7 expand_postings, ({B}, {Pc}, {P}) -> ({G}, {N})",
-            lambda: tq.expand_postings(*ex_args),
-            lambda: tq.expand_postings_plain(*ex_args),
-            # t_bgnori, t_end, hv per lane; row_ovf, grp_ovf
-            list(ex_args[:3]), lambda got: need(got["hv"].numel(), 4, 4, BIT)
-            + need(got["row_ovf"].numel() + got["grp_ovf"].numel(), BIT),
+        "probe_step": measure(
+            f"K5 probe_step, {q_k0.numel()} keys",
+            lambda: tpr.probe_step(*probe_args),
+            lambda: tpr.probe_step_plain(*probe_args, tpr.WINDOW_ALIGNED),
+            *probe_work(q_k0.reshape(-1), q_k1.reshape(-1),
+                        tens["probe_bits"], tens["probe_fence"],
+                        tens["probe_planes"][0], 0)),
+        "dup_pair_filter": measure(
+            f"K6 dup_pair_filter, ({B}, {Pc})",
+            lambda: tq.dup_pair_filter(*filter_args, counters[0]),
+            lambda: tq.dup_pair_filter_plain(*filter_args, counters[1]),
+            # run_len, base_hit per slot; the counter
+            list(filter_args[:4]), lambda got: need(got[0].numel(), 4, BIT)
+            + 8, OPS_ENTRY * cvalid.numel()),
+        "expand_postings_indexed": measure(
+            f"K7 expand_postings_indexed, p_rows "
+            f"{tuple(tens['p_rows'].shape)}, ({B}, {Pc}) -> ({G}, {N})",
+            lambda: tq.expand_postings_indexed(*ix_args),
+            lambda: tq.expand_postings_indexed_plain(*ix_args),
+            indexed_bytes(*ix_args[:4]), k7_planes_out,
             OPS_POSTING * B * Pc * P),
-        "expand_postings_anchors": measure(
-            f"K7 expand_postings_anchors, ({B}, {Pc}, {P}) -> ({G}, {N}, 6)",
-            lambda: tq.expand_postings_anchors(*anchor_args),
-            lambda: tq.expand_postings_anchors_plain(*anchor_args),
-            # q_bgn, q_end, q_ori, t_bgn, t_end, t_ori and gvalid per
-            # lane; row_ovf, grp_ovf
-            list(anchor_args[:6]),
-            lambda got: need(got["gvalid"].numel(), 4, 4, BIT, 4, 4, BIT,
-                             BIT)
-            + need(got["row_ovf"].numel() + got["grp_ovf"].numel(), BIT),
+        "expand_postings_anchors_indexed": measure(
+            f"K7 expand_postings_anchors_indexed, ({B}, {Pc}) -> ({G}, {N},"
+            f" 6)",
+            lambda: tq.expand_postings_anchors_indexed(*ix_anchor_args),
+            lambda: tq.expand_postings_anchors_indexed_plain(
+                *ix_anchor_args),
+            indexed_bytes(*ix_anchor_args[:7]), k7_anchors_out,
             OPS_POSTING * B * Pc * P),
         "chain_scores_fast": measure(
             f"K8 chain_scores_fast, ({G}, {N}), W={E2E_KW['lookback']}",
@@ -1126,8 +1181,9 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
             + need(got[2].numel(), BIT, BIT),  # dup, inexact per group
             OPS_SLOT * E2E_KW["lookback"] * n_valid, plain_reps=1),
     }
-    written = nbytes(*anchor_args[:6]) + G * N * (6 * 8 + 1)
-    print(f"    K7 anchors entry at the widths it writes ((G, N, 6) int64, "
+    written = indexed_bytes(*ix_anchor_args[:7]) + G * N * (6 * 8 + 1)
+    print(f"    K7 anchors entry in index form at the widths it writes "
+          f"((G, N, 6) int64, "
           f"gvalid): {written} bytes, "
           f"{written / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory rate")
     print(f"    K8: {results['chain_scores_fast']['ms'] * 1e-3 * SM_HZ / N:.0f}"
@@ -1135,7 +1191,7 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
     step_info = dict(bound=step_bound(
         [(r["bound_ms"], r["bound_by"])
          for name, r in (*errs.items(), *results.items())
-         if name != "expand_postings"]))
+         if name in STEP_KERNELS or name not in QUERY_KERNELS]))
     errs = {name: r["max_abs_err"] for name, r in errs.items()}
     errs["rank_extract"] = max(errs["rank_extract"],
                                errs.pop("rank_extract pairs"))
@@ -1148,8 +1204,8 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
             lambda: tpr.probe_fetch_plain(*dense_args),
             *probe_work(q_k0.reshape(-1), q_k1.reshape(-1), dense["bits"],
                         dense["fence"], dense["k0"], 0))
-    del probe_args, found, rows, run_len, base_hit, ex_args, anchor_args
-    del chain_args
+    del probe_args, fetch_args, found, row, run_len, base_hit
+    del ix_args, ix_anchor_args, chain_args
     del dense_args, dense
 
     per_lane = int(res["gvalid"].sum(dim=1).max())
@@ -1159,11 +1215,17 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
     kb.reset_launches()
     res3 = step(pair_block=512, slots3=slots3)
     torch.cuda.synchronize()
-    launches["expand_postings"] = kb.expand_postings.launches
-    print(f"  K7's JAX-shaped entry launched {launches['expand_postings']} "
-          f"times, its anchors entry {kb.expand_postings_anchors.launches}")
-    require(launches["expand_postings"] > 0,
-            "the slots3 route never launched K7's JAX-shaped entry")
+    launches["expand_postings_indexed"] = kb.expand_postings_indexed.launches
+    print(f"  K7's JAX-shaped entry in index form launched "
+          f"{launches['expand_postings_indexed']} times, on fetched rows "
+          f"{kb.expand_postings.launches}, its anchors entry "
+          f"{kb.expand_postings_anchors_indexed.launches}; K5 fetched rows "
+          f"{kb.probe_fetch.launches} times")
+    require(launches["expand_postings_indexed"] > 0
+            and kb.expand_postings.launches == 0
+            and kb.probe_fetch.launches == 0,
+            "the slots3 route did not read postings by row index through "
+            "K7's JAX-shaped entry")
     require(not any(int(res3[n].sum()) for n in CERTIFY_FLAGS),
             "slots3 run raised a flag")
     require(res3["gvalid"].shape == (G, slots3), "slots3 lane width")
@@ -1434,12 +1496,14 @@ def phase_batch_device(dev, kb, targets, queries):
             16 * k0.numel() + 16 * n_read + 4 * n_rows,
             lambda got: need(got[0].numel(), *HIT), OPS_COMPARE * n_cmp),
     }
-    measure(f"K5 probe_fetch found-only, {k0.numel()} keys",
-            lambda: tpr.probe_fetch(k0, k1, al["bits"], al["k0"], al["k1"],
-                                    al["fence"], None),
-            lambda: tpr.probe_fetch_plain(k0, k1, al["bits"], al["k0"],
-                                          al["k1"], al["fence"], None, 128),
-            *probe_work(k0, k1, al["bits"], al["fence"], al["k0"], 0))
+    # the path's use of K5: found only, the kernels line's probe_fetch
+    results["probe_fetch"] = measure(
+        f"K5 probe_fetch found-only, {k0.numel()} keys",
+        lambda: tpr.probe_fetch(k0, k1, al["bits"], al["k0"], al["k1"],
+                                al["fence"], None),
+        lambda: tpr.probe_fetch_plain(k0, k1, al["bits"], al["k0"],
+                                      al["k1"], al["fence"], None, 128),
+        *probe_work(k0, k1, al["bits"], al["fence"], al["k0"], 0))
     keys, groups = collect_target_hits_batch(
         store, dict(pairs, j=j5.long().cpu().numpy()), 128, 128, 128)
     anchors, valid = tc._sorted_batch(groups)
@@ -2027,14 +2091,16 @@ def phase_v2_query(dev, kb, mesh, comm, tq, targets, queries):
     ql = torch.full((B,), L, device=dev)
     qr = torch.arange(B, device=dev)
 
-    def step():
+    def step(**kw):
         return mesh.sharded_query_v2_e2e_step(
             q, ql, qr, v2["probe"], shard_capacity=cap, n_targets=C,
-            avg_per_bucket=lam, comm=comm, **V2_QUERY_KW)
+            avg_per_bucket=lam, comm=comm, **dict(V2_QUERY_KW, **kw))
 
     torch.cuda.synchronize()
     kb.reset_launches()
-    with capture(mesh, "owner_postings") as k15:
+    with capture(mesh, "owner_postings") as k15, \
+            capture(tq, "dup_pair_counts") as k6, \
+            capture(tq, "expand_postings_anchors") as k7a:
         res = step()
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kb.KERNELS if k.launches}
@@ -2049,6 +2115,28 @@ def phase_v2_query(dev, kb, mesh, comm, tq, targets, queries):
                                      "postings_overflow")}
     print(f"  flags {flags}; n_hits {int(res['n_hits'])}")
     require(not any(flags.values()), f"sharded query flags set: {flags}")
+
+    # mesh's slots3 route: K7's JAX-shaped entry on the fetched rows
+    per_lane = int(res["gvalid"].sum(dim=1).max())
+    slots3 = -(-per_lane // 64) * 64
+    kb.reset_launches()
+    with capture(tq, "expand_postings") as k7:
+        res3 = step(slots3=slots3)
+    torch.cuda.synchronize()
+    launches["expand_postings"] = kb.expand_postings.launches
+    require(launches["expand_postings"] > 0,
+            "the sharded slots3 route never launched K7's JAX-shaped entry")
+    require(res3["gvalid"].shape == (res["gvalid"].shape[0], slots3)
+            and not bool(res3["lane_ovf"].any()), "slots3 lanes")
+    for g in range(res["gvalid"].shape[0]):
+        v, v3 = res["gvalid"][g], res3["gvalid"][g]
+        require(torch.equal(res["anchors"][g][v], res3["anchors"][g][v3])
+                and torch.equal(res["scores"][g][v], res3["scores"][g][v3]),
+                f"sharded lane {g}: anchors or scores differ under slots3")
+    print(f"  slots3={slots3} (largest lane {per_lane} anchors): K7's "
+          f"JAX-shaped entry launched {launches['expand_postings']} times; "
+          f"every lane's anchors and scores as without it")
+    del res3
 
     # the single-card step over build_index(n_decoys=0) of the same
     # targets, at the same knobs
@@ -2092,7 +2180,8 @@ def phase_v2_query(dev, kb, mesh, comm, tq, targets, queries):
           f"step at the same knobs {med1:.6f} s")
     profile_steps(step, trace="sharded_query_trace.json")
 
-    print("phase 10d: K15 vs plain at 10c's shapes, K14 and K15 on the edge "
+    print("phase 10d: K15, K6's and K7's entries on fetched rows vs plain at "
+          "10c's shapes (the path that runs them), K14 and K15 on the edge "
           "cases")
     (qk0, qk1, planes, bits, Pp), _ = k15.calls[-1]
     in_b, out_b, ops = k15_work(qk0, qk1, bits, Pp)
@@ -2102,6 +2191,36 @@ def phase_v2_query(dev, kb, mesh, comm, tq, targets, queries):
         lambda: mesh.owner_postings_plain(qk0, qk1, planes, bits, Pp),
         in_b, out_b, ops)
     result["launches"] = launches.get("owner_postings", 0)
+    k6_args, ex_args = k6.calls[-1][0], k7.calls[-1][0]
+    anchor_args = k7a.calls[-1][0]
+    del k6, k7, k7a
+    cvalid = k6_args[2]
+    rows = ex_args[0]
+    B_loc, Pc, P = rows.shape[0], rows.shape[1], rows.shape[2] // 3
+    rows_forms = {
+        "dup_pair_counts": measure(
+            f"K6 dup_pair_counts, {tuple(cvalid.shape)}",
+            lambda: tq.dup_pair_counts(*k6_args),
+            lambda: tq.dup_pair_counts_plain(*k6_args),
+            list(k6_args), lambda got: need(got.numel(), 4),
+            OPS_ENTRY * cvalid.numel()),
+        "expand_postings": measure(
+            f"K7 expand_postings (slots3 route), rows "
+            f"{tuple(rows.shape)}, C {ex_args[3]}, M {ex_args[4]}",
+            lambda: tq.expand_postings(*ex_args),
+            lambda: tq.expand_postings_plain(*ex_args),
+            list(ex_args[:3]), k7_planes_out, OPS_POSTING * B_loc * Pc * P),
+        "expand_postings_anchors": measure(
+            f"K7 expand_postings_anchors, rows {tuple(rows.shape)}, C "
+            f"{anchor_args[6]}, M {anchor_args[7]}",
+            lambda: tq.expand_postings_anchors(*anchor_args),
+            lambda: tq.expand_postings_anchors_plain(*anchor_args),
+            list(anchor_args[:6]), k7_anchors_out,
+            OPS_POSTING * B_loc * Pc * P),
+    }
+    for name in rows_forms:
+        rows_forms[name]["launches"] = launches.get(name, 0)
+    del k6_args, ex_args, anchor_args, rows, cvalid
     for name, table, b, c0, c1 in cases.shard_cases(dev):
         got = mesh.shard_probe_planes(table, b)
         check(f"K14 {name}", planes_list(got),
@@ -2109,7 +2228,7 @@ def phase_v2_query(dev, kb, mesh, comm, tq, targets, queries):
         check(f"K15 {name}",
               mesh.owner_postings(c0, c1, got[0], b, cases.SHARD_PP),
               mesh.owner_postings_plain(c0, c1, got[0], b, cases.SHARD_PP))
-    return {"owner_postings": result}
+    return {"owner_postings": result, **rows_forms}
 
 
 V1_KERNELS = ("pair_key_search", "shard_probe_found", "min_span_filter_dense",
@@ -2521,7 +2640,11 @@ def main():
               f"{query_step['bound'][0]:.4f} ms by {query_step['bound'][1]}"
               f" (sums of their kernels' bounds)")
         stamp("phase 6")
-        measured.update(phase_batch_device(dev, kb, targets, queries))
+        batch = phase_batch_device(dev, kb, targets, queries)
+        batch["probe_fetch"]["max_abs_err"] = max(
+            batch["probe_fetch"]["max_abs_err"],
+            measured["probe_fetch"]["max_abs_err"])  # phase 6b's fetch
+        measured.update(batch)
         stamp("phase 7")
         build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                  "build")
@@ -2529,8 +2652,10 @@ def main():
         stamp("phase 8")
         measured.update(phase_sv(dev, kb, build_dir))
         stamp("phase 9")
-        measured.update(phase_sharded(dev, kb, mesh, targets, queries,
-                                      build_dir, stamp))
+        # entries measured earlier take their launches from this path
+        for name, r in phase_sharded(dev, kb, mesh, targets, queries,
+                                     build_dir, stamp).items():
+            measured.setdefault(name, {}).update(r)
         stamp("phases 10-11")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -1,76 +1,147 @@
-// K5 probe_fetch: fence probe of the pair-key table fused with the
-// postings-row fetch (or, with width 0, the probe alone: the found-only
-// use of parallel/device_query.py).  K11 probe_keys: the probe of the
-// padded-bucket layout.
+// K5: the fence probe of the pair-key table, one core behind three
+// entries: probe_fetch (the JAX-shaped probe fused with the postings-row
+// fetch, or with width 0 the probe alone: the found-only use of
+// parallel/device_query.py) and probe_step (the query step's: found and
+// the row index only, and the step's n_q_filtered counter zeroed, so K6's
+// step entry can add to it with no fill launch between).  K11
+// probe_keys: the probe of the padded-bucket layout.
 //
 // Replaces pgrtk_tpu/ops/probe.py:228 probe_keys_aligned (window 128)
 // and :282 probe_keys_dense (window 256), and the row gather that
 // follows them in pgrtk_tpu/ops/query_e2e.py:612-620.
 //
-// What bounds it on this card: memory latency.  Each key costs a random
-// 4-byte fence read, a read of its bucket's window (16 bytes per slot,
-// one 2 KB row for the aligned layout, often left early) that depends on
-// it, and one postings row (3P words, 384 bytes at P=32) that depends on
-// the match.  At the query step's ~25k keys against a 4.2M-key table the
-// card is far from its bandwidth; the dependent chain of three reads is
-// the cost.
+// What bounds it on this card: memory latency.  Each key is a chain of
+// dependent reads: its two words, its bucket's two fence words, the
+// bucket's key slots, and (probe_fetch) a postings row of 3P words.  At
+// the query step's ~25k keys against a 4.2M-key table the card is far
+// from its bandwidth (the bound is the slots of the buckets probed,
+// ~0.003 ms); the chain and the keys in flight are the cost.
 //
-// Design: one warp per query key.  Lane l compares slots base + c + l
-// of the window, c stepping by 32; a ballot finds the lowest matching
-// slot (jnp.argmax's first maximum) and the warp stops at the first
-// 32-slot step with a match.  Slots past the table read as all-ones pad,
-// as jnp.take fills them.  The warp then copies the matched row (or the
-// not-found sentinel, the last row) with coalesced 4-byte loads.
+// Design: a key's matches can only lie in its bucket, [fence[b],
+// fence[b+1]) with b = k0 >> (56 - bits), because the table is
+// key-sorted and every pad slot holds k0 = -1, which no key with k0 <
+// 2^56 equals.  So the core scans only the part of the bucket inside the
+// JAX window [base, base + window), base = fence[b] rounded down to its
+// 128-slot row: the first match there is the first match in the window
+// (jnp.argmax's first maximum; the lowest of duplicate keys in the dense
+// layout), and a dense bucket that runs past its window stays not found
+// beyond it, as in JAX.  A bucket at or past n_fence - 1 (k0 >= 2^56) has
+// no end and is not found.  Eight lanes take a key (four keys a warp),
+// each lane comparing 4 slots of a 32-slot step with all its loads in
+// flight together; a bucket of up to 32 keys (the tables' average is
+// 16-32) is one step.  (A thread a key, timed against it, was 3x slower:
+// PERF.md, run D.)  The group's two fence words come in one load (lane
+// pairs), k1 is read only on the slots whose k0 matches, and the group
+// stops at its first step with a match.  probe_fetch then copies each
+// key's row (or the not-found sentinel, the last row) with the whole warp,
+// key by key, in coalesced 4-byte loads.
 #include "common.cuh"
 
 namespace {
 
-__global__ void probe_fetch_kernel(
+constexpr int kNone = 0x7fffffff;
+
+__global__ void probe_kernel(
     const long long* __restrict__ qk0, const long long* __restrict__ qk1,
     long long Q, int shift, const long long* __restrict__ tk0,
     const long long* __restrict__ tk1, long long n_slots,
     const int* __restrict__ fence, long long n_fence, int window,
     const int* __restrict__ p_rows, long long n_rows, int width,
     bool* __restrict__ found_out, int* __restrict__ row_out,
-    int* __restrict__ rows_out) {
+    int* __restrict__ rows_out, unsigned long long* __restrict__ zero) {
+  constexpr int G = 8;  // lanes a key
+  constexpr int U = 32 / G;  // slots a lane compares a step
+  constexpr int KW = 32 / G;  // keys a warp
   const unsigned full = 0xffffffffu;
-  const long long q =
-      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (q >= Q) return;  // uniform across the warp
-  const long long k0 = qk0[q];
-  const long long k1 = qk1[q];
-  const unsigned long long bucket = (unsigned long long)k0 >> shift;
-  int hit = -1;
-  long long base = 0;
-  if (bucket < (unsigned long long)n_fence) {
-    base = (long long)(fence[bucket] >> 7) << 7;
-    for (int c = 0; c < window; c += 32) {
-      const long long s = base + c + lane;
-      const long long t0 = s < n_slots ? tk0[s] : -1;
-      const long long t1 = s < n_slots ? tk1[s] : -1;
-      const unsigned m = __ballot_sync(full, t0 == k0 && t1 == k1);
-      if (m) {
-        hit = c + __ffs(m) - 1;
-        break;
-      }
+  const int j = lane % G;  // the lane's place in its key's group
+  const long long warp =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long q = warp * KW + lane / G;
+  if (zero != nullptr && blockIdx.x == 0 && threadIdx.x == 0) *zero = 0;
+  long long k0 = 0, k1 = 0;
+  bool in = false;
+  unsigned long long b = 0;
+  if (q < Q) {
+    k0 = qk0[q];
+    k1 = qk1[q];
+    b = (unsigned long long)k0 >> shift;
+    in = b + 1 < (unsigned long long)n_fence;
+  }
+  // lanes 0 and 1 of the group load fence[b] and fence[b + 1]
+  const int f = in ? fence[b + (j & 1)] : 0;
+  const int f0 = __shfl_sync(full, f, lane - j);
+  const int f1 = __shfl_sync(full, f, lane - j + 1);
+  int lo = 0, hi = 0;
+  if (in) {
+    const long long end = min(min((long long)f1, ((long long)(f0 >> 7) << 7)
+                                                     + window),
+                              n_slots);
+    lo = f0;
+    hi = (int)max(end, (long long)f0);
+  }
+  int hit = kNone;
+  for (int s0 = lo; __any_sync(full, hit == kNone && s0 < hi); s0 += 32) {
+    const bool scan = hit == kNone;
+    long long t0[U];
+    bool live[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int s = s0 + j + G * u;
+      live[u] = scan && s < hi;
+      t0[u] = live[u] ? tk0[s] : 0;
+    }
+    int best = kNone;
+#pragma unroll
+    for (int u = U - 1; u >= 0; --u) {  // descending: the lowest slot wins
+      const int s = s0 + j + G * u;
+      if (live[u] && t0[u] == k0 && tk1[s] == k1) best = s;
+    }
+#pragma unroll
+    for (int d = G / 2; d > 0; d >>= 1)
+      best = min(best, __shfl_xor_sync(full, best, d));
+    hit = min(hit, best);
+  }
+  const bool found = hit != kNone;
+  if (q < Q && j == 0) {
+    found_out[q] = found;
+    row_out[q] = found ? hit : -1;
+  }
+  if (width == 0) return;  // uniform: probe only
+  // the warp copies its keys' rows one key at a time
+  const long long q0 = warp * KW;
+#pragma unroll 1
+  for (int k = 0; k < KW && q0 + k < Q; ++k) {
+    const int r = __shfl_sync(full, found ? hit : -1, k * G);
+    const long long fetch = r >= 0 ? r : n_rows - 1;
+    int* dst = rows_out + (q0 + k) * width;
+    if (fetch < n_rows) {
+      const int* src = p_rows + fetch * width;
+      for (int w = lane; w < width; w += 32) dst[w] = src[w];
+    } else {
+      for (int w = lane; w < width; w += 32) dst[w] = -1;
     }
   }
-  const bool found = hit >= 0;
-  const long long row = found ? base + hit : -1;
-  if (lane == 0) {
-    found_out[q] = found;
-    row_out[q] = (int)row;
-  }
-  if (width == 0) return;  // probe only
-  const long long fetch = found ? row : n_rows - 1;
-  int* dst = rows_out + q * width;
-  if (fetch < n_rows) {
-    const int* src = p_rows + fetch * width;
-    for (int w = lane; w < width; w += 32) dst[w] = src[w];
-  } else {
-    for (int w = lane; w < width; w += 32) dst[w] = -1;
-  }
+}
+
+int probe_launch(const void* qk0, const void* qk1, long long Q, int bits,
+                 const void* tk0, const void* tk1, long long n_slots,
+                 const void* fence, long long n_fence, int window,
+                 const void* p_rows, long long n_rows, int width, void* found,
+                 void* row, void* rows, void* zero, cudaStream_t st) {
+  if (bits < 1 || bits > 56 || (window != 128 && window != 256) ||
+      n_slots < 1 || n_slots > 0x7fffffffll || width < 0 ||
+      (width > 0 && n_rows < 1))
+    return (int)cudaErrorInvalidValue;
+  if (Q == 0) return (int)cudaSuccess;
+  const long long blocks = (Q + 31) / 32;  // 32 keys a block of 256 threads
+  if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  probe_kernel<<<(unsigned)blocks, 256, 0, st>>>(
+      (const long long*)qk0, (const long long*)qk1, Q, 56 - bits,
+      (const long long*)tk0, (const long long*)tk1, n_slots,
+      (const int*)fence, n_fence, window, (const int*)p_rows, n_rows, width,
+      (bool*)found, (int*)row, (int*)rows, (unsigned long long*)zero);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -86,19 +157,23 @@ extern "C" int pgrtk_probe_fetch(const void* qk0, const void* qk1,
                                  int window, const void* p_rows,
                                  long long n_rows, int width, void* found,
                                  void* row, void* rows, void* stream) {
-  if (bits < 1 || bits > 56 || (window != 128 && window != 256) ||
-      n_slots < 1 || width < 0 || (width > 0 && n_rows < 1))
-    return (int)cudaErrorInvalidValue;
-  if (Q == 0) return (int)cudaSuccess;
-  const int threads = 256;  // 8 keys per block
-  const long long blocks = (Q + 7) / 8;
-  probe_fetch_kernel<<<(unsigned)blocks, threads, 0,
-                       (cudaStream_t)stream>>>(
-      (const long long*)qk0, (const long long*)qk1, Q, 56 - bits,
-      (const long long*)tk0, (const long long*)tk1, n_slots,
-      (const int*)fence, n_fence, window, (const int*)p_rows, n_rows, width,
-      (bool*)found, (int*)row, (int*)rows);
-  return (int)cudaGetLastError();
+  return probe_launch(qk0, qk1, Q, bits, tk0, tk1, n_slots, fence, n_fence,
+                      window, p_rows, n_rows, width, found, row, rows,
+                      nullptr, (cudaStream_t)stream);
+}
+
+// The query step's entry: found (Q,) bool and row (Q,) int32 as above, no
+// rows; *zero (one uint64, the step's n_q_filtered) is set to 0.  Q > 0.
+extern "C" int pgrtk_probe_step(const void* qk0, const void* qk1,
+                                long long Q, int bits, const void* tk0,
+                                const void* tk1, long long n_slots,
+                                const void* fence, long long n_fence,
+                                int window, void* found, void* row,
+                                void* zero, void* stream) {
+  if (Q < 1 || zero == nullptr) return (int)cudaErrorInvalidValue;
+  return probe_launch(qk0, qk1, Q, bits, tk0, tk1, n_slots, fence, n_fence,
+                      window, nullptr, 0, 0, found, row, nullptr, zero,
+                      (cudaStream_t)stream);
 }
 
 // K11 probe_keys: probe of the padded-bucket layout.

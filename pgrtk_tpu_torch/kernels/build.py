@@ -231,6 +231,27 @@ expand_postings_anchors = Kernel(
     "expand_postings_anchors", "pgrtk_tpu_torch/csrc/query.cu",
     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _P, _P, _P, _P, _P, _P],
 )
+# The query step's entries: K5's probe writing found and the row index
+# only, K6 with the count filter, and K7's two entries reading postings
+# by row index
+probe_step = Kernel(
+    "probe_step", "pgrtk_tpu_torch/csrc/probe.cu",
+    [_P, _P, _LL, _I, _P, _P, _LL, _P, _LL, _I, _P, _P, _P, _P],
+)
+dup_pair_filter = Kernel(
+    "dup_pair_filter", "pgrtk_tpu_torch/csrc/query.cu",
+    [_P, _P, _P, _P, _I, _I, _LL, _P, _P, _P, _P],
+)
+expand_postings_indexed = Kernel(
+    "expand_postings_indexed", "pgrtk_tpu_torch/csrc/query.cu",
+    [_P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _U, _P, _P, _P, _P, _P, _P,
+     _P],
+)
+expand_postings_anchors_indexed = Kernel(
+    "expand_postings_anchors_indexed", "pgrtk_tpu_torch/csrc/query.cu",
+    [_P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _P, _P, _P, _P,
+     _P, _P],
+)
 # K18 and K19: the dense pair variants
 min_span_filter_dense = Kernel(
     "min_span_filter_dense", "pgrtk_tpu_torch/csrc/dense.cu",
@@ -243,14 +264,16 @@ pair_mers_dense = Kernel(
 # index stage K1-K4, query stage K5-K8, the --batch-device path K9-K11,
 # the pgr-pbundle-decomp path K12, the pgr-get-sv-candidate-regions WFA
 # K13, the sharded v2 index and query K14-K15, the v1 sharded steps K16,
-# the v2 probe-only step K17, the dense pair variants K18-K19, and K7's
-# anchors entry
+# the v2 probe-only step K17, the dense pair variants K18-K19, K7's
+# anchors entry, and the query step's entries of K5, K6 and K7
 KERNELS = (sketch_walk_compact, rank_extract, min_span_filter_gapped,
            pair_mers_gapped, probe_fetch, dup_pair_counts, expand_postings,
            chain_scores_fast, sketch_mode1, chain_scores_dense, probe_keys,
            sort_link_rows, sort_pairs, wfa_forward, shard_probe_planes,
            owner_postings, pair_key_search, shard_probe_found,
-           min_span_filter_dense, pair_mers_dense, expand_postings_anchors)
+           min_span_filter_dense, pair_mers_dense, expand_postings_anchors,
+           probe_step, dup_pair_filter, expand_postings_indexed,
+           expand_postings_anchors_indexed)
 
 
 def reset_launches() -> None:

@@ -1,0 +1,369 @@
+"""Device times of the query stage's kernels, every entry, at the main
+path's shapes, and of the query step that runs them.
+
+    python -m pgrtk_tpu_torch.kernels.timing [--digest FILE] [part ...]
+
+Needs the card and nvcc; run it from the repository root, since it takes
+bench.py's corpus and the step's knobs from chip_smoke.py.  A package
+that lacks an entry (an older tree) runs too: copy this file into its
+kernels/ and run it there; what that package lacks is skipped.  It prints
+the card's name and power limit, the registers and shared memory ptxas
+gave the kernels when this run builds them, then the parts asked for
+(default: all):
+  chain  K8 (chain_scores_fast) on utils/cases.py::chain_groups at the
+         query step's (1,024, 576) and W = 24 (no max_gap, not
+         oriented), as drawn (~80% valid) and thinned to ~27% valid, the
+         query step's share, with its cycles a scan step at the card's
+         maximum SM clock (nvidia-smi clocks.max.sm);
+  index  K3 and K4 (both tie rules) on the index step's gapped streams
+         (K1's fast walk at 12 slots, K2 at 144 a 512-entry block) of
+         kernels/k1_modes.py's 16 x 16,777,216 batch, clean and with its
+         scaffold gaps;
+  query  at the query step's inputs (bench.py's index: 8 x 1 Mbase
+         targets + 4,194,304 decoys, P 32, M 3; 128 x 65,536 query rows,
+         pair_block None, so (128, 192) pair slots and 24,576 keys):
+         K1's fast walk, K2, K3 and K4 on the query stream; K5's
+         entries (rows fetched, found only, the step entry); K6's entries
+         and the count filter as the step ran it before K6's step entry
+         (dup_pair_counts and its elementwise glue); K7's entries on
+         fetched rows and in index form, each form held to the other;
+  step   the query step at chip_smoke.py's E2E_KW: its device launches
+         and device busy time a step (torch.profiler over 5 steps), the
+         device time by kernel, the host-clock median of 5 steps, and the
+         sha256 of every output (written to FILE with --digest, so that
+         two trees' steps can be compared in one call).
+Every kernel is held to its plain version (tolerance 0).  Each kernel
+time is the median of five rounds of 20 back-to-back calls (CUDA events,
+ms a call), beside the device launches, busy time and time by kernel of
+a call (torch.profiler over 5 calls).
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import re
+import statistics
+import subprocess
+import sys
+import time
+from collections import Counter
+
+import numpy as np
+import torch
+
+from . import build as kb
+from ..ops import chain as tc
+from ..ops import pairs as tp
+from ..ops import probe as tpr
+from ..ops import query_e2e as tq
+from ..ops import sketch as tsk
+from ..utils import cases
+from .k1_modes import CHUNK, K, MIN_SPAN, R, SLOTS, batches
+
+PARTS = ("chain", "index", "query", "step")
+PTXAS_KERNELS = ("sketch_walk", "rank", "min_span_kernel", "tile_summary",
+                 "pair_summary", "tile_rank", "pair_kernel", "probe_kernel",
+                 "probe_fetch_kernel", "dup_pair", "expand_kernel",
+                 "chain_fast_kernel")
+CHAIN_G, CHAIN_N, CHAIN_W = 1024, 576, 24
+LIMIT = 128  # min(max_count, max_count_query) at the step's defaults
+
+
+def smi(query):
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                           "--format=csv,noheader,nounits"],
+                          capture_output=True, text=True).stdout.strip()
+
+
+def events_ms(fn, n=20, rounds=5):
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(n):
+            fn()
+        t1.record()
+        t1.synchronize()
+        out.append(t0.elapsed_time(t1) / n)
+    return statistics.median(out)
+
+
+def device_profile(fn, n=5):
+    """Device launches (kernels, memsets, copies) and busy ms a call, and
+    each kernel's launches and device ms a call, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    spans, per, calls = [], Counter(), Counter()
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            spans.append((e.time_range.start, e.time_range.end))
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0][:48]
+            per[name] += e.time_range.elapsed_us()
+            calls[name] += 1
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in sorted(spans):
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    top = ", ".join(f"{k} x{calls[k] / n:g} {us / n / 1e3:.4f}"
+                    for k, us in per.most_common())
+    return len(spans) / n, busy / n / 1e3, top
+
+
+def equal(got, want):
+    """Two results equal: tensors, or sequences and dicts of tensors
+    (None where a result has none)."""
+    if isinstance(got, torch.Tensor):
+        return isinstance(want, torch.Tensor) and torch.equal(got, want)
+    if isinstance(got, dict):
+        return got.keys() == want.keys() and all(
+            equal(got[k], want[k]) for k in got)
+    if got is None or want is None:
+        return got is None and want is None
+    return len(got) == len(want) and all(
+        equal(g, w) for g, w in zip(got, want))
+
+
+def report(label, fn, plain):
+    ok = equal(fn(), plain())
+    ms = events_ms(fn)
+    n, busy, top = device_profile(fn)
+    print(f"{label}: equal {ok}; {ms:.4f} ms; {n:g} device launches, "
+          f"{busy:.4f} ms busy a call: {top}")
+    return ok
+
+
+def digest(res):
+    h = hashlib.sha256()
+    for name in sorted(res):
+        t = res[name].contiguous().cpu()
+        h.update(name.encode())
+        h.update(str(t.dtype).encode())
+        h.update(t.view(-1).view(torch.uint8).numpy().tobytes()
+                 if t.numel() else b"")
+    return h.hexdigest()
+
+
+def front_end(seqs, lens, slots, b2, s2):
+    """K1's fast walk, K2 and K3: the stream K4 pairs, and its keep."""
+    x1, y1, v1, _, _ = tsk.sketch_walk_compact(seqs, lens, K, R, CHUNK,
+                                               slots)
+    (x2, y2), v2, _ = tp.rank_extract_planes((x1, y1), v1, b2, s2)
+    return x2, y2, v2, tp.min_span_filter_gapped(x2, y2, v2, MIN_SPAN)
+
+
+def part_chain(dev):
+    clock_hz = float(smi("clocks.max.sm")) * 1e6
+    anchors, valid = cases.chain_groups(5, G=CHAIN_G, N=CHAIN_N)
+    thin = np.random.default_rng(6).random((CHAIN_G, CHAIN_N)) < 0.34
+    anchors = torch.from_numpy(anchors.astype(np.int64)).to(dev)
+    for name, v in (("~80% valid", valid), ("~27% valid", valid & thin)):
+        args = (anchors, torch.from_numpy(v).to(dev), 0.025, -1, False,
+                CHAIN_W, 8)
+        report(f"K8 ({CHAIN_G}, {CHAIN_N}) W={CHAIN_W}, {name} "
+               f"({int(v.sum())} valid)",
+               lambda a=args: tc.chain_scores_fast(*a),
+               lambda a=args: tc.chain_scores_fast_plain(*a))
+        ms = events_ms(lambda a=args: tc.chain_scores_fast(*a))
+        print(f"  {ms * 1e-3 * clock_hz / CHAIN_N:.0f} cycles a scan step")
+
+
+def k3_k4(name, x, y, v, keep, ties):
+    args = (x, y, v, MIN_SPAN)
+    report(f"K3 {name} stream {tuple(x.shape)} ({int(v.sum())} valid)",
+           lambda: tp.min_span_filter_gapped(*args),
+           lambda: tp.min_span_filter_gapped_plain(*args))
+    for tie in ties:
+        report(f"K4 {name} stream, tie_one={tie} ({int(keep.sum())} kept)",
+               lambda t=tie: tp.pair_mers_gapped(x, y, keep, t),
+               lambda t=tie: tp.pair_mers_gapped_plain(x, y, keep, t))
+
+
+def part_index(dev):
+    seqs_by = batches(dev)
+    B, L = seqs_by["clean"].shape
+    lens = torch.full((B,), L, device=dev)
+    for name in list(seqs_by):
+        stream = front_end(seqs_by.pop(name), lens, SLOTS, 512, 144)
+        k3_k4(f"index {name}", *stream, (False, True))
+        del stream
+        torch.cuda.empty_cache()
+
+
+def query_inputs(dev):
+    """The query step's index tensors, query rows and knobs."""
+    import chip_smoke as cs
+
+    targets, queries = cs.bench_corpus(dev)
+    C = targets.shape[0]
+    seqs = torch.from_numpy(targets).to(dev)
+    out = cs.index_stage(tsk, tp, seqs, torch.full((C,), targets.shape[1],
+                                                   device=dev),
+                         torch.arange(C, device=dev), plain=False)
+    kw = cs.E2E_KW
+    idx = tq.build_index(
+        pair_arrays=tq.pair_arrays_from_table(out["table"], out["n_pairs"]),
+        n_decoys=cs.N_INDEX_KEYS, build_lookup=False, P=kw["P"])
+    tens = tq.index_tensors(idx, dev)
+    q = torch.from_numpy(queries).to(dev)
+    return dict(tens=tens, q=q, qlens=torch.full((q.shape[0],), q.shape[1],
+                                                 device=dev), C=C, kw=kw)
+
+
+def part_query(dev, ctx):
+    tens, q, qlens, C, kw = (ctx[k] for k in ("tens", "q", "qlens", "C",
+                                              "kw"))
+    B = q.shape[0]
+    slots, b2, s2 = kw["sketch_compact"]
+    walk = (q, qlens, K, R, CHUNK, slots)
+    report(f"K1 fast, query rows {tuple(q.shape)}, slots={slots}",
+           lambda: tsk.sketch_walk_compact(*walk),
+           lambda: tsk.sketch_walk_compact_plain(*walk, False))
+    x1, y1, v1, _, _ = tsk.sketch_walk_compact(*walk)
+    level2 = ((x1, y1), v1, b2, s2)
+    report(f"K2 level 2, stream {tuple(x1.shape)}, block {b2}",
+           lambda: tp.rank_extract_planes(*level2),
+           lambda: tp.rank_extract_planes_plain(*level2))
+    del x1, y1, v1, level2
+    k3_k4("query", *front_end(q, qlens, slots, b2, s2), (True,))
+
+    planes, cvalid, _ = tq.query_pairs(q, qlens, slots2=kw["slots2"],
+                                       sketch_compact=kw["sketch_compact"],
+                                       pair_block=None)
+    q_k0, q_k1, q_bgn, q_end, q_ori = planes
+    Pc, P, M = q_k0.shape[1], kw["P"], kw["M"]
+    keys = (q_k0.reshape(-1), q_k1.reshape(-1), tens["probe_bits"],
+            *tens["probe_planes"], tens["probe_fence"])
+    fetch = (*keys, tens["p_rows"], tpr.WINDOW_ALIGNED)
+    found_only = (*keys, None, tpr.WINDOW_ALIGNED)
+    print(f"K5 at {q_k0.numel()} keys, table of "
+          f"{tens['probe_planes'][0].numel()} slots, bits "
+          f"{tens['probe_bits']}:")
+    report("  K5 probe_fetch, rows fetched", lambda: tpr.probe_fetch(*fetch),
+           lambda: tpr.probe_fetch_plain(*fetch))
+    report("  K5 probe_fetch, found only",
+           lambda: tpr.probe_fetch(*found_only),
+           lambda: tpr.probe_fetch_plain(*found_only))
+    if hasattr(tpr, "probe_step"):
+        report("  K5 probe_step", lambda: tpr.probe_step(*keys),
+               lambda: tpr.probe_step_plain(*keys, tpr.WINDOW_ALIGNED))
+    found, row, rows = tpr.probe_fetch(*fetch)
+    found, row = found.reshape(B, Pc), row.reshape(B, Pc)
+
+    def glue_filter(k0, k1, valid, found):
+        """The count filter as the step ran it before K6's step entry."""
+        run_len = tq.dup_pair_counts(k0, k1, valid)
+        count_ok = run_len <= LIMIT
+        return (run_len, valid & found & count_ok,
+                (valid & found & ~count_ok).sum())
+
+    print(f"K6 at ({B}, {Pc}):")
+    report("  K6 dup_pair_counts",
+           lambda: tq.dup_pair_counts(q_k0, q_k1, cvalid),
+           lambda: tq.dup_pair_counts_plain(q_k0, q_k1, cvalid))
+    args = (q_k0, q_k1, cvalid, found)
+    report("  K6 dup_pair_counts + the count-filter glue",
+           lambda: glue_filter(*args), lambda: glue_filter(*args))
+    run_len, base_hit, _ = glue_filter(*args)
+    if hasattr(tq, "dup_pair_filter"):
+        counters = [torch.zeros((), dtype=torch.int64, device=dev)
+                    for _ in range(2)]
+        report("  K6 dup_pair_filter",
+               lambda: tq.dup_pair_filter(*args, LIMIT, counters[0]),
+               lambda: tq.dup_pair_filter_plain(*args, LIMIT, counters[1]))
+        same = equal(list(tq.dup_pair_filter(*args, LIMIT)),
+                     list(glue_filter(*args)))
+        print(f"  dup_pair_filter equals the glue: {same}")
+
+    G, N = B * C, Pc * M
+    print(f"K7, ({B}, {Pc}, {P}) -> ({G}, {N}):")
+    post = (base_hit, run_len)
+    forms = {"expand_postings": (
+        (rows.reshape(B, Pc, 3 * P), *post, C, M, LIMIT), None)}
+    if hasattr(tq, "expand_postings_anchors"):
+        forms["expand_postings_anchors"] = (
+            (rows.reshape(B, Pc, 3 * P), *post, q_bgn, q_end, q_ori, C, M,
+             LIMIT), None)
+    indexed = (tens["p_rows"], row, *post)
+    for name in ("expand_postings", "expand_postings_anchors"):
+        if hasattr(tq, f"{name}_indexed"):
+            fetched = forms[name][0]
+            forms[f"{name}_indexed"] = ((*indexed, *fetched[3:]), name)
+    for name, (a, fetched) in forms.items():
+        fn, plain = getattr(tq, name), getattr(tq, f"{name}_plain")
+        report(f"  K7 {name}", lambda f=fn, a=a: f(*a),
+               lambda f=plain, a=a: f(*a))
+        if fetched:
+            same = equal(fn(*a), getattr(tq, fetched)(*forms[fetched][0]))
+            print(f"  {name} equals {fetched} on fetched rows: {same}")
+
+
+def part_step(ctx, digest_file):
+    tens, q, qlens, C, kw = (ctx[k] for k in ("tens", "q", "qlens", "C",
+                                              "kw"))
+
+    def step():
+        return tq.query_e2e_step(q, qlens, C=C, **tens, **kw)
+
+    res = step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    n, busy, top = device_profile(step)
+    print(f"query step: host-clock median {statistics.median(times) * 1e3:.3f}"
+          f" ms of {[round(t * 1e3, 3) for t in times]}; {n:g} device "
+          f"launches, {busy:.4f} ms busy a step; anchors "
+          f"{int(res['gvalid'].sum())}, n_q_filtered "
+          f"{int(res['n_q_filtered'])}, n_t_filtered "
+          f"{int(res['n_t_filtered'])}")
+    print(f"  by kernel: {top}")
+    d = digest(res)
+    print(f"query step outputs sha256 {d}")
+    if digest_file:
+        with open(digest_file, "w") as f:
+            f.write(d + "\n")
+
+
+def main(argv) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("parts", nargs="*", help=f"of {PARTS}; default: all")
+    ap.add_argument("--digest", help="file for the step's output sha256")
+    a = ap.parse_args(argv)
+    parts = a.parts or PARTS
+    if set(parts) - set(PARTS):
+        ap.error(f"parts are {PARTS}")
+    print(smi("name,power.limit"))
+    dev = torch.device("cuda", 0)
+    kb.library()
+    log = kb.build_report["log"]
+    for kernel in PTXAS_KERNELS:
+        for m in re.finditer(rf"Compiling entry function '(\S*{kernel}\S*)'"
+                             rf"[\s\S]*?(Used \d+ registers[^\n]*)", log):
+            print(f"  ptxas {m.group(1)[:60]}: {m.group(2)}")
+    if "chain" in parts:
+        part_chain(dev)
+    if "index" in parts:
+        part_index(dev)
+    if "query" in parts or "step" in parts:
+        ctx = query_inputs(dev)
+        if "query" in parts:
+            part_query(dev, ctx)
+            torch.cuda.empty_cache()
+        if "step" in parts:
+            part_step(ctx, a.digest)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main(sys.argv[1:]))

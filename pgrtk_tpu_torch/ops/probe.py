@@ -17,11 +17,13 @@ bucket overflows the 128-slot window) pads every bucket to W slots, W a
 multiple of 128 widened until the fullest bucket fits, with a row plane
 mapping each slot back to the key-sorted index.
 
-Device part: K5 `probe_fetch`, which probes each query key against its
-bucket's 128-slot (aligned) or 256-slot (dense) window and copies the
-matched key's postings row (or, with p_rows None, only probes); K11
-`probe_keys`, the probe of the padded layout.  CPU tensors run the plain
-PyTorch version beside each, CUDA tensors launch csrc/probe.cu or raise.
+Device part: K5, which probes each query key against its bucket's
+128-slot (aligned) or 256-slot (dense) window, behind two entries:
+`probe_fetch`, which also copies the matched key's postings row (or, with
+p_rows None, only probes), and `probe_step`, the query step's, which
+writes found and the row index only; K11 `probe_keys`, the probe of the
+padded layout.  CPU tensors run the plain PyTorch version beside each,
+CUDA tensors launch csrc/probe.cu or raise.
 """
 from __future__ import annotations
 
@@ -149,6 +151,27 @@ def probe_fetch_plain(k0, k1, bits: int, tk0, tk1, fence, p_rows,
     return found, row.int(), rows
 
 
+def _check_probe(k0, k1, bits, tk0, tk1, fence, window):
+    if window not in (WINDOW_ALIGNED, WINDOW_DENSE):
+        raise ValueError("window must be 128 (aligned) or 256 (dense)")
+    if not (0 < bits <= HASH_BITS):
+        raise ValueError(f"bits must be in 1..{HASH_BITS}")
+    k0, k1 = k0.contiguous(), k1.contiguous()
+    tk0, tk1 = tk0.contiguous(), tk1.contiguous()
+    fence = fence.contiguous()
+    if k0.dim() != 1 or k1.shape != k0.shape:
+        raise ValueError("k0 and k1 must share one (Q,) shape")
+    if tk0.dim() != 1 or tk1.shape != tk0.shape or not tk0.numel():
+        raise ValueError("tk0 and tk1 must share one non-empty (S,) shape")
+    if tk0.numel() >= 1 << 31:
+        raise ValueError("the table planes take at most 2^31 - 1 slots")
+    if any(t.dtype != torch.int64 for t in (k0, k1, tk0, tk1)):
+        raise TypeError("query and table keys must be int64")
+    if fence.dtype != torch.int32 or fence.dim() != 1:
+        raise TypeError("fence must be a flat int32 tensor")
+    return k0, k1, tk0, tk1, fence
+
+
 def probe_fetch(k0: torch.Tensor, k1: torch.Tensor, bits: int,
                 tk0: torch.Tensor, tk1: torch.Tensor, fence: torch.Tensor,
                 p_rows: Optional[torch.Tensor],
@@ -166,25 +189,11 @@ def probe_fetch(k0: torch.Tensor, k1: torch.Tensor, bits: int,
     row when absent.  p_rows is (n_keys + 1, width) int32, or None to
     probe only (the found-only use of parallel/device_query.py; rows is
     then None)."""
-    if window not in (WINDOW_ALIGNED, WINDOW_DENSE):
-        raise ValueError("window must be 128 (aligned) or 256 (dense)")
-    if not (0 < bits <= HASH_BITS):
-        raise ValueError(f"bits must be in 1..{HASH_BITS}")
-    k0, k1 = k0.contiguous(), k1.contiguous()
-    tk0, tk1 = tk0.contiguous(), tk1.contiguous()
-    fence = fence.contiguous()
-    if p_rows is not None:
-        p_rows = p_rows.contiguous()
-    if k0.dim() != 1 or k1.shape != k0.shape:
-        raise ValueError("k0 and k1 must share one (Q,) shape")
-    if tk0.dim() != 1 or tk1.shape != tk0.shape or not tk0.numel():
-        raise ValueError("tk0 and tk1 must share one non-empty (S,) shape")
-    if any(t.dtype != torch.int64 for t in (k0, k1, tk0, tk1)):
-        raise TypeError("query and table keys must be int64")
-    if fence.dtype != torch.int32 or fence.dim() != 1:
-        raise TypeError("fence must be a flat int32 tensor")
+    k0, k1, tk0, tk1, fence = _check_probe(k0, k1, bits, tk0, tk1, fence,
+                                           window)
     tensors = [k0, k1, tk0, tk1, fence]
     if p_rows is not None:
+        p_rows = p_rows.contiguous()
         if p_rows.dtype != torch.int32 or p_rows.dim() != 2:
             raise TypeError("p_rows must be a (n_keys + 1, width) int32 "
                             "tensor")
@@ -208,6 +217,39 @@ def probe_fetch(k0: torch.Tensor, k1: torch.Tensor, bits: int,
             rows_ptr, kb.stream_handle(k0),
         )
     return found, row, rows
+
+
+def probe_step_plain(k0, k1, bits: int, tk0, tk1, fence, window: int):
+    """The plain PyTorch version of K5's step entry (`probe_step`), on any
+    device: probe_fetch_plain's found and row, and a zero counter."""
+    found, row, _ = probe_fetch_plain(k0, k1, bits, tk0, tk1, fence, None,
+                                      window)
+    return found, row, torch.zeros((), dtype=torch.int64, device=k0.device)
+
+
+def probe_step(k0: torch.Tensor, k1: torch.Tensor, bits: int,
+               tk0: torch.Tensor, tk1: torch.Tensor, fence: torch.Tensor,
+               window: int = WINDOW_ALIGNED):
+    """K5's query-step entry: probe_fetch's probe without the fetch.
+    Returns found (Q,) bool, row (Q,) int32 (the matched slot, which is
+    the key's postings row, -1 if absent) and a 0-dim int64 set to 0: the
+    step's n_q_filtered, which query_e2e.dup_pair_filter adds to.  On the
+    card the probe kernel writes that 0, so no fill launch runs."""
+    k0, k1, tk0, tk1, fence = _check_probe(k0, k1, bits, tk0, tk1, fence,
+                                           window)
+    if not on_cuda(k0, k1, tk0, tk1, fence):
+        return probe_step_plain(k0, k1, bits, tk0, tk1, fence, window)
+    Q, dev = k0.numel(), k0.device
+    found = torch.empty(Q, dtype=torch.bool, device=dev)
+    row = torch.empty(Q, dtype=torch.int32, device=dev)
+    zero = torch.empty((), dtype=torch.int64, device=dev)
+    if not Q:
+        return found, row, zero.zero_()
+    kb.probe_step(k0.data_ptr(), k1.data_ptr(), Q, bits, tk0.data_ptr(),
+                  tk1.data_ptr(), tk0.numel(), fence.data_ptr(),
+                  fence.numel(), window, found.data_ptr(), row.data_ptr(),
+                  zero.data_ptr(), kb.stream_handle(k0))
+    return found, row, zero
 
 
 # ---------------------------------------------------- padded layout, K11

@@ -18,11 +18,14 @@ checks P exactly.  meta packs keyovf(1) | mult(7) | m(4) | sid(20), all
 ones for an empty slot.  Lane planes and anchors hold u32 values: int32
 bit patterns out of K7, int64 from the chain lanes on.
 
-Three functions hold a kernel (K6 `dup_pair_counts`, K7
-`expand_postings` and `expand_postings_anchors`, two entries of one
-gather core); CPU tensors run the plain PyTorch version beside each,
-CUDA tensors launch csrc/query.cu or raise.  The step also runs
-K1-K4 (sketch and pairs), K5 (`probe.probe_fetch`) and K8
+Six functions hold a kernel: K6 `dup_pair_counts` and its step entry
+`dup_pair_filter`, which also applies the in-query count filter; K7
+`expand_postings` and `expand_postings_anchors`, two outputs of one
+gather core, each on fetched rows (B, Pc, 3P) or in index form
+(`expand_postings_indexed`, `expand_postings_anchors_indexed`: the rows of
+p_rows that K5's row index names).  CPU tensors run the plain PyTorch
+version beside each, CUDA tensors launch csrc/query.cu or raise.  The
+step also runs K1-K4 (sketch and pairs), K5 (`probe.probe_step`) and K8
 (`chain.chain_scores_fast`).
 """
 from __future__ import annotations
@@ -326,6 +329,64 @@ def dup_pair_counts(k0: torch.Tensor, k1: torch.Tensor,
     return out
 
 
+def dup_pair_filter_plain(k0, k1, valid, found, max_count: int,
+                          n_filtered=None):
+    """The plain PyTorch version of K6's step entry (`dup_pair_filter`),
+    on any device: dup_pair_counts_plain and the step's count filter."""
+    run_len = dup_pair_counts_plain(k0, k1, valid)
+    live = valid & found
+    count_ok = run_len.long() <= max_count
+    if n_filtered is None:
+        n_filtered = torch.zeros((), dtype=torch.int64, device=valid.device)
+    n_filtered += (live & ~count_ok).sum()
+    return run_len, live & count_ok, n_filtered
+
+
+def dup_pair_filter(k0: torch.Tensor, k1: torch.Tensor, valid: torch.Tensor,
+                    found: torch.Tensor, max_count: int,
+                    n_filtered: torch.Tensor | None = None):
+    """K6's query-step entry: dup_pair_counts with the in-query count
+    filter of the JAX step (pgrtk_tpu/ops/query_e2e.py:623-627, aln.rs:
+    203-211).  k0, k1 (B, Pc) int64, valid and found (B, Pc) bool,
+    max_count = min(max_count, max_count_query).  Returns run_len (B, Pc)
+    int32, base_hit = valid & found & (run_len <= max_count) (B, Pc) bool,
+    and n_filtered, a 0-dim int64 to which the number of slots with valid
+    & found & (run_len > max_count) is added in place (a new zero when
+    None; the query step passes K5's step counter)."""
+    k0, k1 = k0.contiguous(), k1.contiguous()
+    valid, found = valid.contiguous(), found.contiguous()
+    if valid.dim() != 2 or any(t.shape != valid.shape
+                               for t in (k0, k1, found)):
+        raise ValueError("k0, k1, valid and found must share one (B, Pc) "
+                         "shape")
+    if k0.dtype != torch.int64 or k1.dtype != torch.int64 or (
+            valid.dtype != torch.bool or found.dtype != torch.bool):
+        raise TypeError("keys must be int64, valid and found bool")
+    if n_filtered is not None and (n_filtered.shape != ()
+                                   or n_filtered.dtype != torch.int64):
+        raise TypeError("n_filtered must be a 0-dim int64 tensor")
+    # run_len lies in [1, 2^31): a limit clamped to [-1, 2^31 - 1]
+    # compares the same, and fits the kernel's argument
+    max_count = max(-1, min(int(max_count), (1 << 31) - 1))
+    tensors = [k0, k1, valid, found] + (
+        [n_filtered] if n_filtered is not None else [])
+    if not on_cuda(*tensors):
+        return dup_pair_filter_plain(k0, k1, valid, found, max_count,
+                                     n_filtered)
+    B, Pc = valid.shape
+    dev = valid.device
+    run_len = torch.empty((B, Pc), dtype=torch.int32, device=dev)
+    base_hit = torch.empty((B, Pc), dtype=torch.bool, device=dev)
+    if n_filtered is None:
+        n_filtered = torch.zeros((), dtype=torch.int64, device=dev)
+    if valid.numel():
+        kb.dup_pair_filter(k0.data_ptr(), k1.data_ptr(), valid.data_ptr(),
+                           found.data_ptr(), B, Pc, max_count,
+                           run_len.data_ptr(), base_hit.data_ptr(),
+                           n_filtered.data_ptr(), kb.stream_handle(valid))
+    return run_len, base_hit, n_filtered
+
+
 # --------------------------------------------------------------- K7
 
 def _u32(t: torch.Tensor) -> torch.Tensor:
@@ -392,6 +453,30 @@ def _check_postings(rows, base_hit, run_len, C, M):
     return rows, base_hit, run_len
 
 
+def _planes_out(B, Pc, C, M, dev):
+    """K7's JAX-shaped outputs, allocated; only the counter is zeroed."""
+    return dict(
+        t_bgnori=torch.empty((B, C, Pc, M), dtype=torch.int32, device=dev),
+        t_end=torch.empty((B, C, Pc, M), dtype=torch.int32, device=dev),
+        hv=torch.empty((B, C, Pc, M), dtype=torch.bool, device=dev),
+        row_ovf=torch.empty(B, dtype=torch.bool, device=dev),
+        grp_ovf=torch.empty((B, C), dtype=torch.bool, device=dev),
+        n_t_filtered=torch.zeros((), dtype=torch.int64, device=dev),
+    )
+
+
+def _anchors_out(B, Pc, C, M, dev):
+    """K7's anchors-entry outputs, allocated; only the counter is zeroed."""
+    G, N = B * C, Pc * M
+    return dict(
+        anchors=torch.empty((G, N, 6), dtype=torch.int64, device=dev),
+        gvalid=torch.empty((G, N), dtype=torch.bool, device=dev),
+        row_ovf=torch.empty(B, dtype=torch.bool, device=dev),
+        grp_ovf=torch.empty(G, dtype=torch.bool, device=dev),
+        n_t_filtered=torch.zeros((), dtype=torch.int64, device=dev),
+    )
+
+
 def expand_postings(rows: torch.Tensor, base_hit: torch.Tensor,
                     run_len: torch.Tensor, C: int, M: int,
                     max_count_target: int) -> dict:
@@ -413,15 +498,7 @@ def expand_postings(rows: torch.Tensor, base_hit: torch.Tensor,
         return expand_postings_plain(rows, base_hit, run_len, C, M,
                                      max_count_target)
     B, Pc, P3 = rows.shape
-    dev = rows.device
-    out = dict(
-        t_bgnori=torch.empty((B, C, Pc, M), dtype=torch.int32, device=dev),
-        t_end=torch.empty((B, C, Pc, M), dtype=torch.int32, device=dev),
-        hv=torch.empty((B, C, Pc, M), dtype=torch.bool, device=dev),
-        row_ovf=torch.empty(B, dtype=torch.bool, device=dev),
-        grp_ovf=torch.empty((B, C), dtype=torch.bool, device=dev),
-        n_t_filtered=torch.zeros((), dtype=torch.int64, device=dev),
-    )
+    out = _planes_out(B, Pc, C, M, rows.device)
     if B:
         kb.expand_postings(
             rows.data_ptr(), base_hit.data_ptr(), run_len.data_ptr(), B, Pc,
@@ -477,15 +554,7 @@ def expand_postings_anchors(rows: torch.Tensor, base_hit: torch.Tensor,
         return expand_postings_anchors_plain(rows, base_hit, run_len, *q, C,
                                              M, max_count_target)
     B, Pc, P3 = rows.shape
-    G, N = B * C, Pc * M
-    dev = rows.device
-    out = dict(
-        anchors=torch.empty((G, N, 6), dtype=torch.int64, device=dev),
-        gvalid=torch.empty((G, N), dtype=torch.bool, device=dev),
-        row_ovf=torch.empty(B, dtype=torch.bool, device=dev),
-        grp_ovf=torch.empty(G, dtype=torch.bool, device=dev),
-        n_t_filtered=torch.zeros((), dtype=torch.int64, device=dev),
-    )
+    out = _anchors_out(B, Pc, C, M, rows.device)
     if B:
         kb.expand_postings_anchors(
             rows.data_ptr(), base_hit.data_ptr(), run_len.data_ptr(),
@@ -494,6 +563,112 @@ def expand_postings_anchors(rows: torch.Tensor, base_hit: torch.Tensor,
             *(out[k].data_ptr() for k in ("anchors", "gvalid", "row_ovf",
                                           "grp_ovf", "n_t_filtered")),
             kb.stream_handle(rows),
+        )
+    return out
+
+
+def _check_indexed(p_rows, row, base_hit, run_len, C, M):
+    p_rows, row = p_rows.contiguous(), row.contiguous()
+    base_hit, run_len = base_hit.contiguous(), run_len.contiguous()
+    if p_rows.dim() != 2 or p_rows.shape[1] % 3 or not p_rows.shape[0]:
+        raise ValueError("p_rows must be (n_rows >= 1, 3P)")
+    if base_hit.dim() != 2 or row.shape != base_hit.shape or (
+            run_len.shape != base_hit.shape):
+        raise ValueError("row, base_hit and run_len must be (B, Pc)")
+    if p_rows.dtype != torch.int32 or row.dtype != torch.int32 or (
+            run_len.dtype != torch.int32 or base_hit.dtype != torch.bool):
+        raise TypeError("p_rows, row and run_len must be int32, base_hit "
+                        "bool")
+    if M < 1 or C < 0:
+        raise ValueError("need M >= 1 and C >= 0")
+    return p_rows, row, base_hit, run_len
+
+
+def _gather_rows(p_rows, row, base_hit):
+    """The (B, Pc, 3P) rows the index form reads: p_rows[row] where
+    base_hit is set and row names a row of p_rows, the last (not-found
+    sentinel) row elsewhere."""
+    last = p_rows.shape[0] - 1
+    named = base_hit & (row >= 0) & (row <= last)
+    return p_rows[torch.where(named, row, last).long()]
+
+
+def expand_postings_indexed_plain(p_rows, row, base_hit, run_len, C: int,
+                                  M: int, max_count_target: int):
+    """The plain PyTorch version of K7's index form: the rows gathered,
+    then expand_postings_plain."""
+    return expand_postings_plain(_gather_rows(p_rows, row, base_hit),
+                                 base_hit, run_len, C, M, max_count_target)
+
+
+def expand_postings_indexed(p_rows: torch.Tensor, row: torch.Tensor,
+                            base_hit: torch.Tensor, run_len: torch.Tensor,
+                            C: int, M: int, max_count_target: int) -> dict:
+    """K7 in index form: expand_postings on the rows p_rows[row] without
+    fetching them first.  p_rows (n_rows, 3P) int32 as index_tensors gives
+    it; row (B, Pc) int32, each slot's row of p_rows (K5's step entry
+    writes it), read only where base_hit is set (a row outside p_rows
+    reads its last, not-found sentinel row); base_hit, run_len, C, M,
+    max_count_target and the result as expand_postings takes and gives
+    them."""
+    p_rows, row, base_hit, run_len = _check_indexed(p_rows, row, base_hit,
+                                                    run_len, C, M)
+    if not on_cuda(p_rows, row, base_hit, run_len):
+        return expand_postings_indexed_plain(p_rows, row, base_hit, run_len,
+                                             C, M, max_count_target)
+    B, Pc = base_hit.shape
+    out = _planes_out(B, Pc, C, M, p_rows.device)
+    if B:
+        kb.expand_postings_indexed(
+            p_rows.data_ptr(), p_rows.shape[0], row.data_ptr(),
+            base_hit.data_ptr(), run_len.data_ptr(), B, Pc,
+            p_rows.shape[1] // 3, C, M, ctypes.c_uint(max_count_target & _U32),
+            *(out[k].data_ptr() for k in ("t_bgnori", "t_end", "hv",
+                                          "row_ovf", "grp_ovf",
+                                          "n_t_filtered")),
+            kb.stream_handle(p_rows),
+        )
+    return out
+
+
+def expand_postings_anchors_indexed_plain(p_rows, row, base_hit, run_len,
+                                          q_bgn, q_end, q_ori, C: int,
+                                          M: int, max_count_target: int):
+    """The plain PyTorch version of K7's anchors entry in index form: the
+    rows gathered, then expand_postings_anchors_plain."""
+    return expand_postings_anchors_plain(
+        _gather_rows(p_rows, row, base_hit), base_hit, run_len, q_bgn, q_end,
+        q_ori, C, M, max_count_target)
+
+
+def expand_postings_anchors_indexed(
+        p_rows: torch.Tensor, row: torch.Tensor, base_hit: torch.Tensor,
+        run_len: torch.Tensor, q_bgn: torch.Tensor, q_end: torch.Tensor,
+        q_ori: torch.Tensor, C: int, M: int, max_count_target: int) -> dict:
+    """K7's anchors entry in index form: expand_postings_anchors on the
+    rows p_rows[row] without fetching them first (p_rows and row as
+    expand_postings_indexed takes them; the rest, and the result, as
+    expand_postings_anchors)."""
+    p_rows, row, base_hit, run_len = _check_indexed(p_rows, row, base_hit,
+                                                    run_len, C, M)
+    q = [v.contiguous() for v in (q_bgn, q_end, q_ori)]
+    if any(v.shape != base_hit.shape or v.dtype != torch.int64 for v in q):
+        raise ValueError("q_bgn, q_end and q_ori must be (B, Pc) int64")
+    if not on_cuda(p_rows, row, base_hit, run_len, *q):
+        return expand_postings_anchors_indexed_plain(
+            p_rows, row, base_hit, run_len, *q, C, M, max_count_target)
+    B, Pc = base_hit.shape
+    out = _anchors_out(B, Pc, C, M, p_rows.device)
+    if B:
+        kb.expand_postings_anchors_indexed(
+            p_rows.data_ptr(), p_rows.shape[0], row.data_ptr(),
+            base_hit.data_ptr(), run_len.data_ptr(),
+            *(v.data_ptr() for v in q), B, Pc,
+            p_rows.shape[1] // 3, C, M,
+            ctypes.c_uint(max_count_target & _U32),
+            *(out[k].data_ptr() for k in ("anchors", "gvalid", "row_ovf",
+                                          "grp_ovf", "n_t_filtered")),
+            kb.stream_handle(p_rows),
         )
     return out
 
@@ -570,27 +745,30 @@ def query_e2e_step(
     tk0, tk1 = probe_planes
     window = (probe_ops.WINDOW_ALIGNED if probe_aligned
               else probe_ops.WINDOW_DENSE)
-    found, _, rows = probe_ops.probe_fetch(
+    # K5 writes found and each key's postings row index (the matched
+    # slot: p_rows has a row per padded probe position), and zeroes the
+    # step's n_q_filtered; no postings are fetched here
+    found, row, n_q_filtered = probe_ops.probe_step(
         q_k0.reshape(-1), q_k1.reshape(-1), probe_bits, tk0, tk1,
-        probe_fence, p_rows, window)
-    found = found.reshape(B, Pc)
+        probe_fence, window)
+    row = row.reshape(B, Pc)
 
-    # in-query duplicate-pair count filter (aln.rs:203-211)
-    run_len = dup_pair_counts(q_k0, q_k1, cvalid)
-    count_ok = run_len <= min(max_count, max_count_query)
-    base_hit = cvalid & found & count_ok
-    n_q_filtered = (cvalid & found & ~count_ok).sum()
+    # in-query duplicate-pair count filter (aln.rs:203-211), in K6
+    run_len, base_hit, n_q_filtered = dup_pair_filter(
+        q_k0, q_k1, cvalid, found.reshape(B, Pc),
+        min(max_count, max_count_query), n_q_filtered)
 
-    rows = rows.reshape(B, Pc, 3 * P)
+    # K7 reads each hit slot's postings row of p_rows by that index
     G, N = B * C, Pc * M
-    lane_ovf = torch.zeros(G, dtype=torch.bool, device=rows.device)
+    lane_ovf = torch.zeros(G, dtype=torch.bool, device=row.device)
     if slots3 is None or slots3 >= N:
-        ex = expand_postings_anchors(rows, base_hit, run_len, q_bgn, q_end,
-                                     q_ori, C, M, max_count_target)
+        ex = expand_postings_anchors_indexed(p_rows, row, base_hit, run_len,
+                                             q_bgn, q_end, q_ori, C, M,
+                                             max_count_target)
         anchors, gvalid = ex["anchors"], ex["gvalid"]
     else:
-        ex = expand_postings(rows, base_hit, run_len, C, M,
-                             max_count_target)
+        ex = expand_postings_indexed(p_rows, row, base_hit, run_len, C, M,
+                                     max_count_target)
 
         def lane_q(v):  # (B, Pc) -> (G, N)
             return v[:, None, :, None].expand(B, C, Pc, M).reshape(G, N)

@@ -36,6 +36,97 @@ def probe_queries(keys, rng, n_hit=1500, n_miss=1500):
     return q[rng.permutation(len(q))]
 
 
+PROBE_EDGE_BITS = 6  # 64 buckets: the bits the layouts pick for ~1,800 keys
+
+
+def bucket_keys(counts, seed, bits=PROBE_EDGE_BITS):
+    """Key-sorted (n, 2) uint64 keys with counts[b] keys in bucket b (the
+    top `bits` of the 56-bit k0)."""
+    rng = np.random.default_rng(seed)
+    shift = np.uint64(56 - bits)
+    parts = [np.stack([(np.uint64(b) << shift) | rng.integers(
+        0, 1 << (56 - bits), size=c, dtype=np.uint64),
+        rng.integers(0, 1 << 56, size=c, dtype=np.uint64)], axis=1)
+        for b, c in enumerate(counts)]
+    keys = np.concatenate(parts)
+    return keys[np.lexsort((keys[:, 1], keys[:, 0]))]
+
+
+def dense_fence_table(keys, bits):
+    """The dense fence layout of ops/probe.py::build_probe_table_dense at
+    a given `bits`, without its 128-keys-a-bucket check: dict(bits, k0,
+    k1, fence, n).  A bucket of more than 128 keys can run past the
+    probe's 256-slot window."""
+    n = len(keys)
+    bucket = (keys[:, 0] >> np.uint64(56 - bits)).astype(np.int64)
+    fence = np.zeros((1 << bits) + 1, dtype=np.int32)
+    np.cumsum(np.bincount(bucket, minlength=1 << bits), out=fence[1:])
+    n_slots = (-(-n // 128) + 1) * 128
+    k0 = np.full(n_slots, -1, dtype=np.int64)
+    k1 = np.full(n_slots, -1, dtype=np.int64)
+    k0[:n], k1[:n] = keys[:, 0].view(np.int64), keys[:, 1].view(np.int64)
+    return dict(bits=bits, k0=k0, k1=k1, fence=fence, n=n)
+
+
+def probe_edge_queries(keys, seed, bits=PROBE_EDGE_BITS):
+    """Every key of `keys`; absent keys sharing a present key's k0; absent
+    keys in random buckets and in the empty buckets 1 and 2; absent keys
+    of the last bucket; keys with k0 >= 2^56 (past the last bucket); the
+    all-zero key.  Shuffled."""
+    rng = np.random.default_rng(seed)
+    shift = 56 - bits
+    same_k0 = keys[rng.integers(0, len(keys), 300)].copy()
+    same_k0[:, 1] ^= np.uint64(1)
+    b = np.concatenate([rng.integers(0, 1 << bits, 200), [1, 1, 2, 2],
+                        [(1 << bits) - 1] * 4]).astype(np.uint64)
+    other = np.stack([(b << np.uint64(shift)) | rng.integers(
+        0, 1 << shift, size=len(b), dtype=np.uint64),
+        rng.integers(0, 1 << 56, size=len(b), dtype=np.uint64)], axis=1)
+    past = np.array([[1 << 56, 5], [(1 << 56) + 12_345, 0],
+                     [1 << 60, (1 << 56) - 1], [(1 << 63) - 1, 7],
+                     [(1 << 56) - 1, (1 << 56) - 1], [0, 0]],
+                    dtype=np.uint64)
+    q = np.concatenate([keys, same_k0, other, past])
+    return q[rng.permutation(len(q))]
+
+
+def probe_edge_tables():
+    """{name: (table, queries, window)}: the three probe layouts K5 reads,
+    on keys of 64 buckets (a full 128-key bucket ending the first
+    128-slot row, empty buckets 1 and 2, a 100-key bucket whose
+    successor does not fit its row, 40 keys in the last bucket):
+    'aligned' (build_probe_table_aligned), 'dense' (build_probe_table_dense,
+    a key repeated three times in bucket 3 and twice in the last bucket)
+    and 'dense past the window' (dense_fence_table: a 200-key bucket
+    starting 100 slots into its row, so its last 44 keys lie past its
+    256-slot window).  The table is the dict its layout function returns."""
+    from ..ops import probe as tpr
+
+    rng = np.random.default_rng(31)
+    counts = rng.integers(10, 40, size=1 << PROBE_EDGE_BITS)
+    counts[:6] = (128, 0, 0, 100, 29, 28)
+    counts[-1] = 40
+    keys = bucket_keys(counts, seed=32)
+    dup = keys.copy()
+    i = int(counts[:3].sum()) + 50  # inside bucket 3
+    dup[i + 1] = dup[i + 2] = dup[i]
+    dup[-3] = dup[-4]
+    over = counts.copy()
+    over[:2] = (100, 200)
+    out = {
+        "aligned": (tpr.build_probe_table_aligned(keys), keys, 128),
+        "dense": (tpr.build_probe_table_dense(dup), dup, 256),
+        "dense past the window": (dense_fence_table(
+            bucket_keys(over, seed=33), PROBE_EDGE_BITS), None, 256),
+    }
+    res = {}
+    for seed, (name, (tab, k, window)) in enumerate(out.items()):
+        k = bucket_keys(over, seed=33) if k is None else k
+        assert tab["bits"] == PROBE_EDGE_BITS, (name, tab["bits"])
+        res[name] = (tab, probe_edge_queries(k, seed=40 + seed), window)
+    return res
+
+
 def dup_key_rows(seed, B, Pc):
     """(B, Pc) int64 key planes drawn from small pools (many duplicates
     per row) and a mask with an all-invalid and an all-valid row."""
@@ -47,6 +138,13 @@ def dup_key_rows(seed, B, Pc):
     valid[min(2, B - 1)] = False
     valid[min(3, B - 1) if B > 3 else 0] = True
     return keys[..., 0].view(np.int64), keys[..., 1].view(np.int64), valid
+
+
+def dup_filter_rows(seed, B, Pc):
+    """dup_key_rows and a found mask (~60% set): K6's step entry's inputs."""
+    k0, k1, valid = dup_key_rows(seed, B, Pc)
+    found = np.random.default_rng(seed + 1).random((B, Pc)) < 0.6
+    return k0, k1, valid, found
 
 
 def postings_rows(seed, B, Pc, P, C):
@@ -93,6 +191,34 @@ def postings_case(C, M, B=3, Pc=40, P=8):
     meta, bgnori, end, hit, run = postings_rows(C * 100 + M, B, Pc, P, C)
     rows = np.concatenate([meta, bgnori, end], axis=2).view(np.int32)
     return (rows, hit, run), query_fields(C * 100 + M + 1, B, Pc)
+
+
+def postings_table_case(C, M, B=3, Pc=40, P=8, bad=False):
+    """postings_case in K7's index form: p_rows (n_rows, 3P) int32 holds
+    the slots' rows shuffled, a few spare rows and the not-found sentinel
+    last; row (B, Pc) int32 names each slot's row, slot 1 of every query
+    row reads slot 0's, and slots without base_hit hold -1 (never read).
+    With `bad`, slots 2-4 of every query row name no row of p_rows
+    (n_rows, -2 and 2^31 - 1), which the index form reads as the
+    sentinel.  Returns ((p_rows, row, base_hit, run_len), query_fields)."""
+    from ..ops.query_e2e import META_EMPTY
+
+    (rows, hit, run), q = postings_case(C, M, B, Pc, P)
+    rng = np.random.default_rng(C * 100 + M + 2)
+    flat = rows.reshape(B * Pc, 3 * P)
+    perm = rng.permutation(B * Pc)
+    sentinel = np.zeros((1, 3 * P), np.uint32)
+    sentinel[:, :P] = META_EMPTY
+    p_rows = np.concatenate([flat[perm], flat[:7][::-1],
+                             sentinel.view(np.int32)])
+    row = np.empty(B * Pc, np.int64)
+    row[perm] = np.arange(B * Pc)
+    row = row.reshape(B, Pc)
+    row[:, 1] = row[:, 0]
+    row[~hit] = -1
+    if bad:
+        row[:, 2:5] = (len(p_rows), -2, (1 << 31) - 1)
+    return (p_rows, row.astype(np.int32), hit, run), q
 
 
 def chain_groups(seed, G=16, N=96, big=False):
@@ -293,7 +419,10 @@ def warmup_cases():
 
 def query_kernel_cases(dev):
     """K2 past the old 1024-entry block cap, K5-K8 on the edge-case
-    inputs above (K7's two entries on the same postings), K8 on
+    inputs above (K5's three entries on random tables and
+    probe_edge_tables; K6's two entries; K7's two outputs on the same
+    postings, fetched and in index form, with and without row indices
+    outside p_rows), K8 on
     chain_edge_groups, and K3 and K4 on pair_edge_stream."""
     from ..ops import chain as tc
     from ..ops import pairs as tp
@@ -312,25 +441,41 @@ def query_kernel_cases(dev):
         cases.append((f"K2 rank_extract block={block} W={W} slots={slots}",
                       lambda a=args: tp.rank_extract_planes(*a),
                       lambda a=args: tp.rank_extract_planes_plain(*a)))
-    for layout, build, window, dup in (
-            ("aligned", tpr.build_probe_table_aligned, 128, False),
-            ("dense", tpr.build_probe_table_dense, 256, True)):
-        keys = sorted_keys(20_000, seed=5, dup=dup)
-        tab = build(keys)
-        n_rows = tab.get("n_padded", len(keys)) + 1
-        q = probe_queries(keys, rng)
-        args = (t(q[:, 0].view(np.int64)), t(q[:, 1].view(np.int64)),
-                tab["bits"], t(tab["k0"]), t(tab["k1"]), t(tab["fence"]),
-                t(rng.integers(-(1 << 31), 1 << 31, size=(n_rows, 96),
-                               dtype=np.int64).astype(np.int32)), window)
-        cases.append((f"K5 probe_fetch {layout}",
-                      lambda a=args: tpr.probe_fetch(*a),
-                      lambda a=args: tpr.probe_fetch_plain(*a)))
+    tables = [(layout, build(keys), keys, window) for layout, build, window,
+              keys in (("aligned", tpr.build_probe_table_aligned, 128,
+                        sorted_keys(20_000, seed=5)),
+                       ("dense", tpr.build_probe_table_dense, 256,
+                        sorted_keys(20_000, seed=5, dup=True)))]
+    tables = [(layout, tab, probe_queries(keys, rng), window)
+              for layout, tab, keys, window in tables]
+    tables += [(f"edges {name}", tab, q, window)
+               for name, (tab, q, window) in probe_edge_tables().items()]
+    for layout, tab, q, window in tables:
+        n_rows = tab.get("n_padded", tab["n"]) + 1
+        keys = (t(q[:, 0].view(np.int64)), t(q[:, 1].view(np.int64)),
+                tab["bits"], t(tab["k0"]), t(tab["k1"]), t(tab["fence"]))
+        p_rows = t(rng.integers(-(1 << 31), 1 << 31, size=(n_rows, 96),
+                                dtype=np.int64).astype(np.int32))
+        for p, label in ((p_rows, "probe_fetch"), (None, "found-only")):
+            cases.append((f"K5 {label} {layout}",
+                          lambda k=keys, p=p, w=window: tpr.probe_fetch(
+                              *k, p, w),
+                          lambda k=keys, p=p, w=window: tpr.probe_fetch_plain(
+                              *k, p, w)))
+        cases.append((f"K5 probe_step {layout}",
+                      lambda k=keys, w=window: tpr.probe_step(*k, w),
+                      lambda k=keys, w=window: tpr.probe_step_plain(*k, w)))
     for B, Pc in ((5, 300), (2, 3000), (3, 1)):
         args = tuple(t(a) for a in dup_key_rows(B * Pc, B, Pc))
         cases.append((f"K6 dup_pair_counts ({B}, {Pc})",
                       lambda a=args: tq.dup_pair_counts(*a),
                       lambda a=args: tq.dup_pair_counts_plain(*a)))
+        args = tuple(t(a) for a in dup_filter_rows(B * Pc, B, Pc))
+        for limit in (2, 128):
+            cases.append((f"K6 dup_pair_filter ({B}, {Pc}) max={limit}",
+                          lambda a=args, c=limit: tq.dup_pair_filter(*a, c),
+                          lambda a=args, c=limit: tq.dup_pair_filter_plain(
+                              *a, c)))
     for C, M, mct in POSTINGS_SETTINGS:
         post, q = postings_case(C, M)
         args = (*map(t, post), C, M, mct)
@@ -341,6 +486,20 @@ def query_kernel_cases(dev):
         cases.append((f"K7 expand_postings_anchors C={C} M={M} max={mct}",
                       lambda a=args: tq.expand_postings_anchors(*a),
                       lambda a=args: tq.expand_postings_anchors_plain(*a)))
+        for bad in (False, True):
+            post, q = postings_table_case(C, M, bad=bad)
+            tag = f"C={C} M={M} max={mct}" + " bad rows" * bad
+            args = (*map(t, post), C, M, mct)
+            cases.append((f"K7 expand_postings_indexed {tag}",
+                          lambda a=args: tq.expand_postings_indexed(*a),
+                          lambda a=args: tq.expand_postings_indexed_plain(
+                              *a)))
+            args = (*map(t, post), *map(t, q), C, M, mct)
+            cases.append((
+                f"K7 expand_postings_anchors_indexed {tag}",
+                lambda a=args: tq.expand_postings_anchors_indexed(*a),
+                lambda a=args: tq.expand_postings_anchors_indexed_plain(
+                    *a)))
     for big, oriented, max_gap, lookback in CHAIN_SETTINGS:
         anchors, valid = chain_groups(lookback + 7 * big, big=big)
         args = (t(anchors.astype(np.int64)), t(valid), 0.025, max_gap,
@@ -387,8 +546,8 @@ MANY_ROWS = 70_000  # past the 65,535 limit of gridDim.y
 
 
 def many_row_cases(dev):
-    """The kernels that put rows on gridDim.y (K2, K3, K4, K6) on 70,000
-    short rows."""
+    """The kernels that put rows on gridDim.y (K2, K3, K4) or once did
+    (K6, both entries) on 70,000 short rows."""
     from ..ops import pairs as tp
     from ..ops import query_e2e as tq
 
@@ -401,6 +560,7 @@ def many_row_cases(dev):
     args = (planes, valid, 16, 6)
     x, y, v = tie_stream(dev, B, 24)
     keys = tuple(t(a) for a in dup_key_rows(11, B, 5))
+    fkeys = tuple(t(a) for a in dup_filter_rows(11, B, 5))
     return [
         (f"K2 rank_extract ({B}, 40) block=16",
          lambda: tp.rank_extract_planes(*args),
@@ -414,6 +574,9 @@ def many_row_cases(dev):
         (f"K6 dup_pair_counts ({B}, 5)",
          lambda: tq.dup_pair_counts(*keys),
          lambda: tq.dup_pair_counts_plain(*keys)),
+        (f"K6 dup_pair_filter ({B}, 5) max=2",
+         lambda: tq.dup_pair_filter(*fkeys, 2),
+         lambda: tq.dup_pair_filter_plain(*fkeys, 2)),
     ]
 
 

@@ -1,7 +1,7 @@
 """Port parity of the fence probe: pgrtk_tpu_torch.ops.probe (NumPy
-builders, plain PyTorch K5 on the CPU) against pgrtk_tpu.ops.probe and
-the postings fetch of pgrtk_tpu.ops.query_e2e (JAX on the CPU).  Every
-comparison is exact."""
+table layouts, plain PyTorch K5 on the CPU, through each of its entries)
+against pgrtk_tpu.ops.probe and the postings fetch of
+pgrtk_tpu.ops.query_e2e (JAX on the CPU).  Every comparison is exact."""
 
 import jax
 import jax.numpy as jnp
@@ -185,3 +185,69 @@ def test_found_only_probe_matches_the_fetching_probe():
     want = tprobe.probe_fetch(*args, p_rows)
     assert rows is None
     assert torch.equal(found, want[0]) and torch.equal(row, want[1])
+
+
+@pytest.fixture(scope="module")
+def edge_tables():
+    return cases.probe_edge_tables()
+
+
+def _jax_probe(tab, q, window):
+    """probe_keys_aligned / probe_keys_dense on a port table's planes."""
+    planes = []
+    for k in (tab["k0"], tab["k1"]):
+        k = k.view(np.uint64)
+        planes += [(k >> np.uint64(32)).astype(np.uint32).reshape(-1, 128),
+                   (k & np.uint64(0xFFFFFFFF)).astype(np.uint32).reshape(
+                       -1, 128)]
+    table = dict(bits=tab["bits"], planes=[jnp.asarray(a) for a in planes],
+                 fence=jnp.asarray(tab["fence"]))
+    qp = [jnp.asarray(v.astype(np.uint32)) for v in (
+        q[:, 0] >> np.uint64(32), q[:, 0] & np.uint64(0xFFFFFFFF),
+        q[:, 1] >> np.uint64(32), q[:, 1] & np.uint64(0xFFFFFFFF))]
+    fn = (jprobe.probe_keys_aligned if window == tprobe.WINDOW_ALIGNED
+          else jprobe.probe_keys_dense)
+    return (np.asarray(a) for a in jax.jit(lambda *k: fn(table, *k))(*qp))
+
+
+@pytest.mark.parametrize("entry", ["probe_fetch", "found-only",
+                                   "probe_step"])
+@pytest.mark.parametrize("layout", ["aligned", "dense",
+                                    "dense past the window"])
+def test_probe_entries_on_edge_tables_match_jax(layout, entry, edge_tables):
+    """Every K5 entry against the JAX probe (and row fetch) on the edge
+    tables: a full bucket ending a 128-slot row, empty buckets, keys of
+    the last bucket, absent keys sharing a present key's k0, k0 >= 2^56,
+    duplicate keys (dense: the lowest slot), and a dense bucket running
+    past its 256-slot window, whose keys there are not found."""
+    tab, q, window = edge_tables[layout]
+    jfound, jrow = _jax_probe(tab, q, window)
+    args = (torch.from_numpy(q[:, 0].view(np.int64).copy()),
+            torch.from_numpy(q[:, 1].view(np.int64).copy()), tab["bits"],
+            torch.from_numpy(tab["k0"]), torch.from_numpy(tab["k1"]),
+            torch.from_numpy(tab["fence"]))
+    n_rows = tab.get("n_padded", tab["n"]) + 1
+    p_rows = np.random.default_rng(3).integers(
+        0, 1 << 32, size=(n_rows, 96), dtype=np.uint64).astype(np.uint32)
+    if entry == "probe_fetch":
+        found, row, rows = tprobe.probe_fetch(
+            *args, torch.from_numpy(p_rows.view(np.int32)), window)
+        jrows = np.asarray(jnp.take(jnp.asarray(p_rows),
+                                    jnp.where(jfound, jrow, n_rows - 1),
+                                    axis=0))
+        assert np.array_equal(rows.numpy().view(np.uint32), jrows)
+    elif entry == "found-only":
+        found, row, rows = tprobe.probe_fetch(*args, None, window)
+        assert rows is None
+    else:
+        found, row, zero = tprobe.probe_step(*args, window)
+        assert zero.shape == () and zero.dtype == torch.int64
+        assert int(zero) == 0
+    assert np.array_equal(found.numpy(), jfound)
+    assert row.dtype == torch.int32 and np.array_equal(row.numpy(), jrow)
+    # the edges are reached: absent keys, no key past the last bucket
+    assert 0 < int(jfound.sum()) < len(q) - 300
+    assert not jfound[q[:, 0] >= np.uint64(1 << 56)].any()
+    if layout == "dense past the window":
+        bucket = q[:, 0] >> np.uint64(56 - tab["bits"])
+        assert (~jfound[bucket == 1]).sum() >= 44

@@ -352,6 +352,33 @@ def test_dup_pair_counts_matches_jax(B, Pc):
     assert Pc == 1 or want.max() > 20
 
 
+@pytest.mark.parametrize("limit", [2, 128])
+@pytest.mark.parametrize("B,Pc", [(5, 300), (2, 3000), (3, 1)])
+def test_dup_pair_filter_matches_jax(B, Pc, limit):
+    """K6's step entry against the JAX step's count filter
+    (pgrtk_tpu/ops/query_e2e.py:623-627): run_len, base_hit and
+    n_q_filtered, the last added to the counter it is given."""
+    k0, k1, valid, found = cases.dup_filter_rows(B * Pc, B, Pc)
+    run_len = jq.dup_pair_counts(
+        [jnp.asarray(p) for p in (*_u32_planes(k0), *_u32_planes(k1))],
+        jnp.asarray(valid))
+    count_ok = run_len <= limit
+    want_hit = np.asarray(jnp.asarray(valid) & jnp.asarray(found) & count_ok)
+    want_n = int((jnp.asarray(valid) & jnp.asarray(found) & ~count_ok).sum(
+    ).astype(jnp.uint32))
+    args = [torch.from_numpy(np.ascontiguousarray(a))
+            for a in (k0, k1, valid, found)]
+    got_run, got_hit, got_n = tq.dup_pair_filter(*args, limit)
+    assert got_run.dtype == torch.int32 and got_hit.dtype == torch.bool
+    assert np.array_equal(got_run.numpy(), np.asarray(run_len))
+    assert np.array_equal(got_hit.numpy(), want_hit)
+    assert got_n.shape == () and int(got_n) == want_n
+    counter = torch.tensor(5, dtype=torch.int64)
+    assert tq.dup_pair_filter(*args, limit, counter)[2] is counter
+    assert int(counter) == 5 + want_n
+    assert Pc == 1 or limit > 2 or want_n > 0  # the filter bites
+
+
 @pytest.mark.parametrize("C,M,mct", [(4, 3, 128), (3, 1, 6), (8, 16, 40)])
 def test_expand_postings_matches_jax(C, M, mct):
     """Empty slots, keyovf, sid >= C, m >= M, counts above
@@ -378,19 +405,11 @@ def test_expand_postings_matches_jax(C, M, mct):
     assert np.asarray(want["grp_ovf"]).any() == (M < 16)
 
 
-@pytest.mark.parametrize("C,M,mct", cases.POSTINGS_SETTINGS)
-def test_expand_postings_anchors_matches_jax(C, M, mct):
-    """K7's anchors entry against JAX expand_postings followed by the JAX
-    step's anchor build (q_ori packed into q_bgn's bit 31, the lanes
-    broadcast, six u32 planes stacked), on every lane: the q fields on
-    every lane, the t fields 0 where a lane has no hit; M=16 sums
-    colliding (sid, m) hits."""
-    (rows, base_hit, run_len), (q_bgn, q_end, q_ori) = cases.postings_case(
-        C, M)
-    B, Pc, P3 = rows.shape
-    meta, bgnori, end = np.split(rows.view(np.uint32), 3, axis=2)
-    ex = jq.expand_postings(*(jnp.asarray(a) for a in (
-        meta, bgnori, end, base_hit, run_len)), C, M, mct)
+def _jax_anchors(ex, q_bgn, q_end, q_ori, C, M):
+    """The JAX step's anchor build on JAX expand_postings' result: q_ori
+    packed into q_bgn's bit 31, the lanes broadcast, six u32 planes
+    stacked, as int64."""
+    B, Pc = q_bgn.shape
     G, N = B * C, Pc * M
 
     def lane_q(v):
@@ -403,21 +422,80 @@ def test_expand_postings_anchors_matches_jax(C, M, mct):
     u32 = [jnp.asarray(v.astype(np.uint32)) for v in (q_bgn, q_end, q_ori)]
     qbo = lane_q(u32[0] | (u32[2] << 31))
     mask31 = jnp.uint32(0x7FFFFFFF)
-    want = np.asarray(jnp.stack(
+    return np.asarray(jnp.stack(
         [qbo & mask31, lane_q(u32[1]), qbo >> 31,
          lane(ex["t_bgnori"]) & mask31, lane(ex["t_end"]),
          lane(ex["t_bgnori"]) >> 31], axis=-1)).astype(np.int64)
-    got = tq.expand_postings_anchors(
-        *(torch.from_numpy(a) for a in (rows, base_hit, run_len, q_bgn,
-                                        q_end, q_ori)), C, M, mct)
+
+
+def _jax_expand(rows, base_hit, run_len, C, M, mct):
+    meta, bgnori, end = np.split(rows.view(np.uint32), 3, axis=-1)
+    return jq.expand_postings(*(jnp.asarray(a) for a in (
+        meta, bgnori, end, base_hit, run_len)), C, M, mct)
+
+
+def _assert_anchors_equal(got, ex, want):
+    G = want.shape[0]
+    N = want.shape[1]
     assert got["anchors"].dtype == torch.int64
     assert np.array_equal(got["anchors"].numpy(), want)
-    assert np.array_equal(got["gvalid"].numpy(), np.asarray(lane(ex["hv"])))
+    assert np.array_equal(got["gvalid"].numpy(),
+                          np.asarray(ex["hv"]).reshape(G, N))
     assert np.array_equal(got["row_ovf"].numpy(), np.asarray(ex["row_ovf"]))
     assert np.array_equal(got["grp_ovf"].numpy(),
                           np.asarray(ex["grp_ovf"]).reshape(G))
     assert int(got["n_t_filtered"]) == int(ex["n_t_filtered"]) > 0
     assert got["gvalid"].any() and not got["gvalid"].all()
+
+
+@pytest.mark.parametrize("C,M,mct", cases.POSTINGS_SETTINGS)
+def test_expand_postings_anchors_matches_jax(C, M, mct):
+    """K7's anchors entry against JAX expand_postings followed by the JAX
+    step's anchor build (q_ori packed into q_bgn's bit 31, the lanes
+    broadcast, six u32 planes stacked), on every lane: the q fields on
+    every lane, the t fields 0 where a lane has no hit; M=16 sums
+    colliding (sid, m) hits."""
+    (rows, base_hit, run_len), q = cases.postings_case(C, M)
+    ex = _jax_expand(rows, base_hit, run_len, C, M, mct)
+    got = tq.expand_postings_anchors(
+        *(torch.from_numpy(a) for a in (rows, base_hit, run_len, *q)), C, M,
+        mct)
+    _assert_anchors_equal(got, ex, _jax_anchors(ex, *q, C, M))
+
+
+@pytest.mark.parametrize("entry", ["planes", "anchors"])
+@pytest.mark.parametrize("C,M,mct", cases.POSTINGS_SETTINGS)
+def test_expand_postings_indexed_matches_jax(C, M, mct, entry):
+    """K7's index form (each slot's row of p_rows named by an index, two
+    slots sharing a row, -1 where base_hit is not set) against JAX
+    expand_postings on the rows the JAX step gathers (the not-found
+    sentinel where base_hit is not set), through both outputs; and with
+    hit slots whose row names no row of p_rows (n_rows, -2, 2^31 - 1),
+    which read the sentinel."""
+    for bad in (False, True):
+        (p_rows, row, base_hit, run_len), q = cases.postings_table_case(
+            C, M, bad=bad)
+        last = len(p_rows) - 1
+        named = base_hit & (row >= 0) & (row <= last)
+        assert bad == bool((base_hit & ~named).any())
+        ex = _jax_expand(p_rows[np.where(named, row, last)], base_hit,
+                         run_len, C, M, mct)
+        args = [torch.from_numpy(a) for a in (p_rows, row, base_hit,
+                                              run_len)]
+        if entry == "anchors":
+            got = tq.expand_postings_anchors_indexed(
+                *args, *(torch.from_numpy(a) for a in q), C, M, mct)
+            _assert_anchors_equal(got, ex, _jax_anchors(ex, *q, C, M))
+            continue
+        got = tq.expand_postings_indexed(*args, C, M, mct)
+        assert got.keys() == ex.keys()
+        for name in ("t_bgnori", "t_end"):
+            assert np.array_equal(got[name].numpy().view(np.uint32),
+                                  np.asarray(ex[name])), name
+        for name in ("hv", "row_ovf", "grp_ovf", "n_t_filtered"):
+            assert np.array_equal(got[name].numpy(),
+                                  np.asarray(ex[name])), name
+        assert np.asarray(ex["hv"]).any() and int(ex["n_t_filtered"]) > 0
 
 
 def test_step_rejects_a_wrong_p():
