@@ -132,10 +132,15 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      share from torch.profiler over the whole run; every gap segment's
      alignment against the port's C++ arbiter (native/wfa.cc); the same
      ten files by sha256 from the card and the CPU on a 1,048,576-base
-     cut; and (9b) K13 against its plain version on the path's first
-     1,024 segments, both timed, with its bound.  Phase 1 also holds K13
-     to its plain version on cases.wfa_pairs at L 512 and 8,192 and an
-     S_max of 61.
+     cut; and (9b) on the path's first 1,024 segments, their length and
+     final_s histograms and the longest extension run, K13's SV entry
+     (wfa_forward_rows, the one the path runs) row for row against
+     wfa_forward_batch, and both entries against their plain versions,
+     timed, with their bound (window cells and the bases the extensions
+     compare).  Phase 1 also holds both entries to their plain versions,
+     and the SV entry to wfa_forward_batch, on cases.wfa_pairs (with
+     wfa_edge_pairs) at L 512 and 8,192, an S_max of 61, and a
+     max_wf_length of 65.
  10. runs the hash-range-sharded v2 path (parallel/mesh.py) over a real
      NCCL process group of world size 1 (a FileStore under build/; the
      NCCL all_to_all between ranks needs more cards): (10a) the dry run
@@ -173,7 +178,8 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      K1's dense mode, compact_mers, K18, recompact_mers and K19 against
      their plain versions at its shapes, K18 and K19 on
      cases.dense_cases.  Phase 1 also holds K1's dense mode to its plain
-     version on its edge cases.
+     version on its edge cases and on 131 one-chunk rows (a last block
+     of 3 lanes).
 
 Between phases 6 and 7 it prints the bounds of the index and query
 steps (sums of their kernels' bounds in this run).
@@ -227,6 +233,8 @@ REPLACES = {
     "sort_link_rows": "pgrtk_tpu/ops/adj.py:20",
     "sort_pairs": "pgrtk_tpu/ops/pairs.py:349",
     "wfa_forward": "pgrtk_tpu/ops/wfa.py:103",
+    # K13's entry on the SV path: the rows its backtrace reads
+    "wfa_forward_rows": "pgrtk_tpu/ops/wfa.py:103",
     "shard_probe_planes": "pgrtk_tpu/parallel/mesh.py:312",
     "owner_postings": "pgrtk_tpu/parallel/mesh.py:764",
     "pair_key_search": "pgrtk_tpu/parallel/mesh.py:259",
@@ -277,9 +285,16 @@ SLOT = (8, 4, BIT)   # a compacted mer: x, y (position and strand in 32
 PAIR = (8, 8, 4, 4, BIT, BIT)  # a pair: k0, k1, bgn, end, orientation, valid
 HIT = (BIT, 4)       # a probed key: found, its slot or key index
 SCORE = (4, 4)       # a chained anchor: score, best predecessor
-# K1's compact and dense walks and K9's walk per base: set in main()
-# from the SASS of the built loops (two 64-bit Wang hashes, registers)
-OPS_WALK = OPS_WALK_DENSE = OPS_WALK_MODE1 = None
+# K1's compact walk and K9's walk per base: set in main() from the SASS
+# of the built loops (two 64-bit Wang hashes, registers)
+OPS_WALK = OPS_WALK_MODE1 = None
+# K1's dense mode per base: the compact walk's hashes and selection test,
+# which it computes for the same bases, and OPS_DENSE_VALUES to make what
+# the compact walk makes only for a selected base: x = h << 8 | k and
+# y = p << 1 | strand (a 64-bit shift and an OR each, three 32-bit
+# instructions) and the selected flag (one).  The kernel's own staging
+# and write-back are not work the function needs, so they are not counted
+OPS_DENSE_VALUES = 7
 OPS_WINDOWS = 16     # K9 per base: sliding min and max by van Herk (the
                      # least work; the kernel scans each window whole)
 OPS_ENTRY = 16       # K2/K3/K4/K6 per stream entry: scan, compares
@@ -295,8 +310,14 @@ ROW = (4, 4, 4, 7, 7, BIT)  # a MAP-graph row: sid, bgn, end (u32), h0,
                             # h1 (56 bits), ori
 OPS_WFA_CELL = 24    # K13 per window cell and score step: five window-
                      # checked reads, the recurrences, the bounds check,
-                     # the progress key (the extension's compares are not
-                     # counted)
+                     # the progress key
+# K13 per base its extensions compare (each run's bases and the compare
+# that stops it): the instruction slots a base of its warp run's compare
+# loop (8-byte loads, XOR, first set byte; kernels/sass_ops.py), set in
+# main().  Most bases are compared on each thread's two-word path, not in
+# the warp loop; the warp loop's rate is applied to all of them as an
+# upper estimate
+OPS_WFA_BASE = None
 WFA_ROW = (2, 2, 2)  # a history cell: M, I and D offsets (int16)
 
 
@@ -358,15 +379,16 @@ def bound(n_bytes, ops=0):
 
 
 def measure(name, kernel_fn, plain_fn, in_bytes, out_bytes, ops, reps=5,
-            plain_reps=2):
+            plain_reps=2, view=None):
     """Kernel against plain version (tolerance 0), both timed with CUDA
     events, and the bound of the work: `in_bytes` the input bytes it must
     read (a number, or the input tensors), `out_bytes(result)` the bytes
     its outputs need (the model's widths at the result's shapes), `ops`
-    its operations.  Returns dict(max_abs_err, ms, plain_ms, bound_ms,
+    its operations; `view`, when given, maps each result to what is
+    compared.  Returns dict(max_abs_err, ms, plain_ms, bound_ms,
     bound_by, library_ms)."""
     got, want = kernel_fn(), plain_fn()
-    err = check(name, got, want)
+    err = check(name, *(map(view, (got, want)) if view else (got, want)))
     if not isinstance(in_bytes, (int, float)):
         in_bytes = nbytes(*in_bytes)
     n_bytes = in_bytes + out_bytes(got)
@@ -440,6 +462,19 @@ def long_n_batch(dev, with_n=True):
     return torch.from_numpy(arr).to(dev), torch.from_numpy(lens).to(dev)
 
 
+def partial_block_batch(dev):
+    """131 rows of one chunk: K1's dense mode takes 64 lanes a block, so
+    the last block holds 3 lanes; ragged rows, an N run, lowercase."""
+    rng = np.random.RandomState(8)
+    arr = np.frombuffer(b"ACGT", np.uint8)[rng.randint(0, 4, (131, CHUNK))]
+    arr = arr.copy()
+    arr[128, 100:180] = ord("N")
+    arr[129, :300] |= 0x20
+    lens = np.full(131, CHUNK, dtype=np.int64)
+    lens[[3, 127, 130]] = [57, 300, 511]
+    return torch.from_numpy(arr).to(dev), torch.from_numpy(lens).to(dev)
+
+
 def check_exact_default(tsk, name, seqs, lens):
     """K1's exact walk at the auto index steps' 12 slots against its
     plain version."""
@@ -469,6 +504,11 @@ def phase_kernels(dev, tsk, tp):
                 x1, y1, v1 = got[:3]
             del got, want
         check_exact_default(tsk, f"K1 exact, 12 slots, {name}", seqs, lens)
+    seqs, lens = partial_block_batch(dev)
+    for exact in (False, True):
+        check(f"K1 dense mode exact={exact}, 131 one-chunk rows (a partial "
+              f"block)", tsk.sketch_mode2_dense(seqs, lens, K, R, CHUNK, exact),
+              tsk.sketch_mode2_dense_plain(seqs, lens, K, R, CHUNK, exact))
     for name, (arr, lens) in cases.warmup_cases().items():
         check_exact_default(tsk, f"K1 exact, 12 slots, warm-up case {name}",
                             torch.from_numpy(arr).to(dev),
@@ -532,12 +572,21 @@ def phase_kernels(dev, tsk, tp):
 
     from pgrtk_tpu_torch.ops import wfa as tw
 
-    for L, S_max in ((512, 256), (8192, 256), (512, 61)):
+    for L, S_max, max_wf in ((512, 256, 384), (8192, 256, 384),
+                             (512, 61, 384), (512, 64, 65)):
         args = [torch.from_numpy(a).to(dev)
                 for a in cases.wfa_batch(cases.wfa_pairs(L=L), L)]
-        check(f"K13 wfa_forward L={L} S_max={S_max}",
-              tw.wfa_forward_batch(*args, L=L, S_max=S_max),
-              tw.wfa_forward_batch_plain(*args, L=L, S_max=S_max))
+        kw = dict(L=L, S_max=S_max, max_wf_length=max_wf)
+        band = tw.wfa_forward_batch(*args, **kw)
+        check(f"K13 wfa_forward L={L} S_max={S_max} max_wf={max_wf}", band,
+              tw.wfa_forward_batch_plain(*args, **kw))
+        rows = tw.written_rows(tw.wfa_forward_rows(*args, **kw), L, S_max)
+        check(f"K13 wfa_forward_rows L={L} S_max={S_max} max_wf={max_wf}",
+              rows, tw.written_rows(tw.wfa_forward_rows_plain(*args, **kw),
+                                    L, S_max))
+        check("  row for row against wfa_forward_batch", rows,
+              tw.written_rows(tw.rows_of(band, L, S_max), L, S_max))
+        del band, rows
     rows, mask = cases.adj_rows(1, 3_000)
     rows[1_234, 1] = np.uint64(1 << 32)  # a bgn past u32
     try:
@@ -1299,6 +1348,7 @@ class plain_kernels:
             (pairs, "sort_pairs", pairs.sort_pairs_plain),
             (adj, "sort_link_planes", adj.sort_link_rows_plain),
             (wfa, "wfa_forward_batch", wfa.wfa_forward_batch_plain),
+            (wfa, "wfa_forward_rows", wfa.wfa_forward_rows_plain),
         ]
 
     def __enter__(self):
@@ -1750,7 +1800,11 @@ def wfa_work(res, n, m, kb_lo, DB):
     """Input bytes (t and q as needed), output bytes (each score row up
     to final_s, or up to S_last without completion, at its window's
     width inside the band: M, I, D, lo, hi; final_s) and operations
-    (OPS_WFA_CELL per such window cell) of a K13 call's result."""
+    (OPS_WFA_CELL per such window cell, OPS_WFA_BASE per base the
+    extensions compare) of a K13 call's (wfa_forward_batch) result; both
+    entries do this work."""
+    from pgrtk_tpu_torch.ops import wfa as tw
+
     fs = res["final_s"].long()
     S_rows = res["lo_hist"].shape[1]
     last = torch.where(fs >= 0, fs, S_rows - 1)
@@ -1759,8 +1813,10 @@ def wfa_work(res, n, m, kb_lo, DB):
     hi = res["hi_hist"].long().clamp(max=kb_lo + DB - 1)
     cells = int(((hi - lo + 1).clamp(min=0) * rows).sum())
     n_rows = int(rows.sum())
+    bases = tw.extension_runs(res, 3)[1]
     return (int(n.sum() + m.sum()), need(cells, *WFA_ROW)
-            + need(n_rows, 2, 2) + 4 * len(fs), OPS_WFA_CELL * cells)
+            + need(n_rows, 2, 2) + 4 * len(fs),
+            OPS_WFA_CELL * cells + OPS_WFA_BASE * bases)
 
 
 def phase_sv(dev, kb, build_dir):
@@ -1806,7 +1862,7 @@ def phase_sv(dev, kb, build_dir):
         tw.batch_wfa_align = batch_wfa_align
     print(f"  one CLI run: {stats['wall']:.3f} s (host clock, "
           f"synchronized); launches {launches}")
-    for name in ("wfa_forward", "sketch_mode1", "rank_extract",
+    for name in ("wfa_forward_rows", "sketch_mode1", "rank_extract",
                  "chain_scores_fast"):
         require(launches[name] > 0, f"{name} never ran on the SV path")
     sec = stats.pop("seconds")
@@ -1853,18 +1909,38 @@ def phase_sv(dev, kb, build_dir):
     S_last, kb_lo, DB = tw.wfa_band(L, 256)
     res = tw.wfa_forward_batch(*args, L=L)
     in_b, out_b, ops = wfa_work(res, args[2], args[3], kb_lo, DB)
-    fs = res["final_s"]
-    print(f"  {len(seg)} segments of {min(len(a) for a, _ in seg)}-"
-          f"{max(max(len(a), len(b)) for a, b in seg)} bases, L={L}, band "
-          f"{DB} diagonals, S_last {S_last}; {int((fs >= 0).sum())} complete"
-          f", final_s up to {int(fs.max())}")
-    result = measure(
-        f"K13 wfa_forward, {len(seg)} segments",
-        lambda: tw.wfa_forward_batch(*args, L=L),
-        lambda: tw.wfa_forward_batch_plain(*args, L=L), in_b,
-        lambda got: out_b, ops, plain_reps=1)
-    result["launches"] = launches["wfa_forward"]
-    return {"wfa_forward": result}
+    fs = res["final_s"].cpu().numpy()
+    lens = np.maximum(args[2].cpu().numpy(), args[3].cpu().numpy())
+    len_edges, fs_edges = [1, 65, 257, 1025, 4097, L + 1], [0, 1, 9, 17, 33,
+                                                            65, 129, 257]
+    longest, bases, cells = tw.extension_runs(res, 3)
+    print(f"  {len(seg)} segments, L={L}, band {DB} diagonals, S_last "
+          f"{S_last}; lengths " + ", ".join(
+              f"{a}-{b - 1}: {c}" for a, b, c in zip(
+                  len_edges, len_edges[1:], np.histogram(lens, len_edges)[0]))
+          + f"; final_s none: {int((fs < 0).sum())}, " + ", ".join(
+              f"{a}-{b - 1}: {c}" for a, b, c in zip(
+                  fs_edges, fs_edges[1:], np.histogram(fs, fs_edges)[0]))
+          + f"; the longest extension run {longest} bases, {bases} bases "
+          f"compared in {cells} cells (at {OPS_WFA_BASE:.3f} slots a base)")
+    check("K13 wfa_forward_rows row for row against wfa_forward_batch",
+          tw.written_rows(tw.wfa_forward_rows(*args, L=L), L),
+          tw.written_rows(tw.rows_of(res, L), L))
+    del res
+    results = {}
+    for name, kern, plain in (
+            ("wfa_forward", tw.wfa_forward_batch, tw.wfa_forward_batch_plain),
+            ("wfa_forward_rows", tw.wfa_forward_rows,
+             tw.wfa_forward_rows_plain)):
+        view = (lambda r: tw.written_rows(r, L)) if name.endswith(
+            "rows") else None
+        results[name] = measure(
+            f"K13 {name}, {len(seg)} segments",
+            lambda k=kern: k(*args, L=L), lambda p=plain: p(*args, L=L),
+            in_b, lambda got: out_b, ops, plain_reps=1, view=view)
+        results[name]["launches"] = launches[name]
+        torch.cuda.empty_cache()
+    return results
 
 
 # MULTICHIP_r05.json's counts of the JAX dry run at 8 devices (B = 8 at
@@ -2510,7 +2586,7 @@ def phase_dense(dev, kb, mesh, tp, seqs, lens, rids, counts):
             lambda: tsk.sketch_mode2_dense(s_, l_, k_, r_, chunk),
             lambda: tsk.sketch_mode2_dense_plain(s_, l_, k_, r_, chunk),
             [s_, l_], lambda got: need(got["x"].numel(), *SLOT),
-            OPS_WALK_DENSE * s_.numel())
+            (OPS_WALK + OPS_DENSE_VALUES) * s_.numel())
     del s_, l_, walk
     torch.cuda.empty_cache()
     (x, y, sel, c), _ = comp.calls[-1]
@@ -2558,7 +2634,8 @@ def set_op_rates():
     """INT_OPS_PER_S from the card (SMs x 64 INT32 lanes x the maximum SM
     clock), and the walks' instruction slots per base from the SASS of
     the built library (kernels/sass_ops.py)."""
-    global INT_OPS_PER_S, SM_HZ, OPS_WALK, OPS_WALK_DENSE, OPS_WALK_MODE1
+    global INT_OPS_PER_S, SM_HZ, OPS_WALK, OPS_WALK_MODE1
+    global OPS_WFA_BASE
     import subprocess
     from pathlib import Path
 
@@ -2574,14 +2651,15 @@ def set_op_rates():
     INT_OPS_PER_S = sms * INT_LANES_PER_SM * SM_HZ
     walks = sass_ops.count(Path(kb.build_report["path"]))
     OPS_WALK = walks["K1 compact walk"]["slots"]
-    OPS_WALK_DENSE = walks["K1 dense walk"]["slots"]
     OPS_WALK_MODE1 = walks["K9 mode-1 walk"]["slots"]
+    OPS_WFA_BASE = walks["K13 warp compare"]["slots"]
     print(f"integer issue rate {INT_OPS_PER_S:.4e}/s ({sms} SMs x "
           f"{INT_LANES_PER_SM} lanes x {mhz:.0f} MHz)")
     for label, w in walks.items():
         print(f"  {label}: {w['alu']:.3f} ALU, {w['fma']:.3f} FMA-pipe, "
               f"{w['other']:.3f} other instructions per base -> "
-              f"{w['slots']:.3f} slots")
+              f"{w['slots']:.3f} slots ({w['calls']} calls, "
+              f"{w['inner loops']} inner loops in the loop)")
 
 
 def main():

@@ -36,12 +36,35 @@
 // every lane walks its whole chunk, live or not, and writes every
 // position's hash word, position word and selected flag into (B, L)
 // planes, as the plain version's (ops/sketch.py::sketch_mode2_dense_plain)
-// are.  About 17 bytes are written per base, so device memory bounds it.
-// A thread's positions are consecutive but its neighbours' lie a chunk
-// away: written directly, a warp's store touches 32 lines, each partly,
-// and the partly written lines overflow L2.  So each step of 16 positions is staged in shared memory and the block
-// writes it back whole: a warp store covers two lanes' full 128-byte
-// runs of x (or y).
+// are.  The least time for that work: the compact walk's hashes and
+// selection test at every base (95 instruction slots a base by its SASS)
+// and about 7 more to make x, y and the flag, 1.6 ms at 268 Mbase,
+// against 12 bytes of values a base (3.25 GB, 1.0 ms).  The kernel's own
+// loop issues 117 slots a base with its staging and write-back, and
+// writes 17 bytes a base (x and y as int64, a flag byte), 4.6 GB at 268
+// Mbase.  A thread's positions are consecutive but its neighbours' lie a
+// chunk away: written directly, a warp's store touches 32 lines, each
+// partly, and the partly written lines overflow L2.  So the design:
+//  - blocks of 64 lanes; each step of 16 positions a lane stages its 16
+//    hash words (rows padded to 17 against bank conflicts) and two 16-bit
+//    masks, the strands and the selected flags, in shared memory, and the
+//    block writes the step back whole: x and y as 16-byte pairs (a warp
+//    store covers four lanes' 128-byte runs; y is rebuilt from the
+//    position and the strand bit), the flags as one 16-byte word a lane;
+//  - the staging is double-buffered, so one barrier a step separates a
+//    step's walk from its write-back, and the stores of one step drain
+//    while the block walks the next;
+//  - streaming stores (__stcs) for x and y: the planes are 90 times the
+//    size of L2 and nothing here reads them back;
+//  - each lane's first output entry (b * L + its chunk start) is computed
+//    once, in shared memory, so the write-back divides nothing.
+// So the stores, not the walk, bound it on the card: at every step each
+// live lane writes one 128-byte line of x and one of y, 4 KB from its
+// neighbours' lines, and HBM takes lines so scattered well below its
+// rate (kernels/timing.py's dense part times the walk alone and the
+// stores alone).  Wider blocks, a writer warp beside the walkers, longer steps
+// or a skew between blocks leave the stores where they land, and so this
+// bound in place.
 #include "walk.cuh"
 
 namespace pgrtk {
@@ -69,27 +92,32 @@ __device__ __forceinline__ Regs lane_start(const uint8_t* row,
   return s;
 }
 
-constexpr int kLaneThreads = 64;  // threads (lanes) per block
+constexpr int kDenseLanes = 64;  // lanes (threads) per dense-mode block
 
-// Dense mode: every position of the lane's chunk, 16 at a time through
-// shared memory (rows padded to 17 entries against bank conflicts).
-__global__ void __launch_bounds__(kLaneThreads) sketch_walk_dense_kernel(
+// Dense mode: every position of the lane's chunk, 16 at a time through a
+// double-buffered stage in shared memory.
+__global__ void __launch_bounds__(kDenseLanes) sketch_walk_dense_kernel(
     const uint8_t* __restrict__ seqs, const int64_t* __restrict__ lengths,
     long long n_lanes, long long L, int nc, int k, int r, int chunk,
     int overlap, int exact, ExactScratch ex, int64_t* __restrict__ out_x,
     int64_t* __restrict__ out_y, bool* __restrict__ out_sel,
     int* __restrict__ flags) {
-  __shared__ int64_t sx[kLaneThreads][17];
-  __shared__ int64_t sy[kLaneThreads][17];
-  __shared__ bool ssel[kLaneThreads][16];
+  __shared__ int64_t sx[2][kDenseLanes][17];
+  // per lane: strand bits (low 16) and selected bits (high 16)
+  __shared__ uint32_t sbits[2][kDenseLanes];
+  // per lane: its first output entry and its chunk's start in the row
+  __shared__ long long soff[kDenseLanes], sstart[kDenseLanes];
   const int t = threadIdx.x;
-  const long long lane0 = (long long)blockIdx.x * kLaneThreads;
+  const long long lane0 = (long long)blockIdx.x * kDenseLanes;
   const long long lane = lane0 + t;
   const bool active = lane < n_lanes;  // the rest only help write back
+  const int n_active = (int)min((long long)kDenseLanes, n_lanes - lane0);
   const long long b = active ? lane / nc : 0;
   const long long start = active ? (lane % nc) * (long long)chunk : 0;
   const long long len = active ? lengths[b] : 0;
   const uint8_t* row = seqs + b * L;
+  soff[t] = b * L + start;
+  sstart[t] = start;
   const uint64_t mask = (1ull << k) - 1;
   const uint64_t thr = (~0ull >> 4) >> r;
   const int top = k - 1;
@@ -97,10 +125,12 @@ __global__ void __launch_bounds__(kLaneThreads) sketch_walk_dense_kernel(
   if (active)
     s = lane_start(row, start, start < len, lane, b * nc, k, overlap, exact,
                    ex, flags);
-  for (int q = 0; q < chunk; q += 16) {
+  int buf = 0;
+  for (int q = 0; q < chunk; q += 16, buf ^= 1) {
     if (active) {
       const uint4 w = *reinterpret_cast<const uint4*>(row + start + q);
       const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+      uint32_t bits = 0;
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
         const long long p = start + q + i;
@@ -109,27 +139,44 @@ __global__ void __launch_bounds__(kLaneThreads) sketch_walk_dense_kernel(
         const bool rev = s.r0 < s.f0;
         const uint64_t h = wang(rev ? s.r0 : s.f0) ^
                            wang((rev ? s.r1 : s.f1) ^ 0xAD12CF59ull);
-        sx[t][i] = (int64_t)((h << 8) | (uint64_t)k);
-        sy[t][i] = (int64_t)((p << 1) | (long long)rev);
-        ssel[t][i] = p < len && p >= k &&
-                     !(s.f0 == s.r0 && s.f1 == s.r1) && h < thr;
+        sx[buf][t][i] = (int64_t)((h << 8) | (uint64_t)k);
+        const bool sel = p < len && p >= k &&
+                         !(s.f0 == s.r0 && s.f1 == s.r1) && h < thr;
+        bits |= ((uint32_t)rev << i) | ((uint32_t)sel << (16 + i));
       }
+      sbits[buf][t] = bits;
     }
     __syncthreads();
-    // entry e of the block's 64 x 16: lane e / 16 of the block, position
-    // q + e % 16 of its chunk
-#pragma unroll 4
-    for (int e = t; e < kLaneThreads * 16; e += kLaneThreads) {
-      const int j = e >> 4, i = e & 15;
-      const long long l = lane0 + j;
-      if (l < n_lanes) {
-        const long long g = (l / nc) * L + (l % nc) * (long long)chunk + q + i;
-        out_x[g] = sx[j][i];
-        out_y[g] = sy[j][i];
-        out_sel[g] = ssel[j][i];
+    // x and y: pair e of the block's 64 x 8 is positions 2 (e % 8) and
+    // 2 (e % 8) + 1 of lane e / 8
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int e = t + kDenseLanes * j;
+      const int l = e >> 3, i = (e & 7) * 2;
+      if (l < n_active) {
+        const long long g = soff[l] + q + i;
+        const long long p = sstart[l] + q + i;
+        const uint32_t bits = sbits[buf][l];
+        __stcs(reinterpret_cast<longlong2*>(out_x + g),
+               make_longlong2(sx[buf][l][i], sx[buf][l][i + 1]));
+        __stcs(reinterpret_cast<longlong2*>(out_y + g),
+               make_longlong2((p << 1) | ((bits >> i) & 1),
+                              ((p + 1) << 1) | ((bits >> (i + 1)) & 1)));
       }
     }
-    __syncthreads();
+    // the selected flags: one 16-byte word a lane, each flag's bit spread
+    // to the low bit of its byte (nibble * 0x00204081 & 0x01010101); a
+    // plain store, since it fills half a 32-byte sector and an evict-first
+    // one would leave L2 before the next step's half joins it
+    if (t < n_active) {
+      const uint32_t sel = sbits[buf][t] >> 16;
+      uint32_t v[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        v[c] = (((sel >> (4 * c)) & 0xFu) * 0x00204081u) & 0x01010101u;
+      *reinterpret_cast<uint4*>(out_sel + soff[t] + q) =
+          make_uint4(v[0], v[1], v[2], v[3]);
+    }
   }
 }
 
@@ -222,8 +269,9 @@ extern "C" int pgrtk_sketch_walk_compact(
     pgrtk::exact_warmup((const uint8_t*)seqs, B, L, nc, k, chunk, ex, st);
   }
   if (dense) {
-    static_assert(threads == pgrtk::kLaneThreads, "one lane per thread");
-    pgrtk::sketch_walk_dense_kernel<<<blocks, threads, 0, st>>>(
+    constexpr int lanes = pgrtk::kDenseLanes;
+    pgrtk::sketch_walk_dense_kernel<<<
+        (unsigned)((n_lanes + lanes - 1) / lanes), lanes, 0, st>>>(
         (const uint8_t*)seqs, (const int64_t*)lengths, n_lanes, L, nc, k, r,
         chunk, overlap, exact, ex, (int64_t*)out_x, (int64_t*)out_y,
         (bool*)out_valid, (int*)flags);

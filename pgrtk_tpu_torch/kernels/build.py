@@ -206,6 +206,13 @@ wfa_forward = Kernel(
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
      _P, _P],
 )
+# K13's entry for the SV path: each segment's rows up to its completion,
+# packed at their windows' widths
+wfa_forward_rows = Kernel(
+    "wfa_forward_rows", "pgrtk_tpu_torch/csrc/wfa.cu",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _LL, _P, _P, _P, _P,
+     _P, _P, _P],
+)
 # K14 and K15: the owner side of the hash-range-sharded v2 index
 shard_probe_planes = Kernel(
     "shard_probe_planes", "pgrtk_tpu_torch/csrc/shard.cu",
@@ -265,7 +272,8 @@ pair_mers_dense = Kernel(
 # the pgr-pbundle-decomp path K12, the pgr-get-sv-candidate-regions WFA
 # K13, the sharded v2 index and query K14-K15, the v1 sharded steps K16,
 # the v2 probe-only step K17, the dense pair variants K18-K19, K7's
-# anchors entry, and the query step's entries of K5, K6 and K7
+# anchors entry, the query step's entries of K5, K6 and K7, and K13's
+# SV entry
 KERNELS = (sketch_walk_compact, rank_extract, min_span_filter_gapped,
            pair_mers_gapped, probe_fetch, dup_pair_counts, expand_postings,
            chain_scores_fast, sketch_mode1, chain_scores_dense, probe_keys,
@@ -273,7 +281,7 @@ KERNELS = (sketch_walk_compact, rank_extract, min_span_filter_gapped,
            owner_postings, pair_key_search, shard_probe_found,
            min_span_filter_dense, pair_mers_dense, expand_postings_anchors,
            probe_step, dup_pair_filter, expand_postings_indexed,
-           expand_postings_anchors_indexed)
+           expand_postings_anchors_indexed, wfa_forward_rows)
 
 
 def reset_launches() -> None:

@@ -1,5 +1,5 @@
-"""Instructions per base of the sketch walks, by pipe, from the SASS of
-the built kernel library.
+"""Instructions per base of the sketch walks and of K13's compares, by
+pipe, from the SASS of the built kernel library.
 
     python -m pgrtk_tpu_torch.kernels.sass_ops [out.txt]
 
@@ -7,15 +7,24 @@ Needs the CUDA toolkit (nvcc, cuobjdump), so it runs on the machine with
 the card.  It builds the library (kernels/build.py), disassembles it with
 `cuobjdump -sass`, finds each walk's base loop (the loop whose body holds
 the walk's sequence loads: one 16-byte load per 16 bases in K1's walks,
-one byte load per base in K9's), and counts the body's instructions per
-base by the pipe that issues them on Hopper: the integer ALU pipe (IADD3,
-LOP3, SHF, ISETP, SEL, ...), the FMA pipe (IMAD, IMUL: integer multiply-
-adds issue there), and the rest (loads, stores, branches).  K1's compact
-walk skips the blocks that store a selected mer (taken for about one base
-in 256 at r = 4); K9's walk stores every base, so all its blocks count.
-Each SM issues 64 ALU and 64 FMA-pipe lanes a clock and one warp
-instruction a clock per quarter (128 lanes), so a base costs at least
-max(alu, fma, (alu + fma + other) / 2) slots at the 64-lane rate:
+one byte load per base in K9's; for K13 the warp run's loop, which holds
+its 8-byte shared-memory loads and compares 16 bases a lane a round),
+and counts the body's instructions per base by the pipe that issues them
+on Hopper: the integer ALU pipe (IADD3, LOP3, SHF, ISETP, SEL, ...), the
+FMA pipe (IMAD, IMUL: integer multiply-adds issue there), and the rest
+(loads, stores, branches).  K1's compact walk skips the blocks that
+store a selected mer (taken for about one base in 256 at r = 4); K9's
+walk stores every base, so all its blocks count.  So do K1's dense
+walk's, whose loop also holds its staging and write-back (the stores of
+each 16-base step, unrolled): that count is what the kernel issues, not
+its bound, which counts the compact walk's slots and the values the
+dense mode makes (chip_smoke.py's OPS_DENSE_VALUES).  A count covers the
+loop's own instructions only: it reports the subroutine calls and inner
+loops the body holds ("calls", "inner loops"), whose instructions run
+more often than once an iteration and are not counted; each walk's loop
+holds none.  Each SM issues 64 ALU and 64 FMA-pipe lanes a clock and one
+warp instruction a clock per quarter (128 lanes), so a base costs at
+least max(alu, fma, (alu + fma + other) / 2) slots at the 64-lane rate:
 chip_smoke.py's OPS_WALK.  With an output path, the loops' SASS is
 written there too.
 """
@@ -40,7 +49,12 @@ WALKS = {
     "K1 compact walk": ("sketch_walk_compact_kernel", "LDG.E.128", 16, True),
     "K1 dense walk": ("sketch_walk_dense_kernel", "LDG.E.128", 16, False),
     "K9 mode-1 walk": ("mode1_walk_kernel", "LDG.E.U8", 1, False),
+    # K13's warp run: the innermost loop holding its 8-byte loads of the
+    # staged t and q, one round of 16 bases a lane (per_marker None:
+    # bases an iteration)
+    "K13 warp compare": ("wfa_forward_kernel", "LDS.64", None, False),
 }
+WARP_ROUND_BASES = 16
 # (marker opcodes match as prefixes: LDG.E.128.CONSTANT and the like)
 
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)(.*?);")
@@ -127,12 +141,18 @@ def count(lib: Path, dump=None) -> dict:
                 if not (skip_stores and any(y[1].startswith("STG")
                                             for y in blk))
                 for x in blk]
-        bases = per_marker * sum(x[1].startswith(marker) for x in body)
+        bases = (per_marker * sum(x[1].startswith(marker) for x in body)
+                 if per_marker else WARP_ROUND_BASES)
         c = Counter(pipe(op) for _, op, _ in kept)
         per = {p: c[p] / bases for p in ("alu", "fma", "other")}
         per["slots"] = max(per["alu"], per["fma"],
                            (per["alu"] + per["fma"] + per["other"]) / 2)
         per["bases per iteration"] = bases
+        per["calls"] = sum(op.startswith("CALL") for _, op, _ in body)
+        per["inner loops"] = sum(
+            op.startswith("BRA") and bool(_TARGET.search(rest))
+            and body[0][0] < int(_TARGET.search(rest).group(1), 16) <= addr
+            for addr, op, rest in body[:-1])
         per["opcodes"] = dict(Counter(op for _, op, _ in kept).most_common())
         res[label] = per
         if dump is not None:

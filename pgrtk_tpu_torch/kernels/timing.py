@@ -31,7 +31,25 @@ gave the kernels when this run builds them, then the parts asked for
          and device busy time a step (torch.profiler over 5 steps), the
          device time by kernel, the host-clock median of 5 steps, and the
          sha256 of every output (written to FILE with --digest, so that
-         two trees' steps can be compared in one call).
+         two trees' steps can be compared in one call);
+  wfa    K13 on the gap segments of one pgr-get-sv-candidate-regions run
+         on chip_smoke.py's SV corpus (its stage seconds printed): the
+         first 1,024 (phase 9b's) and the first 1,329 (one launch of
+         batch_wfa_align at L 8,192), with their length and final_s
+         histograms, the longest extension run and the bases the
+         extensions compare; the SV entry on the segments that never
+         complete, on the rest, and on one that never completes (its 256
+         steps); wfa_forward_batch, and the SV path's forward
+         (its K13 entry, the rows the backtrace reads gathered and
+         copied to the host), each with its device time split into fill,
+         kernel, gather and copy;
+  dense  K1's dense mode (sketch_mode2_dense), fast and exact, on
+         kernels/k1_modes.py's clean and gapped 268 Mbase batches, the
+         instructions a base of its whole base loop from the SASS
+         (kernels/sass_ops.py), and the fast walk on the clean batch
+         beside two ablations of csrc/sketch.cu, built alone: the walk
+         without its stores, and the stores without the hashes
+         (`dense_ablations`).
 Every kernel is held to its plain version (tolerance 0).  Each kernel
 time is the median of five rounds of 20 back-to-back calls (CUDA events,
 ms a call), beside the device launches, busy time and time by kernel of
@@ -60,11 +78,11 @@ from ..ops import sketch as tsk
 from ..utils import cases
 from .k1_modes import CHUNK, K, MIN_SPAN, R, SLOTS, batches
 
-PARTS = ("chain", "index", "query", "step")
+PARTS = ("chain", "index", "query", "step", "wfa", "dense")
 PTXAS_KERNELS = ("sketch_walk", "rank", "min_span_kernel", "tile_summary",
                  "pair_summary", "tile_rank", "pair_kernel", "probe_kernel",
                  "probe_fetch_kernel", "dup_pair", "expand_kernel",
-                 "chain_fast_kernel")
+                 "chain_fast_kernel", "wfa_forward")
 CHAIN_G, CHAIN_N, CHAIN_W = 1024, 576, 24
 LIMIT = 128  # min(max_count, max_count_query) at the step's defaults
 
@@ -91,9 +109,11 @@ def events_ms(fn, n=20, rounds=5):
     return statistics.median(out)
 
 
-def device_profile(fn, n=5):
+def device_profile(fn, n=5, by=None):
     """Device launches (kernels, memsets, copies) and busy ms a call, and
-    each kernel's launches and device ms a call, from torch.profiler."""
+    each kernel's launches and device ms a call, from torch.profiler.
+    With `by` (a name -> group function), a fourth value: the device ms
+    a call of each group."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -114,7 +134,12 @@ def device_profile(fn, n=5):
         end = max(end, t1)
     top = ", ".join(f"{k} x{calls[k] / n:g} {us / n / 1e3:.4f}"
                     for k, us in per.most_common())
-    return len(spans) / n, busy / n / 1e3, top
+    if by is None:
+        return len(spans) / n, busy / n / 1e3, top
+    groups = Counter()
+    for k, us in per.items():
+        groups[by(k)] += us / n / 1e3
+    return len(spans) / n, busy / n / 1e3, top, dict(groups)
 
 
 def equal(got, want):
@@ -335,6 +360,219 @@ def part_step(ctx, digest_file):
             f.write(d + "\n")
 
 
+def sv_segments(dev):
+    """The gap segments of one pgr-get-sv-candidate-regions run on
+    chip_smoke.py's SV corpus, as batch_wfa_align gets them, and its L;
+    prints the run's stage seconds."""
+    import os
+
+    import chip_smoke as cs
+    from ..ops import wfa as tw
+
+    build_dir = os.path.join(os.getcwd(), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    ref, asm = cs.sv_corpus(dev, build_dir, cs.SV_REF_LEN, cs.SV_HAPS,
+                            cs.SV_CONTIGS, "sv")
+    seen, real, stats = [], tw.batch_wfa_align, {}
+
+    def spy(pairs, *a, **kw):
+        seen.append((pairs, kw["L"]))
+        return real(pairs, *a, **kw)
+
+    tw.batch_wfa_align = spy
+    try:
+        t = time.perf_counter()
+        cs.run_sv(os.path.join(build_dir, "sv_timing"), ref, asm, dev, stats)
+        wall = time.perf_counter() - t
+    finally:
+        tw.batch_wfa_align = real
+    sec = stats.pop("seconds")
+    print(f"SV CLI run: {wall:.3f} s (host clock); WFA forward "
+          f"{sec.get('WFA forward', 0):.3f} s, backtrace "
+          f"{sec.get('backtrace', 0):.3f} s, arbiter "
+          f"{sec.get('arbiter', 0):.3f} s; {len(seen)} batch_wfa_align "
+          f"calls; segments {stats.get('wfa_segments')}, on the card "
+          f"{stats.get('wfa_on_device')}")
+    pairs, L = seen[0]
+    return [p for p in pairs if 0 < len(p[0]) <= L and 0 < len(p[1]) <= L], L
+
+
+def wfa_group(name):
+    """K13's kernel, copies, fills (torch.full's elementwise kernels, and
+    any other elementwise op), and the rest: gathers and their index
+    work."""
+    low = name.lower()
+    if "wfa" in low:
+        return "kernel"
+    if "memcpy" in low:
+        return "copy"
+    if "elementwise" in low or "fill" in low or "memset" in low:
+        return "fill"
+    return "gather"
+
+
+def sv_forward(tw, args, L, plain=False):
+    """The SV path's device part of batch_wfa_align: K13 and the rows its
+    backtrace reads, on the host (the entry a tree has)."""
+    if hasattr(tw, "wfa_forward_rows"):
+        fwd = tw.wfa_forward_rows_plain if plain else tw.wfa_forward_rows
+        fs, _, _, vals = tw.fetch_rows(fwd(*args, L=L), L, 256, 1024)
+        return [torch.from_numpy(fs), torch.from_numpy(vals)]
+    fwd = tw.wfa_forward_batch_plain if plain else tw.wfa_forward_batch
+    res = fwd(*args, L=L)
+    S_last = res["lo_hist"].shape[1] - 1
+    fs = res["final_s"].cpu().numpy().astype(np.int64)
+    last = np.where(fs <= 1024, fs, -1)
+    rows = torch.from_numpy(np.arange(S_last + 1)[None] <= last[:, None])
+    rows = rows.to(res["final_s"].device)
+    return [res[k][rows].cpu() for k in ("m_hist", "i_hist", "d_hist")]
+
+
+def part_wfa(dev):
+    from ..ops import wfa as tw
+
+    seg, L = sv_segments(dev)
+    for G in (1024, 1329):
+        s = seg[:G]
+        args = [torch.from_numpy(a).to(dev) for a in cases.wfa_batch(s, L)]
+        res = tw.wfa_forward_batch(*args, L=L)
+        fs = res["final_s"].cpu().numpy()
+        lens = np.maximum(args[2].cpu().numpy(), args[3].cpu().numpy())
+        len_edges = [1, 65, 257, 1025, 4097, L + 1]
+        fs_edges = [0, 1, 9, 17, 33, 65, 129, 257]
+        print(f"K13 at {len(s)} segments, L {L}: lengths "
+              + ", ".join(f"{a}-{b - 1}: {c}" for a, b, c in zip(
+                  len_edges, len_edges[1:],
+                  np.histogram(lens, len_edges)[0]))
+              + f"; final_s none: {int((fs < 0).sum())}, "
+              + ", ".join(f"{a}-{b - 1}: {c}" for a, b, c in zip(
+                  fs_edges, fs_edges[1:], np.histogram(fs, fs_edges)[0]))
+              + f"; mean final_s of the completed "
+              f"{float(fs[fs >= 0].mean()):.2f}")
+        if hasattr(tw, "extension_runs"):
+            longest, bases, cells = tw.extension_runs(res, 3)
+            print(f"  extensions: longest run {longest} bases; {bases} "
+                  f"bases compared in {cells} cells with an M entry")
+        del res
+        torch.cuda.empty_cache()
+        never = np.flatnonzero(fs < 0).tolist()
+        entry = getattr(tw, "wfa_forward_rows", tw.wfa_forward_batch)
+        for label, ids in (("never complete", never),
+                           ("complete", sorted(set(range(G)) - set(never))),
+                           ("never complete, the first alone", never[:1])):
+            if not ids:
+                continue
+            sub = [torch.from_numpy(a).to(dev)
+                   for a in cases.wfa_batch([s[i] for i in ids], L)]
+            ms = events_ms(lambda: entry(*sub, L=L), n=5)
+            print(f"  {entry.__name__}, the segments that {label} "
+                  f"({len(ids)}): {ms:.4f} ms" + (
+                      f" ({ms * 1e3 / 256:.3f} us a step)"
+                      if len(ids) == 1 else ""))
+        for label, fn, plain in (
+                ("wfa_forward_batch", lambda: tw.wfa_forward_batch(*args, L=L),
+                 lambda: tw.wfa_forward_batch_plain(*args, L=L)),
+                ("SV path forward (K13 entry, rows gathered, to host)",
+                 lambda: sv_forward(tw, args, L),
+                 lambda: sv_forward(tw, args, L, plain=True))):
+            ok = equal(fn(), plain())
+            torch.cuda.empty_cache()
+            ms = events_ms(fn, n=5)
+            n, busy, top, groups = device_profile(fn, by=wfa_group)
+            print(f"  {label}: equal {ok}; {ms:.4f} ms; {n:g} device "
+                  f"launches, {busy:.4f} ms busy a call; by part "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+                      groups.items())) + f"; by kernel: {top}")
+            torch.cuda.empty_cache()
+
+
+def part_dense(dev):
+    from pathlib import Path
+
+    from . import sass_ops
+
+    seqs_by = batches(dev)
+    B, L = seqs_by["clean"].shape
+    lens = torch.full((B,), L, device=dev)
+    for name, seqs in seqs_by.items():
+        for exact in (False, True):
+            args = (seqs, lens, K, R, CHUNK, exact)
+            report(f"K1 dense mode exact={exact}, {name} {tuple(seqs.shape)}",
+                   lambda: tsk.sketch_mode2_dense(*args),
+                   lambda: tsk.sketch_mode2_dense_plain(*args))
+            torch.cuda.empty_cache()
+    walk = sass_ops.count(Path(kb.build_report["path"]))["K1 dense walk"]
+    print("K1 dense walk, SASS a base: " + ", ".join(
+        f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in walk.items()))
+    if hasattr(kb, "CSRC"):
+        dense_ablations(seqs_by["clean"], lens)
+
+
+# csrc/sketch.cu with one change each, to time the dense mode's walk and
+# its stores apart: (name, [(old text, new text)])
+DENSE_HASH = ("const uint64_t h = wang(rev ? s.r0 : s.f0) ^\n"
+              "                           wang((rev ? s.r1 : s.f1) ^ "
+              "0xAD12CF59ull);")
+DENSE_ABLATIONS = {
+    # the stores wait on a staged hash word of -1, which never comes (a
+    # word ends in k), so they never run; the words are still read, so
+    # the walk that stages them stays
+    "walk only": [("      if (l < n_active) {",
+                   "      if (l < n_active && sx[buf][l][i] == -1) {"),
+                  ("    if (t < n_active) {",
+                   "    if (t < n_active && sx[buf][t][0] == -1) {")],
+    # the two Wang hashes become an XOR of two registers: the same stores
+    # at the same addresses, almost no walk behind them
+    "stores only": [(DENSE_HASH, "const uint64_t h = s.f0 ^ s.r1;")],
+}
+
+
+def dense_ablations(seqs, lens):
+    """K1's dense mode (fast walk) beside each of DENSE_ABLATIONS, built
+    alone into build/pgrtk_tpu_torch/dense_ablations/ and called through
+    ops/sketch.py::sketch_mode2_dense (median of three rounds of 10 calls,
+    CUDA events).  The ablations' results are wrong by design and not
+    compared.  A "walk only" time below the compact walk's bound means
+    the compiler dropped the walk with the stores: not a reading."""
+    import ctypes
+
+    args = (seqs, lens, K, R, CHUNK, False)
+    print(f"K1 dense mode {tuple(seqs.shape)}: "
+          f"{events_ms(lambda: tsk.sketch_mode2_dense(*args), 10, 3):.4f} "
+          f"ms")
+    real = kb._lib
+    try:
+        for name, subs in DENSE_ABLATIONS.items():
+            src = (kb.CSRC / "sketch.cu").read_text()
+            for old, new in subs:
+                if old not in src:
+                    raise RuntimeError(f"{name}: csrc/sketch.cu has no "
+                                       f"{old!r}")
+                src = src.replace(old, new)
+            out = kb.BUILD_DIR / "dense_ablations" / name.replace(" ", "_")
+            out.mkdir(parents=True, exist_ok=True)
+            (out / "sketch.cu").write_text(src)
+            flags = [f for f in kb.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+            subprocess.run([kb._nvcc(), *flags, "-I", str(kb.CSRC), "-o",
+                            str(out / "lib.so"), str(out / "sketch.cu")],
+                           check=True)
+            lib = ctypes.CDLL(str(out / "lib.so"))
+            lib.pgrtk_error_string.restype = ctypes.c_char_p
+            lib.pgrtk_error_string.argtypes = [ctypes.c_int]
+            lib.pgrtk_sketch_scratch_bytes.restype = ctypes.c_longlong
+            lib.pgrtk_sketch_scratch_bytes.argtypes = [
+                ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+            lib.pgrtk_sketch_walk_compact.restype = ctypes.c_int
+            lib.pgrtk_sketch_walk_compact.argtypes = (
+                kb.sketch_walk_compact.argtypes)
+            kb._lib = lib
+            ms = events_ms(lambda: tsk.sketch_mode2_dense(*args), 10, 3)
+            print(f"  {name}: {ms:.4f} ms")
+    finally:
+        kb._lib = real
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("parts", nargs="*", help=f"of {PARTS}; default: all")
@@ -362,6 +600,12 @@ def main(argv) -> int:
             torch.cuda.empty_cache()
         if "step" in parts:
             part_step(ctx, a.digest)
+        del ctx
+        torch.cuda.empty_cache()
+    if "wfa" in parts:
+        part_wfa(dev)
+    if "dense" in parts:
+        part_dense(dev)
     return 0
 
 

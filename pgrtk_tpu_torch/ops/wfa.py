@@ -26,6 +26,14 @@ default and passed by no caller) has no counterpart.
 PyTorch version `wfa_forward_batch_plain` for CPU tensors: the same
 recurrences over (G, DB) planes, the extension by comparing bases in
 blocks of 16 for the live diagonals.
+
+`wfa_forward_rows` is K13's second entry, the one batch_wfa_align runs:
+the same forward pass, writing only the rows the backtrace reads, each
+segment's rows 0..last (last = final_s, or S_last without a completion)
+one after another at their windows' widths (`rows_capacity` entries a
+segment), with no fill.  Its plain version is the plain forward pass
+with the same rows selected.  `fetch_rows` gathers the entries of the
+segments the backtrace takes and copies them to the host.
 """
 from __future__ import annotations
 
@@ -47,7 +55,8 @@ _EXT_BLOCK = 16      # bases compared per round of the plain extension
 # shared memory a block of K13 may take: the card's 227 KB less room for
 # the kernel's static variables
 SMEM_LIMIT = 232_448 - 1_024
-# history bytes (M, I and D rows) of one device launch in batch_wfa_align
+# band-history bytes (M, I and D rows, which the plain version holds) of
+# one launch in batch_wfa_align; K13's SV entry writes fewer
 HIST_BYTES = 1 << 30
 
 
@@ -57,6 +66,31 @@ def wfa_band(L: int, S_max: int) -> Tuple[int, int, int]:
     S_last = -(-S_max // K_STEPS) * K_STEPS
     kb_lo = max(-L, -S_last)
     return S_last, kb_lo, min(L - 1, S_last) - kb_lo + 1
+
+
+def rows_capacity(S_last: int, DB: int) -> int:
+    """Entries a segment's rows can take in `wfa_forward_rows`: row s's
+    window spans at most 2s + 1 diagonals (each step widens the union of
+    its sources' windows by one on each side) and at most the band."""
+    return sum(min(2 * s + 1, DB) for s in range(S_last + 1))
+
+
+def extension_runs(res, x):
+    """(longest run, bases compared, cells) of the extensions behind a
+    wfa_forward_batch result: in every written cell with an M entry the
+    extension ran from the larger of M[s - x] + 1, I and D (M's offset
+    before extension; 0 at the origin) to M, comparing each base of the
+    run and one more, the compare that stopped it."""
+    M = res["m_hist"].int()
+    start = torch.maximum(res["i_hist"].int(), res["d_hist"].int())
+    prev = M[:, :-x]
+    start[:, x:] = torch.maximum(start[:, x:],
+                                 torch.where(prev >= 0, prev + 1, -1))
+    start[:, 0] = 0
+    ok = M >= 0
+    run = torch.where(ok, M - start, 0)
+    return (int(run.max()), int((run.long() + 1)[ok].sum()),
+            int(ok.sum()))
 
 
 def _check(t_batch, q_batch, n, m, L, S_max, x, o, e):
@@ -238,12 +272,7 @@ def wfa_forward_batch(t_batch: torch.Tensor, q_batch: torch.Tensor,
     if not on_cuda(t, q, n32, m32):
         return wfa_forward_batch_plain(t, q, n32, m32, L, S_max,
                                        max_wf_length, x, o, e)
-    S_last, kb_lo, DB = wfa_band(L, S_max)
-    ring = max(x, o + e) + 1
-    smem = 3 * ring * DB * 4 + 2 * L
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"K13 needs {smem} bytes of shared memory at "
-                         f"L={L}, S_max={S_max} (limit {SMEM_LIMIT})")
+    S_last, kb_lo, DB = _check_smem(L, S_max, x, o, e)
     G = t.shape[0]
     out = _outputs(G, S_last + 1, DB, t.device)
     if G:
@@ -255,6 +284,170 @@ def wfa_forward_batch(t_batch: torch.Tensor, q_batch: torch.Tensor,
             out["lo_hist"].data_ptr(), out["hi_hist"].data_ptr(),
             kb.stream_handle(t))
     return out
+
+
+def _check_smem(L, S_max, x, o, e):
+    S_last, kb_lo, DB = wfa_band(L, S_max)
+    smem = 2 * ((L + 31) & ~15) + 3 * (max(x, o + e) + 1) * DB * 2
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K13 needs {smem} bytes of shared memory at "
+                         f"L={L}, S_max={S_max} (limit {SMEM_LIMIT})")
+    return S_last, kb_lo, DB
+
+
+def _row_mask(final_s, S_last):
+    """(G, S_last+1) bool: the rows 0..last a segment's forward pass
+    writes (last = final_s, or S_last without a completion)."""
+    fs = final_s.long()
+    last = torch.where(fs >= 0, fs, S_last)
+    return torch.arange(S_last + 1, device=fs.device)[None] <= last[:, None]
+
+
+def wfa_forward_rows_plain(t_batch, q_batch, n, m, L: int = 512,
+                           S_max: int = 256, max_wf_length: int = 384,
+                           x: int = 3, o: int = 3, e: int = 1) -> dict:
+    """The plain version of `wfa_forward_rows`, on any device: the plain
+    forward pass, its rows selected by `rows_of`."""
+    return rows_of(wfa_forward_batch_plain(t_batch, q_batch, n, m, L, S_max,
+                                           max_wf_length, x, o, e), L, S_max)
+
+
+def rows_of(res: dict, L: int, S_max: int = 256) -> dict:
+    """A `wfa_forward_batch` result in `wfa_forward_rows`'s layout: each
+    segment's rows 0..last, entries after them -1."""
+    S_last, kb_lo, DB = wfa_band(L, S_max)
+    G, dev = res["final_s"].shape[0], res["final_s"].device
+    col = torch.arange(DB, device=dev) + kb_lo
+    # the windows' diagonals of the written rows, in (g, s, k) order:
+    # each segment's rows one after another, as the entry writes them
+    cells = (_row_mask(res["final_s"], S_last)[..., None]
+             & (col >= res["lo_hist"][..., None].long())
+             & (col <= res["hi_hist"][..., None].long()))
+    used = cells.sum(dim=(1, 2))
+    seg = torch.repeat_interleave(torch.arange(G, device=dev), used)
+    first = torch.cumsum(used, 0) - used
+    at = torch.arange(seg.numel(), device=dev) - first[seg]
+    rows = torch.full((3, G, rows_capacity(S_last, DB)), -1,
+                      dtype=torch.int16, device=dev)
+    for p, name in enumerate(("m_hist", "i_hist", "d_hist")):
+        rows[p, seg, at] = res[name][cells]
+    return dict(final_s=res["final_s"], rows=rows, lo_hist=res["lo_hist"],
+                hi_hist=res["hi_hist"])
+
+
+def wfa_forward_rows(t_batch: torch.Tensor, q_batch: torch.Tensor,
+                     n: torch.Tensor, m: torch.Tensor, L: int = 512,
+                     S_max: int = 256, max_wf_length: int = 384, x: int = 3,
+                     o: int = 3, e: int = 1) -> dict:
+    """K13's entry for the SV path (pgrtk_tpu/ops/wfa.py:103, the rows
+    its backtrace reads): the forward pass of `wfa_forward_batch`,
+    writing only each segment's rows 0..last (last = final_s, or S_last
+    without a completion).
+
+    Returns dict(final_s (G,) int32; rows (3, G, rows_capacity(S_last,
+    DB)) int16, the M, I and D entries of segment g's rows one after
+    another, row s holding the diagonals max(lo, kb_lo) .. min(hi,
+    kb_hi) of its window; lo_hist, hi_hist (G, S_last+1) int16, the
+    windows of rows 0..last).  On the card nothing else is written:
+    entries after a segment's rows and rows after last hold whatever
+    the memory held (`written_rows` masks them)."""
+    t, q, n32, m32 = _check(t_batch, q_batch, n, m, L, S_max, x, o, e)
+    if not on_cuda(t, q, n32, m32):
+        return wfa_forward_rows_plain(t, q, n32, m32, L, S_max,
+                                      max_wf_length, x, o, e)
+    S_last, kb_lo, DB = _check_smem(L, S_max, x, o, e)
+    G, dev = t.shape[0], t.device
+    cap = rows_capacity(S_last, DB)
+    out = dict(
+        final_s=torch.empty((G,), dtype=torch.int32, device=dev),
+        rows=torch.empty((3, G, cap), dtype=torch.int16, device=dev),
+        lo_hist=torch.empty((G, S_last + 1), dtype=torch.int16, device=dev),
+        hi_hist=torch.empty((G, S_last + 1), dtype=torch.int16, device=dev))
+    if G:
+        rows = out["rows"]
+        kb.wfa_forward_rows(
+            t.data_ptr(), q.data_ptr(), n32.data_ptr(), m32.data_ptr(), G, L,
+            S_last, max_wf_length, x, o, e, kb_lo, DB, cap,
+            out["final_s"].data_ptr(), rows[0].data_ptr(),
+            rows[1].data_ptr(), rows[2].data_ptr(),
+            out["lo_hist"].data_ptr(), out["hi_hist"].data_ptr(),
+            kb.stream_handle(t))
+    return out
+
+
+def _row_widths(lo, hi, rows, kb_lo, DB):
+    """Each row's entries in `wfa_forward_rows`'s layout (0 for a row
+    not in `rows`) and its first diagonal inside the band."""
+    klo = lo.clamp(min=kb_lo)
+    w = (hi.clamp(max=kb_lo + DB - 1) - klo + 1).clamp(min=0)
+    return torch.where(rows, w, 0), klo
+
+
+def written_rows(res: dict, L: int, S_max: int = 256) -> dict:
+    """What `wfa_forward_rows` wrote, everything else 0: final_s, lo_hist
+    and hi_hist of rows 0..last, and each segment's entries of those
+    rows.  Two results with equal written rows compare equal."""
+    S_last, kb_lo, DB = wfa_band(L, S_max)
+    rows = _row_mask(res["final_s"], S_last)
+    lo, hi = res["lo_hist"].long(), res["hi_hist"].long()
+    w, _ = _row_widths(lo, hi, rows, kb_lo, DB)
+    used = w.sum(dim=1)
+    ent = (torch.arange(res["rows"].shape[2], device=used.device)[None]
+           < used[:, None])
+    return dict(final_s=res["final_s"], lo_hist=torch.where(rows, lo, 0),
+                hi_hist=torch.where(rows, hi, 0),
+                rows=torch.where(ent[None], res["rows"], 0))
+
+
+def fetch_rows(res: dict, L: int, S_max: int, max_steps: int):
+    """The entries the backtrace reads from a `wfa_forward_rows` result,
+    on the host: those of the segments that complete by max_steps,
+    gathered on the result's device and copied in one piece.
+
+    Returns (final_s (G,) int64, take (G,) bool, the segments the
+    backtrace takes, (klo, w, start, first) int64 numpy arrays: (G,
+    S_last+1) each row's first band diagonal, width and first entry in
+    its segment, and (G,) each segment's first entry in `vals`, and vals
+    (3, total) int16, the M, I and D entries)."""
+    S_last, kb_lo, DB = wfa_band(L, S_max)
+    fs = res["final_s"].cpu().long()
+    take = (fs >= 0) & (fs <= max_steps)
+    last = torch.where(take, fs, -1)
+    rows = torch.arange(S_last + 1)[None] <= last[:, None]
+    w, klo = _row_widths(res["lo_hist"].cpu().long(),
+                         res["hi_hist"].cpu().long(), rows, kb_lo, DB)
+    used = w.sum(dim=1)
+    first = torch.cumsum(used, 0) - used
+    total = int(used.sum())
+    src = res["rows"]
+    G, cap = src.shape[1], src.shape[2]
+    dev = src.device
+    seg0 = torch.arange(G, device=dev) * cap - first.to(dev)
+    idx = torch.repeat_interleave(seg0, used.to(dev), output_size=total)
+    idx += torch.arange(total, device=dev)
+    vals = src.reshape(3, -1)[:, idx].cpu().numpy()
+    start = torch.cumsum(w, 1) - w
+    return (fs.numpy(), take.numpy(),
+            tuple(a.numpy() for a in (klo, w, start, first)), vals)
+
+
+class _SegmentRows:
+    """One segment's rows as `fetch_rows` brings them: entry j of row s
+    of plane p (0 M, 1 I, 2 D) is diagonal klo[s] + j, j < w[s]."""
+
+    def __init__(self, vals, layout, g, S):
+        klo, w, start, first = layout
+        self.vals = vals
+        self.klo = klo[g, :S + 1].tolist()
+        self.w = w[g, :S + 1].tolist()
+        self.start = (start[g, :S + 1] + first[g]).tolist()
+
+    def get(self, p, s, k):
+        j = k - self.klo[s]
+        if j < 0 or j >= self.w[s]:
+            return KNULL
+        v = int(self.vals[p, self.start[s] + j])
+        return v if v >= 0 else KNULL
 
 
 # ---------------------------------------------------------------------------
@@ -296,20 +489,15 @@ def _rebuild_ids(m_hist, lo_hist, hi_hist, final_s, kb_lo, x, o, e):
     return M, I, Dv
 
 
-def _backtrace_host(t: bytes, q: bytes, M, I, Dv, final_s, kb_lo, x, o, e):
+def _backtrace_host(t: bytes, q: bytes, rows: _SegmentRows, final_s, x, o,
+                    e):
     """Port of wfa.cc:162-257 (branch for branch; pgrtk_tpu/ops/wfa.py:
-    434-519) over (S+1, DB) history rows, -1 or KNULL = no entry.  A run
+    434-519) over a segment's rows 0..final_s, KNULL = no entry.  A run
     of matches is emitted as one reversed slice, the arbiter's loop over
     its positions."""
     n, m = len(t), len(q)
-    DB = M.shape[1]
-
-    def g(plane, s, k):
-        idx = k - kb_lo
-        if idx < 0 or idx >= DB:
-            return KNULL
-        v = int(plane[s, idx])
-        return v if v >= 0 else KNULL
+    M, I, Dv = 0, 1, 2
+    g = rows.get
 
     def matches(hi, lo, k):  # positions p = hi .. lo+1, descending
         if hi > lo:
@@ -448,20 +636,15 @@ def batch_wfa_align(
             t_b[gi, : len(t)] = np.frombuffer(t, dtype=np.uint8)
             q_b[gi, : len(q)] = np.frombuffer(q, dtype=np.uint8)
             n[gi], m[gi] = len(t), len(q)
-        res = wfa_forward_batch(
+        res = wfa_forward_rows(
             torch.from_numpy(t_b).to(device), torch.from_numpy(q_b).to(device),
             torch.from_numpy(n).to(device), torch.from_numpy(m).to(device),
             L=L, S_max=S_max, max_wf_length=max_wf_length, x=mismatch,
             o=open_penalty, e=ext_penalty)
-        fs = res["final_s"].cpu().numpy().astype(np.int64)
         # only the rows each aligned segment's backtrace reads
-        last = np.where(fs <= max_steps, fs, -1)
-        rows = torch.from_numpy(np.arange(S_last + 1)[None] <= last[:, None])
-        rows = rows.to(res["final_s"].device)
-        hist = [res[k][rows].cpu().numpy() for k in ("m_hist", "i_hist",
-                                                     "d_hist")]
+        fs, _, layout, vals = fetch_rows(res, L, S_max, max_steps)
+        del res
         t0 = tick(stats, "WFA forward", t0)
-        base = 0
         for gi, i in enumerate(ids):
             if fs[gi] < 0:
                 to_arbiter["no completion within S_max"].append(i)
@@ -470,10 +653,9 @@ def batch_wfa_align(
                 to_arbiter["over max_steps"].append(i)
                 continue
             S = int(fs[gi])
-            M, I, Dv = (h[base: base + S + 1] for h in hist)
-            base += S + 1
-            out[i] = _backtrace_host(*pairs[i], M, I, Dv, S, kb_lo, mismatch,
-                                     open_penalty, ext_penalty)
+            out[i] = _backtrace_host(*pairs[i],
+                                     _SegmentRows(vals, layout, gi, S), S,
+                                     mismatch, open_penalty, ext_penalty)
             n_dev += 1
         tick(stats, "backtrace", t0)
     count(stats, "wfa_on_device", n_dev)

@@ -1099,7 +1099,56 @@ def wfa_pairs(seed=14, L=512):
     pairs.append((s, s[:100] + s[100:180].lower() + s[180:]))
     s = rand(L)
     pairs.append((s, indels(snps(s, 5), 2)[:L]))
-    return pairs
+    return pairs + wfa_edge_pairs(seed + 1, L)
+
+
+def wfa_edge_pairs(seed=15, L=512):
+    """Pairs of at most L bases for K13's compares and warp runs: exact
+    runs of 3-129 and 4,095 bases before the first mismatch (the origin's
+    run ends at each byte of an 8-byte compare, of the 16 a thread takes,
+    of a warp round's lanes); a mismatch at each byte of a word, on
+    diagonal 0 and, after an insertion, on diagonal -1, whose q window is
+    unaligned; N (matching N) and lowercase (mismatching uppercase) at
+    word edges; a pair that completes at s = 0 with n = L; a run of 2,000
+    bases after a 20-base deletion, extended by a warp at s > 0; and
+    SNPs spread so that windows cross 32 and 64 diagonals before they
+    complete."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+
+    def rand(n):
+        return acgt[rng.integers(0, 4, n)].tobytes()
+
+    def sub(s, p, ch=None):  # a mismatching base (or `ch`) at p
+        b = bytearray(s)
+        b[p] = ch if ch is not None else acgt[(acgt.tolist().index(b[p])
+                                               + 1) % 4]
+        return bytes(b)
+
+    pairs = []
+    for run in (3, 4, 5, 31, 32, 33, 127, 128, 129, 4095):
+        t = rand(run + 40)
+        pairs.append((t, sub(t, run)))
+    t = rand(120)
+    for p in range(16, 24):
+        pairs.append((t, sub(t, p)))
+        pairs.append((t, t[:9] + b"A" + sub(t, p)[9:]))
+    t = rand(100)
+    pairs += [(sub(t, 15, ord("N")), sub(t, 15, ord("N"))),
+              (sub(t, 8, ord("N")), sub(t, 8, ord("G"))),
+              (t, sub(t, 16, t[16] | 0x20)),
+              (sub(t, 7, ord("n")), sub(t, 7, ord("N")))]
+    t = rand(L)
+    pairs.append((t, t))
+    t = rand(2100)
+    pairs.append((t, t[:50] + t[70:]))
+    for n_snp, gap in ((7, 24), (14, 24)):
+        t = rand(n_snp * gap + 40)
+        q = t
+        for i in range(n_snp):
+            q = sub(q, 20 + i * gap)
+        pairs.append((t, q))
+    return [(a, b) for a, b in pairs if len(a) <= L and len(b) <= L]
 
 
 def wfa_batch(pairs, L):

@@ -7,7 +7,8 @@ kernels' input checks, and K12 (the MAP-graph row sort and the sort_pairs
 engine) with pgr-pbundle-decomp on the card against the CPU, K12's
 onesweep engine and K2's warp compaction on their edge cases, the width
 errors of the sorts on the card against the CPU's, and K13
-(the WFA forward pass) against its plain version and the arbiter, with
+(the WFA forward pass, both entries) against its plain version and the
+arbiter, with
 pgr-get-sv-candidate-regions on the card against the CPU, K14-K19 against
 their plain versions on the edge cases, the dense pair variants and the
 v1 programs (over NCCL at world size 1) on the card against the CPU,
@@ -330,6 +331,38 @@ def test_wfa_forward_matches_plain(dev, L, S_max):
     assert int((got["final_s"] >= 0).sum()) > len(pairs) // 2
 
 
+@pytest.mark.parametrize("L,S_max,max_wf", [(512, 256, 384),
+                                             (8192, 256, 384),
+                                             (512, 61, 384), (512, 64, 65)])
+def test_wfa_rows_entry_matches_plain_and_batch(dev, L, S_max, max_wf):
+    """K13's SV entry (wfa_forward_rows) against its plain version and,
+    row for row, against wfa_forward_batch on the card, on
+    cases.wfa_pairs with its edge pairs (runs ending at each byte of a
+    compare and of a warp round, a 4,095-base run at L = 8,192, N and
+    lowercase at word edges, windows past 32, 64 and max_wf diagonals);
+    and wfa_forward_batch against its plain version at max_wf 65."""
+    from pgrtk_tpu_torch.ops import wfa as twfa
+
+    pairs = cases.wfa_pairs(L=L)
+    args = [torch.from_numpy(a).to(dev) for a in cases.wfa_batch(pairs, L)]
+    kw = dict(L=L, S_max=S_max, max_wf_length=max_wf)
+    before = kb.wfa_forward_rows.launches
+    got = twfa.written_rows(twfa.wfa_forward_rows(*args, **kw), L, S_max)
+    assert kb.wfa_forward_rows.launches == before + 1
+    band = twfa.wfa_forward_batch(*args, **kw)
+    want = twfa.written_rows(twfa.wfa_forward_rows_plain(*args, **kw), L,
+                             S_max)
+    torch.cuda.synchronize()
+    for k in got:
+        assert _equal(got[k], want[k]), k
+    rows = twfa.written_rows(twfa.rows_of(band, L, S_max), L, S_max)
+    for k in got:
+        assert _equal(got[k], rows[k]), k
+    plain = twfa.wfa_forward_batch_plain(*args, **kw)
+    for k in band:
+        assert _equal(band[k], plain[k]), k
+
+
 def test_batch_wfa_align_on_card_matches_arbiter(dev):
     from pgrtk_tpu_torch.native import build as native
     from pgrtk_tpu_torch.ops import wfa as twfa
@@ -354,7 +387,7 @@ def test_sv_cli_on_card_matches_cpu(dev, tmp_path):
     opt = ["--generate-sv-candidate-fasta-file"]
     kb.reset_launches()
     assert cli.main(argv + [str(tmp_path / "gpu")] + opt, device=dev) == 0
-    assert kb.wfa_forward.launches > 0 and kb.sketch_mode1.launches > 0
+    assert kb.wfa_forward_rows.launches > 0 and kb.sketch_mode1.launches > 0
     assert cli.main(argv + [str(tmp_path / "cpu")] + opt, device="cpu") == 0
     for ext in cli.OUTPUTS + cli.FASTA_OUTPUTS:
         assert (tmp_path / ("gpu" + ext)).read_bytes() == (
@@ -521,6 +554,25 @@ def test_sketch_dense_mode_matches_plain(dev, exact):
     want = tsk.sketch_mode2_dense_plain(*args, K, R, CHUNK, exact)
     assert bool(got["inexact"]) == (not exact)
     assert _equal(got, want)
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_sketch_dense_mode_on_a_partial_block_matches_plain(dev, exact):
+    """K1's dense mode takes 64 lanes a block: 131 rows of one chunk
+    leave 3 lanes in the last block; ragged rows, an N run, lowercase."""
+    rng = np.random.RandomState(8)
+    seqs = np.frombuffer(b"ACGT", np.uint8)[rng.randint(0, 4, (131, CHUNK))]
+    seqs = seqs.copy()
+    seqs[128, 100:180] = ord("N")
+    seqs[129, :300] |= 0x20
+    lens = np.full(131, CHUNK)
+    lens[[3, 127, 130]] = [57, 300, 511]
+    args = (torch.from_numpy(seqs).to(dev), torch.from_numpy(lens).to(dev))
+    got = tsk.sketch_mode2_dense(*args, K, R, CHUNK, exact)
+    want = tsk.sketch_mode2_dense_plain(*args, K, R, CHUNK, exact)
+    torch.cuda.synchronize()
+    assert _equal(got, want)
+    assert bool(want["selected"][128:].any())
 
 
 def test_dense_variants_on_card_match_cpu(dev):

@@ -10,7 +10,8 @@ package's _rebuild_ids of the JAX M history.  Cases: tests/test_ops_wfa.py's
 pairs, its 80- and 66-SNP trim cases and adversarial indels at L = 512;
 L = 296 with S_max = 512; L = 1,024; an S_max that is not a multiple of
 8.  batch_wfa_align runs at L = 8,192 on the gap segments the SV CLI
-aligns on the seeded corpus of pgrtk_tpu_torch/utils/cases.py.
+aligns on the seeded corpus of pgrtk_tpu_torch/utils/cases.py.  K13's
+edge pairs and its SV entry: tests/test_torch_wfa_edges.py.
 """
 import numpy as np
 import pytest
@@ -86,13 +87,20 @@ CASES = {
 def test_plain_forward_matches_jax(case):
     make, L, S_max = CASES[case]
     pairs = [(a, b) for a, b in make() if max(len(a), len(b)) <= L]
+    _hold_to_jax(pairs, L, S_max, case=case)
+
+
+def _hold_to_jax(pairs, L, S_max, max_wf=384, case=None):
+    """The port's forward pass against the JAX one, every row up to each
+    segment's completion; returns final_s."""
     t, q, n, m = cases.wfa_batch(pairs, L)
     want = jdev.wfa_forward_batch(jnp.asarray(t), jnp.asarray(q),
                                   jnp.asarray(n), jnp.asarray(m), L=L,
-                                  S_max=S_max)
+                                  S_max=S_max, max_wf_length=max_wf)
     want = {k: np.asarray(v) for k, v in want.items()}
     got = twfa.wfa_forward_batch(
-        *(torch.from_numpy(a) for a in (t, q, n, m)), L=L, S_max=S_max)
+        *(torch.from_numpy(a) for a in (t, q, n, m)), L=L, S_max=S_max,
+        max_wf_length=max_wf)
     got = {k: v.numpy() for k, v in got.items()}
     S_last, kb_lo, DB = twfa.wfa_band(L, S_max)
     assert got["m_hist"].shape == (len(pairs), S_last + 1, DB)
@@ -128,6 +136,7 @@ def test_plain_forward_matches_jax(case):
         if fs >= 0:
             assert (got["m_hist"][g, fs + 1:] == -1).all()
             assert (got["hi_hist"][g, fs + 1:] == -1).all()
+    return got["final_s"]
 
 
 def test_rows_do_not_depend_on_the_batch():
