@@ -24,8 +24,14 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      K7's anchors entry on the same postings as its JAX-shaped entry;
      K2, K3, K4 and K6 on 70,000 rows, past gridDim.y's 65,535; the
      inputs are pgrtk_tpu_torch/utils/cases.py's; K9 on mode-1 rows with
-     N runs, a palindromic 56-mer and an (AC)n run at two specs, K10 on
-     the chain groups, K11 on a widened padded table; K1's exact walk at
+     N runs, a palindromic 56-mer and an (AC)n run at two specs and at
+     windows of 2, 3, 64, 65, 127 and 128, and on rows whose lengths and
+     t0 sit at its 2,048-position tile edges; K10 on the chain groups,
+     K8's staging and ring edge groups under both filter settings, and
+     its mask-edge groups (a left of all ones beside the empty slots,
+     same-left runs longer than the window, invalid anchors inside them;
+     W 1, 7 and 32, max_span 1 and 8); K11 on a widened padded table;
+     K1's exact walk at
      the auto step's 12 slots on its batches and on cases.warmup_cases:
      N runs of 8 to 20,000 bases ending at chunk starts, an all-N row),
      and times the exact walk with and without the long N runs;
@@ -171,7 +177,9 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      4's step, a torch.profiler pass;
      (11c) the count (K16), probe (K11) and v2 probe-only (K17) steps,
      the batch against itself: all three counts equal and at least
-     n_pairs, median of 5 each; (11d) K16 and K17 against their plain
+     n_pairs, median of 5 each, and the bounds of the v1 index and probe
+     steps (sums of their kernels' bounds: phase 5's K1-K4 and sort_pairs,
+     and K11 at the probe step's keys); (11d) K16 and K17 against their plain
      versions at 11c's shapes and on cases.v1_search_cases and
      cases.shard_cases, then the dense pipeline (mesh.dense_index_step,
      gapped and not) on phase 4's batch: its counts equal to phase 4's,
@@ -285,18 +293,20 @@ SLOT = (8, 4, BIT)   # a compacted mer: x, y (position and strand in 32
 PAIR = (8, 8, 4, 4, BIT, BIT)  # a pair: k0, k1, bgn, end, orientation, valid
 HIT = (BIT, 4)       # a probed key: found, its slot or key index
 SCORE = (4, 4)       # a chained anchor: score, best predecessor
-# K1's compact walk and K9's walk per base: set in main() from the SASS
-# of the built loops (two 64-bit Wang hashes, registers)
-OPS_WALK = OPS_WALK_MODE1 = None
-# K1's dense mode per base: the compact walk's hashes and selection test,
-# which it computes for the same bases, and OPS_DENSE_VALUES to make what
-# the compact walk makes only for a selected base: x = h << 8 | k and
+# K1's compact walk per base: set in main() from the SASS of the built
+# loop (two 64-bit Wang hashes, registers)
+OPS_WALK = None
+# K1's dense mode and K9 per base: the compact walk's hashes, which they
+# compute for the same bases, and OPS_DENSE_VALUES to make what the
+# compact walk makes only for a selected base: x = h << 8 | k and
 # y = p << 1 | strand (a 64-bit shift and an OR each, three 32-bit
-# instructions) and the selected flag (one).  The kernel's own staging
-# and write-back are not work the function needs, so they are not counted
+# instructions) and the selected or emitted flag (one).  The kernels' own
+# staging and write-back are not work the function needs, so they are not
+# counted (K9's walk, staging included, is sass_ops' "K9 mode-1 walk")
 OPS_DENSE_VALUES = 7
-OPS_WINDOWS = 16     # K9 per base: sliding min and max by van Herk (the
-                     # least work; the kernel scans each window whole)
+OPS_WINDOWS = 16     # K9 per base: sliding min and max by van Herk, as
+                     # the kernel takes them (prefix, suffix and two
+                     # reads a window; the least work)
 OPS_ENTRY = 16       # K2/K3/K4/K6 per stream entry: scan, compares
 OPS_POSTING = 16     # K7 per postings slot
 OPS_SLOT = 32        # K8/K10 per anchor and window slot: filters, score
@@ -1041,6 +1051,23 @@ def probe_work(k0, k1, bits, fence, tk0, row_bytes):
             OPS_COMPARE * n_slots(b))
 
 
+def k11_work(k0, bits, row, W, found, hit):
+    """K11's work on keys k0 in a padded table (`row` its slots' key
+    indexes, -1 at pad) that gave (found, hit).  Returns (input bytes,
+    each read once: a query key's two words, the keys of each bucket
+    probed, the row of each slot hit; compares, one per query key and
+    occupied slot of its bucket; the occupied slots of the buckets
+    probed)."""
+    from pgrtk_tpu_torch.ops.int64 import srl
+
+    occ = (row >= 0).reshape(-1, W).sum(dim=1)
+    bucket = srl(k0, 56 - bits)
+    n_read = int(occ[torch.unique(bucket)].sum())
+    in_bytes = (16 * k0.numel() + 16 * n_read
+                + 4 * torch.unique(hit[found]).numel())
+    return in_bytes, int(occ[bucket].sum()), n_read
+
+
 def phase_query(dev, kb, tsk, tp, targets, queries):
     from pgrtk_tpu_torch.ops import chain as tc
     from pgrtk_tpu_torch.ops import probe as tpr
@@ -1388,7 +1415,6 @@ def phase_batch_device(dev, kb, targets, queries):
     from pgrtk_tpu_torch.ops import chain as tc
     from pgrtk_tpu_torch.ops import probe as tpr
     from pgrtk_tpu_torch.ops import sketch1 as ts1
-    from pgrtk_tpu_torch.ops.int64 import srl
     from pgrtk_tpu_torch.ops.sketch import pad_batch
     from pgrtk_tpu_torch.parallel import device_query as dq
 
@@ -1510,12 +1536,9 @@ def phase_batch_device(dev, kb, targets, queries):
     # decoys, with the same query keys
     pargs = (k0, k1, pad["bits"], pad["k0"], pad["k1"], pad["row"],
              pad["W"])
-    occ = (pad["row"] >= 0).reshape(-1, pad["W"]).sum(dim=1)
-    bucket = srl(k0, 56 - pad["bits"])
-    n_cmp = int(occ[bucket].sum())
-    n_read = int(occ[torch.unique(bucket)].sum())
     found, row = tpr.probe_keys(*pargs)
-    n_rows = torch.unique(row[found]).numel()
+    k11_in, n_cmp, n_read = k11_work(k0, pad["bits"], pad["row"], pad["W"],
+                                     found, row)
     print(f"  the path's padded table ('mode 1'): "
           f"{len(stores['mode 1'].index_keys)} keys, W={pad['W']}, bits "
           f"{pad['bits']}; {int(found.sum())} of {k0.numel()} query keys "
@@ -1534,17 +1557,15 @@ def phase_batch_device(dev, kb, targets, queries):
             # palindrome flag per row
             [seqs, lens], lambda got: need(got["x"].numel(), 8, BIT, BIT)
             + need(got["palindrome"].numel(), BIT),
-            (OPS_WALK_MODE1 + OPS_WINDOWS) * seqs.numel(), plain_reps=1),
+            (OPS_WALK + OPS_DENSE_VALUES + OPS_WINDOWS) * seqs.numel(),
+            plain_reps=1),
         "probe_keys": measure(
             f"K11 probe_keys, {k0.numel()} keys, 'mode 1' padded table "
             f"W={pad['W']}, bits {pad['bits']}",
             lambda: tpr.probe_keys(*pargs),
             lambda: tpr.probe_keys_plain(*pargs),
-            # read once: each query key's two words, the keys of each
-            # bucket probed, the row of each slot hit; a compare per
-            # query key and occupied slot of its bucket
-            16 * k0.numel() + 16 * n_read + 4 * n_rows,
-            lambda got: need(got[0].numel(), *HIT), OPS_COMPARE * n_cmp),
+            k11_in, lambda got: need(got[0].numel(), *HIT),
+            OPS_COMPARE * n_cmp),
     }
     # the path's use of K5: found only, the kernels line's probe_fetch
     results["probe_fetch"] = measure(
@@ -1566,7 +1587,9 @@ def phase_batch_device(dev, kb, targets, queries):
         lambda: tc.chain_scores_dense_plain(a_t, v_t, 0.025),
         [a_t, v_t], lambda got: need(got[0].numel(), *SCORE)
         + need(got[2].numel(), BIT),  # inexact per group
-        32 * (3 * 32 + OPS_SLOT) * int(valid.sum()), reps=2, plain_reps=1)
+        # W = 32 slots' filters and candidate a valid anchor: the
+        # function's work, whatever the kernel spends on its masks
+        32 * OPS_SLOT * int(valid.sum()), reps=2, plain_reps=1)
     for name in results:
         results[name]["launches"] = launches[name]
     return results
@@ -2037,10 +2060,13 @@ def k15_work(qk0, qk1, bits, Pp):
             OPS_COMPARE * int(live.sum()) * 128)
 
 
-def phase_sharded(dev, kb, mesh, targets, queries, build_dir, stamp):
+def phase_sharded(dev, kb, mesh, targets, queries, build_dir, stamp,
+                  index_bounds):
     """Phase 10: the hash-range-sharded v2 index and query on one card,
     over a real NCCL process group of world size 1 (FileStore under
-    build/).  The NCCL all_to_all between ranks is not exercised."""
+    build/).  The NCCL all_to_all between ranks is not exercised.
+    `index_bounds`: phase 5's (bound_ms, bound_by) of INDEX_KERNELS, for
+    the bounds of phase 11's steps."""
     import torch.distributed as dist
 
     from pgrtk_tpu_torch import dryrun
@@ -2071,7 +2097,8 @@ def phase_sharded(dev, kb, mesh, targets, queries, build_dir, stamp):
         measured.update(phase_v2_query(dev, kb, mesh, comm, tq, targets,
                                        queries))
         stamp("phase 10")
-        measured.update(phase_v1(dev, kb, mesh, comm, batch, stamp))
+        measured.update(phase_v1(dev, kb, mesh, comm, batch, stamp,
+                                 index_bounds))
         stamp("phase 11")
     finally:
         dist.destroy_process_group()
@@ -2404,10 +2431,13 @@ def query_steps(mesh, comm, batch, table, probe):
     }
 
 
-def phase_v1(dev, kb, mesh, comm, batch, stamp):
+def phase_v1(dev, kb, mesh, comm, batch, stamp, index_bounds):
     """Phase 11: the v1 replicated-index programs at world size 1 on phase
     4's 268 Mbase batch (kept from phase 10b, with its v2 planes), and
-    the dense pair variants on its dense planes."""
+    the dense pair variants on its dense planes.  The bounds of the v1
+    index and probe steps are the sums of their kernels' bounds: phase
+    5's K1-K4 and sort_pairs (`index_bounds`, the same kernels on the
+    same batch) and K11 at the probe step's keys."""
     from pgrtk_tpu_torch.ops import pairs as tp
 
     seqs, lens, rids = batch["seqs"], batch["lens"], batch["rids"]
@@ -2424,7 +2454,8 @@ def phase_v1(dev, kb, mesh, comm, batch, stamp):
     torch.cuda.synchronize()
     kb.reset_launches()
     with capture(mesh, "pair_key_search") as k16, \
-            capture(mesh, "shard_probe_found") as k17:
+            capture(mesh, "shard_probe_found") as k17, \
+            capture(mesh.probe_ops, "probe_keys") as k11:
         v1 = v1_step()
         table = v1["table"]
         print(f"  safe_rerun {v1['safe_rerun']} overflow "
@@ -2460,6 +2491,21 @@ def phase_v1(dev, kb, mesh, comm, batch, stamp):
                                  "shard_probe_found"):
         require(launches.get(name, 0) > 0,
                 f"kernel {name} never launched on the v1 path")
+    args = k11.calls[-1][0]  # (k0, k1, bits, tk0, tk1, row, W)
+    found, row = mesh.probe_ops.probe_keys(*args)
+    k11_in, n_cmp, _ = k11_work(args[0], args[2], args[5], args[6], found,
+                                row)
+    k11_bound = bound(k11_in + need(found.numel(), *HIT),
+                      OPS_COMPARE * n_cmp)
+    parts = [index_bounds[name] for name in INDEX_KERNELS]
+    v1_bound, probe_bound = step_bound(parts), step_bound(parts[:4]
+                                                          + [k11_bound])
+    print(f"  bounds of the steps (sums of their kernels' bounds): v1 index "
+          f"{v1_bound[0]:.4f} ms by {v1_bound[1]} (phase 5's K1-K4 and "
+          f"sort_pairs), probe {probe_bound[0]:.4f} ms by {probe_bound[1]} "
+          f"(K1-K4 and K11 at {found.numel()} keys: {k11_bound[0]:.4f} ms "
+          f"by {k11_bound[1]})")
+    del found, row, args
 
     gapped = scaffold_gaps(seqs)
 
@@ -2634,7 +2680,7 @@ def set_op_rates():
     """INT_OPS_PER_S from the card (SMs x 64 INT32 lanes x the maximum SM
     clock), and the walks' instruction slots per base from the SASS of
     the built library (kernels/sass_ops.py)."""
-    global INT_OPS_PER_S, SM_HZ, OPS_WALK, OPS_WALK_MODE1
+    global INT_OPS_PER_S, SM_HZ, OPS_WALK
     global OPS_WFA_BASE
     import subprocess
     from pathlib import Path
@@ -2651,7 +2697,6 @@ def set_op_rates():
     INT_OPS_PER_S = sms * INT_LANES_PER_SM * SM_HZ
     walks = sass_ops.count(Path(kb.build_report["path"]))
     OPS_WALK = walks["K1 compact walk"]["slots"]
-    OPS_WALK_MODE1 = walks["K9 mode-1 walk"]["slots"]
     OPS_WFA_BASE = walks["K13 warp compare"]["slots"]
     print(f"integer issue rate {INT_OPS_PER_S:.4e}/s ({sms} SMs x "
           f"{INT_LANES_PER_SM} lanes x {mhz:.0f} MHz)")
@@ -2706,6 +2751,9 @@ def main():
         phase_host_api(dev, tsk)
         stamp("phases 2-3")
         measured, index_step = phase_main_path(dev, tsk, tp, mesh, kb)
+        index_bounds = {name: (measured[name]["bound_ms"],
+                               measured[name]["bound_by"])
+                        for name in INDEX_KERNELS}
         stamp("phases 4-5")
         query_measured, query_errs, query_step = phase_query(
             dev, kb, tsk, tp, targets, queries)
@@ -2732,7 +2780,8 @@ def main():
         stamp("phase 9")
         # entries measured earlier take their launches from this path
         for name, r in phase_sharded(dev, kb, mesh, targets, queries,
-                                     build_dir, stamp).items():
+                                     build_dir, stamp,
+                                     index_bounds).items():
             measured.setdefault(name, {}).update(r)
         stamp("phases 10-11")
     except SmokeFailure as e:

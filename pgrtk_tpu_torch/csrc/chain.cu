@@ -353,160 +353,228 @@ extern "C" int pgrtk_chain_scores_fast(const void* anchors, const void* valid,
 // groups K8 flags `dup` (chain.py:738-756) and, with kernel="dense", the
 // DP of every group.
 //
-// What bounds it on this card: the sequential dependence along a group,
-// as K8, with O(W) warp shuffles per step for the pairwise distinct-left
-// masks.
+// What bounds it on this card: as K8, the latency of each step's
+// dependent chain.  The work (filters and a candidate for each of W
+// slots, 48 bytes in and 8 out an anchor) is small, and the card gets
+// parallelism only across groups (G = 64 on the batch path): a step
+// costs the latency of its votes, reductions and stores, not their issue.
+// A step costs ~180 cycles (0.28 ms for 64 groups of 3,125 anchors, W =
+// 32, on an H100 SXM at 1,980 MHz): three ballots, two redux.sync and the
+// filters, with no loop over the slots and no global load on its chain.
 //
-// Design: one warp per group, ring slot d in lane d (W <= 32).  It
-// differs from K8 where the JAX scan differs:
-//  - the window is a ring: anchor i goes to slot i % W, valid or not; an
-//    invalid anchor occupies its slot with index -1 (never occupied,
-//    never nearer than a slot that is);
-//  - "nearer" is a comparison of the slots' anchor indices, and a slot is
-//    new if no nearer unfiltered slot shares its left coordinate: each
-//    lane builds, over the W lanes by shuffles, the masks of the lanes
-//    nearer than it and of the lanes sharing its left; a ballot of the
-//    new slots then gives each lane its count of nearer new slots;
-//  - `inexact` tests the scan step (i > W), not the count of valid
-//    anchors pushed;
-//  - a full duplicate of the current anchor (all six coordinates equal,
-//    occupied slot) takes the new score too (the reference's
-//    value-keyed score map), besides slot i % W.
-// Nearest wins score ties (largest anchor index among the best); f32 ops
-// in the reference's order with round-to-nearest intrinsics, so nvcc
-// cannot contract to an FMA; coordinates are converted to f32 before any
-// subtraction; equality tests use the 32-bit patterns.
+// Design: one warp per group, ring slot s in lane s (W <= 32), one warp a
+// block (at G = 64, 64 SMs each run one warp, which shares nothing; four
+// warps a block would put four groups on one SM's schedulers, and the
+// kernel's time is its slowest group's chain either way).  It keeps the
+// JAX scan's semantics (ops/chain.py:89-243):
+//  - the ring: anchor i goes to slot i % W, valid or not; an invalid
+//    anchor occupies its slot with index -1, never nearer than a slot
+//    that holds a valid one;
+//  - masks kept across steps, not rebuilt: each lane holds the W-bit
+//    masks of the slots nearer than it (larger anchor index) and of the
+//    slots sharing its left coordinates.  Both change only where an
+//    anchor enters slot e: every other lane sets its nearer bit e if the
+//    anchor is valid and clears it if not, and sets its same-left bit e to
+//    the step's same-left test; lane e's nearer mask becomes 0 (valid) or
+//    the occupied mask (invalid), its same-left mask the step's ballot of
+//    the test plus its own bit.  The empty start (left (-1, -1, -1) in
+//    every slot) is all W bits, so a real left of 0xFFFFFFFF matches the
+//    empty slots, as in the JAX init.  A slot is then new iff it is
+//    unfiltered and no nearer unfiltered slot shares its left (a ballot
+//    and two ANDs), and its count of nearer new slots is a popcount;
+//  - staging as K8: each group's anchors come in 32 at a time, one a
+//    lane, a chunk ahead, converted once (u32 -> f32, self score,
+//    relative orientation) into shared memory, so no global load sits on
+//    a step's chain;
+//  - the best score is one __reduce_max_sync on K8's order-preserving
+//    int32 image of the f32 candidate, its predecessor a second one (the
+//    largest winning anchor index: the nearest wins ties), in K8's
+//    two-stage pipeline: a step's best is settled in the next step, after
+//    that step's filters, and its prev a step later still;
+//  - a full duplicate (all six coordinates equal, occupied slot) takes the
+//    new score when the step settles, as slot i % W does;
+//  - `inexact` tests the scan step (i > W);
+//  - outputs: lane j keeps step j's score and prev of the chunk; the warp
+//    stores 32 of each at once.
+// f32 ops in the reference's order with round-to-nearest intrinsics, so
+// nvcc cannot contract to an FMA; coordinates are converted to f32 before
+// any subtraction; equality tests use the 32-bit patterns.
 namespace {
 
-struct Anchor {
-  unsigned qb, qe, qo, tb, te, to;
-  bool valid;
+struct __align__(16) StepRight {  // the full-duplicate test
+  unsigned tb, te, to, pad;
+};
+struct DenseChunk {
+  Chunk c;
+  StepRight right[kChunk];
 };
 
-__device__ __forceinline__ Anchor load_anchor(const long long* a,
-                                              const bool* v, int i) {
-  Anchor x;
-  x.qb = (unsigned)a[i * 6 + 0];
-  x.qe = (unsigned)a[i * 6 + 1];
-  x.qo = (unsigned)a[i * 6 + 2];
-  x.tb = (unsigned)a[i * 6 + 3];
-  x.te = (unsigned)a[i * 6 + 4];
-  x.to = (unsigned)a[i * 6 + 5];
-  x.valid = v[i];
-  return x;
-}
-
-__global__ void chain_dense_kernel(const long long* __restrict__ anchors,
-                                   const bool* __restrict__ valid, int G,
-                                   int N, float penalty, int pen_neg,
-                                   float max_gap, int use_max_gap,
-                                   int oriented, int W, int max_span,
-                                   float* __restrict__ scores,
-                                   int* __restrict__ prev,
-                                   bool* __restrict__ inexact_out) {
-  const int g = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (g >= G) return;  // uniform across the warp
-  const bool in_win = lane < W;
+template <bool kOriented, bool kMaxGap>
+__global__ void __launch_bounds__(32)
+    chain_dense_kernel(const long long* __restrict__ anchors,
+                       const bool* __restrict__ valid, int N, float penalty,
+                       int pen_neg, float max_gap, int W, int max_span,
+                       float* __restrict__ scores, int* __restrict__ prev,
+                       bool* __restrict__ inexact_out) {
+  __shared__ DenseChunk ck;
+  const int g = blockIdx.x;
+  const int lane = threadIdx.x;
   const unsigned win = W == 32 ? kFull : ((1u << W) - 1u);
-  const long long* a = anchors + (long long)g * N * 6;
+  const longlong2* rows =
+      reinterpret_cast<const longlong2*>(anchors + (long long)g * N * 6);
   const bool* v = valid + (long long)g * N;
   float* out_s = scores + (long long)g * N;
   int* out_p = prev + (long long)g * N;
 
-  // ring slot `lane`
+  // ring slot `lane`; lanes >= W stay empty
   int w_idx = -1;
   float f_qe = 0.f, f_tb = 0.f, f_te = 0.f, w_score = kNeg;
   unsigned i_qb = kFull, i_qe = kFull, i_qo = kFull;
   unsigned i_tb = kFull, i_te = kFull, i_to = kFull;
   int w_rel = 0;
+  unsigned nearer = 0u;  // slots whose anchor index is larger than this one's
+  unsigned sleft = win;  // slots whose left coordinates equal this one's
+  // warp-uniform: the slots holding a valid anchor, the next anchor's slot
+  unsigned occ_m = 0u;
+  int e = 0;
   bool inexact = false;
 
-  Anchor nxt = N > 0 ? load_anchor(a, v, 0) : Anchor{};
-  for (int i = 0; i < N; ++i) {
-    const Anchor x = nxt;
-    if (i + 1 < N) nxt = load_anchor(a, v, i + 1);
-    const float fqb = __uint2float_rn(x.qb), fqe = __uint2float_rn(x.qe);
-    const float ftb = __uint2float_rn(x.tb), fte = __uint2float_rn(x.te);
-    const float self_score = __fsub_rn(fqe, fqb);
-    const int rel = (int)(x.qo ^ x.to);
-    const bool so = x.qo == x.to;
+  Raw raw;
+  fetch(rows, v, lane, N, raw);
+  for (int c0 = 0; c0 < N; c0 += kChunk) {
+    __syncwarp();
+    const unsigned vmask = stage(raw, ck.c, lane);
+    ck.right[lane] = StepRight{(unsigned)raw.b.y, (unsigned)raw.c.x,
+                               (unsigned)raw.c.y, 0u};
+    __syncwarp();
+    fetch(rows, v, c0 + kChunk + lane, N, raw);  // in flight meanwhile
+    const int n = min(kChunk, N - c0);
+    float my_s = kNeg;  // lane j: step j's outputs
+    int my_p = -1;
+    // p_*: the pending step; q_*: the prev reduction in flight
+    bool pend = false, q_pend = false, p_valid = false, p_dup = false;
+    bool q_use = false;
+    int p_j = 0, p_e = 0, p_best = 0, p_key = 0, p_widx = -1;
+    int q_j = 0, q_bp = -1;
+    float p_self = 0.f;
+    StepHead hd = ck.c.head[0];
+    StepLeft lf = ck.c.left[0];
+    for (int j = 0; j < n; ++j) {
+      const bool x_valid = (vmask >> j) & 1u;
+      // filters: the window's coordinates and masks and the anchor only
+      const bool occ = w_idx >= 0;
+      const float gap_q = fabsf(__fsub_rn(hd.fqb, f_qe));
+      const float gap_t = fabsf(__fsub_rn(hd.ta, hd.rel == 0 ? f_te : f_tb));
+      bool unf = occ;
+      if (kOriented) unf = unf && w_rel == hd.rel;
+      if (kMaxGap) unf = unf && gap_q <= max_gap && gap_t <= max_gap;
+      const bool same_left = i_qb == lf.qb && i_qe == lf.qe && i_qo == lf.qo;
+      unf = unf && !same_left;
+      // every lane votes: no short circuit around a ballot
+      const unsigned unf_m = __ballot_sync(kFull, unf);
+      const bool is_new = unf && !(sleft & nearer & unf_m);
+      const unsigned new_m = __ballot_sync(kFull, is_new);
+      const bool scored = unf && __popc(new_m & nearer) < max_span;
+      if (x_valid && c0 + j > W && __popc(new_m) < max_span) inexact = true;
+      float gp = fabsf(__fmul_rn(penalty, __fadd_rn(gap_q, gap_t)));
+      if (pen_neg) gp = -gp;
+      const StepRight rt = ck.right[j];
+      const bool dup = occ && x_valid && same_left && i_tb == rt.tb &&
+                       i_te == rt.te && i_to == rt.to;
+      const unsigned sl_m = __ballot_sync(kFull, same_left);
 
-    const bool occ = in_win && w_idx >= 0;
-    const float gap_q = fabsf(__fsub_rn(fqb, f_qe));
-    const float gap_t = so ? fabsf(__fsub_rn(ftb, f_te))
-                           : fabsf(__fsub_rn(fte, f_tb));
-    bool unf = occ;
-    if (oriented) unf = unf && w_rel == rel;
-    if (use_max_gap) unf = unf && gap_q <= max_gap && gap_t <= max_gap;
-    const bool same_left = i_qb == x.qb && i_qe == x.qe && i_qo == x.qo;
-    unf = unf && !same_left;
-    const unsigned unf_m = __ballot_sync(kFull, unf) & win;
+      if (q_pend && lane == q_j) my_p = q_use ? q_bp : -1;
+      q_pend = pend;
+      if (pend) {  // settle the pending step: its slot and its duplicates
+        const bool use = p_best > 0;
+        const float sc =
+            p_valid ? (use ? __int_as_float(p_best) : p_self) : kNeg;
+        if (lane == p_e || p_dup) w_score = sc;
+        if (lane == p_j) my_s = sc;
+        // nearest wins: the largest anchor index among the best
+        q_bp = __reduce_max_sync(kFull, p_key == p_best ? p_widx : -1);
+        q_use = use;
+        q_j = p_j;
+      }
 
-    // lanes nearer than this one, and lanes sharing this one's left
-    unsigned nearer_m = 0u, left_m = 0u;
-    for (int d = 0; d < W; ++d) {
-      const int o_idx = __shfl_sync(kFull, w_idx, d);
-      const unsigned o_qb = __shfl_sync(kFull, i_qb, d);
-      const unsigned o_qe = __shfl_sync(kFull, i_qe, d);
-      const unsigned o_qo = __shfl_sync(kFull, i_qo, d);
-      if (o_idx > w_idx) nearer_m |= 1u << d;
-      if (o_qb == i_qb && o_qe == i_qe && o_qo == i_qo) left_m |= 1u << d;
+      // this step's candidates in the reference's f32 op order, no
+      // contraction, computed on every lane and selected, and their best
+      const float s1 = __fadd_rn(w_score, hd.self);
+      const float s1_gp = __fsub_rn(s1, gp);
+      const float cand = scored ? s1_gp : kNeg;
+      p_key = order_key(cand);
+      p_best = __reduce_max_sync(kFull, p_key);
+      p_widx = w_idx;
+      p_j = j;
+      p_e = e;
+      p_valid = x_valid;
+      p_dup = dup;
+      p_self = hd.self;
+      pend = true;
+
+      // the anchor enters slot e, valid or not (its score follows when
+      // the step settles), and the masks follow it
+      const unsigned bit = 1u << e;
+      occ_m = x_valid ? occ_m | bit : occ_m & ~bit;
+      if (lane == e) {
+        const StepPush ps = ck.c.push[j];
+        w_idx = x_valid ? c0 + j : -1;
+        f_qe = ps.fqe;
+        f_tb = ps.ftb;
+        f_te = ps.fte;
+        i_qb = lf.qb;
+        i_qe = lf.qe;
+        i_qo = lf.qo;
+        i_tb = rt.tb;
+        i_te = rt.te;
+        i_to = rt.to;
+        w_rel = hd.rel;
+        nearer = x_valid ? 0u : occ_m;
+        sleft = (sl_m & win) | bit;
+      } else {
+        nearer = x_valid ? nearer | bit : nearer & ~bit;
+        sleft = same_left ? sleft | bit : sleft & ~bit;
+      }
+      e = e + 1 == W ? 0 : e + 1;
+      hd = ck.c.head[(j + 1) & (kChunk - 1)];  // the next step's anchor
+      lf = ck.c.left[(j + 1) & (kChunk - 1)];
     }
-    const bool is_new = unf && !(left_m & nearer_m & unf_m);
-    const unsigned new_m = __ballot_sync(kFull, is_new) & win;
-    const bool scored = unf && __popc(new_m & nearer_m) < max_span;
-    if (x.valid && i > W && __popc(new_m) < max_span) inexact = true;
-
-    // score in the reference's f32 op order, no contraction
-    const float s1 = __fadd_rn(w_score, self_score);
-    float gp = fabsf(__fmul_rn(penalty, __fadd_rn(gap_q, gap_t)));
-    if (pen_neg) gp = -gp;
-    const float cand = scored ? __fsub_rn(s1, gp) : kNeg;
-    float best = cand;
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1)
-      best = fmaxf(best, __shfl_xor_sync(kFull, best, d));
-    int best_prev = scored && cand == best ? w_idx : -1;
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1)
-      best_prev = max(best_prev, __shfl_xor_sync(kFull, best_prev, d));
-    const bool use_prev = best > 0.f;
-    float score_i = use_prev ? best : self_score;
-    if (!x.valid) score_i = kNeg;
-    if (lane == 0) {
-      out_s[i] = score_i;
-      out_p[i] = use_prev ? best_prev : -1;
+    // drain: the chunk's last steps
+    if (q_pend && lane == q_j) my_p = q_use ? q_bp : -1;
+    if (pend) {
+      const bool use = p_best > 0;
+      const float sc = p_valid ? (use ? __int_as_float(p_best) : p_self) : kNeg;
+      if (lane == p_e || p_dup) w_score = sc;
+      const int bp = __reduce_max_sync(kFull, p_key == p_best ? p_widx : -1);
+      if (lane == p_j) {
+        my_s = sc;
+        my_p = use ? bp : -1;
+      }
     }
-
-    // ring insertion; full duplicates take the new score too
-    const bool dup = occ && x.valid && same_left && i_tb == x.tb &&
-                     i_te == x.te && i_to == x.to;
-    if (lane == i % W) {
-      w_idx = x.valid ? i : -1;
-      f_qe = fqe;
-      f_tb = ftb;
-      f_te = fte;
-      i_qb = x.qb;
-      i_qe = x.qe;
-      i_qo = x.qo;
-      i_tb = x.tb;
-      i_te = x.te;
-      i_to = x.to;
-      w_rel = rel;
-      w_score = score_i;
-    } else if (dup) {
-      w_score = score_i;
+    if (lane < n) {
+      out_s[c0 + lane] = my_s;
+      out_p[c0 + lane] = my_p;
     }
   }
   if (lane == 0) inexact_out[g] = inexact;
 }
 
+template <bool kOriented, bool kMaxGap>
+void launch_dense(const void* anchors, const void* valid, int G, int N,
+                  float penalty, float max_gap, int W, int max_span,
+                  void* scores, void* prev, void* inexact,
+                  cudaStream_t stream) {
+  chain_dense_kernel<kOriented, kMaxGap><<<(unsigned)G, 32, 0, stream>>>(
+      (const long long*)anchors, (const bool*)valid, N, penalty,
+      penalty < 0.f ? 1 : 0, max_gap, W, max_span, (float*)scores,
+      (int*)prev, (bool*)inexact);
+}
+
 }  // namespace
 
-// anchors (G, N, 6) int64 holding u32 values; valid (G, N) bool; outputs
-// scores (G, N) float32, prev (G, N) int32, inexact (G,) bool.  max_gap
-// is read only when use_max_gap; 1 <= W <= 32.
+// anchors (G, N, 6) int64 holding u32 values, 16-byte aligned; valid
+// (G, N) bool; outputs scores (G, N) float32, prev (G, N) int32, inexact
+// (G,) bool.  max_gap is read only when use_max_gap; 1 <= W <= 32.
 extern "C" int pgrtk_chain_scores_dense(const void* anchors,
                                         const void* valid, int G, int N,
                                         float penalty, float max_gap,
@@ -514,13 +582,21 @@ extern "C" int pgrtk_chain_scores_dense(const void* anchors,
                                         int max_span, void* scores,
                                         void* prev, void* inexact,
                                         void* stream) {
-  if (G < 0 || N < 0 || W < 1 || W > 32) return (int)cudaErrorInvalidValue;
+  if (G < 0 || N < 0 || W < 1 || W > 32 || ((uintptr_t)anchors & 15))
+    return (int)cudaErrorInvalidValue;
   if (G == 0) return (int)cudaSuccess;
-  const int threads = 128;  // 4 groups per block
-  chain_dense_kernel<<<(unsigned)((G + 3) / 4), threads, 0,
-                       (cudaStream_t)stream>>>(
-      (const long long*)anchors, (const bool*)valid, G, N, penalty,
-      penalty < 0.f ? 1 : 0, max_gap, use_max_gap, oriented, W, max_span,
-      (float*)scores, (int*)prev, (bool*)inexact);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (oriented && use_max_gap)
+    launch_dense<true, true>(anchors, valid, G, N, penalty, max_gap, W,
+                             max_span, scores, prev, inexact, st);
+  else if (oriented)
+    launch_dense<true, false>(anchors, valid, G, N, penalty, max_gap, W,
+                              max_span, scores, prev, inexact, st);
+  else if (use_max_gap)
+    launch_dense<false, true>(anchors, valid, G, N, penalty, max_gap, W,
+                              max_span, scores, prev, inexact, st);
+  else
+    launch_dense<false, false>(anchors, valid, G, N, penalty, max_gap, W,
+                               max_span, scores, prev, inexact, st);
   return (int)cudaGetLastError();
 }

@@ -113,6 +113,8 @@ def library() -> ctypes.CDLL:
             lib.pgrtk_pair_summary_ints.argtypes = [_I, _LL]
             lib.pgrtk_sketch_scratch_bytes.restype = _LL
             lib.pgrtk_sketch_scratch_bytes.argtypes = [_I, _LL, _I, _I]
+            lib.pgrtk_sketch1_scratch_bytes.restype = _LL
+            lib.pgrtk_sketch1_scratch_bytes.argtypes = [_I, _LL]
             lib.pgrtk_radix_scratch_bytes.restype = _LL
             lib.pgrtk_radix_scratch_bytes.argtypes = [_LL]
             for k in KERNELS:
@@ -183,7 +185,7 @@ chain_scores_fast = Kernel(
 )
 sketch_mode1 = Kernel(
     "sketch_mode1", "pgrtk_tpu_torch/csrc/sketch1.cu",
-    [_P, _P, _I, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    [_P, _P, _I, _LL, _I, _I, _P, _P, _P, _P, _P, _P],
 )
 chain_scores_dense = Kernel(
     "chain_scores_dense", "pgrtk_tpu_torch/csrc/chain.cu",
@@ -295,9 +297,9 @@ def sketch_scratch(B: int, L: int, chunk: int, exact: bool, device):
     return torch.empty(n, dtype=torch.uint8, device=device)
 
 
-def sketch1_scratch(B: int, L: int, chunk: int, device) -> torch.Tensor:
-    """uint8 scratch for K9: the exact walk's plus one byte per base."""
-    n = library().pgrtk_sketch_scratch_bytes(B, L, chunk, 1) + B * L
+def sketch1_scratch(B: int, L: int, device) -> torch.Tensor:
+    """uint8 scratch for K9: the exact warm-up at 16-base lanes."""
+    n = library().pgrtk_sketch1_scratch_bytes(B, L)
     return torch.empty(n, dtype=torch.uint8, device=device)
 
 

@@ -6,26 +6,31 @@ pipe, from the SASS of the built kernel library.
 Needs the CUDA toolkit (nvcc, cuobjdump), so it runs on the machine with
 the card.  It builds the library (kernels/build.py), disassembles it with
 `cuobjdump -sass`, finds each walk's base loop (the loop whose body holds
-the walk's sequence loads: one 16-byte load per 16 bases in K1's walks,
-one byte load per base in K9's; for K13 the warp run's loop, which holds
-its 8-byte shared-memory loads and compares 16 bases a lane a round),
-and counts the body's instructions per base by the pipe that issues them
+the walk's sequence loads: one 16-byte load per 16 bases in K1's walks;
+for K13 the warp run's loop, which holds its 8-byte shared-memory loads
+and compares 16 bases a lane a round) or, for K9, whose threads each walk
+16 bases in straight-line code, the instructions from its one 16-byte
+sequence load to the block's first barrier after it (the walk, with the
+x values' and flags' stores to shared memory), and counts the
+instructions per base by the pipe that issues them
 on Hopper: the integer ALU pipe (IADD3, LOP3, SHF, ISETP, SEL, ...), the
 FMA pipe (IMAD, IMUL: integer multiply-adds issue there), and the rest
 (loads, stores, branches).  K1's compact walk skips the blocks that
 store a selected mer (taken for about one base in 256 at r = 4); K9's
-walk stores every base, so all its blocks count.  So do K1's dense
-walk's, whose loop also holds its staging and write-back (the stores of
-each 16-base step, unrolled): that count is what the kernel issues, not
-its bound, which counts the compact walk's slots and the values the
-dense mode makes (chip_smoke.py's OPS_DENSE_VALUES).  A count covers the
+walk stores every base to shared memory, so all its instructions count.
+So do K1's dense walk's, whose loop also holds its staging and
+write-back (the stores of each 16-base step, unrolled).  Those two
+counts are what the kernels issue, not their bounds, which count the
+compact walk's slots and the values the dense planes hold (chip_smoke.py's
+OPS_DENSE_VALUES), and for K9 its windows.  A count covers the
 loop's own instructions only: it reports the subroutine calls and inner
 loops the body holds ("calls", "inner loops"), whose instructions run
 more often than once an iteration and are not counted; each walk's loop
-holds none.  Each SM issues 64 ALU and 64 FMA-pipe lanes a clock and one
-warp instruction a clock per quarter (128 lanes), so a base costs at
-least max(alu, fma, (alu + fma + other) / 2) slots at the 64-lane rate:
-chip_smoke.py's OPS_WALK.  With an output path, the loops' SASS is
+holds none, and K9's region none if the compiler keeps the sequence load
+after the warm-up's loop.  Each SM issues 64 ALU and 64 FMA-pipe lanes a
+clock and one warp instruction a clock per quarter (128 lanes), so a
+base costs at least max(alu, fma, (alu + fma + other) / 2) slots at the
+64-lane rate: chip_smoke.py's OPS_WALK for the compact walk.  With an output path, the loops' SASS is
 written there too.
 """
 from __future__ import annotations
@@ -44,15 +49,18 @@ ALU_PIPE = ("IADD3", "LOP3", "SHF", "ISETP", "SEL", "LEA", "PRMT", "IMNMX",
             "R2P", "ISCADD", "LOP", "SHL", "SHR", "IADD", "ICMP", "VIADD",
             "VIMNMX", "MOV")
 # (kernel name fragment, the load opcode that marks the base loop, bases
-# a marker load covers, skip the store blocks)
+# a marker load covers, skip the store blocks, and for straight-line code
+# the opcode that ends the region begun at the marker, else None)
 WALKS = {
-    "K1 compact walk": ("sketch_walk_compact_kernel", "LDG.E.128", 16, True),
-    "K1 dense walk": ("sketch_walk_dense_kernel", "LDG.E.128", 16, False),
-    "K9 mode-1 walk": ("mode1_walk_kernel", "LDG.E.U8", 1, False),
+    "K1 compact walk": ("sketch_walk_compact_kernel", "LDG.E.128", 16, True,
+                        None),
+    "K1 dense walk": ("sketch_walk_dense_kernel", "LDG.E.128", 16, False,
+                      None),
+    "K9 mode-1 walk": ("mode1_kernel", "LDG.E.128", 16, False, "BAR"),
     # K13's warp run: the innermost loop holding its 8-byte loads of the
     # staged t and q, one round of 16 bases a lane (per_marker None:
     # bases an iteration)
-    "K13 warp compare": ("wfa_forward_kernel", "LDS.64", None, False),
+    "K13 warp compare": ("wfa_forward_kernel", "LDS.64", None, False, None),
 }
 WARP_ROUND_BASES = 16
 # (marker opcodes match as prefixes: LDG.E.128.CONSTANT and the like)
@@ -108,6 +116,18 @@ def base_loop(insns, marker: str):
     return best
 
 
+def straight(insns, marker: str, stop: str):
+    """The instructions from the first marker load to the first `stop`
+    instruction after it."""
+    start = next((i for i, x in enumerate(insns) if x[1].startswith(marker)),
+                 None)
+    if start is None:
+        raise RuntimeError(f"no {marker}")
+    end = next((i for i in range(start, len(insns))
+                if insns[i][1].startswith(stop)), len(insns))
+    return insns[start:end]
+
+
 def blocks(body):
     """The loop body cut into basic blocks (at branch targets and after
     branches)."""
@@ -134,9 +154,11 @@ def count(lib: Path, dump=None) -> dict:
     per base)} for the walks of WALKS."""
     fns = functions(lib)
     res = {}
-    for label, (frag, marker, per_marker, skip_stores) in WALKS.items():
+    for label, (frag, marker, per_marker, skip_stores, stop) in (
+            WALKS.items()):
         name = next(n for n in fns if frag in n)
-        body = base_loop(fns[name], marker)
+        body = (straight(fns[name], marker, stop) if stop
+                else base_loop(fns[name], marker))
         kept = [x for blk in blocks(body)
                 if not (skip_stores and any(y[1].startswith("STG")
                                             for y in blk))

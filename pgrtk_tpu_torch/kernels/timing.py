@@ -49,7 +49,19 @@ gave the kernels when this run builds them, then the parts asked for
          (kernels/sass_ops.py), and the fast walk on the clean batch
          beside two ablations of csrc/sketch.cu, built alone: the walk
          without its stores, and the stores without the hashes
-         (`dense_ablations`).
+         (`dense_ablations`);
+  batch  phase 7b's K9 and K10 (chip_smoke.py::phase_batch_device): K9
+         (sketch_mode1_dense) on the 8 bench query haplotypes as whole
+         1,048,576-base rows at (w, k) = (80, 56), the CLI default, and
+         (24, 15), with its device time split into the exact warm-up,
+         the walk and the emission (whatever kernels the tree has); K10
+         (chain_scores_dense) on the anchor groups of the mode-1 +
+         4,194,304-decoy store of the bench targets, W = 32, with its
+         cycles a scan step at the card's maximum SM clock; each
+         output's sha256 goes to FILE with --digest.
+With --digest FILE, the sha256 of the outputs of `step` and `batch` are
+written to FILE, one line each, so that two trees can be compared in one
+call.
 Every kernel is held to its plain version (tolerance 0).  Each kernel
 time is the median of five rounds of 20 back-to-back calls (CUDA events,
 ms a call), beside the device launches, busy time and time by kernel of
@@ -75,14 +87,16 @@ from ..ops import pairs as tp
 from ..ops import probe as tpr
 from ..ops import query_e2e as tq
 from ..ops import sketch as tsk
+from ..ops import sketch1 as ts1
 from ..utils import cases
 from .k1_modes import CHUNK, K, MIN_SPAN, R, SLOTS, batches
 
-PARTS = ("chain", "index", "query", "step", "wfa", "dense")
+PARTS = ("chain", "index", "query", "step", "wfa", "dense", "batch")
 PTXAS_KERNELS = ("sketch_walk", "rank", "min_span_kernel", "tile_summary",
                  "pair_summary", "tile_rank", "pair_kernel", "probe_kernel",
                  "probe_fetch_kernel", "dup_pair", "expand_kernel",
-                 "chain_fast_kernel", "wfa_forward")
+                 "chain_fast_kernel", "wfa_forward", "mode1",
+                 "chain_dense_kernel")
 CHAIN_G, CHAIN_N, CHAIN_W = 1024, 576, 24
 LIMIT = 128  # min(max_count, max_count_query) at the step's defaults
 
@@ -156,13 +170,23 @@ def equal(got, want):
         equal(g, w) for g, w in zip(got, want))
 
 
-def report(label, fn, plain):
-    ok = equal(fn(), plain())
+def report(label, fn, plain, by=None):
+    """Print the kernel's result held to its plain version, its events
+    time and its device profile (with `by`, its device time by group);
+    returns (result, events ms)."""
+    got = fn()
+    ok = equal(got, plain())
     ms = events_ms(fn)
-    n, busy, top = device_profile(fn)
+    if by is None:
+        n, busy, top = device_profile(fn)
+        parts = ""
+    else:
+        n, busy, top, groups = device_profile(fn, by=by)
+        parts = "; by part " + ", ".join(f"{k} {v:.4f}"
+                                         for k, v in sorted(groups.items()))
     print(f"{label}: equal {ok}; {ms:.4f} ms; {n:g} device launches, "
-          f"{busy:.4f} ms busy a call: {top}")
-    return ok
+          f"{busy:.4f} ms busy a call{parts}: {top}")
+    return got, ms
 
 
 def digest(res):
@@ -330,7 +354,7 @@ def part_query(dev, ctx):
             print(f"  {name} equals {fetched} on fetched rows: {same}")
 
 
-def part_step(ctx, digest_file):
+def part_step(ctx, digests):
     tens, q, qlens, C, kw = (ctx[k] for k in ("tens", "q", "qlens", "C",
                                               "kw"))
 
@@ -355,9 +379,7 @@ def part_step(ctx, digest_file):
     print(f"  by kernel: {top}")
     d = digest(res)
     print(f"query step outputs sha256 {d}")
-    if digest_file:
-        with open(digest_file, "w") as f:
-            f.write(d + "\n")
+    digests.append(("query step", d))
 
 
 def sv_segments(dev):
@@ -573,16 +595,108 @@ def dense_ablations(seqs, lens):
         kb._lib = real
 
 
+# K9 at phase 7b's CLI default (w, k) and utils/cases.py's small window
+BATCH_K9_SPECS = ((80, 56), (24, 15))
+
+
+def batch_inputs(dev):
+    """Phase 7b's inputs (chip_smoke.py::phase_batch_device): the 8 bench
+    query haplotypes as (8, 1,048,576) uint8 rows and their lengths, for
+    K9; and K10's anchor groups (G, N, 6) and valid mask: the queries'
+    mode-1 pairs probed in the mode-1 + decoys store of the 8 bench
+    targets, gathered as the path gathers them."""
+    import chip_smoke as cs
+    from ..core import seqdb
+    from ..core.query import (collect_target_hits_batch,
+                              pair_shmmrs_canonical_batch)
+    from ..core.spec import ShmmrSpec
+    from ..ops import sketch1 as ts1
+    from ..ops.sketch import pad_batch
+    from ..parallel import device_query as dq
+
+    targets, queries = cs.bench_corpus(dev)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    t_seqs = [acgt[row].tobytes() for row in targets]
+    q_seqs = [acgt[row].tobytes()
+              for row in queries.reshape(len(targets), -1)]
+    spec1 = ShmmrSpec(**cs.MODE1_SPEC)
+    store = seqdb.build_columnar_store(t_seqs, spec1, device=dev,
+                                       n_decoys=cs.N_INDEX_KEYS, seed=7)
+    table = dq._device_tables(store, dev)
+    pairs = pair_shmmrs_canonical_batch(ts1.sketch_mode1_arrays(
+        q_seqs, spec=spec1, device=dev))
+    k0 = torch.from_numpy(pairs["k0"].view(np.int64)).to(dev)
+    k1 = torch.from_numpy(pairs["k1"].view(np.int64)).to(dev)
+    j = dq.probe_key_index(table, k0, k1).long().cpu().numpy()
+    _, groups = collect_target_hits_batch(store, dict(pairs, j=j), 128,
+                                          128, 128)
+    anchors, valid = tc._sorted_batch(groups)
+    arr, lens = pad_batch(q_seqs)
+    return (torch.from_numpy(arr).to(dev),
+            torch.from_numpy(lens).to(torch.int64).to(dev),
+            torch.from_numpy(anchors.astype(np.int64)).to(dev),
+            torch.from_numpy(valid).to(dev))
+
+
+def k9_group(name):
+    """K9's launches by part: the exact warm-up (chunk tails and the row
+    ranks), the walk, the emission, or both in one kernel."""
+    low = name.lower()
+    if "chunk_tail" in low or "tile_" in low:
+        return "warm-up"
+    if "mode1_walk" in low:
+        return "walk"
+    if "mode1_emit" in low:
+        return "emission"
+    if "mode1" in low:
+        return "walk + emission"
+    return "other"
+
+
+def part_batch(dev, digests):
+    clock_hz = float(smi("clocks.max.sm")) * 1e6
+    seqs, lens, anchors, valid = batch_inputs(dev)
+    for w, k in BATCH_K9_SPECS:
+        args = (seqs, lens, k, w)
+        label = f"K9 sketch_mode1 {tuple(seqs.shape)} w={w} k={k}"
+        got, _ = report(label, lambda a=args: ts1.sketch_mode1_dense(*a),
+                        lambda a=args: ts1.sketch_mode1_dense_plain(*a),
+                        by=k9_group)
+        digests.append((label, digest(got)))
+        print(f"  outputs sha256 {digests[-1][1]}")
+        del got
+        torch.cuda.empty_cache()
+    G, N = valid.shape
+    args = (anchors, valid, 0.025)
+    label = (f"K10 chain_scores_dense ({G}, {N}) W=32 "
+             f"({int(valid.sum())} valid)")
+    got, ms = report(label, lambda: tc.chain_scores_dense(*args),
+                     lambda: tc.chain_scores_dense_plain(*args))
+    print(f"  {ms * 1e-3 * clock_hz / N:.0f} cycles a scan step")
+    digests.append((label, digest(dict(zip(("scores", "prev", "inexact"),
+                                           got)))))
+    print(f"  outputs sha256 {digests[-1][1]}")
+    from pathlib import Path
+
+    from . import sass_ops
+
+    walk = sass_ops.count(Path(kb.build_report["path"]))["K9 mode-1 walk"]
+    print("K9 mode-1 walk, SASS a base: " + ", ".join(
+        f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in walk.items()))
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("parts", nargs="*", help=f"of {PARTS}; default: all")
-    ap.add_argument("--digest", help="file for the step's output sha256")
+    ap.add_argument("--digest", help="file for the outputs' sha256")
     a = ap.parse_args(argv)
     parts = a.parts or PARTS
     if set(parts) - set(PARTS):
         ap.error(f"parts are {PARTS}")
     print(smi("name,power.limit"))
     dev = torch.device("cuda", 0)
+    digests = []
     kb.library()
     log = kb.build_report["log"]
     for kernel in PTXAS_KERNELS:
@@ -599,13 +713,18 @@ def main(argv) -> int:
             part_query(dev, ctx)
             torch.cuda.empty_cache()
         if "step" in parts:
-            part_step(ctx, a.digest)
+            part_step(ctx, digests)
         del ctx
         torch.cuda.empty_cache()
     if "wfa" in parts:
         part_wfa(dev)
     if "dense" in parts:
         part_dense(dev)
+    if "batch" in parts:
+        part_batch(dev, digests)
+    if a.digest:
+        with open(a.digest, "w") as f:
+            f.writelines(f"{label}: {d}\n" for label, d in digests)
     return 0
 
 

@@ -5,8 +5,8 @@ K8 `chain_scores_fast` scores G anchor groups at once: each anchor
 against a recency-ordered window of the last W valid anchors, with the
 reference's distinct-left break, nearest-wins ties and f32 op order.
 K10 `chain_scores_dense` is the variant exact under any duplicate
-anchors (a ring window with pairwise distinct-left masks); it reruns the
-groups K8 flags `dup`.  CPU tensors run the plain PyTorch versions (a
+anchors (a ring window, each slot's "nearer" and "same left" masks kept
+across steps); it reruns the groups K8 flags `dup`.  CPU tensors run the plain PyTorch versions (a
 loop over anchors with (G, W) tensor ops, mirroring the JAX scans step
 for step); CUDA tensors launch csrc/chain.cu (W <= 32) or raise.
 
@@ -318,6 +318,8 @@ def chain_scores_dense(anchors: torch.Tensor, valid: torch.Tensor,
     _check_window(lookback)
     G, N, _ = anchors.shape
     dev = anchors.device
+    if anchors.data_ptr() % 16:  # the kernel stages anchors 16 bytes a load
+        anchors = anchors.clone()
     scores = torch.empty((G, N), dtype=torch.float32, device=dev)
     prev = torch.empty((G, N), dtype=torch.int32, device=dev)
     inexact = torch.empty(G, dtype=torch.bool, device=dev)

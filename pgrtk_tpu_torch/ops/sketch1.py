@@ -150,9 +150,9 @@ def sketch_mode1_dense(seqs_u8: torch.Tensor, lengths: torch.Tensor,
     emitted = torch.empty((B, L), dtype=torch.bool, device=dev)
     pal = torch.zeros(B, dtype=torch.int32, device=dev)
     if seqs_u8.numel():
-        scratch = kb.sketch1_scratch(B, L, chunk, dev)
+        scratch = kb.sketch1_scratch(B, L, dev)
         kb.sketch_mode1(
-            seqs_u8.data_ptr(), lengths.data_ptr(), B, L, k, w, chunk,
+            seqs_u8.data_ptr(), lengths.data_ptr(), B, L, k, w,
             scratch.data_ptr(), x.data_ptr(), y.data_ptr(),
             emitted.data_ptr(), pal.data_ptr(), kb.stream_handle(seqs_u8),
         )

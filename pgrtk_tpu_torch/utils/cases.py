@@ -317,6 +317,76 @@ def chain_edge_groups(N, big=False, seed=21):
 CHAIN_EDGE_SETTINGS = [(N, big, penalty, lookback)
                        for N in CHAIN_EDGE_N for big in (False, True)
                        for penalty, lookback in ((0.025, 24), (0.0, 32))]
+# the filters K8's and K10's edge runs take on the card: (max_gap,
+# oriented)
+CHAIN_EDGE_FILTERS = ((-1, False), (3000, True))
+
+ALL_ONES = 0xFFFFFFFF
+
+
+def dense_edge_groups(seed=23, N=96):
+    """Six (N, 6) anchor groups at K10's mask edges, with valid masks:
+    a group whose first anchors (and some later ones) have the left
+    coordinates (0xFFFFFFFF, 0xFFFFFFFF, 0xFFFFFFFF) of the empty slots;
+    same-left runs of 40 and 70 anchors, longer than any window; same-left
+    runs of 10 with invalid anchors inside, some holding the run's
+    coordinates and some garbage; runs of exact duplicates among
+    same-left runs; a group of all-ones rows beside real ones; and an
+    ordinary group (_anchor_rows) with ~20% invalid slots of garbage.
+    Anchors are q_bgn-sorted except where the all-ones left leads."""
+    rng = np.random.default_rng(seed)
+    G = 6
+    anchors = np.zeros((G, N, 6), np.uint32)
+    valid = np.ones((G, N), bool)
+
+    def run_rows(n, qb):  # n anchors of one left, random targets
+        qe, qo = qb + int(rng.integers(8, 200)), int(rng.integers(0, 2))
+        tb = rng.integers(0, 5_000, size=n)
+        return np.stack([np.full(n, qb), np.full(n, qe), np.full(n, qo), tb,
+                         tb + rng.integers(8, 200, size=n),
+                         rng.integers(0, 2, size=n)], axis=1)
+
+    ones = np.full(6, ALL_ONES, np.uint32)
+    # 0: the all-ones left beside empty slots, then ordinary anchors
+    g0 = _anchor_rows(rng, N, 0, 40)
+    g0[:5, :3] = ALL_ONES
+    g0[40:43, :3] = ALL_ONES
+    g0[60] = ones
+    anchors[0] = g0
+    # 1: same-left runs longer than W (40, then 70 cut at N)
+    anchors[1, :40] = run_rows(40, 1_000)
+    anchors[1, 40:] = run_rows(N - 40, 1_500)
+    # 2: same-left runs of 10 with invalid anchors inside
+    rows = np.concatenate([run_rows(10, 100 + 50 * r) for r in range(
+        -(-N // 10))])[:N]
+    anchors[2] = rows
+    valid[2] = np.arange(N) % 3 != 1
+    garbage = rng.integers(0, 1 << 32, size=(N, 6), dtype=np.uint64)
+    junk = (np.arange(N) % 6 == 4)
+    anchors[2, junk] = garbage[junk].astype(np.uint32)
+    # 3: exact duplicates among same-left runs
+    rows = np.concatenate([run_rows(6, 200 + 30 * r) for r in range(
+        -(-N // 6))])[:N]
+    rows[1::4] = rows[0::4][:len(rows[1::4])]
+    anchors[3] = rows
+    # 4: all-ones rows beside real ones, every fifth invalid
+    g4 = _anchor_rows(rng, N, 0, 40)
+    g4[::7] = ones
+    anchors[4] = g4
+    valid[4] = np.arange(N) % 5 != 3
+    # 5: ordinary, ~20% invalid with garbage
+    anchors[5] = _anchor_rows(rng, N, 0, 40)
+    valid[5] = rng.random(N) < 0.8
+    anchors[5, ~valid[5]] = rng.integers(
+        0, 1 << 32, size=(int((~valid[5]).sum()), 6), dtype=np.uint64
+    ).astype(np.uint32)
+    return anchors, valid
+
+
+# K10's mask edges: (lookback, max_span, max_gap, oriented)
+DENSE_EDGE_SETTINGS = [(1, 1, -1, False), (1, 8, 3000, True),
+                       (7, 1, -1, False), (7, 8, 3000, True),
+                       (32, 1, -1, False), (32, 8, 3000, True)]
 
 
 def pair_edge_stream(C=40_000):
@@ -515,7 +585,7 @@ def query_kernel_cases(dev):
                   lambda a=args: tc.chain_scores_fast_plain(*a)))
     for N, big, penalty, lookback in CHAIN_EDGE_SETTINGS:
         anchors, valid = chain_edge_groups(N, big)
-        for max_gap, oriented in ((-1, False), (3000, True)):
+        for max_gap, oriented in CHAIN_EDGE_FILTERS:
             args = (t(anchors.astype(np.int64)), t(valid), penalty, max_gap,
                     oriented, lookback, 8)
             cases.append((f"K8 chain_scores_fast edges N={N} big={big} "
@@ -582,6 +652,11 @@ def many_row_cases(dev):
 
 # CLI default mode-1 spec (w, k) and a small window
 MODE1_SPECS = ((80, 56), (24, 15))
+# K9's window edges: the narrowest windows, a power of two and one past
+# it, and the widest
+MODE1_EDGE_SPECS = ((2, 11), (3, 15), (64, 40), (65, 56), (127, 56),
+                    (128, 30))
+MODE1_TILE = 2_048  # positions a K9 block emits (csrc/sketch1.cu kTileP)
 
 
 def mode1_rows(seed=12):
@@ -612,6 +687,25 @@ def mode1_rows(seed=12):
     return arr, np.asarray(lens, dtype=np.int64)
 
 
+def mode1_tile_rows(w, k, seed=16):
+    """Byte rows (9, 16,384) uint8 (mode1_rows' shape) and lengths at
+    K9's tile edges for window w and k: lengths 4,096 - w, 4,096 + w,
+    4,095, 4,097 (a multiple of 1,024 and of the 2,048-position tile, +- w
+    and +- 1), t0 on the tile boundaries 2,047, 2,048, 4,096 and 8,192
+    (t0 = min(len - w + k - 1, len - 1)), and a full row; random ACGT,
+    with an N run across the tile boundary at 6,144 in the full row."""
+    rng = np.random.default_rng(seed + w + k)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    L = 8 * MODE1_TILE
+    t0_len = [t + max(w - k, 0) + 1 for t in (2_047, 2_048, 4_096, 8_192)]
+    lens = [4_096 - w, 4_096 + w, 4_095, 4_097, *t0_len, L]
+    arr = np.full((len(lens), L), ord("N"), dtype=np.uint8)
+    for b, n in enumerate(lens):
+        arr[b, :n] = acgt[rng.integers(0, 4, n)]
+    arr[-1, 6_100:6_200] = ord("N")
+    return arr, np.asarray(lens, dtype=np.int64)
+
+
 def padded_probe_keys(seed=13):
     """Key-sorted keys whose fullest bucket holds 300 keys (one hot top-20-
     bit prefix among 6,000 uniform keys), so the aligned layout overflows
@@ -627,9 +721,11 @@ def padded_probe_keys(seed=13):
 
 
 def batch_device_cases(dev):
-    """K9-K11 on their edge cases: the mode-1 rows at both specs, the
-    chain groups of CHAIN_SETTINGS and a span-2 window of 6 through the
-    dense DP, the padded probe with a widened bucket."""
+    """K9-K11 on their edge cases: the mode-1 rows at both specs and at
+    the window edges, the tile-edge rows; the chain groups of
+    CHAIN_SETTINGS, a span-2 window of 6, K8's edge groups and the mask
+    edge groups through the dense DP; the padded probe with a widened
+    bucket."""
     from ..ops import chain as tc
     from ..ops import probe as tpr
     from ..ops import sketch1 as ts1
@@ -638,11 +734,17 @@ def batch_device_cases(dev):
     cases = []
     arr, lens = mode1_rows()
     seqs, ln = t(arr), t(lens)
-    for w, k in MODE1_SPECS:
+    for w, k in MODE1_SPECS + MODE1_EDGE_SPECS:
         cases.append((f"K9 sketch_mode1 w={w} k={k}",
                       lambda w=w, k=k: ts1.sketch_mode1_dense(seqs, ln, k, w),
                       lambda w=w, k=k: ts1.sketch_mode1_dense_plain(
                           seqs, ln, k, w)))
+    for w, k in MODE1_SPECS + MODE1_EDGE_SPECS:
+        a, n = mode1_tile_rows(w, k)
+        args = (t(a), t(n), k, w)
+        cases.append((f"K9 sketch_mode1 tile edges w={w} k={k}",
+                      lambda a=args: ts1.sketch_mode1_dense(*a),
+                      lambda a=args: ts1.sketch_mode1_dense_plain(*a)))
     for big, oriented, max_gap, lookback in CHAIN_SETTINGS:
         anchors, valid = chain_groups(lookback + 7 * big, big=big)
         args = (t(anchors.astype(np.int64)), t(valid), 0.025, max_gap,
@@ -656,6 +758,25 @@ def batch_device_cases(dev):
     cases.append(("K10 chain_scores_dense span 2, W=6",
                   lambda a=args: tc.chain_scores_dense(*a),
                   lambda a=args: tc.chain_scores_dense_plain(*a)))
+    for N, big, penalty, lookback in CHAIN_EDGE_SETTINGS:
+        anchors, valid = chain_edge_groups(N, big)
+        for max_gap, oriented in CHAIN_EDGE_FILTERS:
+            args = (t(anchors.astype(np.int64)), t(valid), penalty, max_gap,
+                    oriented, lookback, 8)
+            cases.append((f"K10 chain_scores_dense edges N={N} big={big} "
+                          f"penalty={penalty} W={lookback} "
+                          f"max_gap={max_gap} oriented={oriented}",
+                          lambda a=args: tc.chain_scores_dense(*a),
+                          lambda a=args: tc.chain_scores_dense_plain(*a)))
+    anchors, valid = dense_edge_groups()
+    for lookback, max_span, max_gap, oriented in DENSE_EDGE_SETTINGS:
+        args = (t(anchors.astype(np.int64)), t(valid), 0.025, max_gap,
+                oriented, lookback, max_span)
+        cases.append((f"K10 chain_scores_dense mask edges W={lookback} "
+                      f"max_span={max_span} max_gap={max_gap} "
+                      f"oriented={oriented}",
+                      lambda a=args: tc.chain_scores_dense(*a),
+                      lambda a=args: tc.chain_scores_dense_plain(*a)))
     keys, q = padded_probe_keys()
     tab = tpr.build_probe_table(keys)
     args = (t(q[:, 0].view(np.int64)), t(q[:, 1].view(np.int64)),

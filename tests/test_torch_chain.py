@@ -140,6 +140,39 @@ def test_dense_span_break_and_window_eviction_match_jax(lookback):
     assert want[2].any()
 
 
+@pytest.mark.parametrize("N,big,penalty,lookback", cases.CHAIN_EDGE_SETTINGS)
+def test_dense_chain_edge_groups_match_jax(N, big, penalty, lookback):
+    """K10's plain version on K8's staging and ring edges
+    (utils/cases.py::chain_edge_groups): scans of 31, 33 and 577 steps,
+    invalid slots leading, trailing, alternating and in runs longer than a
+    chunk, a group with no valid anchor, score ties in 3-5 window slots
+    (penalty 0), W 24 and 32, coordinates above 2^24."""
+    anchors, valid = cases.chain_edge_groups(N, big)
+    want = _run_dense(anchors, valid, penalty, -1, False, lookback, 8)
+    assert (want[0][3] == np.float32(tchain.NEG)).all()  # no valid anchor
+    if penalty == 0:  # nearest wins: the anchors of a tie block all
+        # point at the previous block's last anchor
+        ties = (want[1][4, 1:] == want[1][4, :-1]) & (want[1][4, 1:] >= 0)
+        assert ties.sum() >= N // 3
+
+
+@pytest.mark.parametrize("lookback,max_span,max_gap,oriented",
+                         cases.DENSE_EDGE_SETTINGS)
+def test_dense_mask_edge_groups_match_jax(lookback, max_span, max_gap,
+                                          oriented):
+    """K10's plain version at the edges of its kept masks
+    (utils/cases.py::dense_edge_groups): a left of (0xFFFFFFFF,
+    0xFFFFFFFF, 0xFFFFFFFF) beside the empty slots, same-left runs longer
+    than the window, invalid anchors inside same-left runs, exact
+    duplicates, all-ones rows; W 1, 7 and 32, max_span 1 and 8, with and
+    without the gap and orientation filters."""
+    anchors, valid = cases.dense_edge_groups()
+    want = _run_dense(anchors, valid, 0.025, max_gap, oriented, lookback,
+                      max_span)
+    assert (want[0][valid] >= 0).all()  # all-ones rows score 0
+    assert (want[1] >= 0).any()
+
+
 def _groups(seed=3):
     """Unsorted anchor groups: the edge-case groups with their valid
     anchors, every other one shuffled, so chain_groups' stable q_bgn sort

@@ -166,14 +166,29 @@ def test_chain_kernel_rejects_a_wide_window(dev):
 
 @pytest.mark.parametrize("family", ["K9", "K10", "K11"])
 def test_batch_device_kernels_match_plain_on_edge_cases(dev, family):
-    """K9 on the mode-1 rows at both specs, K10 on the chain groups, K11
-    on a widened padded table."""
+    """K9 on the mode-1 rows at both specs and at windows of 2 to 128,
+    and on rows at its tile edges; K10 on the chain groups, K8's staging
+    and ring edge groups (both filter settings) and its mask-edge groups
+    (W 1, 7 and 32, max_span 1 and 8); K11 on a widened padded table."""
     picked = [c for c in cases.batch_device_cases(dev)
               if c[0].split()[0] == family]
     assert picked
     for name, kernel, plain in picked:
         assert _equal(kernel(), plain()), name
     torch.cuda.synchronize()
+
+
+def test_dense_chain_takes_misaligned_anchors(dev):
+    """K10 stages anchors 16 bytes a load: an anchor tensor 8 bytes off
+    that alignment is copied, and the scores equal the plain version's."""
+    anchors, valid = cases.dense_edge_groups()
+    flat = torch.zeros(anchors.size + 1, dtype=torch.int64, device=dev)
+    flat[1:] = torch.from_numpy(anchors.astype(np.int64).ravel()).to(dev)
+    a = flat[1:].view(anchors.shape)
+    assert a.data_ptr() % 16 == 8
+    v = torch.from_numpy(valid).to(dev)
+    assert _equal(tchain.chain_scores_dense(a, v, 0.025),
+                  tchain.chain_scores_dense_plain(a, v, 0.025))
 
 
 def test_batch_query_on_card_matches_cpu(dev):

@@ -21,6 +21,10 @@ from pgrtk_tpu_torch.utils import cases
 SPECS = [ShmmrSpec(w=w, k=k, r=4 if w == 80 else 3,
                    min_span=64 if w == 80 else 16)
          for w, k in cases.MODE1_SPECS]
+# K9's window edges (the dense planes only: at w = 2 every row overflows
+# the compaction)
+EDGE_SPECS = [ShmmrSpec(w=w, k=k, r=3, min_span=16)
+              for w, k in cases.MODE1_EDGE_SPECS]
 
 
 def _seqs():
@@ -28,13 +32,7 @@ def _seqs():
     return [arr[b, :n].tobytes() for b, n in enumerate(lens)]
 
 
-@pytest.mark.parametrize("spec", SPECS, ids=lambda s: f"w{s.w}k{s.k}")
-def test_dense_planes_match_jax(spec):
-    """x and strand at every position, the emission mask (exact to t0)
-    and the per-row palindrome flag: random rows, lowercase, N runs mid
-    row and longer than k at the start, a palindromic 56-mer, an (AC)n
-    run, rows too short for the parallel path."""
-    arr, lens = cases.mode1_rows()
+def _dense_both(arr, lens, spec):
     want = js1.sketch_mode1_dense(jnp.asarray(arr), jnp.asarray(lens),
                                   spec.k, spec.w)
     got = ts1.sketch_mode1_dense(torch.from_numpy(arr),
@@ -49,7 +47,36 @@ def test_dense_planes_match_jax(spec):
                           np.asarray(want["emitted"]))
     assert np.array_equal(got["palindrome"].numpy(),
                           np.asarray(want["palindrome_seen"]))
+    return got
+
+
+@pytest.mark.parametrize("spec", SPECS + EDGE_SPECS,
+                         ids=lambda s: f"w{s.w}k{s.k}")
+def test_dense_planes_match_jax(spec):
+    """x and strand at every position, the emission mask (exact to t0)
+    and the per-row palindrome flag: random rows, lowercase, N runs mid
+    row and longer than k at the start, a palindromic 56-mer, an (AC)n
+    run, rows too short for the parallel path; at the CLI default and a
+    small window, and at windows of 2, 3, 64, 65, 127 and 128."""
+    arr, lens = cases.mode1_rows()
+    got = _dense_both(arr, lens, spec)
     assert int(got["emitted"].sum()) > 1000
+
+
+@pytest.mark.parametrize("spec", SPECS + EDGE_SPECS,
+                         ids=lambda s: f"w{s.w}k{s.k}")
+def test_dense_planes_at_tile_edges_match_jax(spec):
+    """Rows whose lengths sit at K9's tile edges
+    (utils/cases.py::mode1_tile_rows): a multiple of 1,024 and of the
+    2,048-position tile +- w and +- 1, t0 on a tile boundary, a full row
+    with an N run across one."""
+    arr, lens = cases.mode1_tile_rows(spec.w, spec.k)
+    got = _dense_both(arr, lens, spec)
+    t0 = np.minimum(lens - spec.w + spec.k - 1, lens - 1)
+    assert set(t0[4:8].tolist()) == {2_047, 2_048, 4_096, 8_192}
+    em = got["emitted"].numpy()
+    assert em.any(axis=1).all()
+    assert em[:, 2_048 - spec.w:2_048 + spec.w].any()  # across a tile edge
 
 
 @pytest.mark.parametrize("spec", SPECS, ids=lambda s: f"w{s.w}k{s.k}")
