@@ -119,7 +119,7 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      raises; phase 1 also holds K12's engine on cases.radix_cases (0, 1,
      a tile - 1, a tile, a tile + 1 and many tiles of entries with equal
      keys across tiles, every digit constant, the top digit only,
-     sort_keys, sort_by_position, K14's sort) and K2 on
+     sort_keys, sort_by_position; and K14 on a 100,003-entry shard) and K2 on
      cases.compact_cases (block 1 to 3,072, all-invalid and all-valid
      rows, views off their 16-byte words), and checks that the index
      step raises the CPU's ValueError on a sid of 2**32.
@@ -165,9 +165,10 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      this path runs (K6's JAX-shaped entry, K7's two entries on fetched
      rows), against their plain versions at 10b's and 10c's shapes, on
      the inputs those runs gave them (launch counts from those runs)
-     and on cases.shard_cases (buckets of 128 and 129 entries, keys with
-     Pp and Pp + 1 postings, sid runs with m 15 and 16, padded route
-     slots, the last of three owners).
+     and on cases.shard_cases (buckets of 31 to 1,000 entries, 128 and
+     129 among them, keys with Pp and Pp + 1 postings, sid runs with m
+     15 and 16, padded route slots, the last of three owners, no valid
+     entry, valid entries that are not a prefix, bits 1 and 2).
  11. runs the v1 replicated-index programs over the same group: (11a)
      the dry run of 10a prints the JAX line whole, self-, probe- and
      v2-hits included; (11b) sharded_sketch_index_step_auto on phase
@@ -2034,12 +2035,12 @@ def planes_list(res):
 
 def k14_work(shard, bits):
     """Input bytes (the shard planes as given), output bytes (each slot's
-    fields at the width they need) and operations (8 per entry and
-    digit of the bucket key's sort, 16 per slot written) of K14."""
+    fields at the width they need) and operations (16 per entry to find
+    its bucket and its place there, 16 per slot written) of K14: no sort,
+    which the function does not need."""
     n, nb = shard["valid"].numel(), 1 << bits
-    digits = -(-(bits + 1) // 8)
     return (nbytes(*shard.values()), lambda got: need(nb * 128, *PLANE_OUT),
-            OPS_DIGIT * n * digits + OPS_ENTRY * nb * 128)
+            OPS_ENTRY * n + OPS_ENTRY * nb * 128)
 
 
 def k15_work(qk0, qk1, bits, Pp):

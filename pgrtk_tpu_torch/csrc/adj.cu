@@ -679,16 +679,6 @@ int radix_sort_gather(const void* const* keys, const int* bits, int n_keys,
 
 }  // namespace
 
-// The engine for the other kernels' sorts (shard.cu's K14).
-int pgrtk::radix_engine(const void* const* keys, const int* bits, int n_keys,
-                        long long n, const void* const* planes,
-                        void* const* outs, int n_planes, const void* mask,
-                        void* mask_out, void* link, void* scratch, void* wide,
-                        void* stream) {
-  return radix_sort_gather(keys, bits, n_keys, 0, n, planes, outs, n_planes,
-                           mask, mask_out, link, scratch, wide, stream);
-}
-
 extern "C" long long pgrtk_radix_scratch_bytes(long long n) {
   return (long long)scratch_layout(n, nullptr, nullptr);
 }

@@ -3,7 +3,7 @@
 // Every C entry point launches on the stream it is given, allocates
 // nothing, and returns cudaGetLastError() so the Python wrapper can raise
 // on a refused launch.  None synchronises: K12 (adj.cu) plans its digit
-// passes on the card, and K14 (shard.cu) sorts with K12's engine.
+// passes on the card.
 #pragma once
 
 #include <cstdint>
@@ -79,15 +79,5 @@ inline int sm_count() {
   if (dev < 64) sms[dev] = n;
   return n;
 }
-
-// K12's stable LSD radix sort with its payload gather (adj.cu), for the
-// kernels that sort on their way: keys (int64 planes, most significant
-// first, each below 2^bits), payload planes gathered into outs, wide one
-// device uint64 that receives the planes holding wider values.  Never
-// waits for the stream.
-int radix_engine(const void* const* keys, const int* bits, int n_keys,
-                 long long n, const void* const* planes, void* const* outs,
-                 int n_planes, const void* mask, void* mask_out, void* link,
-                 void* scratch, void* wide, void* stream);
 
 }  // namespace pgrtk

@@ -3,25 +3,34 @@
 //
 // K14 replaces pgrtk_tpu/parallel/mesh.py:312 _shard_probe_planes.  Each
 // valid entry of a key-sorted shard table goes to bucket b = the top
-// `bits` of k0's low 32 bits, at column c = its rank among the entries of
-// its bucket in shard order, in (2^bits, 128) planes: k0, k1 (int64),
-// sid, ori<<31|bgn, end and the entry's shard row (int32).  A bucket of
-// more than 128 entries keeps its first 128 and raises the flag.  What
-// bounds it on this card: device memory (the shard planes read once, the
-// 2^bits * 128 slots written once).  The rank must be stable, or a key's
-// postings stop being one contiguous run of its bucket row in (sid, bgn)
-// order, which K15 and the chain tie-breaks rely on.  The JAX function
-// sorted (bucket, entry) pairs with lax.sort and scattered with a
-// searchsorted for the run starts.  Here:
-//   1. one pass writes each entry's bucket key (2^bits for an invalid
-//      entry) and its index;
-//   2. K12's stable radix engine (adj.cu) sorts the index by the bucket
-//      key: equal buckets keep shard order;
-//   3. one pass marks each bucket's run [start, end) in the sorted order;
-//   4. one pass over the 2^bits * 128 slots, a thread each, gathers the
-//      entry at start + c when c < the run's length and writes the fills
-//      (INT64_MAX keys, 0 postings, row -1) otherwise, so every slot is
-//      written exactly once and none is left uninitialised.
+// `bits` of k0's low 32 bits, at column c = its rank among the valid
+// entries of its bucket in shard order, in (2^bits, 128) planes: k0, k1
+// (int64), sid, ori<<31|bgn, end and the entry's shard row (int32).  A
+// bucket of more than 128 entries keeps its first 128 and raises the flag.
+// The rank must be stable, or a key's postings stop being one contiguous
+// run of its bucket row in (sid, bgn) order, which K15 and the chain
+// tie-breaks rely on.  The JAX function sorted (bucket, entry) pairs with
+// lax.sort and scattered with a searchsorted for the run starts.  What
+// bounds it on this card: device memory, and almost all of it is the
+// output (the 2^bits * 128 slots written once; at ~5 entries a bucket
+// over 95% of them are fills), so nothing is sorted across the shard:
+//   1. one memset zeroes the bucket counts and the flag;
+//   2. one pass takes, for each valid entry, a place in its bucket by an
+//      atomic on the bucket's count and, when that place is below 128,
+//      stages the entry's index in the row plane at that slot (the order
+//      the atomics chose is arbitrary);
+//   3. one warp a bucket row reads its count and its staged indices,
+//      ranks them (they are unique, so their rank is the shard order), and
+//      writes the whole 128-slot row of every plane, entries gathered and
+//      fills (INT64_MAX keys, 0 postings, row -1) alike, in 16-byte
+//      streaming stores of which each warp instruction writes 512
+//      contiguous bytes.  A bucket of more than 128 entries (rare: the
+//      lambda retry of the v2 step reacts to it) did not stage them all;
+//      its warp scans the shard from the start for its bucket's entries,
+//      32 a step, until it holds the first 128.
+// At 10b's shapes the stores alone run near a fill's rate; the gathers'
+// dependent loads (count, staged index, six random fields) add ~0.04 ms
+// (PERF.md).
 //
 // K15 replaces the owner block of pgrtk_tpu/parallel/mesh.py:764-887
 // (inside sharded_query_v2_e2e_step).  For each received key (one warp
@@ -60,29 +69,25 @@ constexpr int kWarps = kThreads / 32;
 constexpr i64 kKeyFill = 0x7FFFFFFFFFFFFFFFLL;
 constexpr unsigned kMetaEmpty = 0xFFFFFFFFu;
 
-__global__ void bucket_key_kernel(const bool* __restrict__ valid,
-                                  const i64* __restrict__ k0, i64 n, int bits,
-                                  i64* __restrict__ key,
-                                  i64* __restrict__ index) {
-  const i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const u64 lo = (u64)k0[i] & 0xFFFFFFFFull;  // logical: no sign smear
-  key[i] = valid[i] ? (i64)(lo >> (32 - bits)) : ((i64)1 << bits);
-  index[i] = i;
+__device__ __forceinline__ i64 bucket_of(i64 k0, int bits) {
+  return (i64)(((u64)k0 & 0xFFFFFFFFull) >> (32 - bits));  // logical
 }
 
-__global__ void bucket_bounds_kernel(const i64* __restrict__ bkey, i64 n,
-                                     i64 nb, i64* __restrict__ start,
-                                     i64* __restrict__ end) {
+// Step 2: each valid entry's place in its bucket; the first 128 of each
+// bucket stage their index in the row plane.
+__global__ void bucket_place_kernel(const bool* __restrict__ valid,
+                                    const i64* __restrict__ k0, i64 n,
+                                    int bits, int* __restrict__ count,
+                                    int* __restrict__ prow) {
   const i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const i64 b = bkey[i];
-  if (b >= nb) return;
-  if (i == 0 || bkey[i - 1] != b) start[b] = i;
-  if (i == n - 1 || bkey[i + 1] != b) end[b] = i + 1;
+  if (i >= n || !valid[i]) return;
+  const i64 b = bucket_of(k0[i], bits);
+  const int r = atomicAdd(count + b, 1);
+  if (r < kW) prow[b * kW + r] = (int)i;
 }
 
 struct Shard {
+  const bool* valid;
   const i64 *k0, *k1, *sid, *bgn, *end, *ori;
 };
 
@@ -91,34 +96,80 @@ struct Planes {
   int *sid, *bgnori, *end, *row;
 };
 
-__global__ void fill_planes_kernel(const i64* __restrict__ start,
-                                   const i64* __restrict__ end,
-                                   const i64* __restrict__ perm, i64 nb,
-                                   Shard sh, Planes pl,
-                                   int* __restrict__ overflow) {
-  const i64 s = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= nb * kW) return;
-  const i64 b = s / kW;
-  const int c = (int)(s % kW);
-  const i64 st = start[b];
-  const i64 cnt = end[b] - st;
-  if (c == 0 && cnt > kW) *overflow = 1;
-  if (c < cnt) {
-    const i64 e = perm[st + c];
-    pl.k0[s] = sh.k0[e];
-    pl.k1[s] = sh.k1[e];
-    pl.sid[s] = (int)(unsigned)sh.sid[e];
-    pl.bgnori[s] = (int)(((unsigned)sh.ori[e] << 31) | (unsigned)sh.bgn[e]);
-    pl.end[s] = (int)(unsigned)sh.end[e];
-    pl.row[s] = (int)e;
-  } else {
-    pl.k0[s] = kKeyFill;
-    pl.k1[s] = kKeyFill;
-    pl.sid[s] = 0;
-    pl.bgnori[s] = 0;
-    pl.end[s] = 0;
-    pl.row[s] = -1;
+// Step 3: one warp a bucket row.  idx_s holds the row's entries in any
+// order, then row_s in shard order.
+__global__ void __launch_bounds__(kThreads)
+    fill_rows_kernel(const int* __restrict__ count, i64 nb, i64 n, int bits,
+                     Shard sh, Planes pl, int* __restrict__ overflow) {
+  __shared__ int idx_s[kWarps][kW];
+  __shared__ int row_s[kWarps][kW];
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const i64 b = (i64)blockIdx.x * kWarps + w;
+  if (b >= nb) return;  // whole warps leave together
+  const int c = count[b];
+  int kept = c < kW ? c : kW;
+  if (c <= kW) {
+    for (int j = lane; j < c; j += 32) idx_s[w][j] = pl.row[b * kW + j];
+    __syncwarp();
+    for (int j = lane; j < c; j += 32) {  // rank = entries of lower index
+      const int v = idx_s[w][j];
+      int r = 0;
+      for (int k = 0; k < c; ++k) r += idx_s[w][k] < v;
+      row_s[w][r] = v;
+    }
+  } else {  // overflow: the bucket's first 128 entries in shard order
+    if (lane == 0) *overflow = 1;
+    kept = 0;
+    for (i64 base = 0; base < n && kept < kW; base += 32) {
+      const i64 i = base + lane;
+      const bool hit = i < n && sh.valid[i] && bucket_of(sh.k0[i], bits) == b;
+      const unsigned m = __ballot_sync(full, hit);
+      const int at = kept + __popc(m & ((1u << lane) - 1u));
+      if (hit && at < kW) row_s[w][at] = (int)i;
+      kept += __popc(m);
+    }
+    kept = kW;
   }
+  __syncwarp();
+  // Each store of the warp writes 512 contiguous bytes, so every 32-byte
+  // sector is written whole by one instruction (a sector written in two
+  // halves by two stores ran the writer at 2.4 TB/s, not 3.2).  Lane l
+  // writes the key planes' slots 2l, 2l + 1, 64 + 2l, 65 + 2l and the
+  // int32 planes' slots 4l to 4l + 3.
+  i64 k0[4], k1[4];
+  int sid[4], bgnori[4], end[4], row[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int j = (t < 2 ? 2 * lane : 62 + 2 * lane) + t;
+    const int e = j < kept ? row_s[w][j] : -1;
+    k0[t] = e >= 0 ? sh.k0[e] : kKeyFill;
+    k1[t] = e >= 0 ? sh.k1[e] : kKeyFill;
+  }
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int j = 4 * lane + t;
+    const int e = j < kept ? row_s[w][j] : -1;
+    sid[t] = e >= 0 ? (int)(unsigned)sh.sid[e] : 0;
+    bgnori[t] =
+        e >= 0 ? (int)(((unsigned)sh.ori[e] << 31) | (unsigned)sh.bgn[e]) : 0;
+    end[t] = e >= 0 ? (int)(unsigned)sh.end[e] : 0;
+    row[t] = e;
+  }
+  const i64 r = b * kW;
+  __stcs((longlong2*)(pl.k0 + r + 2 * lane), make_longlong2(k0[0], k0[1]));
+  __stcs((longlong2*)(pl.k0 + r + 64 + 2 * lane),
+         make_longlong2(k0[2], k0[3]));
+  __stcs((longlong2*)(pl.k1 + r + 2 * lane), make_longlong2(k1[0], k1[1]));
+  __stcs((longlong2*)(pl.k1 + r + 64 + 2 * lane),
+         make_longlong2(k1[2], k1[3]));
+  const i64 s = r + 4 * lane;
+  __stcs((int4*)(pl.sid + s), make_int4(sid[0], sid[1], sid[2], sid[3]));
+  __stcs((int4*)(pl.bgnori + s),
+         make_int4(bgnori[0], bgnori[1], bgnori[2], bgnori[3]));
+  __stcs((int4*)(pl.end + s), make_int4(end[0], end[1], end[2], end[3]));
+  __stcs((int4*)(pl.row + s), make_int4(row[0], row[1], row[2], row[3]));
 }
 
 // The 128-slot row compare of K15 and K17: bit s of mask[t] is set when
@@ -222,49 +273,30 @@ int blocks(i64 n) { return (int)((n + kThreads - 1) / kThreads); }
 }  // namespace
 
 // K14.  Shard planes valid (bool), k0, k1, sid, bgn, end, ori (int64),
-// n entries, key-sorted; bits in [1, 31].  scratch: 4n + 2 * 2^bits
-// int64; radix_scratch: pgrtk_radix_scratch_bytes(n) bytes; wide: one
-// device int64 for K12's width flag (the bucket keys always fit).  Writes
-// the (2^bits, 128) planes and *overflow (int).
+// n entries, key-sorted; bits in [1, 31]; the planes (2^bits rows of 128)
+// 16-byte aligned.  work: 2^bits + 1 int32, the bucket counts and then
+// the overflow flag.  Writes the planes and the flag.
 extern "C" int pgrtk_shard_probe_planes(
     const void* valid, const void* k0, const void* k1, const void* sid,
     const void* bgn, const void* end, const void* ori, long long n, int bits,
-    void* scratch, void* radix_scratch, void* wide, void* pk0, void* pk1,
-    void* psid, void* pbgnori, void* pend, void* prow, void* overflow,
-    void* stream) {
+    void* work, void* pk0, void* pk1, void* psid, void* pbgnori, void* pend,
+    void* prow, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (n < 0 || bits < 1 || bits > 31) return (int)cudaErrorInvalidValue;
+  if (n < 0 || n > 0x7FFFFFFFLL || bits < 1 || bits > 31)
+    return (int)cudaErrorInvalidValue;
   const i64 nb = (i64)1 << bits;
-  i64* key = (i64*)scratch;
-  i64* index = key + n;
-  i64* bkey = index + n;
-  i64* perm = bkey + n;
-  i64* bstart = perm + n;
-  i64* bend = bstart + nb;
-  cudaMemsetAsync(bstart, 0, 2 * nb * sizeof(i64), st);
-  cudaMemsetAsync(overflow, 0, sizeof(int), st);
-  if (n > 0) {
-    bucket_key_kernel<<<blocks(n), kThreads, 0, st>>>(
-        (const bool*)valid, (const i64*)k0, n, bits, key, index);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const void* keys[1] = {key};
-    const int kbits[1] = {bits + 1};
-    const void* in[2] = {key, index};
-    void* outs[2] = {bkey, perm};
-    const int rc = pgrtk::radix_engine(keys, kbits, 1, n, in, outs, 2,
-                                       nullptr, nullptr, nullptr,
-                                       radix_scratch, wide, stream);
-    if (rc != 0) return rc;
-    bucket_bounds_kernel<<<blocks(n), kThreads, 0, st>>>(bkey, n, nb, bstart,
-                                                         bend);
-  }
-  Shard sh{(const i64*)k0, (const i64*)k1, (const i64*)sid, (const i64*)bgn,
-           (const i64*)end, (const i64*)ori};
+  int* count = (int*)work;
+  cudaMemsetAsync(count, 0, (nb + 1) * sizeof(int), st);
+  if (n > 0)
+    bucket_place_kernel<<<blocks(n), kThreads, 0, st>>>(
+        (const bool*)valid, (const i64*)k0, n, bits, count, (int*)prow);
+  Shard sh{(const bool*)valid, (const i64*)k0, (const i64*)k1,
+           (const i64*)sid, (const i64*)bgn, (const i64*)end,
+           (const i64*)ori};
   Planes pl{(i64*)pk0, (i64*)pk1, (int*)psid, (int*)pbgnori, (int*)pend,
             (int*)prow};
-  fill_planes_kernel<<<blocks(nb * kW), kThreads, 0, st>>>(
-      bstart, bend, perm, nb, sh, pl, (int*)overflow);
+  fill_rows_kernel<<<(unsigned)((nb + kWarps - 1) / kWarps), kThreads, 0,
+                     st>>>(count, nb, n, bits, sh, pl, count + nb);
   return (int)cudaGetLastError();
 }
 

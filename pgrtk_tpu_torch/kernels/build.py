@@ -111,6 +111,8 @@ def library() -> ctypes.CDLL:
             lib.pgrtk_error_string.argtypes = [_I]
             lib.pgrtk_pair_summary_ints.restype = _LL
             lib.pgrtk_pair_summary_ints.argtypes = [_I, _LL]
+            lib.pgrtk_min_span_dense_ints.restype = _LL
+            lib.pgrtk_min_span_dense_ints.argtypes = [_LL, _LL]
             lib.pgrtk_sketch_scratch_bytes.restype = _LL
             lib.pgrtk_sketch_scratch_bytes.argtypes = [_I, _LL, _I, _I]
             lib.pgrtk_sketch1_scratch_bytes.restype = _LL
@@ -218,8 +220,7 @@ wfa_forward_rows = Kernel(
 # K14 and K15: the owner side of the hash-range-sharded v2 index
 shard_probe_planes = Kernel(
     "shard_probe_planes", "pgrtk_tpu_torch/csrc/shard.cu",
-    [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-     _P, _P],
+    [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P],
 )
 owner_postings = Kernel(
     "owner_postings", "pgrtk_tpu_torch/csrc/shard.cu",
@@ -264,7 +265,7 @@ expand_postings_anchors_indexed = Kernel(
 # K18 and K19: the dense pair variants
 min_span_filter_dense = Kernel(
     "min_span_filter_dense", "pgrtk_tpu_torch/csrc/dense.cu",
-    [_P, _P, _P, _LL, _LL, _I, _P, _P, _P],
+    [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _I, _P, _P, _P],
 )
 pair_mers_dense = Kernel(
     "pair_mers_dense", "pgrtk_tpu_torch/csrc/dense.cu",
@@ -314,3 +315,9 @@ def pair_summary(B: int, C: int, device, planes: int = 1) -> torch.Tensor:
     first kept column of each tile), two for K3 (first and last valid)."""
     n = library().pgrtk_pair_summary_ints(B, C)
     return torch.empty(planes * n, dtype=torch.int32, device=device)
+
+
+def dense_partials(B: int, C: int, device) -> torch.Tensor:
+    """int32 per-tile valid counts for K18 on a (B, C) stream."""
+    n = library().pgrtk_min_span_dense_ints(B, C)
+    return torch.empty(n, dtype=torch.int32, device=device)

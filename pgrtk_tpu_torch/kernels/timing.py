@@ -1,5 +1,6 @@
 """Device times of the query stage's kernels, every entry, at the main
-path's shapes, and of the query step that runs them.
+path's shapes, and of the query step that runs them; and of the
+kernels of the other paths named below.
 
     python -m pgrtk_tpu_torch.kernels.timing [--digest FILE] [part ...]
 
@@ -49,7 +50,16 @@ gave the kernels when this run builds them, then the parts asked for
          (kernels/sass_ops.py), and the fast walk on the clean batch
          beside two ablations of csrc/sketch.cu, built alone: the walk
          without its stores, and the stores without the hashes
-         (`dense_ablations`);
+         (`dense_ablations`); then K18 (min_span_filter_dense) on both of
+         its calls in phase 11d's dense pipelines (mesh.dense_index_step,
+         gapped and not, capacity L / 64 = 262,144) on phase 4's 16 x
+         16,777,216 batch (chip_smoke.py::realistic_batch);
+  shard  K14 (shard_probe_planes) at phase 10b's shapes: its last call in
+         sharded_index_v2_step's lambda retry (chip_smoke.py::v2_index)
+         on phase 4's batch, over an NCCL group of world size 1, shard
+         capacity twice the batch's pairs; beside it, one fill_ of as
+         many bytes as its planes hold (the card's write rate), and K14
+         with its row writer's loads taken out (`shard_ablation`);
   batch  phase 7b's K9 and K10 (chip_smoke.py::phase_batch_device): K9
          (sketch_mode1_dense) on the 8 bench query haplotypes as whole
          1,048,576-base rows at (w, k) = (80, 56), the CLI default, and
@@ -59,9 +69,9 @@ gave the kernels when this run builds them, then the parts asked for
          4,194,304-decoy store of the bench targets, W = 32, with its
          cycles a scan step at the card's maximum SM clock; each
          output's sha256 goes to FILE with --digest.
-With --digest FILE, the sha256 of the outputs of `step` and `batch` are
-written to FILE, one line each, so that two trees can be compared in one
-call.
+With --digest FILE, the sha256 of the outputs of `step`, `batch`, K18
+and `shard` are written to FILE, one line each, so that two trees can be
+compared in one call.
 Every kernel is held to its plain version (tolerance 0).  Each kernel
 time is the median of five rounds of 20 back-to-back calls (CUDA events,
 ms a call), beside the device launches, busy time and time by kernel of
@@ -91,12 +101,14 @@ from ..ops import sketch1 as ts1
 from ..utils import cases
 from .k1_modes import CHUNK, K, MIN_SPAN, R, SLOTS, batches
 
-PARTS = ("chain", "index", "query", "step", "wfa", "dense", "batch")
+PARTS = ("chain", "index", "query", "step", "wfa", "dense", "batch",
+         "shard")
 PTXAS_KERNELS = ("sketch_walk", "rank", "min_span_kernel", "tile_summary",
                  "pair_summary", "tile_rank", "pair_kernel", "probe_kernel",
                  "probe_fetch_kernel", "dup_pair", "expand_kernel",
                  "chain_fast_kernel", "wfa_forward", "mode1",
-                 "chain_dense_kernel")
+                 "chain_dense_kernel", "bucket_place", "fill_rows",
+                 "min_span_tile", "last_valid")
 CHAIN_G, CHAIN_N, CHAIN_W = 1024, 576, 24
 LIMIT = 128  # min(max_count, max_count_query) at the step's defaults
 
@@ -508,7 +520,7 @@ def part_wfa(dev):
             torch.cuda.empty_cache()
 
 
-def part_dense(dev):
+def part_dense(dev, digests):
     from pathlib import Path
 
     from . import sass_ops
@@ -529,6 +541,82 @@ def part_dense(dev):
         for k, v in walk.items()))
     if hasattr(kb, "CSRC"):
         dense_ablations(seqs_by["clean"], lens)
+    del seqs_by
+    torch.cuda.empty_cache()
+    dense_k18(dev, digests)
+
+
+def phase4_batch(dev):
+    """Phase 4's 16 x 16,777,216 batch, its lengths and row ids."""
+    import chip_smoke as cs
+
+    seqs = torch.from_numpy(cs.realistic_batch(16, 16_777_216, dev)).to(dev)
+    B = seqs.shape[0]
+    return (seqs, torch.full((B,), seqs.shape[1], device=dev),
+            torch.arange(B, device=dev))
+
+
+def dense_k18(dev, digests):
+    """K18 on its two calls of phase 11d's dense pipelines."""
+    import chip_smoke as cs
+    from ..parallel import mesh
+
+    seqs, lens, rids = phase4_batch(dev)
+    with cs.capture(tp, "min_span_filter_dense") as k18:
+        for gapped in (True, False):
+            mesh.dense_index_step(seqs, lens, rids,
+                                  capacity=seqs.shape[1] // 64, gapped=gapped)
+    del seqs
+    torch.cuda.empty_cache()
+    for gapped, ((x, y, valid, ms), _) in zip((True, False), k18.calls):
+        label = (f"K18 min_span_filter_dense {tuple(x.shape)} "
+                 f"({int(valid.sum())} valid), gapped={gapped} pipeline")
+        got, _ = report(label, lambda: tp.min_span_filter_dense(x, y, valid,
+                                                                ms),
+                        lambda: tp.min_span_filter_dense_plain(x, y, valid,
+                                                               ms))
+        digests.append((label, digest({"keep": got})))
+        print(f"  outputs sha256 {digests[-1][1]}")
+
+
+def part_shard(dev, digests):
+    import chip_smoke as cs
+    from ..parallel import comm as pcomm
+    from ..parallel import mesh
+
+    seqs, lens, rids = phase4_batch(dev)
+    n = int(mesh.sketch_index_step_auto(seqs, lens, rids, k=K, r=R,
+                                        min_span=MIN_SPAN,
+                                        chunk=CHUNK)["n_pairs"])
+    store = kb.BUILD_DIR / "timing_nccl_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    pcomm.init(0, 1, str(store), dev)
+    try:
+        with cs.capture(mesh, "shard_probe_planes") as k14:
+            _, lam, tries = cs.v2_index(mesh, pcomm.Comm(), seqs, lens, rids,
+                                        max(128, 2 * n))
+    finally:
+        torch.distributed.destroy_process_group()
+        store.unlink(missing_ok=True)
+    del seqs
+    torch.cuda.empty_cache()
+    (sh, bits), _ = k14.calls[-1]
+    label = (f"K14 shard_probe_planes, {sh['valid'].numel()} entries "
+             f"({int(sh['valid'].sum())} valid), {1 << bits} buckets "
+             f"(lambda {lam}, try {tries})")
+    got, _ = report(label, lambda: mesh.shard_probe_planes(sh, bits),
+                    lambda: mesh.shard_probe_planes_plain(sh, bits))
+    digests.append((label, digest(dict(got[0], overflow=got[1]))))
+    print(f"  outputs sha256 {digests[-1][1]}")
+    # the card's write rate: one fill_ of as many bytes as the planes hold
+    n_bytes = sum(p.numel() * p.element_size() for p in got[0].values())
+    buf = torch.empty(n_bytes, dtype=torch.uint8, device=dev)
+    ms = events_ms(lambda: buf.fill_(1))
+    print(f"  fill_ of the planes' {n_bytes} bytes: {ms:.4f} ms "
+          f"({n_bytes / ms / 1e9:.3f} TB/s)")
+    del buf, got
+    shard_ablation(sh, bits)
 
 
 # csrc/sketch.cu with one change each, to time the dense mode's walk and
@@ -550,9 +638,34 @@ DENSE_ABLATIONS = {
 }
 
 
+def ablation_lib(name, source, subs):
+    """csrc/`source` with each (old text, new text) of `subs` put in,
+    built alone into build/pgrtk_tpu_torch/ablations/`name`/ and loaded,
+    the entries of its kernels bound as the library binds them."""
+    import ctypes
+
+    src = (kb.CSRC / source).read_text()
+    for old, new in subs:
+        if old not in src:
+            raise RuntimeError(f"{name}: csrc/{source} has no {old!r}")
+        src = src.replace(old, new)
+    out = kb.BUILD_DIR / "ablations" / name.replace(" ", "_")
+    out.mkdir(parents=True, exist_ok=True)
+    (out / source).write_text(src)
+    flags = [f for f in kb.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    subprocess.run([kb._nvcc(), *flags, "-I", str(kb.CSRC), "-o",
+                    str(out / "lib.so"), str(out / source)], check=True)
+    lib = ctypes.CDLL(str(out / "lib.so"))
+    for k in kb.KERNELS:
+        if k.source.endswith("/" + source):
+            fn = getattr(lib, "pgrtk_" + k.name)
+            fn.restype, fn.argtypes = ctypes.c_int, k.argtypes
+    return lib
+
+
 def dense_ablations(seqs, lens):
     """K1's dense mode (fast walk) beside each of DENSE_ABLATIONS, built
-    alone into build/pgrtk_tpu_torch/dense_ablations/ and called through
+    alone (`ablation_lib`) and called through
     ops/sketch.py::sketch_mode2_dense (median of three rounds of 10 calls,
     CUDA events).  The ablations' results are wrong by design and not
     compared.  A "walk only" time below the compact walk's bound means
@@ -566,31 +679,45 @@ def dense_ablations(seqs, lens):
     real = kb._lib
     try:
         for name, subs in DENSE_ABLATIONS.items():
-            src = (kb.CSRC / "sketch.cu").read_text()
-            for old, new in subs:
-                if old not in src:
-                    raise RuntimeError(f"{name}: csrc/sketch.cu has no "
-                                       f"{old!r}")
-                src = src.replace(old, new)
-            out = kb.BUILD_DIR / "dense_ablations" / name.replace(" ", "_")
-            out.mkdir(parents=True, exist_ok=True)
-            (out / "sketch.cu").write_text(src)
-            flags = [f for f in kb.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-            subprocess.run([kb._nvcc(), *flags, "-I", str(kb.CSRC), "-o",
-                            str(out / "lib.so"), str(out / "sketch.cu")],
-                           check=True)
-            lib = ctypes.CDLL(str(out / "lib.so"))
+            lib = ablation_lib(name, "sketch.cu", subs)
             lib.pgrtk_error_string.restype = ctypes.c_char_p
             lib.pgrtk_error_string.argtypes = [ctypes.c_int]
             lib.pgrtk_sketch_scratch_bytes.restype = ctypes.c_longlong
             lib.pgrtk_sketch_scratch_bytes.argtypes = [
                 ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-            lib.pgrtk_sketch_walk_compact.restype = ctypes.c_int
-            lib.pgrtk_sketch_walk_compact.argtypes = (
-                kb.sketch_walk_compact.argtypes)
             kb._lib = lib
             ms = events_ms(lambda: tsk.sketch_mode2_dense(*args), 10, 3)
             print(f"  {name}: {ms:.4f} ms")
+    finally:
+        kb._lib = real
+
+
+# K14's row writer with every bucket read as empty: it writes the same
+# fills to the same slots, but loads nothing (no count, no staged index,
+# no gather), so it times the row writer's stores alone
+K14_STORES_ONLY = [("  const int c = count[b];", "  const int c = 0;")]
+
+
+def shard_ablation(sh, bits):
+    """K14 beside K14_STORES_ONLY (built alone, called through
+    parallel/mesh.py::shard_probe_planes; its planes are fills by design
+    and not compared), each with its device time by kernel.  Skipped for
+    a tree whose K14 has no such row writer."""
+    from ..parallel import mesh
+
+    if K14_STORES_ONLY[0][0] not in (kb.CSRC / "shard.cu").read_text():
+        print("  stores only: skipped (no K14 row writer in this tree)")
+        return
+    real = kb._lib
+    try:
+        kb._lib = ablation_lib("K14 stores only", "shard.cu", K14_STORES_ONLY)
+
+        def fn():
+            return mesh.shard_probe_planes(sh, bits)
+
+        n, busy, top = device_profile(fn)
+        print(f"  stores only: {events_ms(fn):.4f} ms; {n:g} device "
+              f"launches, {busy:.4f} ms busy a call: {top}")
     finally:
         kb._lib = real
 
@@ -719,9 +846,11 @@ def main(argv) -> int:
     if "wfa" in parts:
         part_wfa(dev)
     if "dense" in parts:
-        part_dense(dev)
+        part_dense(dev, digests)
     if "batch" in parts:
         part_batch(dev, digests)
+    if "shard" in parts:
+        part_shard(dev, digests)
     if a.digest:
         with open(a.digest, "w") as f:
             f.writelines(f"{label}: {d}\n" for label, d in digests)

@@ -123,13 +123,17 @@ def _neighbours_plain(mask: torch.Tensor):
     return prev, nxt
 
 
-def _check_stream(x, y, mask):
+def _check_types(x, y, mask):
     if not (x.shape == y.shape == mask.shape) or x.dim() != 2:
         raise ValueError("x, y and the mask must share one (B, C) shape")
     if x.dtype != torch.int64 or y.dtype != torch.int64:
         raise TypeError("x and y must be int64")
     if mask.dtype != torch.bool:
         raise TypeError("the mask must be bool")
+
+
+def _check_stream(x, y, mask):
+    _check_types(x, y, mask)
     return x.contiguous(), y.contiguous(), mask.contiguous()
 
 
@@ -477,16 +481,20 @@ def min_span_filter_dense(x, y, valid, min_span: int) -> torch.Tensor:
     is the gapped filter's rule; on any other mask it is not, and it
     returns what the JAX function returns.  Returns the (B, C) bool keep
     mask."""
-    x, y, valid = _check_stream(x, y, valid)
+    _check_types(x, y, valid)
     if not on_cuda(x, y, valid):
         return min_span_filter_dense_plain(x, y, valid, min_span)
+    # the kernel reads rows at their strides: no copy of a column slice
+    x, y, valid = (p if p.stride(1) == 1 else p.contiguous()
+                   for p in (x, y, valid))
     B, C = x.shape
-    keep = torch.empty_like(valid)
+    keep = torch.empty((B, C), dtype=torch.bool, device=x.device)
     if x.numel():
-        count = torch.empty(B, dtype=torch.int32, device=x.device)
-        kb.min_span_filter_dense(x.data_ptr(), y.data_ptr(), valid.data_ptr(),
-                                 B, C, min_span, count.data_ptr(),
-                                 keep.data_ptr(), kb.stream_handle(x))
+        partial = kb.dense_partials(B, C, x.device)
+        kb.min_span_filter_dense(
+            x.data_ptr(), y.data_ptr(), valid.data_ptr(), B, C, x.stride(0),
+            y.stride(0), valid.stride(0), min_span, partial.data_ptr(),
+            keep.data_ptr(), kb.stream_handle(x))
     return keep
 
 

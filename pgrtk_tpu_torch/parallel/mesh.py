@@ -306,16 +306,15 @@ def shard_probe_planes(shard: Dict[str, torch.Tensor], bits: int):
     out = {f: torch.empty((nb, PROBE_W), device=dev,
                           dtype=torch.int64 if f in ("k0", "k1")
                           else torch.int32) for f in PLANE_FIELDS}
-    scratch = torch.empty(4 * n + 2 * nb, dtype=torch.int64, device=dev)
-    rscratch = kb.radix_scratch(n, dev)
-    wide = torch.empty((), dtype=torch.int64, device=dev)
-    flag = torch.empty(1, dtype=torch.int32, device=dev)
+    if n > 0x7FFFFFFF:
+        raise ValueError("the shard's row plane is int32: at most 2^31 - 1 "
+                         "entries")
+    work = torch.empty(nb + 1, dtype=torch.int32, device=dev)  # counts, flag
     kb.shard_probe_planes(
         valid.data_ptr(), *(p.data_ptr() for p in planes), n, bits,
-        scratch.data_ptr(), rscratch.data_ptr(), wide.data_ptr(),
-        *(out[f].data_ptr() for f in PLANE_FIELDS), flag.data_ptr(),
+        work.data_ptr(), *(out[f].data_ptr() for f in PLANE_FIELDS),
         kb.stream_handle(valid))
-    return out, flag[0] != 0
+    return out, work[nb] != 0
 
 
 # --------------------------------------------------------------- K15

@@ -921,8 +921,8 @@ def radix_cases(dev):
     the partition route broken by an invalid key off INT64_MAX and by a
     valid k0 at it; sort_keys (the v2 route sort) at a tile + 1 and many
     tiles;
-    sort_by_position past a tile; K14's sort of a shard of 100,003
-    entries."""
+    sort_by_position past a tile; and K14 (which no longer sorts on the
+    engine) on a shard of 100,003 entries."""
     from ..ops import pairs as tp
     from ..parallel import mesh as tm
 
@@ -973,7 +973,7 @@ def radix_cases(dev):
         planes, flag = fn(shard, 12)
         return [planes[f] for f in tm.PLANE_FIELDS] + [flag]
 
-    cases.append(("K12 in K14 shard_probe_planes n=100003",
+    cases.append(("K14 shard_probe_planes n=100003",
                   lambda: k14(tm.shard_probe_planes),
                   lambda: k14(tm.shard_probe_planes_plain)))
     return cases
@@ -1297,7 +1297,8 @@ def shard_table(seed, capacity, bits, n_keys=2000, crowd=0, runs=()):
     int64 but `valid`) of `capacity` entries, the invalid tail at
     INT64_MAX keys and 0 postings: n_keys random 56-bit keys with 1-3
     postings each; `crowd` single-posting keys in bucket 7 (at `bits`
-    bits); and per (n_postings, n_sids) in `runs` one key with that many
+    bits), or per size in a tuple `crowd` that many in a bucket of its
+    own; and per (n_postings, n_sids) in `runs` one key with that many
     postings spread over that many sids, in (sid, bgn) order, each in a
     bucket of its own."""
     rng = np.random.default_rng(seed)
@@ -1308,14 +1309,18 @@ def shard_table(seed, capacity, bits, n_keys=2000, crowd=0, runs=()):
         hi = rng.integers(0, 1 << 24, size=m, dtype=np.uint64)
         return list((hi << np.uint64(32)) | (np.uint64(b) << shift) | lo)
 
-    # the crowd has bucket 7 to itself, run key i bucket 9 + 2i
-    mine = [7] + [9 + 2 * i for i in range(len(runs))]
+    # crowd j has bucket 7 (j = 0) or 100 + 2j to itself, run key i
+    # bucket 9 + 2i
+    crowds = (crowd,) if np.isscalar(crowd) else tuple(crowd)
+    crowd_b = [7] + [100 + 2 * j for j in range(1, len(crowds))]
+    mine = crowd_b + [9 + 2 * i for i in range(len(runs))]
     k0 = rng.integers(0, 1 << 56, size=n_keys, dtype=np.uint64)
     b = (k0 & np.uint64(0xFFFFFFFF)) >> shift
     k0 = list(k0[~np.isin(b, mine)])
     mult = list(rng.integers(1, 4, size=len(k0)))
-    k0 += in_bucket(7, crowd)
-    mult += [1] * crowd
+    for cb, m in zip(crowd_b, crowds):
+        k0 += in_bucket(cb, m)
+        mult += [1] * m
     sids = [None] * len(k0)
     for i, (npost, nsid) in enumerate(runs):
         k0 += in_bucket(9 + 2 * i, 1)
@@ -1380,16 +1385,30 @@ def last_owner_shard(seed, n=3, capacity=8192):
     return out
 
 
+# the shard_cases whose probe buckets overflow (K14's flag)
+SHARD_OVERFLOW = ("bucket of 129", "buckets of 300 and 1000", "bits 1",
+                  "bits 2")
+
+
 def shard_cases(dev):
     """(name, shard table, bits, received k0, received k1) on `dev`: a
     random shard; a bucket of exactly 128 entries and one of 129 (K14's
     overflow); keys with Pp and Pp + 1 postings and sid runs with m = 15
-    and 16 (K15's keyovf); the last of three owners.  Every case's
-    received keys include misses and padded route slots."""
+    and 16 (K15's keyovf); the last of three owners; buckets of 31, 32,
+    33, 64, 65 and 127 entries (K14's warp and lane edges), and of 300 and
+    1,000 (overflow); a shard with no valid entry; valid entries that are
+    not a prefix (holes in a random shard); and bits 1 and 2, where every
+    bucket overflows.  Every 8,192-entry shard; every case's received keys
+    include misses and padded route slots."""
     from ..parallel.mesh import probe_bits_for
 
     Pp = SHARD_PP
     bits = probe_bits_for(8192, 16)
+    holes = shard_table(27, 8192, bits)
+    holes["valid"] &= np.random.default_rng(28).random(8192) < 0.7
+    empty = {f: np.full(8192, INT64_MAX if f in ("k0", "k1") else 0)
+             for f in ("k0", "k1", "sid", "bgn", "end", "orientation")}
+    empty["valid"] = np.zeros(8192, bool)
     tables = [
         ("random", shard_table(20, 8192, bits)),
         ("bucket of 128", shard_table(21, 8192, bits, n_keys=1500,
@@ -1401,12 +1420,21 @@ def shard_cases(dev):
                                            (17, 1), (Pp + 1, 1), (127, 64),
                                            (128, 3)))),
         ("last of 3 owners", last_owner_shard(24)),
+        ("buckets of 31-127", shard_table(25, 8192, bits, n_keys=1500,
+                                          crowd=(31, 32, 33, 64, 65, 127))),
+        ("buckets of 300 and 1000", shard_table(26, 8192, bits, n_keys=1500,
+                                                crowd=(300, 1000))),
+        ("no valid entry", empty),
+        ("valid not a prefix", holes),
+        ("bits 1", shard_table(29, 8192, 1)),
+        ("bits 2", shard_table(31, 8192, 2)),
     ]
     t = _to(dev)
     out = []
     for i, (name, tab) in enumerate(tables):
         qk0, qk1 = owner_queries(tab, 30 + i)
-        out.append((name, {f: t(v) for f, v in tab.items()}, bits, t(qk0),
+        b = int(name[-1]) if name.startswith("bits") else bits
+        out.append((name, {f: t(v) for f, v in tab.items()}, b, t(qk0),
                     t(qk1)))
     return out
 
@@ -1478,12 +1506,67 @@ def v1_search_cases(dev):
     return out
 
 
+def dense_stream(seed, B, C):
+    """(B, C) numpy mer planes x = hash << 8 | K, y = position << 1 |
+    orientation: positions 1-150 apart (so a min_span of 64 keeps some
+    entries and drops others), every third hash equal to the one before
+    it, and a random mask, ~55% valid."""
+    rng = np.random.default_rng(seed)
+    pos = np.cumsum(rng.integers(1, 150, size=(B, C)), axis=1)
+    h = rng.integers(0, 1 << 56, size=(B, C), dtype=np.uint64)
+    h[:, 2::3] = h[:, 1::3][:, :h[:, 2::3].shape[1]]
+    x = ((h << np.uint64(8)) | np.uint64(K)).view(np.int64)
+    y = (pos << 1) | rng.integers(0, 2, size=(B, C))
+    return x, y, rng.random((B, C)) < 0.55
+
+
+# K18's tile: 256 threads of 8 columns (csrc/dense.cu)
+DENSE_TILE = 2048
+
+
+def _dense_edges():
+    """dense_cases' cases at K18's edges: (name, x, y, valid) numpy."""
+    out = []
+    T = DENSE_TILE
+    # row widths around a lane's wrap (32), a warp's 256 columns and a
+    # block's tile: a random mask, a valid prefix over half the row, every
+    # entry valid
+    for i, C in enumerate((1, 2, 15, 17, 33, 257, T - 1, T, T + 1)):
+        x, y, v = dense_stream(70 + i, 3, C)
+        v[1] = np.arange(C) < -(-C // 2)
+        v[2] = True
+        out.append((f"C {C}", x, y, v))
+    # the last valid entry last of a tile, first of the next, and the same
+    # at a warp's 256 columns and a lane's wrap of 32
+    x, y, _ = dense_stream(80, 6, 2 * T)
+    n_valid = np.array([[T], [T + 1], [256], [257], [32], [33]])
+    out.append(("last valid at tile, warp and lane edges", x, y,
+                np.arange(2 * T) < n_valid))
+    x, y, v = dense_stream(81, 1, T + 16)
+    out.append(("B 1", x, y, v))
+    x, y, v = dense_stream(82, 300, 48)
+    v[::3] = np.arange(48) < np.arange(100)[:, None] % 49
+    out.append(("300 short rows", x, y, v))
+    # tiles with no valid entry between tiles with some
+    x, y, v = dense_stream(83, 2, 4 * T)
+    v[0, T // 2:3 * T + 100] = False
+    v[1, :3 * T] = False
+    out.append(("all-invalid tiles between valid ones", x, y, v))
+    return out
+
+
 def dense_cases(dev):
     """(name, x, y, valid) (B, C) mer planes on `dev` for K18 and K19:
     tie_stream's random non-prefix masks with equal neighbouring hashes;
     the same with each row's valid entries moved to a prefix; rows with
     no valid entry and with one (at index 0, inside, at the last index);
-    and prefix rows of one repeated hash and of hashes in equal pairs."""
+    prefix rows of one repeated hash and of hashes in equal pairs; C of
+    1, 2, 15, 17, 33, 257 and K18's tile - 1, tile and tile + 1; the
+    last valid entry last and first of a tile, of a warp's 256 columns
+    and of a lane's 32; B = 1; 300 rows of 48;
+    all-invalid tiles between valid ones; planes that are views at an
+    8-byte (x, y) and a 1-byte (valid) offset into larger buffers; and
+    the first columns of wider planes, as compact_mers returns them."""
     x, y, valid = (a.cpu().numpy() for a in tie_stream("cpu", B=4, C=700))
     prefix = np.arange(x.shape[1]) < valid.sum(axis=1, keepdims=True)
     one = np.zeros((4, 40), bool)
@@ -1495,10 +1578,23 @@ def dense_cases(dev):
     h[1, 1::2] = h[1, 0::2]
     xt = ((h << np.uint64(8)) | np.uint64(K)).view(np.int64)
     t = _to(dev)
-    return [(name, t(a), t(b), t(c)) for name, a, b, c in (
+    out = [(name, t(a), t(b), t(c)) for name, a, b, c in (
         ("non-prefix masks, equal neighbours", x, y, valid),
         ("prefix masks", x, y, prefix),
         ("n_valid 0 and 1", x[:4, :40], y[:4, :40], one),
         ("equal hashes", xt, pos << 1, np.arange(300) < np.array([[300],
                                                                   [251]])),
+        *_dense_edges(),
     )]
+
+    def view(a):  # `a` one element into a larger buffer
+        buf = t(np.concatenate([a.ravel()[:1], a.ravel()]))
+        return buf[1:].view(a.shape)
+
+    x, y, v = dense_stream(84, 3, DENSE_TILE)
+    out.append(("views at an offset", view(x), view(y), view(v)))
+    # compact_mers' form: the first columns of wider planes
+    x, y, v = (t(a)[:, :DENSE_TILE] for a in dense_stream(85, 3,
+                                                          DENSE_TILE + 48))
+    out.append(("column slices", x, y, v))
+    return out

@@ -16,6 +16,11 @@ from pgrtk_tpu_torch.ops import adj as tadj
 from pgrtk_tpu_torch.ops import pairs as tpairs
 from pgrtk_tpu_torch.utils import cases
 
+# one torch thread: the suite runs several workers on a few cores,
+# where a thread per core spends most of its time waiting for the
+# others
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("n", cases.ADJ_SIZES)
 def test_sort_link_rows_matches_jax(n):

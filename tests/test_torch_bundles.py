@@ -10,6 +10,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from pgrtk_tpu import api as japi
 from pgrtk_tpu.core import pdb_io as jpdb
@@ -21,6 +22,11 @@ from pgrtk_tpu_torch.core import pdb_io as tpdb
 from pgrtk_tpu_torch.graph import bundles as tgb
 from pgrtk_tpu_torch.graph import gfa as tgfa
 from pgrtk_tpu_torch.utils import cases
+
+# one torch thread: the suite runs several workers on a few cores,
+# where a thread per core spends most of its time waiting for the
+# others
+torch.set_num_threads(1)
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 

@@ -12,6 +12,11 @@ from pgrtk_tpu_torch.core import aln_ref
 from pgrtk_tpu_torch.ops import chain as tchain
 from pgrtk_tpu_torch.utils import cases
 
+# one torch thread: the suite runs several workers on a few cores,
+# where a thread per core spends most of its time waiting for the
+# others
+torch.set_num_threads(1)
+
 
 def _run_both(anchors, valid, penalty, max_gap, oriented, lookback,
               max_span):

@@ -457,15 +457,17 @@ def test_chain_groups_on_card_match_cpu_on_sv_groups(dev, tmp_path,
 
 
 def test_shard_kernels_match_plain_on_edge_cases(dev):
-    """K14 and K15 on cases.shard_cases (a bucket of 128 and of 129
-    entries, keys with Pp and Pp + 1 postings, sid runs with m 15 and 16,
-    padded route slots, the last of three owners) against their plain
-    versions, and the sort helpers of the owner and the route against
-    theirs."""
+    """K14 and K15 on cases.shard_cases (buckets of 31 to 1,000 entries,
+    128 and 129 among them, keys with Pp and Pp + 1 postings, sid runs
+    with m 15 and 16, padded route slots, the last of three owners, no
+    valid entry, valid entries that are not a prefix, bits 1 and 2)
+    against their plain versions, and the sort helpers of the owner and
+    the route against theirs."""
     from pgrtk_tpu_torch.ops import pairs as tp
 
     before = (kb.shard_probe_planes.launches, kb.owner_postings.launches)
-    for name, table, bits, qk0, qk1 in cases.shard_cases(dev):
+    picked = cases.shard_cases(dev)
+    for name, table, bits, qk0, qk1 in picked:
         got = mesh.shard_probe_planes(table, bits)
         want = mesh.shard_probe_planes_plain(table, bits)
         assert _equal(got, want), name
@@ -480,8 +482,8 @@ def test_shard_kernels_match_plain_on_edge_cases(dev):
         assert _equal(tp.sort_keys(qk0, qk1, valid),
                       tp.sort_keys_plain(qk0, qk1, valid))
     torch.cuda.synchronize()
-    assert kb.shard_probe_planes.launches == before[0] + 5
-    assert kb.owner_postings.launches == before[1] + 5
+    assert kb.shard_probe_planes.launches == before[0] + len(picked)
+    assert kb.owner_postings.launches == before[1] + len(picked)
 
 
 def test_sharded_steps_on_card_match_cpu(dev):
@@ -512,27 +514,30 @@ def test_v1_and_dense_kernels_match_plain_on_edge_cases(dev):
     above and between the entries, N = 0 and 1, the INT64_MAX tail), K17
     on K14's planes of cases.shard_cases (a full 128-slot row, INT64_MAX
     pads, padded query slots), K18 and K19 on cases.dense_cases (masks
-    that are not a prefix, n_valid 0 and 1, equal hashes)."""
+    that are not a prefix, n_valid 0 and 1, equal hashes, K18's thread
+    and tile edges, all-invalid tiles, views at an offset)."""
     from pgrtk_tpu_torch.ops import pairs as tp
 
     kb.reset_launches()
     for name, tk0, tk1, qk0, qk1 in cases.v1_search_cases(dev):
         assert _equal(mesh.pair_key_search(tk0, tk1, qk0, qk1),
                       mesh.pair_key_search_plain(tk0, tk1, qk0, qk1)), name
-    for name, table, bits, qk0, qk1 in cases.shard_cases(dev):
+    shard = cases.shard_cases(dev)
+    for name, table, bits, qk0, qk1 in shard:
         planes, _ = mesh.shard_probe_planes(table, bits)
         assert _equal(mesh.shard_probe_found(qk0, qk1, planes, bits),
                       mesh.shard_probe_found_plain(qk0, qk1, planes, bits))
-    for name, x, y, valid in cases.dense_cases(dev):
+    dense = cases.dense_cases(dev)
+    for name, x, y, valid in dense:
         assert _equal(tp.min_span_filter_dense(x, y, valid, 64),
                       tp.min_span_filter_dense_plain(x, y, valid, 64)), name
         assert _equal(tp.pair_mers_dense(x, y, valid),
                       tp.pair_mers_dense_plain(x, y, valid)), name
     torch.cuda.synchronize()
     assert kb.pair_key_search.launches == 6
-    assert kb.shard_probe_found.launches == 5
-    assert kb.min_span_filter_dense.launches == 4
-    assert kb.pair_mers_dense.launches == 4
+    assert kb.shard_probe_found.launches == len(shard)
+    assert kb.min_span_filter_dense.launches == len(dense)
+    assert kb.pair_mers_dense.launches == len(dense)
 
 
 def test_pair_key_search_on_card_rejects_keys_it_would_misorder(dev):

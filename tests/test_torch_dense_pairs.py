@@ -21,6 +21,11 @@ from pgrtk_tpu_torch.ops import pairs as tp
 from pgrtk_tpu_torch.parallel import mesh as tmesh
 from pgrtk_tpu_torch.utils import cases
 
+# one torch thread: the suite runs several workers on a few cores,
+# where a thread per core spends most of its time waiting for the
+# others
+torch.set_num_threads(1)
+
 K, R, MIN_SPAN, CHUNK = 56, 4, 64, 512
 L = 16_384
 # jitted, as their callers in the JAX package run them

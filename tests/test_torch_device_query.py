@@ -21,6 +21,11 @@ from pgrtk_tpu_torch.core import seqdb as tseqdb
 from pgrtk_tpu_torch.core.spec import ShmmrSpec
 from pgrtk_tpu_torch.parallel import device_query as tdq
 
+# one torch thread: the suite runs several workers on a few cores,
+# where a thread per core spends most of its time waiting for the
+# others
+torch.set_num_threads(1)
+
 MODES = ["mode1", "mode2"]
 INDEX_FIELDS = ("index_keys", "index_starts", "index_counts", "index_sigs")
 

@@ -16,6 +16,11 @@ from pgrtk_tpu_torch import dryrun
 from pgrtk_tpu_torch.parallel import comm as pcomm
 from pgrtk_tpu_torch.parallel import distributed
 
+# one torch thread: the suite runs several workers on a few cores,
+# where a thread per core spends most of its time waiting for the
+# others
+torch.set_num_threads(1)
+
 
 def _free_port():
     with socket.socket() as s:

@@ -18,6 +18,11 @@ from pgrtk_tpu.utils import synth
 from pgrtk_tpu_torch import convert
 from pgrtk_tpu_torch.parallel import mesh as tmesh
 
+# one torch thread: the suite runs several workers on a few cores,
+# where a thread per core spends most of its time waiting for the
+# others
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPEC = ShmmrSpec(sketch=True)
 TABLE_FIELDS = ("k0_hi", "k0_lo", "k1_hi", "k1_lo", "sid", "bgn", "end",

@@ -28,6 +28,11 @@ from pgrtk_tpu_torch.ops import sketch as tsk
 from pgrtk_tpu_torch.parallel import mesh as tmesh
 from pgrtk_tpu_torch.utils import cases
 
+# one torch thread: the suite runs several workers on a few cores,
+# where a thread per core spends most of its time waiting for the
+# others
+torch.set_num_threads(1)
+
 K, R, MIN_SPAN, CHUNK = 56, 4, 64, 512
 DEFAULT_KW = dict(block=CHUNK, slots=12, block2=512, slots2=144)
 B = 4

@@ -20,6 +20,11 @@ from pgrtk_tpu_torch.parallel import comm as pcomm
 from pgrtk_tpu_torch.parallel import mesh as tmesh
 from pgrtk_tpu_torch.utils import cases
 
+# one torch thread: the suite runs several workers on a few cores,
+# where a thread per core spends most of its time waiting for the
+# others
+torch.set_num_threads(1)
+
 CASES = cases.shard_cases("cpu")
 CASE_IDS = [c[0] for c in CASES]
 SHARD_FIELDS = ("valid", "k0_hi", "k0_lo", "k1_hi", "k1_lo", "sid", "bgn",
@@ -38,7 +43,7 @@ def test_shard_probe_planes_match_jax(case, jax_planes):
     planes, row, want_ovf = jax_planes(
         {k: jnp.asarray(v) for k, v in convert.table_to_jax(table).items()},
         bits)
-    assert bool(ovf) == bool(want_ovf) == (name == "bucket of 129")
+    assert bool(ovf) == bool(want_ovf) == (name in cases.SHARD_OVERFLOW)
     got_planes, got_row = convert.probe_planes_to_jax(got)
     for g, w in zip(got_planes, planes):
         assert np.array_equal(g, np.asarray(w))

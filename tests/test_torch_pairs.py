@@ -12,6 +12,11 @@ from pgrtk_tpu_torch import convert
 from pgrtk_tpu_torch.ops import pairs as tpairs
 from pgrtk_tpu_torch.utils import cases
 
+# one torch thread: the suite runs several workers on a few cores,
+# where a thread per core spends most of its time waiting for the
+# others
+torch.set_num_threads(1)
+
 MIN_SPAN = 64
 # one compile each instead of op-by-op dispatch of the jump-pointer rounds
 _jax_min_span = jax.jit(jax_pairs.min_span_filter_gapped, static_argnums=4)

@@ -8,10 +8,16 @@ import os
 import shutil
 
 import pytest
+import torch
 
 from pgrtk_tpu.cli import pgr_pbundle_decomp as jcli
 from pgrtk_tpu_torch.cli import pgr_pbundle_decomp as tcli
 from pgrtk_tpu_torch.utils import cases
+
+# one torch thread: the suite runs several workers on a few cores,
+# where a thread per core spends most of its time waiting for the
+# others
+torch.set_num_threads(1)
 
 OUTPUTS = (".bed", ".ctg.summary.tsv", ".mapg.gfa", ".mapg.idx",
            ".pmapg.gfa", ".pdb")

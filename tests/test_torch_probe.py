@@ -16,6 +16,11 @@ from pgrtk_tpu_torch.ops import probe as tprobe
 from pgrtk_tpu_torch.ops import query_e2e as tq
 from pgrtk_tpu_torch.utils import cases
 
+# one torch thread: the suite runs several workers on a few cores,
+# where a thread per core spends most of its time waiting for the
+# others
+torch.set_num_threads(1)
+
 
 BUILDERS = {
     "aligned": (jprobe.build_probe_table_aligned,

@@ -1,7 +1,9 @@
 """Port parity of the query stage: pgrtk_tpu_torch.ops.query_e2e (plain
 PyTorch versions, CPU) against pgrtk_tpu.ops.query_e2e (JAX on the CPU,
 jitted as tests/test_query_e2e.py runs it).  Every comparison is exact:
-integers and flags equal, f32 scores equal as bit patterns."""
+integers and flags equal, f32 scores equal as bit patterns.  The query
+step's variants on the cnv corpus are in tests/test_torch_query_e2e_cnv.py,
+so that two workers share the step's parity tests."""
 
 import jax
 import jax.numpy as jnp
@@ -10,11 +12,15 @@ import pytest
 import torch
 
 from pgrtk_tpu.ops import query_e2e as jq
-from pgrtk_tpu.utils import synth as jsynth
 from pgrtk_tpu_torch import convert
 from pgrtk_tpu_torch.ops import query_e2e as tq
 from pgrtk_tpu_torch.parallel import mesh as tmesh
 from pgrtk_tpu_torch.utils import cases
+
+# one torch thread: the suite runs several workers on a few cores,
+# where a thread per core spends most of its time waiting for the
+# others
+torch.set_num_threads(1)
 
 
 _jax_step = jax.jit(
@@ -96,37 +102,6 @@ def synth_corpus():
                 queries=queries)
 
 
-@pytest.fixture(scope="module")
-def cnv_corpus():
-    """tests/test_query_e2e.py:344-394: a 16-copy CNV tandem in the
-    queries and target 0 fires the default target-count filter; a shared
-    3-copy block passes it."""
-    rng = np.random.default_rng(21)
-    L, T, B = 49152, 4, 2
-    S16, U16, N16 = 8192, 1024, 16
-    E16 = S16 + U16 * N16
-    S3, U3, N3 = 28672, 2048, 3
-    base = rng.integers(0, 4, size=L, dtype=np.uint8)
-    base[S16:E16] = np.tile(jsynth.pick_tandem_unit(rng, U16, N16), N16)
-    base[S3:S3 + U3 * N3] = np.tile(rng.integers(0, 4, U3, dtype=np.uint8),
-                                    N3)
-
-    def hap(drop16):
-        out = base.copy()
-        if drop16:
-            out[S16:E16] = rng.integers(0, 4, E16 - S16, dtype=np.uint8)
-        n = rng.binomial(L, 2e-4)
-        pos = rng.choice(L, size=n, replace=False)
-        pos = pos[(pos < S16) | (pos >= E16)]
-        out[pos] = (out[pos] + rng.integers(1, 4, size=len(pos))) % 4
-        return out
-
-    targets = np.stack([hap(drop16=(sid != 0)) for sid in range(T)])
-    queries = np.stack([hap(drop16=False) for _ in range(B)])
-    return dict(idx=jq.build_index(targets, n_decoys=500, seed=17, P=16),
-                queries=queries)
-
-
 def _truncated_corpus():
     """tests/test_query_e2e.py:236-247: 6 targets, P=4 < the 6 postings of
     every shared key, so every query touching one raises row_ovf."""
@@ -193,12 +168,14 @@ VARIANTS = {
 }
 
 
-@pytest.mark.parametrize("variant", list(VARIANTS))
-def test_query_step_matches_jax(variant, synth_corpus, cnv_corpus):
-    name, kw, flag = VARIANTS[variant]
-    corpus = {"synth": lambda: synth_corpus, "cnv": lambda: cnv_corpus,
-              "truncated": _truncated_corpus, "t64": _t64_corpus,
-              "bench": _bench_rows_corpus}[name]()
+def _variants(cnv):
+    """The variants on the cnv corpus (tests/test_torch_query_e2e_cnv.py)
+    or on the others (here)."""
+    return [v for v, spec in VARIANTS.items() if (spec[0] == "cnv") == cnv]
+
+
+def _check_variant(variant, corpus):
+    _, kw, flag = VARIANTS[variant]
     idx, queries = corpus["idx"], corpus["queries"]
     jres = _run_jax(idx, queries, **kw)
     pres = _run_port(idx, queries, **kw)
@@ -211,6 +188,14 @@ def test_query_step_matches_jax(variant, synth_corpus, cnv_corpus):
     if variant in ("cnv-defaults", "synth-max-count-target-4",
                    "cnv-max-count-target-4"):  # the target-count filter
         assert int(jres["n_t_filtered"]) > 0
+
+
+@pytest.mark.parametrize("variant", _variants(cnv=False))
+def test_query_step_matches_jax(variant, synth_corpus):
+    name = VARIANTS[variant][0]
+    corpus = {"synth": lambda: synth_corpus, "truncated": _truncated_corpus,
+              "t64": _t64_corpus, "bench": _bench_rows_corpus}[name]()
+    _check_variant(variant, corpus)
 
 
 def test_fold_e2e_scalar_integer_terms(synth_corpus):

@@ -11,10 +11,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
+import torch
 
 from pgrtk_tpu.parallel import mesh as jax_mesh
 from pgrtk_tpu_torch import dryrun
 from pgrtk_tpu_torch.parallel import comm as pcomm
+
+# one torch thread: the suite runs several workers on a few cores,
+# where a thread per core spends most of its time waiting for the
+# others
+torch.set_num_threads(1)
 
 CAP = 4096
 B = 8

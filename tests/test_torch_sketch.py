@@ -17,6 +17,11 @@ from pgrtk_tpu_torch.ops import int64 as i64
 from pgrtk_tpu_torch.ops import pairs as tpairs
 from pgrtk_tpu_torch.ops import sketch as tsketch
 
+# one torch thread: the suite runs several workers on a few cores,
+# where a thread per core spends most of its time waiting for the
+# others
+torch.set_num_threads(1)
+
 B, L = 4, 1 << 16  # the shapes of tests/test_ops_device.py (shared compiles)
 K, R, MIN_SPAN, CHUNK = 56, 4, 64, 512
 

@@ -18,6 +18,11 @@ from pgrtk_tpu_torch.core.spec import ShmmrSpec
 from pgrtk_tpu_torch.ops import sketch1 as ts1
 from pgrtk_tpu_torch.utils import cases
 
+# one torch thread: the suite runs several workers on a few cores,
+# where a thread per core spends most of its time waiting for the
+# others
+torch.set_num_threads(1)
+
 SPECS = [ShmmrSpec(w=w, k=k, r=4 if w == 80 else 3,
                    min_span=64 if w == 80 else 16)
          for w, k in cases.MODE1_SPECS]

@@ -7,10 +7,16 @@ one-shot and per-sequence calls.  The budget is lowered here so that a
 small skewed batch splits."""
 import numpy as np
 import pytest
+import torch
 
 from pgrtk_tpu_torch.core.spec import ShmmrSpec
 from pgrtk_tpu_torch.ops import sketch as tsk
 from pgrtk_tpu_torch.ops import sketch1 as ts1
+
+# one torch thread: the suite runs several workers on a few cores,
+# where a thread per core spends most of its time waiting for the
+# others
+torch.set_num_threads(1)
 
 BUDGET = 16_384
 MODE1 = ShmmrSpec(w=80, k=55, r=3, min_span=64, sketch=False)

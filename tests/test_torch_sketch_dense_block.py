@@ -11,6 +11,11 @@ from pgrtk_tpu.ops import sketch as jax_sketch
 from pgrtk_tpu_torch import convert
 from pgrtk_tpu_torch.ops import sketch as tsketch
 
+# one torch thread: the suite runs several workers on a few cores,
+# where a thread per core spends most of its time waiting for the
+# others
+torch.set_num_threads(1)
+
 K, R, MIN_SPAN, CHUNK = 56, 4, 64, 512
 
 

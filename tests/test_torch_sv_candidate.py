@@ -9,6 +9,7 @@ SeqIndexDB.query_fragment_to_hps and its batch form against the JAX FASTX
 database's at the CLI's knobs.
 """
 import pytest
+import torch
 
 from pgrtk_tpu.api import SeqIndexDB as JaxSeqIndexDB
 from pgrtk_tpu.cli import pgr_get_sv_candidate_regions as jcli
@@ -16,6 +17,11 @@ from pgrtk_tpu_torch.api import SeqIndexDB
 from pgrtk_tpu_torch.cli import pgr_get_sv_candidate_regions as tcli
 from pgrtk_tpu_torch.core.fasta import read_fastx_all
 from pgrtk_tpu_torch.utils import cases
+
+# one torch thread: the suite runs several workers on a few cores,
+# where a thread per core spends most of its time waiting for the
+# others
+torch.set_num_threads(1)
 
 VARIANTS = {
     "default": [],

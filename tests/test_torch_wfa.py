@@ -27,6 +27,11 @@ from pgrtk_tpu_torch.utils import cases
 
 from test_ops_wfa import _mutate, _pairs, _rand_seq
 
+# one torch thread: the suite runs several workers on a few cores,
+# where a thread per core spends most of its time waiting for the
+# others
+torch.set_num_threads(1)
+
 
 def _adversarial(seed=7):
     """tests/test_ops_wfa.py:152-177: SNPs, big deletions and insertions,

@@ -14,6 +14,11 @@ from pgrtk_tpu_torch.utils import cases
 
 from test_torch_wfa import _hold_to_jax
 
+# one torch thread: the suite runs several workers on a few cores,
+# where a thread per core spends most of its time waiting for the
+# others
+torch.set_num_threads(1)
+
 
 def test_edge_pairs_forward_matches_jax():
     """utils/cases.py::wfa_edge_pairs (runs ending at each byte of K13's

@@ -12,6 +12,11 @@ from pgrtk_tpu_torch.ops import pairs as tp
 from pgrtk_tpu_torch.parallel import mesh as tmesh
 from pgrtk_tpu_torch.utils import cases
 
+# one torch thread: the suite runs several workers on a few cores,
+# where a thread per core spends most of its time waiting for the
+# others
+torch.set_num_threads(1)
+
 WIDTH_ERROR = "values outside their width"
 
 
