@@ -176,19 +176,23 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      and on its scaffold gaps: no rerun, the table equal to phase 4's
      step's on them; medians of 5 steps of both beside phase
      4's step, a torch.profiler pass;
-     (11c) the count (K16), probe (K11) and v2 probe-only (K17) steps,
-     the batch against itself: all three counts equal and at least
-     n_pairs, median of 5 each, and the bounds of the v1 index and probe
-     steps (sums of their kernels' bounds: phase 5's K1-K4 and sort_pairs,
-     and K11 at the probe step's keys); (11d) K16 and K17 against their plain
-     versions at 11c's shapes and on cases.v1_search_cases and
-     cases.shard_cases, then the dense pipeline (mesh.dense_index_step,
-     gapped and not) on phase 4's batch: its counts equal to phase 4's,
-     K1's dense mode, compact_mers, K18, recompact_mers and K19 against
-     their plain versions at its shapes, K18 and K19 on
-     cases.dense_cases.  Phase 1 also holds K1's dense mode to its plain
-     version on its edge cases and on 131 one-chunk rows (a last block
-     of 3 lanes).
+     (11c) the count (K16's deferred entry, its key flag required
+     clear), probe (K11) and v2 probe-only (K17's step entry) steps, the
+     batch against itself: all three counts equal and at least n_pairs,
+     median of 5 each, and the bounds of the v1 index and probe steps
+     (sums of their kernels' bounds: phase 5's K1-K4 and sort_pairs, and
+     K11 at the probe step's keys); (11d) K16 and K17, the entries the
+     steps ran, against their plain versions at 11c's shapes, with their
+     bounds restated to the work of the directory search and of the
+     rows' occupied prefixes beside the old ones, and both entries of
+     each on cases.v1_search_cases and cases.shard_cases (K17's step
+     entry on cases.found_rows), then the dense pipeline
+     (mesh.dense_index_step, gapped and not) on phase 4's batch: its
+     counts equal to phase 4's, K1's dense mode, compact_mers, K18,
+     recompact_mers and K19 against their plain versions at its shapes,
+     K18 and K19 on cases.dense_cases.  Phase 1 also holds K1's dense
+     mode to its plain version on its edge cases and on 131 one-chunk
+     rows (a last block of 3 lanes).
 
 Between phases 6 and 7 it prints the bounds of the index and query
 steps (sums of their kernels' bounds in this run).
@@ -315,6 +319,9 @@ OPS_COMPARE = 4      # K5/K11/K15/K17 per table slot compared: two 64-bit
                      # equals
 OPS_SEARCH = 8       # K16 per key and search round: a 64-bit less-than,
                      # equal and select on (k0, k1)
+OPS_DIR = 4          # K16 per valid table entry, its directory's pass: the
+                     # bucket (a shift), the compare with the predecessor's
+                     # bucket, the store
 OPS_DIGIT = 8        # K12 per entry and 8-bit digit that is not constant:
                      # extract, rank among equal digits, place
 ROW = (4, 4, 4, 7, 7, BIT)  # a MAP-graph row: sid, bgn, end (u32), h0,
@@ -2359,29 +2366,56 @@ def k16_work(tk0, tk1, qk0, qk1):
     """Input bytes (the query keys, and the table entries at the keys'
     distinct lower_bound positions, each read once; the INT64_MAX tail
     past the last of them is never needed), output bytes (a flag per
-    key) and operations (ceil(log2(m + 1)) search rounds per key over
-    the m entries before the tail) of K16."""
+    key) and operations of K16: OPS_DIR per valid entry for the
+    directory's pass and, per key, the rounds of a lower_bound over its
+    directory bucket (mesh.pair_key_dir_bits(N) bits), ceil(log2(size +
+    1)).  The fourth value is the operations of the model of a search
+    over the whole table, which K16 ran before its directory:
+    ceil(log2(m + 1)) rounds per key over the m entries before the
+    tail."""
     from pgrtk_tpu_torch.ops.int64 import INT64_MAX
+    from pgrtk_tpu_torch.parallel import mesh
 
     Q = qk0.numel()
     pos = lower_bounds(tk0, tk1, qk0, qk1)
     entries = torch.unique(pos[pos < tk0.numel()]).numel()
     m = int((tk0 != INT64_MAX).sum())
+    shift = 56 - mesh.pair_key_dir_bits(tk0.numel())
+    sizes = torch.bincount(tk0[tk0 != INT64_MAX] >> shift,
+                           minlength=1 << (56 - shift))
+    size = sizes[qk0.clamp(0, (1 << 56) - 1) >> shift].double()
+    rounds = int(torch.where(size > 0, torch.floor(torch.log2(size)) + 1,
+                             0).sum())
     return (16 * Q + 16 * entries, lambda got: need(Q, BIT),
+            OPS_DIR * m + OPS_SEARCH * rounds,
             OPS_SEARCH * Q * max(1, m.bit_length()))
 
 
-def k17_work(qk0, bits):
-    """K15's model without the postings: each key (16 bytes), each
-    distinct bucket row probed once (128 keys of 16 bytes), a flag per
-    key; 4 operations per slot compared."""
+def k17_work(q, planes, bits):
+    """Input bytes (each gathered row's valid flag, 8 bytes as given; the
+    two words of each valid key that is not INT64_MAX; the occupied
+    prefix of each distinct row those keys probe, k0 and k1 of each
+    entry, read once), output bytes (a flag per row) and operations
+    (OPS_COMPARE per occupied slot of each such key's row).  The fourth
+    and fifth values are the bytes and operations of the model of a
+    whole-row compare of every key, which K17 ran before it read the
+    rows' prefixes and the mask: each key 16 bytes, each distinct row a
+    key that is not INT64_MAX probes at 128 slots, 128 compares a key."""
     from pgrtk_tpu_torch.ops.int64 import INT64_MAX
 
-    live = qk0 != INT64_MAX
-    rows = torch.unique((qk0[live] & 0xFFFFFFFF) >> (32 - bits)).numel()
-    Q = qk0.numel()
-    return (16 * Q + rows * 128 * 16, lambda got: need(Q, BIT),
-            OPS_COMPARE * int(live.sum()) * 128)
+    k0, _, valid = q.unbind(1)
+    Q = k0.numel()
+    occupied = (planes["k0"] != INT64_MAX).sum(dim=1)
+    live = (valid != 0) & (k0 != INT64_MAX)
+    b = (k0[live] & 0xFFFFFFFF) >> (32 - bits)
+    in_b = 8 * Q + 16 * int(live.sum()) + 16 * int(
+        occupied[torch.unique(b)].sum())
+    old_live = k0 != INT64_MAX
+    old_rows = torch.unique((k0[old_live] & 0xFFFFFFFF) >> (32 - bits))
+    return (in_b, lambda got: need(Q, BIT),
+            OPS_COMPARE * int(occupied[b].sum()),
+            16 * Q + old_rows.numel() * 128 * 16,
+            OPS_COMPARE * int(old_live.sum()) * 128)
 
 
 def dense_read(valid, *offsets):
@@ -2454,8 +2488,8 @@ def phase_v1(dev, kb, mesh, comm, batch, stamp, index_bounds):
 
     torch.cuda.synchronize()
     kb.reset_launches()
-    with capture(mesh, "pair_key_search") as k16, \
-            capture(mesh, "shard_probe_found") as k17, \
+    with capture(mesh, "pair_key_search_deferred") as k16, \
+            capture(mesh, "shard_probe_found_step") as k17, \
             capture(mesh.probe_ops, "probe_keys") as k11:
         v1 = v1_step()
         table = v1["table"]
@@ -2483,6 +2517,8 @@ def phase_v1(dev, kb, mesh, comm, batch, stamp, index_bounds):
             res = step()
             hits[name] = int(res["n_hits"])
             require(not bool(res["overflow"]), f"{name} step overflow")
+            require(not bool(res.get("bad_keys", False)),
+                    f"{name} step: K16's flag set (keys outside 56 bits)")
         torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kb.KERNELS if k.launches}
     print(f"  n_hits {hits} (n_pairs {n}); launches {launches}")
@@ -2545,30 +2581,51 @@ def phase_v1(dev, kb, mesh, comm, batch, stamp, index_bounds):
 
     results = {}
     (tk0, tk1, qk0, qk1), _ = k16.calls[-1]
-    in_b, out_b, ops = k16_work(tk0, tk1, qk0, qk1)
+    in_b, out_b, ops, old_ops = k16_work(tk0, tk1, qk0, qk1)
+    _, bad = mesh.pair_key_search_deferred(tk0, tk1, qk0, qk1)
+    require(int(bad) == 0, "K16's flag set at 11c's keys")
     results["pair_key_search"] = measure(
-        f"K16 pair_key_search, {qk0.numel()} keys in {tk0.numel()} entries",
-        lambda: mesh.pair_key_search(tk0, tk1, qk0, qk1),
+        f"K16 pair_key_search_deferred, {qk0.numel()} keys in "
+        f"{tk0.numel()} entries",
+        lambda: mesh.pair_key_search_deferred(tk0, tk1, qk0, qk1)[0],
         lambda: mesh.pair_key_search_plain(tk0, tk1, qk0, qk1),
         in_b, out_b, ops)
-    (fk0, fk1, planes, bits), _ = k17.calls[-1]
-    in_b, out_b, ops = k17_work(fk0, bits)
+    old = bound(in_b + need(qk0.numel(), BIT), old_ops)
+    print(f"    restated bound {results['pair_key_search']['bound_ms']:.4f} "
+          f"ms ({ops} ops: the directory's pass and each key's rounds in "
+          f"its bucket) [before: {old[0]:.4f} ms by {old[1]}, {old_ops} "
+          f"ops, log2 of the whole table's rounds]")
+    (q, planes, bits), _ = k17.calls[-1]
+    in_b, out_b, ops, old_b, old_ops = k17_work(q, planes, bits)
     results["shard_probe_found"] = measure(
-        f"K17 shard_probe_found, {fk0.numel()} gathered keys, "
-        f"{1 << bits} buckets",
-        lambda: mesh.shard_probe_found(fk0, fk1, planes, bits),
-        lambda: mesh.shard_probe_found_plain(fk0, fk1, planes, bits),
+        f"K17 shard_probe_found_step, {q.shape[0]} gathered rows "
+        f"({int(q[:, 2].sum())} valid), {1 << bits} buckets",
+        lambda: mesh.shard_probe_found_step(q, planes, bits),
+        lambda: mesh.shard_probe_found_step_plain(q, planes, bits),
         in_b, out_b, ops)
+    old = bound(old_b + need(q.shape[0], BIT), old_ops)
+    print(f"    restated bound {results['shard_probe_found']['bound_ms']:.4f}"
+          f" ms ({in_b} bytes, {ops} ops: valid keys, their rows' occupied "
+          f"prefixes) [before: {old[0]:.4f} ms by {old[1]}, 128 slots a "
+          f"key]")
+    check("K17 public entry on the step's key columns, unmasked",
+          mesh.shard_probe_found(q[:, 0], q[:, 1], planes, bits),
+          mesh.shard_probe_found_plain(q[:, 0], q[:, 1], planes, bits))
     edge = {"pair_key_search": 0.0, "shard_probe_found": 0.0}
     for name, a, b, c, d in cases.v1_search_cases(dev):
+        found, bad = mesh.pair_key_search_deferred(a, b, c, d)
+        require(int(bad) == 0, f"K16 {name}: flag set")
         edge["pair_key_search"] = max(edge["pair_key_search"], check(
-            f"K16 {name}", [mesh.pair_key_search(a, b, c, d)],
-            [mesh.pair_key_search_plain(a, b, c, d)]))
-    for name, tab, b, c0, c1 in cases.shard_cases(dev):
+            f"K16 {name}", [mesh.pair_key_search(a, b, c, d), found],
+            [mesh.pair_key_search_plain(a, b, c, d)] * 2))
+    for i, (name, tab, b, c0, c1) in enumerate(cases.shard_cases(dev)):
         pl, _ = mesh.shard_probe_planes(tab, b)
+        fq = cases.found_rows(c0, c1, 70 + i)
         edge["shard_probe_found"] = max(edge["shard_probe_found"], check(
-            f"K17 {name}", [mesh.shard_probe_found(c0, c1, pl, b)],
-            [mesh.shard_probe_found_plain(c0, c1, pl, b)]))
+            f"K17 {name}", [mesh.shard_probe_found(c0, c1, pl, b),
+                            mesh.shard_probe_found_step(fq, pl, b)],
+            [mesh.shard_probe_found_plain(c0, c1, pl, b),
+             mesh.shard_probe_found_step_plain(fq, pl, b)]))
     for name in ("pair_key_search", "shard_probe_found"):
         results[name]["launches"] = launches.get(name, 0)
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"],

@@ -49,13 +49,26 @@
 //
 // K17 replaces the compare block of pgrtk_tpu/parallel/mesh.py:576-582
 // (inside sharded_query_v2_step, the v2 probe-only fan-out): is each
-// gathered query key in its bucket row of this rank's K14 planes?  The
-// bucket is K14's, the top `bits` of k0's low word (not K11's top bits of
-// the 56-bit hash).  One warp per key reads the 128-slot row, 4 slots a
-// lane, with the same ballot as K15 (`row_hits`), and lane 0 writes the
-// OR of the four masks.  An INT64_MAX key (a padded slot) never hits.
-// What bounds it on this card: device memory (the keys, each probed
-// bucket row of keys once, the flags).
+// gathered query key in its bucket row of this rank's K14 planes, and is
+// its pair valid?  The bucket is K14's, the top `bits` of k0's low word
+// (not K11's top bits of the 56-bit hash).  What bounds it on this card:
+// device memory, and the bytes it needs are few: each key's valid flag,
+// the two words of a valid key, and the occupied prefix of its bucket row
+// (K14 writes a row's entries first and INT64_MAX fills after them; at
+// 10b's shapes a row holds ~5 entries of 128), and what holds a kernel
+// back at these bytes is its chain of dependent loads and how many keys
+// are in flight (on an H100 at 10b's shapes, 8 lanes a key reading k1
+// only where k0 matched took ~0.1 ms; PERF.md has the layouts tried).  So
+// a pair of lanes takes a key (16 keys a warp): it reads the key's flag
+// and then, only for a valid key, its words, in place at the caller's
+// strides (the step's gathered (Q, 3) rows, no copy); then from slot 0 it
+// reads 8 slots of the k0 and k1 rows a step (64 contiguous bytes of
+// each, 32 a lane, in one round of loads) and stops at the step that
+// holds the row's first fill or the key.  A full row of 128 has no fill
+// and takes 16 steps.  The found flag is written AND-ed with the valid
+// flag.  An INT64_MAX key (a padded slot) never hits.  The precondition
+// is K14's layout: in each row, entries before fills (the plain version
+// compares the whole row).
 #include "common.cuh"
 
 namespace {
@@ -172,7 +185,7 @@ __global__ void __launch_bounds__(kThreads)
   __stcs((int4*)(pl.row + s), make_int4(row[0], row[1], row[2], row[3]));
 }
 
-// The 128-slot row compare of K15 and K17: bit s of mask[t] is set when
+// K15's 128-slot row compare: bit s of mask[t] is set when
 // slot 32 t + s of the row at `row` holds (k0, k1) and the key is live.
 // Every lane of the warp must call it.
 __device__ __forceinline__ void row_hits(const i64* __restrict__ pk0,
@@ -252,20 +265,62 @@ __global__ void owner_postings_kernel(const i64* __restrict__ qk0,
   }
 }
 
-__global__ void shard_probe_found_kernel(const i64* __restrict__ qk0,
-                                         const i64* __restrict__ qk1, i64 Q,
-                                         int bits, const i64* __restrict__ pk0,
-                                         const i64* __restrict__ pk1,
-                                         bool* __restrict__ found) {
+// K17's layout, set for its measured best (PERF.md): lanes a key, and
+// 16-byte loads a lane, step and plane
+constexpr int kGroup = 2;
+constexpr int kPer = 2;
+constexpr int kStep = 2 * kPer * kGroup;  // slots a step: 8, 64 bytes
+
+__global__ void __launch_bounds__(kThreads)
+    shard_probe_found_kernel(const i64* __restrict__ qk0, i64 s0,
+                             const i64* __restrict__ qk1, i64 s1,
+                             const i64* __restrict__ qvalid, i64 sv, i64 Q,
+                             int bits, const i64* __restrict__ pk0,
+                             const i64* __restrict__ pk1,
+                             bool* __restrict__ found) {
+  const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31;
-  const i64 q = ((i64)blockIdx.x * kThreads + threadIdx.x) >> 5;
-  if (q >= Q) return;  // whole warps leave together
-  const i64 k0 = qk0[q];
-  const i64 k1 = qk1[q];
-  const bool live = k0 != kKeyFill;
-  unsigned mask[4];
-  row_hits(pk0, pk1, live ? row_of(k0, bits) : 0, k0, k1, live, lane, mask);
-  if (lane == 0) found[q] = (mask[0] | mask[1] | mask[2] | mask[3]) != 0u;
+  const int sub = lane & (kGroup - 1);
+  const unsigned mine = (0xffffffffu >> (32 - kGroup))
+                        << (lane & ~(kGroup - 1));  // my group's lanes
+  const i64 t = (i64)blockIdx.x * kThreads + threadIdx.x;
+  if ((t & ~31LL) / kGroup >= Q) return;  // whole warps leave together
+  const i64 q = t / kGroup;
+  // every lane of the warp stays for the votes below; a lane past Q or
+  // of an invalid or padded key reads no row
+  bool live = q < Q && (qvalid == nullptr || qvalid[q * sv] != 0);
+  i64 k0 = 0, k1 = 0;
+  if (live) {
+    k0 = qk0[q * s0];
+    k1 = qk1[q * s1];
+    live = k0 != kKeyFill;
+  }
+  const i64 row = live ? row_of(k0, bits) : 0;
+  bool more = live, hit = false;
+  for (int base = 0; base < kW; base += kStep) {
+    bool match = false, fill = false;
+    if (more) {
+      const i64 p = row + base + 2 * kPer * sub;
+      longlong2 v[kPer], w[kPer];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        v[j] = __ldg((const longlong2*)(pk0 + p) + j);
+        w[j] = __ldg((const longlong2*)(pk1 + p) + j);
+      }
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        fill |= v[j].x == kKeyFill || v[j].y == kKeyFill;
+        match |= (v[j].x == k0 && w[j].x == k1) ||
+                 (v[j].y == k0 && w[j].y == k1);
+      }
+    }
+    const unsigned h = __ballot_sync(full, match);
+    const unsigned f = __ballot_sync(full, fill);
+    hit |= (h & mine) != 0u;
+    more = more && !hit && (f & mine) == 0u;
+    if (!__any_sync(full, more)) break;
+  }
+  if (q < Q && sub == 0) found[q] = hit;
 }
 
 int blocks(i64 n) { return (int)((n + kThreads - 1) / kThreads); }
@@ -320,18 +375,24 @@ extern "C" int pgrtk_owner_postings(const void* qk0, const void* qk1,
   return (int)cudaGetLastError();
 }
 
-// K17.  Query keys qk0, qk1 (int64, Q of them; INT64_MAX = padded slot),
-// the key planes of K14 (2^bits rows of 128).  Writes found (Q,) bool.
-extern "C" int pgrtk_shard_probe_found(const void* qk0, const void* qk1,
+// K17.  Query keys qk0, qk1 (int64, Q of them, element strides s0 and
+// s1; INT64_MAX = padded slot) and, unless qvalid is null, their valid
+// flags (int64, stride sv; 0 = not a valid pair); the key planes of K14
+// (2^bits rows of 128, entries before fills in each row, 16-byte
+// aligned).  Writes found (Q,) bool: found in its row and valid.
+extern "C" int pgrtk_shard_probe_found(const void* qk0, long long s0,
+                                       const void* qk1, long long s1,
+                                       const void* qvalid, long long sv,
                                        long long Q, int bits, const void* pk0,
                                        const void* pk1, void* found,
                                        void* stream) {
   if (Q < 0 || bits < 1 || bits > 31) return (int)cudaErrorInvalidValue;
   if (Q == 0) return (int)cudaSuccess;
-  const i64 grid = (Q + kWarps - 1) / kWarps;
+  const i64 keys = kThreads / kGroup;  // a block's
+  const i64 grid = (Q + keys - 1) / keys;
   shard_probe_found_kernel<<<(unsigned)grid, kThreads, 0,
                              (cudaStream_t)stream>>>(
-      (const i64*)qk0, (const i64*)qk1, Q, bits, (const i64*)pk0,
-      (const i64*)pk1, (bool*)found);
+      (const i64*)qk0, s0, (const i64*)qk1, s1, (const i64*)qvalid, sv, Q,
+      bits, (const i64*)pk0, (const i64*)pk1, (bool*)found);
   return (int)cudaGetLastError();
 }

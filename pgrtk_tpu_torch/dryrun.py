@@ -136,6 +136,7 @@ def dryrun_rank(comm: pcomm.Comm, device, L: int = FULL_BASES) -> dict:
                                           chunk=512)
     self_hits = int(count["n_hits"])
     need(not bool(count["overflow"]), "count step overflow")
+    need(not bool(count["bad_keys"]), "count step: keys outside 56 bits")
     need(self_hits >= n_pairs, f"self-hits {self_hits} < pairs {n_pairs}")
 
     # 3) the probe step against a replicated probe table of its keys
@@ -271,8 +272,9 @@ def v1_steps_rank(comm: pcomm.Comm, device, seqs, lens, rids=None,
     when `auto`), the count and probe steps of `seqs` against it and,
     with `v2_capacity`, the v2 index at that shard capacity and the
     probe-only step against it.  Returns numpy in the JAX layout: table
-    (table_to_jax), the index counts and flags, and (n_hits, mask,
-    overflow) per query step (hits_to_jax)."""
+    (table_to_jax), the index counts and flags, (n_hits, mask,
+    overflow) per query step (hits_to_jax), and count_bad_keys, the
+    count step's key flag read once (0 when clear)."""
     from . import convert
 
     n, rank = comm.size, comm.rank
@@ -292,8 +294,9 @@ def v1_steps_rank(comm: pcomm.Comm, device, seqs, lens, rids=None,
                index={f: int(v1[f]) for f in (
                    "n_pairs", "n_mers", "overflow", "safe_rerun") if f in v1})
     kw = dict(comm=comm, chunk=512)
-    out["count"] = convert.hits_to_jax(
-        mesh.sharded_query_count_step(ts, tl, tr, v1["table"], **kw))
+    count = mesh.sharded_query_count_step(ts, tl, tr, v1["table"], **kw)
+    out["count"] = convert.hits_to_jax(count)
+    out["count_bad_keys"] = int(count["bad_keys"])
     out["probe"] = convert.hits_to_jax(mesh.sharded_query_probe_step(
         ts, tl, tr, mesh.replicated_probe_table(v1["table"]), **kw))
     if v2_capacity is not None:

@@ -230,11 +230,11 @@ owner_postings = Kernel(
 # step's row compare
 pair_key_search = Kernel(
     "pair_key_search", "pgrtk_tpu_torch/csrc/v1.cu",
-    [_P, _P, _LL, _P, _P, _LL, _P, _P, _P],
+    [_P, _P, _LL, _P, _P, _LL, _I, _P, _P, _P],
 )
 shard_probe_found = Kernel(
     "shard_probe_found", "pgrtk_tpu_torch/csrc/shard.cu",
-    [_P, _P, _LL, _I, _P, _P, _P, _P],
+    [_P, _LL, _P, _LL, _P, _LL, _LL, _I, _P, _P, _P, _P],
 )
 # K7's second entry: the same gather core writing K8's (G, N, 6) anchors
 expand_postings_anchors = Kernel(

@@ -69,9 +69,24 @@ gave the kernels when this run builds them, then the parts asked for
          4,194,304-decoy store of the bench targets, W = 32, with its
          cycles a scan step at the card's maximum SM clock; each
          output's sha256 goes to FILE with --digest.
-With --digest FILE, the sha256 of the outputs of `step`, `batch`, K18
-and `shard` are written to FILE, one line each, so that two trees can be
-compared in one call.
+  v1     K16 and K17 at phase 11c's shapes (chip_smoke.py::phase_v1):
+         phase 4's batch through sharded_sketch_index_step_auto and the
+         v2 index (lambda retry) over an NCCL group of world size 1, then
+         the count step (K16, its call captured: ~1,769,472 query keys in
+         the replicated table) and the v2 probe-only step (K17 on the
+         step's gathered (Q, 3) rows, as the step calls it: the step
+         entry, or in an older tree the public entry on the rows' key
+         columns AND-ed with the valid column), each step's device
+         launches, busy time and host-clock median of 5; K16 through
+         `pair_key_search` (its host read of the flag) and, where the
+         tree has it, `pair_key_search_deferred`; K17 as the step calls
+         it and through its public entry on contiguous keys; then, in a
+         tree that has them, K17 and K16 at the other layouts of
+         V1_VARIANTS (each built alone) and K16 at directories one bit
+         wider and narrower (`v1_variants`).
+With --digest FILE, the sha256 of the outputs of `step`, `batch`, K18,
+`shard` and `v1` are written to FILE, one line each, so that two trees
+can be compared in one call.
 Every kernel is held to its plain version (tolerance 0).  Each kernel
 time is the median of five rounds of 20 back-to-back calls (CUDA events,
 ms a call), beside the device launches, busy time and time by kernel of
@@ -102,13 +117,14 @@ from ..utils import cases
 from .k1_modes import CHUNK, K, MIN_SPAN, R, SLOTS, batches
 
 PARTS = ("chain", "index", "query", "step", "wfa", "dense", "batch",
-         "shard")
+         "shard", "v1")
 PTXAS_KERNELS = ("sketch_walk", "rank", "min_span_kernel", "tile_summary",
                  "pair_summary", "tile_rank", "pair_kernel", "probe_kernel",
                  "probe_fetch_kernel", "dup_pair", "expand_kernel",
                  "chain_fast_kernel", "wfa_forward", "mode1",
                  "chain_dense_kernel", "bucket_place", "fill_rows",
-                 "min_span_tile", "last_valid")
+                 "min_span_tile", "last_valid", "pair_key",
+                 "shard_probe_found")
 CHAIN_G, CHAIN_N, CHAIN_W = 1024, 576, 24
 LIMIT = 128  # min(max_count, max_count_query) at the step's defaults
 
@@ -581,24 +597,16 @@ def dense_k18(dev, digests):
 
 def part_shard(dev, digests):
     import chip_smoke as cs
-    from ..parallel import comm as pcomm
     from ..parallel import mesh
 
     seqs, lens, rids = phase4_batch(dev)
     n = int(mesh.sketch_index_step_auto(seqs, lens, rids, k=K, r=R,
                                         min_span=MIN_SPAN,
                                         chunk=CHUNK)["n_pairs"])
-    store = kb.BUILD_DIR / "timing_nccl_store"
-    store.parent.mkdir(parents=True, exist_ok=True)
-    store.unlink(missing_ok=True)
-    pcomm.init(0, 1, str(store), dev)
-    try:
-        with cs.capture(mesh, "shard_probe_planes") as k14:
-            _, lam, tries = cs.v2_index(mesh, pcomm.Comm(), seqs, lens, rids,
-                                        max(128, 2 * n))
-    finally:
-        torch.distributed.destroy_process_group()
-        store.unlink(missing_ok=True)
+    with nccl_group(dev) as comm, \
+            cs.capture(mesh, "shard_probe_planes") as k14:
+        _, lam, tries = cs.v2_index(mesh, comm, seqs, lens, rids,
+                                    max(128, 2 * n))
     del seqs
     torch.cuda.empty_cache()
     (sh, bits), _ = k14.calls[-1]
@@ -617,6 +625,177 @@ def part_shard(dev, digests):
           f"({n_bytes / ms / 1e9:.3f} TB/s)")
     del buf, got
     shard_ablation(sh, bits)
+
+
+def nccl_group(dev):
+    """An NCCL process group of world size 1 (a FileStore under the build
+    directory) for the body of a with block."""
+    import contextlib
+
+    from ..parallel import comm as pcomm
+
+    @contextlib.contextmanager
+    def group():
+        store = kb.BUILD_DIR / "timing_nccl_store"
+        store.parent.mkdir(parents=True, exist_ok=True)
+        store.unlink(missing_ok=True)
+        pcomm.init(0, 1, str(store), dev)
+        try:
+            yield pcomm.Comm()
+        finally:
+            torch.distributed.destroy_process_group()
+            store.unlink(missing_ok=True)
+
+    return group()
+
+
+def part_v1(dev, digests):
+    import chip_smoke as cs
+    from ..parallel import mesh
+
+    seqs, lens, rids = phase4_batch(dev)
+    deferred = hasattr(mesh, "pair_key_search_deferred")
+    with nccl_group(dev) as comm:
+        v1 = mesh.sharded_sketch_index_step_auto(seqs, lens, rids, comm=comm,
+                                                 chunk=CHUNK)
+        table, n = v1["table"], int(v1["n_pairs"])
+        del v1
+        v2, lam, _ = cs.v2_index(mesh, comm, seqs, lens, rids,
+                                 max(128, 2 * n))
+        steps = cs.query_steps(mesh, comm, dict(
+            seqs=seqs, lens=lens, rids=rids, v2=v2, cap=max(128, 2 * n),
+            lam=lam), table, None)
+        k16_entry = "pair_key_search_deferred" if deferred else \
+            "pair_key_search"
+        with cs.capture(mesh, k16_entry) as k16:
+            steps["count (K16)"]()
+        for name in ("count (K16)", "v2 probe-only (K17)"):
+            step = steps[name]
+            res = step()
+            med, ts = cs.median_step(step)
+            launches, busy, top = device_profile(step)
+            mask = res["all_hits"] if "all_hits" in res else res["found"]
+            digests.append((f"{name} step", digest(dict(
+                n_hits=res["n_hits"], mask=mask, overflow=res["overflow"]))))
+            ms = [round(t * 1e3, 3) for t in ts]
+            print(f"{name} step: n_hits {int(res['n_hits'])}; host-clock "
+                  f"median {med * 1e3:.3f} ms of {ms}; {launches:g} device "
+                  f"launches, {busy:.4f} ms busy a step: {top}")
+            print(f"  outputs sha256 {digests[-1][1]}")
+    k16_args = k16.calls[-1][0]
+    tk0, tk1, qk0, qk1 = k16_args
+
+    def plain():
+        return mesh.pair_key_search_plain(tk0, tk1, qk0, qk1)
+
+    label = (f"K16 pair_key_search, {qk0.numel()} keys in {tk0.numel()} "
+             f"entries ({n} valid)")
+    got, _ = report(label + ", the public entry (a host read of its flag)",
+                    lambda: mesh.pair_key_search(tk0, tk1, qk0, qk1), plain)
+    digests.append((label, digest({"found": got})))
+    print(f"  outputs sha256 {digests[-1][1]}")
+    if deferred:
+        report(label + ", the count step's deferred entry",
+               lambda: mesh.pair_key_search_deferred(tk0, tk1, qk0, qk1)[0],
+               plain)
+        _, flag = mesh.pair_key_search_deferred(tk0, tk1, qk0, qk1)
+        print(f"  flag {int(flag)}")
+    del table, k16
+    # K17: the step's gathered rows, which at world size 1 are its own
+    pr, _, _ = mesh._pairs(seqs, lens, K, R, MIN_SPAN, CHUNK, None)
+    q = torch.stack([pr["k0"].reshape(-1), pr["k1"].reshape(-1),
+                     pr["pair_valid"].reshape(-1).long()], 1)
+    del pr, seqs
+    planes, bits = v2["probe"], v2["bits"]
+    if hasattr(mesh, "shard_probe_found_step"):
+        def k17_step():
+            return mesh.shard_probe_found_step(q, planes, bits)
+    else:
+        def k17_step():
+            return mesh.shard_probe_found(q[:, 0], q[:, 1], planes,
+                                          bits) & (q[:, 2] != 0)
+    torch.cuda.empty_cache()
+    label = (f"K17 shard_probe_found, {q.shape[0]} gathered rows "
+             f"({int(q[:, 2].sum())} valid), {1 << bits} buckets")
+    got, _ = report(label + ", as the v2 step calls it", k17_step,
+                    lambda: mesh.shard_probe_found_plain(
+                        q[:, 0], q[:, 1], planes, bits) & (q[:, 2] != 0))
+    digests.append((label, digest({"found": got})))
+    print(f"  outputs sha256 {digests[-1][1]}")
+    k0c, k1c = q[:, 0].contiguous(), q[:, 1].contiguous()
+    got, _ = report(label + ", the public entry on contiguous keys",
+                    lambda: mesh.shard_probe_found(k0c, k1c, planes, bits),
+                    lambda: mesh.shard_probe_found_plain(k0c, k1c, planes,
+                                                         bits))
+    digests.append((label + ", public entry", digest({"found": got})))
+    print(f"  outputs sha256 {digests[-1][1]}")
+    del got, k0c, k1c
+    v1_variants(k16_args, (q, planes, bits))
+
+
+def k17_layout(lanes, loads):
+    """csrc/shard.cu's lines that set K17's lanes a key and 16-byte loads
+    a lane, step and plane."""
+    return (f"constexpr int kGroup = {lanes};\n"
+            f"constexpr int kPer = {loads};\n")
+
+
+# K17 and K16 with one change of layout each (csrc/shard.cu, csrc/v1.cu):
+# (name, source, [(old text, new text)]); each variant computes the same
+# function and is held to the plain version
+V1_VARIANTS = tuple(
+    (f"K17 {name}", "shard.cu", [(k17_layout(2, 2), k17_layout(*layout))])
+    for name, layout in (("8 lanes a key, 16 slots a step", (8, 1)),
+                         ("4 lanes a key, 16 slots a step", (4, 2)),
+                         ("2 lanes a key, 16 slots a step", (2, 4)),
+                         ("a lane a key, 16 slots a step", (1, 8)),
+                         ("a lane a key", (1, 4)))) + tuple(
+    (f"K16 final scan of {n}", "v1.cu",
+     [("constexpr int kScan = 8;", f"constexpr int kScan = {n};")])
+    for n in (1, 4, 16))
+
+
+def v1_variants(k16_args, k17_args):
+    """K16 and K17 beside each of V1_VARIANTS (built alone, called through
+    parallel/mesh.py), and K16 at directories one bit wider and narrower,
+    each held to its plain version, with its events time and device time
+    by kernel.  Skipped for a tree without these layouts."""
+    from ..parallel import mesh
+
+    if not hasattr(mesh, "pair_key_dir_bits"):
+        print("  variants: skipped (no such layouts in this tree)")
+        return
+    tk0, tk1, qk0, qk1 = k16_args
+
+    def k16():
+        return mesh.pair_key_search_deferred(tk0, tk1, qk0, qk1)[0]
+
+    def k16_plain():
+        return mesh.pair_key_search_plain(tk0, tk1, qk0, qk1)
+
+    q, planes, bits = k17_args
+
+    def k17():
+        return mesh.shard_probe_found_step(q, planes, bits)
+
+    def k17_plain():
+        return mesh.shard_probe_found_step_plain(q, planes, bits)
+
+    real, dir_bits = kb._lib, mesh.pair_key_dir_bits
+    try:
+        for name, source, subs in V1_VARIANTS:
+            kb._lib = ablation_lib(name, source, subs)
+            if source == "v1.cu":
+                report(f"  {name}", k16, k16_plain)
+            else:
+                report(f"  {name}", k17, k17_plain)
+        kb._lib = real
+        for d in (1, -1):
+            mesh.pair_key_dir_bits = lambda n, d=d: dir_bits(n) + d
+            report(f"  K16 directory of {dir_bits(tk0.numel()) + d} bits",
+                   k16, k16_plain)
+    finally:
+        kb._lib, mesh.pair_key_dir_bits = real, dir_bits
 
 
 # csrc/sketch.cu with one change each, to time the dense mode's walk and
@@ -851,6 +1030,8 @@ def main(argv) -> int:
         part_batch(dev, digests)
     if "shard" in parts:
         part_shard(dev, digests)
+    if "v1" in parts:
+        part_v1(dev, digests)
     if a.digest:
         with open(a.digest, "w") as f:
             f.writelines(f"{label}: {d}\n" for label, d in digests)

@@ -16,12 +16,14 @@ The v1 programs (:55-298) replicate the whole pair table on every rank:
   tables are all_gathered and sorted once (K12's engine), the counts and
   the overflow flag combined over the ranks;
 - `sharded_query_count_step`: each rank's query pairs looked up in the
-  replicated table by binary search (K16 `pair_key_search`);
+  replicated table by a search narrowed by a directory (K16
+  `pair_key_search_deferred`; its key flag returned, not read);
 - `sharded_query_probe_step`: the same against a replicated
   padded-bucket probe table of the table's keys (K11, ops/probe.py);
 - `sharded_query_v2_step`: the probe-only fan-out against the v2 index:
   the query keys are all_gathered, every rank probes its own shard's
-  planes (K17 `shard_probe_found`) and the found masks are OR-ed.
+  planes (K17 `shard_probe_found_step`, the valid mask applied in the
+  kernel) and the found masks are OR-ed.
 
 The hash-range-sharded v2 index (:301-530) and its end-to-end query
 (:603-988) keep each rank's hash range of the pair table and never build
@@ -407,28 +409,60 @@ def owner_postings(qk0: torch.Tensor, qk1: torch.Tensor,
 
 # --------------------------------------------------------------- K17
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous at a 16-byte aligned address (K17's vector loads),
+    copied when it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _found_in(qk0, qk1, planes, bits):
     if not 1 <= bits <= 31:
         raise ValueError("bits must be in [1, 31]")
-    qk0, qk1 = qk0.contiguous(), qk1.contiguous()
-    pk0, pk1 = planes["k0"].contiguous(), planes["k1"].contiguous()
+    pk0, pk1 = _aligned(planes["k0"]), _aligned(planes["k1"])
     if qk0.dim() != 1 or qk1.shape != qk0.shape or (
             qk0.dtype != torch.int64 or qk1.dtype != torch.int64):
         raise TypeError("query keys are (Q,) int64")
     if pk0.shape != (1 << bits, PROBE_W) or pk1.shape != pk0.shape or (
             pk0.dtype != torch.int64 or pk1.dtype != torch.int64):
         raise ValueError(f"key planes must be (2^{bits}, {PROBE_W}) int64")
-    return qk0, qk1, pk0, pk1
+    return pk0, pk1
+
+
+def _step_rows(q):
+    if q.dim() != 2 or q.shape[1] != 3 or q.dtype != torch.int64:
+        raise TypeError("the gathered rows are (Q, 3) int64: k0, k1, valid")
+    return q.unbind(1)
 
 
 def shard_probe_found_plain(qk0, qk1, planes, bits: int) -> torch.Tensor:
     """The plain PyTorch version of K17 (`shard_probe_found`), on any
-    device: a gather of each key's bucket row and a compare."""
-    qk0, qk1, pk0, pk1 = _found_in(qk0, qk1, planes, bits)
+    device: a gather of each key's whole bucket row and a compare."""
+    pk0, pk1 = _found_in(qk0, qk1, planes, bits)
     live = qk0 != INT64_MAX
     b = torch.where(live, (qk0 & 0xFFFFFFFF) >> (32 - bits), 0)
     hit = (pk0[b] == qk0[:, None]) & (pk1[b] == qk1[:, None])
     return hit.any(dim=1) & live
+
+
+def shard_probe_found_step_plain(q, planes, bits: int) -> torch.Tensor:
+    """The plain PyTorch version of K17's step entry
+    (`shard_probe_found_step`): the JAX step's `hit & q_valid`."""
+    qk0, qk1, valid = _step_rows(q)
+    return shard_probe_found_plain(qk0, qk1, planes, bits) & (valid != 0)
+
+
+def _found_kernel(qk0, qk1, valid, pk0, pk1, bits):
+    """K17 on the card: the keys (and flags, unless None) read in place at
+    their strides."""
+    Q = qk0.numel()
+    found = torch.empty(Q, dtype=torch.bool, device=qk0.device)
+    kb.shard_probe_found(
+        qk0.data_ptr(), qk0.stride(0), qk1.data_ptr(), qk1.stride(0),
+        None if valid is None else valid.data_ptr(),
+        0 if valid is None else valid.stride(0), Q, bits, pk0.data_ptr(),
+        pk1.data_ptr(), found.data_ptr(), kb.stream_handle(qk0))
+    return found
 
 
 def shard_probe_found(qk0: torch.Tensor, qk1: torch.Tensor,
@@ -437,18 +471,31 @@ def shard_probe_found(qk0: torch.Tensor, qk1: torch.Tensor,
     """K17: is each (Q,) int64 key (k0, k1) in its bucket row of a shard's
     K14 planes (the compare block of pgrtk_tpu/parallel/mesh.py:576-582)?
     The bucket is (k0 & 0xFFFFFFFF) >> (32 - bits), K14's geometry; the
-    row is 128 slots of the (2^bits, 128) int64 k0 and k1 planes,
-    INT64_MAX where empty.  An INT64_MAX key never hits.  Returns (Q,)
-    bool."""
-    qk0, qk1, pk0, pk1 = _found_in(qk0, qk1, planes, bits)
+    row is 128 slots of the (2^bits, 128) int64 k0 and k1 planes.  The
+    planes must be as K14 writes them: in each row the entries first,
+    INT64_MAX fills after them, since the kernel stops a row's scan at
+    its first fill (the plain version compares the whole row).  The keys
+    are read at their strides, not copied.  An INT64_MAX key never hits.
+    Returns (Q,) bool."""
+    pk0, pk1 = _found_in(qk0, qk1, planes, bits)
     if not on_cuda(qk0, qk1, pk0, pk1):
         return shard_probe_found_plain(qk0, qk1, planes, bits)
-    Q = qk0.numel()
-    found = torch.empty(Q, dtype=torch.bool, device=qk0.device)
-    kb.shard_probe_found(qk0.data_ptr(), qk1.data_ptr(), Q, bits,
-                         pk0.data_ptr(), pk1.data_ptr(), found.data_ptr(),
-                         kb.stream_handle(qk0))
-    return found
+    return _found_kernel(qk0, qk1, None, pk0, pk1, bits)
+
+
+def shard_probe_found_step(q: torch.Tensor, planes: Dict[str, torch.Tensor],
+                           bits: int) -> torch.Tensor:
+    """K17's entry in sharded_query_v2_step: `shard_probe_found` on the
+    gathered (Q, 3) int64 rows (k0, k1, valid: non-zero for a valid pair)
+    read at their stride, with the valid flag applied in the kernel (an
+    invalid slot reads nothing but its flag).  Returns (Q,) bool, found
+    and valid: the JAX step's `hit & q_valid`.  The planes' precondition
+    is `shard_probe_found`'s."""
+    qk0, qk1, valid = _step_rows(q)
+    pk0, pk1 = _found_in(qk0, qk1, planes, bits)
+    if not on_cuda(q, pk0, pk1):
+        return shard_probe_found_step_plain(q, planes, bits)
+    return _found_kernel(qk0, qk1, valid, pk0, pk1, bits)
 
 
 # ------------------------------------------------------------ the steps
@@ -653,23 +700,29 @@ _BAD_KEYS = ("pair keys must be 56-bit hashes (table keys may also be the "
              "INT64_MAX fill)")
 
 
-def _check_signed_order(tk0, tk1, qk0, qk1):
+def _bad_keys(tk0, tk1, qk0, qk1) -> torch.Tensor:
     """K16 compares the keys as signed int64, which orders them as the
     JAX package's u32 planes only when every key is a 56-bit hash or (in
-    the table) the INT64_MAX fill.  Raises ValueError otherwise."""
+    the table) the INT64_MAX fill.  Returns the 0-dim int64 flag of every
+    key, 1 when one is not."""
     bad = torch.zeros((), dtype=torch.bool, device=tk0.device)
     for q in (qk0, qk1):
         bad |= ((q < 0) | (q >= HASH_LIMIT)).any()
     for t in (tk0, tk1):
         bad |= ((t < 0) | ((t >= HASH_LIMIT) & (t != INT64_MAX))).any()
-    if bool(bad):
-        raise ValueError(_BAD_KEYS)
+    return bad.to(torch.int64)
+
+
+def pair_key_dir_bits(n: int) -> int:
+    """The width of K16's directory over an n-entry table: about
+    log2(n) - 3 bits, so ~8 entries a bucket, at most 24."""
+    return max(0, min(24, n.bit_length() - 4))
 
 
 def pair_key_search_plain(tk0, tk1, qk0, qk1) -> torch.Tensor:
     """The plain PyTorch version of K16 (`pair_key_search`), on any
     device: the JAX function's ceil(log2(N + 1)) vectorised lower_bound
-    rounds, then the equality test."""
+    rounds over the whole table, then the equality test."""
     tk0, tk1, qk0, qk1 = _search_in(tk0, tk1, qk0, qk1)
     n = tk0.numel()
     if n == 0:
@@ -687,27 +740,42 @@ def pair_key_search_plain(tk0, tk1, qk0, qk1) -> torch.Tensor:
     return (lo < n) & (tk0[idx] == qk0) & (tk1[idx] == qk1)
 
 
+def pair_key_search_deferred(tk0: torch.Tensor, tk1: torch.Tensor,
+                             qk0: torch.Tensor, qk1: torch.Tensor):
+    """K16 with its key check left to the caller, as
+    pairs.sort_table_deferred leaves its width flag: returns (found, bad),
+    found as `pair_key_search` gives it and bad a 0-dim int64 flag, not
+    read on the host, non-zero when a key is not a 56-bit hash (nor, in
+    the table, the INT64_MAX fill); found is then meaningless.  On the
+    CPU the flag covers every key; on the card every query key, every
+    table k0 (the directory's pass reads them all) and every table k1
+    the search compares."""
+    tk0, tk1, qk0, qk1 = _search_in(tk0, tk1, qk0, qk1)
+    if not on_cuda(tk0, tk1, qk0, qk1):
+        return (pair_key_search_plain(tk0, tk1, qk0, qk1),
+                _bad_keys(tk0, tk1, qk0, qk1))
+    n, Q = tk0.numel(), qk0.numel()
+    bits = pair_key_dir_bits(n)
+    work = torch.empty((1 << bits) + 2, dtype=torch.int64, device=qk0.device)
+    found = torch.empty(Q, dtype=torch.bool, device=qk0.device)
+    kb.pair_key_search(tk0.data_ptr(), tk1.data_ptr(), n, qk0.data_ptr(),
+                       qk1.data_ptr(), Q, bits, work.data_ptr(),
+                       found.data_ptr(), kb.stream_handle(qk0))
+    return found, work[-1]
+
+
 def pair_key_search(tk0: torch.Tensor, tk1: torch.Tensor, qk0: torch.Tensor,
                     qk1: torch.Tensor) -> torch.Tensor:
     """K16: is each (Q,) int64 query key (k0, k1) in the (N,) table
     sorted on (k0, k1) (pgrtk_tpu/parallel/mesh.py:259
-    _searchsorted_pairkey)?  A lower_bound over the whole table, then an
-    equality test.  The table may carry the v1 table's invalid tail of
-    INT64_MAX keys; query keys are 56-bit hashes.  Both are checked,
-    since the kernel compares signed: on the CPU every key, on the card
-    every key the kernel compares (a flag it sets, read after it); a key
-    out of range raises ValueError.  N = 0 finds nothing.  Returns (Q,)
-    bool."""
-    tk0, tk1, qk0, qk1 = _search_in(tk0, tk1, qk0, qk1)
-    if not on_cuda(tk0, tk1, qk0, qk1):
-        _check_signed_order(tk0, tk1, qk0, qk1)
-        return pair_key_search_plain(tk0, tk1, qk0, qk1)
-    Q = qk0.numel()
-    found = torch.empty(Q, dtype=torch.bool, device=qk0.device)
-    bad = torch.zeros(1, dtype=torch.int32, device=qk0.device)
-    kb.pair_key_search(tk0.data_ptr(), tk1.data_ptr(), tk0.numel(),
-                       qk0.data_ptr(), qk1.data_ptr(), Q, found.data_ptr(),
-                       bad.data_ptr(), kb.stream_handle(qk0))
+    _searchsorted_pairkey)?  On the card a directory of the table's run
+    starts on the top bits of k0 narrows each key's search to its
+    bucket, then a lower_bound there and an equality test.  The table
+    may carry the v1 table's invalid tail of INT64_MAX keys; query keys
+    are 56-bit hashes.  A key out of range raises ValueError (one host
+    read of `pair_key_search_deferred`'s flag).  N = 0 finds nothing.
+    Returns (Q,) bool."""
+    found, bad = pair_key_search_deferred(tk0, tk1, qk0, qk1)
     if bool(bad):
         raise ValueError(_BAD_KEYS)
     return found
@@ -796,13 +864,25 @@ def sharded_query_count_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
     (pgrtk_tpu/parallel/mesh.py:169 sharded_query_count_step): the
     rank's (B_loc, L) queries are paired (the index tie rule, as the JAX
     step) and each pair key looked up in the replicated table's k0, k1
-    (K16).  Returns dict(n_hits over the ranks, all_hits = the (n *
-    B_loc, C) hit masks of every rank in rank order, overflow over the
-    ranks).  On overflow rerun with compact_kw=pairs.SAFE_COMPACT_KW."""
-    return _v1_query(
-        seqs_u8, lengths,
-        lambda q0, q1: pair_key_search(table["k0"], table["k1"], q0, q1),
-        comm, k, r, min_span, chunk, compact_kw)
+    (K16, `pair_key_search_deferred`).  Returns dict(n_hits over the
+    ranks, all_hits = the (n * B_loc, C) hit masks of every rank in rank
+    order, overflow over the ranks, bad_keys = K16's flag over the ranks,
+    a 0-dim bool not read here: a key outside 56 bits, which the caller
+    must find clear, or the hits mean nothing).  On overflow rerun with
+    compact_kw=pairs.SAFE_COMPACT_KW."""
+    comm = comm or Comm()
+    flags = []
+
+    def lookup(q0, q1):
+        found, bad = pair_key_search_deferred(table["k0"], table["k1"], q0,
+                                              q1)
+        flags.append(bad)
+        return found
+
+    out = _v1_query(seqs_u8, lengths, lookup, comm, k, r, min_span, chunk,
+                    compact_kw)
+    out["bad_keys"] = comm.any(flags[0])
+    return out
 
 
 def replicated_probe_table(table: Dict[str, torch.Tensor],
@@ -852,8 +932,9 @@ def sharded_query_v2_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
     pair keys (the index tie rule) and their valid mask are all_gathered,
     every rank looks each gathered key up in its own shard's K14 planes
     (`probe` of sharded_index_v2_step built at the same shard_capacity
-    and avg_per_bucket; K17), and a key is found when any rank found it
-    (an int32 SUM all_reduce > 0, the JAX psum).
+    and avg_per_bucket; K17's step entry, which reads the gathered rows
+    in place and applies the valid mask), and a key is found when any
+    rank found it (an int32 SUM all_reduce > 0, the JAX psum).
 
     Returns dict(n_hits, found = the (n * B_loc * C,) mask over the
     gathered pair slots in rank order, overflow over the ranks); the same
@@ -865,6 +946,5 @@ def sharded_query_v2_step(seqs_u8: torch.Tensor, lengths: torch.Tensor,
     q = comm.all_gather(torch.stack([pr["k0"].reshape(-1),
                                      pr["k1"].reshape(-1),
                                      pr["pair_valid"].reshape(-1).long()], 1))
-    hit = shard_probe_found(q[:, 0], q[:, 1], probe, bits) & (q[:, 2] != 0)
-    found = comm.any_rank(hit)
+    found = comm.any_rank(shard_probe_found_step(q, probe, bits))
     return dict(n_hits=found.sum(), found=found, overflow=comm.any(overflow))

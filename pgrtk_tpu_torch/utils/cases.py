@@ -1385,6 +1385,39 @@ def last_owner_shard(seed, n=3, capacity=8192):
     return out
 
 
+def near_misses(table, bits, seed, n=200):
+    """Received keys beside `table`'s valid keys: for n sampled entries,
+    and for the last entry of every bucket row of 64 entries or more, the
+    key with k1's low bit flipped (its row and k0 match, k1 does not) and
+    with k0's low bit flipped (its row matches, k0 does not), so K17 reads
+    k1 where k0 matches and scans long rows to their end."""
+    rng = np.random.default_rng(seed)
+    v = np.flatnonzero(table["valid"])
+    if not len(v):
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    k0, k1 = table["k0"][v], table["k1"][v]
+    b = (k0 & 0xFFFFFFFF) >> (32 - bits)
+    counts = np.bincount(b, minlength=1 << bits)
+    last = [np.flatnonzero(b == r)[-1] for r in np.flatnonzero(counts >= 64)]
+    pick = np.concatenate([rng.choice(len(v), min(n, len(v)), replace=False),
+                           np.asarray(last, dtype=np.int64)])
+    return (np.concatenate([k0[pick], k0[pick] ^ 1]),
+            np.concatenate([k1[pick] ^ 1, k1[pick]]))
+
+
+def found_rows(qk0, qk1, seed):
+    """The (Q, 3) int64 gathered rows (k0, k1, valid) K17's step entry
+    takes, from (Q,) keys: ~28% of the slots invalid, as in the v2
+    probe-only step, half of them keeping their key (a key that may be in
+    the planes) and half carrying (0, 0) as an invalid pair does."""
+    rng = np.random.default_rng(seed)
+    Q = qk0.numel()
+    valid = torch.from_numpy(rng.random(Q) < 0.72).to(qk0.device)
+    zero = torch.from_numpy(rng.random(Q) < 0.5).to(qk0.device) & ~valid
+    return torch.stack([torch.where(zero, 0, qk0), torch.where(zero, 0, qk1),
+                        valid.long()], 1)
+
+
 # the shard_cases whose probe buckets overflow (K14's flag)
 SHARD_OVERFLOW = ("bucket of 129", "buckets of 300 and 1000", "bits 1",
                   "bits 2")
@@ -1397,9 +1430,11 @@ def shard_cases(dev):
     and 16 (K15's keyovf); the last of three owners; buckets of 31, 32,
     33, 64, 65 and 127 entries (K14's warp and lane edges), and of 300 and
     1,000 (overflow); a shard with no valid entry; valid entries that are
-    not a prefix (holes in a random shard); and bits 1 and 2, where every
-    bucket overflows.  Every 8,192-entry shard; every case's received keys
-    include misses and padded route slots."""
+    not a prefix (holes in a random shard); bits 1 and 2, where every
+    bucket overflows; rows of 15, 16, 17 and 48 entries (K17's 16-slot
+    steps); and a shard of mostly empty rows.  Every 8,192-entry shard;
+    every case's received keys include misses, padded route slots and
+    `near_misses` (full rows of 128 scanned to their end among them)."""
     from ..parallel.mesh import probe_bits_for
 
     Pp = SHARD_PP
@@ -1428,12 +1463,17 @@ def shard_cases(dev):
         ("valid not a prefix", holes),
         ("bits 1", shard_table(29, 8192, 1)),
         ("bits 2", shard_table(31, 8192, 2)),
+        ("rows of 15, 16, 17 and 48", shard_table(32, 8192, bits,
+                                                  n_keys=1500,
+                                                  crowd=(15, 16, 17, 48))),
+        ("mostly empty rows", shard_table(33, 8192, bits, n_keys=120)),
     ]
     t = _to(dev)
     out = []
     for i, (name, tab) in enumerate(tables):
-        qk0, qk1 = owner_queries(tab, 30 + i)
         b = int(name[-1]) if name.startswith("bits") else bits
+        qk0, qk1 = (np.concatenate(p) for p in zip(
+            owner_queries(tab, 30 + i), near_misses(tab, b, 60 + i)))
         out.append((name, {f: t(v) for f, v in tab.items()}, b, t(qk0),
                     t(qk1)))
     return out
@@ -1480,11 +1520,78 @@ def search_queries(tk0, tk1, seed, n_miss=500):
     return q[:, 0].copy(), q[:, 1].copy()
 
 
+DIR_N = 600  # the directory cases' table length: 6 bits, 64 buckets
+
+
+def dir_table(seed, buckets, n_fill=100, runs=()):
+    """A DIR_N-entry search table whose n valid keys lie in the directory
+    buckets `buckets` (drawn uniformly from them) of K16's directory at
+    DIR_N entries, each key once, then n_fill INT64_MAX entries; plus per
+    (k0, k1, length) in `runs` a run of that many equal keys.  Returns
+    (k0, k1) int64 and the directory's shift (56 - its bits)."""
+    from ..parallel.mesh import pair_key_dir_bits
+
+    shift = 56 - pair_key_dir_bits(DIR_N)
+    rng = np.random.default_rng(seed)
+    n = DIR_N - n_fill - sum(r[2] for r in runs)
+    d = rng.choice(np.asarray(buckets, np.int64), n)
+    keys = np.stack([d << shift | rng.integers(0, 1 << shift, n),
+                     rng.integers(0, 1 << 56, n)], 1)
+    keys = np.concatenate([keys] + [np.tile([[a, b]], (m, 1))
+                                    for a, b, m in runs]).astype(np.int64)
+    keys = keys[np.lexsort((keys[:, 1], keys[:, 0]))]
+    fill = np.full((n_fill, 2), INT64_MAX, dtype=np.int64)
+    keys = np.concatenate([keys, fill])
+    return keys[:, 0].copy(), keys[:, 1].copy(), shift
+
+
+def edge_queries(edges, shift):
+    """Keys at each directory edge e (the first k0 of bucket e): k0 from
+    e - 2 to e + 2 steps of 1 below and above it, k1 0, 7 and 2^56 - 1."""
+    k0 = np.array([(e << shift) + o for e in edges for o in range(-2, 3)
+                   if 0 <= (e << shift) + o < 1 << 56], np.int64)
+    k1 = np.array([0, 7, (1 << 56) - 1], np.int64)
+    return np.repeat(k0, len(k1)), np.tile(k1, len(k0))
+
+
+def _dir_cases():
+    """v1_search_cases' tables at K16's directory edges: (name, k0, k1,
+    extra query k0, extra query k1)."""
+    out = []
+    a, b, sh = dir_table(42, [d for d in range(64) if not 10 <= d < 20])
+    q = edge_queries(range(9, 22), sh)
+    out.append(("empty directory buckets 10-19", a, b, *q))
+    # equal keys share k0 and so a bucket: a run cannot cross an edge, so
+    # runs end the bucket before edge 30 and start the one after it
+    e = 30 << (56 - 6)
+    a, b, sh = dir_table(43, range(64), runs=((e - 1, 7, 40), (e, 7, 150),
+                                              (e, 9, 20)))
+    q = edge_queries([30], sh)
+    out.append(("equal-key runs on both sides of a directory edge", a, b,
+                *q))
+    a, b, sh = dir_table(44, [5], runs=((5 << (56 - 6), 3, 30),))
+    q = edge_queries([5, 6], sh)
+    out.append(("every key in one directory bucket", a, b, *q))
+    edges = [1, 17, 33, 63]
+    runs = tuple(((e << (56 - 6)) + o, 7, 2) for e in edges
+                 for o in (-1, 0, 1))
+    a, b, sh = dir_table(45, range(64), runs=runs)
+    q = edge_queries(edges, sh)
+    out.append(("keys just below and above directory edges", a, b, *q))
+    fill = np.full(DIR_N, INT64_MAX, dtype=np.int64)
+    out.append(("all fill", fill, fill.copy(), *edge_queries([0, 1, 63],
+                                                              sh)))
+    return out
+
+
 def v1_search_cases(dev):
     """(name, table k0, table k1, query k0, query k1) on `dev` for K16: a
     table with runs of equal keys and an INT64_MAX tail; the same without
     a tail; N = 0; N = 1 (one key); N = 1 (only the fill); N = 2 (one key
-    twice)."""
+    twice); and at K16's directory edges (`_dir_cases`, 600 entries, 64
+    buckets): empty buckets, runs of equal keys on both sides of an edge,
+    every key in one bucket, keys just below and above edges, a table
+    that is all fill."""
     t = _to(dev)
     tk0, tk1 = search_table(40)
     one = (np.array([5 << 40], np.int64), np.array([77], np.int64))
@@ -1496,9 +1603,16 @@ def v1_search_cases(dev):
         ("N = 1, the fill", (np.array([INT64_MAX]), np.array([INT64_MAX]))),
         ("N = 2, one key twice", (np.repeat(one[0], 2), np.repeat(one[1], 2))),
     ]
+    extra = {}
+    for name, a, b, e0, e1 in _dir_cases():
+        tables.append((name, (a, b)))
+        extra[name] = (e0, e1)
     out = []
     for i, (name, (a, b)) in enumerate(tables):
         q0, q1 = search_queries(a, b, 50 + i)
+        if name in extra:
+            q0 = np.concatenate([q0, extra[name][0]])
+            q1 = np.concatenate([q1, extra[name][1]])
         if len(a) < 3:  # a key beside the single key in each coordinate
             q0 = np.concatenate([q0, one[0], one[0], one[0] - 1, one[0] + 1])
             q1 = np.concatenate([q1, one[1] - 1, one[1] + 1, one[1], one[1]])

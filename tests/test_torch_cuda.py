@@ -510,23 +510,38 @@ def test_sharded_steps_on_card_match_cpu(dev):
 
 
 def test_v1_and_dense_kernels_match_plain_on_edge_cases(dev):
-    """K16 on cases.v1_search_cases (runs of equal keys, keys below,
-    above and between the entries, N = 0 and 1, the INT64_MAX tail), K17
-    on K14's planes of cases.shard_cases (a full 128-slot row, INT64_MAX
-    pads, padded query slots), K18 and K19 on cases.dense_cases (masks
-    that are not a prefix, n_valid 0 and 1, equal hashes, K18's thread
-    and tile edges, all-invalid tiles, views at an offset)."""
+    """K16, both entries, on cases.v1_search_cases (runs of equal keys,
+    keys below, above and between the entries, N = 0 and 1, the INT64_MAX
+    tail, and its directory's edges: empty buckets, runs on both sides of
+    an edge, every key in one bucket, an all-fill table), K17 on K14's
+    planes of cases.shard_cases (full 128-slot rows scanned to their end,
+    rows of 15-17 and 48, mostly empty rows, INT64_MAX pads, padded query
+    slots), its public entry on contiguous and strided keys and its step
+    entry on cases.found_rows (invalid slots holding present keys), K18
+    and K19 on cases.dense_cases (masks that are not a prefix, n_valid 0
+    and 1, equal hashes, K18's thread and tile edges, all-invalid tiles,
+    views at an offset)."""
     from pgrtk_tpu_torch.ops import pairs as tp
 
     kb.reset_launches()
-    for name, tk0, tk1, qk0, qk1 in cases.v1_search_cases(dev):
-        assert _equal(mesh.pair_key_search(tk0, tk1, qk0, qk1),
-                      mesh.pair_key_search_plain(tk0, tk1, qk0, qk1)), name
+    search = cases.v1_search_cases(dev)
+    for name, tk0, tk1, qk0, qk1 in search:
+        want = mesh.pair_key_search_plain(tk0, tk1, qk0, qk1)
+        assert _equal(mesh.pair_key_search(tk0, tk1, qk0, qk1), want), name
+        found, bad = mesh.pair_key_search_deferred(tk0, tk1, qk0, qk1)
+        assert _equal(found, want) and int(bad) == 0, name
     shard = cases.shard_cases(dev)
-    for name, table, bits, qk0, qk1 in shard:
+    for i, (name, table, bits, qk0, qk1) in enumerate(shard):
         planes, _ = mesh.shard_probe_planes(table, bits)
         assert _equal(mesh.shard_probe_found(qk0, qk1, planes, bits),
                       mesh.shard_probe_found_plain(qk0, qk1, planes, bits))
+        q = cases.found_rows(qk0, qk1, 70 + i)
+        assert _equal(mesh.shard_probe_found(q[:, 0], q[:, 1], planes, bits),
+                      mesh.shard_probe_found_plain(q[:, 0], q[:, 1], planes,
+                                                   bits)), name
+        assert _equal(mesh.shard_probe_found_step(q, planes, bits),
+                      mesh.shard_probe_found_step_plain(q, planes,
+                                                        bits)), name
     dense = cases.dense_cases(dev)
     for name, x, y, valid in dense:
         assert _equal(tp.min_span_filter_dense(x, y, valid, 64),
@@ -534,15 +549,16 @@ def test_v1_and_dense_kernels_match_plain_on_edge_cases(dev):
         assert _equal(tp.pair_mers_dense(x, y, valid),
                       tp.pair_mers_dense_plain(x, y, valid)), name
     torch.cuda.synchronize()
-    assert kb.pair_key_search.launches == 6
-    assert kb.shard_probe_found.launches == len(shard)
+    assert kb.pair_key_search.launches == 2 * len(search)
+    assert kb.shard_probe_found.launches == 3 * len(shard)
     assert kb.min_span_filter_dense.launches == len(dense)
     assert kb.pair_mers_dense.launches == len(dense)
 
 
 def test_pair_key_search_on_card_rejects_keys_it_would_misorder(dev):
-    """K16's flag: a query key out of range, or a table key it compares
-    that is neither a 56-bit hash nor the INT64_MAX fill, raises."""
+    """K16's flag: a query key out of range, or a table key that is
+    neither a 56-bit hash nor the INT64_MAX fill, raises; the deferred
+    entry returns it set."""
     tk = torch.tensor([1, 2, (1 << 63) - 1], device=dev)
     with pytest.raises(ValueError):
         mesh.pair_key_search(tk, tk, torch.tensor([-1], device=dev),
@@ -552,6 +568,11 @@ def test_pair_key_search_on_card_rejects_keys_it_would_misorder(dev):
                              torch.tensor([0], device=dev),
                              torch.tensor([1], device=dev),
                              torch.tensor([0], device=dev))
+    # the directory's pass checks every table k0, also one no search reads
+    far = torch.tensor([1, 2, 3, -4], device=dev)
+    _, bad = mesh.pair_key_search_deferred(far.sort().values, far, far[:1],
+                                           far[:1])
+    assert int(bad) != 0
 
 
 @pytest.mark.parametrize("exact", [False, True])
@@ -645,6 +666,7 @@ def test_v1_steps_over_nccl_match_cpu(dev):
         (g, gm, go), (c, cm, co) = gpu[step], cpu[step]
         assert (g, go) == (c, co) and np.array_equal(gm, cm), step
     assert cpu["count"][0] == cpu["probe"][0] == cpu["v2"][0] > 0
+    assert gpu["count_bad_keys"] == cpu["count_bad_keys"] == 0
 
 
 WARMUP_CASES = [f"run{n}" for n in cases.WARMUP_RUNS] + ["all_n_row"]

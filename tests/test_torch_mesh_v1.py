@@ -186,6 +186,7 @@ def test_v1_steps_match_jax(n, port_v1):
             w_hits, w_mask, w_ovf = want[step]
             assert (n_hits, ovf) == (w_hits, w_ovf), step
             assert np.array_equal(mask, w_mask), step
+        assert o["count_bad_keys"] == 0  # K16's deferred flag, clear
     # the JAX dry run's checks (__graft_entry__.py:122-174)
     assert want["count"][0] >= want["index"]["n_pairs"]
     assert want["count"][0] == want["probe"][0] == want["v2"][0]
@@ -301,6 +302,47 @@ def test_pair_key_search_rejects_keys_it_would_misorder():
                               torch.tensor([1]), torch.tensor([0]))
 
 
+@pytest.mark.parametrize("case", range(len(SEARCH_CASES)),
+                         ids=[c[0] for c in SEARCH_CASES])
+def test_pair_key_search_deferred_leaves_its_flag_clear(case):
+    """The deferred entry gives the public entry's hits and a 0-dim int64
+    flag, 0 on every case's 56-bit keys."""
+    _, tk0, tk1, qk0, qk1 = SEARCH_CASES[case]
+    found, bad = tmesh.pair_key_search_deferred(tk0, tk1, qk0, qk1)
+    assert bad.dim() == 0 and bad.dtype == torch.int64 and int(bad) == 0
+    assert torch.equal(found, tmesh.pair_key_search(tk0, tk1, qk0, qk1))
+
+
+def test_pair_key_search_deferred_returns_its_flag():
+    """Where pair_key_search raises, the deferred entry returns the flag
+    set and raises nothing."""
+    tk = torch.tensor([1, 2, (1 << 63) - 1])
+    for args in ((tk, tk, torch.tensor([-1]), torch.tensor([0])),
+                 (torch.tensor([1 << 56]), torch.tensor([0]),
+                  torch.tensor([1]), torch.tensor([0])),
+                 (tk, torch.tensor([1, -3, 0]), tk[:1], tk[:1])):
+        assert int(tmesh.pair_key_search_deferred(*args)[1]) != 0
+
+
+def test_count_step_defers_its_key_flag_and_matches_jax(port_v1):
+    """The count step on one rank (no process group) against the JAX
+    step's _searchsorted_pairkey lookup: the same n_hits and hit mask,
+    and K16's flag returned as bad_keys, a 0-dim bool not read by the
+    step; a table key below 0 sets it and raises nothing."""
+    seqs, lens = _corpus()
+    table = convert.table_from_jax(port_v1[1][0]["table"])
+    args = (torch.from_numpy(seqs), torch.from_numpy(lens),
+            torch.arange(len(seqs)))
+    out = tmesh.sharded_query_count_step(*args, table, chunk=512)
+    assert out["bad_keys"].dim() == 0 and not bool(out["bad_keys"])
+    assert convert.hits_to_jax(out)[0] == _jax_v1(1)["count"][0]
+    assert np.array_equal(convert.hits_to_jax(out)[1], _jax_v1(1)["count"][1])
+    bad = dict(table, k0=table["k0"].clone())
+    bad["k0"][0] = -5
+    assert bool(tmesh.sharded_query_count_step(*args, bad,
+                                               chunk=512)["bad_keys"])
+
+
 def _jax_found(planes, row, qk0, qk1, bits):
     """pgrtk_tpu/parallel/mesh.py:576-582 on the JAX-layout planes."""
     p0, p1, p2, p3 = (jnp.asarray(p) for p in planes[:4])
@@ -330,3 +372,26 @@ def test_shard_probe_found_matches_jax(case):
     assert np.array_equal(got.numpy(), want)
     assert (int(got.sum()) > 0) == bool(table["valid"].any())
     assert not bool(got[qk0 == (1 << 63) - 1].any())
+
+
+@pytest.mark.parametrize("case", range(len(SHARD_CASES)),
+                         ids=[c[0] for c in SHARD_CASES])
+def test_shard_probe_found_step_matches_jax(case):
+    """K17's step entry on the gathered (Q, 3) rows of cases.found_rows
+    (~28% invalid slots, half of them keeping a key that may be in the
+    planes) against the JAX step's `hit & q_valid`; the public entry on
+    the rows' strided key columns against the JAX compare."""
+    _, table, bits, qk0, qk1 = SHARD_CASES[case]
+    planes, _ = tmesh.shard_probe_planes(table, bits)
+    q = cases.found_rows(qk0, qk1, 70 + case)
+    jax_planes = convert.probe_planes_to_jax(planes)
+    hit = _jax_found(*jax_planes, q[:, 0], q[:, 1], bits)
+    got = tmesh.shard_probe_found_step(q, planes, bits)
+    assert np.array_equal(got.numpy(), hit & (q[:, 2] != 0).numpy())
+    assert torch.equal(got, tmesh.shard_probe_found_step_plain(q, planes,
+                                                               bits))
+    assert np.array_equal(
+        tmesh.shard_probe_found(q[:, 0], q[:, 1], planes, bits).numpy(), hit)
+    invalid = (q[:, 2] == 0).numpy()
+    if table["valid"].any():  # the mask matters: invalid slots that hit
+        assert (hit & invalid).any()
