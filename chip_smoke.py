@@ -30,7 +30,11 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      K8's staging and ring edge groups under both filter settings, and
      its mask-edge groups (a left of all ones beside the empty slots,
      same-left runs longer than the window, invalid anchors inside them;
-     W 1, 7 and 32, max_span 1 and 8); K11 on a widened padded table;
+     W 1, 7 and 32, max_span 1 and 8); K11 on
+     cases.padded_probe_tables (buckets full to W with no pad, a
+     bucket of one key, an empty bucket, repeated keys, keys sharing k0,
+     keys just below and above each bucket's keys, k0 >= 2^56, W 128,
+     512 and 4,096);
      K1's exact walk at
      the auto step's 12 slots on its batches and on cases.warmup_cases:
      N runs of 8 to 20,000 bases ending at chunk starts, an all-N row),
@@ -96,7 +100,8 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      must give every query key the key index K5 gives it on the aligned
      table; then K9, K10 and K11 against their plain versions at the
      path's shapes (K11 on the padded table of the store without
-     decoys, the one the path probes).
+     decoys, the one the path probes), K11's bound restated to a lower
+     bound's work beside the old whole-bucket scan's.
 
   8. runs pgr-pbundle-decomp (pgrtk_tpu_torch/cli/pgr_pbundle_decomp.py,
      its defaults: w 48, k 56, r 4, min_span 12) on 64 haplotypes of
@@ -143,7 +148,10 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      (wfa_forward_rows, the one the path runs) row for row against
      wfa_forward_batch, and both entries against their plain versions,
      timed, with their bound (window cells and the bases the extensions
-     compare).  Phase 1 also holds both entries to their plain versions,
+     compare); and K11 at the path's call (the reference's mode-1 store,
+     captured in the CLI run, whose launches are the kernels line's)
+     against its plain version, run in chunks of keys.  Phase 1 also
+     holds both entries to their plain versions,
      and the SV entry to wfa_forward_batch, on cases.wfa_pairs (with
      wfa_edge_pairs) at L 512 and 8,192, an S_max of 61, and a
      max_wf_length of 65.
@@ -168,7 +176,10 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      and on cases.shard_cases (buckets of 31 to 1,000 entries, 128 and
      129 among them, keys with Pp and Pp + 1 postings, sid runs with m
      15 and 16, padded route slots, the last of three owners, no valid
-     entry, valid entries that are not a prefix, bits 1 and 2).
+     entry, valid entries that are not a prefix, bits 1 and 2, runs
+     beside other keys in their rows), K15 at each of cases.OWNER_PPS;
+     K15's bound counts each probed row's occupied prefix and a lower
+     bound's compares, beside the old whole rows.
  11. runs the v1 replicated-index programs over the same group: (11a)
      the dry run of 10a prints the JAX line whole, self-, probe- and
      v2-hits included; (11b) sharded_sketch_index_step_auto on phase
@@ -181,7 +192,9 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      batch against itself: all three counts equal and at least n_pairs,
      median of 5 each, and the bounds of the v1 index and probe steps
      (sums of their kernels' bounds: phase 5's K1-K4 and sort_pairs, and
-     K11 at the probe step's keys); (11d) K16 and K17, the entries the
+     K11 at the probe step's keys), and K11 against its plain version
+     (in chunks of keys) at the probe step's call; (11d) K16 and K17, the
+     entries the
      steps ran, against their plain versions at 11c's shapes, with their
      bounds restated to the work of the directory search and of the
      rows' occupied prefixes beside the old ones, and both entries of
@@ -315,10 +328,10 @@ OPS_WINDOWS = 16     # K9 per base: sliding min and max by van Herk, as
 OPS_ENTRY = 16       # K2/K3/K4/K6 per stream entry: scan, compares
 OPS_POSTING = 16     # K7 per postings slot
 OPS_SLOT = 32        # K8/K10 per anchor and window slot: filters, score
-OPS_COMPARE = 4      # K5/K11/K15/K17 per table slot compared: two 64-bit
-                     # equals
-OPS_SEARCH = 8       # K16 per key and search round: a 64-bit less-than,
-                     # equal and select on (k0, k1)
+OPS_COMPARE = 4      # K5/K17 per table slot compared (and the old
+                     # whole-bucket models of K11/K15): two 64-bit equals
+OPS_SEARCH = 8       # K11/K15/K16 per key and search round: a 64-bit
+                     # less-than, equal and select on (k0, k1)
 OPS_DIR = 4          # K16 per valid table entry, its directory's pass: the
                      # bucket (a shift), the compare with the predecessor's
                      # bucket, the store
@@ -1061,19 +1074,49 @@ def probe_work(k0, k1, bits, fence, tk0, row_bytes):
 
 def k11_work(k0, bits, row, W, found, hit):
     """K11's work on keys k0 in a padded table (`row` its slots' key
-    indexes, -1 at pad) that gave (found, hit).  Returns (input bytes,
-    each read once: a query key's two words, the keys of each bucket
-    probed, the row of each slot hit; compares, one per query key and
-    occupied slot of its bucket; the occupied slots of the buckets
-    probed)."""
+    indexes, -1 at pad) that gave (found, hit): a lower bound of each key
+    among the occupied slots of its bucket (a key past the table reads
+    none).  Returns (input bytes, each read once: a query key's two
+    words, the slots the searches must read, 16 bytes each, and the row
+    of each slot hit; the compares of the searches, ceil(log2(occupied +
+    1)) + 1 a key; and the old model's input bytes and compares, the
+    occupied slots of the buckets probed and one compare a key and
+    occupied slot of its bucket).  The slots read are the searches'
+    compares, but no more than the occupied slots of the buckets probed,
+    each once."""
     from pgrtk_tpu_torch.ops.int64 import srl
 
     occ = (row >= 0).reshape(-1, W).sum(dim=1)
     bucket = srl(k0, 56 - bits)
-    n_read = int(occ[torch.unique(bucket)].sum())
-    in_bytes = (16 * k0.numel() + 16 * n_read
-                + 4 * torch.unique(hit[found]).numel())
-    return in_bytes, int(occ[bucket].sum()), n_read
+    inside = bucket < occ.numel()
+    o = torch.where(inside, occ[bucket.clamp(max=occ.numel() - 1)], 0)
+    n_read = int(occ[torch.unique(bucket[inside])].sum())
+    n_cmp = int(torch.where(inside, torch.ceil(torch.log2(
+        o.double() + 1)).long() + 1, 0).sum())
+    base = 16 * k0.numel() + 4 * torch.unique(hit[found]).numel()
+    return (base + 16 * min(n_read, n_cmp), n_cmp,
+            base + 16 * n_read, int(o.sum()))
+
+
+def measure_k11(label, args, found, row):
+    """K11 (`probe_keys`) against its plain version (in chunks of keys:
+    kernels/timing.py::k11_plain) on `args`, which gave (found, row), with
+    its bound restated to a lower bound's work; the old whole-bucket
+    scan's bound printed beside it."""
+    from pgrtk_tpu_torch.kernels.timing import k11_plain
+    from pgrtk_tpu_torch.ops import probe as tpr
+
+    in_b, n_cmp, old_b, n_scan = k11_work(args[0], args[2], args[5],
+                                          args[6], found, row)
+    res = measure(label, lambda: tpr.probe_keys(*args),
+                  lambda: k11_plain(args), in_b,
+                  lambda got: need(got[0].numel(), *HIT),
+                  OPS_SEARCH * n_cmp)
+    old = bound(old_b + need(found.numel(), *HIT), OPS_COMPARE * n_scan)
+    print(f"    restated bound {res['bound_ms']:.4f} ms ({n_cmp} search "
+          f"compares) [before: {old[0]:.4f} ms by {old[1]}, {n_scan} "
+          f"occupied slots compared]")
+    return res
 
 
 def phase_query(dev, kb, tsk, tp, targets, queries):
@@ -1545,13 +1588,13 @@ def phase_batch_device(dev, kb, targets, queries):
     pargs = (k0, k1, pad["bits"], pad["k0"], pad["k1"], pad["row"],
              pad["W"])
     found, row = tpr.probe_keys(*pargs)
-    k11_in, n_cmp, n_read = k11_work(k0, pad["bits"], pad["row"], pad["W"],
-                                     found, row)
+    _, n_cmp, _, n_scan = k11_work(k0, pad["bits"], pad["row"], pad["W"],
+                                   found, row)
     print(f"  the path's padded table ('mode 1'): "
           f"{len(stores['mode 1'].index_keys)} keys, W={pad['W']}, bits "
           f"{pad['bits']}; {int(found.sum())} of {k0.numel()} query keys "
-          f"found, {n_cmp} occupied slots compared, {n_read} in the "
-          f"buckets probed")
+          f"found; {n_cmp} search compares, {n_scan} occupied slots in the "
+          f"keys' buckets")
     arr, lens = pad_batch(q_seqs)
     seqs = torch.from_numpy(arr).to(dev)
     lens = torch.from_numpy(lens).to(torch.int64).to(dev)
@@ -1567,13 +1610,9 @@ def phase_batch_device(dev, kb, targets, queries):
             + need(got["palindrome"].numel(), BIT),
             (OPS_WALK + OPS_DENSE_VALUES + OPS_WINDOWS) * seqs.numel(),
             plain_reps=1),
-        "probe_keys": measure(
+        "probe_keys": measure_k11(
             f"K11 probe_keys, {k0.numel()} keys, 'mode 1' padded table "
-            f"W={pad['W']}, bits {pad['bits']}",
-            lambda: tpr.probe_keys(*pargs),
-            lambda: tpr.probe_keys_plain(*pargs),
-            k11_in, lambda got: need(got[0].numel(), *HIT),
-            OPS_COMPARE * n_cmp),
+            f"W={pad['W']}, bits {pad['bits']}", pargs, found, row),
     }
     # the path's use of K5: found only, the kernels line's probe_fetch
     results["probe_fetch"] = measure(
@@ -1857,6 +1896,7 @@ def phase_sv(dev, kb, build_dir):
     from concurrent.futures import ThreadPoolExecutor
 
     from pgrtk_tpu_torch.native import build as native
+    from pgrtk_tpu_torch.ops import probe as tpr
     from pgrtk_tpu_torch.ops import wfa as tw
 
     print(f"phase 9: pgr-get-sv-candidate-regions, {SV_REF_LEN}-base "
@@ -1887,7 +1927,8 @@ def phase_sv(dev, kb, build_dir):
         torch.cuda.synchronize()
         kb.reset_launches()
         print("  one CLI run under torch.profiler:")
-        profile_steps(run, n=1, trace="sv_cli_trace.json")
+        with capture(tpr, "probe_keys") as k11:
+            profile_steps(run, n=1, trace="sv_cli_trace.json")
         launches = {k.name: k.launches for k in kb.KERNELS}
     finally:
         tw.batch_wfa_align = batch_wfa_align
@@ -1930,6 +1971,18 @@ def phase_sv(dev, kb, build_dir):
     print(f"  (b) {SV_CUT}-base reference, {SV_HAPS} x 2 contigs: card and "
           f"CPU write the same ten files ({time.perf_counter() - t:.1f} s)")
 
+    # K11 where it costs the most: the path's call with the most keys
+    # (a mode-1 store overflows the aligned table)
+    require(k11.calls, "K11 never ran on the SV path")
+    args = max((a for a, _ in k11.calls), key=lambda a: a[0].numel())
+    found, row = tpr.probe_keys(*args)
+    k11_result = measure_k11(
+        f"K11 probe_keys at the SV path's call, {args[0].numel()} keys, "
+        f"padded table W={args[6]}, bits {args[2]}, {int(found.sum())} "
+        f"found ({len(k11.calls)} calls in the run)", args, found, row)
+    k11_result["launches"] = launches["probe_keys"]
+    del args, found, row, k11
+
     print(f"phase 9b: K13 vs plain on the path's first "
           f"{SV_FORWARD_SEGMENTS} segments")
     seg = [p for p in pairs if 0 < len(p[0]) <= L and 0 < len(p[1]) <= L]
@@ -1971,6 +2024,7 @@ def phase_sv(dev, kb, build_dir):
             in_b, lambda got: out_b, ops, plain_reps=1, view=view)
         results[name]["launches"] = launches[name]
         torch.cuda.empty_cache()
+    results["probe_keys"] = k11_result
     return results
 
 
@@ -2050,21 +2104,32 @@ def k14_work(shard, bits):
             OPS_ENTRY * n + OPS_ENTRY * nb * 128)
 
 
-def k15_work(qk0, qk1, bits, Pp):
-    """Input bytes, output bytes and operations of K15: each received key
-    (16 bytes), each distinct bucket row probed once (128 keys of 16
-    bytes), the postings fields of each hit (12 bytes); the (Q, 3Pp)
-    int32 rows out; 4 operations per slot compared."""
+def k15_work(qk0, planes, bits, rows):
+    """Input bytes, output bytes and operations of K15 on received keys
+    qk0 in K14's planes that gave (Q, 3Pp) `rows`: each received key (16
+    bytes), the occupied prefix of each distinct bucket row probed, once
+    (16 bytes a slot: its k0 and k1), and the postings fields of each
+    slot written (12 bytes); the rows out; a lower bound's compares in
+    each live key's row, ceil(log2(occupied + 1)) + 1 at OPS_SEARCH.
+    Also the old model's input bytes and operations: whole 128-slot rows,
+    4 operations a slot compared."""
+    from pgrtk_tpu_torch.ops import query_e2e as tq
     from pgrtk_tpu_torch.ops.int64 import INT64_MAX
 
     live = qk0 != INT64_MAX
-    rows = torch.unique((qk0[live] & 0xFFFFFFFF) >> (32 - bits)).numel()
-    Q = qk0.numel()
+    b = (qk0[live] & 0xFFFFFFFF) >> (32 - bits)
+    occ = (planes["row"] >= 0).sum(dim=1)
+    Q, Pp = qk0.numel(), rows.shape[1] // 3
+    posted = int((rows[:, :Pp] != tq.META_EMPTY).sum())
+    n_cmp = int((torch.ceil(torch.log2(occ[b].double() + 1)).long()
+                 + 1).sum())
+    ub = torch.unique(b)
 
     def out_bytes(got):
         return Q * 3 * Pp * 4
 
-    return (16 * Q + rows * 128 * 16, out_bytes,
+    return (16 * Q + 16 * int(occ[ub].sum()) + 12 * posted, out_bytes,
+            OPS_SEARCH * n_cmp, 16 * Q + ub.numel() * 128 * 16,
             OPS_COMPARE * int(live.sum()) * 128)
 
 
@@ -2295,12 +2360,17 @@ def phase_v2_query(dev, kb, mesh, comm, tq, targets, queries):
           "10c's shapes (the path that runs them), K14 and K15 on the edge "
           "cases")
     (qk0, qk1, planes, bits, Pp), _ = k15.calls[-1]
-    in_b, out_b, ops = k15_work(qk0, qk1, bits, Pp)
+    in_b, out_b, ops, old_b, old_ops = k15_work(
+        qk0, planes, bits, mesh.owner_postings(qk0, qk1, planes, bits, Pp))
     result = measure(
         f"K15 owner_postings, {qk0.numel()} received keys, Pp {Pp}",
         lambda: mesh.owner_postings(qk0, qk1, planes, bits, Pp),
         lambda: mesh.owner_postings_plain(qk0, qk1, planes, bits, Pp),
         in_b, out_b, ops)
+    old = bound(old_b + out_b(None), old_ops)
+    print(f"    restated bound {result['bound_ms']:.4f} ms ({in_b} bytes in,"
+          f" {ops} ops: the probed rows' occupied prefixes, a lower bound's "
+          f"compares) [before: {old[0]:.4f} ms by {old[1]}, whole rows]")
     result["launches"] = launches.get("owner_postings", 0)
     k6_args, ex_args = k6.calls[-1][0], k7.calls[-1][0]
     anchor_args = k7a.calls[-1][0]
@@ -2336,9 +2406,10 @@ def phase_v2_query(dev, kb, mesh, comm, tq, targets, queries):
         got = mesh.shard_probe_planes(table, b)
         check(f"K14 {name}", planes_list(got),
               planes_list(mesh.shard_probe_planes_plain(table, b)))
-        check(f"K15 {name}",
-              mesh.owner_postings(c0, c1, got[0], b, cases.SHARD_PP),
-              mesh.owner_postings_plain(c0, c1, got[0], b, cases.SHARD_PP))
+        for Pp in cases.OWNER_PPS:
+            check(f"K15 {name}, Pp {Pp}",
+                  mesh.owner_postings(c0, c1, got[0], b, Pp),
+                  mesh.owner_postings_plain(c0, c1, got[0], b, Pp))
     return {"owner_postings": result, **rows_forms}
 
 
@@ -2530,10 +2601,11 @@ def phase_v1(dev, kb, mesh, comm, batch, stamp, index_bounds):
                 f"kernel {name} never launched on the v1 path")
     args = k11.calls[-1][0]  # (k0, k1, bits, tk0, tk1, row, W)
     found, row = mesh.probe_ops.probe_keys(*args)
-    k11_in, n_cmp, _ = k11_work(args[0], args[2], args[5], args[6], found,
-                                row)
-    k11_bound = bound(k11_in + need(found.numel(), *HIT),
-                      OPS_COMPARE * n_cmp)
+    k11_bound = measure_k11(
+        f"K11 probe_keys at the probe step's call, {args[0].numel()} keys, "
+        f"W={args[6]}, bits {args[2]}, {int(found.sum())} found", args,
+        found, row)
+    k11_bound = (k11_bound["bound_ms"], k11_bound["bound_by"])
     parts = [index_bounds[name] for name in INDEX_KERNELS]
     v1_bound, probe_bound = step_bound(parts), step_bound(parts[:4]
                                                           + [k11_bound])

@@ -180,76 +180,108 @@ extern "C" int pgrtk_probe_step(const void* qk0, const void* qk1,
 //
 // Replaces pgrtk_tpu/ops/probe.py:88 probe_keys (with _probe_hits :63),
 // the fallback of parallel/device_query.py:46-52 when a bucket overflows
-// the aligned 128-slot window.
+// the aligned 128-slot window, and the probe of the v1 probe step
+// (parallel/mesh.py::sharded_query_probe_step).
 //
-// What bounds it on this card: memory latency, as K5: one dependent read
-// of the bucket's W slots (16 bytes per slot plus the 4-byte row plane)
-// per key, at a few hundred thousand keys per batch.
+// What bounds it on this card: the loads of its searches.  A mode-1 store
+// keys on window minima, which crowd into the low buckets, so W is
+// widened to thousands of slots for one bucket (8,192 at phase 7b's store,
+// 16,384 at the SV path's): a scan of the bucket reads thousands of slots
+// a key (~4,450 occupied at 7b), where a key needs only its lower bound
+// in its bucket, about log2(occupied + 1) dependent reads.
 //
-// Design: one warp per query key.  The bucket is k0 >> (56 - bits); lane
-// l compares slots c + l of the bucket's W slots (W a multiple of 128), c
-// stepping by 32 over all of them, and keeps the lowest row among its
-// hits; a warp minimum gives the lowest row of the bucket (the JAX
-// min over `where(hit, row, INT32_MAX)`).  A key whose bucket lies past
-// the table (k0 >= 2^56) is not found.
+// Design: the table is built from a KEY-SORTED key array (both packages'
+// build_probe_table), so bucket b's entries sit key-sorted at slots
+// [b W, b W + count) and all-ones pads follow them.  Compared as unsigned
+// words, (k0, k1) then ascends over the whole bucket: a pad's k0 (2^64 -
+// 1) is above every key whose k0 is a 56-bit hash, the only keys whose
+// bucket lies inside the table.  The lowest row among a key's hits is its
+// first hit (the row plane ascends with the slots), and the first hit is
+// the lower bound of (k0, k1) when the slot there holds the key.  So a
+// thread takes a key and halves its bucket's W slots while more than
+// kScan can hold the lower bound, reading a pivot's k1 only where its k0
+// is the key's; it reads the slots left (k0 and k1) in one round of
+// loads, then the slot at the lower bound (its keys and row) and writes
+// found and row.  A key whose bucket lies past the table (k0 >= 2^56) is
+// not found.  On an H100, groups of 2 to 32 lanes a key (fewer rounds,
+// more loads) and a first round of the pivots 2^i - 1 ran slower at all
+// three shapes the main path gives it, and reading k1 beside k0 in each
+// round cost a third more at the v1 probe step's 1,769,472 keys
+// (PERF.md).  Precondition: each bucket's entries key-sorted before its
+// pads; the plain version and JAX compare the whole bucket.
 namespace {
 
-__global__ void probe_keys_kernel(const long long* __restrict__ qk0,
-                                  const long long* __restrict__ qk1,
-                                  long long Q, int shift,
-                                  const long long* __restrict__ tk0,
-                                  const long long* __restrict__ tk1,
-                                  const int* __restrict__ trow,
-                                  long long n_buckets, int W,
-                                  bool* __restrict__ found_out,
-                                  int* __restrict__ row_out) {
-  const unsigned full = 0xffffffffu;
-  const long long q =
-      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (q >= Q) return;  // uniform across the warp
-  const long long k0 = qk0[q];
-  const long long k1 = qk1[q];
-  const unsigned long long bucket = (unsigned long long)k0 >> shift;
-  int best = 0x7fffffff;
-  bool any = false;
-  if (bucket < (unsigned long long)n_buckets) {
-    const long long base = (long long)bucket * W;
-    for (int c = lane; c < W; c += 32) {
-      const long long s = base + c;
-      if (tk0[s] == k0 && tk1[s] == k1) {
-        any = true;
-        best = min(best, trow[s]);
+typedef long long i64;
+typedef unsigned long long u64;
+
+constexpr int kScan = 8;  // slots of the last round, read together
+
+__device__ __forceinline__ bool key_below(u64 a0, u64 a1, u64 b0, u64 b1) {
+  return a0 < b0 || (a0 == b0 && a1 < b1);
+}
+
+__global__ void __launch_bounds__(256)
+    probe_keys_kernel(const u64* __restrict__ qk0, const u64* __restrict__ qk1,
+                      i64 Q, int shift, const u64* __restrict__ tk0,
+                      const u64* __restrict__ tk1,
+                      const int* __restrict__ trow, u64 n_buckets, int W,
+                      bool* __restrict__ found_out,
+                      int* __restrict__ row_out) {
+  const i64 q = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= Q) return;
+  const u64 k0 = qk0[q], k1 = qk1[q];
+  const u64 b = k0 >> shift;
+  bool f = false;
+  int r = -1;
+  if (b < n_buckets) {
+    // the lower bound lies in [lo, lo + n]: the slots before lo are below
+    // the key, the slots from lo + n on are not
+    const i64 start = (i64)b * W;
+    i64 lo = start, n = W;
+    while (n > kScan) {
+      const i64 p = lo + n / 2;
+      const u64 a0 = tk0[p];
+      if (a0 < k0 || (a0 == k0 && tk1[p] < k1)) {
+        n -= p + 1 - lo;
+        lo = p + 1;
+      } else {
+        n = p - lo;
       }
     }
-  }
-  any = __any_sync(full, any);
+    int nb = 0;
 #pragma unroll
-  for (int d = 16; d > 0; d >>= 1)
-    best = min(best, __shfl_xor_sync(full, best, d));
-  if (lane == 0) {
-    found_out[q] = any;
-    row_out[q] = any ? best : -1;
+    for (int s = 0; s < kScan; ++s)  // no exit: the loads go together
+      if (s < n) nb += key_below(tk0[lo + s], tk1[lo + s], k0, k1);
+    const i64 lb = lo + nb;
+    if (lb < start + W) {
+      const u64 a0 = tk0[lb], a1 = tk1[lb];
+      const int at = trow[lb];
+      f = a0 == k0 && a1 == k1;
+      r = f ? at : -1;
+    }
   }
+  found_out[q] = f;
+  row_out[q] = r;
 }
 
 }  // namespace
 
 // qk0/qk1 (Q,) int64 query keys; tk0/tk1 (2^bits * W,) int64 planes and
-// trow (2^bits * W,) int32 row plane; outputs found (Q,) bool, row (Q,)
-// int32.  W a positive multiple of 128.
+// trow (2^bits * W,) int32 row plane, each bucket's entries key-sorted
+// before its all-ones pads; outputs found (Q,) bool, row (Q,) int32.  W a
+// positive multiple of 128.
 extern "C" int pgrtk_probe_keys(const void* qk0, const void* qk1,
                                 long long Q, int bits, const void* tk0,
                                 const void* tk1, const void* trow, int W,
                                 void* found, void* row, void* stream) {
-  if (bits < 1 || bits > 56 || W < 128 || W % 128)
+  if (bits < 1 || bits > 56 || W < 128 || W % 128 || Q < 0)
     return (int)cudaErrorInvalidValue;
   if (Q == 0) return (int)cudaSuccess;
-  const int threads = 256;  // 8 keys per block
-  probe_keys_kernel<<<(unsigned)((Q + 7) / 8), threads, 0,
-                      (cudaStream_t)stream>>>(
-      (const long long*)qk0, (const long long*)qk1, Q, 56 - bits,
-      (const long long*)tk0, (const long long*)tk1, (const int*)trow,
-      1ll << bits, W, (bool*)found, (int*)row);
+  const i64 blocks = (Q + 255) / 256;
+  if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  probe_keys_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const u64*)qk0, (const u64*)qk1, Q, 56 - bits, (const u64*)tk0,
+      (const u64*)tk1, (const int*)trow, 1ull << bits, W, (bool*)found,
+      (int*)row);
   return (int)cudaGetLastError();
 }

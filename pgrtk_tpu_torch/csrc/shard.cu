@@ -33,19 +33,26 @@
 // (PERF.md).
 //
 // K15 replaces the owner block of pgrtk_tpu/parallel/mesh.py:764-887
-// (inside sharded_query_v2_e2e_step).  For each received key (one warp
-// each) it reads the key's 128-slot bucket row, 4 slots a lane, takes the
-// hit mask by __ballot_sync, its count and first hit by __popc and
-// __ffs, reads the run first + j straight into the postings_cap (Pp)
-// slots, derives each slot's occurrence rank m and group size mult from
-// the same-sid runs of the compacted slots (in shared memory), and writes
-// the single-chip meta word keyovf(1) | mult(7) | m(4) | sid(20) with the
-// bgnori and end words: (Q, 3*Pp) int32.  keyovf is count > Pp or a valid
-// m > 15.  Padded route slots (INT64_MAX keys) never hit.  The TPU form
-// compacted the run by a 7-step funnel-shift lane roll and propagated run
-// bounds by log shifts; a warp reads the row directly.  What bounds it on
-// this card: device memory (the received keys, each probed bucket row of
-// keys, the postings of the hits, the output).
+// (inside sharded_query_v2_e2e_step): for each received key, the first
+// postings_cap (Pp) slots of its postings run in its bucket row, with
+// each slot's occurrence rank m in its same-sid run and the run's size
+// mult in the single-chip meta word keyovf(1) | mult(7) | m(4) | sid(20),
+// beside the bgnori and end words: (Q, 3*Pp) int32.  keyovf is count > Pp
+// or a valid m > 15.  Padded route slots (INT64_MAX keys) never hit.  The
+// TPU form compared the whole row, compacted the run by a 7-step lane
+// roll and propagated run bounds by log shifts.  What bounds it on this
+// card: device memory, and most of its bytes are the output (at 10c's
+// Pp = 32, 384 bytes a key); the rows it reads hold ~64 entries of 128
+// and stay in L2, so a whole row (2 KB of k0 and k1) a key is mostly
+// fills, and a key's run needs only its lower bound and the slots after
+// it.  So a group of 8 lanes takes a key: it finds
+// the lower bound of the key in its sorted row in two rounds of loads
+// (the 8 chunk ends, then the 16 slots of one chunk), reads the postings
+// of the run's first <= Pp slots only, takes the same-sid runs from
+// ballots, and the warp's 4 rows, contiguous in the output, are written
+// from shared memory in 16-byte stores.  The precondition is K14's
+// layout, as for K17: each row key-sorted, entries before fills (the
+// plain version compares the whole row).
 //
 // K17 replaces the compare block of pgrtk_tpu/parallel/mesh.py:576-582
 // (inside sharded_query_v2_step, the v2 probe-only fan-out): is each
@@ -185,84 +192,186 @@ __global__ void __launch_bounds__(kThreads)
   __stcs((int4*)(pl.row + s), make_int4(row[0], row[1], row[2], row[3]));
 }
 
-// K15's 128-slot row compare: bit s of mask[t] is set when
-// slot 32 t + s of the row at `row` holds (k0, k1) and the key is live.
-// Every lane of the warp must call it.
-__device__ __forceinline__ void row_hits(const i64* __restrict__ pk0,
-                                         const i64* __restrict__ pk1, i64 row,
-                                         i64 k0, i64 k1, bool live, int lane,
-                                         unsigned mask[4]) {
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const i64 p = row + 32 * t + lane;
-    mask[t] = __ballot_sync(0xffffffffu, live && pk0[p] == k0 && pk1[p] == k1);
-  }
-}
-
 __device__ __forceinline__ i64 row_of(i64 k0, int bits) {
   return (i64)(((u64)k0 & 0xFFFFFFFFull) >> (32 - bits)) * kW;
 }
 
-__global__ void owner_postings_kernel(const i64* __restrict__ qk0,
-                                      const i64* __restrict__ qk1, i64 Q,
-                                      int bits, const i64* __restrict__ pk0,
-                                      const i64* __restrict__ pk1,
-                                      const int* __restrict__ psid,
-                                      const int* __restrict__ pbgnori,
-                                      const int* __restrict__ pend, int Pp,
-                                      int* __restrict__ out) {
-  __shared__ unsigned sid_s[kWarps][kW];
+// K15's layout: lanes a key (kWarpKeys keys a warp), and the chunks its
+// first round cuts a row into
+constexpr int kOwnerGroup = 8;
+constexpr int kChunk = kW / kOwnerGroup;  // 16 slots
+constexpr int kWarpKeys = 32 / kOwnerGroup;
+constexpr unsigned kOwnerMine = (1u << kOwnerGroup) - 1u;
+
+__device__ __forceinline__ bool key_below(i64 a0, i64 a1, i64 b0, i64 b1) {
+  return a0 < b0 || (a0 == b0 && a1 < b1);
+}
+
+// The highest set bit at or below j (0 when there is none) and the lowest
+// above j (`none` when there is none) of a 128-bit mask in four words
+// (constant indices only, so the words stay in registers).
+__device__ __forceinline__ int set_at_or_below(const unsigned (&b)[4],
+                                               int j) {
+  int r = 0;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const int d = j - 32 * w;  // bits 0..d of word w
+    const unsigned x =
+        d < 0 ? 0u : (d >= 31 ? b[w] : b[w] & ((2u << d) - 1u));
+    if (x) r = 32 * w + 31 - __clz(x);
+  }
+  return r;
+}
+
+__device__ __forceinline__ int set_above(const unsigned (&b)[4], int j,
+                                         int none) {
+  int r = none;
+#pragma unroll
+  for (int w = 3; w >= 0; --w) {
+    const int d = j - 32 * w;  // bits d + 1..31 of word w
+    const unsigned x = d < 0 ? b[w] : (d >= 31 ? 0u : b[w] & ~((2u << d) - 1u));
+    if (x) r = 32 * w + __ffs(x) - 1;
+  }
+  return r;
+}
+
+// One group of kOwnerGroup lanes a received key.  Its row is key-sorted,
+// entries before INT64_MAX fills (K14's layout), so the key's postings
+// are the run [lb, lb + count) at its lower bound lb.  Round 1: lane l
+// reads the last slot of chunk l (16 slots), and the ballot's count c of
+// those below the key gives the chunk holding lb; round 2: the lanes read
+// that chunk's 16 slots (2 a lane) and count the slots below the key
+// (lb) and equal to it; while a chunk's last slot holds the key, the run
+// goes on into the next chunk.  Then the run's first nv = min(count, Pp)
+// slots' sid, bgnori and end are read (nothing for a miss or a padded
+// route slot), a slot starts a same-sid run when its sid differs from
+// the slot before (a shuffle, and the group's last lane's sid carried to
+// the next 8 slots), the starts' ballots make a 128-bit mask, and each
+// slot's m and mult are its distance from the start at or below it and
+// the length from that start to the next (or nv).  The warp's 4 rows,
+// contiguous in the (Q, 3Pp) output, are staged in shared memory and
+// written in 16-byte stores.
+__global__ void __launch_bounds__(kThreads)
+    owner_postings_kernel(const i64* __restrict__ qk0,
+                          const i64* __restrict__ qk1, i64 Q, int bits,
+                          const i64* __restrict__ pk0,
+                          const i64* __restrict__ pk1,
+                          const int* __restrict__ psid,
+                          const int* __restrict__ pbgnori,
+                          const int* __restrict__ pend, int Pp,
+                          int* __restrict__ out) {
+  extern __shared__ int stage[];  // a warp's kWarpKeys rows of 3 Pp
+  constexpr int G = kOwnerGroup;
   const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
-  const i64 q = ((i64)blockIdx.x * kThreads + threadIdx.x) >> 5;
-  if (q >= Q) return;  // whole warps leave together
-  const i64 k0 = qk0[q];
-  const i64 k1 = qk1[q];
-  const bool live = k0 != kKeyFill;  // padded route slots never hit
+  const int sub = lane & (G - 1);
+  const int gshift = lane & ~(G - 1);
+  const int R = 3 * Pp;
+  const i64 q0 = ((i64)blockIdx.x * kWarps + w) * kWarpKeys;
+  if (q0 >= Q) return;  // whole warps leave together
+  const i64 q = q0 + lane / G;
+  int* st = stage + (w * kWarpKeys + lane / G) * R;  // this key's row
+  i64 k0 = kKeyFill, k1 = kKeyFill;
+  if (q < Q) {
+    k0 = qk0[q];
+    k1 = qk1[q];
+  }
+  const bool live = k0 != kKeyFill;  // a padded route slot reads nothing
   const i64 row = live ? row_of(k0, bits) : 0;
-  unsigned mask[4];
-  row_hits(pk0, pk1, row, k0, k1, live, lane, mask);
-  int count = 0;
-  for (int t = 0; t < 4; ++t) count += __popc(mask[t]);
-  int first = kW;
-  for (int t = 3; t >= 0; --t)
-    if (mask[t]) first = 32 * t + __ffs(mask[t]) - 1;
+  bool lt = false;
+  if (live) {
+    const i64 p = row + kChunk * sub + kChunk - 1;
+    lt = key_below(pk0[p], pk1[p], k0, k1);
+  }
+  const int c = __popc((__ballot_sync(full, lt) >> gshift) & kOwnerMine);
+  int lb = kW, count = 0, chunk = c;
+  bool more = live && c < G, first = true;
+  while (__any_sync(full, more)) {
+    int nb = 0, ne = 0;
+    bool last = false;  // the chunk's last slot holds the key
+    if (more) {
+#pragma unroll
+      for (int u = 0; u < kChunk / G; ++u) {
+        const int s = chunk * kChunk + sub + G * u;
+        const i64 a0 = pk0[row + s], a1 = pk1[row + s];
+        const bool e = a0 == k0 && a1 == k1;
+        nb += key_below(a0, a1, k0, k1);
+        ne += e;
+        last |= e && sub + G * u == kChunk - 1;
+      }
+    }
+#pragma unroll
+    for (int d = G / 2; d > 0; d >>= 1) {
+      nb += __shfl_xor_sync(full, nb, d);
+      ne += __shfl_xor_sync(full, ne, d);
+    }
+    last = ((__ballot_sync(full, last) >> gshift) & kOwnerMine) != 0u;
+    if (more) {
+      if (first) lb = chunk * kChunk + nb;
+      count += ne;
+      more = last && ++chunk < G;
+    }
+    first = false;
+  }
   const int nv = min(count, Pp);
-  int* o = out + q * 3 * Pp;
-  // slot j <- row position first + j (masked to 0 where not a hit)
-  for (int t = 0; t < 4; ++t) {
-    const int j = lane + 32 * t;
-    if (j >= Pp) break;
-    const int p = first + j;
-    const bool h = p < kW && ((mask[p >> 5] >> (p & 31)) & 1u);
-    sid_s[w][j] = h ? (unsigned)psid[row + p] : 0u;
-    o[Pp + j] = h ? pbgnori[row + p] : 0;
-    o[2 * Pp + j] = h ? pend[row + p] : 0;
+  const int T = (__reduce_max_sync(full, nv) + G - 1) / G;
+  unsigned starts[4] = {0u, 0u, 0u, 0u};
+  unsigned carry = 0u;  // the sid of the slot before this step's first
+#pragma unroll
+  for (int t = 0; t < kW / G; ++t) {
+    if (t >= T) break;  // uniform across the warp
+    const int j = sub + G * t;
+    unsigned s = 0u;
+    if (j < nv) {
+      const i64 p = row + lb + j;
+      s = (unsigned)psid[p];
+      st[j] = (int)s;  // the sid, until the meta word takes its place
+      st[Pp + j] = pbgnori[p];
+      st[2 * Pp + j] = pend[p];
+    }
+    unsigned before = __shfl_up_sync(full, s, 1, G);
+    if (sub == 0) before = carry;
+    carry = __shfl_sync(full, s, G - 1, G);
+    const bool start = j < nv && (j == 0 || s != before);
+    starts[(G * t) >> 5] |= ((__ballot_sync(full, start) >> gshift) &
+                             kOwnerMine) << ((G * t) & 31);
+  }
+  // keyovf: more than Pp postings, or a valid m above 15
+  bool m_ovf = false;
+  for (int j = sub; j < nv; j += G)
+    m_ovf |= j - set_at_or_below(starts, j) > 15;
+  // every lane votes: a vote behind `count > Pp ||` hangs the warp
+  const unsigned m_any =
+      (__ballot_sync(full, m_ovf) >> gshift) & kOwnerMine;
+  const bool keyovf = count > Pp || m_any != 0u;
+  for (int j = sub; j < Pp; j += G) {
+    if (j < nv) {
+      const int a = set_at_or_below(starts, j);
+      const unsigned m = (unsigned)(j - a);
+      const unsigned mult = (unsigned)(set_above(starts, j, nv) - a);
+      const unsigned meta = (min(mult, 127u) << 24) | (min(m, 15u) << 20) |
+                            (unsigned)st[j];
+      st[j] = (int)(keyovf ? meta | 0x80000000u : meta);
+    } else {
+      st[j] = (int)kMetaEmpty;
+      st[Pp + j] = 0;
+      st[2 * Pp + j] = 0;
+    }
   }
   __syncwarp();
-  // m and mult from the same-sid run around each valid slot
-  unsigned meta[4];
-  bool m_ovf = false;
-  for (int t = 0; t < 4; ++t) {
-    const int j = lane + 32 * t;
-    meta[t] = kMetaEmpty;
-    if (j >= nv) continue;
-    const unsigned s = sid_s[w][j];
-    int a = j, e = j;
-    while (a > 0 && sid_s[w][a - 1] == s) --a;
-    while (e + 1 < nv && sid_s[w][e + 1] == s) ++e;
-    const unsigned m = (unsigned)(j - a);
-    const unsigned mult = (unsigned)(e - a + 1);
-    m_ovf |= m > 15u;
-    meta[t] = (min(mult, 127u) << 24) | (min(m, 15u) << 20) | s;
+  // the warp's rows, 16 R bytes from a 16-byte boundary (out is 16-byte
+  // aligned): 16-byte stores, and single words after the last (the last
+  // warp's rows at an odd R)
+  const int n_int = (int)min((i64)kWarpKeys, Q - q0) * R;
+  int* dst = out + q0 * R;
+  const int* src = stage + w * kWarpKeys * R;
+  const int body = n_int >> 2;
+  for (int v = lane; v < body; v += 32) {
+    const int* s = src + 4 * v;
+    *(int4*)(dst + 4 * v) = make_int4(s[0], s[1], s[2], s[3]);
   }
-  const bool keyovf = __any_sync(full, m_ovf) || count > Pp;
-  for (int t = 0; t < 4; ++t) {
-    const int j = lane + 32 * t;
-    if (j >= Pp) break;
-    o[j] = (int)(j < nv && keyovf ? meta[t] | 0x80000000u : meta[t]);
-  }
+  for (int i = 4 * body + lane; i < n_int; i += 32) dst[i] = src[i];
 }
 
 // K17's layout, set for its measured best (PERF.md): lanes a key, and
@@ -356,18 +465,22 @@ extern "C" int pgrtk_shard_probe_planes(
 }
 
 // K15.  Received keys qk0, qk1 (int64, Q of them; INT64_MAX = padded
-// slot), the probe planes of K14 (2^bits rows of 128), Pp in [1, 127].
-// Writes out (Q, 3*Pp) int32: meta | bgnori | end.
+// slot), the probe planes of K14 (2^bits rows of 128, each row key-sorted,
+// entries before fills), Pp in [1, 127].
+// Writes out (Q, 3*Pp) int32, 16-byte aligned: meta | bgnori | end.
 extern "C" int pgrtk_owner_postings(const void* qk0, const void* qk1,
                                     long long Q, int bits, const void* pk0,
                                     const void* pk1, const void* psid,
                                     const void* pbgnori, const void* pend,
                                     int Pp, void* out, void* stream) {
-  if (Q < 0 || bits < 1 || bits > 31 || Pp < 1 || Pp > 127)
+  if (Q < 0 || bits < 1 || bits > 31 || Pp < 1 || Pp > 127 ||
+      (unsigned long long)out % 16)
     return (int)cudaErrorInvalidValue;
   if (Q == 0) return (int)cudaSuccess;
-  const i64 grid = (Q + kWarps - 1) / kWarps;
-  owner_postings_kernel<<<(unsigned)grid, kThreads, 0,
+  const i64 keys = kWarps * kWarpKeys;  // a block's
+  const i64 grid = (Q + keys - 1) / keys;
+  const size_t smem = (size_t)keys * 3 * Pp * sizeof(int);  // <= 48,768
+  owner_postings_kernel<<<(unsigned)grid, kThreads, smem,
                           (cudaStream_t)stream>>>(
       (const i64*)qk0, (const i64*)qk1, Q, bits, (const i64*)pk0,
       (const i64*)pk1, (const int*)psid, (const int*)pbgnori,

@@ -50,8 +50,9 @@ gave the kernels when this run builds them, then the parts asked for
          (kernels/sass_ops.py), and the fast walk on the clean batch
          beside two ablations of csrc/sketch.cu, built alone: the walk
          without its stores, and the stores without the hashes
-         (`dense_ablations`); then K18 (min_span_filter_dense) on both of
-         its calls in phase 11d's dense pipelines (mesh.dense_index_step,
+         (`dense_ablations`); then dense11d;
+  dense11d  K18 (min_span_filter_dense) and K19 (pair_mers_dense) on
+         their calls in phase 11d's dense pipelines (mesh.dense_index_step,
          gapped and not, capacity L / 64 = 262,144) on phase 4's 16 x
          16,777,216 batch (chip_smoke.py::realistic_batch);
   shard  K14 (shard_probe_planes) at phase 10b's shapes: its last call in
@@ -84,9 +85,23 @@ gave the kernels when this run builds them, then the parts asked for
          tree that has them, K17 and K16 at the other layouts of
          V1_VARIANTS (each built alone) and K16 at directories one bit
          wider and narrower (`v1_variants`).
+  probe  K11 (probe_keys) at the three shapes that run it: phase 7b's
+         (the 8 bench query haplotypes' mode-1 keys in the padded table
+         of the bench targets' mode-1 store, no decoys), phase 9's (the
+         SV CLI on chip_smoke.py's SV corpus, stopped at its one call) and
+         phase 11c's (the v1 probe step of phase 4's batch against itself
+         over an NCCL group of world size 1, its call captured; the
+         step's device launches, busy time and host-clock median of 5),
+         each held to its plain version in chunks of keys, and, in a tree
+         that has them, at the layouts of K11_VARIANTS (each built
+         alone); then K15 (owner_postings) at phase 10c's received keys
+         (the v2 query step of the 128 query rows against a v2 index of
+         the 8 bench targets at chip_smoke.py's V2_QUERY_KW: the step's
+         device launches, busy time and host-clock median of 5) and at
+         the layouts of K15_VARIANTS.
 With --digest FILE, the sha256 of the outputs of `step`, `batch`, K18,
-`shard` and `v1` are written to FILE, one line each, so that two trees
-can be compared in one call.
+K19, `shard`, `v1` and `probe` are written to FILE, one line each, so that
+two trees can be compared in one call.
 Every kernel is held to its plain version (tolerance 0).  Each kernel
 time is the median of five rounds of 20 back-to-back calls (CUDA events,
 ms a call), beside the device launches, busy time and time by kernel of
@@ -116,15 +131,16 @@ from ..ops import sketch1 as ts1
 from ..utils import cases
 from .k1_modes import CHUNK, K, MIN_SPAN, R, SLOTS, batches
 
-PARTS = ("chain", "index", "query", "step", "wfa", "dense", "batch",
-         "shard", "v1")
+PARTS = ("chain", "index", "query", "step", "wfa", "dense", "dense11d",
+         "batch", "shard", "v1", "probe")
 PTXAS_KERNELS = ("sketch_walk", "rank", "min_span_kernel", "tile_summary",
                  "pair_summary", "tile_rank", "pair_kernel", "probe_kernel",
                  "probe_fetch_kernel", "dup_pair", "expand_kernel",
                  "chain_fast_kernel", "wfa_forward", "mode1",
                  "chain_dense_kernel", "bucket_place", "fill_rows",
                  "min_span_tile", "last_valid", "pair_key",
-                 "shard_probe_found")
+                 "shard_probe_found", "probe_keys_kernel",
+                 "owner_postings")
 CHAIN_G, CHAIN_N, CHAIN_W = 1024, 576, 24
 LIMIT = 128  # min(max_count, max_count_query) at the step's defaults
 
@@ -559,7 +575,7 @@ def part_dense(dev, digests):
         dense_ablations(seqs_by["clean"], lens)
     del seqs_by
     torch.cuda.empty_cache()
-    dense_k18(dev, digests)
+    dense_11d(dev, digests)
 
 
 def phase4_batch(dev):
@@ -572,13 +588,14 @@ def phase4_batch(dev):
             torch.arange(B, device=dev))
 
 
-def dense_k18(dev, digests):
-    """K18 on its two calls of phase 11d's dense pipelines."""
+def dense_11d(dev, digests):
+    """K18 and K19 on their calls in phase 11d's dense pipelines."""
     import chip_smoke as cs
     from ..parallel import mesh
 
     seqs, lens, rids = phase4_batch(dev)
-    with cs.capture(tp, "min_span_filter_dense") as k18:
+    with cs.capture(tp, "min_span_filter_dense") as k18, \
+            cs.capture(tp, "pair_mers_dense") as k19:
         for gapped in (True, False):
             mesh.dense_index_step(seqs, lens, rids,
                                   capacity=seqs.shape[1] // 64, gapped=gapped)
@@ -592,6 +609,13 @@ def dense_k18(dev, digests):
                         lambda: tp.min_span_filter_dense_plain(x, y, valid,
                                                                ms))
         digests.append((label, digest({"keep": got})))
+        print(f"  outputs sha256 {digests[-1][1]}")
+    for (x, y, valid), _ in k19.calls:
+        label = (f"K19 pair_mers_dense {tuple(x.shape)} "
+                 f"({int(valid.sum())} valid)")
+        got, _ = report(label, lambda: tp.pair_mers_dense(x, y, valid),
+                        lambda: tp.pair_mers_dense_plain(x, y, valid))
+        digests.append((label, digest(got)))
         print(f"  outputs sha256 {digests[-1][1]}")
 
 
@@ -781,21 +805,18 @@ def v1_variants(k16_args, k17_args):
     def k17_plain():
         return mesh.shard_probe_found_step_plain(q, planes, bits)
 
-    real, dir_bits = kb._lib, mesh.pair_key_dir_bits
+    layout_variants([v for v in V1_VARIANTS if v[1] == "shard.cu"], k17,
+                    k17_plain)
+    layout_variants([v for v in V1_VARIANTS if v[1] == "v1.cu"], k16,
+                    k16_plain)
+    dir_bits = mesh.pair_key_dir_bits
     try:
-        for name, source, subs in V1_VARIANTS:
-            kb._lib = ablation_lib(name, source, subs)
-            if source == "v1.cu":
-                report(f"  {name}", k16, k16_plain)
-            else:
-                report(f"  {name}", k17, k17_plain)
-        kb._lib = real
         for d in (1, -1):
             mesh.pair_key_dir_bits = lambda n, d=d: dir_bits(n) + d
             report(f"  K16 directory of {dir_bits(tk0.numel()) + d} bits",
                    k16, k16_plain)
     finally:
-        kb._lib, mesh.pair_key_dir_bits = real, dir_bits
+        mesh.pair_key_dir_bits = dir_bits
 
 
 # csrc/sketch.cu with one change each, to time the dense mode's walk and
@@ -899,6 +920,188 @@ def shard_ablation(sh, bits):
               f"launches, {busy:.4f} ms busy a call: {top}")
     finally:
         kb._lib = real
+
+
+def k11_plain(args, elems=1 << 26):
+    """K11's plain version on probe_keys' `args` in chunks of keys of at
+    most `elems` gathered slots (one gather of every key's bucket would
+    not fit on the card at a W of thousands)."""
+    k0, k1, rest = args[0], args[1], args[2:]
+    step = max(1, elems // args[6])
+    parts = [tpr.probe_keys_plain(k0[i:i + step], k1[i:i + step], *rest)
+             for i in range(0, k0.numel(), step)]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]))
+
+
+# K11 and K15 with one change of layout each (csrc/probe.cu,
+# csrc/shard.cu): (name, source, [(old text, new text)]); each variant
+# computes the same function and is held to the plain version
+K11_PIVOT = ("      const u64 a0 = tk0[p];\n"
+             "      if (a0 < k0 || (a0 == k0 && tk1[p] < k1)) {\n")
+K15_PIVOT = "    lt = key_below(pk0[p], pk1[p], k0, k1);\n"
+K11_VARIANTS = (
+    ("K11 k1 read beside k0 in each round", "probe.cu",
+     [(K11_PIVOT, "      if (key_below(tk0[p], tk1[p], k0, k1)) {\n")]),)
+K15_VARIANTS = (
+    ("K15 4 lanes a key", "shard.cu",
+     [("constexpr int kOwnerGroup = 8;", "constexpr int kOwnerGroup = 4;")]),
+    ("K15 first round's k1 read where k0 matches", "shard.cu",
+     [(K15_PIVOT, "    const i64 a0 = pk0[p];\n"
+                  "    lt = a0 < k0 || (a0 == k0 && pk1[p] < k1);\n")]))
+
+
+def layout_variants(variants, fn, plain):
+    """fn beside each of `variants` (built alone by ablation_lib), held to
+    plain, with its events time and device time; skipped for a tree
+    without these layouts."""
+    real = kb._lib
+    try:
+        for name, source, subs in variants:
+            if any(old not in (kb.CSRC / source).read_text()
+                   for old, _ in subs):
+                print(f"  {name}: skipped (no such layout in this tree)")
+                continue
+            kb._lib = ablation_lib(name, source, subs)
+            report(f"  {name}", fn, plain)
+    finally:
+        kb._lib = real
+
+
+def k11_report(label, args, digests):
+    """K11 on probe_keys' `args` against its plain version: events,
+    device time, the outputs' sha256; then at each of K11_VARIANTS."""
+    label = (f"K11 probe_keys {label}, {args[0].numel()} keys, W={args[6]}, "
+             f"bits {args[2]}")
+    want = k11_plain(args)
+    got, _ = report(label, lambda: tpr.probe_keys(*args), lambda: want)
+    digests.append((label, digest({"found": got[0], "row": got[1]})))
+    print(f"  {int(got[0].sum())} found; outputs sha256 {digests[-1][1]}")
+    layout_variants(K11_VARIANTS, lambda: tpr.probe_keys(*args),
+                    lambda: want)
+
+
+class _Stop(Exception):
+    pass
+
+
+def sv_k11_args(dev):
+    """probe_keys' arguments at the SV CLI's one call on chip_smoke.py's
+    SV corpus (the CLI is stopped there)."""
+    import os
+
+    import chip_smoke as cs
+    from ..cli import pgr_get_sv_candidate_regions as cli
+
+    build_dir = os.path.join(os.getcwd(), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    ref, asm = cs.sv_corpus(dev, build_dir, cs.SV_REF_LEN, cs.SV_HAPS,
+                            cs.SV_CONTIGS, "sv")
+    seen, real = [], tpr.probe_keys
+
+    def spy(*args):
+        seen.append(args)
+        raise _Stop
+
+    tpr.probe_keys = spy
+    try:
+        cli.main([ref, asm, os.path.join(build_dir, "sv_timing_out")]
+                 + cs.SV_OPTS, device=dev)
+    except _Stop:
+        pass
+    finally:
+        tpr.probe_keys = real
+    return seen[0]
+
+
+def part_probe(dev, digests):
+    import chip_smoke as cs
+    from ..core import seqdb
+    from ..core.query import pair_shmmrs_canonical_batch
+    from ..core.spec import ShmmrSpec
+    from ..parallel import device_query as dq
+    from ..parallel import mesh
+
+    # phase 7b: the path's padded table (the mode-1 store without decoys)
+    targets, queries = cs.bench_corpus(dev)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    spec1 = ShmmrSpec(**cs.MODE1_SPEC)
+    store = seqdb.build_columnar_store([acgt[r].tobytes() for r in targets],
+                                       spec1, device=dev)
+    tab = dq._device_tables(store, dev)
+    if tab["layout"] != "padded":
+        raise RuntimeError("the mode-1 store took the aligned table")
+    pairs = pair_shmmrs_canonical_batch(ts1.sketch_mode1_arrays(
+        [acgt[r].tobytes() for r in queries.reshape(len(targets), -1)],
+        spec=spec1, device=dev))
+    k11_report("at phase 7b", (
+        torch.from_numpy(pairs["k0"].view(np.int64)).to(dev),
+        torch.from_numpy(pairs["k1"].view(np.int64)).to(dev), tab["bits"],
+        tab["k0"], tab["k1"], tab["row"], tab["W"]), digests)
+    del store, tab, pairs
+    k11_report("at the SV CLI's call (phase 9)", sv_k11_args(dev), digests)
+    torch.cuda.empty_cache()
+
+    seqs, lens, rids = phase4_batch(dev)
+    ts = torch.from_numpy(targets).to(dev)
+    tl = torch.full((len(targets),), targets.shape[1], device=dev)
+    tr = torch.arange(len(targets), device=dev)
+    q = torch.from_numpy(queries).to(dev)
+    ql = torch.full((len(queries),), queries.shape[1], device=dev)
+    qr = torch.arange(len(queries), device=dev)
+    with nccl_group(dev) as comm:
+        table = mesh.sharded_sketch_index_step_auto(
+            seqs, lens, rids, comm=comm, chunk=CHUNK)["table"]
+        probe = mesh.replicated_probe_table(table)
+        del table
+
+        def probe_step():
+            return mesh.sharded_query_probe_step(seqs, lens, rids, probe,
+                                                 comm=comm, chunk=CHUNK)
+
+        n = int(mesh.sketch_index_step(ts, tl, tr, chunk=CHUNK)["n_pairs"])
+        cap = max(128, 2 * n)
+        v2, lam, _ = cs.v2_index(mesh, comm, ts, tl, tr, cap)
+
+        def v2_query():
+            return mesh.sharded_query_v2_e2e_step(
+                q, ql, qr, v2["probe"], shard_capacity=cap,
+                n_targets=len(targets), avg_per_bucket=lam, comm=comm,
+                **cs.V2_QUERY_KW)
+
+        with cs.capture(mesh.probe_ops, "probe_keys") as k11, \
+                cs.capture(mesh, "owner_postings") as k15:
+            probe_step()
+            v2_query()
+        for name, step, keys in (
+                ("v1 probe (K11) step", probe_step, ("n_hits", "all_hits")),
+                ("v2 query (K15) step", v2_query, ("anchors", "gvalid",
+                                                   "scores", "prev"))):
+            res = step()
+            med, ts_ = cs.median_step(step)
+            launches, busy, top = device_profile(step)
+            digests.append((name, digest({k: res[k] for k in keys})))
+            ms = [round(t * 1e3, 3) for t in ts_]
+            print(f"{name}: host-clock median {med * 1e3:.3f} ms of {ms}; "
+                  f"{launches:g} device launches, {busy:.4f} ms busy a "
+                  f"step: {top}")
+            print(f"  outputs sha256 {digests[-1][1]}")
+    del seqs, v2
+    torch.cuda.empty_cache()
+    k11_report("at the v1 probe step's call (phase 11c)", k11.calls[-1][0],
+               digests)
+    (qk0, qk1, planes, bits, Pp), _ = k15.calls[-1]
+    label = (f"K15 owner_postings, {qk0.numel()} received keys "
+             f"({int((qk0 != mesh.INT64_MAX).sum())} live), Pp {Pp}, "
+             f"{1 << bits} bucket rows")
+    got, _ = report(label, lambda: mesh.owner_postings(qk0, qk1, planes,
+                                                       bits, Pp),
+                    lambda: mesh.owner_postings_plain(qk0, qk1, planes, bits,
+                                                      Pp))
+    digests.append((label, digest({"rows": got})))
+    print(f"  outputs sha256 {digests[-1][1]}")
+    layout_variants(K15_VARIANTS, lambda: mesh.owner_postings(
+        qk0, qk1, planes, bits, Pp), lambda: got)
 
 
 # K9 at phase 7b's CLI default (w, k) and utils/cases.py's small window
@@ -1026,12 +1229,16 @@ def main(argv) -> int:
         part_wfa(dev)
     if "dense" in parts:
         part_dense(dev, digests)
+    elif "dense11d" in parts:
+        dense_11d(dev, digests)
     if "batch" in parts:
         part_batch(dev, digests)
     if "shard" in parts:
         part_shard(dev, digests)
     if "v1" in parts:
         part_v1(dev, digests)
+    if "probe" in parts:
+        part_probe(dev, digests)
     if a.digest:
         with open(a.digest, "w") as f:
             f.writelines(f"{label}: {d}\n" for label, d in digests)

@@ -22,8 +22,9 @@ Device part: K5, which probes each query key against its bucket's
 `probe_fetch`, which also copies the matched key's postings row (or, with
 p_rows None, only probes), and `probe_step`, the query step's, which
 writes found and the row index only; K11 `probe_keys`, the probe of the
-padded layout.  CPU tensors run the plain PyTorch version beside each,
-CUDA tensors launch csrc/probe.cu or raise.
+padded layout (a lower bound in the key's bucket, whose entries are
+key-sorted before its pads).  CPU tensors run the plain PyTorch version
+beside each, CUDA tensors launch csrc/probe.cu or raise.
 """
 from __future__ import annotations
 
@@ -296,9 +297,16 @@ def probe_keys(k0: torch.Tensor, k1: torch.Tensor, bits: int,
                W: int):
     """K11: probe (Q,) int64 query keys against the padded-bucket planes
     of build_probe_table (pgrtk_tpu/ops/probe.py:88 probe_keys).  The
-    bucket is k0 >> (56 - bits), its W slots are compared.  Returns found
-    (Q,) bool and row (Q,) int32, the lowest `trow` among the hits (-1
-    when absent)."""
+    bucket is k0 >> (56 - bits).  Returns found (Q,) bool and row (Q,)
+    int32, the lowest `trow` among the key's hits in its bucket (-1 when
+    absent).
+
+    Precondition: in each bucket, the entries are key-sorted ((k0, k1) as
+    unsigned words, so `trow` ascends with them) and come before the
+    bucket's all-ones pads, as both packages' build_probe_table write
+    them from a key-sorted key array.  The plain version, like the JAX
+    function, compares the whole bucket; the kernel takes the lower bound
+    of the key in its bucket."""
     if W < 128 or W % 128:
         raise ValueError("W must be a positive multiple of 128")
     if not (0 < bits <= HASH_BITS):

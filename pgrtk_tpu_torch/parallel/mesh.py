@@ -395,7 +395,12 @@ def owner_postings(qk0: torch.Tensor, qk1: torch.Tensor,
     mult; keyovf = more than Pp hits or a valid m > 15.  Returns (Q, 3Pp)
     int32 u32 patterns [meta | bgnori | end], meta = keyovf(1) | mult(7)
     | m(4) | sid(20) and META_EMPTY in an empty slot: the rows
-    ops/query_e2e.py::expand_postings (K7) takes."""
+    ops/query_e2e.py::expand_postings (K7) takes.
+
+    Precondition: the planes as K14 (shard_probe_planes) writes them,
+    each bucket row key-sorted with its entries before its INT64_MAX
+    fills; the kernel takes the key's lower bound in its row, while the
+    plain version, like the JAX block, compares the whole row."""
     qk0, qk1, p = _owner_in(qk0, qk1, planes, bits, Pp)
     if not on_cuda(qk0, qk1, *p):
         return owner_postings_plain(qk0, qk1, planes, bits, Pp)

@@ -720,12 +720,96 @@ def padded_probe_keys(seed=13):
     return keys, probe_queries(keys, rng, n_hit=2_000, n_miss=1_000)
 
 
+PADDED_EDGE_BITS = 7  # 128 buckets: the bits build_probe_table picks
+                      # for 4,097 to 8,192 keys
+
+
+def padded_edge_keys():
+    """[(name, key-sorted (n, 2) uint64 keys)] for K11's padded layout at
+    PADDED_EDGE_BITS: 'W 128', with buckets 0 and 127 full to W = 128
+    (no pad), bucket 1 of one key, bucket 2 empty and bucket 3 of 60; 'W
+    4096', with bucket 0 of 3,000 keys (W widens to 4,096, as a mode-1
+    store's low buckets do), bucket 1 of one key and bucket 2 empty.  In
+    bucket 3 (W 128) and bucket 0 (W 4096), every ninth key is repeated
+    and the three keys after it share its k0."""
+    rng = np.random.default_rng(50)
+    out = []
+    for name, hot in (("W 128", None), ("W 4096", 3_000)):
+        if hot is None:
+            counts = rng.integers(30, 45, size=1 << PADDED_EDGE_BITS)
+            counts[:4] = (128, 1, 0, 60)
+            counts[-1] = 128
+            b = 3
+        else:
+            counts = rng.integers(8, 21, size=1 << PADDED_EDGE_BITS)
+            counts[:3] = (hot, 1, 0)
+            b = 0
+        keys = bucket_keys(counts, seed=51 + len(out),
+                           bits=PADDED_EDGE_BITS)
+        lo = int(counts[:b].sum())
+        for i in range(lo + 2, lo + int(counts[b]) - 8, 9):
+            keys[i + 1] = keys[i]
+            keys[i + 2:i + 5, 0] = keys[i, 0]
+        out.append((name, keys[np.lexsort((keys[:, 1], keys[:, 0]))]))
+    return out
+
+
+def padded_edge_queries(keys, seed, bits=PADDED_EDGE_BITS):
+    """probe_edge_queries' keys, and for every bucket the keys just below
+    its first key and just above its last (k1 - 1 and k1 + 1 at the same
+    k0; k1 wraps to 2^64 - 1 below 0), the least and the greatest key of
+    its range (k0 = b << shift, k1 = 0; the range's last k0, k1 = 2^64 -
+    1) and the all-ones key, whose k0 is past the last bucket.  Shuffled."""
+    rng = np.random.default_rng(seed)
+    one, shift = np.uint64(1), np.uint64(56 - bits)
+    b = keys[:, 0] >> shift
+    first = np.flatnonzero(np.r_[True, b[1:] != b[:-1]])
+    last = np.r_[first[1:] - 1, len(keys) - 1]
+    below, above = keys[first].copy(), keys[last].copy()
+    below[:, 1] -= one
+    above[:, 1] += one
+    r = np.arange(1 << bits, dtype=np.uint64)
+    least = np.stack([r << shift, np.zeros_like(r)], axis=1)
+    most = np.stack([((r + one) << shift) - one,
+                     np.full_like(r, ~np.uint64(0))], axis=1)
+    q = np.concatenate([probe_edge_queries(keys, seed, bits), below, above,
+                        least, most,
+                        np.full((1, 2), ~np.uint64(0), dtype=np.uint64)])
+    return q[rng.permutation(len(q))]
+
+
+def padded_probe_tables():
+    """[(name, build_probe_table's dict, (m, 2) uint64 queries)]: the two
+    tables of padded_edge_keys with padded_edge_queries, and
+    padded_probe_keys' table (a 300-key bucket, W = 512) with its
+    queries and the edge queries."""
+    from ..ops import probe as tpr
+
+    out = [(name, tpr.build_probe_table(keys),
+            padded_edge_queries(keys, 60 + i))
+           for i, (name, keys) in enumerate(padded_edge_keys())]
+    keys, q = padded_probe_keys()
+    tab = tpr.build_probe_table(keys)
+    out.append(("W 512", tab, np.concatenate([q, padded_edge_queries(
+        keys, 62, tab["bits"])])))
+    return out
+
+
+def k11_args(tab, q, dev):
+    """probe_keys' arguments for the (m, 2) uint64 queries `q` in a
+    build_probe_table dict, on `dev`."""
+    t = _to(dev)
+    return (t(q[:, 0].view(np.int64)), t(q[:, 1].view(np.int64)),
+            tab["bits"], t(tab["k0"]), t(tab["k1"]), t(tab["row"]),
+            tab["W"])
+
+
 def batch_device_cases(dev):
     """K9-K11 on their edge cases: the mode-1 rows at both specs and at
     the window edges, the tile-edge rows; the chain groups of
     CHAIN_SETTINGS, a span-2 window of 6, K8's edge groups and the mask
-    edge groups through the dense DP; the padded probe with a widened
-    bucket."""
+    edge groups through the dense DP; the padded probe on
+    padded_probe_tables."""
     from ..ops import chain as tc
     from ..ops import probe as tpr
     from ..ops import sketch1 as ts1
@@ -777,13 +861,11 @@ def batch_device_cases(dev):
                       f"oriented={oriented}",
                       lambda a=args: tc.chain_scores_dense(*a),
                       lambda a=args: tc.chain_scores_dense_plain(*a)))
-    keys, q = padded_probe_keys()
-    tab = tpr.build_probe_table(keys)
-    args = (t(q[:, 0].view(np.int64)), t(q[:, 1].view(np.int64)),
-            tab["bits"], t(tab["k0"]), t(tab["k1"]), t(tab["row"]), tab["W"])
-    cases.append((f"K11 probe_keys W={tab['W']}",
-                  lambda a=args: tpr.probe_keys(*a),
-                  lambda a=args: tpr.probe_keys_plain(*a)))
+    for name, tab, q in padded_probe_tables():
+        args = k11_args(tab, q, dev)
+        cases.append((f"K11 probe_keys {name}",
+                      lambda a=args: tpr.probe_keys(*a),
+                      lambda a=args: tpr.probe_keys_plain(*a)))
     return cases
 
 
@@ -1290,17 +1372,25 @@ def wfa_batch(pairs, L):
 # ------------------------------------------- K14, K15: the v2 shard planes
 
 SHARD_PP = 32  # postings_cap of the K15 cases
+# the postings_caps K15's edge checks also take: one slot, rows of 15
+# words (odd, so the last warp's rows end off a 16-byte boundary) and the
+# widest (48,768 bytes of staging a block)
+OWNER_PPS = (SHARD_PP, 1, 5, 127)
 
 
-def shard_table(seed, capacity, bits, n_keys=2000, crowd=0, runs=()):
+def shard_table(seed, capacity, bits, n_keys=2000, crowd=0, runs=(),
+                shared=()):
     """A key-sorted v2 shard table (`pairs.TABLE_FIELDS` numpy planes,
     int64 but `valid`) of `capacity` entries, the invalid tail at
     INT64_MAX keys and 0 postings: n_keys random 56-bit keys with 1-3
     postings each; `crowd` single-posting keys in bucket 7 (at `bits`
     bits), or per size in a tuple `crowd` that many in a bucket of its
-    own; and per (n_postings, n_sids) in `runs` one key with that many
+    own; per (n_postings, n_sids) in `runs` one key with that many
     postings spread over that many sids, in (sid, bgn) order, each in a
-    bucket of its own."""
+    bucket of its own; and per (n_before, n_postings, n_after) in
+    `shared` a bucket of its own holding a key with n_postings postings
+    over 5 sids between n_before single-posting keys below it and n_after
+    above it, so its run starts at slot n_before of its row."""
     rng = np.random.default_rng(seed)
     shift = np.uint64(32 - bits)
 
@@ -1313,7 +1403,8 @@ def shard_table(seed, capacity, bits, n_keys=2000, crowd=0, runs=()):
     # bucket 9 + 2i
     crowds = (crowd,) if np.isscalar(crowd) else tuple(crowd)
     crowd_b = [7] + [100 + 2 * j for j in range(1, len(crowds))]
-    mine = crowd_b + [9 + 2 * i for i in range(len(runs))]
+    shared_b = [40 + 2 * i for i in range(len(shared))]
+    mine = crowd_b + [9 + 2 * i for i in range(len(runs))] + shared_b
     k0 = rng.integers(0, 1 << 56, size=n_keys, dtype=np.uint64)
     b = (k0 & np.uint64(0xFFFFFFFF)) >> shift
     k0 = list(k0[~np.isin(b, mine)])
@@ -1326,6 +1417,11 @@ def shard_table(seed, capacity, bits, n_keys=2000, crowd=0, runs=()):
         k0 += in_bucket(9 + 2 * i, 1)
         mult.append(npost)
         sids.append(np.sort(rng.integers(0, nsid, size=npost)))
+    for b, (before, npost, after) in zip(shared_b, shared):
+        k0 += sorted(in_bucket(b, before + 1 + after))
+        mult += [1] * before + [npost] + [1] * after
+        sids += [None] * before + [np.sort(rng.integers(0, 5, size=npost))]
+        sids += [None] * after
     k1 = rng.integers(0, 1 << 56, size=len(k0), dtype=np.uint64)
     cols = {f: [] for f in ("k0", "k1", "sid", "bgn", "end", "orientation")}
     for i, m in enumerate(mult):
@@ -1432,7 +1528,11 @@ def shard_cases(dev):
     1,000 (overflow); a shard with no valid entry; valid entries that are
     not a prefix (holes in a random shard); bits 1 and 2, where every
     bucket overflows; rows of 15, 16, 17 and 48 entries (K17's 16-slot
-    steps); and a shard of mostly empty rows.  Every 8,192-entry shard;
+    steps); a shard of mostly empty rows; and runs beside other keys in
+    their rows (K15's search: a run of slots 0-15 and one of 15-31, each
+    followed by a greater key, one of 40 across three 16-slot chunks, one
+    followed by fills, and runs of 28 and 8 that end at slot 127).  Every
+    8,192-entry shard;
     every case's received keys include misses, padded route slots and
     `near_misses` (full rows of 128 scanned to their end among them)."""
     from ..parallel.mesh import probe_bits_for
@@ -1467,6 +1567,10 @@ def shard_cases(dev):
                                                   n_keys=1500,
                                                   crowd=(15, 16, 17, 48))),
         ("mostly empty rows", shard_table(33, 8192, bits, n_keys=120)),
+        ("runs beside other keys", shard_table(
+            34, 8192, bits, n_keys=1500,
+            shared=((0, 16, 5), (15, 17, 3), (5, 40, 10), (3, 2, 0),
+                    (100, 28, 0), (120, 8, 0)))),
     ]
     t = _to(dev)
     out = []

@@ -169,7 +169,10 @@ def test_batch_device_kernels_match_plain_on_edge_cases(dev, family):
     """K9 on the mode-1 rows at both specs and at windows of 2 to 128,
     and on rows at its tile edges; K10 on the chain groups, K8's staging
     and ring edge groups (both filter settings) and its mask-edge groups
-    (W 1, 7 and 32, max_span 1 and 8); K11 on a widened padded table."""
+    (W 1, 7 and 32, max_span 1 and 8); K11 on cases.padded_probe_tables
+    (buckets full to W, of one key, empty; repeated keys, keys sharing
+    k0, keys just below and above each bucket's keys, k0 >= 2^56; W 128,
+    512 and 4,096)."""
     picked = [c for c in cases.batch_device_cases(dev)
               if c[0].split()[0] == family]
     assert picked
@@ -460,9 +463,12 @@ def test_shard_kernels_match_plain_on_edge_cases(dev):
     """K14 and K15 on cases.shard_cases (buckets of 31 to 1,000 entries,
     128 and 129 among them, keys with Pp and Pp + 1 postings, sid runs
     with m 15 and 16, padded route slots, the last of three owners, no
-    valid entry, valid entries that are not a prefix, bits 1 and 2)
-    against their plain versions, and the sort helpers of the owner and
-    the route against theirs."""
+    valid entry, valid entries that are not a prefix, bits 1 and 2, runs
+    beside other keys in their rows: followed by a greater key or by
+    fills, across 16-slot chunks, ending at slot 127) against their plain
+    versions, K15 at each of cases.OWNER_PPS (rows of 1 to 127 slots, a
+    warp's run of the output on and off 16-byte boundaries), and the sort
+    helpers of the owner and the route against theirs."""
     from pgrtk_tpu_torch.ops import pairs as tp
 
     before = (kb.shard_probe_planes.launches, kb.owner_postings.launches)
@@ -471,9 +477,10 @@ def test_shard_kernels_match_plain_on_edge_cases(dev):
         got = mesh.shard_probe_planes(table, bits)
         want = mesh.shard_probe_planes_plain(table, bits)
         assert _equal(got, want), name
-        rows = mesh.owner_postings(qk0, qk1, got[0], bits, cases.SHARD_PP)
-        assert _equal(rows, mesh.owner_postings_plain(
-            qk0, qk1, want[0], bits, cases.SHARD_PP)), name
+        for Pp in cases.OWNER_PPS:
+            rows = mesh.owner_postings(qk0, qk1, got[0], bits, Pp)
+            assert _equal(rows, mesh.owner_postings_plain(
+                qk0, qk1, want[0], bits, Pp)), (name, Pp)
         perm = torch.randperm(len(table["valid"]),
                               generator=torch.Generator().manual_seed(1))
         shuffled = {f: v[perm.to(dev)] for f, v in table.items()}
@@ -483,7 +490,8 @@ def test_shard_kernels_match_plain_on_edge_cases(dev):
                       tp.sort_keys_plain(qk0, qk1, valid))
     torch.cuda.synchronize()
     assert kb.shard_probe_planes.launches == before[0] + len(picked)
-    assert kb.owner_postings.launches == before[1] + len(picked)
+    assert kb.owner_postings.launches == before[1] + len(picked) * len(
+        cases.OWNER_PPS)
 
 
 def test_sharded_steps_on_card_match_cpu(dev):

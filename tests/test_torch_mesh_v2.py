@@ -122,6 +122,102 @@ def test_owner_postings_match_oracle(case):
         assert ((meta >> 31 == 1) & (meta != tq.META_EMPTY)).sum() == 5
 
 
+def _set_at_or_below(words, j):
+    """csrc/shard.cu::set_at_or_below on (Q, 4) uint32 words at slot j."""
+    r = np.zeros(len(words), np.int64)
+    for w in range(4):
+        d = j - 32 * w
+        x = (np.zeros(len(words), np.uint32) if d < 0 else words[:, w]
+             if d >= 31 else words[:, w] & np.uint32((2 << d) - 1))
+        hb = np.floor(np.log2(np.maximum(x, 1))).astype(np.int64)
+        r = np.where(x != 0, 32 * w + hb, r)
+    return r
+
+
+def _set_above(words, j, none):
+    """csrc/shard.cu::set_above on (Q, 4) uint32 words at slot j."""
+    r = np.full(len(words), none)
+    for w in (3, 2, 1, 0):
+        d = j - 32 * w
+        x = (words[:, w] if d < 0 else np.zeros(len(words), np.uint32)
+             if d >= 31 else words[:, w] & ~np.uint32((2 << d) - 1))
+        lb = np.log2((x & (~x + np.uint32(1))).astype(np.float64).clip(1))
+        r = np.where(x != 0, 32 * w + lb.astype(np.int64), r)
+    return r
+
+
+def _k15_emulate(qk0, qk1, planes, bits, Pp):
+    """csrc/shard.cu::owner_postings_kernel's index logic in NumPy, a key
+    a row: the 8 chunk ends below the key (a prefix, which the ballot
+    count assumes), the lower bound and equal slots in the chunk that
+    holds it and in the chunks after it while the run reaches their last
+    slot, the run's first nv slots' postings, same-sid run starts as a
+    128-bit mask of four words, m and mult from its set bits, keyovf.
+    Returns the (Q, 3 Pp) uint32 rows."""
+    pk0, pk1 = planes["k0"].numpy(), planes["k1"].numpy()
+    psid, pbo, pend = (planes[f].numpy().view(np.uint32)
+                       for f in ("sid", "bgnori", "end"))
+    Q = len(qk0)
+    live = qk0 != (1 << 63) - 1
+    row = np.where(live, (qk0 & 0xFFFFFFFF) >> (32 - bits), 0)
+
+    def below(s):
+        a0, a1 = pk0[row[:, None], s], pk1[row[:, None], s]
+        return (a0 < qk0[:, None]) | ((a0 == qk0[:, None])
+                                      & (a1 < qk1[:, None]))
+
+    piv = below(np.broadcast_to(16 * np.arange(8) + 15, (Q, 8))) & live[:,
+                                                                      None]
+    c = piv.sum(axis=1)
+    assert (piv == (np.arange(8) < c[:, None])).all()
+    lb, count = np.full(Q, 128), np.zeros(Q, np.int64)
+    chunk, more, first = c.copy(), live & (c < 8), True
+    while more.any():
+        s = np.minimum(chunk, 7)[:, None] * 16 + np.arange(16)
+        eq = ((pk0[row[:, None], s] == qk0[:, None])
+              & (pk1[row[:, None], s] == qk1[:, None]))
+        if first:
+            lb = np.where(more, chunk * 16 + below(s).sum(axis=1), lb)
+        count += np.where(more, eq.sum(axis=1), 0)
+        more = more & eq[:, 15] & (chunk + 1 < 8)
+        chunk, first = chunk + more, False
+    nv = np.minimum(count, Pp)
+    j = np.arange(Pp)
+    valid = j < nv[:, None]
+    at = np.where(valid, lb[:, None] + j, 0).clip(max=127)
+    sid = np.where(valid, psid[row[:, None], at], 0)
+    bo = np.where(valid, pbo[row[:, None], at], 0)
+    end = np.where(valid, pend[row[:, None], at], 0)
+    before = np.concatenate([np.zeros((Q, 1), np.uint32), sid[:, :-1]], 1)
+    start = valid & ((j == 0) | (sid != before))
+    words = np.zeros((Q, 4), np.uint32)
+    for jj in range(Pp):
+        words[:, jj >> 5] |= start[:, jj].astype(np.uint32) << np.uint32(
+            jj & 31)
+    a = np.stack([_set_at_or_below(words, jj) for jj in range(Pp)], 1)
+    nxt = np.stack([_set_above(words, jj, nv) for jj in range(Pp)], 1)
+    m, mult = j - a, nxt - a
+    keyovf = (count > Pp) | (valid & (m > 15)).any(axis=1)
+    meta = ((np.minimum(mult, 127) << 24) | (np.minimum(m, 15) << 20)
+            | sid).astype(np.uint32)
+    meta = np.where(keyovf[:, None], meta | np.uint32(1 << 31), meta)
+    meta = np.where(valid, meta, np.uint32(tq.META_EMPTY))
+    return np.concatenate([meta, bo, end], axis=1).astype(np.uint32)
+
+
+@pytest.mark.parametrize("case", range(len(CASES)), ids=CASE_IDS)
+def test_owner_postings_emulation_matches_plain(case):
+    """K15's search and ballot-run logic, emulated in NumPy, gives the
+    plain version's rows on every shard case at each of cases.OWNER_PPS."""
+    name, table, bits, qk0, qk1 = CASES[case]
+    pl, _ = tmesh.shard_probe_planes(table, bits)
+    for Pp in cases.OWNER_PPS:
+        want = tmesh.owner_postings(qk0, qk1, pl, bits, Pp).numpy().view(
+            np.uint32)
+        got = _k15_emulate(qk0.numpy(), qk1.numpy(), pl, bits, Pp)
+        assert np.array_equal(got, want), Pp
+
+
 def _corpus():
     """tests/test_pairs_and_mesh.py:374-411's corpus: 8 SNP-mutated
     copies of one random 16,384-base sequence."""

@@ -174,6 +174,121 @@ def test_probe_keys_matches_jax():
     assert 1000 < int(jfound.sum()) < len(q) - 500
 
 
+PADDED = cases.padded_probe_tables()
+
+
+def _jax_probe_keys(tab, q):
+    """JAX probe_keys on a port padded table's planes."""
+    planes = []
+    for k in (tab["k0"], tab["k1"]):
+        k = k.view(np.uint64).reshape(-1, tab["W"])
+        planes += [jnp.asarray((k >> np.uint64(32)).astype(np.uint32)),
+                   jnp.asarray((k & np.uint64(0xFFFFFFFF)).astype(np.uint32))]
+    table = dict(bits=tab["bits"], planes=planes,
+                 row=jnp.asarray(tab["row"].reshape(-1, tab["W"])))
+    qp = [jnp.asarray(v.astype(np.uint32)) for v in (
+        q[:, 0] >> np.uint64(32), q[:, 0] & np.uint64(0xFFFFFFFF),
+        q[:, 1] >> np.uint64(32), q[:, 1] & np.uint64(0xFFFFFFFF))]
+    return (np.asarray(a) for a in jprobe.probe_keys(table, *qp))
+
+
+@pytest.mark.parametrize("case", range(len(PADDED)),
+                         ids=[c[0] for c in PADDED])
+def test_probe_keys_on_edge_tables_matches_jax(case):
+    """K11's plain version against JAX probe_keys on the padded edge
+    tables: buckets full to W with no pad, a bucket of one key, an empty
+    bucket, repeated keys (the lowest row wins), keys sharing k0, keys
+    just below and above each bucket's keys, the least and greatest key
+    of every bucket's range, and keys with k0 >= 2^56."""
+    name, tab, q = PADDED[case]
+    jfound, jrow = _jax_probe_keys(tab, q)
+    found, row = tprobe.probe_keys(*cases.k11_args(tab, q, "cpu"))
+    found, row = found.numpy(), row.numpy()
+    # the all-ones key: JAX's take fills a bucket past the table with all
+    # ones and its row with INT32_MIN, so JAX finds it there; the port
+    # finds no key past the table (ROADMAP Queue 3)
+    ones = (q == ~np.uint64(0)).all(axis=1)
+    assert ones.sum() == 1 and jfound[ones].all()
+    assert (jrow[ones] == np.iinfo(np.int32).min).all()
+    assert not found[ones].any() and (row[ones] == -1).all()
+    assert np.array_equal(found[~ones], jfound[~ones])
+    assert row.dtype == np.int32 and np.array_equal(row[~ones], jrow[~ones])
+    # the edges are reached
+    assert 0 < int(jfound.sum()) < len(q) - 500
+    assert not found[q[:, 0] >= np.uint64(1 << 56)].any()
+    assert not jfound[(q[:, 0] >= np.uint64(1 << 56)) & ~ones].any()
+    if name != "W 512":  # padded_edge_keys' tables repeat keys
+        _, counts = np.unique(np.stack([tab["k0"], tab["k1"]], 1)[
+            tab["row"] >= 0], axis=0, return_counts=True)
+        assert counts.max() >= 2
+
+
+def _k11_emulate(tab, q):
+    """csrc/probe.cu::probe_keys_kernel's index logic in NumPy, a key a
+    row: the candidates [lo, lo + n) of its bucket halved at lo + n // 2
+    while more than 8 are left, the pivots below the key a prefix of the
+    bucket (the order the search assumes), then the last <= 8 candidates
+    read together and the slot at the lower bound tested.  Returns found
+    and row."""
+    k0, k1 = q[:, 0], q[:, 1]
+    t0, t1 = tab["k0"].view(np.uint64), tab["k1"].view(np.uint64)
+    W, nb = tab["W"], 1 << tab["bits"]
+    b = k0 >> np.uint64(56 - tab["bits"])
+    inb = b < np.uint64(nb)
+    start = np.where(inb, b, 0).astype(np.int64) * W
+    lo, n = start.copy(), np.where(inb, W, 0)
+
+    def below(s):
+        a0, a1 = t0[s], t1[s]
+        return (a0 < k0[:, None]) | ((a0 == k0[:, None]) & (a1 < k1[:, None]))
+
+    rounds = 0
+    while (n > 8).any():
+        act = n > 8
+        p = lo + n // 2
+        lt = below(np.where(act, p, 0)[:, None])[:, 0] & act
+        # below is a prefix of the bucket: nothing below after a slot
+        # that is not
+        after = np.where(act & ~lt, p + 1, start)
+        assert not (act & ~lt & (p + 1 < start + W)
+                    & below(np.minimum(after, len(t0) - 1)[:, None])[:, 0]
+                    ).any()
+        hi = np.where(lt, lo + n, p)
+        nlo = np.where(lt, p + 1, lo)
+        lo, n = np.where(act, nlo, lo), np.where(act, hi - nlo, n)
+        rounds += 1
+    assert rounds <= np.log2(W)
+    read = np.arange(8) < n[:, None]
+    lb = lo + (below(np.where(read, lo[:, None] + np.arange(8), 0))
+               & read).sum(axis=1)
+    ok = inb & (lb < start + W)
+    at = np.where(ok, lb, 0)
+    found = ok & (t0[at] == k0) & (t1[at] == k1)
+    return found, np.where(found, tab["row"][at], -1)
+
+
+def _random_padded(seed):
+    rng = np.random.default_rng(seed)
+    keys = cases.sorted_keys(60_000, seed=seed, dup=True)
+    return (f"random {seed}", tprobe.build_probe_table(keys),
+            cases.probe_queries(keys, rng))
+
+
+@pytest.mark.parametrize("case", range(len(PADDED) + 2),
+                         ids=[c[0] for c in PADDED] + ["random 71",
+                                                       "random 72"])
+def test_k11_search_emulation_matches_plain(case):
+    """The kernel's search, emulated in NumPy, gives K11's plain
+    version's found and row on the padded edge tables and on tables of
+    60,000 random keys (a key repeated)."""
+    name, tab, q = (PADDED[case] if case < len(PADDED)
+                    else _random_padded(71 + case - len(PADDED)))
+    found, row = tprobe.probe_keys(*cases.k11_args(tab, q, "cpu"))
+    efound, erow = _k11_emulate(tab, q)
+    assert np.array_equal(efound, found.numpy())
+    assert np.array_equal(erow, row.numpy())
+
+
 def test_found_only_probe_matches_the_fetching_probe():
     """K5 with p_rows None (the found-only use of device_query) gives the
     found and row of the fetching call, and no rows."""
