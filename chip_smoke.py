@@ -207,6 +207,26 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      mode to its plain version on its edge cases and on 131 one-chunk
      rows (a last block of 3 lanes).
 
+ 12. runs pgr-make-frgdb and pgr-query --frg-file through the port's
+     CLIs (pgrtk_tpu_torch/cli/pgr_make_frgdb.py and pgr_query.py, their
+     defaults: w 80, k 56, r 4, min_span 64) on phase 8's 64 x 4,194,304
+     bases, and 32 queries of 65,536 bases cut at seeded offsets from 32
+     distinct haplotypes, substituted at 1e-3, every fourth
+     reverse-complemented (build/frg_queries.fa): stage times of each
+     (sketch, index, match, deflate and write, the .mdb/.midx write;
+     load, the query's device sketch, probe, host lookup, chain kernels,
+     traceback, fallbacks, region merge and emit), the counts (fragments
+     and delta-compressed ones, keys, groups, dup and inexact rows), the
+     launches (reset before each CLI run, read after: K9 and K2 on both,
+     K5 or K11, K8 and K10 where rows are dup on the query) and the
+     device idle share from torch.profiler over each run; every query's
+     .hit row at the haplotype, offset and orientation it was cut at;
+     the same .hit and .fa files by sha256 from a run with every kernel
+     replaced by its plain version on the card; the C++ traceback and
+     sparse_aln (native/chain_tb.cc, chain.cc) equal to the Python ones
+     on the run's groups; and every sequence and 8 seeded sub-ranges of
+     each read back from the files byte for byte.
+
 Between phases 6 and 7 it prints the bounds of the index and query
 steps (sums of their kernels' bounds in this run).
 Every comparison is exact (integers, tolerance 0).  Any failed phase
@@ -2806,6 +2826,276 @@ def phase_dense(dev, kb, mesh, tp, seqs, lens, rids, counts):
     return results
 
 
+FRG_QUERIES, FRG_QLEN = 32, 65_536  # phase 12's queries, cut from haps
+FRG_SUB_RANGES = 8                  # seeded sub-ranges read a sequence
+FRG_BUILD_KERNELS = ("sketch_mode1", "rank_extract")
+FRG_QUERY_KERNELS = ("sketch_mode1", "rank_extract", "chain_scores_fast")
+
+
+def frg_queries(records, n, L, seed=12):
+    """n queries of L bases cut at numpy-seeded offsets from n distinct
+    haplotypes of `records` (SeqRec), bases substituted at 1e-3, every
+    fourth reverse-complemented: [(name, bases)]."""
+    from pgrtk_tpu_torch.core.fasta import reverse_complement
+
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    out = []
+    for i, h in enumerate(rng.choice(len(records), size=n, replace=False)):
+        seq = records[h].seq
+        off = int(rng.integers(0, len(seq) - L))
+        q = np.frombuffer(seq[off:off + L], np.uint8).copy()
+        pos = rng.choice(L, size=rng.binomial(L, 1e-3), replace=False)
+        q[pos] = acgt[(np.searchsorted(acgt, q[pos])
+                       + rng.integers(1, 4, len(pos))) % 4]
+        q = q.tobytes()
+        if i % 4 == 3:
+            q = reverse_complement(q)
+        out.append((f"q{i}_{records[h].id.decode()}_{off}", q))
+    return out
+
+
+def file_shas(paths):
+    import hashlib
+
+    return {p: hashlib.sha256(open(p, "rb").read()).hexdigest()
+            for p in paths}
+
+
+def query_shas(prefix, n):
+    return {p[len(prefix):]: h for p, h in file_shas(
+        [f"{prefix}.{i:03}.{e}" for i in range(n)
+         for e in ("hit", "fa")]).items()}
+
+
+def frgdb_shas(prefix):
+    return {p[len(prefix):]: h for p, h in file_shas(
+        [prefix + e for e in (".frg", ".sdx", ".mdb", ".midx")]).items()}
+
+
+def phase_frgdb(dev, kb, build_dir):
+    """pgr-make-frgdb and pgr-query --frg-file through the port's CLIs on
+    phase 8's corpus (64 x 4,194,304 bases): stage times, counts,
+    launches and the device idle share of each; the four files equal to
+    an all-plain build's; every sequence read back from the files; the
+    query's files equal to an all-plain run's and to runs on one thread
+    and on a thread a core (each timed); the C++ traceback and
+    sparse_aln equal to the Python ones on the run's groups."""
+    from pgrtk_tpu_torch.cli import pgr_make_frgdb, pgr_query
+    from pgrtk_tpu_torch.core import aln_ref
+    from pgrtk_tpu_torch.core.fasta import read_fastx_all
+    from pgrtk_tpu_torch.core.frag_io import FragFileStorage
+    from pgrtk_tpu_torch.native import build as native
+    from pgrtk_tpu_torch.ops import chain as tc
+
+    fa = os.path.join(build_dir, "pbundle_corpus.fa")
+    print(f"phase 12: pgr-make-frgdb and pgr-query --frg-file on {fa}")
+    t = time.perf_counter()
+    records = read_fastx_all(fa)
+    require(len(records) == PB_HAPS
+            and all(len(r.seq) == PB_LEN for r in records),
+            "phase 8's corpus is not 64 x 4,194,304 bases")
+    qfa = os.path.join(build_dir, "frg_queries.fa")
+    queries = frg_queries(records, FRG_QUERIES, FRG_QLEN)
+    with open(qfa, "w") as f:
+        for name, q in queries:
+            f.write(f">{name}\n{q.decode()}\n")
+    paths = os.path.join(build_dir, "frg_paths.txt")
+    with open(paths, "w") as f:
+        f.write(fa + "\n")
+    prefix = os.path.join(build_dir, "frgdb")
+    print(f"  corpus read back and {FRG_QUERIES} x {FRG_QLEN} queries "
+          f"written in {time.perf_counter() - t:.1f} s (host)")
+
+    def stages(st):
+        sec = dict(st.pop("seconds", {}))
+        for k in [k for k, v in st.items() if isinstance(v, list)]:
+            sec[k] = sum(st.pop(k))
+        return ", ".join(f"{k} {v:.3f} s" for k, v in sec.items())
+
+    mk = {}
+
+    def build():
+        t = time.perf_counter()
+        require(pgr_make_frgdb.main([paths, prefix], device=dev,
+                                    stats=mk) == 0,
+                "pgr-make-frgdb exited non-zero")
+        mk["wall"] = time.perf_counter() - t
+
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    print("  pgr-make-frgdb, one run under torch.profiler:")
+    profile_steps(build, n=1, trace="frgdb_build_trace.json")
+    launches = {k.name: k.launches for k in kb.KERNELS if k.launches}
+    print(f"  pgr-make-frgdb: {mk.pop('wall'):.3f} s (host clock, "
+          f"synchronized); launches {launches}")
+    for name in FRG_BUILD_KERNELS:
+        require(launches.get(name, 0) > 0,
+                f"kernel {name} never launched on pgr-make-frgdb")
+    print(f"  stages (host clock): {stages(mk)}")
+    sizes = {e: os.path.getsize(prefix + e)
+             for e in (".frg", ".sdx", ".mdb", ".midx")}
+    print(f"  counts {mk}; file bytes {sizes}")
+    require(mk["delta_fragments"] > mk["fragments"] // 2,
+            f"few repeat fragments were delta-compressed: {mk}")
+
+    t = time.perf_counter()
+    plain_prefix = os.path.join(build_dir, "frgdb_plain")
+    with plain_kernels():
+        kb.reset_launches()
+        require(pgr_make_frgdb.main([paths, plain_prefix], device=dev) == 0,
+                "plain pgr-make-frgdb failed")
+        torch.cuda.synchronize()
+        require(not any(k.launches for k in kb.KERNELS),
+                "a kernel launched in the plain build")
+    t_plain = time.perf_counter() - t
+    require(frgdb_shas(plain_prefix) == frgdb_shas(prefix),
+            "the all-plain build wrote other .frg/.sdx/.mdb/.midx files")
+    print(f"  every kernel replaced by its plain version on the card: the "
+          f"same .frg, .sdx, .mdb and .midx by sha256 ({t_plain:.3f} s)")
+
+    calls = {"chain_traceback": [], "sparse_aln": []}
+    saved = {name: getattr(native, name) for name in calls}
+
+    def spy_on(name):
+        def spy(*args, **kw):
+            out = saved[name](*args, **kw)
+            calls[name].append((args, kw, out))
+            return out
+        return spy
+
+    qs = {}
+    out = os.path.join(build_dir, "frgq_card")
+
+    def query():
+        t = time.perf_counter()
+        require(pgr_query.main([prefix, qfa, out, "--frg-file"], device=dev,
+                               stats=qs) == 0, "pgr-query exited non-zero")
+        qs["wall"] = time.perf_counter() - t
+
+    for name in calls:
+        setattr(native, name, spy_on(name))
+    try:
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        print("  pgr-query --frg-file, one run under torch.profiler:")
+        profile_steps(query, n=1, trace="frg_query_trace.json")
+        launches = {k.name: k.launches for k in kb.KERNELS if k.launches}
+    finally:
+        for name, fn in saved.items():
+            setattr(native, name, fn)
+    print(f"  pgr-query: {qs.pop('wall'):.3f} s (host clock, "
+          f"synchronized); launches {launches}")
+    for name in FRG_QUERY_KERNELS:
+        require(launches.get(name, 0) > 0,
+                f"kernel {name} never launched on pgr-query --frg-file")
+    require(launches.get("probe_fetch", 0) + launches.get("probe_keys", 0)
+            > 0, "no probe kernel launched on pgr-query --frg-file")
+    require(launches.get("chain_scores_dense", 0) > 0 or qs["dup_rows"] == 0,
+            "dup rows without a K10 launch")
+    print(f"  stages (host clock): {stages(qs)}")
+    print(f"  counts {qs}")
+    require(qs["groups"] >= FRG_QUERIES * PB_HAPS // 2,
+            f"too few (query, target) groups: {qs['groups']}")
+    for i, (name, _) in enumerate(queries):
+        hap, off = name.split("_")[1], int(name.split("_")[2])
+        ori = "1" if i % 4 == 3 else "0"
+        rows = [r.split("\t") for r in open(f"{out}.{i:03}.hit").read(
+        ).splitlines()[1:]]
+        # a region may reach past the query: repeats within the merge
+        # tolerance (100 kb) join it
+        require(any(r[7] == hap and r[10] == ori
+                    and min(int(r[9]), off + FRG_QLEN) - max(int(r[8]), off)
+                    >= FRG_QLEN // 2 for r in rows),
+                f"query {name}: no .hit row at its haplotype and offset")
+    print(f"  every query's .hit has a row over at least half the range "
+          f"of the haplotype it was cut from, in its orientation")
+    card = query_shas(out, FRG_QUERIES)
+
+    # the JAX CLI's --number-of-thread 0 is a thread a core
+    for nt in ("1", "0"):
+        ts = {}
+        t = time.perf_counter()
+        nt_out = os.path.join(build_dir, f"frgq_threads{nt}")
+        require(pgr_query.main([prefix, qfa, nt_out, "--frg-file",
+                                "--number-of-thread", nt], device=dev,
+                               stats=ts) == 0, "pgr-query exited non-zero")
+        wall = time.perf_counter() - t
+        require(query_shas(nt_out, FRG_QUERIES) == card,
+                f"--number-of-thread {nt} wrote other .hit/.fa files")
+        print(f"  pgr-query --number-of-thread {nt} "
+              f"({'1 thread' if nt == '1' else f'{os.cpu_count()} threads'}"
+              f", no profiler): {wall:.3f} s, region merge and emit "
+              f"{ts['seconds']['region merge and emit']:.3f} s (host "
+              f"clock); the same files by sha256")
+
+    t = time.perf_counter()
+    with plain_kernels():
+        kb.reset_launches()
+        plain_out = os.path.join(build_dir, "frgq_plain")
+        require(pgr_query.main([prefix, qfa, plain_out, "--frg-file"],
+                               device=dev) == 0, "plain pgr-query failed")
+        torch.cuda.synchronize()
+        require(not any(k.launches for k in kb.KERNELS),
+                "a kernel launched in the plain run")
+    require(query_shas(plain_out, FRG_QUERIES) == card,
+            "the all-plain run wrote other .hit/.fa files")
+    print(f"  (a) every kernel replaced by its plain version on the card: "
+          f"the same {2 * FRG_QUERIES} .hit and .fa files by sha256 "
+          f"({time.perf_counter() - t:.1f} s)")
+
+    t = time.perf_counter()
+    n_tb = n_chains = 0
+    for (anchors, valid, scores, prev), _, got in calls["chain_traceback"]:
+        want = tc.traceback(scores, prev, valid, anchors, as_arrays=True)
+        require(len(got) == len(want), "traceback: group counts differ")
+        for g, w in zip(got, want):
+            require(len(g) == len(w) and all(
+                np.float32(gs) == np.float32(ws) and np.array_equal(gt, wt)
+                for (gs, gt), (ws, wt) in zip(g, w)),
+                "the C++ traceback differs from the Python one")
+            n_chains += len(g)
+        n_tb += len(got)
+    # sparse_aln on the run's inexact groups, and on its first exact
+    # groups (their sorted valid anchors)
+    sa = [(a[0], a[1:4], out) for a, _, out in calls["sparse_aln"]]
+    for (anchors, valid, _, _), _, _ in calls["chain_traceback"][:1]:
+        for a, v in list(zip(anchors, valid))[:64]:
+            if v.sum() >= 2:
+                sa.append((a[v], (8, 0.025, None),
+                           native.sparse_aln(a[v], 8, 0.025, None)))
+    for rows, (span, pen, mg), got in sa:
+        hits = [((r[0], r[1], r[2]), (r[3], r[4], r[5]))
+                for r in rows.tolist()]
+        want = aln_ref.sparse_aln(hits, span, pen, mg)
+        require(len(got) == len(want) and all(
+            np.float32(gs) == np.float32(ws) and gt.tolist() == [
+                [*q, *r] for q, r in wt]
+            for (gs, gt), (ws, wt) in zip(got, want)),
+            "the C++ sparse_aln differs from the Python one")
+    require(n_tb > 0 and len(sa) > 0, "no traceback or sparse_aln checked")
+    n_inexact = len(calls["sparse_aln"])
+    print(f"  (b) the C++ traceback equal to the Python one on the run's "
+          f"{n_tb} exact groups ({n_chains} chains), the C++ sparse_aln "
+          f"on {n_inexact} inexact and {len(sa) - n_inexact} exact groups "
+          f"({time.perf_counter() - t:.1f} s)")
+
+    t = time.perf_counter()
+    st = FragFileStorage(prefix)
+    rng = np.random.default_rng(13)
+    for sid, rec in enumerate(records):
+        require(st.seq_info[sid][0] == rec.id.decode()
+                and st.get_seq_by_id(sid) == rec.seq,
+                f"sequence {sid} differs when read back")
+        for _ in range(FRG_SUB_RANGES):
+            b = int(rng.integers(0, len(rec.seq)))
+            e = b + int(rng.integers(1, 200_000))
+            require(st.get_sub_seq_by_id(sid, b, e) == rec.seq[b:e],
+                    f"sequence {sid} [{b}, {e}) differs when read back")
+    print(f"  (c) every sequence and {FRG_SUB_RANGES} seeded sub-ranges of "
+          f"each read back byte for byte ({time.perf_counter() - t:.1f} s)")
+
+
 def set_op_rates():
     """INT_OPS_PER_S from the card (SMs x 64 INT32 lanes x the maximum SM
     clock), and the walks' instruction slots per base from the SASS of
@@ -2914,6 +3204,8 @@ def main():
                                      index_bounds).items():
             measured.setdefault(name, {}).update(r)
         stamp("phases 10-11")
+        phase_frgdb(dev, kb, build_dir)
+        stamp("phase 12")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

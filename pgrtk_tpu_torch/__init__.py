@@ -16,12 +16,15 @@ compaction, level-2 compaction, min_span filter, canonical pairs, pair-key
 sort) and its single-device step; bench.py's end-to-end query step; and
 the `pgr-query --batch-device` path (mode-1 and mode-2 sketch of a query
 batch, probe of an FRG database's columnar index, count filters, batched
-chain DP with its fallbacks; `parallel/device_query.py`).
+chain DP with its fallbacks; `parallel/device_query.py`); and the CLIs
+built on them (`cli/`: pgr-pbundle-decomp, pgr-get-sv-candidate-regions,
+pgr-make-frgdb, pgr-query).
 
 The port imports neither JAX nor anything of `pgrtk_tpu`, not even its
 JAX-free host modules: it keeps its own copies of the host layer it needs
 (`core/`: the spec, the scalar mode-1 sketcher and reduction, query pairs
-and count filters, the scalar chain DP, the in-memory columnar index;
+and count filters, the scalar chain DP, the sequence database and its
+FRG and .mdb readers and writers;
 `utils/u64pair.py`), each held equal to the original by the tests.  Host
 entry points run on the card (`device="cuda"`) unless the caller asks
 for the CPU.

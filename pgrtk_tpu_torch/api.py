@@ -1,13 +1,15 @@
-"""SeqIndexDB — the part of pgrtk_tpu/api.py that pgr-pbundle-decomp and
-pgr-get-sv-candidate-regions use, over the port's columnar store
-(core/seqdb.py).
+"""SeqIndexDB — the part of pgrtk_tpu/api.py that pgr-make-frgdb,
+pgr-query, pgr-pbundle-decomp and pgr-get-sv-candidate-regions use, over
+the port's sequence database (core/seqdb.py's CompactSeqDB and its
+columnar store) or an FRG database it reads (core/frag_io.py's
+FragFileStorage).
 
 The database sketches on the card (`device="cuda"`, K9) unless the
 caller asks for the CPU, the MAP graph sorts and links its rows with
 K12 on the same device, and queries run the --batch-device path
 (parallel/device_query.py) there.  The bundle order/direction vote, the
-vertex map, the projection, the GFA/index writers and the chains of a
-query give the JAX facade's results exactly.
+vertex map, the projection, the FRG, GFA and index writers and the
+chains of a query give the JAX facade's results exactly.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .core import seqdb
+from .core import frag_io, seqdb
 from .core.fasta import read_fastx
 from .core.spec import ShmmrSpec
 from .graph import bundles as gb
@@ -60,14 +62,18 @@ def consensus_bundle_order_direction(
 
 
 class SeqIndexDB:
-    """An in-memory sequence database with its shimmer-pair index (the
-    JAX facade's FASTX and MEMORY backends).  `stats`, when a dict, gets
-    the host seconds of each stage and the graph's counts."""
+    """A sequence database with its shimmer-pair index: in memory (the
+    JAX facade's FASTX and MEMORY backends) or read from FRG files (its
+    FRG backend).  `stats`, when a dict, gets the host seconds of each
+    stage and the graph's and the query's counts."""
 
     def __init__(self, device="cuda", stats: Optional[dict] = None):
         self.device = device
         self.stats = stats
+        # `store` serves queries and sequences; `seq_db` is the in-memory
+        # database it was made from, if any (what appends and writers use)
         self.store = None
+        self.seq_db: Optional[seqdb.CompactSeqDB] = None
         self.shmmr_spec: Optional[ShmmrSpec] = None
         self.seq_index: Optional[Dict[Tuple[str, Optional[str]],
                                       Tuple[int, int]]] = None
@@ -82,32 +88,52 @@ class SeqIndexDB:
 
     # ---------------------------------------------------------- loaders
     def load_from_store(self, store) -> None:
-        """Use a columnar store (core/seqdb.py; convert.store_from_frag_map
-        makes one from a JAX frag_map)."""
+        """Use a columnar store (core/seqdb.py, or an FRG database's
+        FragFileStorage; convert.store_from_frag_map makes one from a
+        JAX frag_map) in place of whatever was loaded before."""
         self.store = store
+        self.seq_db = None
         self.shmmr_spec = store.spec
         self.seq_info = dict(store.seq_info)
         self.seq_index = dict(store.seq_index)
         self._pb_cache = None
         self._smps_cache = None
 
-    def _load(self, records, spec) -> None:
+    def _load(self, records, spec=None) -> None:
+        """Load `records` (source, name, bases) into a new database of
+        `spec`, or append them to the in-memory one (spec None)."""
         t0 = time.perf_counter()
-        store = seqdb.build_columnar_store(
-            [r[2] for r in records], spec, device=self.device,
-            names=[r[1] for r in records], sources=[r[0] for r in records])
+        db = self.seq_db if spec is None else seqdb.CompactSeqDB(
+            spec, device=self.device, stats=self.stats)
+        db.load_seqs(records)
         self._time("load and sketch", t0)
-        self.load_from_store(store)
+        self.load_from_store(db.columnar_store())
+        self.seq_db = db
+
+    @staticmethod
+    def _fastx_records(filepath: str):
+        return [(rec.source, rec.id.decode(), rec.seq)
+                for rec in read_fastx(filepath)]
 
     def load_from_fastx(self, filepath: str, w=80, k=56, r=4,
                         min_span=64) -> None:
         """(pgrtk_tpu/api.py:99-115; reference ext.rs:152-181)"""
         spec = ShmmrSpec(w=w, k=k, r=r, min_span=min_span, sketch=False)
         t0 = time.perf_counter()
-        records = [(rec.source, rec.id.decode(), rec.seq)
-                   for rec in read_fastx(filepath)]
+        records = self._fastx_records(filepath)
         self._time("read fastx", t0)
         self._load(records, spec)
+
+    def append_from_fastx(self, filepath: str) -> None:
+        """Append a fastx file's sequences, their ids and fragment ids
+        after those loaded (pgrtk_tpu/api.py:117-122)."""
+        if self.seq_db is None:
+            raise ValueError(
+                "only a database created with load_from_fastx() can append")
+        t0 = time.perf_counter()
+        records = self._fastx_records(filepath)
+        self._time("read fastx", t0)
+        self._load(records)
 
     def load_from_seq_list(self, seq_list: Sequence[Tuple[str, bytes]],
                            source: Optional[str] = "Memory", w=80, k=56,
@@ -117,19 +143,35 @@ class SeqIndexDB:
         spec = ShmmrSpec(w=w, k=k, r=r, min_span=min_span, sketch=False)
         self._load([(source, name, seq) for name, seq in seq_list], spec)
 
+    def load_from_frg_index(self, prefix: str) -> None:
+        """Read an FRG database (.frg/.sdx/.mdb/.midx; pgrtk_tpu/api.py:
+        144-158, reference ext.rs:131-150)."""
+        t0 = time.perf_counter()
+        store = frag_io.FragFileStorage(prefix)
+        self._time("load frg", t0)
+        self.load_from_store(store)
+
+    def write_frag_and_index_files(self, file_prefix: str) -> None:
+        """Write the in-memory database as .frg/.sdx/.mdb/.midx
+        (pgrtk_tpu/api.py:176-185; reference ext.rs:201-210)."""
+        if self.seq_db is None:
+            raise ValueError("only an in-memory database can be written")
+        frag_io.write_frag_files(self.seq_db, file_prefix, stats=self.stats)
+        t0 = time.perf_counter()
+        self.seq_db.write_mdb_midx(file_prefix)
+        self._time("write mdb and midx", t0)
+
     def get_seq(self, sample_name: str, ctg_name: str) -> bytes:
         sid, _ = self.seq_index[(ctg_name, sample_name)]
         return self.get_seq_by_id(sid)
 
     def get_seq_by_id(self, sid: int) -> bytes:
         """(pgrtk_tpu/api.py:349-350)"""
-        if self.store.seqs is None:
-            raise ValueError("this database keeps no sequences")
-        return self.store.seqs[sid]
+        return self.store.get_seq_by_id(sid)
 
     def get_sub_seq_by_id(self, sid: int, bgn: int, end: int) -> bytes:
         """Bases [bgn, end) of sequence `sid` (pgrtk_tpu/api.py:352-353)."""
-        return self.get_seq_by_id(sid)[bgn:end]
+        return self.store.get_sub_seq_by_id(sid, bgn, end)
 
     # ---------------------------------------------------------- queries
     def query_fragment_to_hps(self, seq: bytes, penalty: float,
@@ -153,14 +195,16 @@ class SeqIndexDB:
                                max_count_target: Optional[int] = None,
                                max_aln_span: Optional[int] = None,
                                max_gap: Optional[int] = None,
-                               oriented: bool = False):
+                               oriented: bool = False,
+                               as_arrays: bool = False):
         """query_fragment_to_hps of many queries in one batch on the
         database's device (parallel/device_query.py::batch_query_to_hps:
         the sketch, the probe and the chain DP on the card, the count
-        filters on the host); one result per query, in order."""
+        filters on the host); one result per query, in order, tracks as
+        tuples or, with as_arrays=True, (m, 6) uint32 arrays."""
         return device_query.batch_query_to_hps(
             self.store, seqs, penalty, max_count, max_count_query,
-            max_count_target, max_aln_span, max_gap, oriented,
+            max_count_target, max_aln_span, max_gap, oriented, as_arrays,
             device=self.device, stats=self.stats)
 
     # ------------------------------------- MAP graph / principal bundles

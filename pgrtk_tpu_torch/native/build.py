@@ -1,14 +1,19 @@
 """Build, load and call the port's host C++: the weighted bidirected DFS
 walk (dfs_walk.cc) and the principal-bundle peel (bundle_peel.cc) of the
-MAP-graph layer, and the gap-affine WFA arbiter (wfa.cc), copies of
-pgrtk_tpu/native/src's files.
+MAP-graph layer, the gap-affine WFA arbiter (wfa.cc), the scalar sparse
+chain DP (chain.cc) and the batched chain traceback (chain_tb.cc), the
+O(nD) diff alignment of the FRG writer (match.cc) and the .mdb offsets
+scan (mdb.cc), copies of pgrtk_tpu/native/src's files.
 
 At first use the system C++ compiler ($CXX, else g++, else c++) builds
-both files into one shared library in `build/pgrtk_tpu_torch/` beside
+the files into one shared library in `build/pgrtk_tpu_torch/` beside
 the package, named by a hash of the sources and flags, loaded with
 ctypes.  No compiler raises: there is no Python fallback.  The flags
-keep the JAX package's `-ffp-contract=off`.  The bindings are those of
-pgrtk_tpu/native/api.py:570-632 and pgrtk_tpu/core/wfa.py:28-44.
+keep the JAX package's `-ffp-contract=off`, so f32 chain scores round
+as the reference's scalar ops do.  The bindings are those of
+pgrtk_tpu/native/api.py:405-674 and pgrtk_tpu/core/wfa.py:28-44; the
+two tracebacks raise ValueError where the JAX package's cycle forever
+(an exact duplicate anchor that recurs after other anchors).
 """
 from __future__ import annotations
 
@@ -23,11 +28,25 @@ from pathlib import Path
 import numpy as np
 
 SRC = Path(__file__).resolve().parent
-SOURCES = ("dfs_walk.cc", "bundle_peel.cc", "wfa.cc")
+SOURCES = ("dfs_walk.cc", "bundle_peel.cc", "wfa.cc", "chain.cc",
+           "chain_tb.cc", "match.cc", "mdb.cc")
+HEADERS = ("pgrtk.h",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pgrtk_tpu_torch"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off")
 
 _lock = threading.Lock()
+
+
+class _Ovlp(ctypes.Structure):
+    """pgr_ovlp (pgrtk.h): the reference's OvlpMatch."""
+    _fields_ = [(name, ctypes.c_uint32) for name in (
+        "m_size", "dist", "bgn0", "end0", "bgn1", "end1", "m_end0",
+        "m_end1")] + [("deltas", ctypes.c_void_p),
+                      ("n_deltas", ctypes.c_int64),
+                      ("matched", ctypes.c_int32)]
+
+
+DELTA_DTYPE = np.dtype([("x", "<u4"), ("y", "<u4"), ("dk", "<i4")])
 _lib = None
 
 
@@ -37,12 +56,12 @@ def _cxx() -> str:
         if found:
             return found
     raise RuntimeError("no C++ compiler found ($CXX, g++, c++): the host "
-                       "walk and peel cannot be built")
+                       "C++ library cannot be built")
 
 
 def _build() -> Path:
     digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         digest.update(name.encode())
         digest.update((SRC / name).read_bytes())
     lib_path = BUILD_DIR / f"libpgrtk_host-{digest.hexdigest()[:16]}.so"
@@ -87,6 +106,31 @@ def library() -> ctypes.CDLL:
                 ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
                 ctypes.POINTER(ctypes.c_void_p),
                 ctypes.POINTER(ctypes.c_void_p)]
+            lib.pgr_sparse_aln.restype = ctypes.c_int64
+            lib.pgr_sparse_aln.argtypes = [
+                nd(np.uint32), ctypes.c_int64, ctypes.c_uint32,
+                ctypes.c_float, ctypes.c_int64, ctypes.c_int,
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_uint32)),
+                ctypes.POINTER(ctypes.c_int64), nd(np.uint32)]
+            lib.pgr_chain_traceback.restype = ctypes.c_int64
+            lib.pgr_chain_traceback.argtypes = [
+                nd(np.uint32), nd(np.uint8), nd(np.float32), nd(np.int32),
+                ctypes.c_int64, ctypes.c_int64,
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_uint32)),
+                ctypes.POINTER(ctypes.c_int64), nd(np.int64)]
+            lib.pgr_match_reads.restype = None
+            lib.pgr_match_reads.argtypes = [
+                ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p,
+                ctypes.c_int64, ctypes.c_int, ctypes.c_double,
+                ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+                ctypes.POINTER(_Ovlp)]
+            lib.pgr_mdb_scan.restype = ctypes.c_int
+            lib.pgr_mdb_scan.argtypes = [
+                ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint32),
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_uint64)),
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
+                ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
+                ctypes.POINTER(ctypes.c_uint64)]
             _lib = lib
         return _lib
 
@@ -151,3 +195,139 @@ def wfa_align(t: bytes, q: bytes, max_wf_length: int, mismatch: int,
     finally:
         lib.pgr_free(ta)
         lib.pgr_free(qa)
+
+
+def _chains(blob: np.ndarray, p: int):
+    """The chains serialized at word p of a chain blob ([n_chains, then
+    per chain: score (f32 bits), m, m x 6 coordinates]): ([(score, track
+    (m, 6) uint32)], the word after them)."""
+    floats = blob.view(np.float32)
+    chains = []
+    for _ in range(int(blob[p])):
+        m6 = 6 * int(blob[p + 2])
+        chains.append((float(floats[p + 1]),
+                       blob[p + 3: p + 3 + m6].reshape(-1, 6)))
+        p += 2 + m6
+    return chains, p + 1
+
+
+def sparse_aln(hits, max_span: int = 8, penalty: float = 0.5,
+               max_gap=None, oriented: bool = False):
+    """Scalar sparse chain DP of one group (chain.cc; reference aln.rs:
+    12-142): `hits` (n, 6) uint32 rows (q_bgn, q_end, q_ori, t_bgn,
+    t_end, t_ori), n >= 2, in any order.  Returns [(score, track (m, 6)
+    uint32)], as pgrtk_tpu/native/api.py::sparse_aln and, with tuples
+    for rows, as core/aln_ref.py::sparse_aln.  Raises ValueError where
+    the traceback revisits an anchor."""
+    hits = np.ascontiguousarray(hits, dtype=np.uint32).reshape(-1, 6)
+    n = len(hits)
+    if n < 2:
+        raise ValueError("sparse_aln needs at least two hits")
+    lib = library()
+    out = ctypes.POINTER(ctypes.c_uint32)()
+    out_len = ctypes.c_int64()
+    cycle = np.zeros(12, dtype=np.uint32)
+    rc = lib.pgr_sparse_aln(hits.reshape(-1), n, max_span, penalty,
+                            -1 if max_gap is None else int(max_gap),
+                            int(oriented), ctypes.byref(out),
+                            ctypes.byref(out_len), cycle)
+    if rc < 0:
+        a, b = (tuple(map(tuple, r.reshape(2, 3).tolist()))
+                for r in cycle.reshape(2, 6))
+        raise ValueError(
+            f"sparse_aln: the traceback from {a} revisits {b}: an exact "
+            f"duplicate anchor recurs after other anchors of this group of "
+            f"{n} hits")
+    return _chains(_take(lib, out, out_len), 0)[0]
+
+
+def chain_traceback(anchors, valid, scores, prev, names=None):
+    """Batched best-first chain extraction over value-deduplicated
+    anchors (chain_tb.cc; ops/chain.py::traceback is its plain version):
+    anchors (G, N, 6) uint32, valid (G, N), scores (G, N) float32, prev
+    (G, N) int32.  Returns per group [(score, track (m, 6) uint32)].
+    Raises ValueError naming the group (names[g], default its index g)
+    whose walk revisits an anchor."""
+    G, N = scores.shape
+    anchors = np.ascontiguousarray(anchors, dtype=np.uint32)
+    lib = library()
+    out = ctypes.POINTER(ctypes.c_uint32)()
+    out_len = ctypes.c_int64()
+    cycle = np.zeros(2, dtype=np.int64)
+    g = lib.pgr_chain_traceback(
+        anchors.reshape(-1),
+        np.ascontiguousarray(valid, dtype=np.uint8).reshape(-1),
+        np.ascontiguousarray(scores, dtype=np.float32).reshape(-1),
+        np.ascontiguousarray(prev, dtype=np.int32).reshape(-1), G, N,
+        ctypes.byref(out), ctypes.byref(out_len), cycle)
+    if g >= 0:
+        a, b = (anchors[g, i].tolist() for i in cycle)
+        raise ValueError(
+            f"group {g if names is None else names[g]}: the traceback from "
+            f"anchor {a} revisits anchor {b}: "
+            "an exact duplicate anchor recurs after other anchors of the "
+            "group")
+    blob = _take(lib, out, out_len)
+    results = []
+    p = 0
+    for _ in range(G):
+        chains, p = _chains(blob, p)
+        results.append(chains)
+    return results
+
+
+def match_reads(seq0: bytes, seq1: bytes, get_delta: bool = True,
+                tol: float = 0.1, min_match_len: int = 0,
+                min_match_start: int = 0, bandwidth: int = 32):
+    """O(nD) banded diff alignment of seq1 against seq0 (match.cc;
+    reference shmmrutils.rs:57-223).  Returns None, or a dict mirroring
+    the reference's OvlpMatch, its "deltas" a list of (x, y, dk)."""
+    lib = library()
+    ovlp = _Ovlp()
+    lib.pgr_match_reads(seq0, len(seq0), seq1, len(seq1), int(get_delta),
+                        tol, min_match_len, min_match_start, bandwidth,
+                        ctypes.byref(ovlp))
+    if not ovlp.matched:
+        return None
+    deltas = None
+    if get_delta:
+        n = int(ovlp.n_deltas)
+        arr = np.frombuffer(ctypes.string_at(ovlp.deltas, 12 * n),
+                            dtype=DELTA_DTYPE)
+        lib.pgr_free(ovlp.deltas)
+        deltas = list(zip(arr["x"].tolist(), arr["y"].tolist(),
+                          arr["dk"].tolist()))
+    out = {name: getattr(ovlp, name) for name in (
+        "m_size", "dist", "bgn0", "end0", "bgn1", "end1", "m_end0",
+        "m_end1")}
+    out["deltas"] = deltas
+    return out
+
+
+def mdb_scan(path: str):
+    """Offsets-only walk of a .mdb file (mdb.cc; reference lazy load,
+    seq_db.rs:1409-1504): (header (w, k, r, min_span, sketch flag), keys
+    (n, 2) uint64, byte_starts (n,) int64, counts (n,) int64), in file
+    order, without touching posting bytes.  Raises OSError when the file
+    cannot be read or is not a well-formed .mdb."""
+    lib = library()
+    header = (ctypes.c_uint32 * 5)()
+    keys_p = ctypes.POINTER(ctypes.c_uint64)()
+    starts_p = ctypes.POINTER(ctypes.c_int64)()
+    counts_p = ctypes.POINTER(ctypes.c_int64)()
+    nkeys = ctypes.c_uint64()
+    rc = lib.pgr_mdb_scan(path.encode(), header, ctypes.byref(keys_p),
+                          ctypes.byref(starts_p), ctypes.byref(counts_p),
+                          ctypes.byref(nkeys))
+    if rc != 0:
+        raise OSError(f"pgr_mdb_scan({path}) failed with {rc}")
+    n = nkeys.value
+    keys = np.ctypeslib.as_array(keys_p, shape=(n, 2)).copy() if n else (
+        np.empty((0, 2), dtype=np.uint64))
+    starts = np.ctypeslib.as_array(starts_p, shape=(n,)).copy() if n else (
+        np.empty(0, dtype=np.int64))
+    counts = np.ctypeslib.as_array(counts_p, shape=(n,)).copy() if n else (
+        np.empty(0, dtype=np.int64))
+    for p in (keys_p, starts_p, counts_p):
+        lib.pgr_free(p)
+    return tuple(header), keys, starts, counts

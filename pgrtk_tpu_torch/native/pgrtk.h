@@ -1,0 +1,60 @@
+/* C ABI of the port's host C++ copies of the JAX package's native
+ * runtime (pgrtk_tpu/native/src/pgrtk.h): the parts that the O(nD) diff
+ * alignment (match.cc) and the sparse anchor-chain DP (chain.cc) use.
+ *
+ *   - O(nD) greedy diff alignment ("match_reads", reference
+ *     pgr-db/src/shmmrutils.rs:57-223)
+ *   - sparse anchor-chaining DP ("sparse_aln", pgr-db/src/aln.rs:12-142)
+ *
+ * Every buffer an entry point returns is malloc'd and freed with
+ * pgr_free (dfs_walk.cc).
+ */
+#ifndef PGRTK_TORCH_H
+#define PGRTK_TORCH_H
+
+#include <stddef.h>
+#include <stdint.h>
+
+#ifdef __cplusplus
+extern "C" {
+#endif
+
+void pgr_free(void *p);
+
+/* ---- O(nD) diff alignment ---- */
+typedef struct {
+  uint32_t x, y;
+  int32_t dk;
+} pgr_delta;
+
+typedef struct {
+  uint32_t m_size, dist, bgn0, end0, bgn1, end1, m_end0, m_end1;
+  pgr_delta *deltas; /* malloc'd, n_deltas entries (NULL if !get_delta) */
+  int64_t n_deltas;
+  int32_t matched; /* 0 => no match (other fields undefined) */
+} pgr_ovlp;
+
+void pgr_match_reads(const uint8_t *seq0, int64_t len0, const uint8_t *seq1,
+                     int64_t len1, int get_delta, double tol,
+                     uint32_t min_match_len, uint32_t min_match_start,
+                     uint32_t bandwidth, pgr_ovlp *out);
+
+/* ---- sparse anchor chain DP ----
+ * hits: n x 6 uint32 (q_bgn, q_end, q_ori, t_bgn, t_end, t_ori), n >= 1.
+ * Output blob layout (malloc'd into *out, length written to *out_len,
+ * all 4-byte words):
+ *   [n_chains]
+ *   per chain: [score_f32][n_hits][n_hits * 6 x u32 hitpair]
+ * Returns n_chains, or -1 when a traceback revisits an anchor (an exact
+ * duplicate that recurs after other anchors makes the value-keyed
+ * predecessors cycle): *out is then NULL and cycle[0..11] holds the
+ * anchor the walk started from and the anchor it revisited. */
+int64_t pgr_sparse_aln(const uint32_t *hits, int64_t n, uint32_t max_span,
+                       float penalty, int64_t max_gap /* <0 => none */,
+                       int oriented, uint32_t **out, int64_t *out_len,
+                       uint32_t *cycle);
+
+#ifdef __cplusplus
+}
+#endif
+#endif /* PGRTK_TORCH_H */

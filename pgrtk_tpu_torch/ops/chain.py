@@ -12,8 +12,11 @@ for step); CUDA tensors launch csrc/chain.cu (W <= 32) or raise.
 
 `chain_groups` chains a list of anchor groups: stable q_bgn sort, one
 padded batch through K8 (or K10 for every group), K10 for the dup rows,
-the host traceback for exact groups and the scalar sparse_aln
-(core/aln_ref.py) for the groups whose scan would leave the window.
+the host C++ traceback (native/chain_tb.cc) for exact groups and the
+host C++ sparse_aln (native/chain.cc) for the groups whose scan would
+leave the window, as the JAX package does
+(pgrtk_tpu/ops/chain.py:759, :783).  `traceback` below and
+core/aln_ref.py's sparse_aln are their plain versions.
 
 Anchors are (G, N, 6) int64 holding u32 values (q_bgn, q_end, q_ori,
 t_bgn, t_end, t_ori).  Equality tests use the 32-bit patterns, the
@@ -27,8 +30,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core import aln_ref
 from ..kernels import build as kb
+from ..native import build as native
 from ..utils.device import on_cuda
 from ..utils.stats import count, tick
 from .int64 import as_i32
@@ -404,6 +407,13 @@ def traceback(scores: np.ndarray, prev: np.ndarray, valid: np.ndarray,
     return out
 
 
+def _as_tuples(chains):
+    """[(score, (m, 6) track)] -> tracks as ((q_bgn, q_end, q_ori),
+    (t_bgn, t_end, t_ori)) tuples of ints."""
+    return [(score, [((r[0], r[1], r[2]), (r[3], r[4], r[5]))
+                     for r in track.tolist()]) for score, track in chains]
+
+
 def pad_groups(groups):
     """Host helper: list of (n_i, 6) uint32 anchor arrays (pre-sorted by
     q_bgn, stable) -> (G, N, 6) padded batch + valid mask
@@ -438,8 +448,10 @@ def chain_groups(groups, penalty: float, max_span: int = 8, max_gap=None,
     groups are sorted by q_bgn (stable, as the reference sorts), padded
     into one batch on `device` and scored by K8 (kernel="fast") with the
     `dup` rows rerun on K10, or by K10 for every group
-    (kernel="dense"); exact groups are traced back on the host, groups
-    whose scan would leave the window go to the scalar sparse_aln.
+    (kernel="dense"); exact groups are traced back by the host C++
+    traceback, groups whose scan would leave the window go to the host
+    C++ sparse_aln (both raise ValueError naming the group where an
+    exact duplicate anchor makes the walk revisit an anchor).
     Returns per group [(score, track)] as the JAX function does (tracks
     as tuples, or (m, 6) uint32 arrays with as_arrays=True).  `stats`,
     when given, counts "dup_rows" and "inexact_rows" and adds host-clock
@@ -472,25 +484,19 @@ def chain_groups(groups, penalty: float, max_span: int = 8, max_gap=None,
     t = tick(stats, "chain kernels", t)
     results = [None] * len(groups)
     exact_rows = np.flatnonzero(~inexact)
-    tb = traceback(scores[exact_rows], prev[exact_rows], valid[exact_rows],
-                   anchors[exact_rows], as_arrays)
+    tb = native.chain_traceback(anchors[exact_rows], valid[exact_rows],
+                                scores[exact_rows], prev[exact_rows],
+                                names=exact_rows)
     for row, chains in zip(exact_rows, tb):
-        results[row] = chains
+        results[row] = chains if as_arrays else _as_tuples(chains)
     t = tick(stats, "traceback", t)
     for row in np.flatnonzero(inexact):
-        hits = [((int(r[0]), int(r[1]), int(r[2])),
-                 (int(r[3]), int(r[4]), int(r[5])))
-                for r in anchors[row][valid[row]].tolist()]
         try:
-            chains = aln_ref.sparse_aln(hits, max_span, penalty, max_gap,
-                                        oriented)
+            chains = native.sparse_aln(anchors[row][valid[row]], max_span,
+                                       penalty, max_gap, oriented)
         except ValueError as e:
             raise ValueError(f"group {row}: {e}") from e
-        if as_arrays:
-            chains = [(score, np.asarray([[*q, *r] for q, r in track],
-                                         dtype=np.uint32).reshape(-1, 6))
-                      for score, track in chains]
-        results[row] = chains
+        results[row] = chains if as_arrays else _as_tuples(chains)
     tick(stats, "fallbacks", t)
     count(stats, "dup_rows", n_dup)
     count(stats, "inexact_rows", inexact.sum())

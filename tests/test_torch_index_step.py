@@ -204,6 +204,17 @@ with tempfile.TemporaryDirectory() as d:
     assert pgr_pbundle_decomp.main([fa, os.path.join(d, "out")],
                                    device="cpu") == 0
     assert os.path.getsize(os.path.join(d, "out.pmapg.gfa")) > 1000
+    # pgr-make-frgdb and pgr-query --frg-file: the FRG writer and reader,
+    # the host C++ match, mdb scan, traceback and sparse_aln
+    from pgrtk_tpu_torch.cli import pgr_make_frgdb, pgr_query
+    with open(os.path.join(d, "paths.txt"), "w") as f:
+        f.write(fa + "\n")
+    assert pgr_make_frgdb.main([os.path.join(d, "paths.txt"),
+                                os.path.join(d, "db")], device="cpu") == 0
+    assert pgr_query.main([os.path.join(d, "db"), fa, os.path.join(d, "q"),
+                           "--frg-file"], device="cpu") == 0
+    with open(os.path.join(d, "q.000.hit")) as f:
+        assert len(f.read().splitlines()) > 1
 # the sharded v2 index and query on one rank, no process group
 from pgrtk_tpu_torch import dryrun
 from pgrtk_tpu_torch.parallel.comm import Comm
@@ -232,7 +243,8 @@ def test_chip_smoke_tandem_picker_matches_synth():
 def test_port_imports_and_runs_without_jax():
     """The port and chip_smoke.py import neither JAX nor the JAX
     package, and the query stage, the --batch-device path, the
-    decomposition and the sharded v2 path build and run without them."""
+    decomposition, pgr-make-frgdb with pgr-query --frg-file and the
+    sharded v2 path build and run without them."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c", _JAX_BLOCKED], cwd=REPO, env=env,
