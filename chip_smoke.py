@@ -2827,7 +2827,7 @@ def phase_dense(dev, kb, mesh, tp, seqs, lens, rids, counts):
 
 
 FRG_QUERIES, FRG_QLEN = 32, 65_536  # phase 12's queries, cut from haps
-FRG_SUB_RANGES = 8                  # seeded sub-ranges read a sequence
+FRG_LONG_RANGES = 256  # seeded sub-ranges of > 16 fragments read back
 FRG_BUILD_KERNELS = ("sketch_mode1", "rank_extract")
 FRG_QUERY_KERNELS = ("sketch_mode1", "rank_extract", "chain_scores_fast")
 
@@ -2888,8 +2888,11 @@ def phase_frgdb(dev, kb, build_dir):
     from pgrtk_tpu_torch.native import build as native
     from pgrtk_tpu_torch.ops import chain as tc
 
+    from pgrtk_tpu_torch.utils.device import card_info
+
     fa = os.path.join(build_dir, "pbundle_corpus.fa")
-    print(f"phase 12: pgr-make-frgdb and pgr-query --frg-file on {fa}")
+    print(f"phase 12: pgr-make-frgdb and pgr-query --frg-file on {fa} "
+          f"({card_info()})")
     t = time.perf_counter()
     records = read_fastx_all(fa)
     require(len(records) == PB_HAPS
@@ -3080,20 +3083,365 @@ def phase_frgdb(dev, kb, build_dir):
           f"on {n_inexact} inexact and {len(sa) - n_inexact} exact groups "
           f"({time.perf_counter() - t:.1f} s)")
 
-    t = time.perf_counter()
+    # read-back: the C++ reconstruction (frg.cc) and its plain version,
+    # the Python one, each timed over every sequence
     st = FragFileStorage(prefix)
+    secs = {}
+    for plain in (False, True):
+        t = time.perf_counter()
+        for sid, rec in enumerate(records):
+            require(st.seq_info[sid][0] == rec.id.decode()
+                    and st.get_seq_by_id(sid, plain=plain) == rec.seq,
+                    f"sequence {sid} differs when read back "
+                    f"({'Python' if plain else 'C++'})")
+        secs[plain] = time.perf_counter() - t
     rng = np.random.default_rng(13)
-    for sid, rec in enumerate(records):
-        require(st.seq_info[sid][0] == rec.id.decode()
-                and st.get_seq_by_id(sid) == rec.seq,
-                f"sequence {sid} differs when read back")
-        for _ in range(FRG_SUB_RANGES):
-            b = int(rng.integers(0, len(rec.seq)))
-            e = b + int(rng.integers(1, 200_000))
-            require(st.get_sub_seq_by_id(sid, b, e) == rec.seq[b:e],
-                    f"sequence {sid} [{b}, {e}) differs when read back")
-    print(f"  (c) every sequence and {FRG_SUB_RANGES} seeded sub-ranges of "
-          f"each read back byte for byte ({time.perf_counter() - t:.1f} s)")
+    n_long = n_frags = 0
+    t = time.perf_counter()
+    while n_long < FRG_LONG_RANGES:
+        sid = int(rng.integers(0, len(records)))
+        seq = records[sid].seq
+        b = int(rng.integers(0, len(seq)))
+        e = b + int(rng.integers(1, 200_000))
+        offs = st._frag_offsets(sid)
+        first = int(np.searchsorted(offs, b, side="right")) - 1
+        last = int(np.searchsorted(offs, min(e, len(seq)) - 1,
+                                   side="right")) - 1
+        got = st.get_sub_seq_by_id(sid, b, e)
+        require(got == st.get_sub_seq_by_id(sid, b, e, plain=True)
+                == seq[b:e], f"sequence {sid} [{b}, {e}) differs when read "
+                "back (C++ or Python)")
+        if last - first + 1 > 16:  # the C++ route
+            n_long += 1
+            n_frags += last - first + 1
+    print(f"  (c) every sequence read back byte for byte through frg.cc in "
+          f"{secs[False]:.3f} s and through the Python reconstruction in "
+          f"{secs[True]:.3f} s (host clock); {FRG_LONG_RANGES} seeded "
+          f"sub-ranges of more than 16 fragments ({n_frags} fragments) "
+          f"equal in both and to the corpus "
+          f"({time.perf_counter() - t:.1f} s)")
+
+
+MDB_CONTIGS, MDB_SAMPLES = 4_096, 8  # phase 13's contig archive
+MDB_BUILD_KERNELS = ("sketch_mode1", "rank_extract")
+MDB_SKETCH_KERNELS = ("sketch_walk_compact", "rank_extract")
+MDB_REGIONS = 64  # pgr-fetch-seqs regions
+MDB_REF_HAPS = 8  # pgr-shmmr-count's reference: haplotypes 0-7
+
+
+def launched(kb):
+    return {k.name: k.launches for k in kb.KERNELS if k.launches}
+
+
+def plain_run(kb, fn):
+    """fn() with every kernel replaced by its plain version, on the
+    card; no kernel may launch.  Returns the host seconds."""
+    t = time.perf_counter()
+    with plain_kernels():
+        kb.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        require(not any(k.launches for k in kb.KERNELS),
+                "a kernel launched in an all-plain run")
+    return time.perf_counter() - t
+
+
+def mdb_shas(prefix):
+    return {p[len(prefix):]: h for p, h in file_shas(
+        [prefix + e for e in (".mdb", ".midx")]).items()}
+
+
+def phase_mdb(dev, kb, build_dir):
+    """The archive-backed index path through the port's CLIs at pgr-mdb's
+    defaults (w 80, k 56, r 4, min_span 64) on phase 8's corpus (64 x
+    4,194,304 bases): (a) two PGA archives written, timed; (b) pgr-mdb
+    once under torch.profiler, its files equal to an all-plain run's
+    and its index to phase 12's; (c) pgr-mdb -s; (d) pgr-mdb
+    --prefetching over 4,096 contigs; (e) pgr-query over the archive
+    index; (f) pgr-fetch-seqs; (g) pgr-shmmr-count, pgr-fasta-smp-count
+    and pgr-shmmr-pair-count.  Each timed on the host clock, each
+    kernel's launches required, each output equal to an all-plain run's
+    on the card."""
+    from pgrtk_tpu_torch.cli import (pgr_fasta_smp_count, pgr_fetch_seqs,
+                                     pgr_mdb, pgr_query, pgr_shmmr_count,
+                                     pgr_shmmr_pair_count)
+    from pgrtk_tpu_torch.core import mdb as mdb_io
+    from pgrtk_tpu_torch.core import pga
+    from pgrtk_tpu_torch.core.fasta import read_fastx_all, reverse_complement
+    from pgrtk_tpu_torch.core.frag_io import FragFileStorage
+    from pgrtk_tpu_torch.utils.device import card_info
+
+    card = card_info()
+    fa = os.path.join(build_dir, "pbundle_corpus.fa")
+    qfa = os.path.join(build_dir, "frg_queries.fa")
+    print(f"phase 13: pgr-mdb and the PGA archive backend on {fa} "
+          f"({card})")
+    records = read_fastx_all(fa)
+    require(len(records) == PB_HAPS
+            and all(len(r.seq) == PB_LEN for r in records),
+            "phase 8's corpus is not 64 x 4,194,304 bases")
+    d = os.path.join(build_dir, "mdb")
+    os.makedirs(d, exist_ok=True)
+
+    # (a) the corpus as one sample, and as 4,096 contigs in 8 samples
+    corpus_pga = os.path.join(d, "corpus.pga")
+    t = time.perf_counter()
+    pga.create_pga(corpus_pga, [fa])
+    t_one = time.perf_counter() - t
+    clen = PB_HAPS * PB_LEN // MDB_CONTIGS
+    per = MDB_CONTIGS // MDB_SAMPLES
+    sample_fas = []
+    t = time.perf_counter()
+    for s in range(MDB_SAMPLES):
+        path = os.path.join(d, f"sample{s}.fa")
+        with open(path, "w") as f:
+            for c in range(s * per, (s + 1) * per):
+                rec = records[c * clen // PB_LEN]
+                b = c * clen % PB_LEN
+                f.write(f">{rec.id.decode()}_{b}\n"
+                        f"{rec.seq[b:b + clen].decode()}\n")
+        sample_fas.append(path)
+    t_fa = time.perf_counter() - t
+    contigs_pga = os.path.join(d, "contigs.pga")
+    t = time.perf_counter()
+    pga.create_pga(contigs_pga, sample_fas)
+    t_many = time.perf_counter() - t
+    print(f"  (a) create_pga: corpus.pga (1 sample, {PB_HAPS} contigs) "
+          f"{t_one:.3f} s, {os.path.getsize(corpus_pga)} bytes; "
+          f"contigs.pga ({MDB_SAMPLES} samples, {MDB_CONTIGS} x {clen}) "
+          f"{t_many:.3f} s, {os.path.getsize(contigs_pga)} bytes (its "
+          f"fastas written in {t_fa:.3f} s; host clock, level 6)")
+
+    def stages(st):
+        return ", ".join(f"{k} {v:.3f} s" for k, v in
+                         st.get("seconds", {}).items())
+
+    def mdb_run(lst, prefix, opts=(), st=None):
+        require(pgr_mdb.main([lst, prefix, *opts], device=dev,
+                             stats=st) == 0, "pgr-mdb exited non-zero")
+
+    one_lst = os.path.join(d, "corpus.txt")
+    with open(one_lst, "w") as f:
+        f.write(corpus_pga + "\n")
+    prefix = os.path.join(d, "corpus")
+
+    # (b) mode 1 under the profiler, then all-plain
+    mk = {}
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    t = time.perf_counter()
+    print("  (b) pgr-mdb, one run under torch.profiler:")
+    profile_steps(lambda: mdb_run(one_lst, prefix, (), mk), n=1,
+                  trace="mdb_build_trace.json")
+    wall = time.perf_counter() - t
+    launches = launched(kb)
+    print(f"  pgr-mdb: {wall:.3f} s (host clock, synchronized, profiled); "
+          f"launches {launches}; stages (host clock): {stages(mk)}")
+    for name in MDB_BUILD_KERNELS:
+        require(launches.get(name, 0) > 0,
+                f"kernel {name} never launched on pgr-mdb")
+    plain_prefix = os.path.join(d, "corpus_plain")
+    t_plain = plain_run(kb, lambda: mdb_run(one_lst, plain_prefix))
+    require(mdb_shas(plain_prefix) == mdb_shas(prefix),
+            "the all-plain pgr-mdb wrote other .mdb/.midx files")
+    spec, keys, _, counts, sigs = mdb_io.read_mdb_columnar(prefix + ".mdb")
+    frg = os.path.join(build_dir, "frgdb")
+    _, fkeys, _, fcounts, fsigs = mdb_io.read_mdb_columnar(frg + ".mdb")
+    first = np.array([s[3][0] for s in FragFileStorage(frg).seqs],
+                     dtype=np.int64)
+    require(np.array_equal(keys, fkeys) and np.array_equal(counts, fcounts)
+            and all(np.array_equal(sigs[c], fsigs[c]) for c in (
+                "seq_id", "bgn", "end", "orientation"))
+            and np.array_equal(sigs["frg_id"].astype(np.int64),
+                               fsigs["frg_id"].astype(np.int64)
+                               - first[fsigs["seq_id"]] - 1),
+            "the archive index differs from phase 12's FRG index")
+    print(f"  all-plain pgr-mdb on the card: the same .mdb and .midx by "
+          f"sha256 ({t_plain:.3f} s); {len(keys)} keys, {len(sigs)} "
+          f"postings: keys, counts, (seq_id, bgn, end, orientation) equal "
+          f"to phase 12's .mdb, frg_id to its frg_id less each sequence's "
+          f"first fragment id less 1")
+
+    # (c) mode 2
+    sk = {}
+    kb.reset_launches()
+    t = time.perf_counter()
+    mdb_run(one_lst, prefix + "_s", ("-s",), sk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = launched(kb)
+    for name in MDB_SKETCH_KERNELS:
+        require(launches.get(name, 0) > 0,
+                f"kernel {name} never launched on pgr-mdb -s")
+    t_plain = plain_run(kb, lambda: mdb_run(one_lst, prefix + "_s_plain",
+                                            ("-s",)))
+    require(mdb_shas(prefix + "_s_plain") == mdb_shas(prefix + "_s"),
+            "the all-plain pgr-mdb -s wrote other .mdb/.midx files")
+    print(f"  (c) pgr-mdb -s: {wall:.3f} s (host clock); launches "
+          f"{launches}; stages: {stages(sk)}; all-plain the same files "
+          f"({t_plain:.3f} s)")
+
+    # (d) the reader pool over many contigs
+    many_lst = os.path.join(d, "contigs.txt")
+    with open(many_lst, "w") as f:
+        f.write(contigs_pga + "\n")
+    walls = {}
+    for readers in ("4", "1"):
+        st = {}
+        t = time.perf_counter()
+        mdb_run(many_lst, os.path.join(d, f"contigs_r{readers}"),
+                ("--prefetching", "--number-of-readers", readers), st)
+        torch.cuda.synchronize()
+        walls[readers] = (time.perf_counter() - t, stages(st))
+    require(mdb_shas(os.path.join(d, "contigs_r4"))
+            == mdb_shas(os.path.join(d, "contigs_r1")),
+            "4 readers wrote other .mdb/.midx files than 1")
+    print(f"  (d) pgr-mdb --prefetching on contigs.pga ({MDB_CONTIGS // 256} "
+          f"chunks of 256 contigs): 4 readers {walls['4'][0]:.3f} s "
+          f"({walls['4'][1]}), 1 reader {walls['1'][0]:.3f} s "
+          f"({walls['1'][1]}); the same files by sha256")
+
+    # (e) pgr-query over the archive index of (b)
+    if not os.path.exists(prefix + ".pga"):
+        os.link(corpus_pga, prefix + ".pga")
+    qs = {}
+    out = os.path.join(d, "q_card")
+
+    def query(o, extra=(), st=None):
+        require(pgr_query.main([prefix, qfa, o, *extra], device=dev,
+                               stats=st) == 0, "pgr-query exited non-zero")
+
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    t = time.perf_counter()
+    print("  (e) pgr-query over the archive index, one run under "
+          "torch.profiler:")
+    profile_steps(lambda: query(out, (), qs), n=1,
+                  trace="mdb_query_trace.json")
+    wall = time.perf_counter() - t
+    launches = launched(kb)
+    for name in FRG_QUERY_KERNELS:
+        require(launches.get(name, 0) > 0,
+                f"kernel {name} never launched on pgr-query (archive)")
+    require(launches.get("probe_fetch", 0) + launches.get("probe_keys", 0)
+            > 0, "no probe kernel launched on pgr-query (archive)")
+    sec = dict(qs.pop("seconds", {}))
+    sec["load archive index"] = sum(qs.pop("load archive index", []))
+    print(f"  pgr-query: {wall:.3f} s (host clock, synchronized, profiled);"
+          f" launches {launches}; stages (host clock): "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in sec.items())
+          + f"; counts {qs}")
+    qnames = [line[1:].strip() for line in open(qfa) if line[0] == ">"]
+    for i, name in enumerate(qnames):
+        hap, off = name.split("_")[1], int(name.split("_")[2])
+        ori = "1" if i % 4 == 3 else "0"
+        rows = [r.split("\t") for r in open(f"{out}.{i:03}.hit").read(
+        ).splitlines()[1:]]
+        require(any(r[7] == hap and r[10] == ori
+                    and min(int(r[9]), off + FRG_QLEN) - max(int(r[8]), off)
+                    >= FRG_QLEN // 2 for r in rows),
+                f"query {name}: no .hit row at its haplotype and offset")
+    card_q = query_shas(out, FRG_QUERIES)
+    query(out + "_bed", ("--bed-summary",))
+    bed = file_shas([f"{out}_bed.{i:03}.hit.bed" for i in range(FRG_QUERIES)])
+    t_plain = plain_run(kb, lambda: (query(out + "_plain"),
+                                     query(out + "_plain_bed",
+                                           ("--bed-summary",))))
+    require(query_shas(out + "_plain", FRG_QUERIES) == card_q
+            and list(file_shas([f"{out}_plain_bed.{i:03}.hit.bed" for i in
+                                range(FRG_QUERIES)]).values())
+            == list(bed.values()),
+            "the all-plain pgr-query wrote other .hit/.hit.bed/.fa files")
+    # the archive and phase 12's FRG files serve the same bases, and the
+    # two indexes the same chains: the .fa files equal phase 12's, the
+    # .hit rows but for their src column
+    frg_out = os.path.join(build_dir, "frgq_card")
+    for i in range(FRG_QUERIES):
+        rows = [[[c for j, c in enumerate(r.split("\t")) if j != 6]
+                 for r in open(f"{o}.{i:03}.hit").read().splitlines()[1:]]
+                for o in (out, frg_out)]
+        require(rows[0] == rows[1] and open(f"{out}.{i:03}.fa").read()
+                == open(f"{frg_out}.{i:03}.fa").read(),
+                f"query {i}: the archive index's .hit rows or .fa differ "
+                "from phase 12's FRG run")
+    print(f"  every query's .hit has a row at its haplotype; the .hit, "
+          f".hit.bed and .fa files equal an all-plain run's by sha256 "
+          f"({t_plain:.3f} s for both), the .fa files and the .hit rows "
+          f"(but their src column) phase 12's FRG run's")
+
+    # (f) pgr-fetch-seqs: the listing and 64 seeded regions, both strands
+    lst_out = os.path.join(d, "list.txt")
+    require(pgr_fetch_seqs.main([prefix, "--list", "-o", lst_out]) == 0,
+            "pgr-fetch-seqs failed")
+    require(open(lst_out).read().splitlines() == [
+        f"{sid}\tpbundle_corpus.fa\t{r.id.decode()}\t{PB_LEN}"
+        for sid, r in enumerate(records)], "pgr-fetch-seqs --list differs")
+    rng = np.random.default_rng(14)
+    regions, want = [], []
+    for i in range(MDB_REGIONS):
+        h = int(rng.integers(0, PB_HAPS))
+        b = int(rng.integers(0, PB_LEN))
+        e = b + int(rng.integers(1, 200_000))
+        rev = i % 2
+        regions.append(f"r{i}\tpbundle_corpus.fa\t{records[h].id.decode()}"
+                       f"\t{b}\t{e}\t{rev}\n")
+        seq = records[h].seq[b:e]
+        want.append(f">r{i}\n"
+                    f"{(reverse_complement(seq) if rev else seq).decode()}\n")
+    reg = os.path.join(d, "regions.txt")
+    with open(reg, "w") as f:
+        f.writelines(regions)
+    fetched = os.path.join(d, "regions.fa")
+    t = time.perf_counter()
+    require(pgr_fetch_seqs.main([prefix, "-r", reg, "-o", fetched]) == 0,
+            "pgr-fetch-seqs failed")
+    t = time.perf_counter() - t
+    require(open(fetched).read() == "".join(want),
+            "pgr-fetch-seqs's regions differ from the corpus")
+    print(f"  (f) pgr-fetch-seqs: --list of {PB_HAPS} sequences and "
+          f"{MDB_REGIONS} regions (half reverse-complemented) equal to the "
+          f"corpus ({t:.3f} s, host clock)")
+
+    # (g) the shimmer-count tools
+    hap0 = os.path.join(d, "hap0.fa")
+    ref = os.path.join(d, f"haps0-{MDB_REF_HAPS - 1}.fa")
+    for path, recs in ((hap0, records[:1]), (ref, records[:MDB_REF_HAPS])):
+        with open(path, "w") as f:
+            for r in recs:
+                f.write(f">{r.id.decode()}\n{r.seq.decode()}\n")
+    tools = (
+        ("pgr-shmmr-count", lambda o, st=None: pgr_shmmr_count.main(
+            [hap0, ref, qfa, "-o", o], device=dev, stats=st)),
+        ("pgr-fasta-smp-count", lambda o, st=None: pgr_fasta_smp_count.main(
+            ["-i", fa, "-o", o], device=dev, stats=st)))
+    for name, run in tools:
+        o = os.path.join(d, name)
+        st = {}
+        kb.reset_launches()
+        t = time.perf_counter()
+        require(run(o, st) == 0, f"{name} exited non-zero")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = launched(kb)
+        require(launches.get("sketch_mode1", 0) > 0,
+                f"kernel sketch_mode1 never launched on {name}")
+        t_plain = plain_run(kb, lambda: require(run(o + "_plain") == 0,
+                                                f"plain {name} failed"))
+        require(file_shas([o]).popitem()[1]
+                == file_shas([o + "_plain"]).popitem()[1],
+                f"the all-plain {name} wrote another file")
+        print(f"  (g) {name}: {wall:.3f} s (host clock); launches "
+              f"{launches}; {len(open(o).read().splitlines())} lines, equal "
+              f"to an all-plain run's ({t_plain:.3f} s); stages: "
+              f"{stages(st) or 'none kept'}")
+    o = os.path.join(d, "pair_count.txt")
+    t = time.perf_counter()
+    require(pgr_shmmr_pair_count.main([prefix, "-o", o]) == 0,
+            "pgr-shmmr-pair-count exited non-zero")
+    n = open(o).read().splitlines()
+    require(len(n) == len(keys), "pgr-shmmr-pair-count: one line a key")
+    print(f"  (g) pgr-shmmr-pair-count on (b)'s index: {len(n)} keys in "
+          f"{time.perf_counter() - t:.3f} s (host only)")
 
 
 def set_op_rates():
@@ -3206,6 +3554,8 @@ def main():
         stamp("phases 10-11")
         phase_frgdb(dev, kb, build_dir)
         stamp("phase 12")
+        phase_mdb(dev, kb, build_dir)
+        stamp("phase 13")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,8 +1,9 @@
 """SeqIndexDB — the part of pgrtk_tpu/api.py that pgr-make-frgdb,
-pgr-query, pgr-pbundle-decomp and pgr-get-sv-candidate-regions use, over
-the port's sequence database (core/seqdb.py's CompactSeqDB and its
-columnar store) or an FRG database it reads (core/frag_io.py's
-FragFileStorage).
+pgr-query, pgr-fetch-seqs, pgr-pbundle-decomp and
+pgr-get-sv-candidate-regions use, over the port's sequence database
+(core/seqdb.py's CompactSeqDB and its columnar store), an FRG database
+it reads (core/frag_io.py's FragFileStorage) or an archive-backed index
+(core/pga.py's PgaSeqDB: a pgr-mdb index and its .pga archive).
 
 The database sketches on the card (`device="cuda"`, K9) unless the
 caller asks for the CPU, the MAP graph sorts and links its rows with
@@ -151,6 +152,19 @@ class SeqIndexDB:
         self._time("load frg", t0)
         self.load_from_store(store)
 
+    def load_from_agc_index(self, prefix: str) -> None:
+        """Read an archive-backed index: `prefix`.mdb/.midx, as pgr-mdb
+        writes them, and the archive `prefix`.pga (or .agc; pgrtk_tpu/
+        api.py:160-176, reference ext.rs:87-129).  Queries and sequence
+        fetches serve from the archive.  Raises IOError when there is no
+        archive and NotImplementedError on an AGC v2 archive."""
+        from .core.pga import PgaSeqDB
+
+        t0 = time.perf_counter()
+        store = PgaSeqDB(prefix)
+        self._time("load archive index", t0)
+        self.load_from_store(store)
+
     def write_frag_and_index_files(self, file_prefix: str) -> None:
         """Write the in-memory database as .frg/.sdx/.mdb/.midx
         (pgrtk_tpu/api.py:176-185; reference ext.rs:201-210)."""
@@ -164,6 +178,13 @@ class SeqIndexDB:
     def get_seq(self, sample_name: str, ctg_name: str) -> bytes:
         sid, _ = self.seq_index[(ctg_name, sample_name)]
         return self.get_seq_by_id(sid)
+
+    def get_sub_seq(self, sample_name: str, ctg_name: str, bgn: int,
+                    end: int) -> bytes:
+        """Bases [bgn, end) of a sequence by its source and name
+        (pgrtk_tpu/api.py:343-347)."""
+        sid, _ = self.seq_index[(ctg_name, sample_name)]
+        return self.get_sub_seq_by_id(sid, bgn, end)
 
     def get_seq_by_id(self, sid: int) -> bytes:
         """(pgrtk_tpu/api.py:349-350)"""

@@ -9,14 +9,16 @@ Logic mirrors the reference CLI (pgr-bin/src/bin/pgr-query.rs:81-436):
 per-target orientation vote over chains, forward/reverse region merge
 with merge_range_tol, .hit/.hit.bed formats, reverse-complemented fasta
 output.  Rows are emitted sorted by target sid (the reference emits
-hash-map order).  The database is an FRG database (`--frg-file`) or a
-fastx file indexed in memory (`--fastx-file`).  Every query takes the
-batch device path (parallel/device_query.py::batch_query_to_hps): the
-sketch, the probe and the chain DP on the card, or their plain versions
-with `--device cpu`; `--batch-device` is accepted for the JAX CLI's argv
-and changes nothing.  Not ported: the JAX CLI's `--host` route and the
-AGC archive backend (`--agc-file`, the JAX CLI's default), which raise.
-Unlike the JAX CLI there is no `--version`.
+hash-map order).  The database is an FRG database (`--frg-file`), a
+fastx file indexed in memory (`--fastx-file`) or, by default (and with
+`--agc-file`), an archive-backed index: the .mdb/.midx of pgr-mdb and
+its archive at DB_PREFIX.pga (core/pga.py; an AGC v2 .agc archive
+raises, its reader not yet ported).  Every query takes the batch device
+path (parallel/device_query.py::batch_query_to_hps): the sketch, the
+probe and the chain DP on the card, or their plain versions with
+`--device cpu`; `--batch-device` is accepted for the JAX CLI's argv and
+changes nothing.  Not ported: the JAX CLI's `--host` route, which
+raises.  Unlike the JAX CLI there is no `--version`.
 """
 from __future__ import annotations
 
@@ -215,8 +217,9 @@ def main(argv=None, *, device: Optional[str] = None,
     """Run the CLI on `argv` (sys.argv[1:] when None).  `device` (or the
     --device option; default "cuda") places the database's sketch and
     the query batch; `stats`, when a dict, receives the host seconds of
-    each stage (lists under "read fastx", "load and sketch" and "load
-    frg", the rest under "seconds") and the query's counts."""
+    each stage (lists under "read fastx", "load and sketch", "load frg"
+    and "load archive index", the rest under "seconds") and the query's
+    counts."""
     p = argparse.ArgumentParser(
         prog="pgr-query",
         description="Query a PGR-TK pangenome sequence database",
@@ -253,18 +256,16 @@ def main(argv=None, *, device: Optional[str] = None,
         raise NotImplementedError(
             "--host: the JAX CLI's native per-fragment query route is not "
             "ported; the port queries on the batch device path")
-    if not (args.frg_file or args.fastx_file):
-        raise NotImplementedError(
-            "--agc-file (the default backend): the AGC archive backend is "
-            "not yet ported; use --frg-file or --fastx-file")
 
     db = SeqIndexDB(device=device or args.device or "cuda", stats=stats)
     if args.frg_file:
         db.load_from_frg_index(args.pgr_db_prefix)
-    else:
+    elif args.fastx_file:
         db.load_from_fastx(
             args.pgr_db_prefix, args.w, args.k, args.r, args.min_span
         )
+    else:
+        db.load_from_agc_index(args.pgr_db_prefix)
 
     query_seqs = read_fastx_all(args.query_fastx_path)
     run_query(

@@ -7,10 +7,14 @@ File layout (reference: pgr-db/src/seq_db.rs:814-874, frag_file_io.rs):
   .sdx — "SDX:0.5" + bincode (chunk_size, Vec<(offset,size,frag_bases)>,
          Vec<CompactSeq>)
 
-`FragFileStorage` reads a database with the JAX package's Python
-reconstruction path (its fallback, pgrtk_tpu/core/frag_io.py:74-83,
-102-207; the JAX package's native frg.cc is not ported) and is the
-columnar store parallel/device_query.py queries.  `write_frag_files`
+`FragFileStorage` reads a database as the JAX reader routes it
+(pgrtk_tpu/core/frag_io.py:125-207): whole sequences, fragment offsets
+and sub-ranges of more than 16 fragments through the port's host C++
+(native/frg.cc, which releases the GIL), smaller sub-ranges on the
+cached Python path.  Unlike the JAX reader, a chunk the C++ cannot parse
+raises instead of falling back to Python.  The Python reconstruction is
+the plain version (`plain=True`).  The reader is the columnar store
+parallel/device_query.py queries.  `write_frag_files`
 writes core/seqdb.py's CompactSeqDB byte for byte as the JAX writer
 does: repeat fragments delta-compressed against the first fragment of
 their key with the port's host C++ match_reads (native/match.cc), raw
@@ -75,6 +79,13 @@ class FragFileStorage:
         self._cache_lock = threading.Lock()
         self._off_lock = threading.Lock()
         self._seq_off_cache: Dict[int, np.ndarray] = {}
+        # the C++ reconstruction's views: the blob after the magic and
+        # each chunk's (offset, size)
+        self._frg_arr = np.frombuffer(self.frg_data, dtype=np.uint8)[7:]
+        self._grp_off = np.asarray([o for o, _s, _b in self.frag_addr_offsets],
+                                   dtype=np.int64)
+        self._grp_size = np.asarray(
+            [sz for _o, sz, _b in self.frag_addr_offsets], dtype=np.int64)
 
     # ------------------------------------------------------------------
     def _fetch_group(self, gid: int) -> list:
@@ -123,32 +134,58 @@ class FragFileStorage:
             return b[k:]
         return b
 
-    def get_seq_by_id(self, sid: int) -> bytes:
+    def _join(self, fid_bgn: int, fid_end: int, total: int,
+              plain: bool) -> bytes:
+        """The contributed bases of fragments [fid_bgn, fid_end), `total`
+        of them: through frg.cc, or in Python when `plain`."""
+        if plain:
+            return b"".join(self._frag_bases(self._get_frag(f))
+                            for f in range(fid_bgn, fid_end))
+        from ..native import build as native
+
+        return native.frg_sub_bases(
+            self._frg_arr, self._grp_off, self._grp_size, self.chunk_size,
+            self.spec.k, fid_bgn, fid_end, total)
+
+    def get_seq_by_id(self, sid: int, plain: bool = False) -> bytes:
         source, name, _id, (start, n), slen = self.seqs[sid]
-        out = b"".join(
-            self._frag_bases(self._get_frag(f)) for f in range(start, start + n)
-        )
+        out = self._join(start, start + n, slen, plain)
         assert len(out) == slen, (len(out), slen)
         return out
 
-    def _frag_offsets(self, sid: int):
+    def _frag_offsets(self, sid: int, plain: bool = False):
         """Cumulative reconstructed-base offsets of a sequence's
         fragments (n+1 entries), cached per sid: random sub-range access
         then touches ONLY the fragment groups overlapping the range
         (reference: frag_file_io.rs:182-228 random access by chunk
-        ranges) instead of decoding the whole sequence per fetch."""
+        ranges) instead of decoding the whole sequence per fetch.  The
+        plain version walks the parsed chunks and bypasses the cache."""
+        if plain:
+            return self._plain_offsets(sid)
         cached = self._seq_off_cache.get(sid)
         if cached is not None:
             return cached
         # one thread walks a sequence; the others wait for its offsets
-        # instead of walking (and evicting) its chunks again
+        # instead of walking its chunks again
         with self._off_lock:
             cached = self._seq_off_cache.get(sid)
             if cached is None:
                 cached = self._walk_offsets(sid)
+                if len(self._seq_off_cache) > 4096:
+                    self._seq_off_cache.clear()
+                self._seq_off_cache[sid] = cached
             return cached
 
     def _walk_offsets(self, sid: int):
+        from ..native import build as native
+
+        _src, _name, _id, (start, n), _slen = self.seqs[sid]
+        lens = native.frg_base_lens(
+            self._frg_arr, self._grp_off, self._grp_size, self.chunk_size,
+            self.spec.k, start, start + n)
+        return np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+
+    def _plain_offsets(self, sid: int):
         _src, _name, _id, (start, n), _slen = self.seqs[sid]
         k = self.spec.k
         lens = []
@@ -158,16 +195,13 @@ class FragFileStorage:
             take = self._fetch_group(gid)[j: j + end - fid]
             lens.extend(_frag_base_len(fr, k) for fr in take)
             fid += len(take)
-        offs = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum(lens, out=offs[1:])
-        if len(self._seq_off_cache) > 4096:
-            self._seq_off_cache.clear()
-        self._seq_off_cache[sid] = offs
-        return offs
+        return np.concatenate([[0], np.cumsum(lens, dtype=np.int64)]
+                              ).astype(np.int64)
 
-    def get_sub_seq_by_id(self, sid: int, bgn: int, end: int) -> bytes:
+    def get_sub_seq_by_id(self, sid: int, bgn: int, end: int,
+                          plain: bool = False) -> bytes:
         _src, _name, _id, (start, n), _slen = self.seqs[sid]
-        offs = self._frag_offsets(sid)
+        offs = self._frag_offsets(sid, plain)
         if n == 0 or end <= bgn:
             return b""
         # fragments overlapping [bgn, end): binary search the offsets
@@ -176,10 +210,12 @@ class FragFileStorage:
             first, int(np.searchsorted(offs, max(end - 1, bgn), side="right")) - 1
         )
         last = min(last, n - 1)
-        rec = b"".join(
-            self._frag_bases(self._get_frag(start + j))
-            for j in range(first, last + 1)
-        )
+        # the C++ amortizes its per-call chunk inflate over many
+        # fragments; small fetches (repeat hits on the same chunks) stay
+        # on the Python path, whose chunk cache makes them free
+        rec = self._join(start + first, start + last + 1,
+                         int(offs[last + 1] - offs[first]),
+                         plain or last + 1 - first <= 16)
         offset = bgn - int(offs[first])
         return rec[offset : offset + (end - bgn)]
 

@@ -51,11 +51,15 @@ def _sketch(seqs, spec, device):
     return sketch1_ops.sketch_mode1_arrays(seqs, None, spec, device=device)
 
 
-def _pair_columns(mers, lens, base_sid: int = 0, base_frg: int = 0):
+def _pair_columns(mers, lens, base_sid: int = 0, base_frg: int = 0,
+                  per_seq: bool = False):
     """Flat pair columns of every sequence in (sid, position) order, and
     the fragments: each sequence's (first fragment, count) and every
     fragment's contributed range cut0, cut1.  Sequence i has id
-    base_sid + i and length lens[i]; fragment ids start at base_frg."""
+    base_sid + i and length lens[i]; fragment ids start at base_frg.
+    With `per_seq` a pair's frg_id is instead its index among its
+    sequence's pairs, 0..n_pairs-1 (the index-only numbering, reference
+    seq_db.rs:360-418)."""
     cols = {n: [] for n in PAIR_COLS}
     ranges, cuts = [], []
     n_frags = base_frg
@@ -74,7 +78,8 @@ def _pair_columns(mers, lens, base_sid: int = 0, base_frg: int = 0):
         swap = s0 > s1
         cols["k0"].append(np.where(swap, s1, s0))
         cols["k1"].append(np.where(swap, s0, s1))
-        cols["frg_id"].append(np.arange(n_frags + 1, n_frags + n))
+        cols["frg_id"].append(np.arange(n - 1) if per_seq else
+                              np.arange(n_frags + 1, n_frags + n))
         cols["seq_id"].append(np.full(n - 1, base_sid + i))
         cols["bgn"].append(pos[:-1] + 1)
         cols["end"].append(pos[1:] + 1)
@@ -169,6 +174,7 @@ class CompactSeqDB:
         self._cut0: List[np.ndarray] = []
         self._cut1: List[np.ndarray] = []
         self.n_frags = 0
+        self.index_only = False  # set by load_index_only: no bases kept
         self._store = None
 
     def load_seqs(self, records: Sequence[Tuple[Optional[str], str, bytes]]
@@ -194,6 +200,36 @@ class CompactSeqDB:
         self._cut0.append(cut0)
         self._cut1.append(cut1)
         self.n_frags += len(cut0)
+        self._store = None
+        tick(self.stats, "index", t)
+
+    def load_index_only(
+            self, records: Sequence[Tuple[Optional[str], str, bytes]],
+            base_sid: Optional[int] = None) -> None:
+        """Index-only append (pgrtk_tpu/core/seqdb.py:157-194): the pairs
+        of `records` (source, name, bases), sequence ids from base_sid
+        (default: after those loaded), fragment ids numbered 0..n_pairs-1
+        per sequence as the reference's seq_to_index numbers them
+        (seq_db.rs:360-418), so the .mdb of an archive is signature-
+        exact.  No bases are kept: columnar_store's `seqs` is None and
+        a sequence's fragment range is (0, n_pairs)."""
+        from ..utils.stats import tick
+
+        records = list(records)
+        seqs = [bytes(r[2]) for r in records]
+        if base_sid is None:
+            base_sid = len(self.seqs)
+        t = time.perf_counter()
+        mers = _sketch(seqs, self.spec, self.device)
+        t = tick(self.stats, "sketch", t)
+        cols, _, _, _ = _pair_columns(mers, [len(b) for b in seqs], base_sid,
+                                      per_seq=True)
+        for i, ((source, name, _), b, (mx, _)) in enumerate(
+                zip(records, seqs, mers)):
+            self.seqs.append(CompactSeq(source, name, base_sid + i,
+                                        (0, max(0, len(mx) - 1)), len(b)))
+        self.index_only = True
+        self._cols.append(cols)
         self._store = None
         tick(self.stats, "index", t)
 
@@ -236,12 +272,31 @@ class CompactSeqDB:
             sigs = np.concatenate([sigs, ds])
             order = np.lexsort((keys[:, 1], keys[:, 0]))
             keys, sigs = keys[order], sigs[order]
-        store = with_seqs(_store(self.spec, keys, sigs), self.bases,
+        store = with_seqs(_store(self.spec, keys, sigs),
+                          None if self.index_only else self.bases,
                           [s.name for s in self.seqs],
-                          [s.source for s in self.seqs])
+                          [s.source for s in self.seqs],
+                          [s.len for s in self.seqs],
+                          [s.id for s in self.seqs])
         if not n_decoys:
             self._store = store
         return store
+
+    def key_counts(self):
+        """The distinct pair keys, (n, 2) uint64 sorted, and the postings
+        of each, (n,) int64: columnar_store's index_keys and
+        index_counts, from one sort of the keys alone."""
+        from ..utils.u64pair import cols_ckeys
+
+        if not self._cols:
+            return np.zeros((0, 2), np.uint64), np.zeros(0, np.int64)
+        ck = np.sort(cols_ckeys(np.concatenate([c["k0"] for c in self._cols]),
+                                np.concatenate([c["k1"] for c in self._cols])))
+        new = np.ones(len(ck), dtype=bool)
+        new[1:] = ck[1:] != ck[:-1]
+        starts = np.flatnonzero(new)
+        return (ck[starts].view(np.uint64).reshape(-1, 2),
+                np.diff(np.append(starts, len(ck))).astype(np.int64))
 
     @property
     def frag_map(self):
@@ -293,15 +348,17 @@ def build_columnar_store(seqs: Sequence[bytes], spec, *, device="cuda",
     return db.columnar_store(n_decoys=n_decoys, seed=seed)
 
 
-def with_seqs(store, seqs, names, sources, lens=None):
+def with_seqs(store, seqs, names, sources, lens=None, sids=None):
     """`store` with `seqs` (or None), `seq_info` and `seq_index` for the
     sequences `names` from `sources` (lengths `lens`, default those of
-    `seqs`), sequence id = position."""
+    `seqs`), with ids `sids` (default: sequence id = position)."""
     if lens is None:
         lens = [len(s) for s in seqs]
+    if sids is None:
+        sids = range(len(names))
     store.seqs = seqs
-    store.seq_info = {sid: (name, src, int(n)) for sid, (name, src, n)
-                      in enumerate(zip(names, sources, lens))}
+    store.seq_info = {sid: (name, src, int(n)) for sid, name, src, n
+                      in zip(sids, names, sources, lens)}
     store.seq_index = {(name, src): (sid, n) for sid, (name, src, n)
                        in store.seq_info.items()}
     return store

@@ -2,18 +2,25 @@
 walk (dfs_walk.cc) and the principal-bundle peel (bundle_peel.cc) of the
 MAP-graph layer, the gap-affine WFA arbiter (wfa.cc), the scalar sparse
 chain DP (chain.cc) and the batched chain traceback (chain_tb.cc), the
-O(nD) diff alignment of the FRG writer (match.cc) and the .mdb offsets
-scan (mdb.cc), copies of pgrtk_tpu/native/src's files.
+O(nD) diff alignment of the FRG writer (match.cc), the .mdb offsets
+scan (mdb.cc) and the .frg reconstruction of the FRG reader (frg.cc,
+linked with zlib), copies of pgrtk_tpu/native/src's files; and, in a
+library of its own, the PGA archive (pga.cc), which links the runtime
+libzstd (libzstd.so.1).
 
 At first use the system C++ compiler ($CXX, else g++, else c++) builds
-the files into one shared library in `build/pgrtk_tpu_torch/` beside
-the package, named by a hash of the sources and flags, loaded with
-ctypes.  No compiler raises: there is no Python fallback.  The flags
-keep the JAX package's `-ffp-contract=off`, so f32 chain scores round
-as the reference's scalar ops do.  The bindings are those of
-pgrtk_tpu/native/api.py:405-674 and pgrtk_tpu/core/wfa.py:28-44; the
-two tracebacks raise ValueError where the JAX package's cycle forever
-(an exact duplicate anchor that recurs after other anchors).
+each library in `build/pgrtk_tpu_torch/` beside the package, named by a
+hash of its sources and flags, loaded with ctypes.  No compiler raises,
+and so does a missing zlib or libzstd (naming it): there is no Python
+fallback.  The archive library is built only when an archive is opened
+or written, so a machine without libzstd builds and runs every other
+path.  The flags keep the JAX package's `-ffp-contract=off`, so f32
+chain scores round as the reference's scalar ops do.  The bindings are
+those of pgrtk_tpu/native/api.py:405-719, pgrtk_tpu/core/wfa.py:28-44
+and pgrtk_tpu/core/pga.py:18-52; the two tracebacks raise ValueError
+where the JAX package's cycle forever (an exact duplicate anchor that
+recurs after other anchors), and the .frg reconstruction raises
+ValueError where the JAX reader falls back to Python.
 """
 from __future__ import annotations
 
@@ -29,7 +36,12 @@ import numpy as np
 
 SRC = Path(__file__).resolve().parent
 SOURCES = ("dfs_walk.cc", "bundle_peel.cc", "wfa.cc", "chain.cc",
-           "chain_tb.cc", "match.cc", "mdb.cc")
+           "chain_tb.cc", "match.cc", "mdb.cc", "frg.cc")
+LIBS = ("-lz",)
+ARCHIVE_SOURCES = ("pga.cc",)
+# the runtime library by its file name: zstd's development package (the
+# libzstd.so link and zstd.h) need not be installed
+ARCHIVE_LIBS = ("-l:libzstd.so.1",)
 HEADERS = ("pgrtk.h",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pgrtk_tpu_torch"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off")
@@ -48,6 +60,7 @@ class _Ovlp(ctypes.Structure):
 
 DELTA_DTYPE = np.dtype([("x", "<u4"), ("y", "<u4"), ("dk", "<i4")])
 _lib = None
+_archive_lib = None
 
 
 def _cxx() -> str:
@@ -59,22 +72,25 @@ def _cxx() -> str:
                        "C++ library cannot be built")
 
 
-def _build() -> Path:
-    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    for name in SOURCES + HEADERS:
-        digest.update(name.encode())
-        digest.update((SRC / name).read_bytes())
-    lib_path = BUILD_DIR / f"libpgrtk_host-{digest.hexdigest()[:16]}.so"
+def _build(name: str, sources, libs, needs: str) -> Path:
+    """lib<name>-<hash>.so from `sources` linked with `libs`, built
+    unless it exists; a failed build raises naming `needs`."""
+    digest = hashlib.sha256(" ".join(CXX_FLAGS + tuple(libs)).encode())
+    for src in tuple(sources) + HEADERS:
+        digest.update(src.encode())
+        digest.update((SRC / src).read_bytes())
+    lib_path = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_cxx(), *CXX_FLAGS, "-o", str(tmp),
-           *(str(SRC / name) for name in SOURCES)]
+           *(str(SRC / src) for src in sources), *libs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"host C++ build failed ({proc.returncode}):\n{proc.stderr}")
+            f"the {name} C++ library failed to build ({proc.returncode}); "
+            f"it needs {needs}:\n{proc.stderr}")
     os.replace(tmp, lib_path)
     return lib_path
 
@@ -84,7 +100,9 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(_build()))
+            lib = ctypes.CDLL(str(_build(
+                "pgrtk_host", SOURCES, LIBS,
+                "a C++17 compiler and zlib (zlib.h, libz)")))
             nd = np.ctypeslib.ndpointer
             out = [ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
                    ctypes.POINTER(ctypes.c_int64)]
@@ -131,8 +149,46 @@ def library() -> ctypes.CDLL:
                 ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
                 ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
                 ctypes.POINTER(ctypes.c_uint64)]
+            frg = [nd(np.uint8), ctypes.c_int64, nd(np.int64), nd(np.int64),
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int64]
+            lib.pgr_frg_base_lens.restype = ctypes.c_int64
+            lib.pgr_frg_base_lens.argtypes = frg + [nd(np.int64)]
+            lib.pgr_frg_sub_bases.restype = ctypes.c_int64
+            lib.pgr_frg_sub_bases.argtypes = frg + [nd(np.uint8),
+                                                    ctypes.c_int64]
             _lib = lib
         return _lib
+
+
+def archive_library() -> ctypes.CDLL:
+    """The PGA archive library (pga.cc), built on first call; raises
+    RuntimeError naming libzstd where it cannot be linked."""
+    global _archive_lib
+    with _lock:
+        if _archive_lib is None:
+            lib = ctypes.CDLL(str(_build(
+                "pgrtk_archive", ARCHIVE_SOURCES, ARCHIVE_LIBS,
+                "a C++17 compiler and the runtime libzstd (libzstd.so.1)")))
+            h, s = ctypes.c_void_p, ctypes.c_char_p
+            for name, res, args in (
+                    ("pga_open", h, [s]), ("pga_close", None, [h]),
+                    ("pga_free", None, [h]),
+                    ("pga_n_samples", ctypes.c_int64, [h]),
+                    ("pga_list_samples", h, [h]),
+                    ("pga_list_ctgs", h, [h, s]),
+                    ("pga_get_ctg_len", ctypes.c_int64, [h, s, s]),
+                    ("pga_get_sub_seq", ctypes.c_int64, [
+                        h, s, s, ctypes.c_int64, ctypes.c_int64,
+                        ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8))]),
+                    ("pga_create", h, [s, ctypes.c_int]),
+                    ("pga_add_contig", ctypes.c_int, [
+                        h, s, s, s, ctypes.c_int64]),
+                    ("pga_finish", ctypes.c_int, [h])):
+                fn = getattr(lib, name)
+                fn.restype, fn.argtypes = res, args
+            _archive_lib = lib
+        return _archive_lib
 
 
 def _take(lib, out, out_len) -> np.ndarray:
@@ -331,3 +387,37 @@ def mdb_scan(path: str):
     for p in (keys_p, starts_p, counts_p):
         lib.pgr_free(p)
     return tuple(header), keys, starts, counts
+
+
+def frg_base_lens(frg_arr, grp_off, grp_size, chunk: int, k: int,
+                  fid_bgn: int, fid_end: int) -> np.ndarray:
+    """The bases each fragment of ids [fid_bgn, fid_end) contributes to
+    its sequence, (n,) int64, from the fragment headers of the .frg blob
+    `frg_arr` (the bytes after the magic; group g at grp_off[g], of
+    grp_size[g] bytes; frg.cc).  Raises ValueError on a malformed or
+    truncated chunk."""
+    lib = library()
+    out = np.empty(fid_end - fid_bgn, dtype=np.int64)
+    rc = lib.pgr_frg_base_lens(frg_arr, len(frg_arr), grp_off, grp_size,
+                               len(grp_off), chunk, k, fid_bgn, fid_end, out)
+    if rc != 0:
+        raise ValueError(f"malformed .frg chunk among fragments "
+                         f"[{fid_bgn}, {fid_end})")
+    return out
+
+
+def frg_sub_bases(frg_arr, grp_off, grp_size, chunk: int, k: int,
+                  fid_bgn: int, fid_end: int, total_len: int) -> bytes:
+    """The contributed bases of fragments [fid_bgn, fid_end), joined
+    (inflate, bincode parse, delta apply and reverse complement in
+    frg.cc); `total_len` their sum.  Raises ValueError on a malformed
+    chunk or another total."""
+    lib = library()
+    out = np.empty(total_len, dtype=np.uint8)
+    got = lib.pgr_frg_sub_bases(frg_arr, len(frg_arr), grp_off, grp_size,
+                                len(grp_off), chunk, k, fid_bgn, fid_end,
+                                out, total_len)
+    if got != total_len:
+        raise ValueError(f"malformed .frg chunk among fragments "
+                         f"[{fid_bgn}, {fid_end})")
+    return out.tobytes()

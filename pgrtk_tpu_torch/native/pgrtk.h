@@ -1,6 +1,7 @@
 /* C ABI of the port's host C++ copies of the JAX package's native
  * runtime (pgrtk_tpu/native/src/pgrtk.h): the parts that the O(nD) diff
- * alignment (match.cc) and the sparse anchor-chain DP (chain.cc) use.
+ * alignment (match.cc) and the sparse anchor-chain DP (chain.cc) use,
+ * and the PGA archive's (pga.cc).
  *
  *   - O(nD) greedy diff alignment ("match_reads", reference
  *     pgr-db/src/shmmrutils.rs:57-223)
@@ -53,6 +54,34 @@ int64_t pgr_sparse_aln(const uint32_t *hits, int64_t n, uint32_t max_span,
                        float penalty, int64_t max_gap /* <0 => none */,
                        int oriented, uint32_t **out, int64_t *out_len,
                        uint32_t *cycle);
+
+/* ---- PGA archive (pga.cc, a library of its own) ----
+ * Readers: pga_open returns a handle (NULL when the file is not a well-
+ * formed archive); list and fetch results are malloc'd, freed with
+ * pga_free; pga_get_sub_seq returns the bases written or -1.  Writer:
+ * pga_create, pga_add_contig per contig, pga_finish (0 on success). */
+void *pga_open(const char *path);
+void pga_close(void *h);
+void pga_free(void *p);
+int64_t pga_n_samples(void *h);
+char *pga_list_samples(void *h);
+char *pga_list_ctgs(void *h, const char *sample);
+int64_t pga_get_ctg_len(void *h, const char *sample, const char *ctg);
+int64_t pga_get_sub_seq(void *h, const char *sample, const char *ctg,
+                        int64_t bgn, int64_t end, uint8_t **out);
+void *pga_create(const char *path, int level);
+int pga_add_contig(void *h, const char *sample, const char *ctg,
+                   const uint8_t *seq, int64_t len);
+int pga_finish(void *h);
+
+/* libzstd's one-shot API (zstd.h; stable since zstd 1.0), which pga.cc
+ * calls through the runtime libzstd.so.1. */
+size_t ZSTD_compress(void *dst, size_t dstCapacity, const void *src,
+                     size_t srcSize, int compressionLevel);
+size_t ZSTD_decompress(void *dst, size_t dstCapacity, const void *src,
+                       size_t compressedSize);
+unsigned ZSTD_isError(size_t code);
+size_t ZSTD_compressBound(size_t srcSize);
 
 #ifdef __cplusplus
 }

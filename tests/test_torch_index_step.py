@@ -215,6 +215,19 @@ with tempfile.TemporaryDirectory() as d:
                            "--frg-file"], device="cpu") == 0
     with open(os.path.join(d, "q.000.hit")) as f:
         assert len(f.read().splitlines()) > 1
+    # pgr-mdb and pgr-query over a PGA archive: the archive library
+    # (libzstd), the streamed index-only build and the archive store
+    from pgrtk_tpu_torch.cli import pgr_mdb
+    from pgrtk_tpu_torch.core import pga
+    pga.create_pga(os.path.join(d, "arc.pga"), [fa])
+    with open(os.path.join(d, "arcs.txt"), "w") as f:
+        f.write(os.path.join(d, "arc.pga") + "\n")
+    assert pgr_mdb.main([os.path.join(d, "arcs.txt"), os.path.join(d, "arc")],
+                        device="cpu") == 0
+    assert pgr_query.main([os.path.join(d, "arc"), fa, os.path.join(d, "a")],
+                          device="cpu") == 0
+    with open(os.path.join(d, "a.000.hit")) as f:
+        assert len(f.read().splitlines()) > 1
 # the sharded v2 index and query on one rank, no process group
 from pgrtk_tpu_torch import dryrun
 from pgrtk_tpu_torch.parallel.comm import Comm
@@ -243,8 +256,9 @@ def test_chip_smoke_tandem_picker_matches_synth():
 def test_port_imports_and_runs_without_jax():
     """The port and chip_smoke.py import neither JAX nor the JAX
     package, and the query stage, the --batch-device path, the
-    decomposition, pgr-make-frgdb with pgr-query --frg-file and the
-    sharded v2 path build and run without them."""
+    decomposition, pgr-make-frgdb with pgr-query --frg-file, pgr-mdb
+    with pgr-query over a PGA archive and the sharded v2 path build and
+    run without them."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c", _JAX_BLOCKED], cwd=REPO, env=env,

@@ -107,11 +107,24 @@ def test_fastx_file_query_byte_equal(inputs):
 
 @pytest.mark.parametrize("argv", [[], ["--agc-file"],
                                   ["--frg-file", "--host"]])
-def test_backends_not_ported_raise(inputs, argv):
+def test_backends_not_ported_raise(inputs, argv, tmp_path):
+    """The --host route, and an AGC v2 archive behind the default
+    backend (a .agc that is no PGA archive), raise NotImplementedError;
+    an index with no archive beside it raises IOError."""
     q = os.path.join(inputs, "q.fa")
+    prefix = os.path.join(inputs, "db")
+    if "--frg-file" not in argv:
+        prefix = str(tmp_path / "agcdb")
+        for ext in (".mdb", ".midx"):
+            os.link(os.path.join(inputs, "db" + ext), prefix + ext)
+        with pytest.raises(IOError, match="no archive"):
+            tquery.main([prefix, q, os.path.join(inputs, "x"), *argv],
+                        device="cpu")
+        with open(prefix + ".agc", "wb") as f:
+            f.write(b"AGC" + bytes(61))
     with pytest.raises(NotImplementedError, match="ported"):
-        tquery.main([os.path.join(inputs, "db"), q,
-                     os.path.join(inputs, "x"), *argv], device="cpu")
+        tquery.main([prefix, q, os.path.join(inputs, "x"), *argv],
+                    device="cpu")
 
 
 def _tracks(rng, n_targets=4):
