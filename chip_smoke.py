@@ -226,6 +226,28 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      sparse_aln (native/chain_tb.cc, chain.cc) equal to the Python ones
      on the run's groups; and every sequence and 8 seeded sub-ranges of
      each read back from the files byte for byte.
+ 13. runs pgr-mdb and the PGA archive backend on the same corpus
+     (phase_mdb: archives, the index in both modes, the reader pool,
+     pgr-query and pgr-fetch-seqs over it, the count tools).
+ 14. runs the other users of the MAP graph and the pbundle tools
+     (phase_maps): (a) pgr-compare-cov on the corpus as two fasta lists
+     of 32 haplotypes (one run under torch.profiler) and with -f over an
+     FRG index of the two lists, whose files must equal the two-list
+     run's; (b) pgr-compare-cov2 over phase 13's archive index, sample 0
+     against samples 1-7; (c) map_positions_in_seq, 4,096 positions on
+     hap0 against the 64 haplotypes, 90% of them onto themselves; (d)
+     the four consensus algorithms (core/ec.py) and the facade's
+     sparse-alignment consensus on 32 reads of 20,000 bases at one
+     locus, 0.5% substitutions, at w = k = 31 and 33 (dup and inexact
+     rows printed); (e) bed2dist, bed2sorted, bed2offset, bed2svg and
+     pgr-pbundle-aln on phase 8's BED, pgr-generate-chr-aln-plot on
+     phase 9's .ctgmap.json, pgr-generate-diploid-vcf on the SV CLI run
+     once a haplotype on phase 9's cut.  Each path's host seconds and
+     launches (K9, K2, K5 or K11, and K8 and K12 where the path runs
+     them, required), and each path's files or results equal from an
+     all-plain run on the card and a CPU run (PB_CUT for (a) and (c),
+     8 contigs a sample for (b), 4 of the reads for (d), a 200 kb SV
+     corpus for (e)).
 
 Between phases 6 and 7 it prints the bounds of the index and query
 steps (sums of their kernels' bounds in this run).
@@ -3444,6 +3466,398 @@ def phase_mdb(dev, kb, build_dir):
           f"{time.perf_counter() - t:.3f} s (host only)")
 
 
+MAPS_POSITIONS = 4_096   # phase 14c: positions spaced evenly on hap0
+MAPS_KNOBS = (0.25, 32, 32, 32, 8)  # penalty, max counts, max_aln_span
+CONS_READS, CONS_LEN = 32, 20_000  # phase 14d: reads cut at one locus
+CONS_SPECS = ((31, 31), (33, 33))  # the consensus specs (w = k), r 1
+CONS_CUT = 4             # reads of the all-plain and CPU consensus runs
+VCF_CUT = 200_000        # reference bases of the diploid VCF's three-way
+ALN_PAIRS = 8            # phase 14e: pgr-pbundle-aln's contig pairs
+CC2_CUT = 8              # contigs a sample in the compare-cov2 cut
+COV_OUT = (".0.bed", ".0.bedgraph", ".1.bed", ".1.bedgraph")
+# the kernels each path of phase 14 must launch, besides K5 or K11
+SKETCH_KERNELS = ("sketch_mode1", "rank_extract")
+
+
+def in_dir(out_dir, fn):
+    """fn() with `out_dir` (made) as the working directory: a CLI's
+    relative output prefix names the same files in every directory."""
+    os.makedirs(out_dir, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(out_dir)
+    try:
+        return fn()
+    finally:
+        os.chdir(cwd)
+
+
+def dir_shas(out_dir, names):
+    return {n: h for n, h in zip(names, file_shas(
+        [os.path.join(out_dir, n) for n in names]).values())}
+
+
+def value_sha(obj) -> str:
+    import hashlib
+
+    return hashlib.sha256(repr(obj).encode()).hexdigest()
+
+
+def three_ways(dev, kb, run, label):
+    """run(device, tag) -> a digest, on the card, with every kernel plain
+    on the card, and on the CPU: all three must agree.  Returns the
+    host seconds of each."""
+    secs = {}
+    t = time.perf_counter()
+    card = run(dev, "card")
+    torch.cuda.synchronize()
+    secs["card"] = time.perf_counter() - t
+    got = {}
+    secs["plain"] = plain_run(kb, lambda: got.update(plain=run(dev, "plain")))
+    t = time.perf_counter()
+    got["cpu"] = run("cpu", "cpu")
+    secs["cpu"] = time.perf_counter() - t
+    require(got["plain"] == card, f"{label}: the all-plain run differs")
+    require(got["cpu"] == card, f"{label}: the CPU run differs")
+    return secs
+
+
+def write_records(path, records):
+    with open(path, "w") as f:
+        for name, seq in records:
+            f.write(f">{name}\n{seq.decode()}\n")
+
+
+def phase_maps(dev, kb, build_dir):
+    """The other users of the MAP graph and the pbundle tools through the
+    port's entry points, each path timed on the host clock with its
+    launches (reset before, read after) and held to an all-plain run on
+    the card and a CPU run (on a cut where marked): (a) pgr-compare-cov
+    on phase 8's corpus as two fasta lists of 32 haplotypes (one run
+    under torch.profiler) and with -f over an FRG index of the two
+    lists; (b) pgr-compare-cov2 over phase 13's archive index, sample 0
+    against samples 1-7; (c) map_positions_in_seq, 4,096 positions on
+    hap0 against the 64-haplotype database; (d) the four consensus
+    algorithms and the facade's shmmr_sparse_aln_consensus on 32 reads
+    of 20,000 bases at one locus, 0.5% substitutions (seed 14), at
+    w = k = 31 and 33; (e) the seven text tools on phase 8's BED and
+    phase 9's SV outputs."""
+    from pgrtk_tpu_torch.api import SeqIndexDB
+    from pgrtk_tpu_torch.cli import (pgr_compare_cov, pgr_compare_cov2,
+                                     pgr_generate_chr_aln_plot,
+                                     pgr_generate_diploid_vcf,
+                                     pgr_make_frgdb, pgr_mdb,
+                                     pgr_pbundle_aln, pgr_pbundle_bed2dist,
+                                     pgr_pbundle_bed2offset,
+                                     pgr_pbundle_bed2sorted,
+                                     pgr_pbundle_bed2svg)
+    from pgrtk_tpu_torch.core import ec, mdb as mdb_io, pga
+    from pgrtk_tpu_torch.core.fasta import read_fastx_all
+    from pgrtk_tpu_torch.core.spec import ShmmrSpec
+    from pgrtk_tpu_torch.utils import cases
+    from pgrtk_tpu_torch.utils.device import card_info
+
+    card = card_info()
+    fa = os.path.join(build_dir, "pbundle_corpus.fa")
+    d = os.path.join(build_dir, "maps")
+    os.makedirs(d, exist_ok=True)
+    print(f"phase 14: the MAP-graph users and the pbundle tools ({card})")
+    t = time.perf_counter()
+    records = [(r.id.decode(), r.seq) for r in read_fastx_all(fa)]
+    require(len(records) == PB_HAPS and all(len(s) == PB_LEN
+                                            for _n, s in records),
+            "phase 8's corpus is not 64 x 4,194,304 bases")
+    half = PB_HAPS // 2
+    n_cut, l_cut = PB_CUT
+    sets = {}
+    for tag, recs in (("", records),
+                      ("_cut", [(n, s[:l_cut]) for n, s in records])):
+        for i, part in enumerate((recs[:half], recs[half:])):
+            part = part[:n_cut // 2] if tag else part
+            path = os.path.join(d, f"set{i}{tag}.fa")
+            write_records(path, part)
+            # the set's file of fasta paths, and of the sources an index
+            # of those fastas gives their sequences: the same one line
+            with open(os.path.join(d, f"list{i}{tag}.txt"), "w") as f:
+                f.write(path + "\n")
+            sets[f"set{i}{tag}"] = path
+    print(f"  corpus read and split into two lists of {half} haplotypes "
+          f"(and a cut of {n_cut} x {l_cut}) in "
+          f"{time.perf_counter() - t:.1f} s (host)")
+    seen = Counter()
+
+    def stage_text(st):
+        sec = dict(st.get("seconds", {}))
+        for k, v in st.items():
+            if isinstance(v, list):
+                sec[k] = sum(v)
+        return ", ".join(f"{k} {v:.3f} s" for k, v in sec.items())
+
+    def counted(label, fn, st=None, need=SKETCH_KERNELS):
+        """fn() on the card with the launch counts reset before and read
+        after; prints the host seconds and launches, requires the kernels
+        `need` and K5 or K11.  Returns fn's value."""
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = launched(kb)
+        seen.update(launches)
+        print(f"  {label}: {wall:.3f} s (host clock, synchronized); "
+              f"launches {launches}"
+              + (f"; stages {stage_text(st)}" if st else "")
+              + (f"; counts { {k: v for k, v in st.items() if isinstance(v, int)} }"
+                 if st else ""))
+        for name in need:
+            require(launches.get(name, 0) > 0,
+                    f"kernel {name} never launched on {label}")
+        require(launches.get("probe_fetch", 0)
+                + launches.get("probe_keys", 0) > 0,
+                f"no probe kernel launched on {label}")
+        return out
+
+    # (a) pgr-compare-cov: two fasta lists, then -f over an FRG index
+    def cov(device, out_dir, argv, st=None):
+        require(in_dir(out_dir, lambda: pgr_compare_cov.main(
+            argv + ["out"], device=device, stats=st)) == 0,
+            "pgr-compare-cov exited non-zero")
+        return dir_shas(out_dir, ["out" + e for e in COV_OUT])
+
+    lists = [os.path.join(d, "list0.txt"), os.path.join(d, "list1.txt")]
+    st = {}
+    print("  (a) pgr-compare-cov, two lists of 32 haplotypes, one run under "
+          "torch.profiler:")
+    counted("compare-cov, two lists", lambda: profile_steps(
+        lambda: cov(dev, os.path.join(d, "cov"), lists, st), n=1,
+        trace="compare_cov_trace.json"), st)
+    n_rows = sum(1 for _ in open(os.path.join(d, "cov", "out.0.bedgraph")))
+    n_rows += sum(1 for _ in open(os.path.join(d, "cov", "out.1.bedgraph")))
+    n_bed = sum(sum(1 for _ in open(os.path.join(d, "cov", "out" + e)))
+                for e in (".0.bed", ".1.bed"))
+    require(n_rows > PB_HAPS * 1_000, "pgr-compare-cov wrote few rows")
+    print(f"  {n_rows} bedgraph rows, {n_bed} BED regions")
+    both = os.path.join(d, "both.txt")
+    with open(both, "w") as f:
+        f.write(sets["set0"] + "\n" + sets["set1"] + "\n")
+    frg = os.path.join(d, "frg")
+    t = time.perf_counter()
+    require(pgr_make_frgdb.main([both, frg], device=dev) == 0,
+            "pgr-make-frgdb exited non-zero")
+    print(f"  FRG index of the two lists (two sources): "
+          f"{time.perf_counter() - t:.3f} s")
+    st = {}
+    shas_f = counted("compare-cov -f, the FRG index", lambda: cov(
+        dev, os.path.join(d, "cov_f"), ["-f", frg] + lists, st), st)
+    require(shas_f == dir_shas(os.path.join(d, "cov"), list(shas_f)),
+            "compare-cov -f wrote other files than the two-list run")
+    print("  -f over the FRG index: the same four files as the two-list run")
+    cut_lists = [os.path.join(d, f"list{i}_cut.txt") for i in (0, 1)]
+    secs = three_ways(dev, kb, lambda dv, tag: cov(
+        dv, os.path.join(d, f"cov_cut_{tag}"), cut_lists), "compare-cov cut")
+    frg_cut = os.path.join(d, "frg_cut")
+    with open(both + ".cut", "w") as f:
+        f.write(sets["set0_cut"] + "\n" + sets["set1_cut"] + "\n")
+    require(pgr_make_frgdb.main([both + ".cut", frg_cut], device=dev) == 0,
+            "pgr-make-frgdb exited non-zero")
+    secs_f = three_ways(dev, kb, lambda dv, tag: cov(
+        dv, os.path.join(d, f"cov_fcut_{tag}"), ["-f", frg_cut] + cut_lists),
+        "compare-cov -f cut")
+    print(f"  {n_cut} x {l_cut} bases: card, all-plain card and CPU write "
+          f"the same files, two lists {secs}, -f {secs_f} (s)")
+
+    # (b) pgr-compare-cov2 over phase 13's archive index
+    arc = os.path.join(build_dir, "mdb", "contigs_r4")
+    if not os.path.exists(arc + ".pga"):
+        os.link(os.path.join(build_dir, "mdb", "contigs.pga"), arc + ".pga")
+    samples = sorted({src for _sid, _l, _n, src in
+                      mdb_io.read_midx(arc + ".midx")})
+    require(len(samples) == MDB_SAMPLES, f"phase 13's samples: {samples}")
+    jobs = os.path.join(d, "jobs.txt")
+    with open(jobs, "w") as f:
+        f.write("\t".join(["job", samples[0], *samples[1:]]) + "\n")
+
+    def cov2(device, out_dir, index, st=None):
+        require(in_dir(out_dir, lambda: pgr_compare_cov2.main(
+            ["-a", index, jobs], device=device, stats=st)) == 0,
+            "pgr-compare-cov2 exited non-zero")
+        return dir_shas(out_dir, ["job" + e for e in COV_OUT])
+
+    st = {}
+    counted("compare-cov2, phase 13's archive index", lambda: cov2(
+        dev, os.path.join(d, "cov2"), arc, st), st)
+    cut_fas = []
+    for s, sample in enumerate(samples):
+        path = os.path.join(d, sample)
+        recs = read_fastx_all(os.path.join(build_dir, "mdb", sample))
+        write_records(path, [(r.id.decode(), r.seq) for r in recs[:CC2_CUT]])
+        cut_fas.append(path)
+    arc_cut = os.path.join(d, "arc_cut")
+    pga.create_pga(arc_cut + ".pga", cut_fas)
+    with open(arc_cut + ".txt", "w") as f:
+        f.write(arc_cut + ".pga\n")
+    require(pgr_mdb.main([arc_cut + ".txt", arc_cut], device=dev) == 0,
+            "pgr-mdb exited non-zero")
+    secs = three_ways(dev, kb, lambda dv, tag: cov2(
+        dv, os.path.join(d, f"cov2_cut_{tag}"), arc_cut), "compare-cov2 cut")
+    print(f"  {MDB_SAMPLES} samples x {CC2_CUT} contigs: card, all-plain "
+          f"card and CPU write the same files {secs} (s)")
+
+    # (c) map_positions_in_seq
+    st = {}
+    db = SeqIndexDB(device=dev, stats=st)
+    t = time.perf_counter()
+    db.load_from_fastx(fa)
+    print(f"  (c) database of {PB_HAPS} haplotypes: "
+          f"{time.perf_counter() - t:.3f} s")
+    hap0 = records[0][1]
+    positions = np.linspace(0, len(hap0) - 1, MAPS_POSITIONS).astype(
+        np.int64).tolist()
+    st.clear()
+    mapped = counted("map_positions_in_seq, 4,096 positions", lambda:
+                     db.map_positions_in_seq(positions, hap0, *MAPS_KNOBS),
+                     st, SKETCH_KERNELS + ("chain_scores_fast",))
+    onto_self = {m[0] for m in mapped if m[1] == (0, m[0], 0)}
+    require(len(onto_self) > MAPS_POSITIONS * 0.9,
+            f"map_positions_in_seq: {len(onto_self)} of {MAPS_POSITIONS} "
+            f"positions map onto themselves on hap0")
+    print(f"  {len(mapped)} mappings of {len({m[0] for m in mapped})} "
+          f"positions onto {len({m[1][0] for m in mapped})} haplotypes; "
+          f"{len(onto_self)} positions map onto themselves on hap0")
+    del db
+    cut_fa = os.path.join(d, "maps_cut.fa")
+    write_records(cut_fa, [(n, s[:l_cut]) for n, s in records[:n_cut]])
+    cut_pos = positions[:MAPS_POSITIONS * l_cut // PB_LEN]
+
+    def maps(device, _tag):
+        cdb = SeqIndexDB(device=device)
+        cdb.load_from_fastx(cut_fa)
+        return value_sha(cdb.map_positions_in_seq(
+            cut_pos, records[0][1][:l_cut], *MAPS_KNOBS))
+
+    secs = three_ways(dev, kb, maps, "map_positions_in_seq cut")
+    print(f"  {n_cut} x {l_cut} bases, {len(cut_pos)} positions: card, "
+          f"all-plain card and CPU give the same mappings {secs} (s)")
+
+    # (d) the consensus algorithms
+    locus = PB_LEN // 3
+    reads = cases.hifi_reads([s for _n, s in records[:CONS_READS]], locus,
+                             CONS_LEN, 14)
+    specs = [ShmmrSpec(w=w, k=k, r=1, min_span=0, sketch=False)
+             for w, k in CONS_SPECS]
+
+    def consensus(device, st=None):
+        out = {"naive": ec.naive_dbg_consensus(reads, specs[0].k, 2)}
+        for spec in specs:
+            out[f"dbg w{spec.w}"] = ec.shmmr_dbg_consensus(
+                reads, spec, device=device, stats=st)
+            out[f"guided w{spec.w}"] = ec.guided_shmmr_dbg_consensus(
+                reads, spec, 2, device=device, stats=st)
+            out[f"sparse w{spec.w}"] = ec.shmmr_sparse_aln_consensus(
+                reads, spec, 2, device=device, stats=st)
+        fdb = SeqIndexDB(device=device, stats=st)
+        fdb.load_from_seq_list([(str(i), r) for i, r in enumerate(reads)],
+                               "memory", 33, 33, 1, 0)
+        out["facade sparse"] = fdb.shmmr_sparse_aln_consensus(
+            list(range(len(reads))), 2)
+        return out
+
+    st = {}
+    got = counted(f"consensus, {CONS_READS} reads x {CONS_LEN}",
+                  lambda: consensus(dev, st), st,
+                  SKETCH_KERNELS + ("sort_link_rows", "chain_scores_fast"))
+    summary = {}
+    for name, v in got.items():
+        if name == "naive":  # bases alone
+            segs = [(v, None)]
+        elif name.startswith("guided"):  # one (bases, coverage)
+            segs = [v]
+        elif name.startswith("facade"):  # [(sid, segments)]
+            segs = [seg for _sid, ss in v for seg in ss]
+        else:
+            segs = v
+        require(segs and all(c is None or len(s) == len(c)
+                             for s, c in segs),
+                f"consensus {name}: no output, or coverage of another length")
+        summary[name] = (len(segs), sum(len(s) for s, _ in segs))
+    print(f"  consensus (segments, bases): {summary}; dup_rows "
+          f"{st.get('dup_rows', 0)}, inexact_rows {st.get('inexact_rows', 0)}"
+          f" (the groups the host sparse_aln chained: max_aln_span 33 leaves "
+          f"K8's 32-slot window) of {st.get('groups', 0)} groups")
+    reads = reads[:CONS_CUT]  # consensus() reads `reads` when called
+    secs = three_ways(dev, kb, lambda dv, _tag: value_sha(consensus(dv)),
+                      "consensus cut")
+    print(f"  {CONS_CUT} of the reads: card, all-plain card and CPU give the "
+          f"same consensus {secs} (s)")
+
+    # (e) the text tools
+    bed = os.path.join(build_dir, "pbundle_k12", "out.bed")
+    e = os.path.join(d, "tools")
+    os.makedirs(e, exist_ok=True)
+    pb = os.path.join(e, "pb")
+    ctgs = sorted({line.split("\t")[0] for line in open(bed)
+                   if not line.startswith("#")})
+    spec_file = os.path.join(e, "aln_spec.txt")
+    with open(spec_file, "w") as f:
+        f.write("\n".join(ctgs[:ALN_PAIRS + 1]) + "\n")
+    sv = os.path.join(build_dir, "sv_card", "out")
+    tools = (
+        ("pgr-pbundle-bed2dist", pgr_pbundle_bed2dist, [bed, pb]),
+        ("pgr-pbundle-bed2sorted", pgr_pbundle_bed2sorted, [bed, pb]),
+        ("pgr-pbundle-bed2offset", pgr_pbundle_bed2offset, [bed, pb]),
+        ("pgr-pbundle-bed2svg", pgr_pbundle_bed2svg,
+         [bed, pb, "--ddg-file", pb + ".ddg", "--offsets", pb + ".offset",
+          "--html"]),
+        ("pgr-pbundle-aln", pgr_pbundle_aln, [bed, spec_file, pb]),
+        ("pgr-generate-chr-aln-plot", pgr_generate_chr_aln_plot,
+         [sv + ".ctgmap.json", os.path.join(e, "chr")]))
+    for name, mod, argv in tools:
+        t = time.perf_counter()
+        require(mod.main(argv) == 0, f"{name} exited non-zero")
+        print(f"  (e) {name}: {time.perf_counter() - t:.3f} s (host only)")
+    n_dist = sum(1 for _ in open(pb + ".dist"))
+    require(n_dist == len(ctgs) ** 2, "bed2dist: one line an ordered pair")
+    print(f"  {len(ctgs)} contigs: {n_dist} .dist lines, "
+          f"{os.path.getsize(pb + '.svg')} svg bytes, "
+          f"{os.path.getsize(os.path.join(e, 'chr.html'))} html bytes")
+    def vcf(device, tag, ref, asm_fa):
+        """The SV CLI once on each haplotype's contigs of `asm_fa`, then
+        pgr-generate-diploid-vcf on the two; the VCF's path."""
+        out = []
+        for h in range(SV_HAPS):
+            path = os.path.join(e, f"{tag}_hap{h}.fa")
+            write_records(path, [(r.id.decode(), r.seq)
+                                 for r in read_fastx_all(asm_fa)
+                                 if r.id.decode().startswith(f"h{h}")])
+            out.append(os.path.join(e, f"sv_{tag}_hap{h}"))
+            run_sv(out[-1], ref, path, device)
+        o = os.path.join(e, f"diploid_{tag}.vcf")
+        require(pgr_generate_diploid_vcf.main(
+            [os.path.join(out[0], "out.alnmap"),
+             os.path.join(out[1], "out.alnmap"),
+             os.path.join(out[0], "out.target_len.json"), o]) == 0,
+            "pgr-generate-diploid-vcf exited non-zero")
+        return o
+
+    t = time.perf_counter()
+    o = vcf(dev, "card", os.path.join(build_dir, "sv_cut_ref.fa"),
+            os.path.join(build_dir, "sv_cut_asm.fa"))
+    n_vcf = sum(1 for line in open(o) if not line.startswith("#"))
+    require(n_vcf > 0, "pgr-generate-diploid-vcf wrote no record")
+    print(f"  (e) pgr-generate-diploid-vcf on phase 9's {SV_CUT}-base cut, "
+          f"the SV CLI once a haplotype: {n_vcf} records, "
+          f"{time.perf_counter() - t:.3f} s with the two SV runs")
+    small = sv_corpus(dev, e, VCF_CUT, SV_HAPS, 2, "sv_vcf")
+    secs = three_ways(dev, kb, lambda dv, tag: file_shas([vcf(
+        dv, f"small_{tag}", *small)]).popitem()[1], "diploid vcf")
+    print(f"  on a {VCF_CUT}-base reference: card, all-plain card and CPU "
+          f"the same VCF {secs} (s, the SV runs included)")
+    for name in ("sketch_mode1", "rank_extract", "sort_link_rows",
+                 "chain_scores_fast"):
+        require(seen[name] > 0, f"kernel {name} never launched in phase 14")
+    print(f"  phase 14 launches: {dict(seen)}")
+
+
 def set_op_rates():
     """INT_OPS_PER_S from the card (SMs x 64 INT32 lanes x the maximum SM
     clock), and the walks' instruction slots per base from the SASS of
@@ -3556,6 +3970,8 @@ def main():
         stamp("phase 12")
         phase_mdb(dev, kb, build_dir)
         stamp("phase 13")
+        phase_maps(dev, kb, build_dir)
+        stamp("phase 14")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

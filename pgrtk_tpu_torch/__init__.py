@@ -18,7 +18,10 @@ the `pgr-query --batch-device` path (mode-1 and mode-2 sketch of a query
 batch, probe of an FRG database's columnar index, count filters, batched
 chain DP with its fallbacks; `parallel/device_query.py`); and the CLIs
 built on them (`cli/`: pgr-pbundle-decomp, pgr-get-sv-candidate-regions,
-pgr-make-frgdb, pgr-query).
+pgr-make-frgdb, pgr-query, pgr-mdb, pgr-fetch-seqs, the shimmer-count
+tools, pgr-compare-cov(2), the pbundle text tools,
+pgr-generate-chr-aln-plot and pgr-generate-diploid-vcf); the facade's
+index views and position mapping and the consensus module (`core/ec.py`).
 
 The port imports neither JAX nor anything of `pgrtk_tpu`, not even its
 JAX-free host modules: it keeps its own copies of the host layer it needs

@@ -1,16 +1,19 @@
-"""SeqIndexDB — the part of pgrtk_tpu/api.py that pgr-make-frgdb,
-pgr-query, pgr-fetch-seqs, pgr-pbundle-decomp and
-pgr-get-sv-candidate-regions use, over the port's sequence database
-(core/seqdb.py's CompactSeqDB and its columnar store), an FRG database
-it reads (core/frag_io.py's FragFileStorage) or an archive-backed index
-(core/pga.py's PgaSeqDB: a pgr-mdb index and its .pga archive).
+"""SeqIndexDB — the port's counterpart of pgrtk_tpu/api.py, over the
+port's sequence database (core/seqdb.py's CompactSeqDB and its columnar
+store), an FRG database it reads (core/frag_io.py's FragFileStorage) or
+an archive-backed index (core/pga.py's PgaSeqDB: a pgr-mdb index and its
+.pga archive): the loaders and writers, the index views, raw and chained
+queries, get_smps, the MAP graph's adjacency list and walk, the
+principal bundles and their decomposition and projection,
+map_positions_in_seq and the sparse-alignment consensus.
 
-The database sketches on the card (`device="cuda"`, K9) unless the
+The database sketches on the card (`device="cuda"`, K9 + K2) unless the
 caller asks for the CPU, the MAP graph sorts and links its rows with
-K12 on the same device, and queries run the --batch-device path
-(parallel/device_query.py) there.  The bundle order/direction vote, the
-vertex map, the projection, the FRG, GFA and index writers and the
-chains of a query give the JAX facade's results exactly.
+K12 on the same device, lookups are one batched probe there (K5 or K11)
+and queries run the --batch-device path (parallel/device_query.py).
+Every method gives the JAX facade's result exactly; get_shmmr_map and
+get_shmmr_pair_list list the keys in key order for every backend (the
+JAX FASTX/MEMORY map lists them in the order the builder met them).
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .core import frag_io, seqdb
+from .core import frag_io, query, seqdb
 from .core.fasta import read_fastx
 from .core.spec import ShmmrSpec
 from .graph import bundles as gb
@@ -194,7 +197,89 @@ class SeqIndexDB:
         """Bases [bgn, end) of sequence `sid` (pgrtk_tpu/api.py:352-353)."""
         return self.store.get_sub_seq_by_id(sid, bgn, end)
 
+    # ------------------------------------------------------ index views
+    def get_shmmr_spec(self):
+        """(w, k, r, min_span, sketch), None before a load
+        (pgrtk_tpu/api.py:264-266)."""
+        s = self.shmmr_spec
+        return None if s is None else (s.w, s.k, s.r, s.min_span, s.sketch)
+
+    def get_seq_index(self):
+        """{(ctg_name, source): (id, len)} (pgrtk_tpu/api.py:268-270)."""
+        return None if not self.seq_index else dict(self.seq_index)
+
+    def get_seq_info(self):
+        """{id: (ctg_name, source, len)} (pgrtk_tpu/api.py:272-274)."""
+        return None if not self.seq_info else dict(self.seq_info)
+
+    def get_shmmr_map(self):
+        """The index as {(h0, h1): [(frg_id, sid, bgn, end, orientation)]},
+        materialised from the columnar store in key order with each key's
+        postings in order (pgrtk_tpu/api.py:363-375)."""
+        st = self.store
+        rows = query.all_postings(st).tolist()
+        return {(k0, k1): rows[s: s + c] for (k0, k1), s, c in zip(
+            st.index_keys.tolist(), st.index_starts.tolist(),
+            st.index_counts.tolist())}
+
+    def get_shmmr_pair_count(self, shmmr_pair) -> int:
+        """Postings count of one shimmer pair, 0 when absent
+        (pgrtk_tpu/api.py:377-381)."""
+        return int(gb.key_counts(self.store, np.asarray(
+            [shmmr_pair], dtype=np.uint64).reshape(1, 2))[0])
+
+    def get_shmmr_pair_list(self):
+        """[(h0, h1, sid, bgn, end, orientation)], one per posting, in
+        get_shmmr_map's order (pgrtk_tpu/api.py:383-388)."""
+        st = self.store
+        sg = query.all_postings(st)
+        keys = np.repeat(np.asarray(st.index_keys, dtype=np.uint64),
+                         np.asarray(st.index_counts, dtype=np.int64), axis=0)
+        return list(zip(keys[:, 0].tolist(), keys[:, 1].tolist(),
+                        sg["seq_id"].tolist(), sg["bgn"].tolist(),
+                        sg["end"].tolist(), sg["orientation"].tolist()))
+
+    def get_shmmr_pair_source_count(self, shmmr_pair, max_unique_count):
+        """One shimmer pair's postings counted by source, [(source, count)]
+        in first-seen order, counts >= max_unique_count left out (a None
+        source counts as ""; pgrtk_tpu/api.py:782-799)."""
+        j = device_query.lookup_keys(
+            self.store, np.asarray([shmmr_pair[0]], dtype=np.uint64),
+            np.asarray([shmmr_pair[1]], dtype=np.uint64), self.device)
+        if j[0] < 0:
+            return []
+        count: Dict[str, int] = {}
+        for sid in query.postings(self.store, j)[0]["seq_id"].tolist():
+            info = self.seq_info.get(sid)
+            source = info[1] if info and info[1] is not None else ""
+            count[source] = count.get(source, 0) + 1
+        return [(k, v) for k, v in count.items()
+                if max_unique_count is None or v < max_unique_count]
+
     # ---------------------------------------------------------- queries
+    def query_fragment(self, seq: bytes):
+        """Raw anchors of one query (pgrtk_tpu/api.py:279-281): [((h0, h1),
+        (pos0, pos1, orientation), [signatures])], the lookup one batched
+        probe on the database's device."""
+        return query.raw_query_fragment(self.store, seq, device=self.device)
+
+    def get_match_positions_with_fragment(self, seq: bytes):
+        """(pgrtk_tpu/api.py:283-286)"""
+        return query.get_match_positions_with_fragment(self.store, seq,
+                                                       device=self.device)
+
+    def get_smps(self, seq: bytes):
+        """Canonical shimmer pairs [(h0, h1, p0, p1, ori)] of a sequence,
+        query tie rule (pgrtk_tpu/api.py:441-448; reference ext.rs:
+        533-549), sketched on the database's device (K9 + K2)."""
+        return self.get_smps_batch([seq])[0]
+
+    def get_smps_batch(self, seqs: Sequence[bytes]):
+        """get_smps of many sequences from one batched sketch."""
+        seqs = [bytes(s) for s in seqs]
+        return query.smps_lists(device_query.pair_columns(
+            self.shmmr_spec, seqs, self.device, self.stats), len(seqs))
+
     def query_fragment_to_hps(self, seq: bytes, penalty: float,
                               max_count: Optional[int] = None,
                               max_count_query: Optional[int] = None,
@@ -229,21 +314,24 @@ class SeqIndexDB:
             device=self.device, stats=self.stats)
 
     # ------------------------------------- MAP graph / principal bundles
-    def _principal_cached(self, min_count, path_len_cutoff):
+    def _principal_cached(self, min_count, path_len_cutoff, keeps=None):
         """The decomposition, cached per parameter set
         (pgrtk_tpu/api.py:406-425): the BED and the principal GFA share
         one run."""
-        key = (min_count, path_len_cutoff)
+        key = (min_count, path_len_cutoff,
+               tuple(sorted(keeps)) if keeps is not None else None)
         if self._pb_cache is not None and self._pb_cache[0] == key:
             return self._pb_cache[1]
         res = gb.principal_bundles_from_store(
-            self.store, min_count, None, path_len_cutoff,
+            self.store, min_count, keeps, path_len_cutoff,
             device=self.device, stats=self.stats)
         self._pb_cache = (key, res)
         return res
 
-    def get_principal_bundles(self, min_count: int, path_len_cutoff: int):
-        pb, _ = self._principal_cached(min_count, path_len_cutoff)
+    def get_principal_bundles(self, min_count: int, path_len_cutoff: int,
+                              keeps=None):
+        """(pgrtk_tpu/api.py:427-431)"""
+        pb, _ = self._principal_cached(min_count, path_len_cutoff, keeps)
         return pb
 
     @staticmethod
@@ -290,21 +378,44 @@ class SeqIndexDB:
         return per_sid
 
     def get_principal_bundles_with_id(self, min_count: int,
-                                      path_len_cutoff: int):
+                                      path_len_cutoff: int, keeps=None):
         """Reordered bundles + vertex map (pgrtk_tpu/api.py:533-549).
         Returns ([(bid, mean_order, [(h0, h1, dir)])], vertex_map)."""
-        pb = self.get_principal_bundles(min_count, path_len_cutoff)
+        pb = self.get_principal_bundles(min_count, path_len_cutoff, keeps)
+        pbid, _, vertex_map = self._principal_bundle_projection(
+            pb, self._own_smps())
+        return pbid, vertex_map
+
+    def _own_smps(self):
+        """[(sid, smps)] of the database's own sequences, from the index."""
         smps_map = self._sid_smps_from_index()
-        seqid_smps = [(sid, smps_map.get(sid, []))
-                      for sid in sorted(self.seq_info)]
-        return self._principal_bundle_projection(pb, seqid_smps)
+        return [(sid, smps_map.get(sid, [])) for sid in sorted(self.seq_info)]
+
+    def get_principal_bundle_decomposition(self, min_count: int,
+                                           path_len_cutoff: int, keeps=None):
+        """(pgrtk_tpu/api.py:606-616): (reordered bundles, [(sid, [(smp,
+        vertex map entry or None)])]) over the database's own sequences."""
+        pb = self.get_principal_bundles(min_count, path_len_cutoff, keeps)
+        return self._principal_bundle_projection(pb, self._own_smps())[:2]
+
+    def get_principal_bundle_projection(self, min_count: int,
+                                        path_len_cutoff: int, sequence,
+                                        keeps=None):
+        """(pgrtk_tpu/api.py:618-622): the bundles projected onto the
+        sequences `sequence` [(sid, bases)], their pairs from one batched
+        sketch on the database's device (K9 + K2)."""
+        pb = self.get_principal_bundles(min_count, path_len_cutoff, keeps)
+        sequence = list(sequence)
+        smps = self.get_smps_batch([seq for _sid, seq in sequence])
+        return self._principal_bundle_projection(
+            pb, [(sid, s) for (sid, _), s in zip(sequence, smps)])[:2]
 
     def _principal_bundle_projection(self, pb, seqid_smps):
         """(pgrtk_tpu/api.py:551-604; reference pgr-tk/src/lib.rs:
-        1147-1285), for the database's own sequences `seqid_smps` [(sid,
-        smps)]: the bundles reordered and oriented by the consensus vote,
-        and the vertex map.  (The JAX function's per-sequence projection,
-        which get_principal_bundles_with_id drops, is left out.)"""
+        1147-1285) of the sequences' pairs `seqid_smps` [(sid, smps)]:
+        the bundles reordered and oriented by the consensus vote, each
+        sequence's pairs with their vertex map entries, and the vertex
+        map."""
         t0 = time.perf_counter()
         vertex_map = self._get_vertex_map_from_principal_bundles(pb)
         bundle_dirs: Dict[int, List[int]] = {}
@@ -332,8 +443,22 @@ class SeqIndexDB:
             else:
                 bundle = list(pb[bid])
             principal_bundles.append((bid, ord_, bundle))
+        sid_smps = [(sid, [(tuple(v), vertex_map.get((v[0], v[1])))
+                           for v in smps]) for sid, smps in seqid_smps]
         self._time("projection", t0)
-        return principal_bundles, vertex_map
+        return principal_bundles, sid_smps, vertex_map
+
+    def get_smp_adj_list(self, min_count: int, keeps=None):
+        """The MAP graph's adjacency list [(sid, v, w)] (pgrtk_tpu/api.py:
+        394-397): the store's rows sorted and linked by K12."""
+        return gb.edges_to_list(gb.adj_edges(
+            self.store, min_count, keeps, device=self.device,
+            stats=self.stats))
+
+    def sort_adj_list_by_weighted_dfs(self, adj_list, start):
+        """(pgrtk_tpu/api.py:399-404)"""
+        return gb.sort_adj_list_by_weighted_dfs(self.store, adj_list,
+                                                tuple(start))
 
     def generate_mapg_gfa(self, min_count: int, filepath: str):
         """(pgrtk_tpu/api.py:624-645, the "from_fragmap" method)"""
@@ -366,6 +491,113 @@ class SeqIndexDB:
         gfa_mod.write_mapg_gfa(self.store, filtered, self.shmmr_spec.k,
                                filepath, vertex_to_bundle=vertex_map)
         self._time("write pmapg.gfa", t0)
+
+    # ------------------------------------------------- position mapping
+    def map_positions_in_seq(self, positions, seq: bytes, penalty: float,
+                             max_count=None, max_count_query=None,
+                             max_count_target=None, max_aln_span=None,
+                             max_gap=None, orientated: bool = False):
+        """Map query positions onto the indexed sequences
+        (pgrtk_tpu/api.py:682-769; reference pgr-tk/src/lib.rs:471-620):
+        the query's chains from the --batch-device path (K9, K5 or K11,
+        K8 with K10 on `dup` rows); for each chain and position, the last
+        anchor (in sorted order) starting before it and the first ending
+        after it, picked by searchsorted; the query and target bases
+        between them aligned by the host C++ match_reads (one batched call
+        on a thread a core), once for all the positions between the same
+        two anchors.  Returns
+        [(pos, (sid, tpos, orientation), (qb, qe), (tb, te))]."""
+        from .core.fasta import reverse_complement
+        from .native import build as native
+
+        k = self.shmmr_spec.k
+        all_alns = self.query_fragment_to_hps(
+            seq, penalty, max_count, max_count_query, max_count_target,
+            max_aln_span, max_gap, orientated)
+        pos_arr = np.asarray(list(positions), dtype=np.int64)
+        pos_list = pos_arr.tolist()
+        pos2hits: Dict[int, list] = {}
+        for t_id, alns in all_alns:
+            for score, hits in alns:
+                hits = sorted(hits)
+                if not hits or not len(pos_arr):
+                    continue
+                qb = np.asarray([v[0] for v, _ in hits], dtype=np.int64)
+                qe_max = np.maximum.accumulate(np.asarray(
+                    [v[1] for v, _ in hits], dtype=np.int64))
+                left = np.searchsorted(qb, pos_arr, "left") - 1
+                right = np.searchsorted(qe_max, pos_arr, "right")
+                ok = (left >= 0) & (right < len(hits))
+                for i in np.flatnonzero(ok).tolist():
+                    pos2hits.setdefault(pos_list[i], []).append(
+                        (t_id, score, hits[left[i]], hits[right[i]]))
+
+        jobs, aligns, seen = [], [], {}
+        for pos, hits in pos2hits.items():
+            for seq_id, _score, left, right in hits:
+                ctg, src, t_len = self.seq_info[seq_id]
+                same_orientation = left[0][2] == left[1][2]
+                qb = left[0][0]
+                qe = right[0][1]
+                if same_orientation:
+                    tb = left[1][0]
+                    te = right[1][1]
+                else:
+                    tb = right[1][0] - k
+                    te = left[1][1] - k
+                if tb >= te:
+                    continue
+                # positions between the same two anchors share one
+                # alignment
+                key = (seq_id, same_orientation, qb, qe, tb, te)
+                u = seen.get(key)
+                if u is None:
+                    t_seq = self.get_sub_seq(src, ctg, tb, te)
+                    if not same_orientation:
+                        t_seq = reverse_complement(t_seq)
+                    u = seen[key] = len(aligns)
+                    aligns.append((bytes(seq[qb:qe]), t_seq))
+                jobs.append((pos, seq_id, t_len, same_orientation, qb, qe,
+                             tb, te, u))
+
+        ovlps = native.match_reads_batch(aligns, True, 0.10, 1, 1, 1000)
+        out = []
+        for pos, seq_id, t_len, same_orientation, qb, qe, tb, te, u in jobs:
+            ovlp = ovlps[u]
+            if ovlp is None:
+                continue
+            dpos = pos - qb
+            delta = list(ovlp["deltas"]) + [(0, 0, 0)]
+            dref = None
+            for dx, dy, _dk in delta:
+                if dx <= dpos:
+                    dref = (dx, dy)
+                    break
+            orientation = 0 if same_orientation else 1
+            dpos = dpos + dref[1] - dref[0]
+            if same_orientation:
+                tpos = tb + dpos
+                tb2, te2 = tb, te
+            else:
+                tb2, te2 = t_len - te, t_len - tb
+                tpos = t_len - (te - dpos)
+            out.append((pos, (seq_id, tpos, orientation), (qb, qe),
+                        (tb2, te2)))
+        return out
+
+    def shmmr_sparse_aln_consensus(self, sids, min_cov: int):
+        """Consensus of the database's own sequences `sids`
+        (pgrtk_tpu/api.py:771-780; reference pgr-tk/src/lib.rs:1387-1403):
+        core/ec.py on the in-memory database, its queries on the
+        database's device."""
+        from .core import ec
+
+        if self.seq_db is None:
+            raise ValueError(
+                "shmmr_sparse_aln_consensus needs an in-memory database")
+        return ec.shmmr_sparse_aln_consensus_with_sdb(
+            list(sids), self.store, min_cov, device=self.device,
+            stats=self.stats)
 
 
 def get_principal_bundle_decomposition(vertex_to_bundle_id_direction_pos,

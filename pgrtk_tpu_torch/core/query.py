@@ -4,7 +4,11 @@ query batch — the port's counterparts of pgrtk_tpu/core/query.py:20-39
 of the reference's raw query and aln.rs:147-199.  They are vectorised
 with NumPy, as pgrtk_tpu/core/query.py::query_fragment_to_hps_columnar
 is, and give exactly what the JAX package's tuple loops give one query
-at a time (tests/test_torch_device_query.py holds them to it).
+at a time (tests/test_torch_device_query.py holds them to it).  Also the
+tuple forms of pgrtk_tpu/core/query.py:42-98 (raw_query_fragment,
+get_match_positions_with_fragment), whose lookups are one batched probe
+of a columnar store on the card (parallel/device_query.py::lookup_keys);
+a sequence's pairs as tuples are smps_lists of the batch columns.
 """
 from __future__ import annotations
 
@@ -121,3 +125,58 @@ def collect_target_hits_batch(
             keys.append((int(qid[a]), int(sid[a])))
             groups.append(anchors[a:b])
     return keys, groups
+
+
+def smps_lists(pairs, n_seqs: int) -> List[List[Tuple[int, ...]]]:
+    """pair_shmmrs_canonical_batch's columns (or None) split into each of
+    `n_seqs` sequences' [(h0, h1, p0, p1, ori)], in position order."""
+    out: List[list] = [[] for _ in range(n_seqs)]
+    if pairs is None:
+        return out
+    rows = list(zip(pairs["k0"].tolist(), pairs["k1"].tolist(),
+                    pairs["p0"].tolist(), pairs["p1"].tolist(),
+                    pairs["ori"].tolist()))
+    qid = pairs["qid"]
+    cut = np.flatnonzero(np.diff(qid)) + 1
+    for a, b in zip(np.concatenate([[0], cut]).tolist(),
+                    np.append(cut, len(qid)).tolist()):
+        out[int(qid[a])] = rows[a:b]
+    return out
+
+
+def raw_query_fragment(store, query_seq: bytes, *, device="cuda"):
+    """The raw anchors of one query (pgrtk_tpu/core/query.py:42-82;
+    reference seq_db.rs:1200-1228): every canonical pair of its sketch as
+    ((hash0, hash1), (pos0, pos1, orientation), [signatures]), looked up
+    in the columnar `store` by one batched probe on `device`
+    (parallel/device_query.py::batch_raw_query)."""
+    from ..parallel import device_query
+
+    return device_query.batch_raw_query(store, [query_seq], device=device)[0]
+
+
+def get_match_positions_with_fragment(store, query_seq: bytes, *,
+                                      device="cuda"
+                                      ) -> Dict[int, List[Tuple[int, ...]]]:
+    """{sid: sorted [(bgn, end, direction)]} of every posting of every
+    query pair, direction 0 where the target's orientation is the
+    query's (pgrtk_tpu/core/query.py:85-98; reference seq_db.rs:
+    1271-1289)."""
+    res: Dict[int, list] = {}
+    for _pair, (_p0, _p1, q_dir), sigs in raw_query_fragment(
+            store, query_seq, device=device):
+        for _fid, sid, p0, p1, direction in sigs:
+            res.setdefault(sid, []).append(
+                (p0, p1, 0 if direction == q_dir else 1))
+    for v in res.values():
+        v.sort()
+    return res
+
+
+def all_postings(store) -> np.ndarray:
+    """Every posting of a columnar store as one SIG_DTYPE array in index
+    order (a lazy .mdb store's blocks read and joined)."""
+    sigs = store.index_sigs
+    if isinstance(sigs, np.ndarray):
+        return sigs
+    return postings(store, np.arange(len(store.index_keys)))[0]

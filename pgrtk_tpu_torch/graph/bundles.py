@@ -5,6 +5,9 @@ counterpart of the array path of pgrtk_tpu/graph/bundles.py.
     K12 sorts the rows and links consecutive fragments (ops/adj.py)
   - weighted bidirected DFS (graph_utils.rs:63-290) and principal-bundle
     peeling (seq_db.rs:1063-1186): the host C++ of native/
+  - one sequence's adjacency (seq_db.rs:946-1000), the tuple adjacency
+    list, its digraph and walk (pgrtk_tpu/graph/bundles.py:104-203,
+    :370-374), which the facade and core/ec.py use
 
 The index is the port's columnar store (core/seqdb.py), whose postings
 equal the JAX builder's frag_map; a key's `pair_score` is its postings
@@ -283,3 +286,102 @@ def principal_bundles_from_store(store, min_count: int, keeps,
     principal, emask = principal_bundles_core(it, scores, start,
                                               path_len_cutoff, stats)
     return principal, edges.take(np.flatnonzero(emask))
+
+
+# ------------------------------------- adjacency lists as tuples and walks
+
+AdjPair = Tuple[int, Node, Node]  # (sid, v, w)
+
+
+def edges_to_list(edges: Edges) -> List[AdjPair]:
+    """An `Edges` as the JAX package's adjacency list [(sid, v, w)]."""
+    src, dst = edges.src.tolist(), edges.dst.tolist()
+    return [(sid, tuple(v), tuple(w))
+            for sid, v, w in zip(edges.sids.tolist(), src, dst)]
+
+
+def generate_smp_adj_list_for_seq(seq: bytes, sid: int, store, spec,
+                                  min_count: int, *, device="cuda"
+                                  ) -> List[AdjPair]:
+    """The MAP-graph edges one sequence walks (pgrtk_tpu/graph/bundles.py:
+    104-137; reference seq_db.rs:946-1000): its canonical pairs (query
+    tie rule) from the batched sketch on `device` (K9 + K2), each key's
+    postings count in `store` from one batched probe there (K5 or K11);
+    consecutive pairs that share a mer and whose keys are both in the
+    index with at least `min_count` postings give the forward edge and
+    its reverse-complement edge."""
+    from ..parallel import device_query
+
+    pairs = device_query.pair_columns(spec, [bytes(seq)], device)
+    if pairs is None:
+        return []
+    j = device_query.lookup_keys(store, pairs["k0"], pairs["k1"], device)
+    c = np.where(j >= 0, np.asarray(store.index_counts)[np.maximum(j, 0)], 0)
+    ok = c >= max(min_count, 1)
+    link = np.flatnonzero(ok[:-1] & ok[1:]
+                          & (pairs["p1"][:-1] == pairs["p0"][1:]))
+    k0, k1, o = (pairs[n].tolist() for n in ("k0", "k1", "ori"))
+    out: List[AdjPair] = []
+    for i in link.tolist():
+        v, w = (k0[i], k1[i], o[i]), (k0[i + 1], k1[i + 1], o[i + 1])
+        out.append((sid, v, w))
+        out.append((sid, (w[0], w[1], 1 - w[2]), (v[0], v[1], 1 - v[2])))
+    return out
+
+
+class Digraph:
+    """A digraph whose successors iterate in insertion order, as
+    petgraph's DiGraphMap's do (pgrtk_tpu/graph/bundles.py:140-170); the
+    guided consensus walks it."""
+
+    __slots__ = ("succ",)
+
+    def __init__(self):
+        self.succ: dict = {}
+
+    def add_edge(self, v: Node, w: Node):
+        self.succ.setdefault(v, {})[w] = None
+        self.succ.setdefault(w, {})
+
+    def out_neighbors(self, v: Node):
+        return self.succ.get(v, {}).keys()
+
+
+def build_digraph(adj_list) -> Digraph:
+    """(pgrtk_tpu/graph/bundles.py:370-374) of an adjacency list, tuples
+    or an `Edges`."""
+    if isinstance(adj_list, Edges):
+        adj_list = edges_to_list(adj_list)
+    g = Digraph()
+    for _sid, v, w in adj_list:
+        g.add_edge(v, w)
+    return g
+
+
+def _walk_tuples(rows: np.ndarray, node_of) -> list:
+    """The C++ walk's (n, 7) rows as (node, parent, coverage, is_leaf,
+    rank, branch_id, branch_rank) tuples, `node_of(id)` naming a node."""
+    return [(node_of(r[0]), node_of(r[1]) if r[1] >= 0 else None, r[2],
+             bool(r[3]), r[4], r[5], r[6]) for r in rows.tolist()]
+
+
+def sort_adj_list_by_weighted_dfs(store, adj_list, start: Node):
+    """The weighted bidirected DFS of an adjacency list (tuples or an
+    `Edges`) from `start`, each node scored by its key's postings count
+    in `store` (pgrtk_tpu/graph/bundles.py:173-203; reference seq_db.rs:
+    1013-1061, graph_utils.rs:63-290): the edges interned to ids and the
+    host C++ walk, as the JAX package walks large graphs.  Returns
+    [(node, parent, coverage, is_leaf, rank, branch_id, branch_rank)]."""
+    if isinstance(adj_list, Edges):
+        src, dst = adj_list.src, adj_list.dst
+    else:
+        flat = np.asarray([(*v, *w) for _s, v, w in adj_list],
+                          dtype=np.uint64).reshape(-1, 6)
+        src, dst = flat[:, 0:3], flat[:, 3:6]
+    it = intern_pairs(np.concatenate([src[:, 0:2], dst[:, 0:2]]),
+                      src[:, 2], dst[:, 2])
+    rows = walk_rows_from_edges(it, key_counts(store, it.uniq),
+                                tuple(start))
+    ul = it.uniq.tolist()
+    return _walk_tuples(rows, lambda i: (ul[i >> 1][0], ul[i >> 1][1],
+                                         i & 1))

@@ -2,7 +2,8 @@
 walk (dfs_walk.cc) and the principal-bundle peel (bundle_peel.cc) of the
 MAP-graph layer, the gap-affine WFA arbiter (wfa.cc), the scalar sparse
 chain DP (chain.cc) and the batched chain traceback (chain_tb.cc), the
-O(nD) diff alignment of the FRG writer (match.cc), the .mdb offsets
+O(nD) diff alignment of the FRG writer and of map_positions_in_seq
+(match.cc, with a batched entry of its own), the .mdb offsets
 scan (mdb.cc) and the .frg reconstruction of the FRG reader (frg.cc,
 linked with zlib), copies of pgrtk_tpu/native/src's files; and, in a
 library of its own, the PGA archive (pga.cc), which links the runtime
@@ -44,7 +45,8 @@ ARCHIVE_SOURCES = ("pga.cc",)
 ARCHIVE_LIBS = ("-l:libzstd.so.1",)
 HEADERS = ("pgrtk.h",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pgrtk_tpu_torch"
-CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off")
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off",
+             "-pthread")
 
 _lock = threading.Lock()
 
@@ -142,6 +144,13 @@ def library() -> ctypes.CDLL:
                 ctypes.c_int64, ctypes.c_int, ctypes.c_double,
                 ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
                 ctypes.POINTER(_Ovlp)]
+            lib.pgr_match_reads_batch.restype = None
+            lib.pgr_match_reads_batch.argtypes = [
+                ctypes.c_int64, ctypes.POINTER(ctypes.c_char_p),
+                nd(np.int64), ctypes.POINTER(ctypes.c_char_p),
+                nd(np.int64), ctypes.c_int, ctypes.c_double,
+                ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+                ctypes.c_int32, ctypes.POINTER(_Ovlp)]
             lib.pgr_mdb_scan.restype = ctypes.c_int
             lib.pgr_mdb_scan.argtypes = [
                 ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint32),
@@ -343,6 +352,31 @@ def match_reads(seq0: bytes, seq1: bytes, get_delta: bool = True,
     lib.pgr_match_reads(seq0, len(seq0), seq1, len(seq1), int(get_delta),
                         tol, min_match_len, min_match_start, bandwidth,
                         ctypes.byref(ovlp))
+    return _ovlp_result(lib, ovlp, get_delta)
+
+
+def match_reads_batch(pairs, get_delta: bool = True, tol: float = 0.1,
+                      min_match_len: int = 0, min_match_start: int = 0,
+                      bandwidth: int = 32):
+    """match_reads of every (seq0, seq1) bytes pair of `pairs`, in order,
+    from one C++ call on a thread a core."""
+    n = len(pairs)
+    if not n:
+        return []
+    lib = library()
+    seq0 = (ctypes.c_char_p * n)(*(p[0] for p in pairs))
+    seq1 = (ctypes.c_char_p * n)(*(p[1] for p in pairs))
+    len0 = np.fromiter((len(p[0]) for p in pairs), np.int64, n)
+    len1 = np.fromiter((len(p[1]) for p in pairs), np.int64, n)
+    out = (_Ovlp * n)()
+    lib.pgr_match_reads_batch(n, seq0, len0, seq1, len1, int(get_delta),
+                              tol, min_match_len, min_match_start,
+                              bandwidth, os.cpu_count() or 1, out)
+    return [_ovlp_result(lib, o, get_delta) for o in out]
+
+
+def _ovlp_result(lib, ovlp, get_delta):
+    """A pgr_ovlp as match_reads returns it (its deltas freed)."""
     if not ovlp.matched:
         return None
     deltas = None

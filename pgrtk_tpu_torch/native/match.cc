@@ -3,11 +3,15 @@
 // delta-compression and position pin-down.
 //
 // The port's copy of pgrtk_tpu/native/src/match.cc: the FRG writer
-// (core/frag_io.py) delta-compresses repeat fragments with it.
+// (core/frag_io.py) delta-compresses repeat fragments with it, and
+// map_positions_in_seq aligns many pairs at once through
+// pgr_match_reads_batch, the port's own entry.
 #include "pgrtk.h"
 
+#include <atomic>
 #include <cstdlib>
 #include <cstring>
+#include <thread>
 #include <vector>
 
 namespace {
@@ -175,4 +179,21 @@ extern "C" void pgr_match_reads(const uint8_t *seq0, int64_t len0,
   out->end1 = r_end1;
   out->m_end0 = r_mend0;
   out->m_end1 = r_mend1;
+}
+
+extern "C" void pgr_match_reads_batch(
+    int64_t n, const uint8_t *const *seq0, const int64_t *len0,
+    const uint8_t *const *seq1, const int64_t *len1, int get_delta,
+    double tol, uint32_t min_match_len, uint32_t min_match_start,
+    uint32_t bandwidth, int32_t n_threads, pgr_ovlp *out) {
+  std::atomic<int64_t> next{0};
+  auto work = [&]() {
+    for (int64_t i = next.fetch_add(1); i < n; i = next.fetch_add(1))
+      pgr_match_reads(seq0[i], len0[i], seq1[i], len1[i], get_delta, tol,
+                      min_match_len, min_match_start, bandwidth, &out[i]);
+  };
+  std::vector<std::thread> pool;
+  for (int32_t t = 1; t < n_threads; ++t) pool.emplace_back(work);
+  work();
+  for (auto &th : pool) th.join();
 }

@@ -40,6 +40,15 @@ void pgr_match_reads(const uint8_t *seq0, int64_t len0, const uint8_t *seq1,
                      uint32_t min_match_len, uint32_t min_match_start,
                      uint32_t bandwidth, pgr_ovlp *out);
 
+/* pgr_match_reads of n pairs (seq0[i], seq1[i]) into out[i], on
+ * n_threads threads that each take the next pair. */
+void pgr_match_reads_batch(int64_t n, const uint8_t *const *seq0,
+                           const int64_t *len0, const uint8_t *const *seq1,
+                           const int64_t *len1, int get_delta, double tol,
+                           uint32_t min_match_len, uint32_t min_match_start,
+                           uint32_t bandwidth, int32_t n_threads,
+                           pgr_ovlp *out);
+
 /* ---- sparse anchor chain DP ----
  * hits: n x 6 uint32 (q_bgn, q_end, q_ori, t_bgn, t_end, t_ori), n >= 1.
  * Output blob layout (malloc'd into *out, length written to *out_len,

@@ -63,12 +63,17 @@ def _device_tables(store, device):
     return cache[dev]
 
 
-def _sketch(store, query_seqs, device, stats):
-    spec = store.spec
+def pair_columns(spec, seqs: Sequence[bytes], device, stats=None):
+    """The canonical shimmer pairs of every sequence of `seqs` as flat
+    columns (core/query.py::pair_shmmrs_canonical_batch: qid, k0, k1, p0,
+    p1, ori), from one batched sketch on `device` (mode 1: K9 + K2, mode
+    2: K1 + K2); None when no sequence has a pair."""
     if spec.sketch:
-        return sketch_ops.sketch_mode2(query_seqs, spec=spec, device=device)
-    return sketch1_ops.sketch_mode1_arrays(query_seqs, spec=spec,
-                                           device=device, stats=stats)
+        mers = sketch_ops.sketch_mode2(seqs, spec=spec, device=device)
+    else:
+        mers = sketch1_ops.sketch_mode1_arrays(seqs, spec=spec,
+                                               device=device, stats=stats)
+    return pair_shmmrs_canonical_batch(mers)
 
 
 def probe_key_index(table, k0: torch.Tensor, k1: torch.Tensor, stats=None):
@@ -91,21 +96,34 @@ def _raw_arrays(store, query_seqs, device, stats):
     """Sketch, pair and probe on the card: the pair columns and `j`, the
     key index of every pair (-1 when not found)."""
     t = time.perf_counter()
-    pairs = pair_shmmrs_canonical_batch(
-        _sketch(store, query_seqs, device, stats))
+    pairs = pair_columns(store.spec, query_seqs, device, stats)
     t = tick(stats, "device sketch", t)
     if pairs is None:
         return None
-    table = _device_tables(store, device)
-    dev = table["k0"].device
-    k0 = torch.from_numpy(pairs["k0"].view(np.int64)).to(dev)
-    k1 = torch.from_numpy(pairs["k1"].view(np.int64)).to(dev)
-    j = probe_key_index(table, k0, k1, stats).long().cpu().numpy()
+    pairs["j"] = lookup_keys(store, pairs["k0"], pairs["k1"], device, stats)
     tick(stats, "probe", t)
-    pairs["j"] = j
+    return pairs
+
+
+def lookup_keys(store, k0: np.ndarray, k1: np.ndarray, device,
+                stats=None) -> np.ndarray:
+    """The key index in `store` (key-sorted, -1 when absent) of every
+    (k0[i], k1[i]) uint64 key, from one batched probe of the store's
+    probe table on `device` (K5 found-only or K11, probe_key_index)."""
+    if not len(k0) or not len(store.index_keys):
+        j = np.full(len(k0), -1, dtype=np.int64)
+    else:
+        table = _device_tables(store, device)
+        dev = table["k0"].device
+        j = probe_key_index(
+            table,
+            torch.from_numpy(np.ascontiguousarray(k0, np.uint64).view(
+                np.int64)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(k1, np.uint64).view(
+                np.int64)).to(dev), stats).long().cpu().numpy()
     count(stats, "pairs", len(j))
     count(stats, "keys_found", int((j >= 0).sum()))
-    return pairs
+    return j
 
 
 def batch_raw_query(store, query_seqs: Sequence[bytes], *, device="cuda"):

@@ -657,6 +657,8 @@ MODE1_SPECS = ((80, 56), (24, 15))
 MODE1_EDGE_SPECS = ((2, 11), (3, 15), (64, 40), (65, 56), (127, 56),
                     (128, 30))
 MODE1_TILE = 2_048  # positions a K9 block emits (csrc/sketch1.cu kTileP)
+# the consensus module's specs (core/ec.py: w = k, r 1, min_span 0)
+MODE1_CONSENSUS_SPECS = ((31, 31), (33, 33))
 
 
 def mode1_rows(seed=12):
@@ -805,11 +807,11 @@ def k11_args(tab, q, dev):
 
 
 def batch_device_cases(dev):
-    """K9-K11 on their edge cases: the mode-1 rows at both specs and at
-    the window edges, the tile-edge rows; the chain groups of
-    CHAIN_SETTINGS, a span-2 window of 6, K8's edge groups and the mask
-    edge groups through the dense DP; the padded probe on
-    padded_probe_tables."""
+    """K9-K11 on their edge cases: the mode-1 rows at both specs, at the
+    window edges and at the consensus specs, the tile-edge rows; the
+    chain groups of CHAIN_SETTINGS, a span-2 window of 6, K8's edge
+    groups and the mask edge groups through the dense DP; the padded
+    probe on padded_probe_tables."""
     from ..ops import chain as tc
     from ..ops import probe as tpr
     from ..ops import sketch1 as ts1
@@ -818,12 +820,13 @@ def batch_device_cases(dev):
     cases = []
     arr, lens = mode1_rows()
     seqs, ln = t(arr), t(lens)
-    for w, k in MODE1_SPECS + MODE1_EDGE_SPECS:
+    specs = MODE1_SPECS + MODE1_EDGE_SPECS + MODE1_CONSENSUS_SPECS
+    for w, k in specs:
         cases.append((f"K9 sketch_mode1 w={w} k={k}",
                       lambda w=w, k=k: ts1.sketch_mode1_dense(seqs, ln, k, w),
                       lambda w=w, k=k: ts1.sketch_mode1_dense_plain(
                           seqs, ln, k, w)))
-    for w, k in MODE1_SPECS + MODE1_EDGE_SPECS:
+    for w, k in specs:
         a, n = mode1_tile_rows(w, k)
         args = (t(a), t(n), k, w)
         cases.append((f"K9 sketch_mode1 tile edges w={w} k={k}",
@@ -1815,4 +1818,23 @@ def dense_cases(dev):
     x, y, v = (t(a)[:, :DENSE_TILE] for a in dense_stream(85, 3,
                                                           DENSE_TILE + 48))
     out.append(("column slices", x, y, v))
+    return out
+
+
+def hifi_reads(seqs, start: int, L: int, seed: int, sub_rate=0.005):
+    """HiFi-like reads for the consensus algorithms: L bases cut at
+    `start` from each sequence of `seqs` (bytes of ACGT; any other byte
+    reads as A), with substitutions at `sub_rate` drawn from
+    np.random.default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    code = np.full(256, 0, dtype=np.uint8)
+    code[acgt] = np.arange(4, dtype=np.uint8)
+    out = []
+    for s in seqs:
+        r = code[np.frombuffer(bytes(s[start:start + L]), np.uint8)]
+        pos = rng.choice(len(r), size=rng.binomial(len(r), sub_rate),
+                         replace=False)
+        r[pos] = (r[pos] + rng.integers(1, 4, len(pos))) % 4
+        out.append(acgt[r].tobytes())
     return out

@@ -181,6 +181,34 @@ def test_batch_device_kernels_match_plain_on_edge_cases(dev, family):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("wk", [31, 33])
+def test_consensus_on_card_matches_cpu(dev, wk):
+    """The mode-1 sketch (K9 + K2) at a consensus spec (w = k, r 1,
+    min_span 0) and the four consensus algorithms of core/ec.py on
+    seeded HiFi-like reads (K9, K2, K12, K5 or K11, K8, K10 on the card):
+    the CPU run's mers, sequences and coverage."""
+    from pgrtk_tpu_torch.core import ec
+    from pgrtk_tpu_torch.core.spec import ShmmrSpec
+    from pgrtk_tpu_torch.ops import sketch1
+
+    haps = cases.pbundle_haplotypes(10, 30_000, 7)
+    reads = cases.hifi_reads([s for _n, s in haps], 9_000, 5_000, 14)
+    spec = ShmmrSpec(w=wk, k=wk, r=1, min_span=0, sketch=False)
+    kb.reset_launches()
+    gpu = sketch1.sketch_mode1_arrays(reads, spec=spec, device=dev)
+    assert kb.sketch_mode1.launches > 0
+    for (gx, gy), (cx, cy) in zip(gpu, sketch1.sketch_mode1_arrays(
+            reads, spec=spec, device="cpu")):
+        assert np.array_equal(gx, cx) and np.array_equal(gy, cy)
+    for name, args in (("shmmr_dbg_consensus", (reads, spec)),
+                       ("guided_shmmr_dbg_consensus", (reads, spec, 2)),
+                       ("shmmr_sparse_aln_consensus", (reads, spec, 2))):
+        kb.reset_launches()
+        got = getattr(ec, name)(*args, device=dev)
+        assert kb.sketch_mode1.launches > 0, name
+        assert got == getattr(ec, name)(*args, device="cpu"), name
+
+
 def test_dense_chain_takes_misaligned_anchors(dev):
     """K10 stages anchors 16 bytes a load: an anchor tensor 8 bytes off
     that alignment is copied, and the scores equal the plain version's."""

@@ -5,7 +5,9 @@ Python versions (ops/chain.py::traceback, core/aln_ref.py::sparse_aln),
 on oriented and unoriented groups, with and without max_gap, with ties
 and with coordinates above 2^24.  Scores are compared as f32 bit
 patterns, tracks exactly.  Where an exact duplicate anchor recurs after
-other anchors, the JAX native walks cycle forever; the copies raise."""
+other anchors, the JAX native walks cycle forever; the copies raise.
+Also match.cc's batched entry against single calls and the JAX
+native match_reads."""
 
 import numpy as np
 import pytest
@@ -152,3 +154,31 @@ def test_chain_groups_traces_with_the_copies(monkeypatch):
         hits = [((int(r[0]), int(r[1]), int(r[2])),
                  (int(r[3]), int(r[4]), int(r[5]))) for r in a[v]]
         _same(g, _tracks(aln_ref.sparse_aln(hits, 8, 0.025)))
+
+
+@pytest.mark.parametrize("knobs", [
+    (True, 0.1, 0, 0, 32),
+    (True, 0.10, 1, 1, 1000),  # map_positions_in_seq's
+    (False, 0.05, 10, 3, 40),
+])
+def test_match_reads_batch(knobs):
+    """match_reads_batch (match.cc's batched entry, a thread a core)
+    against match_reads and the JAX native match_reads on seeded pairs:
+    near-identical, with indels, unrelated, empty."""
+    rng = np.random.default_rng(17)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for i in range(600):
+        a = acgt[rng.integers(0, 4, int(rng.integers(1, 2_500)))]
+        b = a.copy()
+        b[rng.integers(0, len(b), 3)] = acgt[rng.integers(0, 4, 3)]
+        if i % 5 == 1:
+            b = np.delete(b, rng.integers(0, len(b), 4))
+        if i % 7 == 0:
+            b = acgt[rng.integers(0, 4, len(b))]
+        pairs.append((a.tobytes(), b.tobytes()))
+    pairs.append((b"", b"ACGT"))
+    want = [native.match_reads(a, b, *knobs) for a, b in pairs]
+    assert any(w is None for w in want) and any(w for w in want)
+    assert [jnative.match_reads(a, b, *knobs) for a, b in pairs] == want
+    assert native.match_reads_batch(pairs, *knobs) == want
