@@ -248,6 +248,21 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      all-plain run on the card and a CPU run (PB_CUT for (a) and (c),
      8 contigs a sample for (b), 4 of the reads for (d), a 200 kb SV
      corpus for (e)).
+ 15. runs the AGC v2 archive path and the binding surface (phase_agc):
+     (a) the corpus written as one .agc sample with
+     utils/cases.py::write_agc (a test input: timed apart; its bytes and
+     the share of segments held as delta records); (b) the port's
+     AgcFile against phase 13's corpus.pga on every contig and 1,000
+     seeded sub-ranges, and core/agc_ref.py on two contigs; (c) pgr-mdb
+     over the .agc under torch.profiler, its .mdb/.midx byte-equal to
+     phase 13's PGA build; (d) pgr-query --agc-file on phase 12's
+     queries, its files equal to phase 13's run over the PGA index; (e)
+     pgr-fetch-seqs, equal to phase 13's; (f) query_sdb and
+     map_intervals_in_sdb on that index, get_principle_bundle_bed_file_
+     for_query on a 200 kb region of 16 haplotypes, get_shmmr_dots on
+     two 1 Mbase haplotypes and get_variant_segments on 64 of phase 9's
+     segments, each equal to an all-plain run on the card, its launches
+     (K9, K2, K11 or K5, K8, K12, K13 where it runs them) required.
 
 Between phases 6 and 7 it prints the bounds of the index and query
 steps (sums of their kernels' bounds in this run).
@@ -260,6 +275,7 @@ last line
 """
 import json
 import os
+import pickle
 import random
 import statistics
 import sys
@@ -2029,6 +2045,8 @@ def phase_sv(dev, kb, build_dir):
           f"{SV_FORWARD_SEGMENTS} segments")
     seg = [p for p in pairs if 0 < len(p[0]) <= L and 0 < len(p[1]) <= L]
     seg = seg[:SV_FORWARD_SEGMENTS]
+    with open(os.path.join(build_dir, "sv_segments.pkl"), "wb") as f:
+        pickle.dump(seg, f)  # phase 15(f)'s pairs
     from pgrtk_tpu_torch.utils import cases
 
     args = [torch.from_numpy(a).to(dev) for a in cases.wfa_batch(seg, L)]
@@ -3858,6 +3876,276 @@ def phase_maps(dev, kb, build_dir):
     print(f"  phase 14 launches: {dict(seen)}")
 
 
+AGC_SEGMENT = 60_000     # write_agc's segment size (AGC's default)
+AGC_RANGES = 1_000       # phase 15(b): seeded sub-ranges, .agc against .pga
+AGC_REF_CONTIGS = 2      # contigs core/agc_ref.py decodes
+AGC_DOTS = 1_048_576     # phase 15(f): get_shmmr_dots on the first bases
+#                          of hap0 and hap1
+# All-plain comparisons cut to fit phase 15's ~90 s (PERF.md section 4);
+# the card runs are never cut.  All-plain, query_sdb and
+# map_intervals_in_sdb take ~0.41 and ~0.48 s a query and
+# get_variant_segments ~93 ms a segment, so only their first inputs are
+# re-run plain; every segment is also held against the host C++
+# arbiter's alignment.
+AGC_PLAIN_QUERIES = 8
+AGC_PLAIN_WFA = 64
+
+def phase_agc(dev, kb, build_dir):
+    """The AGC v2 archive path and the binding surface through the port's
+    entry points on phase 8's corpus (64 x 4,194,304 bases), after
+    phases 9, 12 and 13 (their segments, queries, archive, index, query
+    files and regions): (a) write_agc; (b) AgcFile against PgaFile, and
+    agc_ref; (c) pgr-mdb over the .agc; (d) pgr-query --agc-file; (e)
+    pgr-fetch-seqs; (f) the free functions at full size on the card
+    against all-plain runs (cut as AGC_PLAIN_QUERIES and AGC_PLAIN_WFA
+    say).  Each timed on
+    the host clock with its launches (reset before, read after)."""
+    import pgrtk_tpu_torch as P
+    from pgrtk_tpu_torch.cli import pgr_fetch_seqs, pgr_mdb, pgr_query
+    from pgrtk_tpu_torch.core import agc, agc_ref, pga
+    from pgrtk_tpu_torch.core.fasta import read_fastx_all
+    from pgrtk_tpu_torch.utils import cases
+    from pgrtk_tpu_torch.utils.device import card_info
+
+    fa = os.path.join(build_dir, "pbundle_corpus.fa")
+    qfa = os.path.join(build_dir, "frg_queries.fa")
+    mdb_dir = os.path.join(build_dir, "mdb")
+    d = os.path.join(build_dir, "agc")
+    os.makedirs(d, exist_ok=True)
+    print(f"phase 15: the AGC v2 archive path and the binding surface on "
+          f"{fa} ({card_info()})")
+    t = time.perf_counter()
+    records = [(r.id.decode(), r.seq) for r in read_fastx_all(fa)]
+    require(len(records) == PB_HAPS and all(len(s) == PB_LEN
+                                            for _n, s in records),
+            "phase 8's corpus is not 64 x 4,194,304 bases")
+    print(f"  corpus read in {time.perf_counter() - t:.3f} s (host)")
+
+    # (a) the corpus as one sample, named as phase 13's corpus.pga names it
+    path = os.path.join(d, "corpus.agc")
+    t = time.perf_counter()
+    counts = cases.write_agc(path, [("pbundle_corpus.fa", records)],
+                             segment_size=AGC_SEGMENT)
+    t_write = time.perf_counter() - t
+    share = counts["delta records"] / counts["segments"]
+    print(f"  (a) write_agc (a test input, host clock): {t_write:.3f} s, "
+          f"{counts['bytes']} bytes "
+          f"({8 * counts['bytes'] / (PB_HAPS * PB_LEN):.3f}"
+          f" bits a base), {counts['segments']} segments, "
+          f"{counts['delta records']} delta records ({100 * share:.1f}%), "
+          f"{counts['groups']} groups; counts {counts}")
+    require(share > 0.5, "most segments must be delta records")
+
+    # (b) the reader against phase 13's PGA archive of the same corpus
+    arc = agc.AgcFile(path)
+    pg = pga.PgaFile(os.path.join(mdb_dir, "corpus.pga"))
+    require(arc.list_samples() == pg.list_samples() == ["pbundle_corpus.fa"]
+            and arc.list_ctgs("pbundle_corpus.fa")
+            == pg.list_ctgs("pbundle_corpus.fa"),
+            "the .agc lists other samples or contigs than corpus.pga")
+    t = time.perf_counter()
+    for name, seq in records:
+        require(arc.get_seq("pbundle_corpus.fa", name) == seq,
+                f"the .agc gives other bases for {name}")
+    t_all = time.perf_counter() - t
+    rng = np.random.default_rng(15)
+    ranges = []
+    for _ in range(AGC_RANGES):
+        name = records[int(rng.integers(PB_HAPS))][0]
+        b = int(rng.integers(0, PB_LEN))
+        ranges.append((name, b, b + int(rng.integers(0, 300_000))))
+    t = time.perf_counter()
+    got = [arc.get_sub_seq("pbundle_corpus.fa", n, b, e)
+           for n, b, e in ranges]
+    t_agc = time.perf_counter() - t
+    t = time.perf_counter()
+    want = [pg.get_sub_seq("pbundle_corpus.fa", n, b, e)
+            for n, b, e in ranges]
+    t_pga = time.perf_counter() - t
+    require(got == want, "the .agc's sub-ranges differ from corpus.pga's")
+    t = time.perf_counter()
+    ref = agc_ref.AgcReader(path)
+    for name, seq in records[:AGC_REF_CONTIGS]:
+        require(ref.get_seq("pbundle_corpus.fa", name) == seq,
+                f"core/agc_ref.py gives other bases for {name}")
+    t_ref = time.perf_counter() - t
+    print(f"  (b) AgcFile: every contig equal to the corpus in {t_all:.3f} "
+          f"s; {AGC_RANGES} sub-ranges equal to PgaFile's on corpus.pga "
+          f"(AgcFile {t_agc:.3f} s, PgaFile {t_pga:.3f} s); core/agc_ref.py"
+          f" on {AGC_REF_CONTIGS} contigs {t_ref:.3f} s (host clock)")
+    del got, want, ref
+
+    # (c) pgr-mdb over the .agc: the same files as phase 13's PGA build
+    lst = os.path.join(d, "corpus.txt")
+    with open(lst, "w") as f:
+        f.write(path + "\n")
+    prefix = os.path.join(d, "corpus")
+    st = {}
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    t = time.perf_counter()
+    print("  (c) pgr-mdb over the .agc, one run under torch.profiler:")
+    profile_steps(lambda: require(pgr_mdb.main([lst, prefix], device=dev,
+                                               stats=st) == 0,
+                                  "pgr-mdb exited non-zero"),
+                  n=1, trace="agc_mdb_trace.json")
+    wall = time.perf_counter() - t
+    launches = launched(kb)
+    for name in MDB_BUILD_KERNELS:
+        require(launches.get(name, 0) > 0,
+                f"kernel {name} never launched on pgr-mdb over the .agc")
+    require(mdb_shas(prefix) == mdb_shas(os.path.join(mdb_dir, "corpus")),
+            "pgr-mdb over the .agc wrote other files than over corpus.pga")
+    print(f"  pgr-mdb: {wall:.3f} s (host clock, synchronized, profiled); "
+          f"launches {launches}; stages (host clock): " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in st["seconds"].items())
+          + "; .mdb and .midx equal to phase 13's by sha256")
+
+    # (d) pgr-query --agc-file: the same files as phase 13's over the .pga
+    out = os.path.join(d, "q_card")
+    qs = {}
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    t = time.perf_counter()
+    require(pgr_query.main([prefix, qfa, out, "--agc-file"], device=dev,
+                           stats=qs) == 0, "pgr-query exited non-zero")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = launched(kb)
+    for name in FRG_QUERY_KERNELS:
+        require(launches.get(name, 0) > 0,
+                f"kernel {name} never launched on pgr-query --agc-file")
+    require(launches.get("probe_fetch", 0) + launches.get("probe_keys", 0)
+            > 0, "no probe kernel launched on pgr-query --agc-file")
+    require(query_shas(out, FRG_QUERIES) == query_shas(
+        os.path.join(mdb_dir, "q_card"), FRG_QUERIES),
+            "pgr-query --agc-file wrote other files than over corpus.pga")
+    sec = dict(qs.pop("seconds", {}))
+    sec["load archive index"] = sum(qs.pop("load archive index", []))
+    print(f"  (d) pgr-query --agc-file: {wall:.3f} s (host clock); launches"
+          f" {launches}; stages: " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in sec.items())
+          + "; the .hit and .fa files equal to phase 13's by sha256")
+
+    # (e) pgr-fetch-seqs: phase 13's listing and regions
+    t = time.perf_counter()
+    for opts, want_path in ((["--list"], "list.txt"),
+                            (["-r", os.path.join(mdb_dir, "regions.txt")],
+                             "regions.fa")):
+        o = os.path.join(d, want_path)
+        require(pgr_fetch_seqs.main([prefix, *opts, "-o", o]) == 0,
+                "pgr-fetch-seqs exited non-zero")
+        require(file_shas([o]).popitem()[1] == file_shas(
+            [os.path.join(mdb_dir, want_path)]).popitem()[1],
+                f"pgr-fetch-seqs {opts[0]} differs from phase 13's")
+    print(f"  (e) pgr-fetch-seqs: --list and {MDB_REGIONS} regions equal to "
+          f"phase 13's ({time.perf_counter() - t:.3f} s, host clock)")
+
+    # (f) the free functions at full size on the card, and all-plain on
+    # the card (its first n_plain inputs where the budget cuts it)
+    from pgrtk_tpu_torch import bindings
+    from pgrtk_tpu_torch.core.wfa import wfa_align_bases
+
+    db = P.SeqIndexDB(device=dev)
+    db.load_from_agc_index(prefix)
+    queries = [r.seq for r in read_fastx_all(qfa)]
+    region = [(f"{n}_0_{PB_LEN}_0", s) for n, s in records]
+    with open(os.path.join(build_dir, "sv_segments.pkl"), "rb") as f:
+        segments = pickle.load(f)
+    require(len(segments) == SV_FORWARD_SEGMENTS,
+            "phase 9's segments are missing")
+    wfa_st = {}
+
+    def each(f, xs):  # one call an input, on the first n inputs
+        return lambda n=len(xs): [f(x) for x in xs[:n]]
+
+    def check_wfa(res, launches):
+        """Every call that reached the aligner ran K13 once, on the card;
+        the arbiter takes only the pairs whose forward pass did not
+        complete (as on the SV path), and every result equals the host
+        C++ arbiter's."""
+        n = wfa_st.get("wfa_segments", 0)
+        arb = {k[len("wfa_arbiter: "):]: v for k, v in wfa_st.items()
+               if k.startswith("wfa_arbiter: ")}
+        require(launches.get("wfa_forward_rows", 0) == n > 0,
+                f"get_variant_segments: {n} alignments, "
+                f"{launches.get('wfa_forward_rows', 0)} K13 launches")
+        require(arb["longer than L"] == arb["empty"] == 0
+                and wfa_st["wfa_on_device"] + arb["no completion within "
+                "S_max"] + arb["over max_steps"] == n,
+                f"get_variant_segments: a pair skipped the card: {wfa_st}")
+        card_one = bindings._wfa_one
+        bindings._wfa_one = (lambda t, q, mwl, x, o, e, _dev, _st:
+                             wfa_align_bases(t, q, mwl, x, o, e))
+        try:
+            t = time.perf_counter()
+            want = [P.get_variant_segments(t_, q_, device="cpu")
+                    for t_, q_ in segments]
+        finally:
+            bindings._wfa_one = card_one
+        require(value_sha(want) == value_sha(res),
+                "get_variant_segments differs from the host arbiter's")
+        return (f"{n} aligned ({len(segments) - n} stopped by the length "
+                f"guard): {wfa_st['wfa_on_device']} by K13 and its host "
+                f"backtrace, arbiter {arb}; all {len(res)} equal to the "
+                f"host C++ arbiter's ({time.perf_counter() - t:.3f} s)")
+
+    query_kernels = FRG_QUERY_KERNELS
+    calls = (  # (label, kernels it must launch, call, its results' count,
+        #         the inputs re-run plain (None: all), a further check)
+        ("query_sdb", query_kernels,
+         each(lambda q: P.query_sdb(db, q), queries),
+         lambda r: sum(len(v) for x in r for v in x.values()),
+         AGC_PLAIN_QUERIES, None),
+        ("map_intervals_in_sdb", query_kernels,
+         each(lambda q: P.map_intervals_in_sdb(
+             db, (1_000, FRG_QLEN - 1_000), q), queries),
+         lambda r: sum(len(x) for x in r), AGC_PLAIN_QUERIES, None),
+        ("get_principle_bundle_bed_file_for_query",
+         SKETCH_KERNELS + ("sort_link_rows",),
+         lambda: P.get_principle_bundle_bed_file_for_query(region,
+                                                           device=dev),
+         len, None, None),
+        ("get_shmmr_dots", SKETCH_KERNELS, lambda: P.get_shmmr_dots(
+            records[0][1][:AGC_DOTS], records[1][1][:AGC_DOTS],
+            device=dev), lambda r: len(r[0]), None, None),
+        ("get_variant_segments", ("wfa_forward_rows",),
+         each(lambda tq: P.get_variant_segments(
+             tq[0], tq[1], device=dev, stats=wfa_st), segments),
+         lambda r: sum(x is not None for x in r), AGC_PLAIN_WFA, check_wfa),
+    )
+    for label, need, fn, size, n_plain, check in calls:
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = launched(kb)
+        for name in need:
+            require(launches.get(name, 0) > 0,
+                    f"kernel {name} never launched on {label}")
+        if need is query_kernels:
+            require(launches.get("probe_fetch", 0)
+                    + launches.get("probe_keys", 0) > 0,
+                    f"no probe kernel launched on {label}")
+        n_res = size(res)
+        require(n_res > 0, f"{label} gave nothing")
+        note = f"; {check(res, launches)}" if check else ""
+        got = {}
+        if n_plain is None:
+            t_plain = plain_run(kb, lambda: got.update(v=fn()))
+            plain = "equal to an all-plain run's"
+        else:
+            t_plain = plain_run(kb, lambda: got.update(v=fn(n_plain)))
+            res = res[:n_plain]
+            plain = f"those of the first {n_plain} equal to an all-plain run's"
+        require(value_sha(got["v"]) == value_sha(res),
+                f"{label}: the all-plain run on the card differs")
+        print(f"  (f) {label}: {wall:.3f} s (host clock); launches "
+              f"{launches}; {n_res} results, {plain} ({t_plain:.3f} s)"
+              + note)
+
 def set_op_rates():
     """INT_OPS_PER_S from the card (SMs x 64 INT32 lanes x the maximum SM
     clock), and the walks' instruction slots per base from the SASS of
@@ -3972,6 +4260,8 @@ def main():
         stamp("phase 13")
         phase_maps(dev, kb, build_dir)
         stamp("phase 14")
+        phase_agc(dev, kb, build_dir)
+        stamp("phase 15")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

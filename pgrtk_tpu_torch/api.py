@@ -2,9 +2,10 @@
 port's sequence database (core/seqdb.py's CompactSeqDB and its columnar
 store), an FRG database it reads (core/frag_io.py's FragFileStorage) or
 an archive-backed index (core/pga.py's PgaSeqDB: a pgr-mdb index and its
-.pga archive): the loaders and writers, the index views, raw and chained
-queries, get_smps, the MAP graph's adjacency list and walk, the
-principal bundles and their decomposition and projection,
+.pga or AGC v2 .agc archive): the loaders and writers (the .midx text
+too), the index views, raw and chained queries, get_smps, the MAP graph's
+adjacency list, walk and GFA (from the index or from each sequence's
+pairs), the principal bundles and their decomposition and projection,
 map_positions_in_seq and the sparse-alignment consensus.
 
 The database sketches on the card (`device="cuda"`, K9 + K2) unless the
@@ -159,8 +160,9 @@ class SeqIndexDB:
         """Read an archive-backed index: `prefix`.mdb/.midx, as pgr-mdb
         writes them, and the archive `prefix`.pga (or .agc; pgrtk_tpu/
         api.py:160-176, reference ext.rs:87-129).  Queries and sequence
-        fetches serve from the archive.  Raises IOError when there is no
-        archive and NotImplementedError on an AGC v2 archive."""
+        fetches serve from the archive, a PGA or an AGC v2 archive by its
+        content (core/agc.py::open_archive).  Raises IOError when there is
+        no archive or it cannot be read."""
         from .core.pga import PgaSeqDB
 
         t0 = time.perf_counter()
@@ -177,6 +179,15 @@ class SeqIndexDB:
         t0 = time.perf_counter()
         self.seq_db.write_mdb_midx(file_prefix)
         self._time("write mdb and midx", t0)
+
+    def write_midx_to_text_file(self, filepath: str) -> None:
+        """The .midx lines "sid\tlen\tname\tsource" in sid order
+        (pgrtk_tpu/api.py:189-196)."""
+        from .core import mdb
+
+        mdb.write_midx(((sid, info[2], info[0], info[1])
+                        for sid, info in sorted(self.seq_info.items())),
+                       filepath)
 
     def get_seq(self, sample_name: str, ctg_name: str) -> bytes:
         sid, _ = self.seq_index[(ctg_name, sample_name)]
@@ -460,10 +471,27 @@ class SeqIndexDB:
         return gb.sort_adj_list_by_weighted_dfs(self.store, adj_list,
                                                 tuple(start))
 
-    def generate_mapg_gfa(self, min_count: int, filepath: str):
-        """(pgrtk_tpu/api.py:624-645, the "from_fragmap" method)"""
-        edges = gb.adj_edges(self.store, min_count, device=self.device,
-                             stats=self.stats)
+    def generate_mapg_gfa(self, min_count: int, filepath: str,
+                          method: str = "from_fragmap", keeps=None):
+        """The MAP graph as GFA (pgrtk_tpu/api.py:624-645).  Method
+        "from_fragmap" takes the index's rows, sorted and linked by K12,
+        `keeps` sids keeping their rows whatever their count; any other
+        method walks each sequence's own pairs (graph/bundles.py::
+        smp_adj_edges, all sequences in one batch), min_count 0 for the
+        sids in `keeps`."""
+        if method == "from_fragmap":
+            edges = gb.adj_edges(self.store, min_count, keeps,
+                                 device=self.device, stats=self.stats)
+        else:
+            keep_set = set(keeps) if keeps is not None else None
+            sids = sorted(self.seq_info)
+            t0 = time.perf_counter()
+            edges = gb.smp_adj_edges(
+                [self.get_seq_by_id(sid) for sid in sids], sids, self.store,
+                self.shmmr_spec,
+                [0 if (keep_set and sid in keep_set) else min_count
+                 for sid in sids], device=self.device)
+            self._time("sequence adjacency", t0)
         t0 = time.perf_counter()
         gfa_mod.write_mapg_gfa(self.store, edges, self.shmmr_spec.k,
                                filepath)

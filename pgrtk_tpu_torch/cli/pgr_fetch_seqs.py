@@ -1,5 +1,5 @@
 """pgr-fetch-seqs on the port: list or fetch regions of an archive-
-backed (pgr-mdb + .pga) or FRG database, the same output as
+backed (pgr-mdb + .pga or .agc) or FRG database, the same output as
 pgrtk_tpu/cli/pgr_fetch_seqs.py byte for byte.
 
     python -m pgrtk_tpu_torch.cli.pgr_fetch_seqs [options] DB_PREFIX

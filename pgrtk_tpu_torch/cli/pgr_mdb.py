@@ -10,8 +10,9 @@ sequence) with defaults w=80 k=56 r=4 min_span=64, mode 2 with
 `--sketch`.  Readers decode chunks of contigs ahead of the sketch
 (core/archive_pipeline.py).  The sketch runs on the card (mode 1: K9 +
 K2; `--sketch`: K1 + K2); `--device cpu` runs their plain versions on
-the CPU.  Archives are .pga files (core/pga.py); an AGC v2 .agc raises,
-its reader not yet ported.  Unlike the JAX CLI there is no `--version`.
+the CPU.  Archives are .pga files (core/pga.py) or AGC v2 .agc files
+(core/agc.py), told apart by their content.  Unlike the JAX CLI there is
+no `--version`.
 """
 from __future__ import annotations
 
@@ -34,9 +35,11 @@ def main(argv=None, *, device: Optional[str] = None,
     "decode" (waiting for the readers), "sketch", "index" and "write"."""
     p = argparse.ArgumentParser(
         prog="pgr-mdb",
-        description="Create pgr minimizer database with PGA archive backend",
+        description="Create pgr minimizer database with AGC/PGA archive "
+        "backend",
     )
-    p.add_argument("filepath", help="file listing the PGA archive paths")
+    p.add_argument("filepath",
+                   help="file listing the .pga or .agc archive paths")
     p.add_argument("prefix")
     p.add_argument("-w", type=int, default=80)
     p.add_argument("-k", type=int, default=56)

@@ -24,56 +24,7 @@ import numpy as np
 from ..api import SeqIndexDB, get_principal_bundle_decomposition
 from ..core import pdb_io
 from ..core.spec import PBUNDLE_SPEC
-
-
-def group_smps_by_principle_bundle_id(smps, bundle_length_cutoff,
-                                      bundle_merge_distance):
-    """(pgrtk_tpu/cli/pgr_pbundle_decomp.py:18-67; reference
-    pgr-pbundle-decomp.rs:61-137)"""
-    pre_bid = None
-    pre_d = None
-    all_partitions = []
-    new_partition = []
-    for smp, bundle_info in smps:
-        if bundle_info is None:
-            continue
-        d = 0 if smp[4] == bundle_info[1] else 1
-        bid = bundle_info[0]
-        bpos = bundle_info[2]
-        if pre_bid is None:
-            new_partition = [(smp, bid, d, bpos)]
-            pre_bid = bid
-            pre_d = d
-            continue
-        if bid != pre_bid or d != pre_d:
-            if (new_partition[-1][0][3] - new_partition[0][0][2]
-                    > bundle_length_cutoff):
-                all_partitions.append(new_partition)
-            new_partition = []
-            pre_bid = bid
-            pre_d = d
-        new_partition.append((smp, bid, d, bpos))
-    if (new_partition and new_partition[-1][0][3] - new_partition[0][0][2]
-            > bundle_length_cutoff):
-        all_partitions.append(new_partition)
-
-    rtn = []
-    if not all_partitions:
-        return rtn
-    partition = all_partitions[0]
-    for p in all_partitions[1:]:
-        p_end = partition[-1][0][3]
-        p_bid = partition[-1][1]
-        p_d = partition[-1][2]
-        if (p_bid == p[0][1] and p_d == p[0][2]
-                and abs(p[0][0][2] - p_end) < bundle_merge_distance):
-            partition.extend(p)
-        else:
-            rtn.append(partition)
-            partition = p
-    if partition:
-        rtn.append(partition)
-    return rtn
+from ..graph.bundles import group_smps_by_principle_bundle_id
 
 
 def fmt_f32(v) -> str:

@@ -12,8 +12,8 @@ output.  Rows are emitted sorted by target sid (the reference emits
 hash-map order).  The database is an FRG database (`--frg-file`), a
 fastx file indexed in memory (`--fastx-file`) or, by default (and with
 `--agc-file`), an archive-backed index: the .mdb/.midx of pgr-mdb and
-its archive at DB_PREFIX.pga (core/pga.py; an AGC v2 .agc archive
-raises, its reader not yet ported).  Every query takes the batch device
+its archive at DB_PREFIX.pga or DB_PREFIX.agc (core/pga.py, core/agc.py).
+Every query takes the batch device
 path (parallel/device_query.py::batch_query_to_hps): the sketch, the
 probe and the chain DP on the card, or their plain versions with
 `--device cpu`; `--batch-device` is accepted for the JAX CLI's argv and

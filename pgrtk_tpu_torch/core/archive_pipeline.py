@@ -24,9 +24,9 @@ Record = Tuple[Optional[str], str, bytes]  # (sample/source, ctg, bases)
 
 def stream_archive(path: str, chunk_contigs: int = 1024, nthreads: int = 4,
                    prefetch: int = 4) -> Iterator[List[Record]]:
-    """Yield (sample, ctg, seq) records from a .pga archive in chunks of
-    `chunk_contigs`, in the archive's order, decoded up to `prefetch`
-    chunks ahead of the consumer by `nthreads` readers."""
+    """Yield (sample, ctg, seq) records from a .pga or .agc archive in
+    chunks of `chunk_contigs`, in the archive's order, decoded up to
+    `prefetch` chunks ahead of the consumer by `nthreads` readers."""
     from .agc import open_archive
 
     head = open_archive(path)

@@ -8,6 +8,9 @@ counterpart of the array path of pgrtk_tpu/graph/bundles.py.
   - one sequence's adjacency (seq_db.rs:946-1000), the tuple adjacency
     list, its digraph and walk (pgrtk_tpu/graph/bundles.py:104-203,
     :370-374), which the facade and core/ec.py use
+  - a sequence's decomposition cut into runs of one bundle
+    (pgrtk_tpu/__init__.py:419-469), which pgr-pbundle-decomp and the
+    binding surface use
 
 The index is the port's columnar store (core/seqdb.py), whose postings
 equal the JAX builder's frag_map; a key's `pair_score` is its postings
@@ -300,33 +303,49 @@ def edges_to_list(edges: Edges) -> List[AdjPair]:
             for sid, v, w in zip(edges.sids.tolist(), src, dst)]
 
 
+def smp_adj_edges(seqs, sids, store, spec, min_counts, *, device="cuda"
+                  ) -> Edges:
+    """The MAP-graph edges the sequences `seqs` walk, in order, as the
+    JAX package's generate_smp_adj_list_for_seq gives them one sequence
+    at a time (pgrtk_tpu/graph/bundles.py:104-137; reference seq_db.rs:
+    946-1000): their canonical pairs (query tie rule) from one batched
+    sketch on `device` (K9 + K2), each key's postings count in `store`
+    from one batched probe there (K5 or K11); consecutive pairs of one
+    sequence that share a mer and whose keys both have at least
+    max(min_counts[i], 1) postings give the forward edge and its
+    reverse-complement edge, under the sequence's id sids[i]."""
+    from ..parallel import device_query
+
+    pairs = device_query.pair_columns(spec, [bytes(s) for s in seqs],
+                                      device)
+    if pairs is None:
+        return NO_EDGES
+    j = device_query.lookup_keys(store, pairs["k0"], pairs["k1"], device)
+    c = np.where(j >= 0, np.asarray(store.index_counts)[np.maximum(j, 0)], 0)
+    qid = pairs["qid"]
+    ok = c >= np.maximum(np.asarray(min_counts, dtype=np.int64)[qid], 1)
+    link = np.flatnonzero(ok[:-1] & ok[1:] & (qid[:-1] == qid[1:])
+                          & (pairs["p1"][:-1] == pairs["p0"][1:]))
+    node = np.stack([pairs["k0"], pairs["k1"],
+                     pairs["ori"].astype(np.uint64)], axis=1)
+    v, w = node[link], node[link + 1]
+    src = np.empty((2 * len(link), 3), dtype=np.uint64)
+    dst = np.empty_like(src)
+    src[0::2], dst[0::2] = v, w
+    src[1::2], dst[1::2] = w, v
+    src[1::2, 2] = np.uint64(1) - w[:, 2]
+    dst[1::2, 2] = np.uint64(1) - v[:, 2]
+    sid = np.asarray(sids, dtype=np.uint64)[qid[link]]
+    return Edges(np.repeat(sid, 2), src, dst)
+
+
 def generate_smp_adj_list_for_seq(seq: bytes, sid: int, store, spec,
                                   min_count: int, *, device="cuda"
                                   ) -> List[AdjPair]:
-    """The MAP-graph edges one sequence walks (pgrtk_tpu/graph/bundles.py:
-    104-137; reference seq_db.rs:946-1000): its canonical pairs (query
-    tie rule) from the batched sketch on `device` (K9 + K2), each key's
-    postings count in `store` from one batched probe there (K5 or K11);
-    consecutive pairs that share a mer and whose keys are both in the
-    index with at least `min_count` postings give the forward edge and
-    its reverse-complement edge."""
-    from ..parallel import device_query
-
-    pairs = device_query.pair_columns(spec, [bytes(seq)], device)
-    if pairs is None:
-        return []
-    j = device_query.lookup_keys(store, pairs["k0"], pairs["k1"], device)
-    c = np.where(j >= 0, np.asarray(store.index_counts)[np.maximum(j, 0)], 0)
-    ok = c >= max(min_count, 1)
-    link = np.flatnonzero(ok[:-1] & ok[1:]
-                          & (pairs["p1"][:-1] == pairs["p0"][1:]))
-    k0, k1, o = (pairs[n].tolist() for n in ("k0", "k1", "ori"))
-    out: List[AdjPair] = []
-    for i in link.tolist():
-        v, w = (k0[i], k1[i], o[i]), (k0[i + 1], k1[i + 1], o[i + 1])
-        out.append((sid, v, w))
-        out.append((sid, (w[0], w[1], 1 - w[2]), (v[0], v[1], 1 - v[2])))
-    return out
+    """The MAP-graph edges one sequence walks, [(sid, v, w)]
+    (pgrtk_tpu/graph/bundles.py:104-137): smp_adj_edges of it alone."""
+    return edges_to_list(smp_adj_edges([seq], [sid], store, spec,
+                                       [min_count], device=device))
 
 
 class Digraph:
@@ -385,3 +404,54 @@ def sort_adj_list_by_weighted_dfs(store, adj_list, start: Node):
     ul = it.uniq.tolist()
     return _walk_tuples(rows, lambda i: (ul[i >> 1][0], ul[i >> 1][1],
                                          i & 1))
+
+
+def group_smps_by_principle_bundle_id(smps, len_cutoff=2500,
+                                      merge_length=5000):
+    """Cut a sequence's [(smp, bundle_info)] decomposition into runs of
+    one bundle id and direction, then merge neighbouring runs of the same
+    (id, direction) closer than merge_length (pgrtk_tpu/__init__.py:
+    419-469; reference pgrtk/__init__.py:391-467 and, the same logic,
+    pgr-pbundle-decomp.rs:61-137; the CLI and bindings.py import it).  Runs not
+    longer than len_cutoff (end of the last smp less the start of the
+    first) are dropped at the cut points, the final run included."""
+    runs = []
+    run = []
+    run_key = None  # (bundle_id, direction)
+
+    def keep(r):
+        return r and r[-1][0][3] - r[0][0][2] > len_cutoff
+
+    for smp, bundle_info in smps:
+        if bundle_info is None:
+            continue
+        bid, b_ori, bpos = bundle_info[0], bundle_info[1], bundle_info[2]
+        direction = 0 if smp[4] == b_ori else 1
+        if run_key is None:
+            run = [(smp, bid, direction, bpos)]
+            run_key = (bid, direction)
+            continue
+        if (bid, direction) != run_key:
+            if keep(run):
+                runs.append(run)
+            run = []
+            run_key = (bid, direction)
+        run.append((smp, bid, direction, bpos))
+    if keep(run):
+        runs.append(run)
+
+    if not runs:
+        return []
+    merged = []
+    current = runs[0]
+    for nxt in runs[1:]:
+        same_bundle = (current[-1][1] == nxt[0][1]
+                       and current[-1][2] == nxt[0][2])
+        gap = abs(nxt[0][0][2] - current[-1][0][3])
+        if same_bundle and gap < merge_length:
+            current.extend(nxt)
+        else:
+            merged.append(current)
+            current = nxt
+    merged.append(current)
+    return merged

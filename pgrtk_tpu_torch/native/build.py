@@ -6,8 +6,8 @@ O(nD) diff alignment of the FRG writer and of map_positions_in_seq
 (match.cc, with a batched entry of its own), the .mdb offsets
 scan (mdb.cc) and the .frg reconstruction of the FRG reader (frg.cc,
 linked with zlib), copies of pgrtk_tpu/native/src's files; and, in a
-library of its own, the PGA archive (pga.cc), which links the runtime
-libzstd (libzstd.so.1).
+library of its own, the PGA archive (pga.cc) and the AGC v2 archive
+reader (agc.cc), which link the runtime libzstd (libzstd.so.1).
 
 At first use the system C++ compiler ($CXX, else g++, else c++) builds
 each library in `build/pgrtk_tpu_torch/` beside the package, named by a
@@ -17,11 +17,12 @@ fallback.  The archive library is built only when an archive is opened
 or written, so a machine without libzstd builds and runs every other
 path.  The flags keep the JAX package's `-ffp-contract=off`, so f32
 chain scores round as the reference's scalar ops do.  The bindings are
-those of pgrtk_tpu/native/api.py:405-719, pgrtk_tpu/core/wfa.py:28-44
-and pgrtk_tpu/core/pga.py:18-52; the two tracebacks raise ValueError
-where the JAX package's cycle forever (an exact duplicate anchor that
-recurs after other anchors), and the .frg reconstruction raises
-ValueError where the JAX reader falls back to Python.
+those of pgrtk_tpu/native/api.py:405-719, pgrtk_tpu/core/wfa.py:28-44,
+pgrtk_tpu/core/pga.py:18-52 and pgrtk_tpu/core/agc.py:16-41; the two
+tracebacks raise ValueError where the JAX package's cycle forever (an
+exact duplicate anchor that recurs after other anchors), and the .frg
+reconstruction raises ValueError where the JAX reader falls back to
+Python.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ SRC = Path(__file__).resolve().parent
 SOURCES = ("dfs_walk.cc", "bundle_peel.cc", "wfa.cc", "chain.cc",
            "chain_tb.cc", "match.cc", "mdb.cc", "frg.cc")
 LIBS = ("-lz",)
-ARCHIVE_SOURCES = ("pga.cc",)
+ARCHIVE_SOURCES = ("pga.cc", "agc.cc")
 # the runtime library by its file name: zstd's development package (the
 # libzstd.so link and zstd.h) need not be installed
 ARCHIVE_LIBS = ("-l:libzstd.so.1",)
@@ -171,7 +172,7 @@ def library() -> ctypes.CDLL:
 
 
 def archive_library() -> ctypes.CDLL:
-    """The PGA archive library (pga.cc), built on first call; raises
+    """The archive library (pga.cc, agc.cc), built on first call; raises
     RuntimeError naming libzstd where it cannot be linked."""
     global _archive_lib
     with _lock:
@@ -193,7 +194,14 @@ def archive_library() -> ctypes.CDLL:
                     ("pga_create", h, [s, ctypes.c_int]),
                     ("pga_add_contig", ctypes.c_int, [
                         h, s, s, s, ctypes.c_int64]),
-                    ("pga_finish", ctypes.c_int, [h])):
+                    ("pga_finish", ctypes.c_int, [h]),
+                    ("agc_open", h, [s]), ("agc_close", None, [h]),
+                    ("agc_list_samples", h, [h]),
+                    ("agc_list_ctgs", h, [h, s]),
+                    ("agc_get_ctg_len", ctypes.c_int64, [h, s, s]),
+                    ("agc_get_sub_seq", ctypes.c_int64, [
+                        h, s, s, ctypes.c_int64, ctypes.c_int64,
+                        ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8))])):
                 fn = getattr(lib, name)
                 fn.restype, fn.argtypes = res, args
             _archive_lib = lib

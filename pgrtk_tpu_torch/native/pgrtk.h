@@ -1,7 +1,7 @@
 /* C ABI of the port's host C++ copies of the JAX package's native
  * runtime (pgrtk_tpu/native/src/pgrtk.h): the parts that the O(nD) diff
  * alignment (match.cc) and the sparse anchor-chain DP (chain.cc) use,
- * and the PGA archive's (pga.cc).
+ * and the PGA and AGC v2 archive readers' (pga.cc, agc.cc).
  *
  *   - O(nD) greedy diff alignment ("match_reads", reference
  *     pgr-db/src/shmmrutils.rs:57-223)
@@ -83,14 +83,31 @@ int pga_add_contig(void *h, const char *sample, const char *ctg,
                    const uint8_t *seq, int64_t len);
 int pga_finish(void *h);
 
-/* libzstd's one-shot API (zstd.h; stable since zstd 1.0), which pga.cc
- * calls through the runtime libzstd.so.1. */
+/* ---- AGC v2 archive reader (agc.cc, in the PGA archive's library) ----
+ * agc_open returns a handle (NULL when the file is not a well-formed
+ * archive); list and fetch results are malloc'd, freed with pga_free;
+ * agc_get_ctg_len returns -1 and agc_get_sub_seq -1 on an unknown contig
+ * (an empty sample name searches every sample), end < 0 meaning the
+ * contig's end.  A handle may be shared by threads. */
+void *agc_open(const char *path);
+void agc_close(void *h);
+char *agc_list_samples(void *h);
+char *agc_list_ctgs(void *h, const char *sample);
+int64_t agc_get_ctg_len(void *h, const char *sample, const char *ctg);
+int64_t agc_get_sub_seq(void *h, const char *sample, const char *ctg,
+                        int64_t bgn, int64_t end, uint8_t **out);
+
+/* libzstd's one-shot API (zstd.h; stable since zstd 1.0) and the frame
+ * size of a buffer that holds more than one frame (stable since zstd
+ * 1.3.0), which pga.cc and agc.cc call through the runtime
+ * libzstd.so.1. */
 size_t ZSTD_compress(void *dst, size_t dstCapacity, const void *src,
                      size_t srcSize, int compressionLevel);
 size_t ZSTD_decompress(void *dst, size_t dstCapacity, const void *src,
                        size_t compressedSize);
 unsigned ZSTD_isError(size_t code);
 size_t ZSTD_compressBound(size_t srcSize);
+size_t ZSTD_findFrameCompressedSize(const void *src, size_t srcSize);
 
 #ifdef __cplusplus
 }

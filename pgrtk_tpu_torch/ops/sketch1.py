@@ -216,7 +216,8 @@ def _host_tail(t0: int, L: int, w: int, k: int, tb: int, txs: np.ndarray):
 
 def sketch_mode1_arrays(seqs: Sequence[bytes], rids=None,
                         spec: Optional[ShmmrSpec] = None, chunk: int = 512,
-                        *, device="cuda", stats: Optional[dict] = None
+                        *, device="cuda", stats: Optional[dict] = None,
+                        padding: bool = False
                         ) -> List[Tuple[np.ndarray, np.ndarray]]:
     """Host API (pgrtk_tpu/ops/sketch1.py:254): the exact mode-1 sketch of
     byte sequences, the device emission planes (K9, K2 on `device`) plus
@@ -227,7 +228,10 @@ def sketch_mode1_arrays(seqs: Sequence[bytes], rids=None,
     when given, counts them under "scalar_sketch".  The sequences go in
     length-sorted sub-batches of at most ops/sketch.py's SKETCH_BASES
     padded bases (sketch.length_batches); results come back in input
-    order."""
+    order.  `padding` pads each reduction level's stream with r - 1
+    all-ones mers at both ends (core/sketch_ref.py::reduce_shmmr), so
+    the ends keep mers the windows would drop: it changes only the host
+    reduction, the emission on `device` is the same."""
     spec = spec or ShmmrSpec(sketch=False)
     if spec.sketch:
         raise ValueError("sketch_mode1_arrays requires spec.sketch=False")
@@ -237,12 +241,12 @@ def sketch_mode1_arrays(seqs: Sequence[bytes], rids=None,
     for idx in sketch_ops.length_batches([len(s) for s in seqs], chunk):
         for i, r in zip(idx, _sketch_mode1_batch(
                 [seqs[i] for i in idx], [rids[i] for i in idx], spec, chunk,
-                device, stats)):
+                device, stats, padding)):
             results[i] = r
     return results
 
 
-def _sketch_mode1_batch(seqs, rids, spec, chunk, device, stats):
+def _sketch_mode1_batch(seqs, rids, spec, chunk, device, stats, padding):
     """sketch_mode1_arrays of one sub-batch, padded to its longest
     sequence."""
     w, k = spec.w, spec.k
@@ -261,7 +265,8 @@ def _sketch_mode1_batch(seqs, rids, spec, chunk, device, stats):
         if host["fallback"][i] or t0 < k + w - 1:
             n_scalar += 1
             mers = sketch_ref.sequence_to_shmmrs1(rid, bytes(seq), w, k,
-                                                  spec.r, spec.min_span)
+                                                  spec.r, spec.min_span,
+                                                  padding)
             a = np.asarray(mers, dtype=np.uint64).reshape(-1, 2)
             results.append((a[:, 0].copy(), a[:, 1].copy()))
             continue
@@ -276,7 +281,7 @@ def _sketch_mode1_batch(seqs, rids, spec, chunk, device, stats):
                 [sy, host["tail_y"][i][tp - tb].view(np.uint64)])
         sy = (np.uint64(rid) << np.uint64(32)) | sy
         results.append(sketch_ref.reduce_and_filter_arrays(
-            sx, sy, spec.r, spec.min_span))
+            sx, sy, spec.r, spec.min_span, padding))
     if stats is not None:
         stats["scalar_sketch"] = stats.get("scalar_sketch", 0) + n_scalar
     return results

@@ -63,16 +63,20 @@ def _device_tables(store, device):
     return cache[dev]
 
 
-def pair_columns(spec, seqs: Sequence[bytes], device, stats=None):
+def pair_columns(spec, seqs: Sequence[bytes], device, stats=None,
+                 padding: bool = False):
     """The canonical shimmer pairs of every sequence of `seqs` as flat
     columns (core/query.py::pair_shmmrs_canonical_batch: qid, k0, k1, p0,
     p1, ori), from one batched sketch on `device` (mode 1: K9 + K2, mode
-    2: K1 + K2); None when no sequence has a pair."""
+    2: K1 + K2); None when no sequence has a pair.  `padding` pads the
+    mode-1 reduction (ops/sketch1.py::sketch_mode1_arrays); mode 2 has
+    no reduction, and ignores it as the JAX sketcher does."""
     if spec.sketch:
         mers = sketch_ops.sketch_mode2(seqs, spec=spec, device=device)
     else:
         mers = sketch1_ops.sketch_mode1_arrays(seqs, spec=spec,
-                                               device=device, stats=stats)
+                                               device=device, stats=stats,
+                                               padding=padding)
     return pair_shmmrs_canonical_batch(mers)
 
 

@@ -1838,3 +1838,401 @@ def hifi_reads(seqs, start: int, L: int, seed: int, sub_rate=0.005):
         r[pos] = (r[pos] + rng.integers(1, 4, len(pos))) % 4
         out.append(acgt[r].tobytes())
     return out
+
+
+# ------------------------------------------------------------ AGC v2 writer
+
+_AGC_CODE = np.full(256, 255, dtype=np.uint8)
+_AGC_CODE[np.frombuffer(b"ACGTN", np.uint8)] = np.arange(5, dtype=np.uint8)
+_AGC_FLANK = 0xFFFFFFFFFFFFFFFF  # a contig end in place of a splitter
+_AGC_MIX = np.uint32(0x9E3779B1)
+
+
+def _agc_varint(v: int) -> bytes:
+    """Archive varint: u8 length + big-endian bytes (0 is one zero byte)."""
+    n = (v.bit_length() + 7) // 8
+    return bytes([n]) + v.to_bytes(n, "big")
+
+
+def _agc_pvarint(v: int, sizes=None) -> bytes:
+    """Collection prefix varint (native/agc.cc's header comment);
+    `sizes`, when a dict, counts the encodings by their byte length."""
+    for n, base in enumerate((0, 0x80, 0x4080, 0x204080, 0x10204080,
+                              0x0810204080)):
+        if v - base < 1 << (7 * (n + 1)) or n == 5:
+            w = v - base
+            if sizes is not None:
+                sizes[n + 1] = sizes.get(n + 1, 0) + 1
+            lead = (0xFF00 >> n) & 0xFF  # n leading ones
+            return bytes([lead | (w >> (8 * n))]) + (w & ((1 << (8 * n)) - 1)
+                                                     ).to_bytes(n, "big")
+    raise AssertionError(v)
+
+
+def _kmer_values(c: np.ndarray, kk: int) -> np.ndarray:
+    """2-bit MSB-first values of every kk-mer (kk <= 16) of the codes `c`
+    (0-3), (len(c) - kk + 1,) uint32, by doubling."""
+    out, olen = None, 0
+    p, plen = c.astype(np.uint32), 1
+    while kk:
+        if kk & 1:
+            if out is None:
+                out, olen = p, plen
+            else:
+                n = len(out) - plen
+                out = (out[:n] << np.uint32(2 * plen)) | p[olen:olen + n]
+                olen += plen
+        kk >>= 1
+        if kk:
+            n = len(p) - plen
+            p = (p[:n] << np.uint32(2 * plen)) | p[plen:plen + n]
+            plen *= 2
+    return out
+
+
+def _agc_splitters(codes: np.ndarray, k: int, segment_size: int):
+    """Segment boundaries of one contig (start positions of its splitter
+    k-mers) and the splitter value of each: content-defined, so a contig
+    and its reverse complement are cut at the same k-mers.  A candidate
+    is a k-mer without N, at least one base from the contig's start and
+    more than k from its end, whose mixed canonical middle kk-mer (kk 16,
+    or 15 when k is odd; k itself when smaller) is below 2^32 /
+    segment_size; a boundary is a candidate whose mixed value is the
+    least of the candidates within segment_size // 2 bases.  A
+    splitter's value is that canonical kk-mer in the top bits (AGC's
+    k-mer layout at k = kk)."""
+    n = len(codes)
+    kk = k if k <= 16 else 16 - (k - 16) % 2
+    o = (k - kk) // 2
+    if n < k + 2:
+        return [], []
+    is_n = codes > 3
+    c = np.where(is_n, 0, codes)
+    canon = np.minimum(_kmer_values(c, kk),
+                       _kmer_values(3 - c[::-1], kk)[::-1])[o:o + n - k + 1]
+    cs = np.concatenate([[0], np.cumsum(is_n)])
+    ok = (cs[k:] - cs[:-k]) == 0
+    ok[0] = False
+    ok[n - k:] = False
+    h = canon * _AGC_MIX
+    cand = np.flatnonzero(ok & (h < np.uint32(2**32 // segment_size)))
+    hc = h[cand].tolist()
+    pos = cand.tolist()
+    half = segment_size // 2
+    bounds, lo, hi = [], 0, 0
+    for i, b in enumerate(pos):
+        while pos[lo] < b - half:
+            lo += 1
+        while hi < len(pos) and pos[hi] <= b + half:
+            hi += 1
+        if hc[i] == min(hc[lo:hi]):
+            bounds.append(b)
+    return bounds, (canon[bounds].astype(np.uint64)
+                    << np.uint64(64 - 2 * kk)).tolist()
+
+
+def _agc_blocks(t, r, diag, lo, hi, mm):
+    """Maximal runs of t[i] == r[i + diag] for i in [lo, hi), at least mm
+    long: [(t_start, t_end, r_start)]."""
+    a, b = max(lo, -diag), min(hi, len(r) - diag)
+    if b - a < mm:
+        return []
+    eq = np.concatenate([[False], t[a:b] == r[a + diag:b + diag], [False]])
+    d = np.diff(eq.astype(np.int8))
+    s, e = np.flatnonzero(d == 1), np.flatnonzero(d == -1)
+    keep = e - s >= mm
+    return [(a + x, a + y, a + x + diag)
+            for x, y in zip(s[keep].tolist(), e[keep].tolist())]
+
+
+def _agc_lz_encode(t, r, mm, ops):
+    """One LZ-diff record of the codes `t` against the group reference `r`
+    (native/agc.cc's format notes): copies along the diagonal of the same
+    offset, or along two diagonals (the same start, then the same end)
+    when the lengths differ; '!' for a base equal to r[pred], a literal
+    'A' + code otherwise.  None when more than an eighth of t differs
+    from r there.  `ops` counts the records' ops by kind."""
+    n, D = len(t), len(r) - len(t)
+    m = min(n, len(r))
+    eq_l = np.zeros(n, dtype=bool)
+    eq_l[:m] = t[:m] == r[:m]
+    if D == 0:
+        x, matched = n, int(eq_l.sum())
+    else:
+        eq_r = np.zeros(n, dtype=bool)
+        lo, hi = max(0, -D), min(n, len(r) - D)
+        if hi > lo:
+            eq_r[lo:hi] = t[lo:hi] == r[lo + D:hi + D]
+        score = (np.concatenate([[0], np.cumsum(eq_l)])
+                 + np.concatenate([np.cumsum(eq_r[::-1])[::-1], [0]]))
+        x = int(np.argmax(score))
+        matched = int(score[x])
+    if n - matched > n // 8:
+        return None
+    blocks = np.asarray(_agc_blocks(t, r, 0, 0, x, mm)
+                        + _agc_blocks(t, r, D, x, n, mm),
+                        dtype=np.int64).reshape(-1, 3)
+    ts, te, rs = blocks.T
+    # pred after each block, and each gap's bases and pred at its start
+    pe = rs + te - ts
+    to_end = len(ts) and te[-1] == n and pe[-1] == len(r)
+    gs, ge = np.append(0, te), np.append(ts, n)
+    gp = np.append(0, pe)
+    glen = ge - gs
+    off = np.cumsum(glen) - glen
+    i = np.arange(glen.sum()) - np.repeat(off, glen)
+    ti = np.repeat(gs, glen) + i
+    ri = np.repeat(gp, glen) + i
+    ok = ri < len(r)
+    same = np.zeros(len(ti), dtype=bool)
+    same[ok] = r[ri[ok]] == t[ti[ok]]
+    chars = np.where(same, 33, 65 + t[ti]).astype(np.uint8).tobytes()
+    ops["!"] += int(same.sum())
+    ops["literal"] += int(len(same) - same.sum())
+    ops["literal N"] += int(((~same) & (t[ti] > 3)).sum())
+    d = (rs - (gp[:-1] + glen[:-1])).tolist()
+    ops["copy back"] += sum(x < 0 for x in d)
+    ops["copy"] += len(d) - bool(to_end)
+    ops["copy to end"] += bool(to_end)
+    cuts = np.append(0, np.cumsum(glen)).tolist()
+    out = []
+    for j, (dj, lj) in enumerate(zip(d, (te - ts - mm).tolist())):
+        out.append(chars[cuts[j]:cuts[j + 1]])
+        out.append(b"%d." % dj if to_end and j == len(d) - 1
+                   else b"%d,%d." % (dj, lj))
+    out.append(chars[cuts[-2]:])
+    return b"".join(out)
+
+
+def _agc_pack_ref(codes: np.ndarray) -> bytes:
+    """2-bit packed codes, 4 a byte MSB-first, the final partial byte
+    right-aligned in its low bits, and one trailing byte."""
+    n = len(codes)
+    full = n // 4
+    c4 = codes[:4 * full].reshape(-1, 4).astype(np.uint8)
+    packed = ((c4[:, 0] << 6) | (c4[:, 1] << 4) | (c4[:, 2] << 2)
+              | c4[:, 3]).tobytes()
+    left = n % 4
+    if left:
+        b = 0
+        for j in range(left):
+            b |= int(codes[4 * full + j]) << (2 * (left - 1 - j))
+        packed += bytes([b])
+    return packed + b"\0"
+
+
+def write_agc(path, samples, *, k=31, min_match_len=20, pack_cardinality=50,
+              segment_size=60_000, ref_mode="packed", delta_mode="zstd",
+              orient=True, level=3):
+    """Write `samples` [(sample, [(contig, bases)])] (bases of ACGTN, no
+    contig empty) as an AGC v2 archive that native/agc.cc and
+    core/agc_ref.py read back exactly; a writer for test inputs, from
+    the reader's format notes, compressing through the runtime libzstd
+    (core/zstd.py).
+
+    Each contig is cut at content-defined splitter k-mers
+    (_agc_splitters); consecutive segments overlap by k bases.  A
+    segment between two splitters is stored in the orientation that puts
+    the smaller canonical splitter first (orientation 1 when that is its
+    reverse complement; every segment orientation 0 with orient=False);
+    one at a contig end belongs to a flank group (kmer2 ~0).  A segment
+    becomes an LZ-diff record against the reference of the first group
+    with its splitters that encodes it (_agc_lz_encode), or else the
+    reference of a group of its own.  ref_mode "packed" stores reference
+    segments 2-bit packed and zstd'd (raw, meta 0, when they hold an N),
+    "raw" all raw, "mixed" every other group raw; delta_mode "zstd",
+    "raw" or "mixed" likewise for the parts of pack_cardinality records.
+
+    Returns the counts: segments, delta records, groups and flank
+    groups, segments of orientation 1, raw and packed references, raw
+    and zstd delta parts, the ops by kind, the collection's prefix
+    varints by byte length, the contigs whose records cross a part
+    boundary and the bytes written."""
+    from collections import Counter
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ..core import zstd
+
+    mm, pc = min_match_len, pack_cardinality
+    refs, members, group_keys = [], [], []
+    by_key = {}
+    ops = Counter()
+    counts = Counter()
+    contigs = []  # (sample index, name, [(gid, igid, len, ori)])
+    splitters = set()
+    all_codes = []
+    for _sample, ctgs in samples:
+        for name, bases in ctgs:
+            codes = _AGC_CODE[np.frombuffer(bytes(bases), np.uint8)]
+            if not len(codes) or (codes == 255).any():
+                raise ValueError(f"contig {name}: bases must be ACGTN and "
+                                 "not empty")
+            all_codes.append(codes)
+    with ThreadPoolExecutor() as pool:  # NumPy releases the GIL
+        cuts = iter(list(pool.map(
+            lambda c: _agc_splitters(c, k, segment_size), all_codes)))
+    all_codes = iter(all_codes)
+    for si, (_sample, ctgs) in enumerate(samples):
+        for name, _ in ctgs:
+            codes = next(all_codes)
+            bounds, keys = next(cuts)
+            splitters.update(keys)
+            starts = [0] + bounds
+            ends = [b + k for b in bounds] + [len(codes)]
+            kl = [_AGC_FLANK] + keys
+            kr = keys + [_AGC_FLANK]
+            segs, parts_seen = [], set()
+            for s, e, a, b in zip(starts, ends, kl, kr):
+                seg = codes[s:e]
+                ori = int(orient and a != _AGC_FLANK and b != _AGC_FLANK
+                          and a > b)
+                if ori:
+                    seg = np.where(seg > 3, seg, 3 - seg)[::-1]
+                    a, b = b, a
+                if a == _AGC_FLANK:
+                    a, b = b, a
+                for gid in by_key.get((a, b), ()):
+                    rec = _agc_lz_encode(seg, refs[gid], mm, ops)
+                    if rec is not None:
+                        members[gid].append(rec)
+                        igid = len(members[gid])
+                        parts_seen.add((gid, (igid - 1) // pc))
+                        break
+                else:
+                    gid, igid = len(refs), 0
+                    refs.append(seg)
+                    members.append([])
+                    group_keys.append((a, b))
+                    by_key.setdefault((a, b), []).append(gid)
+                segs.append((gid, igid, len(seg), ori))
+                counts["segments"] += 1
+                counts["delta records"] += igid > 0
+                counts["orientation 1"] += ori
+            counts["contigs crossing a part boundary"] += any(
+                (g, p - 1) in parts_seen for g, p in parts_seen)
+            contigs.append((si, name, segs))
+
+    out = bytearray()
+    streams = {}
+
+    def part(stream, meta, payload):
+        streams.setdefault(stream, []).append((len(out), len(payload)))
+        out.extend(_agc_varint(meta) + payload)
+
+    def zpart(stream, raw):
+        part(stream, len(raw), zstd.compress(raw, level) + b"\x01")
+
+    part("file_type_info", 0, b"producer\0pgrtk_tpu_torch write_agc\0"
+         b"file_version_major\x002\0file_version_minor\x000\0")
+    part("params", 0, np.asarray([k, mm, pc, segment_size],
+                                 dtype="<u4").tobytes())
+    part("splitters", len(splitters),
+         np.asarray(sorted(splitters), dtype="<u8").tobytes())
+    rows = np.zeros(len(refs), dtype=[("k1", "<u8"), ("k2", "<u8"),
+                                      ("gid", "<u4")])
+    rows["k1"] = [a for a, _ in group_keys]
+    rows["k2"] = [b for _, b in group_keys]
+    rows["gid"] = np.arange(len(refs))
+    part("segment-splitters", len(refs), rows.tobytes())
+    flank = {g for g, (_, b) in enumerate(group_keys) if b == _AGC_FLANK}
+    counts["groups"], counts["flank groups"] = len(refs), len(flank)
+
+    sizes = {}
+    pv = [_agc_pvarint(1, sizes), _agc_pvarint(len(samples), sizes)]
+    ci = 0
+    for sample, ctgs in samples:
+        pv += [sample.encode() + b"\0", _agc_pvarint(len(ctgs), sizes)]
+        for name, _ in ctgs:
+            pv += [name.encode() + b"\0",
+                   _agc_pvarint(len(contigs[ci][2]), sizes)]
+            ci += 1
+    pv += [_agc_pvarint(1, sizes), b"pgrtk_tpu_torch write_agc\0"]
+    zpart("collection-main", b"".join(pv))
+    def zigzag(d):
+        counts["negative zigzag deltas"] += d < 0
+        return 2 * d if d >= 0 else -2 * d - 1
+
+    det = []
+    for _, _, segs in contigs:  # groups: first raw, then zigzag deltas
+        det += [_agc_pvarint(segs[0][0], sizes)] + [
+            _agc_pvarint(zigzag(b[0] - a[0]), sizes)
+            for a, b in zip(segs, segs[1:])]
+    for f in (1, 2):  # igids, lens: raw after a flank group
+        for _, _, segs in contigs:
+            det.append(_agc_pvarint(segs[0][f], sizes))
+            for a, b in zip(segs, segs[1:]):
+                det.append(_agc_pvarint(
+                    b[f] if a[0] in flank else zigzag(b[f] - a[f]), sizes))
+    for _, _, segs in contigs:
+        det += [_agc_pvarint(s[3], sizes) for s in segs]
+    zpart("collection-details", b"".join(det))
+    counts.update({f"prefix varints of {n} bytes": c
+                   for n, c in sizes.items()})
+
+    for gid, ref in enumerate(refs):
+        raw = {"raw": True, "mixed": gid % 2 == 1, "packed": False}[ref_mode]
+        if raw or (ref > 3).any():
+            part(f"seg-{gid}-ref", 0, ref.tobytes())
+            counts["raw refs"] += 1
+        else:
+            part(f"seg-{gid}-ref", len(ref),
+                 zstd.compress(_agc_pack_ref(ref), level) + b"\x01")
+            counts["packed refs"] += 1
+        for p in range(0, len(members[gid]), pc):
+            raw = b"\xff".join(members[gid][p:p + pc])
+            if {"raw": True, "mixed": (gid + p // pc) % 2 == 1,
+                    "zstd": False}[delta_mode]:
+                part(f"seg-{gid}-delta", 0, raw)
+                counts["raw parts"] += 1
+            else:
+                zpart(f"seg-{gid}-delta", raw)
+                counts["zstd parts"] += 1
+
+    foot = [_agc_varint(len(streams))]
+    for name, parts in streams.items():
+        foot += [name.encode() + b"\0", _agc_varint(len(parts)),
+                 _agc_varint(sum(s for _, s in parts))]
+        foot += [_agc_varint(o) + _agc_varint(s) for o, s in parts]
+    foot = b"".join(foot)
+    out.extend(foot + len(foot).to_bytes(8, "little"))
+    with open(path, "wb") as f:
+        f.write(out)
+    counts.update({f"op {k}": v for k, v in ops.items()})
+    counts["bytes"] = len(out)
+    return dict(counts)
+
+
+def agc_samples(seed=31, L=120_000, segment_size=5_000):
+    """Two samples [(sample, [(contig, bases)])] for write_agc that reach
+    every branch of the AGC reader at segment_size: hap0, L random bases
+    with a segmental duplication of L // 6 (so one contig holds several
+    records of a group); a random contig; hap1, SNPs at 2e-3 with a
+    300-base insertion (copies back), a 500-base deletion (copies ahead)
+    and a 100-base N run (N literals); hap2 the reverse complement of
+    another SNP copy; hap3 a third copy; a 20,000-base contig with an N
+    every 30 bases (no splitter: one raw segment whose length takes a
+    3-byte prefix varint); and a 5-base contig with an N."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    base = rng.integers(0, 4, L, dtype=np.uint8)
+    d = L // 6
+    base[3 * d:4 * d] = base[d:2 * d]
+
+    def snps(rate):
+        s = base.copy()
+        pos = rng.choice(L, size=rng.binomial(L, rate), replace=False)
+        s[pos] = (s[pos] + rng.integers(1, 4, len(pos))) % 4
+        return acgt[s].tobytes()
+
+    h1 = bytearray(snps(2e-3))
+    h1[int(0.62 * L):int(0.62 * L) + 100] = b"N" * 100
+    h1 = (bytes(h1[:int(0.41 * L)]) + acgt[rng.integers(0, 4, 300)].tobytes()
+          + bytes(h1[int(0.41 * L):int(0.8 * L)])
+          + bytes(h1[int(0.8 * L) + 500:]))
+    h2 = snps(1e-3)[::-1].translate(_COMPLEMENT)
+    gappy = bytearray(acgt[rng.integers(0, 4, 20_000)].tobytes())
+    gappy[::30] = b"N" * len(gappy[::30])
+    return [("ref", [("hap0", acgt[base].tobytes()),
+                     ("rnd", acgt[rng.integers(0, 4, 20_000)].tobytes())]),
+            ("alt", [("hap1", h1), ("hap2", h2), ("hap3", snps(1e-3)),
+                     ("gappy", bytes(gappy)), ("tiny", b"ACGTN")])]

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from pgrtk_tpu.core import agc as jagc
 from pgrtk_tpu.core import archive_pipeline as jpipe
 from pgrtk_tpu.core import pga as jpga
 from pgrtk_tpu.core.seqdb import CompactSeqDB as JCompactSeqDB
@@ -128,12 +129,17 @@ def test_corrupt_archives_raise_as_jax(archives, tmp_path):
 
 
 def test_non_pga_archive_raises_not_ported(archives, tmp_path):
+    """A file that is no PGA archive is read as AGC v2 (the AGC reader is
+    ported); one that is neither raises IOError, as in the JAX package
+    (tests/test_torch_agc.py reads real AGC archives)."""
     agc_file = tmp_path / "x.agc"
     agc_file.write_bytes(b"\x00" * 64)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(IOError, match="AGC"):
         agc.open_archive(str(agc_file))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(IOError, match="AGC"):
         pga.AGCFile(str(agc_file))
+    with pytest.raises(IOError):
+        jagc.open_archive(str(agc_file))
     assert isinstance(pga.AGCFile(archives["port"]), pga.PgaFile)
     with pytest.raises(IOError, match="no archive"):
         pga.PgaSeqDB(str(tmp_path / "absent"))

@@ -228,6 +228,26 @@ with tempfile.TemporaryDirectory() as d:
                           device="cpu") == 0
     with open(os.path.join(d, "a.000.hit")) as f:
         assert len(f.read().splitlines()) > 1
+    # pgr-mdb and pgr-query --agc-file over an AGC v2 archive: the AGC
+    # reader in the archive library and the ctypes zstd of the writer
+    from pgrtk_tpu_torch.core import fasta
+    recs = [(r.id.decode(), r.seq) for r in fasta.read_fastx_all(fa)]
+    cases.write_agc(os.path.join(d, "agc.agc"), [("in.fa", recs)],
+                    segment_size=5_000)
+    with open(os.path.join(d, "agcs.txt"), "w") as f:
+        f.write(os.path.join(d, "agc.agc") + "\n")
+    assert pgr_mdb.main([os.path.join(d, "agcs.txt"),
+                         os.path.join(d, "agc")], device="cpu") == 0
+    for ext in (".mdb", ".midx"):
+        with open(os.path.join(d, "arc" + ext), "rb") as f:
+            with open(os.path.join(d, "agc" + ext), "rb") as g:
+                assert f.read() == g.read()
+    assert pgr_query.main([os.path.join(d, "agc"), fa,
+                           os.path.join(d, "g"), "--agc-file"],
+                          device="cpu") == 0
+    with open(os.path.join(d, "a.000.fa")) as f:
+        with open(os.path.join(d, "g.000.fa")) as g:
+            assert f.read() == g.read()
 # the sharded v2 index and query on one rank, no process group
 from pgrtk_tpu_torch import dryrun
 from pgrtk_tpu_torch.parallel.comm import Comm
@@ -257,7 +277,8 @@ def test_port_imports_and_runs_without_jax():
     """The port and chip_smoke.py import neither JAX nor the JAX
     package, and the query stage, the --batch-device path, the
     decomposition, pgr-make-frgdb with pgr-query --frg-file, pgr-mdb
-    with pgr-query over a PGA archive and the sharded v2 path build and
+    with pgr-query over a PGA archive and over an AGC v2 archive (its
+    index equal to the PGA archive's) and the sharded v2 path build and
     run without them."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(

@@ -108,9 +108,10 @@ def test_fastx_file_query_byte_equal(inputs):
 @pytest.mark.parametrize("argv", [[], ["--agc-file"],
                                   ["--frg-file", "--host"]])
 def test_backends_not_ported_raise(inputs, argv, tmp_path):
-    """The --host route, and an AGC v2 archive behind the default
-    backend (a .agc that is no PGA archive), raise NotImplementedError;
-    an index with no archive beside it raises IOError."""
+    """The --host route, which is not ported, raises NotImplementedError;
+    an index with no archive beside it, or with a .agc that is no AGC v2
+    archive (nor PGA) behind the default backend and --agc-file, raises
+    IOError (the AGC reader is ported: tests/test_torch_agc_cli.py)."""
     q = os.path.join(inputs, "q.fa")
     prefix = os.path.join(inputs, "db")
     if "--frg-file" not in argv:
@@ -122,6 +123,10 @@ def test_backends_not_ported_raise(inputs, argv, tmp_path):
                         device="cpu")
         with open(prefix + ".agc", "wb") as f:
             f.write(b"AGC" + bytes(61))
+        with pytest.raises(IOError, match="AGC"):
+            tquery.main([prefix, q, os.path.join(inputs, "x"), *argv],
+                        device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="ported"):
         tquery.main([prefix, q, os.path.join(inputs, "x"), *argv],
                     device="cpu")
