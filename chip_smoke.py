@@ -263,6 +263,26 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      two 1 Mbase haplotypes and get_variant_segments on 64 of phase 9's
      segments, each equal to an all-plain run on the card, its launches
      (K9, K2, K11 or K5, K8, K12, K13 where it runs them) required.
+ 16. runs pgr-server and the last host tools (phase_server): (a) the
+     port's pgr-server (server/main.py::make_server, --device cuda) over
+     phase 13's archive index on 127.0.0.1 in a thread, its routes, and
+     four decomposition requests on hap0's 16-copy CNV block (padding
+     50,000), a 200 kb unique stretch, 1 Mbase, and the CNV block's
+     coordinates on hap1 (random bases there): each request's host
+     seconds, stages (fetch, query, in-memory index, decomposition, JSON)
+     and launches (K9, K2, K11 or K5, K8 and K12 required), every reply
+     200, its bundle BED records not empty, the first equal to a CPU
+     facade's server and the first two to an all-plain run on the card; the
+     HTML of the first, get_rois and a /ws session; (b) the second
+     request over phase 12's FRG index, equal to its CPU run; (c) eight
+     concurrent requests and two /ws sessions, each equal to its serial
+     reply; (d) pgr-filter (k 32, threshold 0.8) of hap0 against 4,096
+     reads of 10,000 bases (2,048 cut from the 64 haplotypes by
+     cases.hifi_reads, 2,048 random), equal to an all-plain run and, on
+     its first FILTER_CPU reads, to a CPU run; (e) the aligned probe
+     table's padding scan (native/probe_align.cc) against its plain loop
+     at 2^20 buckets and at phase 13's store; (f) one short run each of
+     pgr-multifilter, pgr-probe-match and pgr-annotate.
 
 Between phases 6 and 7 it prints the bounds of the index and query
 steps (sums of their kernels' bounds in this run).
@@ -273,12 +293,14 @@ its operations over the integer issue rate, see HBM_BYTES_PER_S), the
 last line
 {"ok": true, "device": {...}}.
 """
+import io
 import json
 import os
 import pickle
 import random
 import statistics
 import sys
+import threading
 import time
 from collections import Counter
 from types import SimpleNamespace
@@ -4146,6 +4168,451 @@ def phase_agc(dev, kb, build_dir):
               f"{launches}; {n_res} results, {plain} ({t_plain:.3f} s)"
               + note)
 
+# phase 16: pgr-server over the port's facade, and the filter tools
+SERVER_CNV = (3 * Q + 8_192, 3 * Q + 8_192 + 3_072 * 16)  # pbundle_corpus's
+SERVER_UNIQUE = (1_000_000, 200_000)  # (ii): start, bases (past the repeats)
+SERVER_LONG = (2_000_000, 1_000_000)  # (iii)
+SERVER_TOL = 100_000                  # merge_range_tol of every request
+SERVER_PADDING = 50_000               # (i) and (iv)
+SERVER_PLAIN = 2     # requests (i)-(ii) run again all-plain on the card
+SERVER_CPU = 1       # request (i) runs again on a CPU facade (10-80 s each)
+SERVER_KERNELS = ("sketch_mode1", "rank_extract", "chain_scores_fast")
+FILTER_READS = 2_048  # reads cut from haplotypes 0-63, and random reads
+FILTER_LEN = 10_000
+FILTER_K, FILTER_T = 32, 0.8
+FILTER_CPU = 256      # reads of the CPU re-run (~20 ms a read)
+ALIGN_BUCKETS = 1 << 20  # phase 16(e)'s Poisson(32) bucket counts
+
+
+def server_specs(source):
+    """Phase 16's four requests at the spec's defaults: (i) hap0's CNV
+    block with padding, (ii) a 200 kb unique stretch, (iii) 1 Mbase, (iv)
+    the CNV block's coordinates on hap1, whose block is random bases."""
+    def spec(ctg, bgn, end, padding=0):
+        return dict(source=source, ctg=ctg, bgn=bgn, end=end,
+                    padding=padding, merge_range_tol=SERVER_TOL)
+
+    b, e = SERVER_CNV
+    return [("(i) CNV block", spec("hap0", b, e, SERVER_PADDING)),
+            ("(ii) unique", spec("hap0", SERVER_UNIQUE[0],
+                                 sum(SERVER_UNIQUE))),
+            ("(iii) 1 Mbase", spec("hap0", SERVER_LONG[0], sum(SERVER_LONG))),
+            ("(iv) hap1 CNV", spec("hap1", b, e, SERVER_PADDING))]
+
+
+class Served:
+    """A pgr-server serving in a thread: `srv` (a ThreadingHTTPServer of
+    the port's handler, as server/main.py::make_server binds it), or one
+    on 127.0.0.1 port 0 over the facade `db` on `device` with a handler
+    class of its own, so several servers coexist."""
+
+    def __init__(self, srv=None, db=None, device=None, rois=None):
+        import http.server
+
+        from pgrtk_tpu_torch.server import main as sm
+
+        if srv is None:
+            handler = type("PhaseHandler", (sm.Handler,), dict(
+                seq_db=db, device=device, rois=rois or {}, stats=None))
+            srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), handler)
+        self.srv, self.handler = srv, srv.RequestHandlerClass
+        self.port = self.srv.server_address[1]
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def request(self, path, body=None):
+        """(status, reply bytes); a reply that is not 200 fails the run."""
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{self.port}{path}",
+            data=None if body is None else json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                status, data = r.status, r.read()
+        except urllib.error.HTTPError as e:
+            status, data = e.code, e.read()
+        require(status == 200, f"pgr-server answered {status} to {path}: "
+                f"{data[:300]!r}")
+        return data
+
+    def post(self, spec):
+        return self.request("/api/post_query_for_json_data", spec)
+
+    def close(self):
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join()
+
+
+def ws_session(port, prefixes):
+    """One /ws session: each prefix sent as a masked text frame, each
+    reply read; returns the replies."""
+    import base64
+    import socket
+    import struct
+
+    sock = socket.create_connection(("127.0.0.1", port), timeout=60)
+    key = base64.b64encode(os.urandom(16)).decode()
+    sock.sendall((f"GET /ws HTTP/1.1\r\nHost: 127.0.0.1:{port}\r\n"
+                  "Upgrade: websocket\r\nConnection: Upgrade\r\n"
+                  f"Sec-WebSocket-Key: {key}\r\n"
+                  "Sec-WebSocket-Version: 13\r\n\r\n").encode())
+    f = sock.makefile("rb")
+    require(b" 101 " in f.readline(), "/ws refused the upgrade")
+    while f.readline().strip():
+        pass
+    out = []
+    for p in prefixes:
+        payload, mask = p.encode(), os.urandom(4)
+        sock.sendall(bytes([0x81, 0x80 | len(payload)]) + mask + bytes(
+            c ^ mask[i & 3] for i, c in enumerate(payload)))
+        b0, b1 = f.read(2)
+        n = b1 & 0x7F
+        if n == 126:
+            n = struct.unpack(">H", f.read(2))[0]
+        out.append(f.read(n))
+    sock.sendall(bytes([0x88, 0x80]) + b"\x00\x00\x00\x00")
+    sock.close()
+    return out
+
+
+def phase_server(dev, kb, build_dir):
+    """pgr-server over the port's facade and the last host tools, on phase
+    8's corpus through phase 13's archive index (w 80, k 56, r 4,
+    min_span 64) and phase 12's FRG index: (a) the server's routes and
+    four decomposition requests on the card, each with its host seconds,
+    stages and launches, the first SERVER_CPU JSON replies equal to a
+    CPU facade's and the first SERVER_PLAIN to an all-plain run's; (b) request (ii) over the FRG index;
+    (c) eight concurrent requests and two /ws sessions against the
+    serial replies; (d) pgr-filter on 4,096 reads against hap0; (e) the
+    probe table's padding scan against its plain loop; (f) one short run
+    each of pgr-multifilter, pgr-probe-match and pgr-annotate."""
+    import contextlib
+    import gzip
+    import urllib.parse
+
+    from pgrtk_tpu_torch.api import SeqIndexDB
+    from pgrtk_tpu_torch.cli import (pgr_annotate, pgr_filter,
+                                     pgr_multifilter, pgr_probe_match)
+    from pgrtk_tpu_torch.core import mdb as mdb_io
+    from pgrtk_tpu_torch.core.fasta import read_fastx_all
+    from pgrtk_tpu_torch.ops import probe as probe_ops
+    from pgrtk_tpu_torch.server import main as sm
+    from pgrtk_tpu_torch.utils import cases
+    from pgrtk_tpu_torch.utils.device import card_info
+
+    t_phase = time.perf_counter()
+    fa = os.path.join(build_dir, "pbundle_corpus.fa")
+    prefix = os.path.join(build_dir, "mdb", "corpus")
+    d = os.path.join(build_dir, "server")
+    os.makedirs(d, exist_ok=True)
+    print(f"phase 16: pgr-server and the filter tools on {prefix} "
+          f"({card_info()})")
+
+    # (a) the server on the card, over phase 13's archive index
+    t = time.perf_counter()
+    rois = {f"hap{h}_cnv": dict(source="pbundle_corpus.fa", ctg=f"hap{h}",
+                                bgn=SERVER_CNV[0], end=SERVER_CNV[1])
+            for h in range(4)}
+    roi_path = os.path.join(d, "rois.json")
+    with open(roi_path, "w") as f:
+        json.dump(rois, f)
+    card = Served(sm.make_server([prefix, "--addr", "127.0.0.1", "--port",
+                                  "0", "--rois-json", roi_path, "--device",
+                                  str(dev)]))
+    cpu_db = SeqIndexDB(device="cpu")
+    cpu_db.load_from_agc_index(prefix)
+    cpu = Served(db=cpu_db, device="cpu", rois=rois)
+    print(f"  (a) two servers on 127.0.0.1 (ports {card.port}, {cpu.port}),"
+          f" the card's and a CPU facade's, loaded in "
+          f"{time.perf_counter() - t:.3f} s (host clock)")
+    n_ctgs = json.loads(card.request("/api/get_number_of_ctgs"))
+    require(n_ctgs == PB_HAPS, f"get_number_of_ctgs gave {n_ctgs}")
+    version = json.loads(card.request("/api/version"))
+    specs = server_specs("pbundle_corpus.fa")
+    serial = {}
+    for i, (label, spec) in enumerate(specs):
+        card.handler.stats = st = {}
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        t = time.perf_counter()
+        body = card.post(spec)
+        wall = time.perf_counter() - t
+        launches = launched(kb)
+        card.handler.stats = None
+        serial[label] = body
+        out = json.loads(body)
+        for name in SERVER_KERNELS + ("sort_link_rows",):
+            require(launches.get(name, 0) > 0,
+                    f"kernel {name} never launched on request {label}")
+        require(launches.get("probe_fetch", 0)
+                + launches.get("probe_keys", 0) > 0,
+                f"no probe kernel launched on request {label}")
+        recs = out["bundle_bed_records"]
+        require(recs and all(recs), f"request {label} did not reach the "
+                "decomposition")
+        n_hit = sum(1 for _sid, v in out["match_summary"] if v)
+        notes = []
+        if i < SERVER_CPU:
+            t = time.perf_counter()
+            require(cpu.post(spec) == body,
+                    f"request {label}: the CPU facade's reply differs")
+            notes.append(f"equal to the CPU facade's "
+                         f"({time.perf_counter() - t:.3f} s)")
+        if i < SERVER_PLAIN:
+            got = {}
+            t_plain = plain_run(kb, lambda: got.update(v=card.post(spec)))
+            require(got["v"] == body,
+                    f"request {label}: the all-plain reply differs")
+            notes.append(f"equal to an all-plain run's ({t_plain:.3f} s)")
+        print(f"  (a) {label} {spec['ctg']}:{spec['bgn']}-{spec['end']} "
+              f"(padding {spec['padding']}): {wall:.3f} s (host clock); "
+              f"stages: " + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                      st["seconds"].items())
+              + f"; launches {launches}; {n_hit} targets hit, "
+              f"{sum(len(r) for r in recs)} BED records on {len(recs)} "
+              f"sequences, {len(body)} bytes; " + "; ".join(notes))
+    label, spec = specs[0]
+    q = urllib.parse.quote(json.dumps(spec))
+    html = card.request(f"/api/get_html_by_query?{q}")
+    require(html.startswith(b"<svg") and html == cpu.request(
+        f"/api/get_html_by_query?{q}"), "the HTML of (i) differs on the CPU")
+    require(json.loads(card.request("/api/get_rois")) == rois,
+            "get_rois differs")
+    want_ws = [json.dumps({k: rois[k] for k in sorted(rois)
+                           if k.startswith(p)}).encode() if p else b"{}"
+               for p in ("hap", "hap1", "x")]
+    require(ws_session(card.port, ("hap", "hap1", "x")) == want_ws,
+            "the /ws replies differ")
+    print(f"  (a) get_number_of_ctgs {n_ctgs}, version {version!r}, "
+          f"get_html_by_query of (i) {len(html)} bytes equal to the CPU's, "
+          f"get_rois and one /ws round trip of 3 prefixes as expected")
+
+    # (b) request (ii) over phase 12's FRG index
+    frg = SeqIndexDB(device=dev)
+    frg.load_from_frg_index(os.path.join(build_dir, "frgdb"))
+    frg_cpu = SeqIndexDB(device="cpu")
+    frg_cpu.load_from_frg_index(os.path.join(build_dir, "frgdb"))
+    src = next(s for (n, s) in frg.seq_index if n == "hap0")
+    fspec = dict(specs[1][1], source=src)
+    fs = Served(db=frg, device=dev)
+    fc = Served(db=frg_cpu, device="cpu")
+    kb.reset_launches()
+    t = time.perf_counter()
+    fbody = fs.post(fspec)
+    wall = time.perf_counter() - t
+    launches = launched(kb)
+    require(fc.post(fspec) == fbody,
+            "(b) the FRG server's reply differs on the CPU")
+    fout, aout = json.loads(fbody), json.loads(serial[specs[1][0]])
+    same = {k: fout[k] == aout[k] for k in ("match_summary",
+                                            "bundle_bed_records")}
+    print(f"  (b) pgr-server --frg-file, request (ii): {wall:.3f} s (host "
+          f"clock); launches {launches}; equal to its CPU run; against "
+          f"(a)'s reply: whole JSON {fbody == serial[specs[1][0]]}, "
+          + ", ".join(f"{k} {v}" for k, v in same.items())
+          + " (the query's source names the fasta, not the archive sample)")
+    fs.close()
+    fc.close()
+    cpu.close()
+    del frg, frg_cpu, cpu_db
+
+    # (c) eight concurrent requests and two /ws sessions
+    results, errors = {}, []
+
+    def run(key, fn):
+        try:
+            results[key] = fn()
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append((key, repr(e)))
+
+    jobs = [(("post", i), lambda s=s: card.post(s))
+            for i, (_l, s) in enumerate(specs * 2)]
+    jobs += [(("ws", i), lambda: ws_session(card.port, ("hap", "hap1", "x")))
+             for i in range(2)]
+    threads = [threading.Thread(target=run, args=job) for job in jobs]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t
+    require(not errors, f"(c) concurrent requests failed: {errors}")
+    for (kind, i), got in results.items():
+        want = (serial[specs[i % len(specs)][0]] if kind == "post"
+                else want_ws)
+        require(got == want, f"(c) concurrent {kind} {i} differs from its "
+                "serial reply")
+    print(f"  (c) {len(specs) * 2} concurrent requests and 2 /ws sessions: "
+          f"{wall:.3f} s (host clock), each equal to its serial reply")
+    card.close()
+    sm.Handler.seq_db = None
+    torch.cuda.empty_cache()
+
+    # (d) pgr-filter: hap0 against 4,096 reads of 10,000 bases
+    t = time.perf_counter()
+    records = read_fastx_all(fa)
+    ref = os.path.join(d, "hap0.fa")
+    write_records(ref, [(records[0].id.decode(), records[0].seq)])
+    rng = np.random.default_rng(16)
+    haps = [r.seq for r in records]
+    hap0 = haps[0]
+    per = FILTER_READS // len(haps)
+    starts = rng.integers(0, PB_LEN - FILTER_LEN, per)
+    reads = []
+    for j, s in enumerate(starts.tolist()):
+        for h, r in enumerate(cases.hifi_reads(haps, s, FILTER_LEN, 100 + j)):
+            reads.append((f"cut{h}_{s}", r))
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    reads += [(f"random{i}", acgt[rng.integers(0, 4, FILTER_LEN)].tobytes())
+              for i in range(FILTER_READS)]
+    order = rng.permutation(len(reads))
+    qfa = os.path.join(d, "filter_reads.fa")
+    write_records(qfa, [reads[i] for i in order])
+    del records, haps
+    t_in = time.perf_counter() - t
+    argv = [ref, "-q", qfa, "-k", str(FILTER_K), "-t", str(FILTER_T)]
+
+    def filt(device, tag, st=None):
+        out = os.path.join(d, f"filter_{tag}.fa")
+        with open(out, "w") as f, contextlib.redirect_stdout(f):
+            require(pgr_filter.main(argv, device=device, stats=st) == 0,
+                    "pgr-filter exited non-zero")
+        return file_shas([out]).popitem()[1], out
+
+    st = {}
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    t = time.perf_counter()
+    sha, out = filt(dev, "card", st)
+    wall = time.perf_counter() - t
+    launches = launched(kb)
+    for name in ("sketch_mode1", "rank_extract"):
+        require(launches.get(name, 0) > 0,
+                f"kernel {name} never launched on pgr-filter")
+    kept = sum(1 for line in open(out) if line.startswith(">"))
+    require(0 < kept < len(reads), f"pgr-filter kept {kept} of "
+            f"{len(reads)} reads")
+    require(not any(line.startswith(">random") for line in open(out)),
+            "pgr-filter kept a random read")
+    got = {}
+    t_plain = plain_run(kb, lambda: got.update(plain=filt(dev, "plain")[0]))
+    require(got["plain"] == sha, "pgr-filter: the all-plain run differs")
+    # the CPU on the first FILTER_CPU reads: the card's output restricted
+    # to them (the output keeps the query order)
+    cut = [reads[i] for i in order[:FILTER_CPU]]
+    write_records(qfa, cut)
+    t = time.perf_counter()
+    cpu_out = filt("cpu", "cpu")[1]
+    t_cpu = time.perf_counter() - t
+    names = {n for n, _s in cut}
+    recs = open(out).read().split(">")[1:]
+    want = "".join(">" + r for r in recs if r.split("\n", 1)[0] in names)
+    require(open(cpu_out).read() == want,
+            "pgr-filter: the CPU run differs from the card's on its reads")
+    print(f"  (d) pgr-filter -k {FILTER_K} -t {FILTER_T}: hap0 against "
+          f"{len(reads)} reads of {FILTER_LEN} bases ({len(reads) // 2} cut "
+          f"from the 64 haplotypes at 0.5% substitutions, the rest random; "
+          f"written in {t_in:.3f} s): {wall:.3f} s (host clock); stages: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in st["seconds"].items())
+          + f"; launches {launches}; {kept} reads kept; the same output "
+          f"all-plain on the card ({t_plain:.3f} s), and on the CPU for the "
+          f"first {len(cut)} reads ({t_cpu:.3f} s)")
+
+    # (e) the probe table's padding scan, the C++ copy and its plain loop
+    counts = {"2^20 buckets, Poisson(32)": np.random.default_rng(17).poisson(
+        32, ALIGN_BUCKETS).astype(np.int64)}
+    keys = mdb_io.read_mdb_columnar(prefix + ".mdb")[1]
+    bits, _, c = probe_ops._bucket_counts(keys, 32)
+    counts[f"phase 13's store ({len(keys)} keys, 2^{bits} buckets)"] = c
+    del keys
+    for label, c in counts.items():
+        t = time.perf_counter()
+        got = probe_ops._aligned_starts(c)
+        t_cc = time.perf_counter() - t
+        t = time.perf_counter()
+        want = probe_ops._aligned_starts_plain(c)
+        t_py = time.perf_counter() - t
+        require(np.array_equal(got[0], want[0]) and got[1] == want[1],
+                f"(e) the padding scan differs from its plain loop on {label}")
+        print(f"  (e) probe_align.cc on {label}: {1e3 * t_cc:.3f} ms, the "
+              f"plain loop {1e3 * t_py:.3f} ms (host clock), equal")
+
+    # (f) the three host text tools, one short run each: two 40 kb sets
+    # of hap0 and 96 reads of 2,000 bases (32 cut from each set, 32 random)
+    t = time.perf_counter()
+    sets = [(f"hap0_{b}", hap0[b:b + 40_000]) for b in (0, 1_000_000)]
+    lst = os.path.join(d, "sets.txt")
+    with open(lst, "w") as f:
+        for name, seq in sets:
+            path = os.path.join(d, f"{name}.fa")
+            write_records(path, [(name, seq)])
+            f.write(f"{path}\t{name}\n")
+    small = [(f"{name}_{b}", seq[b:b + 2_000]) for name, seq in sets
+             for b in rng.integers(0, 38_000, 32).tolist()]
+    small += [(f"random_{i}", acgt[rng.integers(0, 4, 2_000)].tobytes())
+              for i in range(32)]
+    small_fa = os.path.join(d, "small_reads.fa")
+    write_records(small_fa, small)
+    require(pgr_multifilter.main([lst, os.path.join(d, "multi"), "-q",
+                                  small_fa]) == 0,
+            "pgr-multifilter exited non-zero")
+    n_multi = [sum(1 for line in open(os.path.join(d, f"multi_{n}.fa"))
+                   if line.startswith(">")) for n, _s in sets]
+    require(all(32 <= n < 64 for n in n_multi),
+            f"pgr-multifilter kept {n_multi} reads of its two sets")
+    s0 = small[0][1]
+    probes = os.path.join(d, "probes.tsv")
+    with open(probes, "w") as f:
+        f.write(f"v_mid\t{s0[100:140].decode()}\tt_a\t{s0[200:230].decode()}"
+                f"\tt_b\t{'ACGT' * 8}\n")
+        f.write(f"v_end\t{s0[-30:].decode()}\tt_c\t{s0[-31:-1].decode()}"
+                f"\tt_d\t{s0[:25].decode()}\n")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        require(pgr_probe_match.main([probes, "-q", small_fa]) == 0,
+                "pgr-probe-match exited non-zero")
+    pm = buf.getvalue().splitlines()
+    require(len(pm) == 2 and pm[0].startswith("v_mid ")
+            and not pm[0].startswith("v_mid 0 "), f"pgr-probe-match: {pm}")
+    gtf = os.path.join(d, "genes.gtf.gz")
+    with gzip.open(gtf, "wt") as f:
+        for g in range(8):
+            b = 100_000 * g + 1
+            for tx in range(2):
+                f.write(f"hap0\tsmoke\ttranscript\t{b + 500 * tx}\t"
+                        f"{b + 60_000}\t.\t+\t.\tgene_id \"G{g}\"; "
+                        f"gene_name \"GENE{g}\";\n")
+    bed = os.path.join(d, "regions.bed")
+    with open(bed, "w") as f:
+        f.writelines(f"hap0\t{50_000 * i}\t{50_000 * i + 20_000}\tr{i}\n"
+                     for i in range(16))
+    vcf = os.path.join(d, "calls.vcf")
+    with open(vcf, "w") as f:
+        f.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+                "SAMPLE\n")
+        f.writelines(f"hap0\t{70_000 * i + 7}\t.\tA\tG\t.\tPASS\t.\tGT\t0|1\n"
+                     for i in range(12))
+    require(pgr_annotate.main_bed([bed, gtf, os.path.join(d, "ann.bed")])
+            == 0 and pgr_annotate.main_vcf(
+                [vcf, gtf, os.path.join(d, "ann.vcf")]) == 0,
+            "pgr-annotate exited non-zero")
+    n_bed = sum(1 for _ in open(os.path.join(d, "ann.bed")))
+    n_vcf = sum(1 for line in open(os.path.join(d, "ann.vcf"))
+                if not line.startswith("#"))
+    require(n_bed > 0 and n_vcf > 0, "pgr-annotate annotated nothing")
+    print(f"  (f) pgr-multifilter kept {n_multi} of {len(small)} reads "
+          f"(two 40 kb sets of hap0); pgr-probe-match {pm}; pgr-annotate "
+          f"{n_bed} BED rows and {n_vcf} VCF records annotated "
+          f"({time.perf_counter() - t:.3f} s, host clock, Python "
+          f"{sys.version.split()[0]})")
+    print(f"  phase 16: {time.perf_counter() - t_phase:.1f} s")
+
+
 def set_op_rates():
     """INT_OPS_PER_S from the card (SMs x 64 INT32 lanes x the maximum SM
     clock), and the walks' instruction slots per base from the SASS of
@@ -4262,6 +4729,8 @@ def main():
         stamp("phase 14")
         phase_agc(dev, kb, build_dir)
         stamp("phase 15")
+        phase_server(dev, kb, build_dir)
+        stamp("phase 16")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

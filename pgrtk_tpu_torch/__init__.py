@@ -20,7 +20,9 @@ chain DP with its fallbacks; `parallel/device_query.py`); and the CLIs
 built on them (`cli/`: pgr-pbundle-decomp, pgr-get-sv-candidate-regions,
 pgr-make-frgdb, pgr-query, pgr-mdb, pgr-fetch-seqs, the shimmer-count
 tools, pgr-compare-cov(2), the pbundle text tools,
-pgr-generate-chr-aln-plot and pgr-generate-diploid-vcf) over FRG
+pgr-generate-chr-aln-plot, pgr-generate-diploid-vcf, pgr-filter,
+pgr-multifilter, pgr-probe-match and pgr-annotate) and pgr-server
+(`server/`) over FRG
 databases, PGA archives and AGC v2 archives (`core/agc.py`); the
 facade's index views and position mapping and the consensus module
 (`core/ec.py`); and the JAX package's binding surface, its free

@@ -18,6 +18,7 @@ JAX FASTX/MEMORY map lists them in the order the builder met them).
 """
 from __future__ import annotations
 
+import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -70,7 +71,8 @@ class SeqIndexDB:
     """A sequence database with its shimmer-pair index: in memory (the
     JAX facade's FASTX and MEMORY backends) or read from FRG files (its
     FRG backend).  `stats`, when a dict, gets the host seconds of each
-    stage and the graph's and the query's counts."""
+    stage and the graph's and the query's counts.  Threads may share one
+    facade: its lazy caches fill under a lock."""
 
     def __init__(self, device="cuda", stats: Optional[dict] = None):
         self.device = device
@@ -86,6 +88,7 @@ class SeqIndexDB:
                                                 int]]] = None
         self._pb_cache = None
         self._smps_cache = None
+        self._cache_lock = threading.RLock()
 
     def _time(self, name: str, t0: float) -> None:
         if self.stats is not None:
@@ -324,6 +327,9 @@ class SeqIndexDB:
             max_count_target, max_aln_span, max_gap, oriented, as_arrays,
             device=self.device, stats=self.stats)
 
+    # the JAX facade's mmap variant is the same lookup path
+    query_fragment_to_hps_from_mmap_file = query_fragment_to_hps
+
     # ------------------------------------- MAP graph / principal bundles
     def _principal_cached(self, min_count, path_len_cutoff, keeps=None):
         """The decomposition, cached per parameter set
@@ -331,13 +337,14 @@ class SeqIndexDB:
         one run."""
         key = (min_count, path_len_cutoff,
                tuple(sorted(keeps)) if keeps is not None else None)
-        if self._pb_cache is not None and self._pb_cache[0] == key:
-            return self._pb_cache[1]
-        res = gb.principal_bundles_from_store(
-            self.store, min_count, keeps, path_len_cutoff,
-            device=self.device, stats=self.stats)
-        self._pb_cache = (key, res)
-        return res
+        with self._cache_lock:
+            if self._pb_cache is not None and self._pb_cache[0] == key:
+                return self._pb_cache[1]
+            res = gb.principal_bundles_from_store(
+                self.store, min_count, keeps, path_len_cutoff,
+                device=self.device, stats=self.stats)
+            self._pb_cache = (key, res)
+            return res
 
     def get_principal_bundles(self, min_count: int, path_len_cutoff: int,
                               keeps=None):
@@ -362,8 +369,12 @@ class SeqIndexDB:
     def _sid_smps_from_index(self):
         """{sid: [(h0, h1, bgn, end, ori)]} in (sid, frg_id) order, from
         one pass over the index (pgrtk_tpu/api.py:468-531, columnar)."""
-        if self._smps_cache is not None:
+        with self._cache_lock:
+            if self._smps_cache is None:
+                self._smps_cache = self._sid_smps_columnar()
             return self._smps_cache
+
+    def _sid_smps_columnar(self):
         t0 = time.perf_counter()
         st = self.store
         counts = np.asarray(st.index_counts, dtype=np.int64)
@@ -384,7 +395,6 @@ class SeqIndexDB:
                         np.append(cut, len(order)).tolist()):
             if b > a:
                 per_sid[int(sid_sorted[a])] = cols[a:b]
-        self._smps_cache = per_sid
         self._time("smps from the index", t0)
         return per_sid
 

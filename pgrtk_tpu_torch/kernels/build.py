@@ -133,7 +133,11 @@ def stream_handle(t: torch.Tensor) -> int:
 
 
 class Kernel:
-    """One C entry point of the library and its launch count."""
+    """One C entry point of the library and its launch count.  The count
+    is a plain integer: threads that launch at once (pgr-server's
+    handlers) may lose increments, so count a request's launches in a
+    serial run.  Each launch takes the calling thread's current stream
+    (stream_handle)."""
 
     def __init__(self, name: str, source: str, argtypes):
         self.name = name

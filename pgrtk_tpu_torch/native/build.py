@@ -4,8 +4,9 @@ MAP-graph layer, the gap-affine WFA arbiter (wfa.cc), the scalar sparse
 chain DP (chain.cc) and the batched chain traceback (chain_tb.cc), the
 O(nD) diff alignment of the FRG writer and of map_positions_in_seq
 (match.cc, with a batched entry of its own), the .mdb offsets
-scan (mdb.cc) and the .frg reconstruction of the FRG reader (frg.cc,
-linked with zlib), copies of pgrtk_tpu/native/src's files; and, in a
+scan (mdb.cc), the .frg reconstruction of the FRG reader (frg.cc,
+linked with zlib) and the aligned probe table's bucket-padding scan
+(probe_align.cc), copies of pgrtk_tpu/native/src's files; and, in a
 library of its own, the PGA archive (pga.cc) and the AGC v2 archive
 reader (agc.cc), which link the runtime libzstd (libzstd.so.1).
 
@@ -17,7 +18,8 @@ fallback.  The archive library is built only when an archive is opened
 or written, so a machine without libzstd builds and runs every other
 path.  The flags keep the JAX package's `-ffp-contract=off`, so f32
 chain scores round as the reference's scalar ops do.  The bindings are
-those of pgrtk_tpu/native/api.py:405-719, pgrtk_tpu/core/wfa.py:28-44,
+those of pgrtk_tpu/native/api.py:405-719 (probe_align_starts raises
+where the JAX binding returns None), pgrtk_tpu/core/wfa.py:28-44,
 pgrtk_tpu/core/pga.py:18-52 and pgrtk_tpu/core/agc.py:16-41; the two
 tracebacks raise ValueError where the JAX package's cycle forever (an
 exact duplicate anchor that recurs after other anchors), and the .frg
@@ -38,7 +40,7 @@ import numpy as np
 
 SRC = Path(__file__).resolve().parent
 SOURCES = ("dfs_walk.cc", "bundle_peel.cc", "wfa.cc", "chain.cc",
-           "chain_tb.cc", "match.cc", "mdb.cc", "frg.cc")
+           "chain_tb.cc", "match.cc", "mdb.cc", "frg.cc", "probe_align.cc")
 LIBS = ("-lz",)
 ARCHIVE_SOURCES = ("pga.cc", "agc.cc")
 # the runtime library by its file name: zstd's development package (the
@@ -167,6 +169,9 @@ def library() -> ctypes.CDLL:
             lib.pgr_frg_sub_bases.restype = ctypes.c_int64
             lib.pgr_frg_sub_bases.argtypes = frg + [nd(np.uint8),
                                                     ctypes.c_int64]
+            lib.pgr_probe_align_starts.restype = ctypes.c_int64
+            lib.pgr_probe_align_starts.argtypes = [
+                nd(np.int64), ctypes.c_int64, nd(np.int64)]
             _lib = lib
         return _lib
 
@@ -463,3 +468,16 @@ def frg_sub_bases(frg_arr, grp_off, grp_size, chunk: int, k: int,
         raise ValueError(f"malformed .frg chunk among fragments "
                          f"[{fid_bgn}, {fid_end})")
     return out.tobytes()
+
+
+def probe_align_starts(counts):
+    """The aligned probe table's padded bucket starts (probe_align.cc;
+    ops/probe.py::_aligned_starts_plain is its plain version): a bucket
+    that would straddle a 128-slot row starts at the next row.  `counts`
+    holds each bucket's key count, at most 128.  Returns (starts (nb,)
+    int64, n_padded)."""
+    lib = library()
+    counts = np.ascontiguousarray(counts, dtype=np.int64)
+    starts = np.empty(len(counts), dtype=np.int64)
+    n_padded = lib.pgr_probe_align_starts(counts, len(counts), starts)
+    return starts, int(n_padded)

@@ -82,8 +82,17 @@ def build_probe_table_dense(keys: np.ndarray, avg_per_bucket: int = 32):
 
 def _aligned_starts(counts: np.ndarray):
     """Padded bucket starts: a bucket that would straddle a 128-slot row
-    boundary starts at the next boundary (pgrtk_tpu/ops/probe.py:199-206).
-    Returns (starts (nb,) int64, n_padded)."""
+    boundary starts at the next boundary (pgrtk_tpu/ops/probe.py:184-206),
+    from the host C++ scan (native/probe_align.cc), which raises where it
+    cannot be built.  Returns (starts (nb,) int64, n_padded)."""
+    from ..native import build as native
+
+    return native.probe_align_starts(counts)
+
+
+def _aligned_starts_plain(counts: np.ndarray):
+    """The plain version of _aligned_starts: the recurrence as a Python
+    loop."""
     starts = np.empty(len(counts), dtype=np.int64)
     off = 0
     for b, c in enumerate(counts.tolist()):

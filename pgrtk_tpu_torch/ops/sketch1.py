@@ -44,6 +44,17 @@ from .int64 import INT64_MAX, INT64_MIN, wang_hash
 
 BLOCK = 512  # compaction block of the emitted stream (ops/sketch1.py:227)
 SLOTS = 64  # per-block capacity; low-complexity runs overflow
+
+
+def block_slots(w: int) -> int:
+    """K2's slots a block of the emitted stream: SLOTS from w 24 on (the
+    JAX layout), else room for four times the mean emission of a random
+    sequence, 2 / (w + 1) a base, in multiples of 64 up to the block, so
+    that short windows (pgr-filter's k 32 sketches at w 16) stay off the
+    scalar sketcher.  The sketch is the same at any slots."""
+    if w >= 24:
+        return SLOTS
+    return min(BLOCK, -(-4 * BLOCK // ((w + 1) * 64)) * 64)
 _HASH_SALT = 0xAD12CF59
 
 
@@ -160,18 +171,20 @@ def sketch_mode1_dense(seqs_u8: torch.Tensor, lengths: torch.Tensor,
 
 
 def mode1_compacted(seqs_u8, lengths, k: int, w: int, chunk: int = 512):
-    """K9 then K2: the emitted stream rank-extracted at block 512 with 64
-    slots, a per-row overflow flag (a block emitted more than 64: the row
+    """K9 then K2: the emitted stream rank-extracted at block 512 with
+    block_slots(w) slots (64 from w 24 on), a per-row overflow flag (a
+    block emitted more than that: the row
     goes to the scalar path) and the raw planes' last 2w positions of each
     row for the host tail (pgrtk_tpu/ops/sketch1.py:215
     _mode1_compacted).  Only these cross to the host."""
     d = sketch_mode1_dense(seqs_u8, lengths, k, w, chunk)
     B, L = d["x"].shape
+    slots = block_slots(w)
     (cx, cy), cvalid, _ = pairs_ops.rank_extract_planes(
-        (d["x"], d["y"]), d["emitted"], BLOCK, SLOTS)
+        (d["x"], d["y"]), d["emitted"], BLOCK, slots)
     nb = -(-L // BLOCK)
     em = torch.nn.functional.pad(d["emitted"], (0, nb * BLOCK - L))
-    overflow = (em.reshape(B, nb, BLOCK).sum(dim=2) > SLOTS).any(dim=1)
+    overflow = (em.reshape(B, nb, BLOCK).sum(dim=2) > slots).any(dim=1)
     tw = 2 * w
     starts = torch.clamp(lengths.to(torch.int64) - tw, min=0)
     idx = starts[:, None] + torch.arange(tw, device=starts.device)

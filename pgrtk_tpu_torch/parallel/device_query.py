@@ -18,6 +18,7 @@ are core/query.py's batch versions of the JAX tuple loops.
 """
 from __future__ import annotations
 
+import threading
 import time
 from typing import List, Optional, Sequence
 
@@ -33,13 +34,22 @@ from ..ops import sketch1 as sketch1_ops
 from ..utils.stats import count, tick
 
 
+_tables_lock = threading.Lock()
+
+
 def _device_tables(store, device):
     """The store's probe table on `device`, built once and cached on the
     store: the aligned fence layout, or the padded-bucket layout when a
     bucket overflows the aligned 128-slot window
     (pgrtk_tpu/parallel/device_query.py:20-54).  Either carries `row`,
-    the key-sorted index of each slot (-1 at pad)."""
-    dev = torch.device(device)
+    the key-sorted index of each slot (-1 at pad).  The build holds a
+    lock, so threads that share a store (pgr-server's handlers) build
+    its table once."""
+    with _tables_lock:
+        return _device_tables_locked(store, torch.device(device))
+
+
+def _device_tables_locked(store, dev):
     cache = getattr(store, "_torch_probe_tables", None)
     if cache is None:
         cache = {}
@@ -190,7 +200,10 @@ def batch_query_to_hps(
     keys, groups = collect_target_hits_batch(
         store, pairs, max_count, max_count_query, max_count_target)
     tick(stats, "host lookup and filters", t)
-    span = 8 if max_aln_span is None else max_aln_span
+    # the scalar DP (the JAX facade's route, core/aln_ref.py::sparse_aln)
+    # stops after its first counted predecessor at any span <= 1, where
+    # the device DP would count none: a span of 0 scans as 1
+    span = 8 if max_aln_span is None else max(max_aln_span, 1)
     chained = chain_ops.chain_groups(
         groups, penalty, max_span=span, max_gap=max_gap, oriented=oriented,
         as_arrays=as_arrays, kernel=kernel, device=device, stats=stats)

@@ -754,3 +754,86 @@ def test_auto_step_on_card_walks_short_warm_ups_as_cpu(dev):
     for key in ("n_pairs", "n_mers", "overflow"):
         assert _equal(gpu[key].cpu(), cpu[key]), key
     assert _equal({k: t.cpu() for k, t in gpu["table"].items()}, cpu["table"])
+
+
+def _haplotypes(n, L, seed):
+    """n copies of one random sequence at 2e-4 substitutions each."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    base = rng.integers(0, 4, L, dtype=np.uint8)
+    out = []
+    for _ in range(n):
+        s = base.copy()
+        pos = rng.choice(L, size=int(L * 2e-4), replace=False)
+        s[pos] = (s[pos] + rng.integers(1, 4, len(pos))) % 4
+        out.append(acgt[s].tobytes())
+    return out
+
+
+def test_minimizer_filter_on_card_matches_cpu(dev):
+    """pgr-filter's set on the card (K9 + K2, the sorted words and one
+    search) gives the CPU's counts, per read and in one batch; k 1-3
+    (w 1) raises on the card, naming K9's window limit."""
+    from pgrtk_tpu_torch.core import kmer_filter as kf
+
+    haps = _haplotypes(3, 60_000, 31)
+    rng = np.random.default_rng(32)
+    reads = [h[b:b + 5_000] for h in haps
+             for b in rng.integers(0, 55_000, 8).tolist()]
+    reads += [b"ACGT" * 10, b"", haps[0][:30]]
+    for k in (4, 16, 32, 56):
+        sets = {d: kf.MinimizerFilter(k, device=d) for d in (dev, "cpu")}
+        for f in sets.values():
+            f.add_seqs_mmers(haps[:1])
+        before = kb.sketch_mode1.launches
+        got = sets[dev].check_seqs_mmers(reads)
+        assert kb.sketch_mode1.launches > before
+        assert got == sets["cpu"].check_seqs_mmers(reads)
+        assert got == [sets[dev].check_seq_mmers(r) for r in reads]
+        assert torch.equal(sets[dev]._keys.cpu(), sets["cpu"]._keys)
+    with pytest.raises(ValueError, match="windows of 2 to 128"):
+        kf.MinimizerFilter(3, device=dev).add_seqs_mmers(haps[:1])
+
+
+def test_server_request_on_card_matches_cpu(dev):
+    """One pgr-server request over HTTP against a facade on the card
+    equals the same request against a CPU facade, and runs K9, K2, the
+    probe, K8 and K12."""
+    import http.server
+    import json
+    import threading
+    import urllib.request
+
+    from pgrtk_tpu_torch.api import SeqIndexDB
+    from pgrtk_tpu_torch.server import main as sm
+
+    haps = _haplotypes(6, 120_000, 33)
+    bodies = {}
+    for d in (dev, "cpu"):
+        db = SeqIndexDB(device=d)
+        db.load_from_seq_list([(f"hap_{i}", h) for i, h in enumerate(haps)],
+                              "mem", 80, 56, 4, 64)
+        handler = type("H", (sm.Handler,), dict(seq_db=db, device=d))
+        srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), handler)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        spec = dict(source="mem", ctg="hap_0", bgn=20_000, end=100_000,
+                    padding=5_000, merge_range_tol=100_000)
+        kb.reset_launches()
+        try:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{srv.server_address[1]}"
+                "/api/post_query_for_json_data",
+                data=json.dumps(spec).encode())
+            with urllib.request.urlopen(req, timeout=300) as r:
+                assert r.status == 200
+                bodies[str(d)] = r.read()
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        if d == dev:
+            for k in (kb.sketch_mode1, kb.rank_extract, kb.chain_scores_fast,
+                      kb.sort_link_rows):
+                assert k.launches > 0, k.name
+            assert kb.probe_fetch.launches + kb.probe_keys.launches > 0
+    assert bodies[str(dev)] == bodies["cpu"]
+    assert json.loads(bodies["cpu"])["bundle_bed_records"]
