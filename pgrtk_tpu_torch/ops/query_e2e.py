@@ -39,6 +39,7 @@ import torch
 
 from ..kernels import build as kb
 from ..utils.device import on_cuda
+from ..utils.stats import span
 from . import chain as chain_ops
 from . import pairs as pairs_ops
 from . import probe as probe_ops
@@ -135,152 +136,171 @@ def build_index(target_seqs=None, pair_arrays=None, k: int = 56, r: int = 4,
       probe     build_probe_table_aligned's dict (retried at lambda
                 32 -> 8 -> 2; ValueError if every lambda overflows)
       C, P, n_multi, n_truncated, max_postings, max_mult
+
+    Spans (utils/stats.py): `index.build`, holding `index.build.keys`
+    (key runs, decoys, key sort), `index.build.probe` (one a lambda
+    tried), `index.build.rows` (the p_rows fill) and, with build_lookup,
+    `index.build.lookup`.
     """
-    if pair_arrays is None:
-        pair_arrays = _sketch_pair_arrays(target_seqs, k, r, min_span,
-                                          target_lens, device)
-        n_targets = len(target_seqs)
-    else:
-        sid = pair_arrays["sid"]
-        n_targets = int(sid.max()) + 1 if len(sid) else 0
+    with span("index.build"):
+        if pair_arrays is None:
+            pair_arrays = _sketch_pair_arrays(target_seqs, k, r, min_span,
+                                              target_lens, device)
+            n_targets = len(target_seqs)
+        else:
+            sid = pair_arrays["sid"]
+            n_targets = int(sid.max()) + 1 if len(sid) else 0
 
-    k0, k1 = pair_arrays["k0"], pair_arrays["k1"]
-    sid, bgn, end, ori = (pair_arrays[kk].astype(np.uint32)
-                          for kk in ("sid", "bgn", "end", "ori"))
-    if sid.size and int(sid.max()) >= (1 << SID_BITS) - 1:
-        raise ValueError("sid exceeds the 20-bit meta field")
+        with span("index.build.keys"):
+            k0, k1 = pair_arrays["k0"], pair_arrays["k1"]
+            sid, bgn, end, ori = (pair_arrays[kk].astype(np.uint32)
+                                  for kk in ("sid", "bgn", "end", "ori"))
+            if sid.size and int(sid.max()) >= (1 << SID_BITS) - 1:
+                raise ValueError("sid exceeds the 20-bit meta field")
 
-    # stable key sort: equal keys keep the (sid, position) postings order
-    order = np.lexsort((k1, k0))
-    k0s, k1s, sid_s = k0[order], k1[order], sid[order]
-    n_post = len(k0s)
-    newkey = np.ones(n_post, dtype=bool)
-    newkey[1:] = (k0s[1:] != k0s[:-1]) | (k1s[1:] != k1s[:-1])
-    key_id = np.cumsum(newkey) - 1
-    n_real = int(key_id[-1]) + 1 if n_post else 0
-    key_start = np.flatnonzero(newkey)
-    j = np.arange(n_post) - key_start[key_id]  # slot within the key
+            # stable key sort: equal keys keep the (sid, position)
+            # postings order
+            order = np.lexsort((k1, k0))
+            k0s, k1s, sid_s = k0[order], k1[order], sid[order]
+            n_post = len(k0s)
+            newkey = np.ones(n_post, dtype=bool)
+            newkey[1:] = (k0s[1:] != k0s[:-1]) | (k1s[1:] != k1s[:-1])
+            key_id = np.cumsum(newkey) - 1
+            n_real = int(key_id[-1]) + 1 if n_post else 0
+            key_start = np.flatnonzero(newkey)
+            j = np.arange(n_post) - key_start[key_id]  # slot within the key
 
-    # per-(key, sid) runs: m = rank in the run, mult = run length
-    newrun = newkey.copy()
-    newrun[1:] |= sid_s[1:] != sid_s[:-1]
-    run_id = np.cumsum(newrun) - 1
-    run_start = np.flatnonzero(newrun)
-    m = np.arange(n_post) - run_start[run_id]
-    mult = np.diff(np.append(run_start, n_post))[run_id]
+            # per-(key, sid) runs: m = rank in the run, mult = run length
+            newrun = newkey.copy()
+            newrun[1:] |= sid_s[1:] != sid_s[:-1]
+            run_id = np.cumsum(newrun) - 1
+            run_start = np.flatnonzero(newrun)
+            m = np.arange(n_post) - run_start[run_id]
+            mult = np.diff(np.append(run_start, n_post))[run_id]
 
-    counts = np.diff(np.append(key_start, n_post))
-    key_ovf = np.zeros(n_real, dtype=bool)
-    np.logical_or.at(key_ovf, key_id, (m > 15) | (mult > 127))
-    key_ovf |= counts > P
-    key_multi = np.zeros(n_real, dtype=bool)
-    np.logical_or.at(key_multi, key_id, mult > 1)
-    real_keys = np.stack([k0s[newkey], k1s[newkey]], axis=1).astype(
-        np.uint64)
+            counts = np.diff(np.append(key_start, n_post))
+            key_ovf = np.zeros(n_real, dtype=bool)
+            np.logical_or.at(key_ovf, key_id, (m > 15) | (mult > 127))
+            key_ovf |= counts > P
+            key_multi = np.zeros(n_real, dtype=bool)
+            np.logical_or.at(key_multi, key_id, mult > 1)
+            real_keys = np.stack([k0s[newkey], k1s[newkey]], axis=1).astype(
+                np.uint64)
 
-    rng = np.random.default_rng(seed)
-    dk = np.zeros((0, 2), np.uint64)
-    if n_decoys:
-        C = max(1, n_targets)
-        dk = rng.integers(0, 1 << 56, size=(n_decoys, 2), dtype=np.uint64)
-        d_sid = rng.integers(0, C, size=n_decoys).astype(np.uint32)
-        d_bgn = rng.integers(1, 1 << 20, size=n_decoys).astype(np.uint32)
-        d_end = d_bgn + rng.integers(64, 4096, size=n_decoys).astype(
-            np.uint32)
-        d_ori = rng.integers(0, 2, size=n_decoys).astype(np.uint32)
+            rng = np.random.default_rng(seed)
+            dk = np.zeros((0, 2), np.uint64)
+            if n_decoys:
+                C = max(1, n_targets)
+                dk = rng.integers(0, 1 << 56, size=(n_decoys, 2),
+                                  dtype=np.uint64)
+                d_sid = rng.integers(0, C, size=n_decoys).astype(np.uint32)
+                d_bgn = rng.integers(1, 1 << 20, size=n_decoys).astype(
+                    np.uint32)
+                d_end = d_bgn + rng.integers(64, 4096, size=n_decoys).astype(
+                    np.uint32)
+                d_ori = rng.integers(0, 2, size=n_decoys).astype(np.uint32)
+                if build_lookup:
+                    # only the lookup-checked path screens decoys that hit a
+                    # real key (~n_real * n_decoys / 2^112)
+                    existing = set(map(tuple, real_keys.tolist()))
+                    keep = np.asarray([tuple(kk) not in existing
+                                       for kk in dk.tolist()], dtype=bool)
+                    dk, d_sid, d_bgn, d_end, d_ori = (
+                        dk[keep], d_sid[keep], d_bgn[keep], d_end[keep],
+                        d_ori[keep])
+            keys = np.concatenate([real_keys, dk], axis=0)
+            korder = np.lexsort((keys[:, 1], keys[:, 0]))
+            keys = keys[korder]
+            inv = np.empty(len(keys), dtype=np.int64)
+            inv[korder] = np.arange(len(keys))
+
+        # the postings rows live at the probe's padded positions
+        probe = None
+        for lam in (32, 8, 2):
+            try:
+                with span("index.build.probe"):
+                    probe = probe_ops.build_probe_table_aligned(
+                        keys, avg_per_bucket=lam)
+                break
+            except ValueError:
+                continue
+        if probe is None:
+            raise ValueError(
+                "probe bucket overflow at every lambda: >128 keys share one "
+                "top-24-bit h0 prefix (adversarial key set)"
+            )
+
+        with span("index.build.rows"):
+            inv = probe["pos"][inv]  # original order -> padded row
+
+            p_rows = np.zeros((probe["n_padded"] + 1, 3 * P), dtype=np.uint32)
+            p_meta, p_bgnori, p_end = (p_rows[:, i * P:(i + 1) * P]
+                                       for i in range(3))
+            p_meta[:] = META_EMPTY
+            if n_post:
+                keep_slot = j < P
+                rows, js = inv[key_id[keep_slot]], j[keep_slot]
+                p_meta[rows, js] = pack_meta(sid_s[keep_slot], m[keep_slot],
+                                             mult[keep_slot],
+                                             key_ovf[key_id[keep_slot]])
+                p_bgnori[rows, js] = ((ori[order][keep_slot] << np.uint32(31))
+                                      | bgn[order][keep_slot])
+                p_end[rows, js] = end[order][keep_slot]
+            if len(dk):
+                drow = inv[n_real:]
+                nd = len(dk)
+                p_meta[drow, 0] = pack_meta(d_sid, np.zeros(nd, np.int64),
+                                            np.ones(nd, np.int64),
+                                            np.zeros(nd, bool))
+                p_bgnori[drow, 0] = (d_ori << np.uint32(31)) | d_bgn
+                p_end[drow, 0] = d_end
+
+        lookup = None
         if build_lookup:
-            # only the lookup-checked path screens decoys that hit a
-            # real key (~n_real * n_decoys / 2^112)
-            existing = set(map(tuple, real_keys.tolist()))
-            keep = np.asarray([tuple(kk) not in existing
-                               for kk in dk.tolist()], dtype=bool)
-            dk, d_sid, d_bgn, d_end, d_ori = (
-                dk[keep], d_sid[keep], d_bgn[keep], d_end[keep], d_ori[keep])
-    keys = np.concatenate([real_keys, dk], axis=0)
-    korder = np.lexsort((keys[:, 1], keys[:, 0]))
-    keys = keys[korder]
-    inv = np.empty(len(keys), dtype=np.int64)
-    inv[korder] = np.arange(len(keys))
+            with span("index.build.lookup"):
+                lookup = {}
+                bounds = np.append(key_start, n_post)
+                b_s, e_s, o_s = bgn[order], end[order], ori[order]
+                for ki in range(n_real):
+                    s, e = int(bounds[ki]), int(bounds[ki + 1])
+                    lookup[(int(k0s[s]), int(k1s[s]))] = [
+                        (0, int(sid_s[t]), int(b_s[t]), int(e_s[t]),
+                         int(o_s[t]))
+                        for t in range(s, e)
+                    ]
+                for i in range(len(dk)):
+                    lookup[(int(dk[i, 0]), int(dk[i, 1]))] = [
+                        (0, int(d_sid[i]), int(d_bgn[i]), int(d_end[i]),
+                         int(d_ori[i]))
+                    ]
 
-    # the postings rows live at the probe's padded positions
-    probe = None
-    for lam in (32, 8, 2):
-        try:
-            probe = probe_ops.build_probe_table_aligned(keys,
-                                                        avg_per_bucket=lam)
-            break
-        except ValueError:
-            continue
-    if probe is None:
-        raise ValueError(
-            "probe bucket overflow at every lambda: >128 keys share one "
-            "top-24-bit h0 prefix (adversarial key set)"
+        return dict(
+            keys=keys,
+            p_rows=p_rows.view(np.int32),
+            lookup=lookup,
+            probe=probe,
+            C=n_targets,
+            P=P,
+            n_multi=int(key_multi.sum()),
+            n_truncated=int(key_ovf.sum()),
+            max_postings=int(counts.max()) if n_post else 0,
+            max_mult=int(mult.max()) if n_post else 0,
         )
-    inv = probe["pos"][inv]  # original order -> padded row
-
-    p_rows = np.zeros((probe["n_padded"] + 1, 3 * P), dtype=np.uint32)
-    p_meta, p_bgnori, p_end = (p_rows[:, i * P:(i + 1) * P]
-                               for i in range(3))
-    p_meta[:] = META_EMPTY
-    if n_post:
-        keep_slot = j < P
-        rows, js = inv[key_id[keep_slot]], j[keep_slot]
-        p_meta[rows, js] = pack_meta(sid_s[keep_slot], m[keep_slot],
-                                     mult[keep_slot],
-                                     key_ovf[key_id[keep_slot]])
-        p_bgnori[rows, js] = ((ori[order][keep_slot] << np.uint32(31))
-                              | bgn[order][keep_slot])
-        p_end[rows, js] = end[order][keep_slot]
-    if len(dk):
-        drow = inv[n_real:]
-        nd = len(dk)
-        p_meta[drow, 0] = pack_meta(d_sid, np.zeros(nd, np.int64),
-                                    np.ones(nd, np.int64), np.zeros(nd, bool))
-        p_bgnori[drow, 0] = (d_ori << np.uint32(31)) | d_bgn
-        p_end[drow, 0] = d_end
-
-    lookup = None
-    if build_lookup:
-        lookup = {}
-        bounds = np.append(key_start, n_post)
-        b_s, e_s, o_s = bgn[order], end[order], ori[order]
-        for ki in range(n_real):
-            s, e = int(bounds[ki]), int(bounds[ki + 1])
-            lookup[(int(k0s[s]), int(k1s[s]))] = [
-                (0, int(sid_s[t]), int(b_s[t]), int(e_s[t]), int(o_s[t]))
-                for t in range(s, e)
-            ]
-        for i in range(len(dk)):
-            lookup[(int(dk[i, 0]), int(dk[i, 1]))] = [
-                (0, int(d_sid[i]), int(d_bgn[i]), int(d_end[i]),
-                 int(d_ori[i]))
-            ]
-
-    return dict(
-        keys=keys,
-        p_rows=p_rows.view(np.int32),
-        lookup=lookup,
-        probe=probe,
-        C=n_targets,
-        P=P,
-        n_multi=int(key_multi.sum()),
-        n_truncated=int(key_ovf.sum()),
-        max_postings=int(counts.max()) if n_post else 0,
-        max_mult=int(mult.max()) if n_post else 0,
-    )
 
 
 def index_tensors(idx: dict, device="cuda") -> dict:
     """The device side of a build_index result: probe bits, key planes
-    (k0, k1), fence and p_rows as tensors on `device`."""
+    (k0, k1), fence and p_rows as tensors on `device`, in the span
+    `index.upload`."""
     probe = idx["probe"]
-    return dict(
-        probe_bits=probe["bits"],
-        probe_planes=tuple(torch.from_numpy(probe[f]).to(device)
-                           for f in ("k0", "k1")),
-        probe_fence=torch.from_numpy(probe["fence"]).to(device),
-        p_rows=torch.from_numpy(idx["p_rows"]).to(device),
-    )
+    with span("index.upload"):
+        return dict(
+            probe_bits=probe["bits"],
+            probe_planes=tuple(torch.from_numpy(probe[f]).to(device)
+                               for f in ("k0", "k1")),
+            probe_fence=torch.from_numpy(probe["fence"]).to(device),
+            p_rows=torch.from_numpy(idx["p_rows"]).to(device),
+        )
 
 
 # --------------------------------------------------------------- K6
@@ -731,79 +751,91 @@ def query_e2e_step(
     scores (G, N) f32, prev (G, N) int32, dup, inexact, mult_ovf,
     lane_ovf (G,) bool, row_ovf (B,) bool, overflow (0-dim bool),
     n_q_filtered and n_t_filtered (0-dim int64); G = B*C lanes (query
-    b, target c), N = Pc*M, or slots3 when given and smaller."""
-    if p_rows.dim() != 2 or p_rows.shape[1] != 3 * P:
-        raise ValueError(
-            f"P={P} does not match p_rows width {tuple(p_rows.shape)} "
-            f"(need exactly 3*P columns; pass build_index's idx['P'])")
-    B = seqs_u8.shape[0]
-    (q_k0, q_k1, q_bgn, q_end, q_ori), cvalid, overflow = query_pairs(
-        seqs_u8, lens, k, r, min_span, chunk, slots2, sketch_compact,
-        pair_block)
-    Pc = q_k0.shape[1]
+    b, target c), N = Pc*M, or slots3 when given and smaller.
 
-    tk0, tk1 = probe_planes
-    window = (probe_ops.WINDOW_ALIGNED if probe_aligned
-              else probe_ops.WINDOW_DENSE)
-    # K5 writes found and each key's postings row index (the matched
-    # slot: p_rows has a row per padded probe position), and zeroes the
-    # step's n_q_filtered; no postings are fetched here
-    found, row, n_q_filtered = probe_ops.probe_step(
-        q_k0.reshape(-1), q_k1.reshape(-1), probe_bits, tk0, tk1,
-        probe_fence, window)
-    row = row.reshape(B, Pc)
+    Spans (utils/stats.py): `query.step`, holding `query.front_end`
+    (K1-K4), `query.probe` (K5), `query.postings` (K6, K7 and the slots3
+    compaction) and `query.chain` (K8)."""
+    with span("query.step"):
+        if p_rows.dim() != 2 or p_rows.shape[1] != 3 * P:
+            raise ValueError(
+                f"P={P} does not match p_rows width {tuple(p_rows.shape)} "
+                f"(need exactly 3*P columns; pass build_index's idx['P'])")
+        B = seqs_u8.shape[0]
+        with span("query.front_end"):
+            (q_k0, q_k1, q_bgn, q_end, q_ori), cvalid, overflow = (
+                query_pairs(seqs_u8, lens, k, r, min_span, chunk, slots2,
+                            sketch_compact, pair_block))
+        Pc = q_k0.shape[1]
 
-    # in-query duplicate-pair count filter (aln.rs:203-211), in K6
-    run_len, base_hit, n_q_filtered = dup_pair_filter(
-        q_k0, q_k1, cvalid, found.reshape(B, Pc),
-        min(max_count, max_count_query), n_q_filtered)
+        tk0, tk1 = probe_planes
+        window = (probe_ops.WINDOW_ALIGNED if probe_aligned
+                  else probe_ops.WINDOW_DENSE)
+        # K5 writes found and each key's postings row index (the matched
+        # slot: p_rows has a row per padded probe position), and zeroes
+        # the step's n_q_filtered; no postings are fetched here
+        with span("query.probe"):
+            found, row, n_q_filtered = probe_ops.probe_step(
+                q_k0.reshape(-1), q_k1.reshape(-1), probe_bits, tk0, tk1,
+                probe_fence, window)
+        row = row.reshape(B, Pc)
 
-    # K7 reads each hit slot's postings row of p_rows by that index
-    G, N = B * C, Pc * M
-    lane_ovf = torch.zeros(G, dtype=torch.bool, device=row.device)
-    if slots3 is None or slots3 >= N:
-        ex = expand_postings_anchors_indexed(p_rows, row, base_hit, run_len,
-                                             q_bgn, q_end, q_ori, C, M,
-                                             max_count_target)
-        anchors, gvalid = ex["anchors"], ex["gvalid"]
-    else:
-        ex = expand_postings_indexed(p_rows, row, base_hit, run_len, C, M,
-                                     max_count_target)
+        with span("query.postings"):
+            # in-query duplicate-pair count filter (aln.rs:203-211), in K6
+            run_len, base_hit, n_q_filtered = dup_pair_filter(
+                q_k0, q_k1, cvalid, found.reshape(B, Pc),
+                min(max_count, max_count_query), n_q_filtered)
 
-        def lane_q(v):  # (B, Pc) -> (G, N)
-            return v[:, None, :, None].expand(B, C, Pc, M).reshape(G, N)
+            # K7 reads each hit slot's postings row of p_rows by that index
+            G, N = B * C, Pc * M
+            lane_ovf = torch.zeros(G, dtype=torch.bool, device=row.device)
+            if slots3 is None or slots3 >= N:
+                ex = expand_postings_anchors_indexed(
+                    p_rows, row, base_hit, run_len, q_bgn, q_end, q_ori, C,
+                    M, max_count_target)
+                anchors, gvalid = ex["anchors"], ex["gvalid"]
+            else:
+                ex = expand_postings_indexed(p_rows, row, base_hit, run_len,
+                                             C, M, max_count_target)
 
-        # q_ori rides in q_bgn's top bit (q_bgn < 2^31) through the lanes
-        planes4 = [lane_q(q_bgn | (q_ori << 31)), lane_q(q_end),
-                   _u32(ex["t_bgnori"]).reshape(G, N),
-                   _u32(ex["t_end"]).reshape(G, N)]
-        gvalid = ex["hv"].reshape(G, N)
-        # order-preserving per-lane anchor compaction: same chain, fewer
-        # scan steps; a lane with more than slots3 anchors flags
-        lane_ovf = gvalid.sum(dim=1) > slots3
-        (qbo, qe, tbo, te), gvalid, _ = pairs_ops.rank_extract_planes(
-            planes4, gvalid, N, slots3)
-        mask31 = (1 << 31) - 1
-        anchors = torch.stack(
-            [qbo & mask31, qe, qbo >> 31, tbo & mask31, te, tbo >> 31],
-            dim=-1)
-    scores, prev, dup, inexact = chain_ops.chain_scores_fast(
-        anchors, gvalid, penalty, -1, False, lookback=lookback,
-        max_span=max_span)
-    return dict(
-        anchors=anchors,
-        gvalid=gvalid,
-        scores=scores,
-        prev=prev,
-        dup=dup,
-        inexact=inexact,
-        mult_ovf=ex["grp_ovf"].reshape(G),
-        lane_ovf=lane_ovf,
-        row_ovf=ex["row_ovf"],
-        overflow=overflow,
-        n_q_filtered=n_q_filtered,
-        n_t_filtered=ex["n_t_filtered"],
-    )
+                def lane_q(v):  # (B, Pc) -> (G, N)
+                    return v[:, None, :, None].expand(B, C, Pc, M).reshape(
+                        G, N)
+
+                # q_ori rides in q_bgn's top bit (q_bgn < 2^31) through
+                # the lanes
+                planes4 = [lane_q(q_bgn | (q_ori << 31)), lane_q(q_end),
+                           _u32(ex["t_bgnori"]).reshape(G, N),
+                           _u32(ex["t_end"]).reshape(G, N)]
+                gvalid = ex["hv"].reshape(G, N)
+                # order-preserving per-lane anchor compaction: same chain,
+                # fewer scan steps; a lane with more than slots3 anchors
+                # flags
+                lane_ovf = gvalid.sum(dim=1) > slots3
+                (qbo, qe, tbo, te), gvalid, _ = pairs_ops.rank_extract_planes(
+                    planes4, gvalid, N, slots3)
+                mask31 = (1 << 31) - 1
+                anchors = torch.stack(
+                    [qbo & mask31, qe, qbo >> 31, tbo & mask31, te,
+                     tbo >> 31], dim=-1)
+        with span("query.chain"):
+            scores, prev, dup, inexact = chain_ops.chain_scores_fast(
+                anchors, gvalid, penalty, -1, False, lookback=lookback,
+                max_span=max_span)
+        return dict(
+            anchors=anchors,
+            gvalid=gvalid,
+            scores=scores,
+            prev=prev,
+            dup=dup,
+            inexact=inexact,
+            mult_ovf=ex["grp_ovf"].reshape(G),
+            lane_ovf=lane_ovf,
+            row_ovf=ex["row_ovf"],
+            overflow=overflow,
+            n_q_filtered=n_q_filtered,
+            n_t_filtered=ex["n_t_filtered"],
+        )
 
 
 def fold_e2e_scalar(res: Dict[str, torch.Tensor]) -> torch.Tensor:

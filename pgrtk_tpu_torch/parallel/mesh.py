@@ -61,6 +61,7 @@ from ..ops import sketch as sketch_ops
 from ..ops import adj as adj_ops
 from ..ops.int64 import INT64_MAX, as_i32
 from ..utils.device import on_cuda
+from ..utils.stats import span
 from .comm import Comm
 
 PROBE_W = 128  # a probe bucket row; decides probe_overflow, so semantics
@@ -137,21 +138,30 @@ def _with_safe_rerun(step, *args, chunk, **kw) -> dict:
     compact_kw=SAFE_COMPACT_KW; adds `safe_rerun`.  A sharded step's
     flag is already combined over the ranks, so every rank takes the same
     branch.  Raises OverflowError if the safe sizing overflows too, and
-    ValueError when the sort's keys are outside their widths."""
+    ValueError when the sort's keys are outside their widths.  Spans
+    (utils/stats.py): `index.step`, holding `index.step.flag_read` (the
+    flags' read-back, which waits for the step) and, when it reruns,
+    `index.step.safe_rerun`."""
     exact = dict(block=chunk, slots=12, block2=512, slots2=144)
-    out = step(*args, chunk=chunk, compact_kw=exact, **kw)
-    if not _flags(out):
-        out["safe_rerun"] = False
+    with span("index.step"):
+        out = step(*args, chunk=chunk, compact_kw=exact, **kw)
+        with span("index.step.flag_read"):
+            overflow = _flags(out)
+        if not overflow:
+            out["safe_rerun"] = False
+            return out
+        with span("index.step.safe_rerun"):
+            out = step(*args, chunk=chunk,
+                       compact_kw=pairs_ops.SAFE_COMPACT_KW, **kw)
+            with span("index.step.flag_read"):
+                overflow = _flags(out)
+        if overflow:
+            raise OverflowError(
+                "compaction overflow at SAFE_COMPACT_KW sizing; "
+                "rebuild this batch via the exact host path"
+            )
+        out["safe_rerun"] = True
         return out
-    out = step(*args, chunk=chunk, compact_kw=pairs_ops.SAFE_COMPACT_KW,
-               **kw)
-    if _flags(out):
-        raise OverflowError(
-            "compaction overflow at SAFE_COMPACT_KW sizing; "
-            "rebuild this batch via the exact host path"
-        )
-    out["safe_rerun"] = True
-    return out
 
 
 def sketch_index_step_auto(seqs_u8: torch.Tensor, lengths: torch.Tensor,

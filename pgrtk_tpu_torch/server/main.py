@@ -37,6 +37,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..api import SeqIndexDB
 from ..bindings import pgr_lib_version
+from ..utils.stats import span
 from .bundle_processing import (SequenceQuerySpec,
                                 get_target_and_principal_bundle_decomposition,
                                 pb_data_to_html_string)
@@ -101,14 +102,6 @@ class Handler(BaseHTTPRequestHandler):
         return get_target_and_principal_bundle_decomposition(
             spec, self.seq_db, device=self.device, stats=self.stats)
 
-    def _timed(self, fn):
-        t = time.perf_counter()
-        out = fn()
-        if self.stats is not None:
-            sec = self.stats.setdefault("seconds", {})
-            sec["JSON"] = sec.get("JSON", 0.0) + time.perf_counter() - t
-        return out
-
     def do_OPTIONS(self):
         self._send(200, "")
 
@@ -121,7 +114,8 @@ class Handler(BaseHTTPRequestHandler):
         elif parsed.path == "/api/get_html_by_query":
             try:
                 targets = self._decompose(urllib.parse.unquote(parsed.query))
-                html = self._timed(lambda: pb_data_to_html_string(targets))
+                with span("JSON", self.stats):
+                    html = pb_data_to_html_string(targets)
                 self._send(200, html, "text/html")
             except Exception as e:  # noqa: BLE001
                 self._send(400, json.dumps({"error": str(e)}))
@@ -164,7 +158,9 @@ class Handler(BaseHTTPRequestHandler):
             try:
                 n = int(self.headers.get("Content-Length", 0))
                 targets = self._decompose(self.rfile.read(n))
-                self._send(200, self._timed(lambda: json.dumps(targets)))
+                with span("JSON", self.stats):
+                    body = json.dumps(targets)
+                self._send(200, body)
             except Exception as e:  # noqa: BLE001
                 self._send(400, json.dumps({"error": str(e)}))
         else:
