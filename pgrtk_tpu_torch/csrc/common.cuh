@@ -52,8 +52,10 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* total,
 
 // Allow `kernel` `bytes` of dynamic shared memory on the current device,
 // once per device and size (the call costs host time on every launch
-// otherwise).  Returns the error of the first call.
-template <typename Kernel>
+// otherwise).  Returns the error of the first call.  The record is kept
+// by the kernel's type; kernels of one type (a template's instances) each
+// take their own kTag.
+template <int kTag = 0, typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, int bytes) {
   static int done[64] = {};
   int dev = 0;

@@ -10,7 +10,8 @@ cudaGetLastError(); a non-zero code raises here.
 
 Each kernel is a `Kernel` with a plain integer `launches` count, raised by
 one every time its entry point launches, so a run can show that it went
-through the kernels.
+through the kernels, and `row_passes`, which K7's entries raise by the
+blocks that read each query row's postings (B x target chunks a launch).
 """
 from __future__ import annotations
 
@@ -144,6 +145,7 @@ class Kernel:
         self.source = source
         self.argtypes = argtypes
         self.launches = 0
+        self.row_passes = 0
 
     def __call__(self, *args) -> None:
         lib = library()
@@ -183,7 +185,8 @@ dup_pair_counts = Kernel(
 )
 expand_postings = Kernel(
     "expand_postings", "pgrtk_tpu_torch/csrc/query.cu",
-    [_P, _P, _P, _I, _I, _I, _I, _I, _U, _P, _P, _P, _P, _P, _P, _P],
+    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _P, _P, _P, _P, _P, _P,
+     _P],
 )
 chain_scores_fast = Kernel(
     "chain_scores_fast", "pgrtk_tpu_torch/csrc/chain.cu",
@@ -243,7 +246,8 @@ shard_probe_found = Kernel(
 # K7's second entry: the same gather core writing K8's (G, N, 6) anchors
 expand_postings_anchors = Kernel(
     "expand_postings_anchors", "pgrtk_tpu_torch/csrc/query.cu",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _P, _P, _P, _P, _P, _P],
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _P, _P, _P, _P,
+     _P, _P],
 )
 # The query step's entries: K5's probe writing found and the row index
 # only, K6 with the count filter, and K7's two entries reading postings
@@ -258,13 +262,13 @@ dup_pair_filter = Kernel(
 )
 expand_postings_indexed = Kernel(
     "expand_postings_indexed", "pgrtk_tpu_torch/csrc/query.cu",
-    [_P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _U, _P, _P, _P, _P, _P, _P,
-     _P],
+    [_P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _P, _P, _P, _P, _P,
+     _P, _P],
 )
 expand_postings_anchors_indexed = Kernel(
     "expand_postings_anchors_indexed", "pgrtk_tpu_torch/csrc/query.cu",
-    [_P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _P, _P, _P, _P,
-     _P, _P],
+    [_P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _P, _P,
+     _P, _P, _P, _P],
 )
 # K18 and K19: the dense pair variants
 min_span_filter_dense = Kernel(
@@ -294,6 +298,7 @@ KERNELS = (sketch_walk_compact, rank_extract, min_span_filter_gapped,
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.row_passes = 0
 
 
 def sketch_scratch(B: int, L: int, chunk: int, exact: bool, device):

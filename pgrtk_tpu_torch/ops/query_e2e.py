@@ -31,6 +31,7 @@ step also runs K1-K4 (sketch and pairs), K5 (`probe.probe_step`) and K8
 from __future__ import annotations
 
 import ctypes
+import math
 from types import SimpleNamespace
 from typing import Dict
 
@@ -409,6 +410,42 @@ def dup_pair_filter(k0: torch.Tensor, k1: torch.Tensor, valid: torch.Tensor,
 
 # --------------------------------------------------------------- K7
 
+# K7's lane budget: the accumulator lanes a block of 512 threads holds in
+# shared memory (9 bytes each, ~190 KB of it with the staging at the
+# budget), so that tiles are long and each target's run of stores is
+# whole kilobytes; and the pair slots a tile at most
+EXPAND_LANES = 18432
+EXPAND_SLOTS = 256
+
+
+def expand_shape(Pc: int, C: int, M: int) -> tuple:
+    """K7's launch shape for (B, Pc) pair slots over C targets and M
+    lanes a slot: (TP pair slots a tile, Cc targets a block, chunks of
+    targets a row).  A block takes every target while one slot's C x
+    min(M, 16) lanes fit the budget, and as many pair slots as then fit;
+    past that, one slot a tile and the targets in balanced chunks, each
+    chunk's block reading the row's postings again."""
+    C, Me = max(C, 1), min(M, 1 << M_BITS)  # lanes m >= 16 are never hit
+    TP = max(1, min(Pc, EXPAND_SLOTS, EXPAND_LANES // (C * Me)))
+    # a tile short of the row ends its lanes on whole 32-byte sectors of
+    # the mask where it can: a store of part of a sector costs a read
+    whole = 32 // math.gcd(M, 32)
+    if TP < Pc and TP >= whole:
+        TP -= TP % whole
+    chunks = -(-C // (EXPAND_LANES // (TP * Me)))
+    Cc = -(-C // chunks)  # balanced chunks
+    return TP, Cc, -(-C // Cc)
+
+
+def _launch_expand(kernel, B: int, Pc: int, C: int, M: int, lead, tail,
+                   stream) -> None:
+    """One launch of a K7 entry: `lead` the arguments up to M, `tail` the
+    outputs; counts the blocks that read a row's postings."""
+    TP, Cc, chunks = expand_shape(Pc, C, M)
+    kernel(*lead, TP, Cc, *tail, stream)
+    kernel.row_passes += B * chunks
+
+
 def _u32(t: torch.Tensor) -> torch.Tensor:
     """int32 bit patterns -> int64 u32 values."""
     return t.long() & _U32
@@ -520,14 +557,15 @@ def expand_postings(rows: torch.Tensor, base_hit: torch.Tensor,
     B, Pc, P3 = rows.shape
     out = _planes_out(B, Pc, C, M, rows.device)
     if B:
-        kb.expand_postings(
-            rows.data_ptr(), base_hit.data_ptr(), run_len.data_ptr(), B, Pc,
-            P3 // 3, C, M, ctypes.c_uint(max_count_target & _U32),
-            *(out[k].data_ptr() for k in ("t_bgnori", "t_end", "hv",
-                                          "row_ovf", "grp_ovf",
-                                          "n_t_filtered")),
-            kb.stream_handle(rows),
-        )
+        _launch_expand(
+            kb.expand_postings, B, Pc, C, M,
+            (rows.data_ptr(), base_hit.data_ptr(), run_len.data_ptr(), B, Pc,
+             P3 // 3, C, M),
+            (ctypes.c_uint(max_count_target & _U32),
+             *(out[k].data_ptr() for k in ("t_bgnori", "t_end", "hv",
+                                           "row_ovf", "grp_ovf",
+                                           "n_t_filtered"))),
+            kb.stream_handle(rows))
     return out
 
 
@@ -576,14 +614,14 @@ def expand_postings_anchors(rows: torch.Tensor, base_hit: torch.Tensor,
     B, Pc, P3 = rows.shape
     out = _anchors_out(B, Pc, C, M, rows.device)
     if B:
-        kb.expand_postings_anchors(
-            rows.data_ptr(), base_hit.data_ptr(), run_len.data_ptr(),
-            *(v.data_ptr() for v in q), B, Pc, P3 // 3, C, M,
-            ctypes.c_uint(max_count_target & _U32),
-            *(out[k].data_ptr() for k in ("anchors", "gvalid", "row_ovf",
-                                          "grp_ovf", "n_t_filtered")),
-            kb.stream_handle(rows),
-        )
+        _launch_expand(
+            kb.expand_postings_anchors, B, Pc, C, M,
+            (rows.data_ptr(), base_hit.data_ptr(), run_len.data_ptr(),
+             *(v.data_ptr() for v in q), B, Pc, P3 // 3, C, M),
+            (ctypes.c_uint(max_count_target & _U32),
+             *(out[k].data_ptr() for k in ("anchors", "gvalid", "row_ovf",
+                                           "grp_ovf", "n_t_filtered"))),
+            kb.stream_handle(rows))
     return out
 
 
@@ -639,15 +677,16 @@ def expand_postings_indexed(p_rows: torch.Tensor, row: torch.Tensor,
     B, Pc = base_hit.shape
     out = _planes_out(B, Pc, C, M, p_rows.device)
     if B:
-        kb.expand_postings_indexed(
-            p_rows.data_ptr(), p_rows.shape[0], row.data_ptr(),
-            base_hit.data_ptr(), run_len.data_ptr(), B, Pc,
-            p_rows.shape[1] // 3, C, M, ctypes.c_uint(max_count_target & _U32),
-            *(out[k].data_ptr() for k in ("t_bgnori", "t_end", "hv",
-                                          "row_ovf", "grp_ovf",
-                                          "n_t_filtered")),
-            kb.stream_handle(p_rows),
-        )
+        _launch_expand(
+            kb.expand_postings_indexed, B, Pc, C, M,
+            (p_rows.data_ptr(), p_rows.shape[0], row.data_ptr(),
+             base_hit.data_ptr(), run_len.data_ptr(), B, Pc,
+             p_rows.shape[1] // 3, C, M),
+            (ctypes.c_uint(max_count_target & _U32),
+             *(out[k].data_ptr() for k in ("t_bgnori", "t_end", "hv",
+                                           "row_ovf", "grp_ovf",
+                                           "n_t_filtered"))),
+            kb.stream_handle(p_rows))
     return out
 
 
@@ -680,16 +719,15 @@ def expand_postings_anchors_indexed(
     B, Pc = base_hit.shape
     out = _anchors_out(B, Pc, C, M, p_rows.device)
     if B:
-        kb.expand_postings_anchors_indexed(
-            p_rows.data_ptr(), p_rows.shape[0], row.data_ptr(),
-            base_hit.data_ptr(), run_len.data_ptr(),
-            *(v.data_ptr() for v in q), B, Pc,
-            p_rows.shape[1] // 3, C, M,
-            ctypes.c_uint(max_count_target & _U32),
-            *(out[k].data_ptr() for k in ("anchors", "gvalid", "row_ovf",
-                                          "grp_ovf", "n_t_filtered")),
-            kb.stream_handle(p_rows),
-        )
+        _launch_expand(
+            kb.expand_postings_anchors_indexed, B, Pc, C, M,
+            (p_rows.data_ptr(), p_rows.shape[0], row.data_ptr(),
+             base_hit.data_ptr(), run_len.data_ptr(),
+             *(v.data_ptr() for v in q), B, Pc, p_rows.shape[1] // 3, C, M),
+            (ctypes.c_uint(max_count_target & _U32),
+             *(out[k].data_ptr() for k in ("anchors", "gvalid", "row_ovf",
+                                           "grp_ovf", "n_t_filtered"))),
+            kb.stream_handle(p_rows))
     return out
 
 

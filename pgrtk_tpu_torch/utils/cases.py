@@ -181,19 +181,27 @@ def query_fields(seed, B, Pc):
 
 
 # K7's postings cases: (C, M, max_count_target); M = 16 makes random
-# (sid, m) repeats in a row collide and add up
-POSTINGS_SETTINGS = ((4, 3, 128), (3, 1, 6), (8, 16, 40))
+# (sid, m) repeats in a row collide and add up.  C = 94 at M = 3 is the
+# query cell's shape (many slot tiles, every target in a block); C =
+# 1,300 at M = 16 takes more lanes a slot than a K7 block holds, so its
+# targets are chunked.
+POSTINGS_SETTINGS = ((4, 3, 128), (3, 1, 6), (8, 16, 40), (94, 3, 128),
+                     (1300, 16, 40))
+# (B, Pc, P) of the settings not at the default (3, 40, 8)
+POSTINGS_SHAPES = {(94, 3): (2, 256, 288), (1300, 16): (2, 8, 8)}
 
 
-def postings_case(C, M, B=3, Pc=40, P=8):
-    """postings_rows at one POSTINGS_SETTINGS entry's seed, as K7's
-    inputs: rows (B, Pc, 3P) int32, base_hit, run_len, and query_fields."""
+def postings_case(C, M):
+    """postings_rows at one POSTINGS_SETTINGS entry's seed and shape, as
+    K7's inputs: rows (B, Pc, 3P) int32, base_hit, run_len, and
+    query_fields."""
+    B, Pc, P = POSTINGS_SHAPES.get((C, M), (3, 40, 8))
     meta, bgnori, end, hit, run = postings_rows(C * 100 + M, B, Pc, P, C)
     rows = np.concatenate([meta, bgnori, end], axis=2).view(np.int32)
     return (rows, hit, run), query_fields(C * 100 + M + 1, B, Pc)
 
 
-def postings_table_case(C, M, B=3, Pc=40, P=8, bad=False):
+def postings_table_case(C, M, bad=False):
     """postings_case in K7's index form: p_rows (n_rows, 3P) int32 holds
     the slots' rows shuffled, a few spare rows and the not-found sentinel
     last; row (B, Pc) int32 names each slot's row, slot 1 of every query
@@ -203,7 +211,9 @@ def postings_table_case(C, M, B=3, Pc=40, P=8, bad=False):
     sentinel.  Returns ((p_rows, row, base_hit, run_len), query_fields)."""
     from ..ops.query_e2e import META_EMPTY
 
-    (rows, hit, run), q = postings_case(C, M, B, Pc, P)
+    (rows, hit, run), q = postings_case(C, M)
+    B, Pc = hit.shape
+    P = rows.shape[2] // 3
     rng = np.random.default_rng(C * 100 + M + 2)
     flat = rows.reshape(B * Pc, 3 * P)
     perm = rng.permutation(B * Pc)

@@ -99,6 +99,28 @@ def test_query_kernels_match_plain_on_edge_cases(dev, family):
     torch.cuda.synchronize()
 
 
+def test_expand_counts_a_row_pass_a_block(dev):
+    """K7's entries count B x target chunks row passes a launch: B at the
+    query cell's shape (every target in one block), B x 2 where a slot's
+    lanes outgrow a block (C 1,300 at M 16); reset_launches zeroes them."""
+    for C, M, mct in ((94, 3, 128), (1300, 16, 40)):
+        (p_rows, row, base_hit, run_len), q = cases.postings_table_case(C, M)
+        args = [torch.from_numpy(a).to(dev)
+                for a in (p_rows, row, base_hit, run_len, *q)]
+        B, Pc = base_hit.shape
+        chunks = tq.expand_shape(Pc, C, M)[2]
+        assert chunks == (1 if C == 94 else 2)
+        kb.reset_launches()
+        tq.expand_postings_anchors_indexed(*args, C, M, mct)
+        tq.expand_postings_indexed(*args[:4], C, M, mct)
+        torch.cuda.synchronize()
+        for k in (kb.expand_postings_anchors_indexed,
+                  kb.expand_postings_indexed):
+            assert (k.launches, k.row_passes) == (1, B * chunks), k.name
+    kb.reset_launches()
+    assert kb.expand_postings_indexed.row_passes == 0
+
+
 def test_kernels_take_more_rows_than_grid_y(dev):
     """K2, K3 and K4 put rows on gridDim.y, which takes at most 65,535:
     their entry points launch in row tiles, so 70,000 rows give what the

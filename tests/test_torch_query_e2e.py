@@ -13,6 +13,7 @@ import torch
 
 from pgrtk_tpu.ops import query_e2e as jq
 from pgrtk_tpu_torch import convert
+from pgrtk_tpu_torch.kernels import build as kb
 from pgrtk_tpu_torch.ops import query_e2e as tq
 from pgrtk_tpu_torch.parallel import mesh as tmesh
 from pgrtk_tpu_torch.utils import cases
@@ -364,17 +365,14 @@ def test_dup_pair_filter_matches_jax(B, Pc, limit):
     assert Pc == 1 or limit > 2 or want_n > 0  # the filter bites
 
 
-@pytest.mark.parametrize("C,M,mct", [(4, 3, 128), (3, 1, 6), (8, 16, 40)])
+@pytest.mark.parametrize("C,M,mct", cases.POSTINGS_SETTINGS)
 def test_expand_postings_matches_jax(C, M, mct):
     """Empty slots, keyovf, sid >= C, m >= M, counts above
     max_count_target; M=16 lets random (sid, m) repeats in a row add up,
-    as the JAX one-hot sum does."""
-    meta, bgnori, end, base_hit, run_len = cases.postings_rows(
-        C * 100 + M, 3, 40, 8, C)
-    want = jq.expand_postings(
-        jnp.asarray(meta), jnp.asarray(bgnori), jnp.asarray(end),
-        jnp.asarray(base_hit), jnp.asarray(run_len), C, M, mct)
-    rows = np.concatenate([meta, bgnori, end], axis=2).view(np.int32)
+    as the JAX one-hot sum does; the query cell's shape, and targets past
+    one K7 block's lanes."""
+    (rows, base_hit, run_len), _ = cases.postings_case(C, M)
+    want = _jax_expand(rows, base_hit, run_len, C, M, mct)
     got = tq.expand_postings(torch.from_numpy(rows),
                              torch.from_numpy(base_hit),
                              torch.from_numpy(run_len), C, M, mct)
@@ -481,6 +479,30 @@ def test_expand_postings_indexed_matches_jax(C, M, mct, entry):
             assert np.array_equal(got[name].numpy(),
                                   np.asarray(ex[name])), name
         assert np.asarray(ex["hv"]).any() and int(ex["n_t_filtered"]) > 0
+
+
+def test_expand_shape_takes_every_target_until_a_slot_outgrows_a_block():
+    """K7's launch shape: at the query cell's (Pc 256, C 94, M 3) one block
+    a row holds every target over tiles of pair slots, each tile's lanes
+    on whole 32-byte sectors of the mask; where one slot's C x min(M, 16)
+    lanes exceed the budget (C 1,300 at M 16), a slot a tile and the
+    targets in balanced chunks; each setting's shape within the budget;
+    reset_launches zeroes row_passes."""
+    TP, Cc, chunks = tq.expand_shape(256, 94, 3)
+    assert (Cc, chunks) == (94, 1) and 32 <= TP < 256
+    assert TP % 32 == 0 and TP * 94 * 3 <= tq.EXPAND_LANES
+    assert tq.expand_shape(8, 1300, 16) == (1, 650, 2)
+    assert 1300 * 16 > tq.EXPAND_LANES >= 650 * 16
+    for C, M, _ in cases.POSTINGS_SETTINGS:
+        Pc = cases.postings_case(C, M)[0][1].shape[1]
+        TP, Cc, chunks = tq.expand_shape(Pc, C, M)
+        assert 1 <= TP <= Pc and TP * Cc * min(M, 16) <= tq.EXPAND_LANES
+        assert (chunks > 1) == (C * min(M, 16) > tq.EXPAND_LANES)
+        assert (chunks - 1) * Cc < C <= chunks * Cc
+    assert tq.expand_shape(0, 0, 1) == (1, 1, 1)
+    kb.expand_postings_anchors_indexed.row_passes = 7
+    kb.reset_launches()
+    assert all(k.row_passes == 0 for k in kb.KERNELS)
 
 
 def test_step_rejects_a_wrong_p():
