@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of pgrtk_tpu_torch, the PyTorch + CUDA port, on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only pair-rule]
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
 Imports neither JAX nor the JAX package.  It builds the hand-written
@@ -82,6 +82,19 @@ kernels from pgrtk_tpu_torch/csrc with nvcc (sm_90a), then:
      again with pair_block=512 and a slots3 lane compaction, which must
      run K7's JAX-shaped entry in index form and give the same anchors
      and scores;
+ 6d. builds a probe table on the pair bucket rule (ops/probe.py
+     RULE_PAIR) at the chm13v2 cell's key count (cases.pair_rule_keys:
+     7,145,000 random keys, a k0 behind 1,200 partners, a k1 behind 300
+     k0 values, keys (h, h)), on which every k0 lambda overflows; K5's
+     three entries on 1,024 x 384 query keys (the cell's B x Pc: every
+     hot key, random keys and as many misses, pad and past-56-bit
+     halves) with launch counts reset just before, every key at its pos,
+     each entry against its plain version on the same inputs, timed;
+     then sketch_index_step_auto on 4 x 262,144 bases holding arrays of
+     a 256-base unit dense in selected mers, which SAFE_COMPACT_KW's
+     sizing overflows: two reruns, the last at WIDE_COMPACT_KW, its
+     table equal to the CPU's auto step (`--only pair-rule` runs this
+     phase alone);
   7. runs the pgr-query --batch-device path, parallel/device_query.py's
      batch_query_to_hps, on bench.py's corpus: the 8 targets as
      in-memory FRG stores (core/seqdb.build_columnar_store) at the CLI
@@ -1129,17 +1142,17 @@ def distinct_keys(k0, k1):
     return torch.unique(torch.stack([k0, k1]), dim=1).shape[1]
 
 
-def probe_work(k0, k1, bits, fence, tk0, row_bytes):
+def probe_work(k0, k1, bits, rule, fence, tk0, row_bytes):
     """Input bytes, output bytes (a function of the result) and
-    operations of a fence probe (K5).  Read once: each query key's two
+    operations of a fence probe (K5) of a table on bucket rule `rule`.  Read once: each query key's two
     words, the two fence entries and the keys (16 bytes each) of each
     bucket probed, however many query keys probe it, and `row_bytes` of
     postings per distinct query key; written: each key's result and
     postings.  One compare per query key and key of its bucket."""
-    from pgrtk_tpu_torch.ops.int64 import srl
+    from pgrtk_tpu_torch.ops.probe import query_bucket
 
     occ = torch.nn.functional.pad((tk0 != -1).cumsum(0), (1, 0))
-    b = srl(k0, 56 - bits).clamp(max=fence.numel() - 2)
+    b = query_bucket(k0, k1, bits, rule).clamp(max=fence.numel() - 2)
 
     def n_slots(b):
         return int((occ[fence[b + 1].long()] - occ[fence[b].long()]).sum())
@@ -1226,8 +1239,9 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
           f"({idx['p_rows'].nbytes / 2**30:.2f} GiB)")
     counts = {k: idx[k] for k in ("n_multi", "n_truncated", "max_postings")}
     dense = tpr.build_probe_table_dense(idx["keys"])
-    dense = dict(bits=dense["bits"], **{f: torch.from_numpy(dense[f]).to(dev)
-                                        for f in ("k0", "k1", "fence")})
+    dense = dict(bits=dense["bits"], rule=dense["rule"],
+                 **{f: torch.from_numpy(dense[f]).to(dev)
+                    for f in ("k0", "k1", "fence")})
     del idx
     q = torch.from_numpy(queries).to(dev)
     qlens = torch.full((B,), L, device=dev)
@@ -1330,7 +1344,8 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
     probe_args = (q_k0.reshape(-1), q_k1.reshape(-1), tens["probe_bits"],
                   *tens["probe_planes"], tens["probe_fence"])
     fetch_args = (*probe_args, tens["p_rows"], tpr.WINDOW_ALIGNED)
-    found, row, _ = tpr.probe_step(*probe_args)
+    rule = dict(rule=tens["probe_rule"])
+    found, row, _ = tpr.probe_step(*probe_args, **rule)
     filter_args = (q_k0, q_k1, cvalid, found.reshape(B, Pc), 128)
     run_len, base_hit, _ = tq.dup_pair_filter(*filter_args)
     ix_args = (tens["p_rows"], row.reshape(B, Pc), base_hit, run_len, C, M,
@@ -1346,18 +1361,20 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
     results = {
         "probe_fetch": measure(
             f"K5 probe_fetch (rows fetched), {q_k0.numel()} keys",
-            lambda: tpr.probe_fetch(*fetch_args),
-            lambda: tpr.probe_fetch_plain(*fetch_args),
+            lambda: tpr.probe_fetch(*fetch_args, **rule),
+            lambda: tpr.probe_fetch_plain(*fetch_args, **rule),
             *probe_work(q_k0.reshape(-1), q_k1.reshape(-1),
-                        tens["probe_bits"], tens["probe_fence"],
-                        tens["probe_planes"][0], 12 * P)),
+                        tens["probe_bits"], tens["probe_rule"],
+                        tens["probe_fence"], tens["probe_planes"][0],
+                        12 * P)),
         "probe_step": measure(
             f"K5 probe_step, {q_k0.numel()} keys",
-            lambda: tpr.probe_step(*probe_args),
-            lambda: tpr.probe_step_plain(*probe_args, tpr.WINDOW_ALIGNED),
+            lambda: tpr.probe_step(*probe_args, **rule),
+            lambda: tpr.probe_step_plain(*probe_args, tpr.WINDOW_ALIGNED,
+                                         **rule),
             *probe_work(q_k0.reshape(-1), q_k1.reshape(-1),
-                        tens["probe_bits"], tens["probe_fence"],
-                        tens["probe_planes"][0], 0)),
+                        tens["probe_bits"], tens["probe_rule"],
+                        tens["probe_fence"], tens["probe_planes"][0], 0)),
         "dup_pair_filter": measure(
             f"K6 dup_pair_filter, ({B}, {Pc})",
             lambda: tq.dup_pair_filter(*filter_args, counters[0]),
@@ -1407,10 +1424,10 @@ def phase_query(dev, kb, tsk, tp, targets, queries):
                   tpr.WINDOW_DENSE)
     measure(f"K5 probe_fetch window 256 (dense table of the same keys), "
             f"found only, {q_k0.numel()} keys",
-            lambda: tpr.probe_fetch(*dense_args),
-            lambda: tpr.probe_fetch_plain(*dense_args),
+            lambda: tpr.probe_fetch(*dense_args, rule=dense["rule"]),
+            lambda: tpr.probe_fetch_plain(*dense_args, rule=dense["rule"]),
             *probe_work(q_k0.reshape(-1), q_k1.reshape(-1), dense["bits"],
-                        dense["fence"], dense["k0"], 0))
+                        dense["rule"], dense["fence"], dense["k0"], 0))
     del probe_args, fetch_args, found, row, run_len, base_hit
     del ix_args, ix_anchor_args, chain_args
     del dense_args, dense
@@ -1488,9 +1505,10 @@ class plain_kernels:
             return sketch.sketch_walk_compact_plain(seqs, lens, k, r, chunk,
                                                     slots, exact)
 
-        def fetch(k0, k1, bits, tk0, tk1, fence, p_rows, window=128):
+        def fetch(k0, k1, bits, tk0, tk1, fence, p_rows, window=128, *,
+                  rule):
             return probe.probe_fetch_plain(k0, k1, bits, tk0, tk1, fence,
-                                           p_rows, window)
+                                           p_rows, window, rule=rule)
 
         def mode1(seqs, lens, k, w, chunk=512):
             return sketch1.sketch_mode1_dense_plain(seqs, lens, k, w)
@@ -1517,6 +1535,160 @@ class plain_kernels:
     def __exit__(self, *exc):
         for m, n, f in self.saved:
             setattr(m, n, f)
+
+
+PAIR_RULE_KEYS = 7_145_000  # the chm13v2 cell's index (benchmark run)
+PAIR_RULE_B, PAIR_RULE_PC = 1024, 384  # the cell's rows x pair slots
+WIDE_UNIT_SEED, WIDE_COPIES = 11, 600  # tests/test_torch_index_step.py
+
+
+def pair_rule_queries(keys, pos, n, rng):
+    """n shuffled (k0, k1) uint64 queries of a pair-rule table and each
+    one's expected row (-1 if absent): every key of the fullest k0 (its
+    partners) and of the fullest k1, the keys (h, h), random keys, and as
+    many misses: absent partners of both hot halves, random keys, the
+    all-zero key, all-ones halves (a pad slot's, and an empty pair
+    slot's) and halves past 56 bits."""
+    u, c = np.unique(keys[:, 0], return_counts=True)
+    hot0 = u[c.argmax()]
+    u, c = np.unique(keys[:, 1], return_counts=True)
+    hot1 = u[c.argmax()]
+    special = np.flatnonzero((keys[:, 0] == hot0) | (keys[:, 1] == hot1)
+                             | (keys[:, 0] == keys[:, 1]))
+    pick = np.concatenate([special, rng.choice(len(keys), n // 2
+                                                - len(special))])
+
+    def draw(m):
+        return rng.integers(0, 1 << 56, size=m, dtype=np.uint64)
+
+    edge = np.array([[0, 0], [(1 << 64) - 1, (1 << 64) - 1],
+                     [(1 << 56) - 1, 5], [1 << 56, 7], [5, 1 << 60]],
+                    dtype=np.uint64)
+    n_miss = n - len(pick) - len(edge)
+    third = n_miss // 3
+    miss = np.concatenate([
+        np.stack([np.full(third, hot0, np.uint64), draw(third)], axis=1),
+        np.stack([draw(third), np.full(third, hot1, np.uint64)], axis=1),
+        np.stack([draw(n_miss - 2 * third), draw(n_miss - 2 * third)],
+                 axis=1), edge])
+    q = np.concatenate([keys[pick], miss])
+    want = np.concatenate([pos[pick], np.full(len(miss), -1)])
+    perm = rng.permutation(n)
+    return q[perm], want[perm], len(special)
+
+
+def phase_pair_rule(dev, kb, mesh, tp):
+    """Phase 6d: K5 on a pair-rule table at the chm13v2 cell's size, and
+    the auto index step's WIDE rerun, each against its plain version."""
+    from pgrtk_tpu_torch.ops import probe as tpr
+    from pgrtk_tpu_torch.utils import cases
+    from pgrtk_tpu_torch.utils.stats import span_totals
+
+    Q = PAIR_RULE_B * PAIR_RULE_PC
+    print(f"phase 6d: the pair bucket rule at {PAIR_RULE_KEYS} random keys "
+          f"(+ a k0 behind 1,200 partners), {Q} query keys; the WIDE rerun")
+    t0 = time.perf_counter()
+    keys, _ = cases.pair_rule_keys(n_random=PAIR_RULE_KEYS)
+    fits = []
+    for lam in (32, 8, 2):
+        try:
+            tpr.build_probe_table_aligned(keys, avg_per_bucket=lam)
+            fits.append(lam)
+        except ValueError:
+            pass
+    require(not fits, f"the k0 rule fits at lambda {fits}")
+    tab = tpr.build_probe_table_aligned(keys, rule=tpr.RULE_PAIR)
+    fill = np.diff(tab["fence"].astype(np.int64))
+    print(f"  {len(keys)} keys, k0 rule overflows at every lambda; pair "
+          f"rule: bits {tab['bits']}, {tab['n_padded']} padded slots, "
+          f"fullest bucket {int(fill.max())} slots "
+          f"({time.perf_counter() - t0:.1f} s, host)")
+    rng = np.random.default_rng(6)
+    q, want, n_special = pair_rule_queries(keys, tab["pos"], Q, rng)
+    qk0, qk1 = (torch.from_numpy(np.ascontiguousarray(q[:, i]).view(
+        np.int64)).to(dev) for i in (0, 1))
+    tk0, tk1, fence = (torch.from_numpy(tab[f]).to(dev)
+                       for f in ("k0", "k1", "fence"))
+    p_rows = torch.randint(-(1 << 31), (1 << 31) - 1,
+                           (tab["n_padded"] + 1, 3 * E2E_KW["P"]),
+                           dtype=torch.int32, device=dev)
+    args = (qk0, qk1, tab["bits"], tk0, tk1, fence)
+    rule = dict(rule=tab["rule"])
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    step = tpr.probe_step(*args, **rule)
+    fetch = tpr.probe_fetch(*args, p_rows, **rule)
+    found_only = tpr.probe_fetch(*args, None, **rule)
+    torch.cuda.synchronize()
+    launches = (kb.probe_step.launches, kb.probe_fetch.launches)
+    print(f"  launches: probe_step {launches[0]}, probe_fetch "
+          f"{launches[1]}")
+    require(launches == (1, 2), "K5's entries did not launch once each")
+    want_t = torch.from_numpy(want).to(dev)
+    require(torch.equal(step[1].long(), want_t)
+            and torch.equal(step[0], want_t >= 0),
+            "K5 on the pair rule: a key off its pos, or a miss found")
+    fetch_want = torch.where(want_t >= 0, want_t, p_rows.shape[0] - 1)
+    require(torch.equal(fetch[2], p_rows[fetch_want]),
+            "K5 on the pair rule fetched other postings rows")
+    print(f"  every key at its pos: {int((want >= 0).sum())} found "
+          f"({n_special} behind the hot k0, the hot k1 or (h, h)), "
+          f"{int((want < 0).sum())} misses")
+    check("K5 found-only on the pair rule vs plain", found_only,
+          tpr.probe_fetch_plain(*args, None, tpr.WINDOW_ALIGNED, **rule))
+    del step, fetch, found_only, fetch_want
+    work = (qk0, qk1, tab["bits"], tab["rule"], fence, tk0)
+    measure(f"K5 probe_step, pair rule, {Q} keys",
+            lambda: tpr.probe_step(*args, **rule),
+            lambda: tpr.probe_step_plain(*args, tpr.WINDOW_ALIGNED, **rule),
+            *probe_work(*work, 0))
+    measure(f"K5 probe_fetch (rows fetched), pair rule, {Q} keys",
+            lambda: tpr.probe_fetch(*args, p_rows, **rule),
+            lambda: tpr.probe_fetch_plain(*args, p_rows, tpr.WINDOW_ALIGNED,
+                                          **rule),
+            *probe_work(*work, 12 * E2E_KW["P"]))
+    del args, p_rows, tk0, tk1, fence, qk0, qk1, work
+    torch.cuda.empty_cache()
+
+    # a dense unit's array holds more than SAFE's 128 mers a 512-entry
+    # block: the auto step reruns at SAFE, then at WIDE
+    B, L = 4, 262_144
+    rng = np.random.default_rng(WIDE_UNIT_SEED)
+    unit = rng.integers(0, 4, 256, dtype=np.uint8)
+    seqs = rng.integers(0, 4, size=(B, L), dtype=np.uint8)
+    for row in (0, 2):
+        seqs[row, 8192:8192 + 256 * WIDE_COPIES] = np.tile(unit, WIDE_COPIES)
+    host = (torch.from_numpy(seqs), torch.full((B,), L), torch.arange(B))
+    on = tuple(t.to(dev) for t in host)
+    safe = mesh.sketch_index_step(*on, compact_kw=tp.SAFE_COMPACT_KW)
+    require(bool(safe["overflow"]), "SAFE's sizing holds the batch: the "
+            "WIDE rerun is not reached")
+    del safe
+    before = span_totals().get("index.step.safe_rerun", (0, 0))[0]
+    kb.reset_launches()
+    got = mesh.sketch_index_step_auto(*on)
+    torch.cuda.synchronize()
+    reruns = span_totals()["index.step.safe_rerun"][0] - before
+    print(f"  auto step: {reruns} reruns, launches {launched(kb)}")
+    require(got["safe_rerun"] and reruns == 2 and not bool(got["overflow"]),
+            "the auto step did not rerun at WIDE_COMPACT_KW")
+    t = time.perf_counter()
+    cpu = mesh.sketch_index_step_auto(*host)
+    print(f"  the same auto step on the CPU (plain path): "
+          f"{time.perf_counter() - t:.1f} s")
+    require(cpu["safe_rerun"], "the CPU auto step did not rerun")
+    check("auto index step through the WIDE rerun: card vs CPU",
+          got["table"], {k: v.to(dev) for k, v in cpu["table"].items()})
+    require(int(got["n_pairs"]) == int(cpu["n_pairs"]) > 0
+            and int(got["n_mers"]) == int(cpu["n_mers"]), "n_pairs, n_mers")
+    times = {}
+    for label, fn in (
+            ("auto (three sizings)", lambda: mesh.sketch_index_step_auto(*on)),
+            ("one step at WIDE", lambda: mesh.sketch_index_step(
+                *on, compact_kw=tp.WIDE_COMPACT_KW))):
+        times[label] = cuda_ms(fn, 3)
+    print(f"  {B} x {L} bases, n_pairs {int(got['n_pairs'])}: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
 
 
 def same_hps(got, want):
@@ -1698,10 +1870,12 @@ def phase_batch_device(dev, kb, targets, queries):
     results["probe_fetch"] = measure(
         f"K5 probe_fetch found-only, {k0.numel()} keys",
         lambda: tpr.probe_fetch(k0, k1, al["bits"], al["k0"], al["k1"],
-                                al["fence"], None),
+                                al["fence"], None, rule=al["rule"]),
         lambda: tpr.probe_fetch_plain(k0, k1, al["bits"], al["k0"],
-                                      al["k1"], al["fence"], None, 128),
-        *probe_work(k0, k1, al["bits"], al["fence"], al["k0"], 0))
+                                      al["k1"], al["fence"], None, 128,
+                                      rule=al["rule"]),
+        *probe_work(k0, k1, al["bits"], al["rule"], al["fence"], al["k0"],
+                    0))
     keys, groups = collect_target_hits_batch(
         store, dict(pairs, j=j5.long().cpu().numpy()), 128, 128, 128)
     anchors, valid = tc._sorted_batch(groups)
@@ -4644,7 +4818,14 @@ def set_op_rates():
               f"{w['inner loops']} inner loops in the loop)")
 
 
-def main():
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on "
+                                 "one CUDA card (module docstring).")
+    ap.add_argument("--only", choices=["pair-rule"],
+                    help="build the kernels and run phase 6d alone")
+    only = ap.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "run needs a CUDA card", file=sys.stderr)
@@ -4676,6 +4857,14 @@ def main():
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas", line.strip())
     set_op_rates()
+    if only == "pair-rule":
+        try:
+            phase_pair_rule(dev, kb, mesh, tp)
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        stamp("phase 6d")
+        return 0
     try:
         phase_kernels(dev, tsk, tp)
         stamp("phase 1")
@@ -4703,6 +4892,8 @@ def main():
               f"{query_step['bound'][0]:.4f} ms by {query_step['bound'][1]}"
               f" (sums of their kernels' bounds)")
         stamp("phase 6")
+        phase_pair_rule(dev, kb, mesh, tp)
+        stamp("phase 6d")
         batch = phase_batch_device(dev, kb, targets, queries)
         batch["probe_fetch"]["max_abs_err"] = max(
             batch["probe_fetch"]["max_abs_err"],

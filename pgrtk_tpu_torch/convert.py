@@ -16,6 +16,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from .ops import probe as probe_ops
+
 _U32 = 0xFFFFFFFF
 
 
@@ -115,13 +117,15 @@ def table_from_jax(t: Dict) -> Dict[str, torch.Tensor]:
 def probe_from_jax(probe: Dict) -> Dict:
     """JAX fence probe table (bits, planes 4 x (rows, 128) uint32, flat
     fence) -> the port's: bits, flat int64 key planes k0 and k1 (pad
-    slots all ones, -1), flat int32 fence."""
+    slots all ones, -1), flat int32 fence, and the bucket rule (the JAX
+    package's tables are all on the k0 rule)."""
     planes = np.asarray(probe["planes"])
     return dict(
         bits=int(probe["bits"]),
         k0=int64_from_planes(planes[0], planes[1]).reshape(-1),
         k1=int64_from_planes(planes[2], planes[3]).reshape(-1),
         fence=torch.from_numpy(np.asarray(probe["fence"], dtype=np.int32)),
+        rule=probe_ops.RULE_K0,
     )
 
 

@@ -20,15 +20,19 @@
 // Design: a key's matches can only lie in its bucket, [fence[b],
 // fence[b+1]) with b = k0 >> (56 - bits), because the table is
 // key-sorted and every pad slot holds k0 = -1, which no key with k0 <
-// 2^56 equals.  So the core scans only the part of the bucket inside the
-// JAX window [base, base + window), base = fence[b] rounded down to its
-// 128-slot row: the first match there is the first match in the window
-// (jnp.argmax's first maximum; the lowest of duplicate keys in the dense
-// layout), and a dense bucket that runs past its window stays not found
-// beyond it, as in JAX.  A bucket at or past n_fence - 1 (k0 >= 2^56) has
-// no end and is not found.  Eight lanes take a key (four keys a warp),
-// each lane comparing 4 slots of a 32-slot step with all its loads in
-// flight together; a bucket of up to 32 keys (the tables' average is
+// 2^56 equals.  Under the pair rule (`pair` 1, a table whose keys share
+// k0 too deeply for any k0 bucket; ops/probe.py RULE_PAIR) b = ((k0 ^ k1 *
+// kPairMix) * kPairMix) >> (64 - bits) as u64, the table in (bucket, k0,
+// k1) order; a key with a half past 56 bits, as a pad's, takes no bucket,
+// so it matches nothing.  So the core scans only the part of the bucket
+// inside the JAX window [base, base + window), base = fence[b] rounded
+// down to its 128-slot row: the first match there is the first match in
+// the window (jnp.argmax's first maximum; the lowest of duplicate keys in
+// the dense layout), and a dense bucket that runs past its window stays
+// not found beyond it, as in JAX.  A bucket at or past n_fence - 1 (k0 >=
+// 2^56) has no end and is not found.  Eight lanes take a key (four keys a
+// warp), each lane comparing 4 slots of a 32-slot step with all its loads
+// in flight together; a bucket of up to 32 keys (the tables' average is
 // 16-32) is one step.  (A thread a key, timed against it, was 3x slower:
 // PERF.md, run D.)  The group's two fence words come in one load (lane
 // pairs), k1 is read only on the slots whose k0 matches, and the group
@@ -40,10 +44,11 @@
 namespace {
 
 constexpr int kNone = 0x7fffffff;
+constexpr unsigned long long kPairMix = 0x9E3779B97F4A7C15ull;  // PAIR_MIX
 
 __global__ void probe_kernel(
     const long long* __restrict__ qk0, const long long* __restrict__ qk1,
-    long long Q, int shift, const long long* __restrict__ tk0,
+    long long Q, int shift, int pair, const long long* __restrict__ tk0,
     const long long* __restrict__ tk1, long long n_slots,
     const int* __restrict__ fence, long long n_fence, int window,
     const int* __restrict__ p_rows, long long n_rows, int width,
@@ -65,8 +70,14 @@ __global__ void probe_kernel(
   if (q < Q) {
     k0 = qk0[q];
     k1 = qk1[q];
-    b = (unsigned long long)k0 >> shift;
-    in = b + 1 < (unsigned long long)n_fence;
+    const unsigned long long u0 = k0, u1 = k1;
+    if (!pair)
+      b = u0 >> shift;
+    else if ((u0 | u1) >> 56)
+      b = ~0ull;  // no bucket
+    else
+      b = ((u0 ^ u1 * kPairMix) * kPairMix) >> (shift + 8);
+    in = n_fence > 1 && b < (unsigned long long)(n_fence - 1);
   }
   // lanes 0 and 1 of the group load fence[b] and fence[b + 1]
   const int f = in ? fence[b + (j & 1)] : 0;
@@ -125,11 +136,12 @@ __global__ void probe_kernel(
 }
 
 int probe_launch(const void* qk0, const void* qk1, long long Q, int bits,
-                 const void* tk0, const void* tk1, long long n_slots,
+                 int pair, const void* tk0, const void* tk1, long long n_slots,
                  const void* fence, long long n_fence, int window,
                  const void* p_rows, long long n_rows, int width, void* found,
                  void* row, void* rows, void* zero, cudaStream_t st) {
-  if (bits < 1 || bits > 56 || (window != 128 && window != 256) ||
+  if (bits < 1 || bits > 56 || (pair != 0 && pair != 1) ||
+      (window != 128 && window != 256) ||
       n_slots < 1 || n_slots > 0x7fffffffll || width < 0 ||
       (width > 0 && n_rows < 1))
     return (int)cudaErrorInvalidValue;
@@ -137,7 +149,7 @@ int probe_launch(const void* qk0, const void* qk1, long long Q, int bits,
   const long long blocks = (Q + 31) / 32;  // 32 keys a block of 256 threads
   if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   probe_kernel<<<(unsigned)blocks, 256, 0, st>>>(
-      (const long long*)qk0, (const long long*)qk1, Q, 56 - bits,
+      (const long long*)qk0, (const long long*)qk1, Q, 56 - bits, pair,
       (const long long*)tk0, (const long long*)tk1, n_slots,
       (const int*)fence, n_fence, window, (const int*)p_rows, n_rows, width,
       (bool*)found, (int*)row, (int*)rows, (unsigned long long*)zero);
@@ -149,31 +161,34 @@ int probe_launch(const void* qk0, const void* qk1, long long Q, int bits,
 // qk0/qk1 (Q,) int64 query keys; tk0/tk1 (n_slots,) int64 table planes;
 // fence (n_fence,) int32; p_rows (n_rows, width) int32; outputs found
 // (Q,) bool, row (Q,) int32, rows (Q, width) int32.  window is 128 or
-// 256.  width 0 (p_rows and rows unused) probes only.
+// 256.  width 0 (p_rows and rows unused) probes only.  pair 1 takes the
+// pair rule's bucket, 0 the k0 rule's.
 extern "C" int pgrtk_probe_fetch(const void* qk0, const void* qk1,
-                                 long long Q, int bits, const void* tk0,
-                                 const void* tk1, long long n_slots,
+                                 long long Q, int bits, int pair,
+                                 const void* tk0, const void* tk1,
+                                 long long n_slots,
                                  const void* fence, long long n_fence,
                                  int window, const void* p_rows,
                                  long long n_rows, int width, void* found,
                                  void* row, void* rows, void* stream) {
-  return probe_launch(qk0, qk1, Q, bits, tk0, tk1, n_slots, fence, n_fence,
-                      window, p_rows, n_rows, width, found, row, rows,
-                      nullptr, (cudaStream_t)stream);
+  return probe_launch(qk0, qk1, Q, bits, pair, tk0, tk1, n_slots, fence,
+                      n_fence, window, p_rows, n_rows, width, found, row,
+                      rows, nullptr, (cudaStream_t)stream);
 }
 
 // The query step's entry: found (Q,) bool and row (Q,) int32 as above, no
 // rows; *zero (one uint64, the step's n_q_filtered) is set to 0.  Q > 0.
 extern "C" int pgrtk_probe_step(const void* qk0, const void* qk1,
-                                long long Q, int bits, const void* tk0,
-                                const void* tk1, long long n_slots,
+                                long long Q, int bits, int pair,
+                                const void* tk0, const void* tk1,
+                                long long n_slots,
                                 const void* fence, long long n_fence,
                                 int window, void* found, void* row,
                                 void* zero, void* stream) {
   if (Q < 1 || zero == nullptr) return (int)cudaErrorInvalidValue;
-  return probe_launch(qk0, qk1, Q, bits, tk0, tk1, n_slots, fence, n_fence,
-                      window, nullptr, 0, 0, found, row, nullptr, zero,
-                      (cudaStream_t)stream);
+  return probe_launch(qk0, qk1, Q, bits, pair, tk0, tk1, n_slots, fence,
+                      n_fence, window, nullptr, 0, 0, found, row, nullptr,
+                      zero, (cudaStream_t)stream);
 }
 
 // K11 probe_keys: probe of the padded-bucket layout.

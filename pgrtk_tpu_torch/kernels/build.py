@@ -177,7 +177,8 @@ pair_mers_gapped = Kernel(
 )
 probe_fetch = Kernel(
     "probe_fetch", "pgrtk_tpu_torch/csrc/probe.cu",
-    [_P, _P, _LL, _I, _P, _P, _LL, _P, _LL, _I, _P, _LL, _I, _P, _P, _P, _P],
+    [_P, _P, _LL, _I, _I, _P, _P, _LL, _P, _LL, _I, _P, _LL, _I, _P, _P, _P,
+     _P],
 )
 dup_pair_counts = Kernel(
     "dup_pair_counts", "pgrtk_tpu_torch/csrc/query.cu",
@@ -254,7 +255,7 @@ expand_postings_anchors = Kernel(
 # by row index
 probe_step = Kernel(
     "probe_step", "pgrtk_tpu_torch/csrc/probe.cu",
-    [_P, _P, _LL, _I, _P, _P, _LL, _P, _LL, _I, _P, _P, _P, _P],
+    [_P, _P, _LL, _I, _I, _P, _P, _LL, _P, _LL, _I, _P, _P, _P, _P],
 )
 dup_pair_filter = Kernel(
     "dup_pair_filter", "pgrtk_tpu_torch/csrc/query.cu",

@@ -334,20 +334,23 @@ def part_query(dev, ctx):
     Pc, P, M = q_k0.shape[1], kw["P"], kw["M"]
     keys = (q_k0.reshape(-1), q_k1.reshape(-1), tens["probe_bits"],
             *tens["probe_planes"], tens["probe_fence"])
+    rule = dict(rule=tens["probe_rule"])
     fetch = (*keys, tens["p_rows"], tpr.WINDOW_ALIGNED)
     found_only = (*keys, None, tpr.WINDOW_ALIGNED)
     print(f"K5 at {q_k0.numel()} keys, table of "
           f"{tens['probe_planes'][0].numel()} slots, bits "
           f"{tens['probe_bits']}:")
-    report("  K5 probe_fetch, rows fetched", lambda: tpr.probe_fetch(*fetch),
-           lambda: tpr.probe_fetch_plain(*fetch))
+    report("  K5 probe_fetch, rows fetched",
+           lambda: tpr.probe_fetch(*fetch, **rule),
+           lambda: tpr.probe_fetch_plain(*fetch, **rule))
     report("  K5 probe_fetch, found only",
-           lambda: tpr.probe_fetch(*found_only),
-           lambda: tpr.probe_fetch_plain(*found_only))
+           lambda: tpr.probe_fetch(*found_only, **rule),
+           lambda: tpr.probe_fetch_plain(*found_only, **rule))
     if hasattr(tpr, "probe_step"):
-        report("  K5 probe_step", lambda: tpr.probe_step(*keys),
-               lambda: tpr.probe_step_plain(*keys, tpr.WINDOW_ALIGNED))
-    found, row, rows = tpr.probe_fetch(*fetch)
+        report("  K5 probe_step", lambda: tpr.probe_step(*keys, **rule),
+               lambda: tpr.probe_step_plain(*keys, tpr.WINDOW_ALIGNED,
+                                            **rule))
+    found, row, rows = tpr.probe_fetch(*fetch, **rule)
     found, row = found.reshape(B, Pc), row.reshape(B, Pc)
 
     def glue_filter(k0, k1, valid, found):

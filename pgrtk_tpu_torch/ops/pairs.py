@@ -28,6 +28,12 @@ from .int64 import INT64_MAX, srl
 # conservative sizing for the overflow rerun: the same values as
 # pgrtk_tpu/ops/pairs.py:73 SAFE_COMPACT_KW (that module imports jax)
 SAFE_COMPACT_KW = dict(block=512, slots=16, block2=512, slots2=128)
+# the auto index steps' last sizing, past SAFE's (the port's own): 32
+# mers a chunk, and a level-2 block that keeps all its entries.  A
+# satellite array whose unit is dense in selected mers holds more than
+# SAFE's 128 a 512-entry block; only a chunk of more than 32 overflows
+# this one
+WIDE_COMPACT_KW = dict(block=512, slots=32, block2=512, slots2=512)
 
 
 # --------------------------------------------------------------- K2

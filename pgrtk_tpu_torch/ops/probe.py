@@ -5,10 +5,18 @@ pgrtk_tpu/ops/query_e2e.py:612-620.
 Host part (NumPy only): the fence builders.  Keys are a key-sorted
 (n, 2) uint64 array (k0, k1); a bucket is the top `bits` bits of the
 56-bit k0, and `fence[bucket]` is the slot where its keys start.  The
-key planes are two flat int64 arrays `k0`, `k1` (u64 bit patterns; pad
-slots hold all ones, -1) instead of the JAX package's four (rows, 128)
-uint32 planes; the 128-slot rows and the bucket padding of the aligned
-layout stay, because the postings rows live at those padded positions.
+aligned layout also takes the pair rule (`RULE_PAIR`), where the bucket
+is the top `bits` bits of the 64-bit (k0 ^ k1 * PAIR_MIX) * PAIR_MIX: a
+satellite array's conserved mer begins over a thousand keys that share
+the whole of k0, which no number of k0 bits splits, but their k1 halves
+are distinct hashes.  (k0 ^ k1 alone would put every key whose halves
+agree in their top bits, such as the (h, h) keys of tandem runs, in
+bucket 0; the second multiply carries k0's low bits, all that differ
+between keys that share k1, up to the top.)  The key planes are two
+flat int64 arrays `k0`, `k1` (u64 bit patterns; pad slots hold all
+ones, -1) instead of the JAX package's four (rows, 128) uint32 planes;
+the 128-slot rows and the bucket padding of the aligned layout stay,
+because the postings rows live at those padded positions.
 `fence` is the flat (2^bits + 1,) int32 array (the 128-wide
 `fence_to_rows` copy is a TPU gather workaround and is not built).
 
@@ -35,19 +43,48 @@ import torch
 
 from ..kernels import build as kb
 from ..utils.device import on_cuda
-from .int64 import srl
+from .int64 import INT64_MAX, srl
 
 HASH_BITS = 56  # shimmer hashes are 56-bit (x >> 8)
 WINDOW_ALIGNED = 128  # one bucket row (build_probe_table_aligned)
 WINDOW_DENSE = 256  # two rows (build_probe_table_dense)
+# the bucket rules: the top bits of k0 (the JAX package's), or of
+# (k0 ^ k1 * PAIR_MIX) * PAIR_MIX as u64, an odd constant (2^64 over the
+# golden ratio)
+RULE_K0, RULE_PAIR = 0, 1
+PAIR_MIX = 0x9E3779B97F4A7C15
 
 
-def _bucket_counts(keys: np.ndarray, avg_per_bucket: int):
+def bucket_of(keys: np.ndarray, bits: int, rule: int):
+    """The bucket of (n, 2) uint64 keys under `rule`, as int64."""
+    if rule == RULE_K0:
+        return (keys[:, 0] >> np.uint64(HASH_BITS - bits)).astype(np.int64)
+    mix = np.uint64(PAIR_MIX)
+    h = (keys[:, 0] ^ keys[:, 1] * mix) * mix
+    return (h >> np.uint64(64 - bits)).astype(np.int64)
+
+
+def _bucket_counts(keys: np.ndarray, avg_per_bucket: int,
+                   rule: int = RULE_K0):
     n = len(keys)
     bits = max(1, int(np.ceil(np.log2(max(2, n / avg_per_bucket)))))
-    bucket = (keys[:, 0] >> np.uint64(HASH_BITS - bits)).astype(np.int64)
+    if rule == RULE_PAIR and n and int(
+            (keys[:, 0] | keys[:, 1]).max()) >> HASH_BITS:
+        raise ValueError("the pair rule takes keys of 56-bit halves")
+    bucket = bucket_of(keys, bits, rule)
     counts = np.bincount(bucket, minlength=1 << bits).astype(np.int64)
     return bits, bucket, counts
+
+
+def query_bucket(k0, k1, bits: int, rule: int):
+    """The bucket of (Q,) int64 query keys under `rule`.  Under the pair
+    rule a key with a half past 56 bits (no table key has one, and a pad
+    slot's halves are all ones) takes the bucket past the table's."""
+    if rule == RULE_K0:
+        return srl(k0, HASH_BITS - bits)
+    mix = PAIR_MIX - (1 << 64)  # as an int64 bit pattern
+    b = srl((k0 ^ k1 * mix) * mix, 64 - bits)
+    return torch.where(srl(k0 | k1, HASH_BITS) != 0, INT64_MAX, b)
 
 
 def _key_planes(keys: np.ndarray, pos: np.ndarray, n_slots: int):
@@ -63,8 +100,9 @@ def build_probe_table_dense(keys: np.ndarray, avg_per_bucket: int = 32):
     """Dense fence layout (pgrtk_tpu/ops/probe.py:108): keys in
     key-sorted order, a probe reads the two 128-slot rows from its
     bucket's row.  Returns dict(bits, k0, k1 (n_rows*128,) int64, fence
-    (2^bits + 1,) int32, n), with n_rows = ceil(n/128) + 1 as in the JAX
-    planes.  Raises ValueError if a bucket holds more than 128 keys."""
+    (2^bits + 1,) int32, n, rule=RULE_K0), with n_rows = ceil(n/128) + 1
+    as in the JAX planes.  Raises ValueError if a bucket holds more than
+    128 keys."""
     keys = np.ascontiguousarray(keys, dtype=np.uint64)
     n = len(keys)
     bits, _, counts = _bucket_counts(keys, avg_per_bucket)
@@ -77,7 +115,7 @@ def build_probe_table_dense(keys: np.ndarray, avg_per_bucket: int = 32):
     np.cumsum(counts, out=fence[1:])
     n_rows = -(-n // 128) + 1
     k0, k1 = _key_planes(keys, np.arange(n), n_rows * 128)
-    return dict(bits=bits, k0=k0, k1=k1, fence=fence, n=n)
+    return dict(bits=bits, k0=k0, k1=k1, fence=fence, n=n, rule=RULE_K0)
 
 
 def _aligned_starts(counts: np.ndarray):
@@ -103,16 +141,20 @@ def _aligned_starts_plain(counts: np.ndarray):
     return starts, off
 
 
-def build_probe_table_aligned(keys: np.ndarray, avg_per_bucket: int = 32):
+def build_probe_table_aligned(keys: np.ndarray, avg_per_bucket: int = 32,
+                              rule: int = RULE_K0):
     """Aligned fence layout (pgrtk_tpu/ops/probe.py:156): buckets padded
     so none straddles a 128-slot row, so a probe reads one row.  Returns
-    dict(bits, k0, k1 (n_rows*128,) int64, fence (2^bits + 1,) int32 of
-    PADDED starts, pos (n,) int64 padded position of each key-sorted key,
-    n, n_padded, aligned=True), n_rows = ceil(max(n_padded, 1)/128).
-    Raises ValueError if a bucket holds more than 128 keys."""
+    dict(bits, rule, k0, k1 (n_rows*128,) int64, fence (2^bits + 1,)
+    int32 of PADDED starts, pos (n,) int64 padded position of each
+    key-sorted key, n, n_padded, aligned=True), n_rows =
+    ceil(max(n_padded, 1)/128).  Under RULE_K0 the table is the JAX
+    package's; under RULE_PAIR the keys lie in (bucket, k0, k1) order,
+    each at its `pos`.  Raises ValueError if a bucket holds more than 128
+    keys."""
     keys = np.ascontiguousarray(keys, dtype=np.uint64)
     n = len(keys)
-    bits, bucket, counts = _bucket_counts(keys, avg_per_bucket)
+    bits, bucket, counts = _bucket_counts(keys, avg_per_bucket, rule)
     if counts.max() > 128:
         raise ValueError(
             f"aligned probe bucket overflow (max {int(counts.max())} >"
@@ -122,24 +164,25 @@ def build_probe_table_aligned(keys: np.ndarray, avg_per_bucket: int = 32):
     fence = np.zeros(len(counts) + 1, dtype=np.int32)
     fence[:-1] = starts
     fence[-1] = n_padded
+    rank = np.arange(n, dtype=np.int64)  # under RULE_K0 buckets ascend
+    if rule == RULE_PAIR:
+        rank[np.argsort(bucket, kind="stable")] = np.arange(n)
     pos = starts[bucket] + (
-        np.arange(n, dtype=np.int64)
-        - np.concatenate(([0], np.cumsum(counts)))[bucket]
-    )
+        rank - np.concatenate(([0], np.cumsum(counts)))[bucket])
     n_rows = -(-max(n_padded, 1) // 128)
     k0, k1 = _key_planes(keys, pos, n_rows * 128)
-    return dict(bits=bits, k0=k0, k1=k1, fence=fence, pos=pos, n=n,
-                n_padded=n_padded, aligned=True)
+    return dict(bits=bits, rule=rule, k0=k0, k1=k1, fence=fence, pos=pos,
+                n=n, n_padded=n_padded, aligned=True)
 
 
 # --------------------------------------------------------------- K5
 
 def probe_fetch_plain(k0, k1, bits: int, tk0, tk1, fence, p_rows,
-                      window: int):
+                      window: int, *, rule: int):
     """The plain PyTorch version of K5 (`probe_fetch`), on any device:
     gathers of each key's window and a compare."""
     nb1, n_slots = fence.numel(), tk0.numel()
-    bucket = srl(k0, HASH_BITS - bits)
+    bucket = query_bucket(k0, k1, bits, rule)
     in_fence = bucket < nb1
     start = fence[bucket.clamp(max=nb1 - 1)].long()
     base = (start >> 7) << 7
@@ -161,9 +204,11 @@ def probe_fetch_plain(k0, k1, bits: int, tk0, tk1, fence, p_rows,
     return found, row.int(), rows
 
 
-def _check_probe(k0, k1, bits, tk0, tk1, fence, window):
+def _check_probe(k0, k1, bits, tk0, tk1, fence, window, rule):
     if window not in (WINDOW_ALIGNED, WINDOW_DENSE):
         raise ValueError("window must be 128 (aligned) or 256 (dense)")
+    if rule not in (RULE_K0, RULE_PAIR):
+        raise ValueError("rule must be RULE_K0 or RULE_PAIR")
     if not (0 < bits <= HASH_BITS):
         raise ValueError(f"bits must be in 1..{HASH_BITS}")
     k0, k1 = k0.contiguous(), k1.contiguous()
@@ -185,22 +230,25 @@ def _check_probe(k0, k1, bits, tk0, tk1, fence, window):
 def probe_fetch(k0: torch.Tensor, k1: torch.Tensor, bits: int,
                 tk0: torch.Tensor, tk1: torch.Tensor, fence: torch.Tensor,
                 p_rows: Optional[torch.Tensor],
-                window: int = WINDOW_ALIGNED):
+                window: int = WINDOW_ALIGNED, *, rule: int):
     """K5: probe (Q,) int64 query keys (k0 < 2^56) against a fence table
     and fetch each key's postings row
     (pgrtk_tpu/ops/probe.py:228 probe_keys_aligned with window=128,
     :282 probe_keys_dense with window=256, then the row fetch of
     pgrtk_tpu/ops/query_e2e.py:612-620).
 
-    The window is the `window` slots from the 128-slot row holding
-    fence[k0 >> (56 - bits)]; the lowest matching slot wins.  Returns
-    found (Q,) bool, row (Q,) int32 (the matched slot, -1 if absent) and
-    rows (Q, width) int32: p_rows[row], or its last (not-found sentinel)
-    row when absent.  p_rows is (n_keys + 1, width) int32, or None to
-    probe only (the found-only use of parallel/device_query.py; rows is
-    then None)."""
+    `rule` is the table's bucket rule (its dict's `rule`, index_tensors'
+    `probe_rule`), a required keyword so that no caller probes a table
+    by its bits alone.  The window is the `window` slots from the
+    128-slot row holding fence[k0 >> (56 - bits)] under RULE_K0, and
+    fence[((k0 ^ k1 * PAIR_MIX) * PAIR_MIX) >> (64 - bits)] under
+    RULE_PAIR; the lowest matching slot wins.  Returns found (Q,) bool, row (Q,) int32 (the
+    matched slot, -1 if absent) and rows (Q, width) int32: p_rows[row],
+    or its last (not-found sentinel) row when absent.  p_rows is (n_keys
+    + 1, width) int32, or None to probe only (the found-only use of
+    parallel/device_query.py; rows is then None)."""
     k0, k1, tk0, tk1, fence = _check_probe(k0, k1, bits, tk0, tk1, fence,
-                                           window)
+                                           window, rule)
     tensors = [k0, k1, tk0, tk1, fence]
     if p_rows is not None:
         p_rows = p_rows.contiguous()
@@ -210,7 +258,7 @@ def probe_fetch(k0: torch.Tensor, k1: torch.Tensor, bits: int,
         tensors.append(p_rows)
     if not on_cuda(*tensors):
         return probe_fetch_plain(k0, k1, bits, tk0, tk1, fence, p_rows,
-                                 window)
+                                 window, rule=rule)
     Q, dev = k0.numel(), k0.device
     found = torch.empty(Q, dtype=torch.bool, device=dev)
     row = torch.empty(Q, dtype=torch.int32, device=dev)
@@ -221,7 +269,7 @@ def probe_fetch(k0: torch.Tensor, k1: torch.Tensor, bits: int,
         rows_ptr, p_ptr = rows.data_ptr(), p_rows.data_ptr()
     if Q:
         kb.probe_fetch(
-            k0.data_ptr(), k1.data_ptr(), Q, bits, tk0.data_ptr(),
+            k0.data_ptr(), k1.data_ptr(), Q, bits, rule, tk0.data_ptr(),
             tk1.data_ptr(), tk0.numel(), fence.data_ptr(), fence.numel(),
             window, p_ptr, n_rows, width, found.data_ptr(), row.data_ptr(),
             rows_ptr, kb.stream_handle(k0),
@@ -229,36 +277,38 @@ def probe_fetch(k0: torch.Tensor, k1: torch.Tensor, bits: int,
     return found, row, rows
 
 
-def probe_step_plain(k0, k1, bits: int, tk0, tk1, fence, window: int):
+def probe_step_plain(k0, k1, bits: int, tk0, tk1, fence, window: int, *,
+                     rule: int):
     """The plain PyTorch version of K5's step entry (`probe_step`), on any
     device: probe_fetch_plain's found and row, and a zero counter."""
     found, row, _ = probe_fetch_plain(k0, k1, bits, tk0, tk1, fence, None,
-                                      window)
+                                      window, rule=rule)
     return found, row, torch.zeros((), dtype=torch.int64, device=k0.device)
 
 
 def probe_step(k0: torch.Tensor, k1: torch.Tensor, bits: int,
                tk0: torch.Tensor, tk1: torch.Tensor, fence: torch.Tensor,
-               window: int = WINDOW_ALIGNED):
-    """K5's query-step entry: probe_fetch's probe without the fetch.
-    Returns found (Q,) bool, row (Q,) int32 (the matched slot, which is
+               window: int = WINDOW_ALIGNED, *, rule: int):
+    """K5's query-step entry: probe_fetch's probe without the fetch
+    (`rule`, required, as there).  Returns found (Q,) bool, row (Q,) int32 (the matched slot, which is
     the key's postings row, -1 if absent) and a 0-dim int64 set to 0: the
     step's n_q_filtered, which query_e2e.dup_pair_filter adds to.  On the
     card the probe kernel writes that 0, so no fill launch runs."""
     k0, k1, tk0, tk1, fence = _check_probe(k0, k1, bits, tk0, tk1, fence,
-                                           window)
+                                           window, rule)
     if not on_cuda(k0, k1, tk0, tk1, fence):
-        return probe_step_plain(k0, k1, bits, tk0, tk1, fence, window)
+        return probe_step_plain(k0, k1, bits, tk0, tk1, fence, window,
+                                rule=rule)
     Q, dev = k0.numel(), k0.device
     found = torch.empty(Q, dtype=torch.bool, device=dev)
     row = torch.empty(Q, dtype=torch.int32, device=dev)
     zero = torch.empty((), dtype=torch.int64, device=dev)
     if not Q:
         return found, row, zero.zero_()
-    kb.probe_step(k0.data_ptr(), k1.data_ptr(), Q, bits, tk0.data_ptr(),
-                  tk1.data_ptr(), tk0.numel(), fence.data_ptr(),
-                  fence.numel(), window, found.data_ptr(), row.data_ptr(),
-                  zero.data_ptr(), kb.stream_handle(k0))
+    kb.probe_step(k0.data_ptr(), k1.data_ptr(), Q, bits, rule,
+                  tk0.data_ptr(), tk1.data_ptr(), tk0.numel(),
+                  fence.data_ptr(), fence.numel(), window, found.data_ptr(),
+                  row.data_ptr(), zero.data_ptr(), kb.stream_handle(k0))
     return found, row, zero
 
 

@@ -5,10 +5,12 @@ query, seq_db.rs:1198-1257, with the count filters and chaining of
 aln.rs:147-242).
 
 Host part (NumPy): `build_index` makes the postings rows and the probe
-table, byte for byte as the JAX builder does, from target sequences
-(sketched with this package's `sketch_mode2`) or from pair arrays;
-`pair_arrays_from_table` turns the index step's sorted pair table into
-such arrays, so the whole index can be built without JAX.
+table, byte for byte as the JAX package's `build_index` does wherever
+that builds one (where it raises, the port takes the pair bucket rule),
+from target sequences (sketched with this package's `sketch_mode2`) or
+from pair arrays; `pair_arrays_from_table` turns the index step's
+sorted pair table into such arrays, so the whole index can be built
+without JAX.
 
 Layout: pair keys are int64 (k0, k1).  `p_rows` is (n_padded + 1, 3P)
 int32 holding the u32 bit patterns [meta(P) | bgnori(P) | end(P)], one
@@ -31,7 +33,9 @@ step also runs K1-K4 (sketch and pairs), K5 (`probe.probe_step`) and K8
 from __future__ import annotations
 
 import ctypes
+import itertools
 import math
+from contextlib import nullcontext
 from types import SimpleNamespace
 from typing import Dict
 
@@ -40,7 +44,7 @@ import torch
 
 from ..kernels import build as kb
 from ..utils.device import on_cuda
-from ..utils.stats import span
+from ..utils.stats import count, span
 from . import chain as chain_ops
 from . import pairs as pairs_ops
 from . import probe as probe_ops
@@ -134,14 +138,29 @@ def build_index(target_seqs=None, pair_arrays=None, k: int = 56, r: int = 4,
                 probe's padded positions; the last row is the not-found
                 sentinel (all meta words empty)
       lookup    {(k0, k1): [(0, sid, bgn, end, ori), ...]} or None
-      probe     build_probe_table_aligned's dict (retried at lambda
-                32 -> 8 -> 2; ValueError if every lambda overflows)
+      probe     build_probe_table_aligned's dict: the k0 rule retried at
+                lambda 32 -> 8 -> 2, the JAX package's table; where every
+                lambda overflows, the pair rule at the same lambdas
       C, P, n_multi, n_truncated, max_postings, max_mult
+
+    The pair rule is a deliberate difference from the JAX package, which
+    raises there: a satellite array's conserved mer begins hundreds of
+    keys that share the whole of k0, which no k0 bucket splits.  Under
+    the pair rule a bucket is the top bits of (k0 ^ k1 * PAIR_MIX) *
+    PAIR_MIX, a mix of two 56-bit hashes, so keys that share either half,
+    or whose halves agree, still spread; 129 keys in one 128-slot row
+    need that many distinct keys to agree in the top bits of the mix as
+    well, which no sketch gives short of a key set made to collide
+    (ValueError, as in JAX).
 
     Spans (utils/stats.py): `index.build`, holding `index.build.keys`
     (key runs, decoys, key sort), `index.build.probe` (one a lambda
-    tried), `index.build.rows` (the p_rows fill) and, with build_lookup,
-    `index.build.lookup`.
+    tried; under the pair rule it holds `index.build.probe.pair`),
+    `index.build.rows` (the p_rows fill) and, with build_lookup,
+    `index.build.lookup`.  Counters (`count_totals()`): `index.keys`,
+    `index.probe.buckets`, `index.probe.pair_buckets` (1 under the pair
+    rule), `index.truncated_keys` (keys past P postings) and
+    `index.dropped_postings` (their postings past P).
     """
     with span("index.build"):
         if pair_arrays is None:
@@ -217,19 +236,30 @@ def build_index(target_seqs=None, pair_arrays=None, k: int = 56, r: int = 4,
 
         # the postings rows live at the probe's padded positions
         probe = None
-        for lam in (32, 8, 2):
+        for rule, lam in itertools.product(
+                (probe_ops.RULE_K0, probe_ops.RULE_PAIR), (32, 8, 2)):
             try:
-                with span("index.build.probe"):
+                with span("index.build.probe"), (
+                        span("index.build.probe.pair") if rule
+                        else nullcontext()):
                     probe = probe_ops.build_probe_table_aligned(
-                        keys, avg_per_bucket=lam)
+                        keys, avg_per_bucket=lam, rule=rule)
                 break
             except ValueError:
                 continue
         if probe is None:
             raise ValueError(
-                "probe bucket overflow at every lambda: >128 keys share one "
-                "top-24-bit h0 prefix (adversarial key set)"
+                "probe bucket overflow at every lambda under both bucket "
+                "rules: >128 keys share one top-24-bit prefix of k0 and of "
+                "the pair mix (adversarial key set)"
             )
+        count(None, "index.keys", len(keys))
+        count(None, "index.probe.buckets", len(probe["fence"]) - 1)
+        count(None, "index.probe.pair_buckets",
+              probe["rule"] == probe_ops.RULE_PAIR)
+        count(None, "index.truncated_keys", (counts > P).sum())
+        count(None, "index.dropped_postings",
+              np.maximum(counts - P, 0).sum())
 
         with span("index.build.rows"):
             inv = probe["pos"][inv]  # original order -> padded row
@@ -290,13 +320,14 @@ def build_index(target_seqs=None, pair_arrays=None, k: int = 56, r: int = 4,
 
 
 def index_tensors(idx: dict, device="cuda") -> dict:
-    """The device side of a build_index result: probe bits, key planes
-    (k0, k1), fence and p_rows as tensors on `device`, in the span
-    `index.upload`."""
+    """The device side of a build_index result: probe bits and bucket
+    rule, key planes (k0, k1), fence and p_rows as tensors on `device`,
+    in the span `index.upload`."""
     probe = idx["probe"]
     with span("index.upload"):
         return dict(
             probe_bits=probe["bits"],
+            probe_rule=probe["rule"],
             probe_planes=tuple(torch.from_numpy(probe[f]).to(device)
                                for f in ("k0", "k1")),
             probe_fence=torch.from_numpy(probe["fence"]).to(device),
@@ -778,12 +809,16 @@ def query_e2e_step(
     sketch_compact: tuple = (12, 512, 144),
     pair_block: int | None = 512,
     probe_aligned: bool = True,
+    *,
+    probe_rule: int,
 ) -> Dict[str, torch.Tensor]:
     """One end-to-end query step (pgrtk_tpu/ops/query_e2e.py:511
     query_e2e_step; the JAX scan's `unroll` has no counterpart).
 
-    seqs_u8 (B, L) uint8, lens (B,); probe_planes (k0, k1), probe_fence
-    and p_rows as index_tensors gives them; P must be build_index's P
+    seqs_u8 (B, L) uint8, lens (B,); probe_bits, probe_rule (a required
+    keyword: the table's bucket rule travels with its bits), probe_planes
+    (k0, k1), probe_fence and p_rows as index_tensors gives them; P must
+    be build_index's P
     (p_rows must be exactly 3P wide).  Returns dict: anchors (G, N, 6)
     int64 (q_bgn, q_end, q_ori, t_bgn, t_end, t_ori), gvalid (G, N),
     scores (G, N) f32, prev (G, N) int32, dup, inexact, mult_ovf,
@@ -793,7 +828,8 @@ def query_e2e_step(
 
     Spans (utils/stats.py): `query.step`, holding `query.front_end`
     (K1-K4), `query.probe` (K5), `query.postings` (K6, K7 and the slots3
-    compaction) and `query.chain` (K8)."""
+    compaction) and `query.chain` (K8).  Counter: `query.probe.keys`,
+    the keys handed to K5 (B x Pc, a shape)."""
     with span("query.step"):
         if p_rows.dim() != 2 or p_rows.shape[1] != 3 * P:
             raise ValueError(
@@ -813,9 +849,10 @@ def query_e2e_step(
         # slot: p_rows has a row per padded probe position), and zeroes
         # the step's n_q_filtered; no postings are fetched here
         with span("query.probe"):
+            count(None, "query.probe.keys", q_k0.numel())
             found, row, n_q_filtered = probe_ops.probe_step(
                 q_k0.reshape(-1), q_k1.reshape(-1), probe_bits, tk0, tk1,
-                probe_fence, window)
+                probe_fence, window, rule=probe_rule)
         row = row.reshape(B, Pc)
 
         with span("query.postings"):

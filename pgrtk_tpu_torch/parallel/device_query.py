@@ -60,7 +60,7 @@ def _device_tables_locked(store, dev):
             t = probe_ops.build_probe_table_aligned(keys)
             row = np.full(len(t["k0"]), -1, dtype=np.int32)
             row[t["pos"]] = np.arange(t["n"], dtype=np.int32)
-            table = dict(layout="aligned", bits=t["bits"],
+            table = dict(layout="aligned", bits=t["bits"], rule=t["rule"],
                          fence=torch.from_numpy(t["fence"]).to(dev),
                          row=torch.from_numpy(row).to(dev))
         except ValueError:
@@ -98,7 +98,8 @@ def probe_key_index(table, k0: torch.Tensor, k1: torch.Tensor, stats=None):
     if table["layout"] == "aligned":
         found, slot, _ = probe_ops.probe_fetch(k0, k1, table["bits"],
                                                table["k0"], table["k1"],
-                                               table["fence"], None)
+                                               table["fence"], None,
+                                               rule=table["rule"])
         return torch.where(found, table["row"][slot.clamp(min=0).long()],
                            -1)
     count(stats, "padded_probe", 1)  # a bucket overflowed the aligned window

@@ -7,9 +7,10 @@ min_span filter -> canonical pairs -> pair-key sort, on the device of the
 input tensors.  `dense_index_step` is the same index through the dense
 pair variants (the pipeline of tests/test_pairs_and_mesh.py:35-60).
 The auto steps run the exact walk at the default sizing and rerun at
-SAFE_COMPACT_KW only on compaction overflow: the JAX auto steps run the
-fast walk and also rerun on its short warm-ups, and give the same valid
-entries in a table padded otherwise.
+SAFE_COMPACT_KW only on compaction overflow, and past that at
+WIDE_COMPACT_KW: the JAX auto steps run the fast walk and also rerun on
+its short warm-ups, give the same valid entries in a table padded
+otherwise, and raise where SAFE's sizing overflows.
 
 The v1 programs (:55-298) replicate the whole pair table on every rank:
 - `sharded_sketch_index_step(_auto)`: each rank pairs its rows, the flat
@@ -135,32 +136,33 @@ def _with_safe_rerun(step, *args, chunk, **kw) -> dict:
     """step(*args, **kw) through the exact walk at the default sizing (12
     slots a chunk, 144 a 512-entry block), so that only compaction
     overflow sets its flag, and when it fires, the same call with
-    compact_kw=SAFE_COMPACT_KW; adds `safe_rerun`.  A sharded step's
-    flag is already combined over the ranks, so every rank takes the same
-    branch.  Raises OverflowError if the safe sizing overflows too, and
-    ValueError when the sort's keys are outside their widths.  Spans
-    (utils/stats.py): `index.step`, holding `index.step.flag_read` (the
-    flags' read-back, which waits for the step) and, when it reruns,
+    compact_kw=SAFE_COMPACT_KW, then WIDE_COMPACT_KW; adds `safe_rerun`
+    (True after either rerun).  A sharded step's flag is already
+    combined over the ranks, so every rank takes the same branch.  Raises
+    OverflowError if the wide sizing overflows too, and ValueError when
+    the sort's keys are outside their widths.  Spans (utils/stats.py):
+    `index.step`, holding `index.step.flag_read` (the flags' read-back,
+    which waits for the step) and, for each rerun,
     `index.step.safe_rerun`."""
     exact = dict(block=chunk, slots=12, block2=512, slots2=144)
     with span("index.step"):
         out = step(*args, chunk=chunk, compact_kw=exact, **kw)
         with span("index.step.flag_read"):
             overflow = _flags(out)
-        if not overflow:
-            out["safe_rerun"] = False
-            return out
-        with span("index.step.safe_rerun"):
-            out = step(*args, chunk=chunk,
-                       compact_kw=pairs_ops.SAFE_COMPACT_KW, **kw)
-            with span("index.step.flag_read"):
-                overflow = _flags(out)
+        reran = overflow
+        for sizing in (pairs_ops.SAFE_COMPACT_KW, pairs_ops.WIDE_COMPACT_KW):
+            if not overflow:
+                break
+            with span("index.step.safe_rerun"):
+                out = step(*args, chunk=chunk, compact_kw=sizing, **kw)
+                with span("index.step.flag_read"):
+                    overflow = _flags(out)
         if overflow:
             raise OverflowError(
-                "compaction overflow at SAFE_COMPACT_KW sizing; "
+                "compaction overflow at WIDE_COMPACT_KW sizing; "
                 "rebuild this batch via the exact host path"
             )
-        out["safe_rerun"] = True
+        out["safe_rerun"] = reran
         return out
 
 
@@ -169,12 +171,13 @@ def sketch_index_step_auto(seqs_u8: torch.Tensor, lengths: torch.Tensor,
                            min_span: int = 64, chunk: int = 512) -> dict:
     """Overflow-safe index step: the step through the exact walk at the
     default sizing, and when compaction overflows, the same batch again
-    at SAFE_COMPACT_KW sizing.  Adds `safe_rerun` (bool) to the result.
-    The JAX auto step runs the fast walk first and also reruns on its
-    short warm-ups (`inexact`); the valid entries, n_pairs and n_mers are
-    the same, the table's padding is the default sizing's.  Raises
-    OverflowError if the safe sizing overflows too; callers then build
-    through the exact host path."""
+    at SAFE_COMPACT_KW sizing, then at WIDE_COMPACT_KW.  Adds
+    `safe_rerun` (bool) to the result.  The JAX auto step runs the fast
+    walk first and also reruns on its short warm-ups (`inexact`); the
+    valid entries, n_pairs and n_mers are the same, the table's padding
+    is the default sizing's; where SAFE's sizing overflows, it raises.
+    Raises OverflowError if the wide sizing overflows too; callers then
+    build through the exact host path."""
     return _with_safe_rerun(sketch_index_step, seqs_u8, lengths, rids, k=k,
                             r=r, min_span=min_span, chunk=chunk)
 
@@ -845,9 +848,9 @@ def sharded_sketch_index_step_auto(seqs_u8: torch.Tensor,
     """sharded_sketch_index_step with the SAFE rerun
     (pgrtk_tpu/parallel/mesh.py:129), first through the exact walk at the
     default sizing as sketch_index_step_auto: when any rank's compaction
-    overflowed, every rank reruns at SAFE_COMPACT_KW; raises
-    OverflowError on every rank when that overflows too.  Adds
-    `safe_rerun`."""
+    overflowed, every rank reruns at SAFE_COMPACT_KW, then at
+    WIDE_COMPACT_KW; raises OverflowError on every rank when that
+    overflows too.  Adds `safe_rerun`."""
     return _with_safe_rerun(sharded_sketch_index_step, seqs_u8, lengths,
                             rids, comm=comm, k=k, r=r, min_span=min_span,
                             chunk=chunk)

@@ -55,8 +55,10 @@ def bucket_keys(counts, seed, bits=PROBE_EDGE_BITS):
 def dense_fence_table(keys, bits):
     """The dense fence layout of ops/probe.py::build_probe_table_dense at
     a given `bits`, without its 128-keys-a-bucket check: dict(bits, k0,
-    k1, fence, n).  A bucket of more than 128 keys can run past the
+    k1, fence, n, rule).  The rule is the k0 rule.  A bucket of more than 128 keys can run past the
     probe's 256-slot window."""
+    from ..ops.probe import RULE_K0
+
     n = len(keys)
     bucket = (keys[:, 0] >> np.uint64(56 - bits)).astype(np.int64)
     fence = np.zeros((1 << bits) + 1, dtype=np.int32)
@@ -65,7 +67,7 @@ def dense_fence_table(keys, bits):
     k0 = np.full(n_slots, -1, dtype=np.int64)
     k1 = np.full(n_slots, -1, dtype=np.int64)
     k0[:n], k1[:n] = keys[:, 0].view(np.int64), keys[:, 1].view(np.int64)
-    return dict(bits=bits, k0=k0, k1=k1, fence=fence, n=n)
+    return dict(bits=bits, k0=k0, k1=k1, fence=fence, n=n, rule=RULE_K0)
 
 
 def probe_edge_queries(keys, seed, bits=PROBE_EDGE_BITS):
@@ -125,6 +127,38 @@ def probe_edge_tables():
         assert tab["bits"] == PROBE_EDGE_BITS, (name, tab["bits"])
         res[name] = (tab, probe_edge_queries(k, seed=40 + seed), window)
     return res
+
+
+def pair_rule_keys(seed=41, n_random=20_000):
+    """Keys that no k0 bucket holds and their queries, for the pair rule
+    (ops/probe.py RULE_PAIR): key-sorted distinct (n, 2) uint64 keys, one
+    k0 behind 1,200 partners (a satellite array's conserved mer), one k1
+    behind 300 k0 values and 400 keys (h, h) whose halves agree (a tandem
+    run's), among `n_random` random keys; queries, shuffled:
+    every key, absent keys sharing the hot k0 or the hot k1, random
+    misses, the all-zero key, all-ones halves (a pad slot's) and halves
+    past 56 bits.  Returns (keys, queries)."""
+    rng = np.random.default_rng(seed)
+
+    def draw(n):
+        return rng.integers(0, 1 << 56, size=n, dtype=np.uint64)
+
+    def pairs(a, b):
+        return np.stack(np.broadcast_arrays(a, b), axis=1).astype(np.uint64)
+
+    hot0, hot1 = draw(2)
+    same = draw(400)
+    keys = np.concatenate([
+        pairs(hot0, draw(1200)), pairs(draw(300), hot1), pairs(same, same),
+        pairs(draw(n_random), draw(n_random))])
+    keys = keys[np.lexsort((keys[:, 1], keys[:, 0]))]
+    keys = keys[np.r_[True, (np.diff(keys, axis=0) != 0).any(axis=1)]]
+    edge = np.array([[0, 0], [(1 << 64) - 1, (1 << 64) - 1],
+                     [(1 << 56) - 1, 5], [1 << 56, 7], [5, 1 << 60]],
+                    dtype=np.uint64)
+    q = np.concatenate([keys, pairs(hot0, draw(300)), pairs(draw(300), hot1),
+                        pairs(draw(1000), draw(1000)), edge])
+    return keys, q[rng.permutation(len(q))]
 
 
 def dup_key_rows(seed, B, Pc):
@@ -536,15 +570,18 @@ def query_kernel_cases(dev):
                 tab["bits"], t(tab["k0"]), t(tab["k1"]), t(tab["fence"]))
         p_rows = t(rng.integers(-(1 << 31), 1 << 31, size=(n_rows, 96),
                                 dtype=np.int64).astype(np.int32))
+        rule = dict(rule=tab["rule"])
         for p, label in ((p_rows, "probe_fetch"), (None, "found-only")):
             cases.append((f"K5 {label} {layout}",
-                          lambda k=keys, p=p, w=window: tpr.probe_fetch(
-                              *k, p, w),
-                          lambda k=keys, p=p, w=window: tpr.probe_fetch_plain(
-                              *k, p, w)))
+                          lambda k=keys, p=p, w=window, r=rule:
+                          tpr.probe_fetch(*k, p, w, **r),
+                          lambda k=keys, p=p, w=window, r=rule:
+                          tpr.probe_fetch_plain(*k, p, w, **r)))
         cases.append((f"K5 probe_step {layout}",
-                      lambda k=keys, w=window: tpr.probe_step(*k, w),
-                      lambda k=keys, w=window: tpr.probe_step_plain(*k, w)))
+                      lambda k=keys, w=window, r=rule:
+                      tpr.probe_step(*k, w, **r),
+                      lambda k=keys, w=window, r=rule:
+                      tpr.probe_step_plain(*k, w, **r)))
     for B, Pc in ((5, 300), (2, 3000), (3, 1)):
         args = tuple(t(a) for a in dup_key_rows(B * Pc, B, Pc))
         cases.append((f"K6 dup_pair_counts ({B}, {Pc})",

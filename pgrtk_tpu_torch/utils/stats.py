@@ -4,7 +4,7 @@
 dict (the `stats` argument of the batch query path, the CLIs and
 pgr-server).  `span(name, stats)` times a block the same way, and both
 feed one process-wide table of totals, `span_totals()`, which is always
-on.
+on; `count` feeds another, `count_totals()`.
 
 While `torch.profiler` records in the calling thread (a profiler records
 the thread that started it), a span also opens a profiler range named
@@ -24,6 +24,7 @@ A span never reads a device value and never synchronizes.
         run()
     stats.spans()        # the spans of the profiled block
     stats.span_totals()  # {name: (count, seconds)} since the process began
+    stats.count_totals()  # {name: (calls, total)} of every `count`
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ _range = torch._C._profiler._RecordFunctionFast
 
 _lock = threading.Lock()
 _totals: dict = {}  # name -> [count, seconds]
+_counts: dict = {}  # name -> [calls, total]
 _record: list = []  # (name, t0_ns, t1_ns, parent, step); None while open
 _generation = 0     # bumped by clear_spans, so spans open then drop out
 _local = threading.local()  # .open: the thread's open recorded spans
@@ -142,8 +144,18 @@ def tick(stats: Optional[dict], stage: str, t: float) -> float:
 
 
 def count(stats: Optional[dict], name: str, n) -> None:
+    """Add `n` (a host number: a tensor here would be read back) to
+    stats[name] when `stats` is a dict, and to the totals."""
+    n = int(n)
+    with _lock:
+        c = _counts.get(name)
+        if c is None:
+            _counts[name] = [1, n]
+        else:
+            c[0] += 1
+            c[1] += n
     if stats is not None:
-        stats[name] = stats.get(name, 0) + int(n)
+        stats[name] = stats.get(name, 0) + n
 
 
 def span_totals() -> dict:
@@ -151,6 +163,12 @@ def span_totals() -> dict:
     this process."""
     with _lock:
         return {name: (c, s) for name, (c, s) in _totals.items()}
+
+
+def count_totals() -> dict:
+    """{name: (calls, total)} of every `count` so far in this process."""
+    with _lock:
+        return {name: (c, n) for name, (c, n) in _counts.items()}
 
 
 def spans() -> list:

@@ -99,6 +99,43 @@ def test_query_kernels_match_plain_on_edge_cases(dev, family):
     torch.cuda.synchronize()
 
 
+def test_probe_on_the_pair_rule_matches_plain(dev):
+    """K5's three entries on a table built under the pair rule (one k0
+    behind 1,200 partners, a k1 behind 300 k0 values; cases.pair_rule_keys)
+    against their plain twins: every key at its pos, the misses, all-ones
+    and past-56-bit halves; one launch each."""
+    from pgrtk_tpu_torch.ops import probe as tpr
+
+    keys, q = cases.pair_rule_keys()
+    tab = tpr.build_probe_table_aligned(keys, rule=tpr.RULE_PAIR)
+    rng = np.random.default_rng(4)
+    p_rows = rng.integers(-(1 << 31), 1 << 31, size=(tab["n_padded"] + 1, 96),
+                          dtype=np.int64).astype(np.int32)
+
+    def args(d):
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(d) for a in (
+            q[:, 0].view(np.int64), q[:, 1].view(np.int64))]
+        return (*t, tab["bits"], *(torch.from_numpy(tab[f]).to(d)
+                                   for f in ("k0", "k1", "fence")))
+
+    rule, w = tpr.RULE_PAIR, tpr.WINDOW_ALIGNED
+    on, cpu = args(dev), args("cpu")
+    rows_dev, rows_cpu = torch.from_numpy(p_rows).to(dev), torch.from_numpy(
+        p_rows)
+    kb.reset_launches()
+    got = [tpr.probe_fetch(*on, rows_dev, w, rule=rule),
+           tpr.probe_fetch(*on, None, w, rule=rule),
+           tpr.probe_step(*on, w, rule=rule)]
+    torch.cuda.synchronize()
+    want = [tpr.probe_fetch_plain(*cpu, rows_cpu, w, rule=rule),
+            tpr.probe_fetch_plain(*cpu, None, w, rule=rule),
+            tpr.probe_step_plain(*cpu, w, rule=rule)]
+    for g, x in zip(got, want):
+        assert _equal([v.cpu() if v is not None else None for v in g], x)
+    assert 21_000 < int(want[2][0].sum()) < len(q) - 1_000
+    assert (kb.probe_fetch.launches, kb.probe_step.launches) == (2, 1)
+
+
 def test_expand_counts_a_row_pass_a_block(dev):
     """K7's entries count B x target chunks row passes a launch: B at the
     query cell's shape (every target in one block), B x 2 where a slot's

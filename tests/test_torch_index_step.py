@@ -126,6 +126,31 @@ def test_index_step_auto_reruns_on_overflow():
     assert int(out["n_pairs"]) == sum(len(v) for v in expected.values())
 
 
+def test_index_step_auto_widens_where_safe_overflows():
+    """80 copies of a 256-base unit dense in selected mers hold more than
+    SAFE_COMPACT_KW's 128 a 512-entry block, as a satellite array of
+    dense 2 kb units does: the auto step reruns at WIDE_COMPACT_KW and
+    gives the scalar reference's pairs, where the JAX auto step raises."""
+    from pgrtk_tpu_torch.ops import pairs as tpairs
+
+    rng = np.random.default_rng(11)  # a unit of 6 mers a chunk at most
+    unit = rng.integers(0, 4, 256, dtype=np.uint8)
+    B, L = 2, 32_768
+    seqs = rng.integers(0, 4, size=(B, L), dtype=np.uint8)
+    seqs[0, 4096:4096 + 256 * 80] = np.tile(unit, 80)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    expected = _expected_pairs([bases[row].tobytes() for row in seqs], SPEC)
+
+    args = (torch.from_numpy(seqs), torch.full((B,), L), torch.arange(B))
+    safe = tmesh.sketch_index_step(*args,
+                                   compact_kw=tpairs.SAFE_COMPACT_KW)
+    assert bool(safe["overflow"])
+    out = tmesh.sketch_index_step_auto(*args)
+    assert out["safe_rerun"] and not bool(out["overflow"])
+    assert _table_pairs(out["table"]) == expected
+    assert int(out["n_pairs"]) == sum(len(v) for v in expected.values())
+
+
 def test_index_step_auto_keeps_fast_path_on_clean_input():
     seqs, _ = _bench_corpus()
     seqs = np.ascontiguousarray(seqs[:2, :32_768])  # holds the tandem block

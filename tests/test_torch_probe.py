@@ -60,8 +60,10 @@ def _arrays_for(k0, k1):
 def test_aligned_bucket_skew_retries_and_adversarial_raises():
     """tests/test_query_e2e.py:612-659 on the port's build_index: a hot
     bucket that splits at a smaller lambda builds through the retry, to
-    the same table as JAX; keys sharing their whole top-24-bit prefix
-    beyond 128 deep raise in both."""
+    the same table as JAX; keys sharing their whole top-24-bit k0 prefix
+    beyond 128 deep raise in JAX and take the pair rule in the port; keys
+    that also share k1, so that the pair rule's mix shares its top bits,
+    raise in both."""
     rng = np.random.default_rng(4)
     bg0 = rng.integers(1 << 40, 1 << 56, size=2000, dtype=np.uint64)
     hot0 = (np.uint64(0x3A) << np.uint64(48)) + rng.integers(
@@ -82,9 +84,25 @@ def test_aligned_bucket_skew_retries_and_adversarial_raises():
     a0 = np.full(700, 0x00123456789A, np.uint64) + (
         np.arange(700, dtype=np.uint64) % np.uint64(4))
     a1 = rng.integers(0, 1 << 56, size=700, dtype=np.uint64)
+    with pytest.raises(ValueError, match="adversarial"):
+        jq.build_index(pair_arrays=_arrays_for(a0, a1), n_decoys=0, P=16)
+    got = tq.build_index(pair_arrays=_arrays_for(a0, a1), n_decoys=0, P=16)
+    assert got["probe"]["rule"] == tprobe.RULE_PAIR
+    # each k1 solved so that the pair mix (k0 ^ k1 * MIX) * MIX is t,
+    # whose top bits all agree
+    mix = np.uint64(tprobe.PAIR_MIX)
+    inv = np.uint64(pow(tprobe.PAIR_MIX, -1, 1 << 64))
+    t = (np.uint64(0x5A) << np.uint64(56)) + np.arange(1 << 18,
+                                                       dtype=np.uint64)
+    b0 = np.uint64(0x00123456789A) + np.arange(len(t), dtype=np.uint64) % (
+        np.uint64(4))
+    b1 = (t * inv ^ b0) * inv
+    keep = np.flatnonzero(b1 < np.uint64(1 << 56))[:700]
+    b0, b1 = b0[keep], b1[keep]
+    assert len(keep) == 700 and ((b0 ^ b1 * mix) * mix == t[keep]).all()
     for build in (jq.build_index, tq.build_index):
         with pytest.raises(ValueError, match="adversarial"):
-            build(pair_arrays=_arrays_for(a0, a1), n_decoys=0, P=16)
+            build(pair_arrays=_arrays_for(b0, b1), n_decoys=0, P=16)
 
 
 @pytest.mark.parametrize("layout", list(BUILDERS))
@@ -121,7 +139,7 @@ def test_probe_fetch_matches_jax(layout):
         torch.from_numpy(q[:, 1].view(np.int64).copy()), tt["bits"],
         torch.from_numpy(tt["k0"]), torch.from_numpy(tt["k1"]),
         torch.from_numpy(tt["fence"]),
-        convert.p_rows_from_jax(p_rows, P), window)
+        convert.p_rows_from_jax(p_rows, P), window, rule=tt["rule"])
     assert np.array_equal(found.numpy(), jfound)
     assert row.dtype == torch.int32 and np.array_equal(row.numpy(), jrow)
     assert np.array_equal(rows.numpy().view(np.uint32), jrows[:, :3 * P])
@@ -301,8 +319,8 @@ def test_found_only_probe_matches_the_fetching_probe():
             torch.from_numpy(tt["k0"]), torch.from_numpy(tt["k1"]),
             torch.from_numpy(tt["fence"]))
     p_rows = torch.zeros((tt["n_padded"] + 1, 12), dtype=torch.int32)
-    found, row, rows = tprobe.probe_fetch(*args, None)
-    want = tprobe.probe_fetch(*args, p_rows)
+    found, row, rows = tprobe.probe_fetch(*args, None, rule=tt["rule"])
+    want = tprobe.probe_fetch(*args, p_rows, rule=tt["rule"])
     assert rows is None
     assert torch.equal(found, want[0]) and torch.equal(row, want[1])
 
@@ -351,16 +369,18 @@ def test_probe_entries_on_edge_tables_match_jax(layout, entry, edge_tables):
         0, 1 << 32, size=(n_rows, 96), dtype=np.uint64).astype(np.uint32)
     if entry == "probe_fetch":
         found, row, rows = tprobe.probe_fetch(
-            *args, torch.from_numpy(p_rows.view(np.int32)), window)
+            *args, torch.from_numpy(p_rows.view(np.int32)), window,
+            rule=tab["rule"])
         jrows = np.asarray(jnp.take(jnp.asarray(p_rows),
                                     jnp.where(jfound, jrow, n_rows - 1),
                                     axis=0))
         assert np.array_equal(rows.numpy().view(np.uint32), jrows)
     elif entry == "found-only":
-        found, row, rows = tprobe.probe_fetch(*args, None, window)
+        found, row, rows = tprobe.probe_fetch(*args, None, window,
+                                              rule=tab["rule"])
         assert rows is None
     else:
-        found, row, zero = tprobe.probe_step(*args, window)
+        found, row, zero = tprobe.probe_step(*args, window, rule=tab["rule"])
         assert zero.shape == () and zero.dtype == torch.int64
         assert int(zero) == 0
     assert np.array_equal(found.numpy(), jfound)
@@ -371,3 +391,108 @@ def test_probe_entries_on_edge_tables_match_jax(layout, entry, edge_tables):
     if layout == "dense past the window":
         bucket = q[:, 0] >> np.uint64(56 - tab["bits"])
         assert (~jfound[bucket == 1]).sum() >= 44
+
+
+# ------------------------------------------------------------ pair rule
+
+def _pair_rule_index():
+    keys, q = cases.pair_rule_keys()
+    n = len(keys)
+    arrays = dict(k0=keys[:, 0], k1=keys[:, 1], sid=np.zeros(n, np.uint32),
+                  bgn=np.arange(n, dtype=np.uint32) * 100 + 1,
+                  end=np.arange(n, dtype=np.uint32) * 100 + 80,
+                  ori=np.zeros(n, np.uint32))
+    return tq.build_index(pair_arrays=arrays, build_lookup=False, P=4), q
+
+
+def test_pair_rule_builds_where_every_k0_bucket_overflows():
+    """One k0 behind 1,200 partners and a k1 behind 300 k0 values: every
+    lambda of the k0 rule overflows, so build_index takes the pair rule;
+    its table is the aligned layout over the pair mix's buckets, each
+    bucket's keys in (k0, k1) order inside one 128-slot row, every key at
+    its pos and its postings row there; a key whose halves agree (h, h)
+    lands in no crowded bucket."""
+    keys, _ = cases.pair_rule_keys()
+    for lam in (32, 8, 2):
+        with pytest.raises(ValueError):
+            tprobe.build_probe_table_aligned(keys, avg_per_bucket=lam)
+    idx, _ = _pair_rule_index()
+    probe = idx["probe"]
+    assert probe["rule"] == tprobe.RULE_PAIR and probe["aligned"] is True
+    assert np.array_equal(idx["keys"], keys)
+    pos, fence = probe["pos"], probe["fence"].astype(np.int64)
+    assert np.array_equal(probe["k0"][pos], keys[:, 0].view(np.int64))
+    assert np.array_equal(probe["k1"][pos], keys[:, 1].view(np.int64))
+    bucket = tprobe.bucket_of(keys, probe["bits"], tprobe.RULE_PAIR)
+    assert ((fence[bucket] <= pos) & (pos < fence[bucket + 1])).all()
+    assert (pos >> 7 == fence[bucket] >> 7).all()  # no bucket straddles
+    order = np.lexsort((keys[:, 1], keys[:, 0], bucket))
+    assert (np.diff(pos[order]) > 0).all()
+    assert len(set(pos.tolist())) == len(keys)
+    pad = np.ones(probe["k0"].size, bool)
+    pad[pos] = False
+    assert (probe["k0"][pad] == -1).all() and (probe["k1"][pad] == -1).all()
+    bgn = idx["p_rows"][pos, 4].view(np.uint32)  # bgnori's first slot
+    assert np.array_equal(bgn, np.arange(len(keys), dtype=np.uint32) * 100
+                          + 1)
+
+
+@pytest.mark.parametrize("entry", ["probe_step_plain", "probe_fetch_plain",
+                                   "probe_step", "probe_fetch"])
+def test_pair_rule_probe_finds_every_key_at_its_pos(entry):
+    """Both plain twins of K5 (and the entries, which run them on the
+    CPU) under the pair rule: every key found at its pos with its
+    postings row, absent keys that share the hot k0 or k1, the all-zero
+    key, pad-like all-ones keys and halves past 56 bits not found."""
+    idx, q = _pair_rule_index()
+    probe = idx["probe"]
+    keys = idx["keys"]
+    where = {tuple(k): p for k, p in zip(keys.tolist(),
+                                         probe["pos"].tolist())}
+    want_row = np.array([where.get(tuple(k), -1) for k in q.tolist()])
+    args = (torch.from_numpy(q[:, 0].view(np.int64).copy()),
+            torch.from_numpy(q[:, 1].view(np.int64).copy()), probe["bits"],
+            torch.from_numpy(probe["k0"]), torch.from_numpy(probe["k1"]),
+            torch.from_numpy(probe["fence"]))
+    p_rows = torch.from_numpy(idx["p_rows"])
+    fn = getattr(tprobe, entry)
+    rule = tprobe.RULE_PAIR
+    rows = None
+    if entry == "probe_step_plain":
+        found, row, _ = fn(*args, tprobe.WINDOW_ALIGNED, rule=rule)
+    elif entry == "probe_step":
+        found, row, _ = fn(*args, rule=rule)
+    elif entry == "probe_fetch_plain":
+        found, row, rows = fn(*args, p_rows, tprobe.WINDOW_ALIGNED, rule=rule)
+    else:
+        found, row, rows = fn(*args, p_rows, rule=rule)
+    assert np.array_equal(row.numpy(), want_row)
+    assert np.array_equal(found.numpy(), want_row >= 0)
+    assert 0 < (want_row < 0).sum() < len(q) - len(keys) + 1
+    if rows is not None:
+        fetch = np.where(want_row >= 0, want_row, len(idx["p_rows"]) - 1)
+        assert np.array_equal(rows.numpy(), idx["p_rows"][fetch])
+    # under the k0 rule the same table does not find the hot k0's keys
+    k0_found, _, _ = tprobe.probe_step_plain(*args, tprobe.WINDOW_ALIGNED,
+                                             rule=tprobe.RULE_K0)
+    assert not np.array_equal(k0_found.numpy(), want_row >= 0)
+
+
+def test_fitting_keys_keep_the_k0_rule_byte_equal_to_jax():
+    """Keys that fit a k0 bucket keep the k0 rule: the port's index is
+    the JAX package's byte for byte, keys, planes, fence, positions and
+    postings rows."""
+    keys = cases.sorted_keys(30_000, seed=8)
+    arrays = _arrays_for(keys[:, 0], keys[:, 1])
+    want = jq.build_index(pair_arrays=arrays, n_decoys=300, P=16)
+    got = tq.build_index(pair_arrays=arrays, n_decoys=300, P=16)
+    assert got["probe"]["rule"] == tprobe.RULE_K0
+    assert got["probe"]["bits"] == want["probe"]["bits"]
+    assert np.array_equal(got["keys"], want["keys"])
+    assert np.array_equal(got["probe"]["fence"], want["probe"]["fence"])
+    assert np.array_equal(got["probe"]["pos"], want["probe"]["pos"])
+    planes = convert.probe_from_jax(want["probe"])
+    assert np.array_equal(got["probe"]["k0"], planes["k0"].numpy())
+    assert np.array_equal(got["probe"]["k1"], planes["k1"].numpy())
+    assert np.array_equal(got["p_rows"].view(np.uint32),
+                          want["p_rows"][:, :48])

@@ -14,6 +14,7 @@ import torch
 from pgrtk_tpu.ops import query_e2e as jq
 from pgrtk_tpu_torch import convert
 from pgrtk_tpu_torch.kernels import build as kb
+from pgrtk_tpu_torch.ops import probe as tprobe
 from pgrtk_tpu_torch.ops import query_e2e as tq
 from pgrtk_tpu_torch.parallel import mesh as tmesh
 from pgrtk_tpu_torch.utils import cases
@@ -71,7 +72,7 @@ def _run_port(idx, queries, **kw):
         torch.from_numpy(seqs), torch.from_numpy(lens), probe["bits"],
         (probe["k0"], probe["k1"]), probe["fence"],
         convert.p_rows_from_jax(idx["p_rows"], idx["P"]), idx["C"],
-        P=idx["P"], **kw)
+        P=idx["P"], probe_rule=probe["rule"], **kw)
     return res
 
 
@@ -513,4 +514,5 @@ def test_step_rejects_a_wrong_p():
         tq.query_e2e_step(
             torch.zeros((1, 512), dtype=torch.uint8), torch.tensor([512]),
             4, (torch.zeros(128, dtype=torch.int64),) * 2,
-            torch.zeros(17, dtype=torch.int32), p_rows, 1, P=16)
+            torch.zeros(17, dtype=torch.int32), p_rows, 1, P=16,
+            probe_rule=tprobe.RULE_K0)

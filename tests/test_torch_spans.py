@@ -21,7 +21,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from pgrtk_tpu_torch.ops import query_e2e as tq
 from pgrtk_tpu_torch.parallel import mesh
-from pgrtk_tpu_torch.utils import stats
+from pgrtk_tpu_torch.utils import cases, stats
 
 torch.set_num_threads(1)
 
@@ -35,6 +35,10 @@ def _profiled():
 
 def _count(name):
     return stats.span_totals().get(name, (0, 0.0))[0]
+
+
+def _total(name):
+    return stats.count_totals().get(name, (0, 0))[1]
 
 
 def _query_corpus():
@@ -173,6 +177,17 @@ def test_threads_lose_no_span(monkeypatch, recording):
         assert rec == []
 
 
+def test_count_feeds_the_totals_with_and_without_a_dict():
+    before = stats.count_totals().get("counts.a", (0, 0))
+    d = {}
+    stats.count(d, "counts.a", 3)
+    stats.count(None, "counts.a", np.int64(4))
+    stats.count(d, "counts.a", True)
+    assert d == {"counts.a": 4}
+    assert stats.count_totals()["counts.a"] == (before[0] + 3,
+                                                 before[1] + 8)
+
+
 # ------------------------------------------------------------- the sites
 
 @pytest.mark.parametrize("slots3", [None, 256])
@@ -241,6 +256,24 @@ def test_build_index_counts_each_probe_table_attempt():
     assert all(r[3] == 0 for r in rec[1:])
 
 
+def test_build_index_records_the_pair_rule_build():
+    """Keys that overflow every k0 bucket: three failed k0 attempts, then
+    the pair rule's build, an `index.build.probe.pair` span inside the
+    fourth `index.build.probe`."""
+    keys, _ = cases.pair_rule_keys()
+    arrays = _pair_arrays(keys[:, 0])
+    arrays["k1"] = keys[:, 1]
+    with _profiled():
+        stats.clear_spans()
+        idx = tq.build_index(pair_arrays=arrays, build_lookup=False, P=4,
+                             device="cpu")
+    assert idx["probe"]["rule"] == 1
+    rec = [(r[0], r[3]) for r in stats.spans()]
+    assert rec == [("index.build", None), ("index.build.keys", 0)] + [
+        ("index.build.probe", 0)] * 4 + [("index.build.probe.pair", 5),
+                                         ("index.build.rows", 0)]
+
+
 def test_index_tensors_records_the_upload():
     targets, _, _ = _query_corpus()
     idx = tq.build_index(targets, n_decoys=50, device="cpu")
@@ -288,6 +321,58 @@ def test_index_step_records_its_safe_rerun(reruns):
     after = {n: _count(n) - before[n] for n in before}
     assert after == {"index.step": 1, "index.step.safe_rerun": int(reruns),
                      "index.step.flag_read": 1 + int(reruns)}
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param(
+    "cuda", marks=pytest.mark.cuda)])
+def test_counters_count_probe_keys_and_the_pair_rule(device):
+    """`query.probe.keys` adds the step's B x Pc, a shape (on the card
+    under set_sync_debug_mode("error"): no read-back); build_index counts
+    its keys, buckets, truncation and, on keys that share one k0 past a
+    row, the pair rule."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(6)
+    hot = np.full(300, rng.integers(0, 1 << 55), np.uint64)
+    k0 = np.concatenate([hot, rng.integers(0, 1 << 56, 2000,
+                                           dtype=np.uint64)])
+    arrays = _pair_arrays(k0)
+    arrays["k1"] = rng.integers(0, 1 << 56, len(k0), dtype=np.uint64)
+    arrays = {k: np.concatenate([v, v[:8]]) for k, v in arrays.items()}
+    names = ("index.keys", "index.probe.buckets", "index.probe.pair_buckets",
+             "index.truncated_keys", "index.dropped_postings")
+    before = {n: _total(n) for n in names}
+    idx = tq.build_index(pair_arrays=arrays, build_lookup=False, P=1,
+                         device="cpu")
+    got = {n: _total(n) - before[n] for n in names}
+    assert idx["probe"]["rule"] == 1
+    assert got == {"index.keys": len(idx["keys"]),
+                   "index.probe.buckets": 1 << idx["probe"]["bits"],
+                   "index.probe.pair_buckets": 1,
+                   "index.truncated_keys": 8,
+                   "index.dropped_postings": 8}
+
+    targets, seqs, lens = _query_corpus()
+    idx = tq.build_index(targets, n_decoys=200, seed=11, device="cpu")
+    assert idx["probe"]["rule"] == 0
+    tens = tq.index_tensors(idx, device)
+    seqs, lens = seqs.to(device), lens.to(device)
+    slots2 = 96
+    calls, total = stats.count_totals().get("query.probe.keys", (0, 0))
+    if device == "cuda":
+        tq.query_e2e_step(seqs, lens, C=idx["C"], P=idx["P"], M=4,
+                          slots2=slots2, **tens)  # builds the kernels
+        torch.cuda.synchronize()
+        calls, total = stats.count_totals()["query.probe.keys"]
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        tq.query_e2e_step(seqs, lens, C=idx["C"], P=idx["P"], M=4,
+                          slots2=slots2, **tens)
+    finally:
+        if device == "cuda":
+            torch.cuda.set_sync_debug_mode(0)
+    assert stats.count_totals()["query.probe.keys"] == (
+        calls + 1, total + seqs.shape[0] * slots2)
 
 
 # ------------------------------------------------------------- the card
